@@ -9,24 +9,60 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — compiles every kernel source in ``veles_torch/csrc`` with
    nvcc for sm_90a, all at once, and reports the seconds;
-3. kernels — holds each kernel against its plain PyTorch version on the
-   card: every activation, float32 and bfloat16 inputs, at the MNIST
-   shapes and two large ones. The tolerance per column is
+3. kernels — holds the bias-gradient kernel against its plain PyTorch
+   version on the card: every activation, float32 and bfloat16 inputs,
+   at the MNIST shapes and two large ones. The tolerance per column is
    ``1e-4·Σ_n|dz[n,k]|`` against the plain math in float64 (f32 sums
    taken in another order); two launches must agree bitwise. Times the
    kernel, its plain version and, for the identity form, the one
    PyTorch call that computes it, with the L2 cache flushed before
    every launch, beside the least time the card could take;
-4. mnist   — trains the MNIST sample through the CLI entry point at its
+4. flash_kernels — the three flash-attention kernels (forward,
+   pipelined forward, fused backward) and their plain versions against
+   the float64 math from the same inputs, f32 and bf16, causal and not,
+   at (B, H, S, dh) = (64, 4, 32, 16) (the LM sample), (8, 12, 512, 64)
+   (the 110M row), (2, 3, 200, 64) (ragged S) and (4, 12, 8192, 64)
+   (the 110M_s8k shape). Every element of out, dq, dk and dv is held to
+   its own size and its row's (``scaled_err``: |got − ref| ≤ tol·(|ref|
+   + rms of the row) + ATOL_SHARE·max|ref|, a row per (b, h, query) or
+   (b, h, key)), since causal rows shrink with their position and a
+   tensor-wide scale would leave the later rows' work unchecked; tol
+   (``FLASH_TOL``) comes from the sound readings on the card; lse within
+   1e-3. Kernel and plain version must agree with each other to
+   ``FLASH_VS_PLAIN_TOL``, and two launches bitwise;
+5. flash_kernel_times — at the 110M and 110M_s8k shapes, bf16, causal:
+   kernel, plain version and ``F.scaled_dot_product_attention`` (its
+   autograd backward for the backward), L2 flushed, beside the bound;
+6. mnist   — trains the MNIST sample through the CLI entry point at its
    full width (784-100-10, minibatch 100, 6000/1000 samples), 3 epochs
    at seed 1337 on ``cuda`` and on ``cpu``. The bias-gradient kernel must
    have launched twice per train step (once per GD unit); the final
    validation error must be below 0.15 and within 0.02 of the CPU run;
-5. profile — one more MNIST epoch under ``torch.profiler``: the
+7. profile — one more MNIST epoch under ``torch.profiler``: the
    device's busy time and idle share, launches per step, the top
    device operations (trace in ``chiprun_out/mnist_epoch_trace.json``);
-6. the ``kernels`` summary line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+8. lm      — the transformer LM through the CLI entry point with
+   ``attn_impl=pallas`` at seed 1337: (a) the sample's width on cuda
+   and cpu for its 8 epochs — the validation loss must fall and end
+   within ``LM_CPU_TOLERANCE`` of the CPU run's; (b) the same on cuda
+   with ``attn_pipeline=True`` and with ``attn_acc="bf16"``; (c) the
+   full-width 110M row (dim 768, 12 heads, 12 layers, ffn 3072, vocab
+   16384, S 512, minibatch 8; 64/16 samples, 2 epochs) on cuda: every
+   parameter finite and the train loss falling (16 steps on a
+   16384-token vocabulary need not lower the validation loss yet),
+   tokens/s and step ms. Every run counts the launches from 0:
+   forward = layers × (train + eval steps), fused backward = layers ×
+   train steps, pipelined = the forward count in the pipelined run and
+   0 elsewhere, and the bias-gradient kernel's identity form
+   (layers·6 + 1) per train step;
+9. lm_profile — one full-width 110M train step under
+   ``torch.profiler``: device busy time, idle share, top device
+   operations and the flash kernels' share (trace
+   ``lm_step_trace.json`` in the output directory of phase 7);
+10. the ``kernels`` summary line, the card line, and last
+    ``{"ok": true, "device": {...}}``.
+
+Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
 
 import json
@@ -39,6 +75,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: H100 SXM peaks (NVIDIA data sheet, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 ACTIVATIONS = ("linear", "softmax", "tanh", "relu", "strict_relu",
                "sigmoid")
 SHAPES = ((100, 100), (100, 10), (72900, 96), (4097, 1000))
@@ -52,10 +89,68 @@ FORMS = (("identity", "linear", (100, 10),
          ("masked", "tanh", (100, 100),
           "veles/znicz_tpu/ops/pallas_grads.py:76"))
 TOLERANCE = 1e-4
+#: (B, H, S, dh) of the flash checks: the LM sample's attention, the
+#: 110M row, a ragged S, the 110M_s8k row (bench.py LM_ROWS)
+FLASH_SHAPES = ((64, 4, 32, 16), (8, 12, 512, 64), (2, 3, 200, 64),
+                (4, 12, 8192, 64))
+#: timed shapes (bf16, causal) and the main path's (the 110M row)
+FLASH_TIMED = ((8, 12, 512, 64), (4, 12, 8192, 64))
+FLASH_MAIN = (8, 12, 512, 64)
+#: limits of scaled_err, by input dtype, against the float64 math: each
+#: element is held to its own size plus its row's rms (one row per (b, h,
+#: query) of out and dq, per (b, h, key) of dk and dv), since causal rows
+#: shrink with their position (out row i is about 1/√i in size) and a
+#: tensor-wide scale would leave the later rows' work unchecked. Sound
+#: kernels on an H100 read at most 0.0149 (bf16) and 5.3e-6 (f32) at the
+#: four FLASH_SHAPES; a V row dropped from the second half's off-diagonal
+#: tiles of the forward read 1.51, a dropped diagonal mask 1.3e3. The
+#: bf16-accumulated forward rounds its accumulator once per K tile, so
+#: its error grows with S/64: 0.096 at S=8192 non-causal.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+FLASH_ACC_BF16_TOL = 0.2
+#: kernel against plain version, both rounding p and ds to the storage
+#: dtype (values on either side of a bf16 rounding step differ by one
+#: bf16 ulp); sound readings at most 0.0114 (bf16), 4.1e-6 (f32)
+FLASH_VS_PLAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LSE_ATOL = 1e-3
+#: absolute allowance, as a share of max|ref|, for an f32 sum's rounding
+#: where the reference is 0 (dq of row 0 in a causal run: ds = p·(dp −
+#: delta) = 0 exactly)
+ATOL_SHARE = 1e-6
+#: (summary name, TPU kernel replaced)
+FLASH_KERNELS = (
+    ("flash_fwd", "veles/znicz_tpu/parallel/pallas_attention.py:161"),
+    ("flash_fwd_pipe", "veles/znicz_tpu/parallel/pallas_attention.py:203"),
+    ("flash_bwd_fused",
+     "veles/znicz_tpu/parallel/pallas_attention.py:384"))
+LM_SAMPLE = os.path.join(HERE, "veles_torch", "znicz", "models",
+                         "transformer_lm.py")
+#: final validation loss of the LM sample, cuda vs cpu: the card runs
+#: bf16 matmul inputs and activations, the CPU f32, and the loss drops
+#: through a transition (epochs 4-6 at seed 1337) whose timing moves
+#: with rounding
+LM_CPU_TOLERANCE = 0.3
+#: the 110M row of bench.py (LM_ROWS["110M"]) with the flash kernels,
+#: its corpus cut to 64/16 sequences and 2 epochs
+LM_110M = ("root.lm.loader.minibatch_size=8", "root.lm.loader.n_train=64",
+           "root.lm.loader.n_valid=16", "root.lm.loader.seq_len=512",
+           "root.lm.loader.vocab=16384", "root.lm.loader.max_period=8",
+           "root.lm.model.dim=768", "root.lm.model.heads=12",
+           "root.lm.model.layers=12", "root.lm.model.ffn_hidden=3072",
+           "root.lm.model.attn_block=256", "root.lm.decision.max_epochs=2")
+#: where traces and the full log go (listed in .gitignore)
+OUT_DIR = os.path.join(HERE, "chiprun_out")
+#: every JSON line printed, in full (the end of stdout may be all that a
+#: remote runner keeps)
+LOG_PATH = os.path.join(OUT_DIR, "chip_smoke.jsonl")
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    with open(LOG_PATH, "a") as f:
+        f.write(line + "\n")
 
 
 def fail(msg):
@@ -190,6 +285,38 @@ def check_mnist(torch, wf, name):
     return history[-1]["validation"]["metric"]
 
 
+def device_trace(prof, name):
+    """Write the profile's Chrome trace to OUT_DIR/<name> and sum its
+    device intervals (kernels, copies, memsets): -> (busy ms as the union
+    of the intervals, device op count, {op name: (count, ms)}, path)."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, name)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                   for e in events if e.get("ph") == "X" and e.get("cat")
+                   in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy_us, end = 0.0, None
+    for lo, hi, _ in spans:
+        if end is None or lo > end:
+            busy_us += hi - lo
+            end = hi
+        elif hi > end:
+            busy_us += hi - end
+            end = hi
+    by_name = {}
+    for lo, hi, op in spans:
+        n, t = by_name.get(op, (0, 0.0))
+        by_name[op] = (n + 1, t + (hi - lo) / 1e3)
+    return busy_us / 1e3, len(spans), by_name, os.path.relpath(path, HERE)
+
+
+def top_ops(by_name, n=8):
+    return [{"name": op[:80], "count": c, "ms": t} for op, (c, t) in
+            sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n]]
+
+
 def profile_epoch(torch):
     """One steady MNIST epoch on the card under torch.profiler: device
     busy time (union of kernel, copy and memset intervals) against the
@@ -210,47 +337,375 @@ def profile_epoch(torch):
         wf.step.run_epoch()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    out_dir = os.path.join(HERE, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "mnist_epoch_trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
-                   for e in events if e.get("ph") == "X" and e.get("cat")
-                   in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy_us, end = 0.0, None
-    for lo, hi, _ in spans:
-        if end is None or lo > end:
-            busy_us += hi - lo
-            end = hi
-        elif hi > end:
-            busy_us += hi - end
-            end = hi
-    by_name = {}
-    for lo, hi, name in spans:
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + hi - lo)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    train = wf.step.train_steps - steps0
+    busy_ms, n_ops, by_name, path = device_trace(prof,
+                                                 "mnist_epoch_trace.json")
     return {"phase": "profile", "wall_ms": wall_ms,
-            "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms
-            if spans else None,
-            "device_ops": len(spans), "train_steps": train,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if n_ops else None,
+            "device_ops": n_ops, "train_steps": wf.step.train_steps - steps0,
             "eval_steps": len(wf.loader.class_schedule(1)[0]),
-            "top_device_ops": [{"name": name[:80], "count": n,
-                                "ms": t / 1e3} for name, (n, t) in top],
-            "trace": os.path.relpath(path, HERE)}
+            "top_device_ops": top_ops(by_name), "trace": path}
 
 
-def main():
+# -- flash attention ------------------------------------------------------
+
+
+def flash_inputs(torch, shape, dtype, seed=1337):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda")
+                 .to(dtype) for _ in range(4))
+
+
+def flash_reference(torch, q, k, v, dout, causal, out_in=None):
+    """The float64 math from the same inputs, chunked over b·h: (out,
+    lse), and with ``out_in`` also (dq, dk, dv), whose delta =
+    rowsum(dout·out_in) as the kernels take it from the out they are
+    given."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    b, h, s, dh = q.shape
+    scale = FA.scale_for(dh)
+    flat = [t.reshape(b * h, s, dh) for t in (q, k, v, dout)]
+    res = [torch.empty((b * h, s, dh), dtype=torch.float64, device="cuda")
+           for _ in range(1 if out_in is None else 4)]
+    lse = torch.empty((b * h, s), dtype=torch.float64, device="cuda")
+    step = max(1, (1 << 27) // (s * s))
+    mask = torch.ones((s, s), dtype=torch.bool, device="cuda").triu(1)
+    for i in range(0, b * h, step):
+        sl = slice(i, min(i + step, b * h))
+        qd, kd, vd, dod = (t[sl].double() for t in flat)
+        sc = torch.matmul(qd, kd.transpose(1, 2)) * scale
+        if causal:
+            sc.masked_fill_(mask, float("-inf"))
+        lse[sl] = torch.logsumexp(sc, dim=-1)
+        p = torch.exp(sc - lse[sl][..., None])
+        del sc
+        res[0][sl] = torch.matmul(p, vd)
+        if out_in is None:
+            continue
+        od = out_in.reshape(b * h, s, dh)[sl].double()
+        ds = torch.matmul(dod, vd.transpose(1, 2))
+        ds -= (dod * od).sum(dim=-1, keepdim=True)
+        ds *= p * scale
+        res[1][sl] = torch.matmul(ds, kd)
+        res[2][sl] = torch.matmul(ds.transpose(1, 2), qd)
+        res[3][sl] = torch.matmul(p.transpose(1, 2), dod)
+        del p, ds
+    return tuple(t.reshape(b, h, s, dh) for t in res[:1]) \
+        + (lse.reshape(b, h, s),) \
+        + tuple(t.reshape(b, h, s, dh) for t in res[1:])
+
+
+def scaled_err(got, ref):
+    """Worst element of (B, H, S, dh) ``got`` against ``ref``, each held
+    to its own size and its row's: max of (|got − ref| − ATOL_SHARE ·
+    max|ref|) / (|ref| + rms of ref's row)."""
+    g, r = got.double(), ref.double()
+    d = (g - r).abs() - ATOL_SHARE * r.abs().max()
+    scale = r.abs() + r.square().mean(-1, keepdim=True).sqrt()
+    return (d.clamp_min(0) / scale.clamp_min(1e-300)).max().item()
+
+
+def check_flash(torch):
+    """Phase flash_kernels; -> {kernel: max |kernel − plain|}."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    worst = {name: 0.0 for name, _ in FLASH_KERNELS}
+    for shape in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            tol = FLASH_TOL[dname]
+            q, k, v, dout = flash_inputs(torch, shape, dtype)
+            for causal in (True, False):
+                row = {}
+                ref_out, ref_lse = flash_reference(
+                    torch, q, k, v, dout, causal)
+                out_in = ref_out.to(dtype)
+                lse_in = ref_lse.float()
+                ref = flash_reference(torch, q, k, v, dout, causal, out_in)
+                plain = {"fwd": FA.flash_attention_fwd_plain(q, k, v,
+                                                             causal)}
+                plain["fwd_pipe"] = plain["fwd"]
+                plain["bwd"] = FA.flash_attention_bwd_plain(
+                    q, k, v, out_in, lse_in, dout, causal)
+                got = {}
+                for variant, pipe in (("fwd", False), ("fwd_pipe", True)):
+                    a = FA.flash_attention_fwd(q, k, v, causal, pipe)
+                    b = FA.flash_attention_fwd(q, k, v, causal, pipe)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                        fail("%s %s %s causal=%s: two launches differ"
+                             % (variant, shape, dname, causal))
+                    got[variant] = a
+                a = FA.flash_attention_bwd(q, k, v, out_in, lse_in, dout,
+                                           causal)
+                b = FA.flash_attention_bwd(q, k, v, out_in, lse_in, dout,
+                                           causal)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    fail("bwd %s %s causal=%s: two launches differ"
+                         % (shape, dname, causal))
+                got["bwd"] = a
+                acc = FA.flash_attention_fwd(q, k, v, causal,
+                                             acc_dtype=torch.bfloat16)[0]
+                checks = [("fwd", "out", got["fwd"][0], ref[0], tol),
+                          ("fwd_pipe", "out", got["fwd_pipe"][0], ref[0],
+                           tol),
+                          ("fwd_acc_bf16", "out", acc, ref[0],
+                           FLASH_ACC_BF16_TOL),
+                          ("plain_fwd", "out", plain["fwd"][0], ref[0],
+                           tol)]
+                near = FLASH_VS_PLAIN_TOL[dname]
+                for i, name in enumerate(("dq", "dk", "dv")):
+                    checks += [("bwd", name, got["bwd"][i], ref[2 + i], tol),
+                               ("plain_bwd", name, plain["bwd"][i],
+                                ref[2 + i], tol),
+                               ("bwd_vs_plain", name, got["bwd"][i],
+                                plain["bwd"][i], near)]
+                for variant in ("fwd", "fwd_pipe"):
+                    checks.append(("%s_vs_plain" % variant, "out",
+                                   got[variant][0], plain[variant][0], near))
+                over = []
+                for label, name, g, r, t in checks:
+                    e = scaled_err(g, r)
+                    row["%s.%s" % (label, name)] = e
+                    if not e <= t:
+                        over.append("%s.%s scaled error %.3g over %.3g"
+                                    % (label, name, e, t))
+                for variant in ("fwd", "fwd_pipe", "plain_fwd"):
+                    lse = (got.get(variant) or plain["fwd"])[1]
+                    e = (lse.double() - ref[1]).abs().max().item()
+                    row["%s.lse_abs" % variant] = e
+                    if not e <= LSE_ATOL:
+                        over.append("%s.lse error %.3g over %.3g"
+                                    % (variant, e, LSE_ATOL))
+                for name, variant, pairs in (
+                        ("flash_fwd", "fwd", [(0, 0)]),
+                        ("flash_fwd_pipe", "fwd_pipe", [(0, 0)]),
+                        ("flash_bwd_fused", "bwd", [(0, 0), (1, 1),
+                                                     (2, 2)])):
+                    for gi, pi in pairs:
+                        worst[name] = max(worst[name], (
+                            got[variant][gi].double()
+                            - plain[variant][pi].double()).abs().max()
+                            .item())
+                emit({"phase": "flash_kernels", "shape": list(shape),
+                      "dtype": dname, "causal": causal,
+                      "bitwise_repeat": True, "scaled_err": row})
+                if over:
+                    fail("flash %s %s causal=%s: %s"
+                         % (shape, dname, causal, "; ".join(over)))
+                del ref, plain, got, a, b, acc
+            torch.cuda.empty_cache()
+    return worst
+
+
+def flash_bound_ms(shape, backward):
+    """Least time on an H100 at the bf16 peak and the HBM rate: causal
+    operations 4 (forward) or 10 (backward) ·B·H·S²·dh·½; bytes of q, k,
+    v, out and lse (forward) or q, k, v, dout, lse and delta in and dq,
+    dk, dv out (backward), bf16 tensors and f32 rows."""
+    b, h, s, dh = shape
+    ops = (10 if backward else 4) * b * h * s * s * dh / 2
+    tensors = 7 if backward else 4
+    rows = 2 if backward else 1
+    nbytes = tensors * b * h * s * dh * 2 + rows * b * h * s * 4
+    t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_flash(torch, timer):
+    """Phase flash_kernel_times; -> {kernel: the main shape's row}."""
+    import torch.nn.functional as F
+    from veles_torch.znicz.ops import flash_attention as FA
+    rows = {}
+    for shape in FLASH_TIMED:
+        reps = 25 if shape[2] <= 1024 else 5
+        q, k, v, dout = flash_inputs(torch, shape, torch.bfloat16)
+        out, lse = FA.flash_attention_fwd(q, k, v)
+        delta = FA.row_delta(out, dout)
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        plain_fwd = timer(lambda: FA.flash_attention_fwd_plain(q, k, v),
+                          reps)
+        lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps)
+        for name, fn, plain_ms, lib_ms, backward in (
+                ("flash_fwd", lambda: FA.flash_attention_fwd(q, k, v),
+                 plain_fwd, lib_fwd, False),
+                ("flash_fwd_pipe",
+                 lambda: FA.flash_attention_fwd(q, k, v, pipeline=True),
+                 plain_fwd, lib_fwd, False),
+                ("flash_bwd_fused",
+                 lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                delta=delta),
+                 timer(lambda: FA.flash_attention_bwd_plain(
+                     q, k, v, out, lse, dout, delta=delta), reps),
+                 timer(lambda: torch.autograd.grad(
+                     lib_out, (qr, kr, vr), dout, retain_graph=True),
+                     reps), True)):
+            row = {"ms": timer(fn, reps), "plain_ms": plain_ms,
+                   "library_ms": lib_ms}
+            row["bound_ms"], row["bound_by"] = flash_bound_ms(shape,
+                                                              backward)
+            emit({"phase": "flash_kernel_times", "kernel": name,
+                  "shape": list(shape), "dtype": "bfloat16",
+                  "causal": True, "reps": reps, **row})
+            if shape == FLASH_MAIN:
+                rows[name] = row
+        del q, k, v, dout, out, lse, delta, qr, kr, vr, lib_out
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- transformer LM -------------------------------------------------------
+
+
+def reset_counts():
+    from veles_torch.znicz.ops import flash_attention as FA
+    from veles_torch.znicz.ops.bias_grad import bias_grad
+    FA.reset_launches()
+    bias_grad.launches = 0
+    bias_grad.form_launches = {"identity": 0, "masked": 0}
+
+
+def read_counts():
+    from veles_torch.znicz.ops import flash_attention as FA
+    from veles_torch.znicz.ops.bias_grad import bias_grad
+    return {"flash_fwd": FA.flash_attention_fwd.variant_launches["fwd"],
+            "flash_fwd_pipe":
+                FA.flash_attention_fwd.variant_launches["fwd_pipe"],
+            "flash_bwd_fused": FA.flash_attention_bwd.launches,
+            "bias_grad[identity]": bias_grad.form_launches["identity"],
+            "bias_grad[masked]": bias_grad.form_launches["masked"]}
+
+
+def run_lm(torch, name, device, *overrides, valid_must_fall=True):
+    """One LM run through the CLI entry point, its launches counted from
+    0; -> (workflow, counts, summary dict). Fails on a wrong count, a
+    non-finite parameter, or a train loss (and, with
+    ``valid_must_fall``, a validation loss) that does not fall."""
+    from veles_torch.__main__ import main as cli
+    from veles_torch.znicz.ops.attention import MultiHeadAttention
+    reset_counts()
+    wf = cli([LM_SAMPLE, "root.lm.model.attn_impl=pallas", *overrides,
+              "--seed", "1337", "-d", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = read_counts()
+    layers = sum(isinstance(f, MultiHeadAttention) for f in wf.forwards)
+    pipeline = wf.forwards[1].attn_pipeline
+    train, evals = wf.step.train_steps, wf.step.eval_steps
+    fwd = layers * (train + evals)
+    want = {"flash_fwd": 0 if pipeline else fwd,
+            "flash_fwd_pipe": fwd if pipeline else 0,
+            "flash_bwd_fused": layers * train,
+            "bias_grad[identity]": train * (6 * layers + 1),
+            "bias_grad[masked]": 0}
+    if device == "cpu":
+        want = dict(want, **{k: 0 for k in want})
+    if counts != want:
+        fail("lm %s: launches %s, expected %s" % (name, counts, want))
+    for unit, sub in wf.export_tree().items():
+        for key, t in sub.items():
+            if not bool(torch.isfinite(t.float()).all()):
+                fail("lm %s: %s.%s is not finite" % (name, unit, key))
+    hist = wf.decision.history
+    valid = [h["validation"]["loss"] for h in hist]
+    train_loss = [h["train"]["loss"] for h in hist]
+    if (valid_must_fall and not valid[-1] < valid[0]) \
+            or not train_loss[-1] < train_loss[0]:
+        fail("lm %s: loss did not fall: validation %s, train %s"
+             % (name, valid, train_loss))
+    per_epoch = (train + evals) / len(hist)
+    tokens = (sum(wf.loader.class_lengths)
+              * wf.loader.original_data.shape[1])
+    summary = {"phase": "lm", "run": name, "device": device,
+               "layers": layers, "train_steps": train, "eval_steps": evals,
+               "launches": counts, "validation_loss": valid,
+               "train_loss": train_loss,
+               "epoch_seconds": wf.step.epoch_seconds}
+    if len(hist) > 1:
+        # the first epoch carries one-off costs (uploads, kernel load)
+        warm = wf.step.epoch_seconds[1:]
+        summary["tokens_per_sec"] = tokens * len(warm) / sum(warm)
+        summary["ms_per_minibatch"] = 1e3 * sum(warm) / (
+            per_epoch * len(warm))
+    emit(summary)
+    return wf, counts, summary
+
+
+def profile_lm_step(torch, wf):
+    """One full-width train step of ``wf`` (already run on the card)
+    under torch.profiler: device busy time and idle share, the top
+    device operations and the flash kernels' share; plus the host-clock
+    time of 5 train steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from veles_torch.loader.base import CLASS_TRAIN
+    loader = wf.loader
+    full = loader.device_full_arrays("cuda")
+    idx_mat, valids = loader.class_schedule(CLASS_TRAIN)
+    idx = torch.as_tensor(idx_mat[0], dtype=torch.int64, device="cuda")
+    batch = (torch.index_select(full["data"], 0, idx),
+             torch.index_select(full["labels"], 0, idx),
+             torch.tensor(int(valids[0]), device="cuda"))
+    wf.step.train_minibatch(*batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        wf.step.train_minibatch(*batch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wf.step.train_minibatch(*batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms, n_ops, by_name, path = device_trace(prof, "lm_step_trace.json")
+    flash_ms = sum(t for op, (_, t) in by_name.items()
+                   if "flash_" in op or "dq_reduce" in op)
+    b, s = batch[0].shape
+    return {"phase": "lm_profile", "shape": [b, s], "step_ms": step_ms,
+            "tokens_per_sec": b * s / step_ms * 1e3, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if n_ops else None,
+            "device_ops": n_ops, "flash_ms": flash_ms,
+            "flash_share_of_busy": flash_ms / busy_ms if busy_ms else None,
+            "top_device_ops": top_ops(by_name, 12), "trace": path}
+
+
+def check_lm(torch):
+    """Phases lm and lm_profile; -> launches of the flash kernels on
+    their paths (the 110M run; the pipelined run for flash_fwd_pipe)."""
+    _, _, cpu = run_lm(torch, "sample", "cpu")
+    _, _, cuda = run_lm(torch, "sample", "cuda")
+    gap = abs(cuda["validation_loss"][-1] - cpu["validation_loss"][-1])
+    if gap > LM_CPU_TOLERANCE:
+        fail("lm sample: final validation loss %.4f on cuda vs %.4f on cpu"
+             % (cuda["validation_loss"][-1], cpu["validation_loss"][-1]))
+    _, pipe, _ = run_lm(torch, "sample_pipeline", "cuda",
+                        "root.lm.model.attn_pipeline=True")
+    run_lm(torch, "sample_acc_bf16", "cuda", "root.lm.model.attn_acc=bf16")
+    # 16 train steps on a 16384-token vocabulary: the train loss falls,
+    # the validation loss need not yet
+    wf, full, _ = run_lm(torch, "110M", "cuda", *LM_110M,
+                         valid_must_fall=False)
+    emit(profile_lm_step(torch, wf))
+    return dict(full, flash_fwd_pipe=pipe["flash_fwd_pipe"])
+
+
+def main(argv=None):
     import torch
+    if (sys.argv[1:] if argv is None else argv):
+        print("usage: chip_smoke.py (no arguments)", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     from veles_torch import kernels
-    from veles_torch.znicz.ops.bias_grad import bias_grad
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(LOG_PATH, "w").close()
 
     card = card_line()
     print(card, flush=True)
@@ -266,12 +721,48 @@ def main():
     for name, log in kernels.build_logs.items():
         print("nvcc %s:\n%s" % (name, log), file=sys.stderr)
 
-    forms = check_kernels(torch, Timer(torch))
+    timer = Timer(torch)
+    forms = check_kernels(torch, timer)
+    flash_err = check_flash(torch)
+    flash_rows = time_flash(torch, timer)
+    launches = check_mnist_path(torch)
+    lm_launches = check_lm(torch)
 
+    emit({"kernels": [{
+        "name": "bias_grad[%s]" % form,
+        "route": "cuda",
+        "source": "veles_torch/csrc/bias_grad.cu",
+        "replaces": replaces,
+        "launches": launches[form],
+        "max_abs_err": forms[form]["max_abs_err"],
+        "ms": forms[form]["kernel_ms"],
+        "plain_ms": forms[form]["plain_ms"],
+        "bound_ms": forms[form]["bound_ms"],
+        "bound_by": forms[form]["bound_by"],
+        "library_ms": forms[form]["library_ms"],
+    } for form, _, _, replaces in FORMS] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "veles_torch/csrc/flash_attention.cu",
+        "replaces": replaces,
+        "launches": lm_launches[name],
+        "max_abs_err": flash_err[name],
+        **flash_rows[name],
+    } for name, replaces in FLASH_KERNELS]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def check_mnist_path(torch):
+    """Phases mnist and profile; -> bias_grad launches by form on the
+    MNIST path."""
+    from veles_torch.znicz.ops.bias_grad import bias_grad
     cpu_wf = run_mnist(torch, "cpu")
     err_cpu = check_mnist(torch, cpu_wf, "cpu")
-    bias_grad.launches = 0
-    bias_grad.form_launches = {"identity": 0, "masked": 0}
+    reset_counts()
     wf = run_mnist(torch, "cuda")
     torch.cuda.synchronize()
     launches = dict(bias_grad.form_launches, total=bias_grad.launches)
@@ -294,27 +785,8 @@ def main():
           "final_valid_error_cuda": err_cuda,
           "final_valid_error_cpu": err_cpu,
           "history_cuda": wf.decision.history})
-
     emit(profile_epoch(torch))
-
-    emit({"kernels": [{
-        "name": "bias_grad[%s]" % form,
-        "route": "cuda",
-        "source": "veles_torch/csrc/bias_grad.cu",
-        "replaces": replaces,
-        "launches": launches[form],
-        "max_abs_err": forms[form]["max_abs_err"],
-        "ms": forms[form]["kernel_ms"],
-        "plain_ms": forms[form]["plain_ms"],
-        "bound_ms": forms[form]["bound_ms"],
-        "bound_by": forms[form]["bound_by"],
-        "library_ms": forms[form]["library_ms"],
-    } for form, _, _, replaces in FORMS]})
-    print(card, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return launches
 
 
 if __name__ == "__main__":

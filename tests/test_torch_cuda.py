@@ -1,4 +1,6 @@
-"""Tests of the port that need a CUDA card; they skip without one.
+"""Tests of the port that need a CUDA card (the bias-gradient and
+flash-attention kernels against their plain versions, and their
+refusals); they skip without one.
 
 This file imports neither jax nor the JAX package, so it runs on a card
 host that has only PyTorch:
@@ -53,3 +55,79 @@ def test_bias_grad_kernel_refuses_what_it_does_not_take(card):
         TBG.bias_grad(e.double(), e.double(), "tanh")
     with pytest.raises(ValueError):
         TBG.bias_grad(e, e.cpu(), "tanh")
+
+
+def _flash_inputs(card, shape, dtype, seed=7):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=card).to(dtype)
+                 for _ in range(4))
+
+
+def _rel(got, want):
+    """Worst element of ``got`` against ``want``, each held to its own
+    size and the rms of its row (out and dq rows are queries, dk and dv
+    rows keys: a causal row shrinks with its position, so a tensor-wide
+    scale would leave the later rows unchecked), beyond 1e-6·max|want|
+    for f32 sums that cancel to 0 (dq of row 0 in a causal run)."""
+    g, w = got.double(), want.double()
+    d = (g - w).abs() - 1e-6 * w.abs().max()
+    scale = w.abs() + w.square().mean(-1, keepdim=True).sqrt()
+    return (d.clamp_min(0) / scale.clamp_min(1e-300)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 64, 16), (2, 3, 200, 64),
+                                   (1, 2, 96, 128)], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(card, dtype, causal, shape):
+    """Forward, pipelined forward and fused backward against their plain
+    versions (``_rel``: 1e-4 in f32, 2e-2 in bf16),
+    two launches bitwise equal, each launch counted once by variant."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    q, k, v, dout = _flash_inputs(card, shape, dtype)
+    want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v, causal)
+    FA.reset_launches()
+    for pipeline in (False, True):
+        out, lse = FA.flash_attention_fwd(q, k, v, causal, pipeline)
+        again = FA.flash_attention_fwd(q, k, v, causal, pipeline)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        assert out.dtype == dtype and lse.dtype == torch.float32
+        assert _rel(out, want_out) <= tol
+        assert (lse - want_lse).abs().max().item() <= 1e-3
+    assert FA.flash_attention_fwd.variant_launches == {"fwd": 2,
+                                                       "fwd_pipe": 2}
+    grads = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    again = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    assert FA.flash_attention_bwd.launches == 2
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    for g, a, w in zip(grads, again, want):
+        assert torch.equal(g, a) and g.dtype == dtype
+        assert _rel(g, w) <= tol
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_do_not_take(card):
+    from veles_torch.znicz.ops import flash_attention as FA
+    q, k, v, dout = _flash_inputs(card, (1, 2, 64, 16), torch.float32)
+    out, lse = FA.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(TypeError):
+        FA.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        FA.flash_attention_fwd(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd(q.transpose(2, 3).contiguous()
+                               .transpose(2, 3), k, v)
+    q8 = torch.zeros((1, 2, 64, 8), device=card)
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd(q8, q8, q8)
+    with pytest.raises(ValueError):
+        FA.flash_attention_bwd(
+            q, k, v, out, lse.transpose(1, 2).contiguous().transpose(1, 2),
+            dout)
+    with pytest.raises(NotImplementedError):
+        FA.flash_attention_bwd(q, k, v, out, lse, dout, fused=False)

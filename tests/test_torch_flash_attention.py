@@ -1,0 +1,238 @@
+"""The port's flash attention (veles_torch/znicz/ops/flash_attention.py)
+against the JAX package's Pallas kernels (parallel/pallas_attention.py,
+interpret mode on the CPU) and its dense attention core, on inputs made
+from a numpy seed; the wrappers' refusals; and a pure-Python model of
+the CUDA kernels' launch plan."""
+
+import jax.numpy as jnp
+import numpy
+import pytest
+import torch
+
+from veles.znicz_tpu.ops.attention import (
+    dense_attention_core_bwd, dense_attention_core_fwd)
+from veles.znicz_tpu.parallel import pallas_attention as PA
+from veles_torch.znicz.ops import flash_attention as FA
+
+#: the reference's own cases (tests/test_pallas_attention.py)
+CASES = [
+    dict(causal=True, s=64, block=32),
+    dict(causal=False, s=64, block=32),
+    dict(causal=True, s=128, block=64),
+    dict(causal=True, s=64, block=64),
+]
+UNEQUAL = [(32, 16), (16, 32)]
+#: the reference test's tolerances: forward (out, lse) and backward
+FWD_ATOL, BWD_ATOL = 2e-5, 2e-4
+
+
+def _inputs(s, b=2, h=2, dh=8, seed=909):
+    rng = numpy.random.default_rng(seed)
+    return tuple(rng.normal(0, 1.0, (b, h, s, dh)).astype(numpy.float32)
+                 for _ in range(4))
+
+
+def _t(*arrays, dtype=torch.float32):
+    return tuple(torch.from_numpy(numpy.array(a, numpy.float32))
+                 .to(dtype) for a in arrays)
+
+
+def _close(got, want, atol):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    want = numpy.asarray(want, numpy.float32)
+    diff = numpy.abs(got - want).max()
+    assert diff <= atol, diff
+
+
+def _jax_pair(q, k, v, dout, causal, bq, bk, dtype=jnp.float32):
+    jq, jk, jv, jdo = (jnp.asarray(a, dtype) for a in (q, k, v, dout))
+    out, lse = PA.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                      block_q=bq, block_k=bk,
+                                      interpret=True)
+    grads = PA.flash_attention_bwd(jq, jk, jv, out, lse, jdo,
+                                   causal=causal, block_q=bq, block_k=bk,
+                                   interpret=True)
+    return out, lse, grads
+
+
+@pytest.mark.parametrize("case", CASES + [
+    dict(causal=c, s=64, bq=bq, bk=bk) for bq, bk in UNEQUAL
+    for c in (True, False)], ids=str)
+def test_plain_matches_pallas(case):
+    """Forward to 2e-5 and backward to 2e-4 of the Pallas kernels on the
+    reference's own cases, the backward from the same saved out/lse."""
+    q, k, v, dout = _inputs(case["s"])
+    bq = case.get("bq", case.get("block"))
+    bk = case.get("bk", case.get("block"))
+    out, lse, grads = _jax_pair(q, k, v, dout, case["causal"], bq, bk)
+    got_out, got_lse = FA.flash_attention_fwd_plain(
+        *_t(q, k, v), causal=case["causal"])
+    _close(got_out, out, FWD_ATOL)
+    _close(got_lse, lse, FWD_ATOL)
+    got = FA.flash_attention_bwd_plain(
+        *_t(q, k, v, out), torch.from_numpy(numpy.asarray(lse)),
+        _t(dout)[0], causal=case["causal"])
+    for g, w in zip(got, grads):
+        _close(g, w, BWD_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_bf16_matches_pallas(causal):
+    """bf16 inputs: the plain version's dtype rules (p and ds rounded to
+    bf16 before their products, f32 accumulation) against the Pallas
+    kernels run on the same bf16 inputs. The two round p under different
+    running maxima (one block vs the whole row), so they agree to bf16
+    rounding: 2e-2."""
+    q, k, v, dout = _inputs(64, dh=16, seed=5)
+    out, lse, grads = _jax_pair(q, k, v, dout, causal, 32, 32,
+                                jnp.bfloat16)
+    tq, tk, tv, tdo = _t(q, k, v, dout, dtype=torch.bfloat16)
+    got_out, got_lse = FA.flash_attention_fwd_plain(tq, tk, tv, causal)
+    assert got_out.dtype == torch.bfloat16 and got_lse.dtype == \
+        torch.float32
+    _close(got_out, numpy.asarray(out.astype(jnp.float32)), 2e-2)
+    _close(got_lse, lse, 1e-3)
+    got = FA.flash_attention_bwd_plain(
+        tq, tk, tv, torch.from_numpy(numpy.asarray(
+            out.astype(jnp.float32))).to(torch.bfloat16),
+        torch.from_numpy(numpy.asarray(lse)), tdo, causal)
+    for g, w in zip(got, grads):
+        assert g.dtype == torch.bfloat16
+        _close(g, numpy.asarray(w.astype(jnp.float32)), 2e-2)
+
+
+@pytest.mark.parametrize("s", [40, 77])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ragged_sequence_matches_dense_core(s, causal):
+    """S that no power-of-two tile divides (the Pallas kernels refuse
+    it): the plain versions against the JAX package's dense attention
+    core, forward to 2e-5 and backward to 2e-4."""
+    q, k, v, dout = _inputs(s, dh=16, seed=31)
+    scale = numpy.float32(1.0 / numpy.sqrt(16))
+    probs, ctx = dense_attention_core_fwd(numpy, q, k, v, causal, scale)
+    scores = numpy.matmul(q, k.transpose(0, 1, 3, 2)) * scale
+    if causal:
+        scores = scores + numpy.triu(numpy.full((s, s), -1e9,
+                                                numpy.float32), 1)
+    m = scores.max(axis=-1, keepdims=True)
+    lse = (m + numpy.log(numpy.exp(scores - m).sum(axis=-1,
+                                                    keepdims=True)))[..., 0]
+    got_out, got_lse = FA.flash_attention_fwd(*_t(q, k, v), causal=causal)
+    _close(got_out, ctx, FWD_ATOL)
+    _close(got_lse, lse, FWD_ATOL)
+    want = dense_attention_core_bwd(numpy, q, k, v, probs, dout, scale)
+    got = FA.flash_attention_bwd(*_t(q, k, v), got_out, got_lse,
+                                 _t(dout)[0], causal=causal)
+    for g, w in zip(got, want):
+        _close(g, w, BWD_ATOL)
+
+
+def test_bf16_accumulator_gate():
+    """The attn_acc='bf16' gate of tests/test_pallas_attention.py: the
+    output within the bf16 accumulation regime (< 1.5e-2) of the f32
+    accumulation yet not equal to it, and the lse unchanged."""
+    q, k, v, _ = _inputs(128, dh=16)
+    for causal in (True, False):
+        ref, lse_ref = FA.flash_attention_fwd(*_t(q, k, v), causal=causal)
+        out, lse = FA.flash_attention_fwd(*_t(q, k, v), causal=causal,
+                                          acc_dtype=torch.bfloat16)
+        err = (out - ref).abs().max().item()
+        assert 0.0 < err < 1.5e-2, err
+        _close(lse, lse_ref.numpy(), FWD_ATOL)
+
+
+def test_wrappers_take_cpu_tensors_to_the_plain_version():
+    """On the CPU the wrappers return the plain versions' results and
+    count no launch; the pipelined variant is the same function."""
+    q, k, v, dout = _t(*_inputs(64, dh=16))
+    FA.reset_launches()
+    out, lse = FA.flash_attention_fwd(q, k, v)
+    want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    pout, plse = FA.flash_attention_fwd(q, k, v, pipeline=True)
+    assert torch.equal(pout, out) and torch.equal(plse, lse)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, dout)
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert FA.flash_attention_fwd.launches == 0
+    assert FA.flash_attention_fwd.variant_launches == {"fwd": 0,
+                                                       "fwd_pipe": 0}
+    assert FA.flash_attention_bwd.launches == 0
+
+
+def test_wrappers_refuse_what_is_not_ported():
+    q, k, v, dout = _t(*_inputs(64, dh=16))
+    out, lse = FA.flash_attention_fwd(q, k, v)
+    with pytest.raises(NotImplementedError, match="Queue 2 #6"):
+        FA.flash_attention_bwd(q, k, v, out, lse, dout, fused=False)
+    q8, k8, v8 = _t(*_inputs(64, dh=8)[:3])
+    with pytest.raises(ValueError, match="head dim 8"):
+        FA.flash_attention_fwd(q8, k8, v8)
+    with pytest.raises(ValueError, match="head dim 8"):
+        FA.flash_attention_bwd(q8, k8, v8, q8, lse, q8)
+    with pytest.raises(ValueError, match="acc_dtype"):
+        FA.flash_attention_fwd(q, k, v, acc_dtype=torch.float16)
+    with pytest.raises(ValueError, match="differ"):
+        FA.flash_attention_fwd(q, k[:, :, :32], v)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 512, 8192])
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_plan_covers_every_pair_once(s, causal):
+    """The forward grid (one CTA per Q tile) and each CTA's K-tile range
+    visit every attended (row, col) pair — col <= row when causal — in
+    exactly one tile, skip only tiles that hold no attended pair, and
+    leave the mask off only on tiles with no masked pair."""
+    n_qt, n_kt = FA.n_tiles(s), FA.n_tiles(s)
+    seen = numpy.zeros((n_qt, n_kt), numpy.int64)
+    for qt in range(n_qt):
+        hi, clear = FA.fwd_k_tiles(s, qt, causal)
+        rows = numpy.arange(qt * 64, min(qt * 64 + 64, s))
+        for kt in range(n_kt):
+            cols = numpy.arange(kt * 64, min(kt * 64 + 64, s))
+            attended = (cols[None, :] <= rows[:, None]) if causal \
+                else numpy.ones((len(rows), len(cols)), bool)
+            if kt >= hi:
+                assert not attended.any(), (qt, kt)
+                continue
+            seen[qt, kt] += 1
+            if kt < clear:
+                assert attended.all(), (qt, kt)
+    assert (seen <= 1).all()
+    if not causal:
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("bh,s,dh", [(96, 512, 64), (48, 8192, 64),
+                                     (1, 200, 16), (8, 64, 32),
+                                     (4096, 8192, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_plan_covers_every_pair_once(bh, s, dh, causal):
+    """The fused backward's chunks visit every (K tile, Q tile) pair
+    that holds an attended score exactly once; each chunk's first K tile
+    covers every Q tile its later ones touch (so it writes, they add);
+    dq_reduce sums, for each row, exactly the chunks that wrote it; the
+    partial buffer stays under its cap."""
+    n_chunks = FA.bwd_chunks(bh, s, dh)
+    n_qt = n_kt = FA.n_tiles(s)
+    assert 1 <= n_chunks <= n_kt
+    assert n_chunks in (1, n_kt) \
+        or n_chunks * 4 * bh * s * dh <= FA.DQ_PARTIAL_CAP
+    visits = {}
+    writers = {}
+    for chunk in range(n_chunks):
+        pairs = FA.bwd_pairs(s, chunk, n_chunks, causal)
+        first = {qt for kt, qt in pairs if kt == chunk}
+        assert {qt for _, qt in pairs} <= first
+        for qt in first:
+            writers.setdefault(qt, []).append(chunk)
+        for pair in pairs:
+            visits[pair] = visits.get(pair, 0) + 1
+    assert set(visits.values()) == {1}
+    want = {(kt, qt) for kt in range(n_kt) for qt in range(n_qt)
+            if not causal or qt >= kt}
+    assert set(visits) == want
+    for qt in range(n_qt):
+        row = min(qt * 64 + 63, s - 1)
+        assert list(FA.dq_chunks(row, n_chunks, causal)) == \
+            sorted(writers[qt])

@@ -2,4 +2,5 @@
 ``veles/znicz_tpu``)."""
 
 # importing the op modules fills the layer registry
-from veles_torch.znicz.ops import all2all, gd  # noqa: F401
+from veles_torch.znicz.ops import (  # noqa: F401
+    all2all, attention, embedding, gd, layernorm)

@@ -1,12 +1,14 @@
-"""Classification decision of the PyTorch port: the training loop's
-stop criteria and history.
+"""Decisions of the PyTorch port: the training loop's stop criteria
+and history.
 
-Counterpart of ``DecisionGD`` in ``veles/znicz_tpu/decision.py``: per
-sample class it accumulates each minibatch's ``n_err`` and loss, judges
-improvement on the validation class (train when there is none), keeps a
-per-epoch ``history`` of the same shape as the reference's, and sets
-``complete`` at ``max_epochs`` or after ``fail_iterations`` epochs
-without improvement.
+Counterparts of ``DecisionGD`` and ``DecisionMSE`` in
+``veles/znicz_tpu/decision.py``: per sample class they accumulate each
+minibatch's metric and loss, judge improvement on the validation class
+(train when there is none), keep a per-epoch ``history`` of the same
+shape as the reference's, and set ``complete`` at ``max_epochs`` or
+after ``fail_iterations`` epochs without improvement. ``DecisionGD``'s
+metric is the number of errors, ``DecisionMSE``'s the loss times the
+minibatch's sample count (so its normalised metric is the mean loss).
 """
 
 import logging
@@ -21,6 +23,10 @@ logger = logging.getLogger("veles_torch.decision")
 
 class DecisionGD:
     """Epoch bookkeeping + stop criteria; metric = number of errors."""
+
+    @staticmethod
+    def minibatch_metric(n, n_err, loss):
+        return n_err
 
     def __init__(self, name="decision", max_epochs=None,
                  fail_iterations=100):
@@ -44,7 +50,7 @@ class DecisionGD:
             acc = self.epoch_metrics[cls] = {
                 "samples": 0, "loss": 0.0, "metric": 0.0}
         acc["samples"] += n
-        acc["metric"] += n_err
+        acc["metric"] += self.minibatch_metric(n, n_err, loss)
         acc["loss"] += float(loss) * n
         if last_minibatch and cls in (CLASS_VALID, CLASS_TRAIN):
             self._on_class_ended(cls, has_valid)
@@ -86,6 +92,14 @@ class DecisionGD:
             self.complete = True
         if self._epochs_since_best >= self.fail_iterations:
             self.complete = True
+
+
+class DecisionMSE(DecisionGD):
+    """Regression/LM decision: metric = loss × sample count."""
+
+    @staticmethod
+    def minibatch_metric(n, n_err, loss):
+        return float(loss) * n
 
 
 def summary_line(summary):

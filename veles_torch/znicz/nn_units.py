@@ -7,9 +7,11 @@ Counterpart of ``veles/znicz_tpu/nn_units.py``:
   reference fills them (same draws at the same seed);
 * :class:`GradientDescentBase` — the explicit backward unit: learning
   rates, L2/L1 decay, momentum, ``lr_scale``, and the momentum update
-  :meth:`apply_update`. The bias gradient always goes through
-  ``ops/bias_grad.bias_grad``: the kernel on the card, its plain version
-  on the CPU;
+  :meth:`apply_update`; parameters beyond weights/bias (``EXTRA_PARAMS``:
+  the attention out-projection, the FFN's second layer) get their own
+  ``vel_<name>`` state under the reference's key names. Every bias
+  gradient goes through ``ops/bias_grad.bias_grad``: the kernel on the
+  card, its plain version on the CPU;
 * the registry mapping config names to forward classes and forward
   classes to their GD classes. It is the port's own, separate from the
   reference's, so a process can hold both packages.
@@ -83,8 +85,8 @@ class Forward(nn.Module):
         self.prng = prng.get(prng_key)
         #: the TorchDevice this unit computes on (set by initialize)
         self.device = None
-        self.register_buffer("weights", None)
-        self.register_buffer("bias", None)
+        for param in dict.fromkeys(("weights", "bias") + self.PARAMS):
+            self.register_buffer(param, None)
 
     def fill_array(self, arr, filling, stddev):
         if filling == "uniform":
@@ -137,6 +139,18 @@ class GradientDescentBase:
     #: sets one to anything but its default is refused
     UNSUPPORTED = {"solver": "momentum", "accumulate_gradient": 1,
                    "lr_policy": None, "lr_policy_bias": None}
+    #: (param_name, bias_like) of forward parameters beyond
+    #: weights/bias; ``vel_<param_name>`` joins STATE. ``bias_like``
+    #: picks the bias hyper-parameters (lr_bias, moment_bias, decay_bias)
+    EXTRA_PARAMS = ()
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        extra = tuple("vel_" + p for p, _ in
+                      cls.__dict__.get("EXTRA_PARAMS", ()))
+        if extra:
+            cls.STATE = tuple(cls.STATE) + tuple(
+                n for n in extra if n not in cls.STATE)
 
     def __init__(self, name=None, need_err_input=True, learning_rate=0.01,
                  learning_rate_bias=None, weights_decay=0.0,
@@ -173,6 +187,8 @@ class GradientDescentBase:
         self.vel_bias = None
         #: train-minibatch counter (int32 on the device)
         self.iteration = None
+        for pname, _ in self.EXTRA_PARAMS:
+            setattr(self, "vel_" + pname, None)
 
     def setup_forward(self, forward):
         """Bind to the paired forward unit."""
@@ -188,6 +204,10 @@ class GradientDescentBase:
             self.vel_bias = torch.zeros_like(f.bias)
         self.iteration = torch.zeros((), dtype=torch.int32,
                                      device=f.weights.device)
+        for pname, _ in self.EXTRA_PARAMS:
+            src = getattr(f, pname)
+            if src is not None:
+                setattr(self, "vel_" + pname, torch.zeros_like(src))
 
     def export_state(self):
         return {n: getattr(self, n) for n in self.STATE
@@ -230,3 +250,22 @@ class GradientDescentBase:
                 h["lr_bias"], h["moment_bias"], h["l2_bias"],
                 h["l1_vs_l2_bias"])
         self.iteration += 1
+
+    def update_extra(self, grads):
+        """One momentum step of each EXTRA_PARAMS parameter with a
+        gradient in ``grads`` ({name: grad or None}), under the weight or
+        bias hyper-parameters; run after :meth:`update_weights`."""
+        f = self.forward
+        h = self.hyperparams()
+        for pname, bias_like in self.EXTRA_PARAMS:
+            grad = grads.get(pname)
+            if grad is None:
+                continue
+            sfx = "_bias" if bias_like else ""
+            w = getattr(f, pname)
+            w, vel = self.apply_update(
+                w, getattr(self, "vel_" + pname), grad.to(w.dtype),
+                h["lr" + sfx], h["moment" + sfx], h["l2" + sfx],
+                h["l1_vs_l2" + sfx])
+            setattr(f, pname, w)
+            setattr(self, "vel_" + pname, vel)

@@ -1,0 +1,380 @@
+"""Multi-head attention, transformer FFN and per-token dense units of the
+PyTorch port.
+
+Counterpart of ``veles/znicz_tpu/ops/attention.py``, each unit pair with
+the reference's explicit forward/backward math (no autograd):
+
+* ``TokenDense``/``TokenDenseRELU`` — ``act(x·W + b)`` over the last
+  axis of (B, S, D);
+* ``TransformerFFN`` — ``y = [x +] relu(x·W1 + b1)·W2 + b2`` with the
+  extra parameters ``weights2``/``bias2``;
+* ``MultiHeadAttention`` — causal (or full) self-attention with a fused
+  qkv projection ``weights`` (D, 3D), an out-projection ``weights_out``
+  (D, D) and an internal residual. Two modes of the reference's
+  ``_traced_mode`` are ported: ``"dense"`` (the (B, H, S, S) score
+  matrix, :func:`dense_attention_core_fwd`/``_bwd``) and ``"pallas"``,
+  which keeps its config name and means the hand-written flash kernels
+  (``ops/flash_attention.py``: ``csrc/flash_attention.cu`` on the card,
+  the plain version on the CPU).
+
+The projections around the kernels are ``torch.matmul`` through
+``TorchDevice.dot``, as the reference leaves them to XLA. Every bias
+gradient is a column sum through ``ops/bias_grad.bias_grad``.
+"""
+
+import numpy
+import torch
+
+from veles_torch.znicz.nn_units import (
+    Forward, GradientDescentBase, forward_unit, gradient_for)
+from veles_torch.znicz.ops import activations as A
+from veles_torch.znicz.ops import flash_attention as FA
+from veles_torch.znicz.ops.bias_grad import bias_grad
+
+
+def _rows(t):
+    """(..., K) -> contiguous (N, K)."""
+    return t.reshape(-1, t.shape[-1]).contiguous()
+
+
+def _column_sum(t):
+    """f32 sum over every leading dim (the identity form of the
+    bias-gradient kernel)."""
+    t2 = _rows(t)
+    return bias_grad(t2, t2, "linear")
+
+
+# ---------------------------------------------------------------------------
+# per-token dense (operates on the trailing dim of (B, S, D))
+
+
+class TokenDenseBase(Forward):
+    """y = act(x · W + b) over the last axis, any leading shape."""
+
+    ACTIVATION = "linear"
+
+    def __init__(self, output_features=None, **kwargs):
+        super().__init__(**kwargs)
+        if not output_features:
+            raise ValueError("token_dense needs output_features")
+        self.output_features = int(output_features)
+
+    def initialize(self, input_shape, device):
+        self.device = device
+        d = input_shape[-1]
+        self.init_weights((d, self.output_features), d,
+                          self.output_features)
+        return tuple(input_shape[:-1]) + (self.output_features,)
+
+    def forward(self, x):
+        v = self.device.dot(x, self.weights)
+        if self.include_bias:
+            v = v + self.bias
+        return A.ACTIVATIONS[self.ACTIVATION][0](v).to(
+            self.device.act_dtype)
+
+
+@forward_unit("token_dense")
+class TokenDense(TokenDenseBase):
+    ACTIVATION = "linear"
+
+
+@forward_unit("token_dense_relu")
+class TokenDenseRELU(TokenDenseBase):
+    ACTIVATION = "strict_relu"
+
+
+class GDTokenDenseBase(GradientDescentBase):
+    ACTIVATION = "linear"
+
+    def run(self, x, y, err):
+        f = self.forward
+        dev = f.device
+        err = err.reshape(y.shape)
+        d = A.ACTIVATIONS[self.ACTIVATION][1](y)
+        dz = err if isinstance(d, float) else err * d
+        grad_w = dev.dot(_rows(x).t(), _rows(dz))
+        grad_b = bias_grad(_rows(err), _rows(y), self.ACTIVATION) \
+            if f.include_bias else None
+        dx = dev.dot(dz, f.weights.t()).to(dev.act_dtype) \
+            if self.need_err_input else None
+        self.update_weights(grad_w, grad_b)
+        return dx
+
+
+@gradient_for(TokenDense)
+class GDTokenDense(GDTokenDenseBase):
+    ACTIVATION = "linear"
+
+
+@gradient_for(TokenDenseRELU)
+class GDTokenDenseRELU(GDTokenDenseBase):
+    ACTIVATION = "strict_relu"
+
+
+# ---------------------------------------------------------------------------
+# transformer FFN block: y = [x +] act(x·W1+b1)·W2+b2
+
+
+@forward_unit("transformer_ffn")
+class TransformerFFN(Forward):
+    PARAMS = ("weights", "bias", "weights2", "bias2")
+    ACTIVATION = "strict_relu"
+
+    def __init__(self, hidden=None, residual=True, **kwargs):
+        super().__init__(**kwargs)
+        self.hidden = hidden
+        self.residual = residual
+        #: f32 hidden activation of the last forward (the GD's input)
+        self.cache_h = None
+
+    def initialize(self, input_shape, device):
+        self.device = device
+        d = input_shape[-1]
+        self.hidden = self.hidden or 4 * d
+        self.init_weights((d, self.hidden), d, self.hidden)
+        w2 = numpy.zeros((self.hidden, d), numpy.float32)
+        self.fill_array(w2, self.weights_filling,
+                        self.weights_stddev
+                        or self.default_weights_stddev(self.hidden, d))
+        self.weights2 = torch.as_tensor(w2).to(device.device)
+        self.bias2 = torch.zeros(d, dtype=torch.float32,
+                                 device=device.device)
+        return tuple(input_shape)
+
+    def forward(self, x):
+        dot = self.device.dot
+        hcur = A.ACTIVATIONS[self.ACTIVATION][0](
+            dot(x, self.weights) + self.bias)
+        y = dot(hcur, self.weights2) + self.bias2
+        if self.residual:
+            y = y + x
+        self.cache_h = hcur
+        return y.to(self.device.act_dtype)
+
+
+@gradient_for(TransformerFFN)
+class GDTransformerFFN(GradientDescentBase):
+    EXTRA_PARAMS = (("weights2", False), ("bias2", True))
+
+    def run(self, x, y, err):
+        f = self.forward
+        dev = f.device
+        dot = dev.dot
+        err = err.reshape(x.shape)
+        hcur = f.cache_h
+        dh = dot(err, f.weights2.t()) \
+            * A.ACTIVATIONS[f.ACTIVATION][1](hcur)
+        gw2 = dot(_rows(hcur).t(), _rows(err))
+        gb2 = _column_sum(err)
+        gw1 = dot(_rows(x).t(), _rows(dh))
+        gb1 = _column_sum(dh)
+        dx = None
+        if self.need_err_input:
+            dx = dot(dh, f.weights.t())
+            if f.residual:
+                dx = dx + err
+            dx = dx.to(dev.act_dtype)
+        self.update_weights(gw1, gb1)
+        self.update_extra({"weights2": gw2, "bias2": gb2})
+        return dx
+
+
+# ---------------------------------------------------------------------------
+# multi-head attention
+
+
+def dense_attention_core_fwd(q, k, v, causal, scale, dot=torch.matmul):
+    """(probs, ctx) with ctx = softmax(q·kᵀ·scale [+ causal mask])·v over
+    (B, H, S, dh)."""
+    s = q.shape[2]
+    scores = dot(q, k.transpose(-1, -2)) * scale
+    if causal:
+        scores = scores + torch.triu(torch.full(
+            (s, s), FA.MASK_VALUE, dtype=torch.float32,
+            device=scores.device), 1)
+    probs = A.softmax(scores)
+    return probs, dot(probs, v)
+
+
+def dense_attention_core_bwd(q, k, v, probs, dctx, scale, dot=torch.matmul):
+    """Backward of the core: (dq, dk, dv). Masked probs are exactly zero,
+    so the mask needs no re-application."""
+    dprobs = dot(dctx, v.transpose(-1, -2))
+    dv = dot(probs.transpose(-1, -2), dctx)
+    dscores = probs * (dprobs - (dprobs * probs).sum(dim=-1, keepdim=True))
+    dscores = dscores * scale
+    return dot(dscores, k), dot(dscores.transpose(-1, -2), q), dv
+
+
+@forward_unit("attention")
+class MultiHeadAttention(Forward):
+    """Causal (or full) multi-head self-attention over (B, S, D) with an
+    optional internal residual (y = x + attn(x)).
+
+    Config knobs shared with the reference: ``attn_impl`` (None, "scan",
+    "pallas"), ``attn_block_size``, ``pallas_tile``, ``attn_pipeline``
+    (the cp.async double-buffered forward kernel) and ``attn_acc``
+    (None/"f32", or "bf16": the narrowed PV accumulation)."""
+
+    PARAMS = ("weights", "bias", "weights_out", "bias_out")
+
+    def __init__(self, heads=4, causal=True, residual=True,
+                 attn_block_size=None, attn_impl=None, pallas_tile=None,
+                 attn_pipeline=False, attn_acc=None, **kwargs):
+        super().__init__(**kwargs)
+        self.heads = int(heads)
+        self.causal = causal
+        self.residual = residual
+        self.attn_block_size = attn_block_size
+        self.attn_impl = attn_impl
+        if attn_impl not in (None, "scan", "pallas"):
+            raise ValueError("attn_impl must be None, 'scan' or 'pallas', "
+                             "got %r" % (attn_impl,))
+        self.pallas_tile = pallas_tile
+        self.attn_pipeline = bool(attn_pipeline)
+        self.attn_acc = attn_acc
+        if attn_acc not in (None, "f32", "bf16"):
+            raise ValueError("attn_acc must be None, 'f32' or 'bf16', "
+                             "got %r" % (attn_acc,))
+        #: the forward's cache for the GD unit: (q, k, v, out_heads, lse,
+        #: merged) in the "pallas" mode, (q, k, v, probs, merged) dense
+        self.cache = None
+
+    def mode(self, s):
+        """The reference's dispatch resolver (``_traced_mode``) for a
+        single-device sequence of length ``s``: "pallas" or "dense". The
+        experiment knobs are refused off the pallas mode; the modes not
+        ported yet raise."""
+        if self.attn_impl == "pallas":
+            mode = "pallas"
+        elif not self.attn_block_size:
+            mode = "dense"
+        else:
+            mode = "scan"
+        if mode != "pallas" and (self.attn_pipeline
+                                 or self.attn_acc == "bf16"):
+            raise ValueError(
+                "attn_pipeline=%r / attn_acc=%r are only honoured on the "
+                "single-shard pallas forward, but this dispatch resolves "
+                "to %r (S=%d) — force attn_impl='pallas' or clear the "
+                "knob" % (self.attn_pipeline, self.attn_acc, mode, s))
+        if mode == "scan":
+            raise NotImplementedError(
+                "%s: the blocked scan attention (attn_block_size=%r with "
+                "attn_impl=%r) is not ported yet (ROADMAP Queue 1 item 8: "
+                "parallel/flash.py and an H100-measured auto policy)"
+                % (self.name, self.attn_block_size, self.attn_impl))
+        if mode == "pallas" and self.pallas_tile is not None:
+            raise NotImplementedError(
+                "%s: pallas_tile=%r is a TPU tile override; the port's "
+                "kernels choose their own tiles (ROADMAP Queue 1 item 8)"
+                % (self.name, self.pallas_tile))
+        return mode
+
+    def initialize(self, input_shape, device):
+        self.device = device
+        _, s, d = input_shape
+        if d % self.heads:
+            raise ValueError("dim %d not divisible by %d heads"
+                             % (d, self.heads))
+        self.mode(s)
+        self.init_weights((d, 3 * d), d, 3 * d)
+        wo = numpy.zeros((d, d), numpy.float32)
+        self.fill_array(wo, self.weights_filling,
+                        self.weights_stddev
+                        or self.default_weights_stddev(d, d))
+        self.weights_out = torch.as_tensor(wo).to(device.device)
+        if self.include_bias:
+            self.bias_out = torch.zeros(d, dtype=torch.float32,
+                                        device=device.device)
+        return tuple(input_shape)
+
+    def split(self, t):
+        b, s, d = t.shape
+        return t.reshape(b, s, self.heads, d // self.heads).transpose(1, 2)
+
+    def merge(self, t):
+        b, h, s, dh = t.shape
+        return t.transpose(1, 2).reshape(b, s, h * dh)
+
+    def scale(self, d):
+        return FA.scale_for(d // self.heads)
+
+    def project_qkv(self, x):
+        d = x.shape[-1]
+        qkv = self.device.dot(x, self.weights)
+        if self.include_bias:
+            qkv = qkv + self.bias
+        return (self.split(qkv[..., :d]), self.split(qkv[..., d:2 * d]),
+                self.split(qkv[..., 2 * d:]))
+
+    def finish(self, x, merged):
+        y = self.device.dot(merged, self.weights_out)
+        if self.include_bias:
+            y = y + self.bias_out
+        if self.residual:
+            y = y + x
+        return y.to(self.device.act_dtype)
+
+    def forward(self, x):
+        q, k, v = self.project_qkv(x)
+        if self.mode(x.shape[1]) == "pallas":
+            # q/k/v in the compute dtype (bf16 on the card): matched
+            # kernel inputs and half the cache
+            cd = self.device.compute_dtype
+            q, k, v = (t.to(cd).contiguous() for t in (q, k, v))
+            out_heads, lse = FA.flash_attention_fwd(
+                q, k, v, causal=self.causal, pipeline=self.attn_pipeline,
+                acc_dtype=torch.bfloat16 if self.attn_acc == "bf16"
+                else None)
+            merged = self.merge(out_heads)
+            self.cache = (q, k, v, out_heads, lse, merged)
+        else:
+            probs, ctx = dense_attention_core_fwd(
+                q, k, v, self.causal, self.scale(x.shape[-1]),
+                self.device.dot)
+            merged = self.merge(ctx)
+            self.cache = (q, k, v, probs, merged)
+        return self.finish(x, merged)
+
+
+@gradient_for(MultiHeadAttention)
+class GDMultiHeadAttention(GradientDescentBase):
+    """Hand-written attention backward: the output projection, the
+    attention core (the fused flash backward kernel in the "pallas" mode,
+    the dense formula otherwise), the qkv projection and the residual."""
+
+    EXTRA_PARAMS = (("weights_out", False), ("bias_out", True))
+
+    def run(self, x, y, err):
+        f = self.forward
+        dev = f.device
+        dot = dev.dot
+        d = x.shape[-1]
+        err = err.reshape(x.shape)
+        *qkv, merged = f.cache
+        gwo = dot(_rows(merged).t(), _rows(err))
+        gbo = _column_sum(err) if f.include_bias else None
+        dctx = f.split(dot(err, f.weights_out.t()))
+        if f.mode(x.shape[1]) == "pallas":
+            q, k, v, out_heads, lse = qkv
+            dq, dk, dv = FA.flash_attention_bwd(
+                q, k, v, out_heads, lse,
+                dctx.to(dev.compute_dtype).contiguous(), causal=f.causal)
+        else:
+            q, k, v, probs = qkv
+            dq, dk, dv = dense_attention_core_bwd(
+                q, k, v, probs, dctx, f.scale(d), dot)
+        dqkv = torch.cat([f.merge(dq), f.merge(dk), f.merge(dv)], dim=-1)
+        gw = dot(_rows(x).t(), _rows(dqkv))
+        gb = _column_sum(dqkv) if f.include_bias else None
+        dx = None
+        if self.need_err_input:
+            dx = dot(dqkv, f.weights.t())
+            if f.residual:
+                dx = dx + err
+            dx = dx.to(dev.act_dtype)
+        self.update_weights(gw, gb)
+        self.update_extra({"weights_out": gwo, "bias_out": gbo})
+        return dx

@@ -1,13 +1,19 @@
-"""Softmax cross-entropy evaluator of the PyTorch port.
+"""Cross-entropy evaluators of the PyTorch port.
 
-Counterpart of ``EvaluatorSoftmax`` in
-``veles/znicz_tpu/ops/evaluator.py``: from softmax probabilities and
-integer labels it emits the fused softmax+CE gradient ``err_output =
-(p − onehot)/valid`` and the minibatch metrics — mean cross-entropy
-``loss``, wrong-count ``n_err``, and the worst valid row's loss
-``max_err`` with its index. All of it in f32. Rows at or past ``valid``
-(the padding of a short last minibatch) are masked out of the gradient
-and the metrics.
+Counterparts of ``EvaluatorSoftmax`` and ``EvaluatorLM`` in
+``veles/znicz_tpu/ops/evaluator.py``:
+
+* :class:`EvaluatorSoftmax` — from softmax probabilities and integer
+  labels, the fused softmax+CE gradient ``err_output = (p − onehot)/valid``
+  and the minibatch metrics: mean cross-entropy ``loss``, wrong-count
+  ``n_err``, and the worst valid row's loss ``max_err`` with its index;
+* :class:`EvaluatorLM` — next-token softmax cross-entropy over (B, S, V)
+  logits with (B, S) labels, per token: ``err = (softmax −
+  onehot)/(valid·S)`` and ``n_err`` = wrong token predictions.
+
+All of it in f32. Rows at or past ``valid`` (the padding of a short last
+minibatch) are masked out of the gradient and the metrics. Both return
+the metrics vector in the :data:`METRICS` layout.
 """
 
 import torch
@@ -50,5 +56,46 @@ class EvaluatorSoftmax:
         return err.to(act_dtype), metrics
 
 
-#: order of the metrics vector returned by :meth:`EvaluatorSoftmax.run`
+class EvaluatorLM:
+    """Next-token softmax cross-entropy over (B, S, V) logits."""
+
+    def __init__(self, name="evaluator"):
+        self.name = name
+
+    @staticmethod
+    def compute(logits, labels, valid):
+        """-> (err, loss, n_err) from f32 ``logits`` (B, S, V) and integer
+        ``labels`` (B, S); ``valid`` is the true row count."""
+        b, s, _ = logits.shape
+        z = logits - logits.amax(dim=-1, keepdim=True)
+        logp = z - torch.log(torch.exp(z).sum(dim=-1, keepdim=True))
+        labels = labels.long()[..., None]
+        valid = torch.as_tensor(valid, device=logits.device)
+        rowmask = (torch.arange(b, device=logits.device) < valid) \
+            .to(logits.dtype)
+        denom = valid.to(logits.dtype) * float(s)
+        # probs − onehot without a (B, S, V) one-hot: subtract 1 at the
+        # label (the same f32 operation)
+        err = torch.exp(logp).scatter_add_(
+            -1, labels, torch.full(labels.shape, -1.0, dtype=logits.dtype,
+                                   device=logits.device))
+        err = err * rowmask[:, None, None] / denom
+        loss = -logp.gather(-1, labels).squeeze(-1)
+        loss = (loss * rowmask[:, None]).sum() / denom
+        pred = torch.argmax(logits, dim=-1)
+        wrong = ((pred != labels.squeeze(-1))
+                 & (rowmask[:, None] > 0)).sum()
+        return err, loss, wrong
+
+    def run(self, logits, labels, valid, act_dtype):
+        """-> (err_output in ``act_dtype``, metrics (4,) f32 tensor of
+        loss, n_err, 0, 0: the LM has no max-error row)."""
+        err, loss, wrong = self.compute(logits.to(torch.float32), labels,
+                                        valid)
+        zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+        metrics = torch.stack([loss, wrong.to(torch.float32), zero, zero])
+        return err.to(act_dtype), metrics
+
+
+#: order of the metrics vector returned by the evaluators' ``run``
 METRICS = ("loss", "n_err", "max_err", "max_err_idx")

@@ -1,0 +1,305 @@
+"""Flash attention: exact softmax attention with its row logsumexp, and
+the fused backward from that logsumexp.
+
+Replaces the Pallas TPU kernels of
+``veles/znicz_tpu/parallel/pallas_attention.py``: ``_fwd_kernel``
+(``flash_attention_fwd``), ``_fwd_kernel_pipe`` (``pipeline=True``) and
+``_dkvq_kernel`` (``flash_attention_bwd``, ``fused=True``). The public
+functions keep the JAX signatures and the (B, H, S, dh) layout. On the
+card the work goes to the hand-written CUDA kernels in
+``veles_torch/csrc/flash_attention.cu``; on the CPU to
+:func:`flash_attention_fwd_plain` / :func:`flash_attention_bwd_plain`,
+dense softmax attention under the kernels' dtype rules: f32 scores, exp
+and lse; p rounded to the storage dtype before the PV product; ds
+rounded likewise before the dk/dq products; f32 accumulation.
+
+bf16 inputs (the card's compute dtype) run the block products on the
+tensor cores (``mma.sync``); f32 inputs run scalar f32 FMAs. What bounds
+them on an H100, and what the kernels do about it, is noted in the CUDA
+source. Tiles are the port's own (64 x 64 for every dh); the JAX
+``block_q``/``block_k`` are VMEM-sized and not carried over.
+The two-kernel backward (``fused=False``, ``_dq_kernel`` +
+``_dkv_kernel``) is not ported yet.
+"""
+
+import ctypes
+
+import numpy
+import torch
+
+from veles_torch import kernels
+
+#: head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)
+#: query rows / key rows per tile (``kBQ`` / ``kBK`` in the CUDA source)
+BLOCK_Q = BLOCK_K = 64
+#: causal mask value of the TPU kernels
+MASK_VALUE = -1e9
+#: most bytes the backward's per-chunk f32 dq partials may take
+DQ_PARTIAL_CAP = 1 << 30
+#: score-matrix elements a plain-version chunk of b*h rows may hold
+PLAIN_CHUNK_ELEMS = 1 << 28
+#: dtype -> code of ``enum DType`` in csrc/flash_attention.cu
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURES = {
+    "veles_flash_fwd": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]),
+    "veles_flash_bwd": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]),
+    "veles_flash_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def scale_for(dh):
+    """The softmax scale 1/sqrt(dh), rounded to float32 as the
+    reference's."""
+    return float(numpy.float32(1.0 / numpy.sqrt(dh)))
+
+
+# -- launch plan (mirrors the loops of csrc/flash_attention.cu) ----------
+
+
+def n_tiles(s, block=BLOCK_Q):
+    return -(-s // block)
+
+
+def fwd_k_tiles(s, qt, causal):
+    """K tiles the forward CTA of Q tile ``qt`` visits: ``(hi, clear)``
+    — tiles ``[0, hi)``, of which those ``>= clear`` may hold a masked
+    column (the diagonal)."""
+    n_kt = n_tiles(s, BLOCK_K)
+    if not causal:
+        return n_kt, n_kt
+    q0 = qt * BLOCK_Q
+    return min(n_kt, -(-(q0 + BLOCK_Q) // BLOCK_K)), q0 // BLOCK_K
+
+
+def bwd_chunks(bh, s, dh):
+    """Chunk count of the fused backward: one per K tile, fewer when the
+    f32 dq partials (chunks x b*h x S x dh) would pass DQ_PARTIAL_CAP."""
+    slot = 4 * bh * s * dh
+    return max(1, min(n_tiles(s, BLOCK_K), DQ_PARTIAL_CAP // slot))
+
+
+def bwd_pairs(s, chunk, n_chunks, causal):
+    """The (k tile, q tile) pairs the backward CTA of ``chunk`` visits,
+    in order: K tiles ``chunk, chunk + n_chunks, ...``, each over Q
+    tiles from the diagonal (causal) or from 0."""
+    n_kt, n_qt = n_tiles(s, BLOCK_K), n_tiles(s, BLOCK_Q)
+    return [(kt, qt) for kt in range(chunk, n_kt, n_chunks)
+            for qt in range((kt * BLOCK_K) // BLOCK_Q if causal else 0,
+                            n_qt)]
+
+
+def dq_chunks(row, n_chunks, causal):
+    """Chunks whose dq partial holds ``row`` (summed by ``dq_reduce``)."""
+    return range(min(n_chunks, row // BLOCK_Q + 1) if causal
+                 else n_chunks)
+
+
+# -- plain versions -------------------------------------------------------
+
+
+def _causal_mask(s, device):
+    idx = torch.arange(s, device=device)
+    return idx[None, :] > idx[:, None]
+
+
+def _chunks(bh, s):
+    step = max(1, PLAIN_CHUNK_ELEMS // (s * s))
+    return [slice(i, min(i + step, bh)) for i in range(0, bh, step)]
+
+
+def flash_attention_fwd_plain(q, k, v, causal=True, acc_dtype=None):
+    """Dense softmax attention over (B, H, S, dh) -> (out in q.dtype,
+    lse f32 (B, H, S)), in the kernels' dtype rules; the b*h rows go in
+    chunks so the (S, S) scores stay bounded. ``acc_dtype`` bf16 rounds
+    the PV product to bf16 before the normalisation."""
+    b, h, s, dh = q.shape
+    scale = scale_for(dh)
+    qf, kf, vf = (t.reshape(b * h, s, dh) for t in (q, k, v))
+    out = torch.empty((b * h, s, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    mask = _causal_mask(s, q.device) if causal else None
+    for sl in _chunks(b * h, s):
+        sc = torch.matmul(qf[sl].float(),
+                          kf[sl].float().transpose(1, 2)) * scale
+        if causal:
+            sc = sc.masked_fill(mask, MASK_VALUE)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        del sc
+        l = p.sum(dim=-1, keepdim=True)
+        pv = torch.matmul(p.to(q.dtype).float(), vf[sl].float())
+        if acc_dtype == torch.bfloat16:
+            pv = pv.to(torch.bfloat16).float()
+        out[sl] = (pv / l).to(q.dtype)
+        lse[sl] = (m + torch.log(l)).squeeze(-1)
+    return out.reshape(b, h, s, dh), lse.reshape(b, h, s)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True,
+                              delta=None):
+    """Backward of :func:`flash_attention_fwd_plain` from the saved lse
+    -> (dq, dk, dv) in q.dtype, in the kernels' dtype rules."""
+    b, h, s, dh = q.shape
+    scale = scale_for(dh)
+    if delta is None:
+        delta = row_delta(out, dout)
+    flat = [t.reshape(b * h, s, dh) for t in (q, k, v, dout)]
+    lsef = lse.reshape(b * h, s, 1).float()
+    deltaf = delta.reshape(b * h, s, 1).float()
+    grads = [torch.empty((b * h, s, dh), dtype=q.dtype, device=q.device)
+             for _ in range(3)]
+    mask = _causal_mask(s, q.device) if causal else None
+    for sl in _chunks(b * h, s):
+        qf, kf, vf, dof = (t[sl].float() for t in flat)
+        sc = torch.matmul(qf, kf.transpose(1, 2)) * scale
+        if causal:
+            sc = sc.masked_fill(mask, MASK_VALUE)
+        p = torch.exp(sc - lsef[sl])
+        del sc
+        dv = torch.matmul(p.to(q.dtype).float().transpose(1, 2), dof)
+        dp = torch.matmul(dof, vf.transpose(1, 2))
+        ds = (p * (dp - deltaf[sl]) * scale).to(q.dtype).float()
+        del p, dp
+        for g, value in zip(grads, (torch.matmul(ds, kf),
+                                    torch.matmul(ds.transpose(1, 2), qf),
+                                    dv)):
+            g[sl] = value.to(q.dtype)
+    return tuple(g.reshape(b, h, s, dh) for g in grads)
+
+
+def row_delta(out, dout):
+    """``rowsum(dout·out)`` in f32 — a plain op outside the kernel, as in
+    ``pallas_attention.flash_attention_bwd``."""
+    return (dout.float() * out.float()).sum(dim=-1)
+
+
+# -- the wrappers ---------------------------------------------------------
+
+
+def _check(name, tensors):
+    """Shape/dh checks for every device; -> True when the kernel runs
+    (CUDA tensors), False for the plain version (CPU tensors)."""
+    shape = tuple(tensors[0].shape)
+    if len(shape) != 4:
+        raise ValueError("%s: q must be (B, H, S, dh), got %s"
+                         % (name, shape))
+    if shape[3] not in HEAD_DIMS:
+        raise ValueError("%s: head dim %d is not one of %s"
+                         % (name, shape[3], HEAD_DIMS))
+    for t in tensors:
+        if tuple(t.shape) != shape:
+            raise ValueError("%s: shapes %s differ" % (
+                name, [tuple(x.shape) for x in tensors]))
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return False
+    dev = tensors[0].device
+    if dev.type != "cuda" or len(devices) != 1:
+        raise ValueError("%s: the kernel needs every input on one CUDA "
+                         "device, got %s" % (name, sorted(map(str, devices))))
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in tensors):
+        raise TypeError("%s kernel takes one of %s for all inputs, got %s"
+                        % (name, sorted(map(str, _DTYPE_CODES)),
+                           [t.dtype for t in tensors]))
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("%s kernel needs contiguous, 16-byte aligned "
+                             "inputs" % name)
+    return True
+
+
+def _raise_on(lib, rc, name):
+    if rc:
+        raise RuntimeError("%s kernel launch failed: %s (%d)" % (
+            name, lib.veles_flash_error_string(rc).decode(), rc))
+
+
+def flash_attention_fwd(q, k, v, causal=True, pipeline=False,
+                        acc_dtype=None):
+    """q/k/v: (B, H, S, dh) -> (out in q.dtype, lse (B, H, S) f32),
+    exact. ``pipeline=True`` takes the cp.async double-buffered kernel
+    (``_fwd_kernel_pipe``'s counterpart); ``acc_dtype=torch.bfloat16``
+    narrows the PV accumulation chain (the ``attn_acc="bf16"``
+    experiment). CUDA tensors go to the kernel (or this raises), CPU
+    tensors to :func:`flash_attention_fwd_plain`."""
+    if acc_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError("acc_dtype must be None, float32 or bfloat16, "
+                         "got %r" % (acc_dtype,))
+    if not _check("flash_attention_fwd", (q, k, v)):
+        return flash_attention_fwd_plain(q, k, v, causal, acc_dtype)
+    b, h, s, dh = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lib = kernels.load("flash_attention", _SIGNATURES)
+    rc = lib.veles_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b * h, s, dh, _DTYPE_CODES[q.dtype], int(causal),
+        int(pipeline), int(acc_dtype == torch.bfloat16), scale_for(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, rc, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    flash_attention_fwd.variant_launches[
+        "fwd_pipe" if pipeline else "fwd"] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
+                        fused=True):
+    """Block-recomputation backward from the saved lse -> (dq, dk, dv)
+    in q.dtype, exact. ``delta``: optional precomputed
+    ``rowsum(dout·out)`` (B, H, S). Only the fused single-pass form is
+    ported; CUDA tensors go to its kernel (or this raises), CPU tensors
+    to :func:`flash_attention_bwd_plain`."""
+    if not fused:
+        raise NotImplementedError(
+            "flash_attention_bwd(fused=False), the two-kernel backward, "
+            "is not ported yet (ROADMAP Queue 2 #6)")
+    if not _check("flash_attention_bwd", (q, k, v, out, dout)):
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
+                                         delta)
+    b, h, s, dh = q.shape
+    if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be contiguous "
+                         "float32 (B, H, S) on %s" % q.device)
+    delta = row_delta(out, dout) if delta is None \
+        else delta.to(torch.float32).contiguous()
+    if tuple(delta.shape) != (b, h, s) or delta.device != q.device:
+        raise ValueError("flash_attention_bwd: delta must be (B, H, S) "
+                         "on %s" % q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    n_chunks = bwd_chunks(b * h, s, dh)
+    partial = torch.empty((n_chunks, b * h, s, dh), dtype=torch.float32,
+                          device=q.device)
+    lib = kernels.load("flash_attention", _SIGNATURES)
+    rc = lib.veles_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), partial.data_ptr(), b * h, s, dh,
+        _DTYPE_CODES[q.dtype], int(causal), n_chunks, scale_for(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def reset_launches():
+    """Set every launch count of this module to 0."""
+    flash_attention_fwd.launches = 0
+    flash_attention_fwd.variant_launches = {"fwd": 0, "fwd_pipe": 0}
+    flash_attention_bwd.launches = 0
+
+
+#: kernel launches: forward in all and by variant, fused backward
+reset_launches()

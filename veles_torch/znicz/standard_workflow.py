@@ -7,15 +7,18 @@ Counterpart of ``veles/znicz_tpu/standard_workflow.py``: from the same
              "<-": {...gd kwargs...}}, ...]
 
 (ints are shorthand: hidden all2all_tanh, final softmax) it builds the
-loader, the forwards through the port's registry, the evaluator, the
-decision and the reversed GD chain, with the reference's unit names
-(class name, made unique with ``_2``, ``_3``...). ``initialize`` places
+loader, the forwards through the port's registry, the evaluator (an
+``evaluator_factory(workflow)`` when given, else the softmax evaluator
+for a softmax-terminated stack), the decision (``DecisionGD`` after the
+softmax evaluator, ``DecisionMSE`` after any other, as the reference
+picks) and the reversed GD chain, with the reference's unit names (class
+name, made unique with ``_2``, ``_3``...). ``initialize`` places
 everything on a device; ``run`` trains epoch by epoch until the decision
 completes.
 """
 
 from veles_torch.backends import get_device
-from veles_torch.znicz.decision import DecisionGD
+from veles_torch.znicz.decision import DecisionGD, DecisionMSE
 from veles_torch.znicz.nn_units import forward_by_name, gradient_unit_for
 from veles_torch.znicz.ops.all2all import All2AllSoftmax
 from veles_torch.znicz.ops.evaluator import EvaluatorSoftmax
@@ -37,7 +40,8 @@ class StandardWorkflow:
     """loader -> forwards -> evaluator -> decision -> reversed GDs."""
 
     def __init__(self, layers=None, loader_factory=None,
-                 decision_config=None, name="StandardWorkflow"):
+                 decision_config=None, evaluator_factory=None,
+                 name="StandardWorkflow"):
         if loader_factory is None:
             raise ValueError("no loader_factory given")
         self.name = name
@@ -50,12 +54,18 @@ class StandardWorkflow:
             fwd = cls(**dict(spec.get("->", {})))
             fwd.name = self._unique(fwd.name)
             self.forwards.append(fwd)
-        if not isinstance(self.forwards[-1], All2AllSoftmax):
+        if evaluator_factory is not None:
+            self.evaluator = evaluator_factory(self)
+        elif isinstance(self.forwards[-1], All2AllSoftmax):
+            self.evaluator = EvaluatorSoftmax(name="evaluator")
+        else:
             raise NotImplementedError(
-                "only softmax-terminated layer stacks are ported")
-        self.evaluator = EvaluatorSoftmax(name="evaluator")
-        self.decision = DecisionGD(name="decision",
-                                   **dict(decision_config or {}))
+                "EvaluatorMSE (the reference's evaluator for a stack not "
+                "ending in softmax) is not ported yet")
+        decision_cls = DecisionGD \
+            if isinstance(self.evaluator, EvaluatorSoftmax) else DecisionMSE
+        self.decision = decision_cls(name="decision",
+                                     **dict(decision_config or {}))
         self.gds = [None] * len(self.forwards)
         for i in reversed(range(len(self.forwards))):
             fwd = self.forwards[i]

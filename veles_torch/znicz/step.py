@@ -31,8 +31,9 @@ class TorchStep:
         self.gds = list(gds)
         self.decision = decision
         self.device = device
-        #: train minibatches run so far
+        #: train and evaluation minibatches run so far
         self.train_steps = 0
+        self.eval_steps = 0
         #: host seconds of each finished epoch (metric fetches included)
         self.epoch_seconds = []
 
@@ -47,17 +48,18 @@ class TorchStep:
 
     def eval_minibatch(self, data, labels, valid):
         """Forward + evaluator; -> the (4,) metrics tensor."""
-        _, probs = self._forward(data)
-        _, metrics = self.evaluator.run(probs, labels, valid,
+        _, last = self._forward(data)
+        _, metrics = self.evaluator.run(last, labels, valid,
                                         self.device.act_dtype)
+        self.eval_steps += 1
         return metrics
 
     def train_minibatch(self, data, labels, valid):
         """One train step with its updates; -> the (4,) metrics tensor."""
-        inputs, probs = self._forward(data)
-        err, metrics = self.evaluator.run(probs, labels, valid,
+        inputs, last = self._forward(data)
+        err, metrics = self.evaluator.run(last, labels, valid,
                                           self.device.act_dtype)
-        outputs = inputs[1:] + [probs]
+        outputs = inputs[1:] + [last]
         for i in reversed(range(len(self.gds))):
             err = self.gds[i].run(inputs[i], outputs[i], err)
         self.train_steps += 1
