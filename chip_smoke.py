@@ -8,7 +8,9 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — compiles every kernel source in ``veles_torch/csrc`` with
-   nvcc for sm_90a, all at once, and reports the seconds;
+   nvcc for sm_90a, all at once, and reports the seconds and each
+   kernel's registers and spilled bytes (ptxas; the full reports go to
+   ``nvcc_<source>.log`` in the output directory of phase 7);
 3. kernels — holds the bias-gradient kernel against its plain PyTorch
    version on the card: every activation, float32 and bfloat16 inputs,
    at the MNIST shapes and two large ones. The tolerance per column is
@@ -17,9 +19,10 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    kernel, its plain version and, for the identity form, the one
    PyTorch call that computes it, with the L2 cache flushed before
    every launch, beside the least time the card could take;
-4. flash_kernels — the three flash-attention kernels (forward,
-   pipelined forward, fused backward) and their plain versions against
-   the float64 math from the same inputs, f32 and bf16, causal and not,
+4. flash_kernels — the five flash-attention kernels (forward,
+   pipelined forward, fused backward, and the two-kernel backward's dq
+   and dk/dv kernels) and their plain versions against the float64 math
+   from the same inputs, f32 and bf16, causal and not,
    at (B, H, S, dh) = (64, 4, 32, 16) (the LM sample), (8, 12, 512, 64)
    (the 110M row), (2, 3, 200, 64) (ragged S) and (4, 12, 8192, 64)
    (the 110M_s8k shape). Every element of out, dq, dk and dv is held to
@@ -29,10 +32,15 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    tensor-wide scale would leave the later rows' work unchecked; tol
    (``FLASH_TOL``) comes from the sound readings on the card; lse within
    1e-3. Kernel and plain version must agree with each other to
-   ``FLASH_VS_PLAIN_TOL``, and two launches bitwise;
+   ``FLASH_VS_PLAIN_TOL``, and two launches bitwise; the two-kernel
+   backward (``fused=False``) also agrees with the fused kernel to
+   ``FLASH_VS_PLAIN_TOL``, and a hoisted delta changes no bit of it;
 5. flash_kernel_times — at the 110M and 110M_s8k shapes, bf16, causal:
    kernel, plain version and ``F.scaled_dot_product_attention`` (its
-   autograd backward for the backward), L2 flushed, beside the bound;
+   autograd backward for the backward, and for the two-kernel pair: no
+   one PyTorch call computes dq alone or dk/dv alone), L2 flushed,
+   beside the bound; then the fused backward and the pair in turns
+   (fused, pair, pair, fused): the A/B of the two backward forms;
 6. mnist   — trains the MNIST sample through the CLI entry point at its
    full width (784-100-10, minibatch 100, 6000/1000 samples), 3 epochs
    at seed 1337 on ``cuda`` and on ``cpu``. The bias-gradient kernel must
@@ -53,8 +61,15 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    tokens/s and step ms. Every run counts the launches from 0:
    forward = layers × (train + eval steps), fused backward = layers ×
    train steps, pipelined = the forward count in the pipelined run and
-   0 elsewhere, and the bias-gradient kernel's identity form
-   (layers·6 + 1) per train step;
+   0 elsewhere, the two-kernel backward's kernels 0 (the LM takes the
+   fused backward, as the reference's does), and the bias-gradient
+   kernel's identity form (layers·6 + 1) per train step;
+   flash_bwd_two_kernel — on each of the 110M run's 12 attention units'
+   forward cache (q, k, v, out, lse; bf16 (8, 12, 512, 64)) with a dout
+   from a seeded generator, the fused and the two-kernel backward
+   (``flash_attention_bwd(fused=False)``, this slice's path) agree to
+   ``FLASH_VS_PLAIN_TOL``; counted from 0: 12 launches each of the fused,
+   dq and dk/dv kernels;
 9. lm_profile — one full-width 110M train step under
    ``torch.profiler``: device busy time, idle share, top device
    operations and the flash kernels' share (trace
@@ -65,8 +80,10 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
 
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -122,7 +139,17 @@ FLASH_KERNELS = (
     ("flash_fwd", "veles/znicz_tpu/parallel/pallas_attention.py:161"),
     ("flash_fwd_pipe", "veles/znicz_tpu/parallel/pallas_attention.py:203"),
     ("flash_bwd_fused",
-     "veles/znicz_tpu/parallel/pallas_attention.py:384"))
+     "veles/znicz_tpu/parallel/pallas_attention.py:384"),
+    ("flash_bwd_dq", "veles/znicz_tpu/parallel/pallas_attention.py:278"),
+    ("flash_bwd_dkv", "veles/znicz_tpu/parallel/pallas_attention.py:324"))
+#: per form: operations as multiples of B·H·S²·dh/2 (causal: each block
+#: product is 2·S²·dh/2 operations), bf16 (B, H, S, dh) tensors and f32
+#: (B, H, S) rows moved. The pair (dq and dk/dv kernels) computes what
+#: the fused backward computes, with s and dp recomputed in each kernel:
+#: 7 products, not 5; as one function it moves the fused backward's
+#: bytes, though its two kernels between them read 11 tensors and 4 rows.
+FLASH_WORK = {"fwd": (4, 4, 1), "bwd": (10, 7, 2), "dq": (6, 5, 2),
+              "dkv": (8, 6, 2), "pair": (14, 7, 2)}
 LM_SAMPLE = os.path.join(HERE, "veles_torch", "znicz", "models",
                          "transformer_lm.py")
 #: final validation loss of the LM sample, cuda vs cpu: the card runs
@@ -163,6 +190,46 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled):
+    """``name<template ints,element type>`` of an Itanium-mangled kernel
+    name: the last of its ``<length><identifier>`` parts, then the
+    integer and element-type template arguments."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group()
+        pos += len(n)
+        name = mangled[pos:pos + int(n)]
+        pos += int(n)
+    head = mangled[pos:].split("Ev", 1)[0]
+    args = re.findall(r"L[ib](\d+)E", head)
+    if "bfloat16" in head:
+        args.append("bf16")
+    elif head.startswith("If"):
+        args.append("f32")
+    return "%s<%s>" % (name, ",".join(args))
+
+
+def ptxas_report(log):
+    """{kernel: [registers, spilled bytes stored + loaded]} from nvcc's
+    ``-Xptxas -v`` report."""
+    report, name, spills = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (_Z\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name] = [int(m.group(1)), spills]
+            name = None
+    return report
 
 
 def bound_ms(n, k, itemsize, activation):
@@ -427,6 +494,9 @@ def check_flash(torch):
                 plain["fwd_pipe"] = plain["fwd"]
                 plain["bwd"] = FA.flash_attention_bwd_plain(
                     q, k, v, out_in, lse_in, dout, causal)
+                # the dq and dk/dv plain versions are bwd_plain's results
+                # to the bit (tests/test_torch_flash_attention.py)
+                plain["two"] = plain["bwd"]
                 got = {}
                 for variant, pipe in (("fwd", False), ("fwd_pipe", True)):
                     a = FA.flash_attention_fwd(q, k, v, causal, pipe)
@@ -445,6 +515,16 @@ def check_flash(torch):
                     fail("bwd %s %s causal=%s: two launches differ"
                          % (shape, dname, causal))
                 got["bwd"] = a
+                a = FA.flash_attention_bwd(q, k, v, out_in, lse_in, dout,
+                                           causal, fused=False)
+                b = FA.flash_attention_bwd(
+                    q, k, v, out_in, lse_in, dout, causal,
+                    delta=FA.row_delta(out_in, dout), fused=False)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    fail("two-kernel bwd %s %s causal=%s: two launches, one "
+                         "with delta hoisted, differ" % (shape, dname, causal))
+                got["two"] = a
                 acc = FA.flash_attention_fwd(q, k, v, causal,
                                              acc_dtype=torch.bfloat16)[0]
                 checks = [("fwd", "out", got["fwd"][0], ref[0], tol),
@@ -460,7 +540,12 @@ def check_flash(torch):
                                ("plain_bwd", name, plain["bwd"][i],
                                 ref[2 + i], tol),
                                ("bwd_vs_plain", name, got["bwd"][i],
-                                plain["bwd"][i], near)]
+                                plain["bwd"][i], near),
+                               ("two", name, got["two"][i], ref[2 + i], tol),
+                               ("two_vs_plain", name, got["two"][i],
+                                plain["two"][i], near),
+                               ("two_vs_fused", name, got["two"][i],
+                                got["bwd"][i], near)]
                 for variant in ("fwd", "fwd_pipe"):
                     checks.append(("%s_vs_plain" % variant, "out",
                                    got[variant][0], plain[variant][0], near))
@@ -482,7 +567,9 @@ def check_flash(torch):
                         ("flash_fwd", "fwd", [(0, 0)]),
                         ("flash_fwd_pipe", "fwd_pipe", [(0, 0)]),
                         ("flash_bwd_fused", "bwd", [(0, 0), (1, 1),
-                                                     (2, 2)])):
+                                                     (2, 2)]),
+                        ("flash_bwd_dq", "two", [(0, 0)]),
+                        ("flash_bwd_dkv", "two", [(1, 1), (2, 2)])):
                     for gi, pi in pairs:
                         worst[name] = max(worst[name], (
                             got[variant][gi].double()
@@ -490,7 +577,11 @@ def check_flash(torch):
                             .item())
                 emit({"phase": "flash_kernels", "shape": list(shape),
                       "dtype": dname, "causal": causal,
-                      "bitwise_repeat": True, "scaled_err": row})
+                      "bitwise_repeat": True,
+                      "two_dk_dv_bitwise_fused": all(
+                          torch.equal(got["two"][i], got["bwd"][i])
+                          for i in (1, 2)),
+                      "scaled_err": row})
                 if over:
                     fail("flash %s %s causal=%s: %s"
                          % (shape, dname, causal, "; ".join(over)))
@@ -499,15 +590,12 @@ def check_flash(torch):
     return worst
 
 
-def flash_bound_ms(shape, backward):
-    """Least time on an H100 at the bf16 peak and the HBM rate: causal
-    operations 4 (forward) or 10 (backward) ·B·H·S²·dh·½; bytes of q, k,
-    v, out and lse (forward) or q, k, v, dout, lse and delta in and dq,
-    dk, dv out (backward), bf16 tensors and f32 rows."""
+def flash_bound_ms(shape, form):
+    """Least time on an H100 for ``form`` of FLASH_WORK at the bf16 peak
+    and the HBM rate: -> (ms, what bounds it)."""
     b, h, s, dh = shape
-    ops = (10 if backward else 4) * b * h * s * s * dh / 2
-    tensors = 7 if backward else 4
-    rows = 2 if backward else 1
+    products, tensors, rows = FLASH_WORK[form]
+    ops = products * b * h * s * s * dh / 2
     nbytes = tensors * b * h * s * dh * 2 + rows * b * h * s * 4
     t_ops, t_bytes = ops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), \
@@ -524,36 +612,61 @@ def time_flash(torch, timer):
         q, k, v, dout = flash_inputs(torch, shape, torch.bfloat16)
         out, lse = FA.flash_attention_fwd(q, k, v)
         delta = FA.row_delta(out, dout)
+        grads = (q, k, v, out, lse, dout)
         qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
         plain_fwd = timer(lambda: FA.flash_attention_fwd_plain(q, k, v),
                           reps)
         lib_fwd = timer(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), reps)
-        for name, fn, plain_ms, lib_ms, backward in (
+        lib_bwd = timer(lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), dout, retain_graph=True), reps)
+        pair = functools.partial(FA.flash_attention_bwd, *grads,
+                                 delta=delta, fused=False)
+        # no one PyTorch call computes dq alone or dk/dv alone: their rows
+        # have no library time; the pair's has SDPA's backward
+        for name, fn, plain_fn, lib_ms, form in (
                 ("flash_fwd", lambda: FA.flash_attention_fwd(q, k, v),
-                 plain_fwd, lib_fwd, False),
+                 None, lib_fwd, "fwd"),
                 ("flash_fwd_pipe",
                  lambda: FA.flash_attention_fwd(q, k, v, pipeline=True),
-                 plain_fwd, lib_fwd, False),
+                 None, lib_fwd, "fwd"),
                 ("flash_bwd_fused",
-                 lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout,
-                                                delta=delta),
-                 timer(lambda: FA.flash_attention_bwd_plain(
-                     q, k, v, out, lse, dout, delta=delta), reps),
-                 timer(lambda: torch.autograd.grad(
-                     lib_out, (qr, kr, vr), dout, retain_graph=True),
-                     reps), True)):
-            row = {"ms": timer(fn, reps), "plain_ms": plain_ms,
+                 lambda: FA.flash_attention_bwd(*grads, delta=delta),
+                 lambda: FA.flash_attention_bwd_plain(*grads, delta=delta),
+                 lib_bwd, "bwd"),
+                ("flash_bwd_dq",
+                 lambda: FA.flash_attention_dq(*grads, delta=delta),
+                 lambda: FA.flash_attention_dq_plain(*grads, delta=delta),
+                 None, "dq"),
+                ("flash_bwd_dkv",
+                 lambda: FA.flash_attention_dkv(*grads, delta=delta),
+                 lambda: FA.flash_attention_dkv_plain(*grads, delta=delta),
+                 None, "dkv"),
+                ("flash_bwd_pair", pair,
+                 lambda: (FA.flash_attention_dq_plain(*grads, delta=delta),
+                          FA.flash_attention_dkv_plain(*grads,
+                                                       delta=delta)),
+                 lib_bwd, "pair")):
+            row = {"ms": timer(fn, reps),
+                   "plain_ms": plain_fwd if plain_fn is None
+                   else timer(plain_fn, reps),
                    "library_ms": lib_ms}
-            row["bound_ms"], row["bound_by"] = flash_bound_ms(shape,
-                                                              backward)
+            row["bound_ms"], row["bound_by"] = flash_bound_ms(shape, form)
             emit({"phase": "flash_kernel_times", "kernel": name,
                   "shape": list(shape), "dtype": "bfloat16",
                   "causal": True, "reps": reps, **row})
             if shape == FLASH_MAIN:
                 rows[name] = row
-        del q, k, v, dout, out, lse, delta, qr, kr, vr, lib_out
+        fused = functools.partial(FA.flash_attention_bwd, *grads,
+                                  delta=delta)
+        turns = [("fused", timer(fused, reps)), ("pair", timer(pair, reps)),
+                 ("pair", timer(pair, reps)), ("fused", timer(fused, reps))]
+        emit({"phase": "flash_bwd_ab", "shape": list(shape),
+              "dtype": "bfloat16", "causal": True, "reps": reps,
+              "fused_ms": [t for form, t in turns if form == "fused"],
+              "pair_ms": [t for form, t in turns if form == "pair"]})
+        del q, k, v, dout, out, lse, delta, grads, qr, kr, vr, lib_out
         torch.cuda.empty_cache()
     return rows
 
@@ -572,10 +685,11 @@ def reset_counts():
 def read_counts():
     from veles_torch.znicz.ops import flash_attention as FA
     from veles_torch.znicz.ops.bias_grad import bias_grad
-    return {"flash_fwd": FA.flash_attention_fwd.variant_launches["fwd"],
-            "flash_fwd_pipe":
-                FA.flash_attention_fwd.variant_launches["fwd_pipe"],
-            "flash_bwd_fused": FA.flash_attention_bwd.launches,
+    fwd = FA.flash_attention_fwd.variant_launches
+    bwd = FA.flash_attention_bwd.variant_launches
+    return {"flash_fwd": fwd["fwd"], "flash_fwd_pipe": fwd["fwd_pipe"],
+            "flash_bwd_fused": bwd["fused"], "flash_bwd_dq": bwd["dq"],
+            "flash_bwd_dkv": bwd["dkv"],
             "bias_grad[identity]": bias_grad.form_launches["identity"],
             "bias_grad[masked]": bias_grad.form_launches["masked"]}
 
@@ -600,6 +714,7 @@ def run_lm(torch, name, device, *overrides, valid_must_fall=True):
     want = {"flash_fwd": 0 if pipeline else fwd,
             "flash_fwd_pipe": fwd if pipeline else 0,
             "flash_bwd_fused": layers * train,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "bias_grad[identity]": train * (6 * layers + 1),
             "bias_grad[masked]": 0}
     if device == "cpu":
@@ -675,9 +790,49 @@ def profile_lm_step(torch, wf):
             "top_device_ops": top_ops(by_name, 12), "trace": path}
 
 
+def check_two_kernel(torch, wf):
+    """Phase flash_bwd_two_kernel: the fused and the two-kernel backward
+    on each attention unit's forward cache of ``wf`` (the 110M run), dout
+    from a seeded generator, counted from 0; -> the counts."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    from veles_torch.znicz.ops.attention import MultiHeadAttention
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1337)
+    units = [f for f in wf.forwards if isinstance(f, MultiHeadAttention)]
+    tol = FLASH_VS_PLAIN_TOL["bfloat16"]
+    worst, bitwise, over = {}, 0, []
+    reset_counts()
+    for f in units:
+        q, k, v, out, lse, _ = f.cache
+        dout = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        fused = FA.flash_attention_bwd(q, k, v, out, lse, dout, f.causal)
+        two = FA.flash_attention_bwd(q, k, v, out, lse, dout, f.causal,
+                                     fused=False)
+        for name, a, b in zip(("dq", "dk", "dv"), two, fused):
+            e = scaled_err(a, b)
+            worst[name] = max(worst.get(name, 0.0), e)
+            if not e <= tol:
+                over.append("%s %s scaled error %.3g over %.3g"
+                            % (f.name, name, e, tol))
+        bitwise += all(torch.equal(a, b) for a, b in zip(two[1:], fused[1:]))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = dict({name: 0 for name in counts}, flash_bwd_fused=len(units),
+                flash_bwd_dq=len(units), flash_bwd_dkv=len(units))
+    emit({"phase": "flash_bwd_two_kernel", "units": len(units),
+          "shape": list(q.shape), "dtype": str(q.dtype)[6:],
+          "scaled_err_vs_fused": worst, "dk_dv_bitwise_fused": bitwise,
+          "launches": counts})
+    if over or counts != want:
+        fail("two-kernel backward on the 110M activations: %s; launches "
+             "%s, expected %s" % ("; ".join(over), counts, want))
+    return counts
+
+
 def check_lm(torch):
-    """Phases lm and lm_profile; -> launches of the flash kernels on
-    their paths (the 110M run; the pipelined run for flash_fwd_pipe)."""
+    """Phases lm, flash_bwd_two_kernel and lm_profile; -> launches of the
+    flash kernels on their paths (the 110M run; the pipelined run for
+    flash_fwd_pipe; the 110M activations for the two-kernel backward)."""
     _, _, cpu = run_lm(torch, "sample", "cpu")
     _, _, cuda = run_lm(torch, "sample", "cuda")
     gap = abs(cuda["validation_loss"][-1] - cpu["validation_loss"][-1])
@@ -691,8 +846,11 @@ def check_lm(torch):
     # the validation loss need not yet
     wf, full, _ = run_lm(torch, "110M", "cuda", *LM_110M,
                          valid_must_fall=False)
+    two = check_two_kernel(torch, wf)
     emit(profile_lm_step(torch, wf))
-    return dict(full, flash_fwd_pipe=pipe["flash_fwd_pipe"])
+    return dict(full, flash_fwd_pipe=pipe["flash_fwd_pipe"],
+                flash_bwd_dq=two["flash_bwd_dq"],
+                flash_bwd_dkv=two["flash_bwd_dkv"])
 
 
 def main(argv=None):
@@ -716,10 +874,13 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     built = kernels.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source_seconds": built, "sources": kernels.sources()})
     for name, log in kernels.build_logs.items():
-        print("nvcc %s:\n%s" % (name, log), file=sys.stderr)
+        with open(os.path.join(OUT_DIR, "nvcc_%s.log" % name), "w") as f:
+            f.write(log)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_source_seconds": built, "sources": kernels.sources(),
+          "ptxas": {name: ptxas_report(log)
+                    for name, log in kernels.build_logs.items()}})
 
     timer = Timer(torch)
     forms = check_kernels(torch, timer)

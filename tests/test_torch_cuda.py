@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card (the bias-gradient and
-flash-attention kernels against their plain versions, and their
-refusals); they skip without one.
+flash-attention kernels, the two-kernel backward's too, against their
+plain versions, and their refusals); they skip without one.
 
 This file imports neither jax nor the JAX package, so it runs on a card
 host that has only PyTorch:
@@ -129,5 +129,50 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
         FA.flash_attention_bwd(
             q, k, v, out, lse.transpose(1, 2).contiguous().transpose(1, 2),
             dout)
-    with pytest.raises(NotImplementedError):
-        FA.flash_attention_bwd(q, k, v, out, lse, dout, fused=False)
+    FA.reset_launches()
+    FA.flash_attention_bwd(q, k, v, out, lse, dout, fused=False)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_bwd.variant_launches == {"fused": 0, "dq": 1,
+                                                       "dkv": 1}
+    with pytest.raises(ValueError):
+        FA.flash_attention_dq(q, k, v, out, lse.cpu(), dout)
+    with pytest.raises(ValueError):
+        FA.flash_attention_dkv(q, k, v, out, lse, dout, delta=lse[..., :8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 64, 16), (2, 3, 200, 64),
+                                   (1, 2, 96, 128), (1, 2, 130, 32)],
+                         ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_two_kernel_backward_matches_plain(card, dtype, causal,
+                                                 shape):
+    """The dq and dk/dv kernels (``fused=False``) against their plain
+    versions and against the fused kernel (``_rel``: 1e-4 in f32, 2e-2 in
+    bf16); two launches, and a hoisted delta, bitwise equal; each launch
+    counted once by variant."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    q, k, v, dout = _flash_inputs(card, shape, dtype, seed=11)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal)
+    FA.reset_launches()
+    two = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                 fused=False)
+    again = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                   delta=FA.row_delta(out, dout),
+                                   fused=False)
+    fused = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    dq = FA.flash_attention_dq(q, k, v, out, lse, dout, causal)
+    dk, dv = FA.flash_attention_dkv(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_bwd.variant_launches == {"fused": 1, "dq": 3,
+                                                       "dkv": 3}
+    assert FA.flash_attention_bwd.launches == 7
+    want = (FA.flash_attention_dq_plain(q, k, v, out, lse, dout, causal),
+            *FA.flash_attention_dkv_plain(q, k, v, out, lse, dout, causal))
+    for g, a, alone, f, w in zip(two, again, (dq, dk, dv), fused, want):
+        assert torch.equal(g, a) and torch.equal(g, alone)
+        assert g.dtype == dtype
+        assert _rel(g, w) <= tol
+        assert _rel(g, f) <= tol

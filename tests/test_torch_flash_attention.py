@@ -1,8 +1,10 @@
 """The port's flash attention (veles_torch/znicz/ops/flash_attention.py)
 against the JAX package's Pallas kernels (parallel/pallas_attention.py,
-interpret mode on the CPU) and its dense attention core, on inputs made
-from a numpy seed; the wrappers' refusals; and a pure-Python model of
-the CUDA kernels' launch plan."""
+interpret mode on the CPU), fused and two-kernel backward alike, and its
+dense attention core, on inputs made from a numpy seed; the wrappers'
+refusals; and a pure-Python model of the CUDA kernels' launch plan."""
+
+import collections
 
 import jax.numpy as jnp
 import numpy
@@ -44,14 +46,15 @@ def _close(got, want, atol):
     assert diff <= atol, diff
 
 
-def _jax_pair(q, k, v, dout, causal, bq, bk, dtype=jnp.float32):
+def _jax_pair(q, k, v, dout, causal, bq, bk, dtype=jnp.float32,
+              fused=True):
     jq, jk, jv, jdo = (jnp.asarray(a, dtype) for a in (q, k, v, dout))
     out, lse = PA.flash_attention_fwd(jq, jk, jv, causal=causal,
                                       block_q=bq, block_k=bk,
                                       interpret=True)
     grads = PA.flash_attention_bwd(jq, jk, jv, out, lse, jdo,
                                    causal=causal, block_q=bq, block_k=bk,
-                                   interpret=True)
+                                   interpret=True, fused=fused)
     return out, lse, grads
 
 
@@ -74,6 +77,77 @@ def test_plain_matches_pallas(case):
         _t(dout)[0], causal=case["causal"])
     for g, w in zip(got, grads):
         _close(g, w, BWD_ATOL)
+
+
+@pytest.mark.parametrize("case", CASES + [
+    dict(causal=c, s=64, bq=bq, bk=bk) for bq, bk in UNEQUAL
+    for c in (True, False)], ids=str)
+def test_two_kernel_matches_pallas(case):
+    """``fused=False`` (on the CPU: the dq and dk/dv plain versions)
+    against the Pallas two-kernel backward (``_dq_kernel`` +
+    ``_dkv_kernel``) to 2e-4 on the reference's own cases; and, as
+    ``test_pallas_bwd_fused_matches_two_kernel`` holds the reference's
+    fused kernel to its two-kernel form, the port's fused call against
+    the same Pallas two-kernel output. dh 16: the wrappers refuse the
+    reference's dh 8, which no kernel of the port is built for."""
+    q, k, v, dout = _inputs(case["s"], dh=16, seed=911)
+    bq = case.get("bq", case.get("block"))
+    bk = case.get("bk", case.get("block"))
+    out, lse, grads = _jax_pair(q, k, v, dout, case["causal"], bq, bk,
+                                fused=False)
+    args = (*_t(q, k, v, out), torch.from_numpy(numpy.asarray(lse)),
+            _t(dout)[0])
+    for fused in (False, True):
+        got = FA.flash_attention_bwd(*args, causal=case["causal"],
+                                     fused=fused)
+        for g, w in zip(got, grads):
+            _close(g, w, BWD_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_two_kernel_bf16_matches_pallas(causal):
+    """bf16 inputs: ``fused=False`` against the Pallas two-kernel
+    backward on the same bf16 inputs, to bf16 rounding (2e-2, as
+    test_plain_bf16_matches_pallas)."""
+    q, k, v, dout = _inputs(64, dh=16, seed=6)
+    out, lse, grads = _jax_pair(q, k, v, dout, causal, 32, 32,
+                                jnp.bfloat16, fused=False)
+    tq, tk, tv, tdo = _t(q, k, v, dout, dtype=torch.bfloat16)
+    tout = torch.from_numpy(numpy.asarray(
+        out.astype(jnp.float32))).to(torch.bfloat16)
+    got = FA.flash_attention_bwd(tq, tk, tv, tout,
+                                 torch.from_numpy(numpy.asarray(lse)), tdo,
+                                 causal, fused=False)
+    for g, w in zip(got, grads):
+        assert g.dtype == torch.bfloat16
+        _close(g, numpy.asarray(w.astype(jnp.float32)), 2e-2)
+
+
+@pytest.mark.parametrize("s", [64, 77])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_kernel_plain_splits_the_fused_plain(dtype, causal, s):
+    """The dq and dk/dv plain versions are flash_attention_bwd_plain's
+    results to the bit, and so is ``fused=False`` on CPU tensors; a
+    hoisted ``delta`` changes no bit of any of them."""
+    q, k, v, dout = _t(*_inputs(s, dh=16, seed=12), dtype=dtype)
+    out, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
+    delta = FA.row_delta(out, dout)
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    for d in (None, delta):
+        got = (FA.flash_attention_dq_plain(q, k, v, out, lse, dout, causal,
+                                           d),
+               *FA.flash_attention_dkv_plain(q, k, v, out, lse, dout,
+                                             causal, d))
+        for fused in (True, False):
+            wrapped = FA.flash_attention_bwd(q, k, v, out, lse, dout,
+                                             causal, d, fused)
+            assert all(torch.equal(a, b) for a, b in zip(wrapped, want))
+        hoisted = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                               causal, d)
+        for g, h, w in zip(got, hoisted, want):
+            assert g.dtype == dtype
+            assert torch.equal(g, w) and torch.equal(h, w)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -158,13 +232,25 @@ def test_wrappers_take_cpu_tensors_to_the_plain_version():
     assert FA.flash_attention_fwd.variant_launches == {"fwd": 0,
                                                        "fwd_pipe": 0}
     assert FA.flash_attention_bwd.launches == 0
+    assert FA.flash_attention_bwd.variant_launches["fused"] == 0
 
 
 def test_wrappers_refuse_what_is_not_ported():
+    """The wrappers' refusals; ``fused=False``, ported now, takes CPU
+    tensors to the plain versions and counts no launch."""
     q, k, v, dout = _t(*_inputs(64, dh=16))
     out, lse = FA.flash_attention_fwd(q, k, v)
-    with pytest.raises(NotImplementedError, match="Queue 2 #6"):
-        FA.flash_attention_bwd(q, k, v, out, lse, dout, fused=False)
+    FA.reset_launches()
+    got = FA.flash_attention_bwd(q, k, v, out, lse, dout, fused=False)
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(FA.flash_attention_dq(q, k, v, out, lse, dout),
+                       want[0])
+    assert all(torch.equal(g, w) for g, w in zip(
+        FA.flash_attention_dkv(q, k, v, out, lse, dout), want[1:]))
+    assert FA.flash_attention_bwd.launches == 0
+    assert FA.flash_attention_bwd.variant_launches == {"fused": 0, "dq": 0,
+                                                       "dkv": 0}
     q8, k8, v8 = _t(*_inputs(64, dh=8)[:3])
     with pytest.raises(ValueError, match="head dim 8"):
         FA.flash_attention_fwd(q8, k8, v8)
@@ -236,3 +322,61 @@ def test_backward_plan_covers_every_pair_once(bh, s, dh, causal):
         row = min(qt * 64 + 63, s - 1)
         assert list(FA.dq_chunks(row, n_chunks, causal)) == \
             sorted(writers[qt])
+
+
+def _attended(s, qt, kt, causal):
+    """The (row, col) pairs of tile (qt, kt) that attend, over its rows
+    and columns below S."""
+    rows = numpy.arange(qt * 64, min(qt * 64 + 64, s))
+    cols = numpy.arange(kt * 64, min(kt * 64 + 64, s))
+    if causal:
+        return cols[None, :] <= rows[:, None]
+    return numpy.ones((len(rows), len(cols)), bool)
+
+
+def _check_grid(s, causal, visits, rows_matter):
+    """``visits``: the (q tile, k tile, masked) triples of a whole grid.
+    Every tile that holds an attended pair is visited exactly once and no
+    other; the mask is off only on tiles whose pairs all attend and that
+    have no padded column, nor, where the kernel writes the keys' rows
+    (``rows_matter``), a padded row."""
+    seen = collections.Counter((qt, kt) for qt, kt, _ in visits)
+    assert set(seen.values()) == {1}
+    n = FA.n_tiles(s)
+    for qt in range(n):
+        for kt in range(n):
+            assert ((qt, kt) in seen) == bool(
+                _attended(s, qt, kt, causal).any()), (qt, kt)
+    for qt, kt, masked in visits:
+        if not masked:
+            assert _attended(s, qt, kt, causal).all(), (qt, kt)
+            assert (kt + 1) * 64 <= s, (qt, kt)
+            assert not rows_matter or (qt + 1) * 64 <= s, (qt, kt)
+
+
+@pytest.mark.parametrize("bh,s,dh", [(96, 512, 64), (48, 8192, 64),
+                                     (1, 200, 16), (8, 64, 32),
+                                     (4096, 8192, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_plan_covers_every_pair_once(bh, s, dh, causal):
+    """The dq kernel's grid (one CTA per Q tile over the forward's K
+    tiles): every attended pair in exactly one visited tile, the mask on
+    every tile that holds a masked score or a padded key (padded query
+    rows are never written)."""
+    visits = [(qt, kt, masked) for qt in range(FA.n_tiles(s))
+              for kt, masked in FA.dq_plan(s, qt, causal)]
+    _check_grid(s, causal, visits, rows_matter=False)
+
+
+@pytest.mark.parametrize("bh,s,dh", [(96, 512, 64), (48, 8192, 64),
+                                     (1, 200, 16), (8, 64, 32),
+                                     (4096, 8192, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dkv_plan_covers_every_pair_once(bh, s, dh, causal):
+    """The dk/dv kernel's grid (one CTA per K tile over the Q tiles from
+    the diagonal): every attended pair in exactly one visited tile, the
+    mask on every tile that holds a masked score, a padded key or a
+    padded query row (whose lse reads 0)."""
+    visits = [(qt, kt, masked) for kt in range(FA.n_tiles(s))
+              for qt, masked in FA.dkv_plan(s, kt, causal)]
+    _check_grid(s, causal, visits, rows_matter=True)

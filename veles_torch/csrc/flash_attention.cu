@@ -1,5 +1,6 @@
 // Flash attention on Hopper (sm_90a): exact softmax attention over
-// (B*H, S, dh) rows with the row logsumexp, and its fused backward.
+// (B*H, S, dh) rows with the row logsumexp, and its backward, fused or as
+// two kernels.
 //
 // Replaces the Pallas TPU kernels of veles/znicz_tpu/parallel/
 // pallas_attention.py:
@@ -8,6 +9,8 @@
 //   flash_fwd_{bf16,f32}<.., PIPE=true>   _fwd_kernel_pipe (pipeline=True)
 //   flash_bwd_{bf16,f32} + dq_reduce      _dkvq_kernel (flash_attention_bwd,
 //                                                       fused=True)
+//   flash_bwd_dq_{bf16,f32}               _dq_kernel (fused=False)
+//   flash_bwd_dkv_{bf16,f32}              _dkv_kernel (fused=False)
 //
 // What they compute, as the TPU kernels do: scores s = q.k^T * scale
 // with scale = 1/sqrt(dh), in f32 from the storage dtype (f32 or bf16);
@@ -45,6 +48,16 @@
 //   backward  10*B*H*S^2*dh/2 operations; bytes at S=512 (q, k, v, dO,
 //             lse, delta in, dq, dk, dv out: 44 MB = 13 us vs 8 us of
 //             operations), operations at S=8192 (1.03 TFLOP = 1.04 ms).
+//   dq        6*B*H*S^2*dh/2 operations; q, k, v, dO, lse, delta in, dq
+//             out: 32 MB = 9.5 us at S=512 (bytes), 0.63 ms at S=8192
+//             (operations).
+//   dk/dv     8*B*H*S^2*dh/2 operations; q, k, v, dO, lse, delta in, dk,
+//             dv out: 38 MB = 11.4 us at S=512 (bytes), 0.83 ms at S=8192
+//             (operations).
+//   The two-kernel backward recomputes s and dp in both kernels: 7 block
+//   products and 2 exps per tile pair against the fused kernel's 5 and 1
+//   (1.46 ms against 1.04 ms at S=8192), and reads q, k, v, dO, lse and
+//   delta twice; in exchange it moves no dq partials (below).
 // The mma path's ceiling is the 989 TFLOP/s bf16 rate, the f32 path's
 // the 67 TFLOP/s f32 rate. Both keep the causal loop bounds, which skip
 // every fully masked tile (half the work), evaluate the mask only where
@@ -73,7 +86,8 @@
 // 3.35 TB/s, 2.6x the 44 MB the function must move. At (4, 12, 8192, 64)
 // (10 chunks) it is 6.5 GB written, 5.5 GB reread and 1.0 GB reduced:
 // 13 GB, 3.9 ms, 3.7x the operation bound. Dropping it takes design (a)
-// or a dq pass of its own (the two-kernel backward).
+// or a dq pass of its own: the two-kernel backward (flash_bwd_dq +
+// flash_bwd_dkv, the fused=False form below) is that alternative.
 //
 // Plain C interface for ctypes (veles_torch/kernels.py): launches go on
 // the caller's stream and each function returns cudaGetLastError().
@@ -548,6 +562,244 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
+// -- the two-kernel backward (fused=False) --------------------------------
+//
+// _dkv_kernel's counterpart is the fused kernel's K-tile body without the
+// dq product: one CTA per (K tile, b*h), kt = blockIdx.x so the K tiles
+// with the most causal Q tiles (kt = 0) start first. _dq_kernel's is the
+// forward's CTA plan: one CTA per (Q tile, b*h), the longest causal rows
+// first, over the K tiles [0, hi); s = q.k^T and dp = do.v^T recomputed,
+// p = exp(s*scale - lse) masked on the tail tiles >= clear and on columns
+// >= S, ds = p*(dp - delta)*scale rounded to the storage dtype, dq += ds.k.
+// Each kernel keeps its sums in f32 registers and writes every output
+// element once, from one thread: no partials, no atomics.
+
+template <int DH>
+constexpr size_t bwd_dq_f32_smem_bytes() {
+  return sizeof(float) * (Tile<float, DH>::kElems * 4 + kBQ * kLdS);
+}
+
+// f32 inputs. One CTA per (q tile, b*h): dq rows [q0, q0 + 64).
+template <int DH>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int s, int causal, float scale) {
+  using TL = Tile<float, DH>;
+  constexpr int kLd = TL::kLd;
+  constexpr int TX = 16;
+  constexpr int TY = kBwdThreads / TX;  // 16
+  constexpr int SM = kBQ / TY;          // 4: score and dq micro-tile rows
+  constexpr int SN = kBK / TX;          // 4
+  constexpr int GN = DH / TX;           // dq micro-tile cols
+  static_assert(SM * TY == kBQ && SN * TX == kBK && GN * TX == DH, "tiling");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sDO = sQ + TL::kElems;
+  float* sK = sDO + TL::kElems;
+  float* sV = sK + TL::kElems;
+  float* sDS = sV + TL::kElems;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int64_t base = static_cast<int64_t>(bh) * s * DH;
+  const int n_kt = (s + kBK - 1) / kBK;
+  const int hi = causal ? min(n_kt, (q0 + kBQ + kBK - 1) / kBK) : n_kt;
+  const int clear = causal ? q0 / kBK : n_kt;
+  const bool ragged = s % kBK != 0;
+
+  load_tile<float, DH, kBwdThreads>(sQ, q + base, q0, s);
+  load_tile<float, DH, kBwdThreads>(sDO, dout + base, q0, s);
+  float lr[SM];
+  float dr[SM];
+#pragma unroll
+  for (int i = 0; i < SM; ++i) {
+    const int row = q0 + ty + i * TY;
+    lr[i] = row < s ? lse[static_cast<int64_t>(bh) * s + row] : 0.0f;
+    dr[i] = row < s ? delta[static_cast<int64_t>(bh) * s + row] : 0.0f;
+  }
+  float acc[SM][GN];
+  zero(acc);
+
+  for (int j = 0; j < hi; ++j) {
+    load_tile<float, DH, kBwdThreads>(sK, k + base, j * kBK, s);
+    load_tile<float, DH, kBwdThreads>(sV, v + base, j * kBK, s);
+    __syncthreads();
+
+    float sc[SM][SN];
+    float dp[SM][SN];
+    zero(sc);
+    zero(dp);
+    mm<DH, SM, SN, TX, TY>(sc, sQ, kLd, 1, sK, 1, kLd, tx, ty);
+    mm<DH, SM, SN, TX, TY>(dp, sDO, kLd, 1, sV, 1, kLd, tx, ty);
+    const bool masked = j >= clear || (ragged && j == n_kt - 1);
+#pragma unroll
+    for (int i = 0; i < SM; ++i) {
+      const int r = ty + i * TY;
+#pragma unroll
+      for (int jj = 0; jj < SN; ++jj) {
+        const int c = tx + jj * TX;
+        const int col = j * kBK + c;
+        float x = sc[i][jj] * scale;
+        if (masked && causal && col > q0 + r) {
+          x = kMaskValue;
+        }
+        float p = expf(x - lr[i]);
+        if (masked && col >= s) {
+          p = 0.0f;
+        }
+        sDS[r * kLdS + c] = p * (dp[i][jj] - dr[i]) * scale;
+      }
+    }
+    __syncthreads();
+
+    mm<kBK, SM, GN, TX, TY>(acc, sDS, kLdS, 1, sK, kLd, 1, tx, ty);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < SM; ++i) {
+    const int row = q0 + ty + i * TY;
+    if (row < s) {
+      float* dst = dq + base + static_cast<int64_t>(row) * DH;
+#pragma unroll
+      for (int jj = 0; jj < GN; ++jj) {
+        dst[tx + jj * TX] = acc[i][jj];
+      }
+    }
+  }
+}
+
+template <int DH>
+constexpr size_t bwd_dkv_f32_smem_bytes() {
+  return sizeof(float) *
+         (Tile<float, DH>::kElems * 4 + 2 * kBQ * kLdS + 2 * kBQ);
+}
+
+// f32 inputs. One CTA per (k tile, b*h): dk and dv rows [k0, k0 + 64).
+template <int DH>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dkv_f32(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int s,
+                      int causal, float scale) {
+  using TL = Tile<float, DH>;
+  constexpr int kLd = TL::kLd;
+  constexpr int TX = 16;
+  constexpr int TY = kBwdThreads / TX;  // 16
+  constexpr int SM = kBQ / TY;          // 4
+  constexpr int SN = kBK / TX;          // 4
+  constexpr int GM = kBK / TY;          // dk/dv micro-tile rows (4)
+  constexpr int GN = DH / TX;           // dk/dv micro-tile cols
+  static_assert(SM * TY == kBQ && SN * TX == kBK && GN * TX == DH, "tiling");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + TL::kElems;
+  float* sQ = sV + TL::kElems;
+  float* sDO = sQ + TL::kElems;
+  float* sP = sDO + TL::kElems;
+  float* sDS = sP + kBQ * kLdS;
+  float* sLse = sDS + kBQ * kLdS;
+  float* sDelta = sLse + kBQ;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  const int kt = blockIdx.x;
+  const int k0 = kt * kBK;
+  const int bh = blockIdx.y;
+  const int64_t base = static_cast<int64_t>(bh) * s * DH;
+  const float* lseb = lse + static_cast<int64_t>(bh) * s;
+  const float* deltab = delta + static_cast<int64_t>(bh) * s;
+  const int n_kt = (s + kBK - 1) / kBK;
+  const int n_qt = (s + kBQ - 1) / kBQ;
+  const bool ragged = s % kBK != 0;
+  // causal: Q tiles above this K tile's first column see only masked
+  // scores (skipped); those below clear cross the diagonal
+  const int qlo = causal ? k0 / kBQ : 0;
+  const int clear = causal ? (k0 + kBK - 1 + kBQ - 1) / kBQ : 0;
+  const bool edge = ragged && kt == n_kt - 1;
+
+  load_tile<float, DH, kBwdThreads>(sK, k + base, k0, s);
+  load_tile<float, DH, kBwdThreads>(sV, v + base, k0, s);
+  float dkacc[GM][GN];
+  float dvacc[GM][GN];
+  zero(dkacc);
+  zero(dvacc);
+  for (int qt = qlo; qt < n_qt; ++qt) {
+    const int q0 = qt * kBQ;
+    load_tile<float, DH, kBwdThreads>(sQ, q + base, q0, s);
+    load_tile<float, DH, kBwdThreads>(sDO, dout + base, q0, s);
+    if (tid < kBQ) {
+      const bool in = q0 + tid < s;
+      sLse[tid] = in ? lseb[q0 + tid] : 0.0f;
+      sDelta[tid] = in ? deltab[q0 + tid] : 0.0f;
+    }
+    __syncthreads();
+
+    float sc[SM][SN];
+    float dp[SM][SN];
+    zero(sc);
+    zero(dp);
+    mm<DH, SM, SN, TX, TY>(sc, sQ, kLd, 1, sK, 1, kLd, tx, ty);
+    mm<DH, SM, SN, TX, TY>(dp, sDO, kLd, 1, sV, 1, kLd, tx, ty);
+    const bool masked = qt < clear || edge || (ragged && qt == n_qt - 1);
+#pragma unroll
+    for (int i = 0; i < SM; ++i) {
+      const int r = ty + i * TY;
+      const int row = q0 + r;
+      const float lr = sLse[r];
+      const float dr = sDelta[r];
+#pragma unroll
+      for (int jj = 0; jj < SN; ++jj) {
+        const int c = tx + jj * TX;
+        const int col = k0 + c;
+        float x = sc[i][jj] * scale;
+        if (masked && causal && col > row) {
+          x = kMaskValue;
+        }
+        float p = expf(x - lr);
+        // padded Q rows read lse 0: exp must not reach dk/dv
+        if (masked && (row >= s || col >= s)) {
+          p = 0.0f;
+        }
+        sP[r * kLdS + c] = p;
+        sDS[r * kLdS + c] = p * (dp[i][jj] - dr) * scale;
+      }
+    }
+    __syncthreads();
+
+    mm<kBQ, GM, GN, TX, TY>(dvacc, sP, 1, kLdS, sDO, kLd, 1, tx, ty);
+    mm<kBQ, GM, GN, TX, TY>(dkacc, sDS, 1, kLdS, sQ, kLd, 1, tx, ty);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < GM; ++i) {
+    const int col = k0 + ty + i * TY;
+    if (col < s) {
+      const int64_t off = base + static_cast<int64_t>(col) * DH;
+#pragma unroll
+      for (int jj = 0; jj < GN; ++jj) {
+        const int d = tx + jj * TX;
+        dk[off + d] = dkacc[i][jj];
+        dv[off + d] = dvacc[i][jj];
+      }
+    }
+  }
+}
+
 // -- bf16 inputs: the products on the tensor cores ------------------------
 //
 // mma.sync m16n8k16 (bf16 in, f32 accumulate). A warp owns 16 rows of
@@ -997,6 +1249,274 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
+template <int DH>
+constexpr size_t bwd_dq_bf16_smem_bytes() {
+  return sizeof(bf16) * Tile<bf16, DH>::kElems * 4;
+}
+
+// flash_bwd_dq_f32's counterpart for bf16 inputs, the forward's warp plan:
+// warp w owns query rows w*16 .. +15 (rows g and g+8 of the warp in each
+// thread, with their lse and delta in registers). S = Q.K^T and dP =
+// dO.V^T land in C fragments, dS packs into the A fragments of dq += dS.K.
+template <int DH>
+__global__ void __launch_bounds__(kFwdThreads)
+    flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dq,
+                      int s, int causal, float scale) {
+  using TL = Tile<bf16, DH>;
+  constexpr int kLd = TL::kLd;
+  constexpr int KS = DH / 16;  // k steps over dh
+  constexpr int NT = kBK / 8;  // score n-tiles
+  constexpr int ON = DH / 8;   // dq n-tiles
+  static_assert(kBQ == 16 * (kFwdThreads / 32), "a warp per 16 rows");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sDO = sQ + TL::kElems;
+  bf16* sK = sDO + TL::kElems;
+  bf16* sV = sK + TL::kElems;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int64_t base = static_cast<int64_t>(bh) * s * DH;
+  const int n_kt = (s + kBK - 1) / kBK;
+  const int hi = causal ? min(n_kt, (q0 + kBQ + kBK - 1) / kBK) : n_kt;
+  const int clear = causal ? q0 / kBK : n_kt;
+  const bool ragged = s % kBK != 0;
+  const int row0 = q0 + warp * 16 + g;  // and row0 + 8
+
+  load_tile<bf16, DH, kFwdThreads>(sQ, q + base, q0, s);
+  load_tile<bf16, DH, kFwdThreads>(sDO, dout + base, q0, s);
+  float lr[2];
+  float dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lr[r] = row < s ? lse[static_cast<int64_t>(bh) * s + row] : 0.0f;
+    dr[r] = row < s ? delta[static_cast<int64_t>(bh) * s + row] : 0.0f;
+  }
+  float acc[ON][4];
+  zero(acc);
+
+  for (int j = 0; j < hi; ++j) {
+    load_tile<bf16, DH, kFwdThreads>(sK, k + base, j * kBK, s);
+    load_tile<bf16, DH, kFwdThreads>(sV, v + base, j * kBK, s);
+    __syncthreads();
+
+    float sc[NT][4];
+    float dp[NT][4];
+    zero(sc);
+    zero(dp);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      uint32_t da[4];
+      ld_a(qa, sQ, kLd, warp * 16, kk * 16, g, t);
+      ld_a(da, sDO, kLd, warp * 16, kk * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b0, b1;
+        ld_b_t(b0, b1, sK, kLd, nt * 8, kk * 16, g, t);
+        mma16816(sc[nt], qa, b0, b1);
+        ld_b_t(b0, b1, sV, kLd, nt * 8, kk * 16, g, t);
+        mma16816(dp[nt], da, b0, b1);
+      }
+    }
+    const bool masked = j >= clear || (ragged && j == n_kt - 1);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * kBK + nt * 8 + 2 * t + (e & 1);
+        float x = sc[nt][e] * scale;
+        if (masked && causal && col > row0 + 8 * (e >> 1)) {
+          x = kMaskValue;
+        }
+        float p = expf(x - lr[e >> 1]);
+        // padded K columns: a very negative lse would overflow exp
+        if (masked && col >= s) {
+          p = 0.0f;
+        }
+        sc[nt][e] = p * (dp[nt][e] - dr[e >> 1]) * scale;
+      }
+    }
+    uint32_t dsa[kBK / 16][4];
+    c_to_a(dsa, sc);
+#pragma unroll
+    for (int nt = 0; nt < ON; ++nt) {
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        uint32_t b0, b1;
+        ld_b(b0, b1, sK, kLd, nt * 8, ks * 16, g, t);
+        mma16816(acc[nt], dsa[ks], b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < s) {
+      bf16* dst = dq + base + static_cast<int64_t>(row) * DH + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < ON; ++nt) {
+        *reinterpret_cast<uint32_t*>(dst + nt * 8) =
+            pack_bf16(acc[nt][2 * r], acc[nt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int DH>
+constexpr size_t bwd_dkv_bf16_smem_bytes() {
+  return sizeof(bf16) * Tile<bf16, DH>::kElems * 4 + sizeof(float) * 2 * kBQ;
+}
+
+// flash_bwd_dkv_f32's counterpart for bf16 inputs: flash_bwd_bf16's K-tile
+// body without its dq product. Warp w owns key rows w*16 .. +15: S^T =
+// K.Q^T and dP^T = V.dO^T, so P^T and dS^T are the A fragments of dv +=
+// P^T.dO and dk += dS^T.Q straight from registers.
+template <int DH>
+__global__ void __launch_bounds__(kFwdThreads)
+    flash_bwd_dkv_bf16(const bf16* __restrict__ q,
+                       const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, int s,
+                       int causal, float scale) {
+  using TL = Tile<bf16, DH>;
+  constexpr int kLd = TL::kLd;
+  constexpr int KS = DH / 16;
+  constexpr int NT = kBQ / 8;  // n-tiles over the tile's 64 query rows
+  constexpr int ON = DH / 8;
+  static_assert(kBK == 16 * (kFwdThreads / 32), "a warp per 16 rows");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + TL::kElems;
+  bf16* sQ = sV + TL::kElems;
+  bf16* sDO = sQ + TL::kElems;
+  float* sLse = reinterpret_cast<float*>(sDO + TL::kElems);
+  float* sDelta = sLse + kBQ;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int t = tid % 4;
+  const int kt = blockIdx.x;
+  const int k0 = kt * kBK;
+  const int bh = blockIdx.y;
+  const int64_t base = static_cast<int64_t>(bh) * s * DH;
+  const float* lseb = lse + static_cast<int64_t>(bh) * s;
+  const float* deltab = delta + static_cast<int64_t>(bh) * s;
+  const int n_kt = (s + kBK - 1) / kBK;
+  const int n_qt = (s + kBQ - 1) / kBQ;
+  const bool ragged = s % kBK != 0;
+  const int qlo = causal ? k0 / kBQ : 0;
+  const int clear = causal ? (k0 + kBK - 1 + kBQ - 1) / kBQ : 0;
+  const bool edge = ragged && kt == n_kt - 1;
+  const int key0 = k0 + warp * 16 + g;  // and key0 + 8
+
+  load_tile<bf16, DH, kFwdThreads>(sK, k + base, k0, s);
+  load_tile<bf16, DH, kFwdThreads>(sV, v + base, k0, s);
+  float dka[ON][4];
+  float dva[ON][4];
+  zero(dka);
+  zero(dva);
+  for (int qt = qlo; qt < n_qt; ++qt) {
+    const int q0 = qt * kBQ;
+    load_tile<bf16, DH, kFwdThreads>(sQ, q + base, q0, s);
+    load_tile<bf16, DH, kFwdThreads>(sDO, dout + base, q0, s);
+    if (tid < kBQ) {
+      const bool in = q0 + tid < s;
+      sLse[tid] = in ? lseb[q0 + tid] : 0.0f;
+      sDelta[tid] = in ? deltab[q0 + tid] : 0.0f;
+    }
+    __syncthreads();
+
+    float pt[NT][4];
+    float dst[NT][4];
+    zero(pt);
+    zero(dst);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4];
+      uint32_t va[4];
+      ld_a(ka, sK, kLd, warp * 16, kk * 16, g, t);
+      ld_a(va, sV, kLd, warp * 16, kk * 16, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b0, b1;
+        ld_b_t(b0, b1, sQ, kLd, nt * 8, kk * 16, g, t);
+        mma16816(pt[nt], ka, b0, b1);
+        ld_b_t(b0, b1, sDO, kLd, nt * 8, kk * 16, g, t);
+        mma16816(dst[nt], va, b0, b1);
+      }
+    }
+    const bool masked = qt < clear || edge || (ragged && qt == n_qt - 1);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = nt * 8 + 2 * t + (e & 1);
+        const int row = q0 + qi;
+        const int key = key0 + 8 * (e >> 1);
+        float x = pt[nt][e] * scale;
+        if (masked && causal && key > row) {
+          x = kMaskValue;
+        }
+        float p = expf(x - sLse[qi]);
+        // padded Q rows read lse 0: exp must not reach dk/dv
+        if (masked && (row >= s || key >= s)) {
+          p = 0.0f;
+        }
+        pt[nt][e] = p;
+        dst[nt][e] = p * (dst[nt][e] - sDelta[qi]) * scale;
+      }
+    }
+    uint32_t pa[kBQ / 16][4];
+    uint32_t da[kBQ / 16][4];
+    c_to_a(pa, pt);
+    c_to_a(da, dst);
+#pragma unroll
+    for (int nt = 0; nt < ON; ++nt) {
+#pragma unroll
+      for (int ks = 0; ks < kBQ / 16; ++ks) {
+        uint32_t b0, b1;
+        ld_b(b0, b1, sDO, kLd, nt * 8, ks * 16, g, t);
+        mma16816(dva[nt], pa[ks], b0, b1);
+        ld_b(b0, b1, sQ, kLd, nt * 8, ks * 16, g, t);
+        mma16816(dka[nt], da[ks], b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key < s) {
+      const int64_t off = base + static_cast<int64_t>(key) * DH + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < ON; ++nt) {
+        *reinterpret_cast<uint32_t*>(dk + off + nt * 8) =
+            pack_bf16(dka[nt][2 * r], dka[nt][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + nt * 8) =
+            pack_bf16(dva[nt][2 * r], dva[nt][2 * r + 1]);
+      }
+    }
+  }
+}
+
 // dq[bh, row, d] = sum over the chunks that wrote row (in chunk order) of
 // dq_part[chunk, bh, row, d], in the storage dtype.
 template <typename T>
@@ -1028,6 +1548,10 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Launchers, one per kernel family: Launch<T, DH>::run(...) launches on
+// the caller's stream and returns cudaGetLastError(); dispatch() picks T
+// and DH from the caller's dtype code and head dim.
+
 template <typename T, int DH, bool PIPE>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                        void* lse, int bh, int s, int causal, int acc_bf16,
@@ -1040,8 +1564,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
       return rc;
     }
     flash_fwd_bf16<DH, PIPE><<<grid, kFwdThreads, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out),
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out),
         static_cast<float*>(lse), s, causal, acc_bf16, scale);
   } else {
     constexpr size_t bytes = fwd_f32_smem_bytes<DH, PIPE>();
@@ -1050,113 +1574,173 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
       return rc;
     }
     flash_fwd_f32<DH, PIPE><<<grid, kFwdThreads, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out),
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out),
         static_cast<float*>(lse), s, causal, acc_bf16, scale);
   }
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
-cudaError_t fwd_dh(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int bh, int s, int causal, int pipeline,
-                   int acc_bf16, float scale, cudaStream_t stream) {
-  if (pipeline) {
-    return launch_fwd<T, DH, true>(q, k, v, out, lse, bh, s, causal,
-                                   acc_bf16, scale, stream);
+struct LaunchFwd {
+  static cudaError_t run(const void* q, const void* k, const void* v,
+                         void* out, void* lse, int bh, int s, int causal,
+                         int pipeline, int acc_bf16, float scale,
+                         cudaStream_t stream) {
+    if (pipeline) {
+      return launch_fwd<T, DH, true>(q, k, v, out, lse, bh, s, causal,
+                                     acc_bf16, scale, stream);
+    }
+    return launch_fwd<T, DH, false>(q, k, v, out, lse, bh, s, causal,
+                                    acc_bf16, scale, stream);
   }
-  return launch_fwd<T, DH, false>(q, k, v, out, lse, bh, s, causal, acc_bf16,
-                                  scale, stream);
-}
+};
 
-template <typename T>
-cudaError_t fwd_dtype(const void* q, const void* k, const void* v, void* out,
-                      void* lse, int bh, int s, int dh, int causal,
-                      int pipeline, int acc_bf16, float scale,
-                      cudaStream_t stream) {
+// the fused backward and dq_reduce
+template <typename T, int DH>
+struct LaunchBwd {
+  static cudaError_t run(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, void* dk, void* dv, void* dq_part, int bh,
+                         int s, int causal, int n_chunks, float scale,
+                         cudaStream_t stream) {
+    const dim3 grid(n_chunks, bh);
+    cudaError_t rc;
+    if constexpr (std::is_same<T, bf16>::value) {
+      constexpr size_t bytes = bwd_bf16_smem_bytes<DH>();
+      rc = allow_smem(flash_bwd_bf16<DH>, bytes);
+      if (rc != cudaSuccess) {
+        return rc;
+      }
+      flash_bwd_bf16<DH><<<grid, kFwdThreads, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dk), static_cast<T*>(dv),
+          static_cast<float*>(dq_part), s, causal, scale);
+    } else {
+      constexpr size_t bytes = bwd_f32_smem_bytes<DH>();
+      rc = allow_smem(flash_bwd_f32<DH>, bytes);
+      if (rc != cudaSuccess) {
+        return rc;
+      }
+      flash_bwd_f32<DH><<<grid, kBwdThreads, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dk), static_cast<T*>(dv),
+          static_cast<float*>(dq_part), s, causal, scale);
+    }
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) {
+      return rc;
+    }
+    const int64_t total = static_cast<int64_t>(bh) * s * DH;
+    constexpr int kThreads = 256;
+    dq_reduce<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
+                   kThreads, 0, stream>>>(static_cast<const float*>(dq_part),
+                                          static_cast<T*>(dq), total, s, DH,
+                                          n_chunks, causal);
+    return cudaGetLastError();
+  }
+};
+
+// the two-kernel backward's dq kernel: one CTA per (Q tile, b*h)
+template <typename T, int DH>
+struct LaunchBwdDq {
+  static cudaError_t run(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int bh, int s, int causal, float scale,
+                         cudaStream_t stream) {
+    const dim3 grid((s + kBQ - 1) / kBQ, bh);
+    cudaError_t rc;
+    if constexpr (std::is_same<T, bf16>::value) {
+      constexpr size_t bytes = bwd_dq_bf16_smem_bytes<DH>();
+      rc = allow_smem(flash_bwd_dq_bf16<DH>, bytes);
+      if (rc != cudaSuccess) {
+        return rc;
+      }
+      flash_bwd_dq_bf16<DH><<<grid, kFwdThreads, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dq), s, causal, scale);
+    } else {
+      constexpr size_t bytes = bwd_dq_f32_smem_bytes<DH>();
+      rc = allow_smem(flash_bwd_dq_f32<DH>, bytes);
+      if (rc != cudaSuccess) {
+        return rc;
+      }
+      flash_bwd_dq_f32<DH><<<grid, kBwdThreads, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dq), s, causal, scale);
+    }
+    return cudaGetLastError();
+  }
+};
+
+// the two-kernel backward's dk/dv kernel: one CTA per (K tile, b*h)
+template <typename T, int DH>
+struct LaunchBwdDkv {
+  static cudaError_t run(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dk, void* dv, int bh, int s, int causal,
+                         float scale, cudaStream_t stream) {
+    const dim3 grid((s + kBK - 1) / kBK, bh);
+    cudaError_t rc;
+    if constexpr (std::is_same<T, bf16>::value) {
+      constexpr size_t bytes = bwd_dkv_bf16_smem_bytes<DH>();
+      rc = allow_smem(flash_bwd_dkv_bf16<DH>, bytes);
+      if (rc != cudaSuccess) {
+        return rc;
+      }
+      flash_bwd_dkv_bf16<DH><<<grid, kFwdThreads, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dk), static_cast<T*>(dv), s, causal, scale);
+    } else {
+      constexpr size_t bytes = bwd_dkv_f32_smem_bytes<DH>();
+      rc = allow_smem(flash_bwd_dkv_f32<DH>, bytes);
+      if (rc != cudaSuccess) {
+        return rc;
+      }
+      flash_bwd_dkv_f32<DH><<<grid, kBwdThreads, bytes, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<T*>(dk), static_cast<T*>(dv), s, causal, scale);
+    }
+    return cudaGetLastError();
+  }
+};
+
+template <template <typename, int> class Launch, typename T,
+          typename... Args>
+cudaError_t by_dh(int dh, Args... args) {
   switch (dh) {
     case 16:
-      return fwd_dh<T, 16>(q, k, v, out, lse, bh, s, causal, pipeline,
-                           acc_bf16, scale, stream);
+      return Launch<T, 16>::run(args...);
     case 32:
-      return fwd_dh<T, 32>(q, k, v, out, lse, bh, s, causal, pipeline,
-                           acc_bf16, scale, stream);
+      return Launch<T, 32>::run(args...);
     case 64:
-      return fwd_dh<T, 64>(q, k, v, out, lse, bh, s, causal, pipeline,
-                           acc_bf16, scale, stream);
+      return Launch<T, 64>::run(args...);
     case 128:
-      return fwd_dh<T, 128>(q, k, v, out, lse, bh, s, causal, pipeline,
-                            acc_bf16, scale, stream);
+      return Launch<T, 128>::run(args...);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int DH>
-cudaError_t bwd_dh(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   void* dq, void* dk, void* dv, void* dq_part, int bh, int s,
-                   int causal, int n_chunks, float scale,
-                   cudaStream_t stream) {
-  const dim3 grid(n_chunks, bh);
-  cudaError_t rc;
-  if constexpr (std::is_same<T, bf16>::value) {
-    constexpr size_t bytes = bwd_bf16_smem_bytes<DH>();
-    rc = allow_smem(flash_bwd_bf16<DH>, bytes);
-    if (rc != cudaSuccess) {
-      return rc;
-    }
-    flash_bwd_bf16<DH><<<grid, kFwdThreads, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        static_cast<float*>(dq_part), s, causal, scale);
-  } else {
-    constexpr size_t bytes = bwd_f32_smem_bytes<DH>();
-    rc = allow_smem(flash_bwd_f32<DH>, bytes);
-    if (rc != cudaSuccess) {
-      return rc;
-    }
-    flash_bwd_f32<DH><<<grid, kBwdThreads, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dk), static_cast<float*>(dv),
-        static_cast<float*>(dq_part), s, causal, scale);
-  }
-  rc = cudaGetLastError();
-  if (rc != cudaSuccess) {
-    return rc;
-  }
-  const int64_t total = static_cast<int64_t>(bh) * s * DH;
-  constexpr int kThreads = 256;
-  dq_reduce<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
-                 kThreads, 0, stream>>>(static_cast<const float*>(dq_part),
-                                        static_cast<T*>(dq), total, s, DH,
-                                        n_chunks, causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t bwd_dtype(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, void* dk, void* dv, void* dq_part, int bh,
-                      int s, int dh, int causal, int n_chunks, float scale,
-                      cudaStream_t stream) {
-  switch (dh) {
-    case 16:
-      return bwd_dh<T, 16>(q, k, v, dout, lse, delta, dq, dk, dv, dq_part, bh,
-                           s, causal, n_chunks, scale, stream);
-    case 32:
-      return bwd_dh<T, 32>(q, k, v, dout, lse, delta, dq, dk, dv, dq_part, bh,
-                           s, causal, n_chunks, scale, stream);
-    case 64:
-      return bwd_dh<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, dq_part, bh,
-                           s, causal, n_chunks, scale, stream);
-    case 128:
-      return bwd_dh<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, dq_part,
-                            bh, s, causal, n_chunks, scale, stream);
+template <template <typename, int> class Launch, typename... Args>
+cudaError_t dispatch(int dtype, int dh, Args... args) {
+  switch (dtype) {
+    case kF32:
+      return by_dh<Launch, float>(dh, args...);
+    case kBF16:
+      return by_dh<Launch, bf16>(dh, args...);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1173,17 +1757,9 @@ extern "C" int veles_flash_fwd(const void* q, const void* k, const void* v,
   if (bad_shape(bh, s)) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return fwd_dtype<float>(q, k, v, out, lse, bh, s, dh, causal, pipeline,
-                              acc_bf16, scale, st);
-    case kBF16:
-      return fwd_dtype<__nv_bfloat16>(q, k, v, out, lse, bh, s, dh, causal,
-                                      pipeline, acc_bf16, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch<LaunchFwd>(dtype, dh, q, k, v, out, lse, bh, s, causal,
+                             pipeline, acc_bf16, scale,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int veles_flash_bwd(const void* q, const void* k, const void* v,
@@ -1195,18 +1771,36 @@ extern "C" int veles_flash_bwd(const void* q, const void* k, const void* v,
   if (bad_shape(bh, s) || n_chunks <= 0 || n_chunks > (s + kBK - 1) / kBK) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32:
-      return bwd_dtype<float>(q, k, v, dout, lse, delta, dq, dk, dv, dq_part,
-                              bh, s, dh, causal, n_chunks, scale, st);
-    case kBF16:
-      return bwd_dtype<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                      dq_part, bh, s, dh, causal, n_chunks,
-                                      scale, st);
-    default:
-      return cudaErrorInvalidValue;
+  return dispatch<LaunchBwd>(dtype, dh, q, k, v, dout, lse, delta, dq, dk,
+                             dv, dq_part, bh, s, causal, n_chunks, scale,
+                             static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int veles_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse,
+                                  const void* delta, void* dq, int bh, int s,
+                                  int dh, int dtype, int causal, float scale,
+                                  void* stream) {
+  if (bad_shape(bh, s)) {
+    return cudaErrorInvalidValue;
   }
+  return dispatch<LaunchBwdDq>(dtype, dh, q, k, v, dout, lse, delta, dq, bh,
+                               s, causal, scale,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int veles_flash_bwd_dkv(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dk, void* dv, int bh, int s, int dh,
+                                   int dtype, int causal, float scale,
+                                   void* stream) {
+  if (bad_shape(bh, s)) {
+    return cudaErrorInvalidValue;
+  }
+  return dispatch<LaunchBwdDkv>(dtype, dh, q, k, v, dout, lse, delta, dk, dv,
+                                bh, s, causal, scale,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* veles_flash_error_string(int code) {

@@ -1,25 +1,25 @@
 """Flash attention: exact softmax attention with its row logsumexp, and
-the fused backward from that logsumexp.
+its backward from that logsumexp, fused or as two kernels.
 
 Replaces the Pallas TPU kernels of
 ``veles/znicz_tpu/parallel/pallas_attention.py``: ``_fwd_kernel``
-(``flash_attention_fwd``), ``_fwd_kernel_pipe`` (``pipeline=True``) and
-``_dkvq_kernel`` (``flash_attention_bwd``, ``fused=True``). The public
-functions keep the JAX signatures and the (B, H, S, dh) layout. On the
-card the work goes to the hand-written CUDA kernels in
-``veles_torch/csrc/flash_attention.cu``; on the CPU to
-:func:`flash_attention_fwd_plain` / :func:`flash_attention_bwd_plain`,
-dense softmax attention under the kernels' dtype rules: f32 scores, exp
-and lse; p rounded to the storage dtype before the PV product; ds
-rounded likewise before the dk/dq products; f32 accumulation.
+(``flash_attention_fwd``), ``_fwd_kernel_pipe`` (``pipeline=True``),
+``_dkvq_kernel`` (``flash_attention_bwd``, ``fused=True``), and
+``_dq_kernel`` + ``_dkv_kernel`` (``fused=False``, here also callable
+one at a time as :func:`flash_attention_dq` and
+:func:`flash_attention_dkv`). The public functions keep the JAX
+signatures and the (B, H, S, dh) layout. On the card the work goes to
+the hand-written CUDA kernels in ``veles_torch/csrc/flash_attention.cu``;
+on the CPU to the ``*_plain`` versions, dense softmax attention under the
+kernels' dtype rules: f32 scores, exp and lse; p rounded to the storage
+dtype before the PV product; ds rounded likewise before the dk/dq
+products; f32 accumulation.
 
 bf16 inputs (the card's compute dtype) run the block products on the
 tensor cores (``mma.sync``); f32 inputs run scalar f32 FMAs. What bounds
 them on an H100, and what the kernels do about it, is noted in the CUDA
 source. Tiles are the port's own (64 x 64 for every dh); the JAX
 ``block_q``/``block_k`` are VMEM-sized and not carried over.
-The two-kernel backward (``fused=False``, ``_dq_kernel`` +
-``_dkv_kernel``) is not ported yet.
 """
 
 import ctypes
@@ -52,6 +52,16 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]),
+    "veles_flash_bwd_dq": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]),
+    "veles_flash_bwd_dkv": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p]),
     "veles_flash_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -104,6 +114,30 @@ def dq_chunks(row, n_chunks, causal):
                  else n_chunks)
 
 
+def dq_plan(s, qt, causal):
+    """The (K tile, masked) pairs the dq CTA of Q tile ``qt`` visits, in
+    order: the forward's K tiles, the mask on the tail ``>= clear`` and on
+    the ragged last K tile (padded columns)."""
+    hi, clear = fwd_k_tiles(s, qt, causal)
+    last = n_tiles(s, BLOCK_K) - 1 if s % BLOCK_K else None
+    return [(kt, kt >= clear or kt == last) for kt in range(hi)]
+
+
+def dkv_plan(s, kt, causal):
+    """The (Q tile, masked) pairs the dk/dv CTA of K tile ``kt`` visits,
+    in order: Q tiles from the diagonal (causal) or from 0, the mask on
+    the head ``< clear`` (the tiles that cross the diagonal) and on either
+    ragged edge (padded rows or keys)."""
+    n_qt = n_tiles(s, BLOCK_Q)
+    k0 = kt * BLOCK_K
+    lo, clear = ((k0 // BLOCK_Q, -(-(k0 + BLOCK_K - 1) // BLOCK_Q))
+                 if causal else (0, 0))
+    ragged = s % BLOCK_K != 0
+    edge = ragged and kt == n_tiles(s, BLOCK_K) - 1
+    return [(qt, qt < clear or edge or (ragged and qt == n_qt - 1))
+            for qt in range(lo, n_qt)]
+
+
 # -- plain versions -------------------------------------------------------
 
 
@@ -145,10 +179,10 @@ def flash_attention_fwd_plain(q, k, v, causal=True, acc_dtype=None):
     return out.reshape(b, h, s, dh), lse.reshape(b, h, s)
 
 
-def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True,
-                              delta=None):
-    """Backward of :func:`flash_attention_fwd_plain` from the saved lse
-    -> (dq, dk, dv) in q.dtype, in the kernels' dtype rules."""
+def _bwd_plain(q, k, v, out, lse, dout, causal, delta, parts):
+    """The gradients named in ``parts`` (of "dq", "dk", "dv"), in q.dtype,
+    in the kernels' dtype rules; each one's arithmetic is the same
+    whichever others are asked for."""
     b, h, s, dh = q.shape
     scale = scale_for(dh)
     if delta is None:
@@ -156,8 +190,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True,
     flat = [t.reshape(b * h, s, dh) for t in (q, k, v, dout)]
     lsef = lse.reshape(b * h, s, 1).float()
     deltaf = delta.reshape(b * h, s, 1).float()
-    grads = [torch.empty((b * h, s, dh), dtype=q.dtype, device=q.device)
-             for _ in range(3)]
+    grads = {name: torch.empty((b * h, s, dh), dtype=q.dtype,
+                               device=q.device) for name in parts}
     mask = _causal_mask(s, q.device) if causal else None
     for sl in _chunks(b * h, s):
         qf, kf, vf, dof = (t[sl].float() for t in flat)
@@ -166,15 +200,38 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True,
             sc = sc.masked_fill(mask, MASK_VALUE)
         p = torch.exp(sc - lsef[sl])
         del sc
-        dv = torch.matmul(p.to(q.dtype).float().transpose(1, 2), dof)
+        if "dv" in grads:
+            grads["dv"][sl] = torch.matmul(
+                p.to(q.dtype).float().transpose(1, 2), dof).to(q.dtype)
         dp = torch.matmul(dof, vf.transpose(1, 2))
         ds = (p * (dp - deltaf[sl]) * scale).to(q.dtype).float()
         del p, dp
-        for g, value in zip(grads, (torch.matmul(ds, kf),
-                                    torch.matmul(ds.transpose(1, 2), qf),
-                                    dv)):
-            g[sl] = value.to(q.dtype)
-    return tuple(g.reshape(b, h, s, dh) for g in grads)
+        if "dq" in grads:
+            grads["dq"][sl] = torch.matmul(ds, kf).to(q.dtype)
+        if "dk" in grads:
+            grads["dk"][sl] = torch.matmul(ds.transpose(1, 2),
+                                           qf).to(q.dtype)
+    return tuple(grads[name].reshape(b, h, s, dh) for name in parts)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=True,
+                              delta=None):
+    """Backward of :func:`flash_attention_fwd_plain` from the saved lse
+    -> (dq, dk, dv) in q.dtype, in the kernels' dtype rules."""
+    return _bwd_plain(q, k, v, out, lse, dout, causal, delta,
+                      ("dq", "dk", "dv"))
+
+
+def flash_attention_dq_plain(q, k, v, out, lse, dout, causal=True,
+                             delta=None):
+    """dq of :func:`flash_attention_bwd_plain`, alone."""
+    return _bwd_plain(q, k, v, out, lse, dout, causal, delta, ("dq",))[0]
+
+
+def flash_attention_dkv_plain(q, k, v, out, lse, dout, causal=True,
+                              delta=None):
+    """(dk, dv) of :func:`flash_attention_bwd_plain`, alone."""
+    return _bwd_plain(q, k, v, out, lse, dout, causal, delta, ("dk", "dv"))
 
 
 def row_delta(out, dout):
@@ -254,30 +311,50 @@ def flash_attention_fwd(q, k, v, causal=True, pipeline=False,
     return out, lse
 
 
+def _bwd_args(name, q, k, v, out, lse, dout, delta):
+    """The backward kernels' checks; -> (True, f32 delta) when the kernel
+    runs (CUDA tensors), (False, ``delta``) for the plain version."""
+    if not _check(name, (q, k, v, out, dout)):
+        return False, delta
+    b, h, s, _ = q.shape
+    if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("%s: lse must be contiguous float32 (B, H, S) on "
+                         "%s" % (name, q.device))
+    delta = row_delta(out, dout) if delta is None \
+        else delta.to(torch.float32).contiguous()
+    if tuple(delta.shape) != (b, h, s) or delta.device != q.device:
+        raise ValueError("%s: delta must be (B, H, S) on %s"
+                         % (name, q.device))
+    return True, delta
+
+
+def _launched(variant):
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.variant_launches[variant] += 1
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
                         fused=True):
     """Block-recomputation backward from the saved lse -> (dq, dk, dv)
     in q.dtype, exact. ``delta``: optional precomputed
-    ``rowsum(dout·out)`` (B, H, S). Only the fused single-pass form is
-    ported; CUDA tensors go to its kernel (or this raises), CPU tensors
-    to :func:`flash_attention_bwd_plain`."""
+    ``rowsum(dout·out)`` (B, H, S). ``fused=True`` runs the single-pass
+    kernel (``_dkvq_kernel``'s counterpart); ``fused=False`` the dq kernel
+    and the dk/dv kernel (:func:`flash_attention_dq`,
+    :func:`flash_attention_dkv`), which recompute the scores in each
+    but need no dq partials. CUDA tensors go to the kernels (or this
+    raises), CPU tensors to the plain versions."""
     if not fused:
-        raise NotImplementedError(
-            "flash_attention_bwd(fused=False), the two-kernel backward, "
-            "is not ported yet (ROADMAP Queue 2 #6)")
-    if not _check("flash_attention_bwd", (q, k, v, out, dout)):
+        if delta is None:
+            delta = row_delta(out, dout)
+        return (flash_attention_dq(q, k, v, out, lse, dout, causal, delta),
+                *flash_attention_dkv(q, k, v, out, lse, dout, causal, delta))
+    on_card, delta = _bwd_args("flash_attention_bwd", q, k, v, out, lse,
+                               dout, delta)
+    if not on_card:
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
                                          delta)
     b, h, s, dh = q.shape
-    if tuple(lse.shape) != (b, h, s) or lse.dtype != torch.float32 \
-            or lse.device != q.device or not lse.is_contiguous():
-        raise ValueError("flash_attention_bwd: lse must be contiguous "
-                         "float32 (B, H, S) on %s" % q.device)
-    delta = row_delta(out, dout) if delta is None \
-        else delta.to(torch.float32).contiguous()
-    if tuple(delta.shape) != (b, h, s) or delta.device != q.device:
-        raise ValueError("flash_attention_bwd: delta must be (B, H, S) "
-                         "on %s" % q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     n_chunks = bwd_chunks(b * h, s, dh)
     partial = torch.empty((n_chunks, b * h, s, dh), dtype=torch.float32,
@@ -290,8 +367,52 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
         _DTYPE_CODES[q.dtype], int(causal), n_chunks, scale_for(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, rc, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    _launched("fused")
     return dq, dk, dv
+
+
+def flash_attention_dq(q, k, v, out, lse, dout, causal=True, delta=None):
+    """dq of the backward, by the dq kernel (``_dq_kernel``'s
+    counterpart: one CTA per Q tile over the K tiles it attends) on CUDA
+    tensors, or :func:`flash_attention_dq_plain` on CPU tensors."""
+    on_card, delta = _bwd_args("flash_attention_dq", q, k, v, out, lse,
+                               dout, delta)
+    if not on_card:
+        return flash_attention_dq_plain(q, k, v, out, lse, dout, causal,
+                                        delta)
+    b, h, s, dh = q.shape
+    dq = torch.empty_like(q)
+    lib = kernels.load("flash_attention", _SIGNATURES)
+    rc = lib.veles_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, s, dh,
+        _DTYPE_CODES[q.dtype], int(causal), scale_for(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, rc, "flash_attention_dq")
+    _launched("dq")
+    return dq
+
+
+def flash_attention_dkv(q, k, v, out, lse, dout, causal=True, delta=None):
+    """(dk, dv) of the backward, by the dk/dv kernel (``_dkv_kernel``'s
+    counterpart: one CTA per K tile over the Q tiles that attend it) on
+    CUDA tensors, or :func:`flash_attention_dkv_plain` on CPU tensors."""
+    on_card, delta = _bwd_args("flash_attention_dkv", q, k, v, out, lse,
+                               dout, delta)
+    if not on_card:
+        return flash_attention_dkv_plain(q, k, v, out, lse, dout, causal,
+                                         delta)
+    b, h, s, dh = q.shape
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    lib = kernels.load("flash_attention", _SIGNATURES)
+    rc = lib.veles_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b * h, s, dh, _DTYPE_CODES[q.dtype], int(causal), scale_for(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, rc, "flash_attention_dkv")
+    _launched("dkv")
+    return dk, dv
 
 
 def reset_launches():
@@ -299,7 +420,8 @@ def reset_launches():
     flash_attention_fwd.launches = 0
     flash_attention_fwd.variant_launches = {"fwd": 0, "fwd_pipe": 0}
     flash_attention_bwd.launches = 0
+    flash_attention_bwd.variant_launches = {"fused": 0, "dq": 0, "dkv": 0}
 
 
-#: kernel launches: forward in all and by variant, fused backward
+#: kernel launches: forward and backward, each in all and by variant
 reset_launches()
