@@ -10,7 +10,10 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 2. build   — compiles every kernel source in ``veles_torch/csrc`` with
    nvcc for sm_90a, all at once, and reports the seconds and each
    kernel's registers and spilled bytes (ptxas; the full reports go to
-   ``nvcc_<source>.log`` in the output directory of phase 7);
+   ``nvcc_<source>.log`` in the output directory of phase 7); where
+   ``cuobjdump`` exists, the count of ``HGMMA`` (wgmma) and ``UTMALDG``
+   (TMA load) instructions in each kernel of the bf16 fused backward
+   (``flash_bwd_sm90.cu``), failing if one has none of either;
 3. kernels — holds the bias-gradient kernel against its plain PyTorch
    version on the card: every activation, float32 and bfloat16 inputs,
    at the MNIST shapes and two large ones. The tolerance per column is
@@ -20,12 +23,14 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    PyTorch call that computes it, with the L2 cache flushed before
    every launch, beside the least time the card could take;
 4. flash_kernels — the five flash-attention kernels (forward,
-   pipelined forward, fused backward, and the two-kernel backward's dq
-   and dk/dv kernels) and their plain versions against the float64 math
-   from the same inputs, f32 and bf16, causal and not,
-   at (B, H, S, dh) = (64, 4, 32, 16) (the LM sample), (8, 12, 512, 64)
-   (the 110M row), (2, 3, 200, 64) (ragged S) and (4, 12, 8192, 64)
-   (the 110M_s8k shape). Every element of out, dq, dk and dv is held to
+   pipelined forward, fused backward: for bf16 the wgmma + TMA kernel of
+   ``flash_bwd_sm90.cu``, for f32 the chunked one, and the two-kernel
+   backward's dq and dk/dv kernels) and their plain versions against the
+   float64 math from the same inputs, f32 and bf16, causal and not, at
+   (B, H, S, dh) = (64, 4, 32, 16) (the LM sample), (8, 12, 512, 64)
+   (the 110M row), (2, 3, 200, 64) (ragged S), (4, 4, 256, 32) and
+   (2, 3, 200, 128) (the other head dims, the second ragged) and
+   (4, 12, 8192, 64) (the 110M_s8k shape). Every element of out, dq, dk and dv is held to
    its own size and its row's (``scaled_err``: |got − ref| ≤ tol·(|ref|
    + rms of the row) + ATOL_SHARE·max|ref|, a row per (b, h, query) or
    (b, h, key)), since causal rows shrink with their position and a
@@ -34,7 +39,10 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    1e-3. Kernel and plain version must agree with each other to
    ``FLASH_VS_PLAIN_TOL``, and two launches bitwise; the two-kernel
    backward (``fused=False``) also agrees with the fused kernel to
-   ``FLASH_VS_PLAIN_TOL``, and a hoisted delta changes no bit of it;
+   ``FLASH_VS_PLAIN_TOL`` (whether its dk and dv equal the fused
+   kernel's bit for bit is reported only: the bf16 fused kernel sums in
+   another order since it runs on wgmma), and a hoisted delta changes no
+   bit of it;
 5. flash_kernel_times — at the 110M and 110M_s8k shapes, bf16, causal:
    kernel, plain version and ``F.scaled_dot_product_attention`` (its
    autograd backward for the backward, and for the two-kernel pair: no
@@ -67,9 +75,10 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    flash_bwd_two_kernel — on each of the 110M run's 12 attention units'
    forward cache (q, k, v, out, lse; bf16 (8, 12, 512, 64)) with a dout
    from a seeded generator, the fused and the two-kernel backward
-   (``flash_attention_bwd(fused=False)``, this slice's path) agree to
-   ``FLASH_VS_PLAIN_TOL``; counted from 0: 12 launches each of the fused,
-   dq and dk/dv kernels;
+   (``flash_attention_bwd(fused=False)``) agree to
+   ``FLASH_VS_PLAIN_TOL`` (how many units' dk and dv agree bit for bit
+   is reported only); counted from 0: 12 launches each of the fused, dq
+   and dk/dv kernels;
 9. lm_profile — one full-width 110M train step under
    ``torch.profiler``: device busy time, idle share, top device
    operations and the flash kernels' share (trace
@@ -109,7 +118,7 @@ TOLERANCE = 1e-4
 #: (B, H, S, dh) of the flash checks: the LM sample's attention, the
 #: 110M row, a ragged S, the 110M_s8k row (bench.py LM_ROWS)
 FLASH_SHAPES = ((64, 4, 32, 16), (8, 12, 512, 64), (2, 3, 200, 64),
-                (4, 12, 8192, 64))
+                (4, 4, 256, 32), (2, 3, 200, 128), (4, 12, 8192, 64))
 #: timed shapes (bf16, causal) and the main path's (the 110M row)
 FLASH_TIMED = ((8, 12, 512, 64), (4, 12, 8192, 64))
 FLASH_MAIN = (8, 12, 512, 64)
@@ -134,14 +143,23 @@ LSE_ATOL = 1e-3
 #: where the reference is 0 (dq of row 0 in a causal run: ds = p·(dp −
 #: delta) = 0 exactly)
 ATOL_SHARE = 1e-6
-#: (summary name, TPU kernel replaced)
+#: (summary name, source of the bf16 kernel, TPU kernel replaced)
+FLASH_SOURCE = "veles_torch/csrc/flash_attention.cu"
 FLASH_KERNELS = (
-    ("flash_fwd", "veles/znicz_tpu/parallel/pallas_attention.py:161"),
-    ("flash_fwd_pipe", "veles/znicz_tpu/parallel/pallas_attention.py:203"),
-    ("flash_bwd_fused",
+    ("flash_fwd", FLASH_SOURCE,
+     "veles/znicz_tpu/parallel/pallas_attention.py:161"),
+    ("flash_fwd_pipe", FLASH_SOURCE,
+     "veles/znicz_tpu/parallel/pallas_attention.py:203"),
+    ("flash_bwd_fused", "veles_torch/csrc/flash_bwd_sm90.cu",
      "veles/znicz_tpu/parallel/pallas_attention.py:384"),
-    ("flash_bwd_dq", "veles/znicz_tpu/parallel/pallas_attention.py:278"),
-    ("flash_bwd_dkv", "veles/znicz_tpu/parallel/pallas_attention.py:324"))
+    ("flash_bwd_dq", FLASH_SOURCE,
+     "veles/znicz_tpu/parallel/pallas_attention.py:278"),
+    ("flash_bwd_dkv", FLASH_SOURCE,
+     "veles/znicz_tpu/parallel/pallas_attention.py:324"))
+#: the library of the bf16 fused backward, and the instructions its
+#: kernels must hold: wgmma and TMA loads
+SM90_LIBRARY = "flash_bwd_sm90"
+SM90_OPCODES = ("HGMMA", "UTMALDG")
 #: per form: operations as multiples of B·H·S²·dh/2 (causal: each block
 #: product is 2·S²·dh/2 operations), bf16 (B, H, S, dh) tensors and f32
 #: (B, H, S) rows moved. The pair (dq and dk/dv kernels) computes what
@@ -230,6 +248,27 @@ def ptxas_report(log):
             report[name] = [int(m.group(1)), spills]
             name = None
     return report
+
+
+def sass_counts(kernels, library):
+    """{kernel: {opcode: count}} of SM90_OPCODES in ``cuobjdump -sass``
+    of the built ``library``; None where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", kernels.library_path(library)],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (_Z\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            counts[name] = dict.fromkeys(SM90_OPCODES, 0)
+        elif name:
+            for op in SM90_OPCODES:
+                counts[name][op] += bool(re.search(r"\b%s\b" % op, line))
+    return counts
 
 
 def bound_ms(n, k, itemsize, activation):
@@ -476,7 +515,7 @@ def scaled_err(got, ref):
 def check_flash(torch):
     """Phase flash_kernels; -> {kernel: max |kernel − plain|}."""
     from veles_torch.znicz.ops import flash_attention as FA
-    worst = {name: 0.0 for name, _ in FLASH_KERNELS}
+    worst = {name: 0.0 for name, _, _ in FLASH_KERNELS}
     for shape in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
@@ -578,6 +617,7 @@ def check_flash(torch):
                 emit({"phase": "flash_kernels", "shape": list(shape),
                       "dtype": dname, "causal": causal,
                       "bitwise_repeat": True,
+                      # reported only (see check_two_kernel)
                       "two_dk_dv_bitwise_fused": all(
                           torch.equal(got["two"][i], got["bwd"][i])
                           for i in (1, 2)),
@@ -814,6 +854,9 @@ def check_two_kernel(torch, wf):
             if not e <= tol:
                 over.append("%s %s scaled error %.3g over %.3g"
                             % (f.name, name, e, tol))
+        # reported only: the bf16 fused kernel (wgmma) and the dk/dv
+        # kernel (mma.sync) sum in different orders, so equal bits are
+        # not expected
         bitwise += all(torch.equal(a, b) for a, b in zip(two[1:], fused[1:]))
     torch.cuda.synchronize()
     counts = read_counts()
@@ -877,10 +920,18 @@ def main(argv=None):
     for name, log in kernels.build_logs.items():
         with open(os.path.join(OUT_DIR, "nvcc_%s.log" % name), "w") as f:
             f.write(log)
+    sass = sass_counts(kernels, SM90_LIBRARY)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_seconds": built, "sources": kernels.sources(),
           "ptxas": {name: ptxas_report(log)
-                    for name, log in kernels.build_logs.items()}})
+                    for name, log in kernels.build_logs.items()},
+          "sass": {SM90_LIBRARY: sass}})
+    if sass is not None:
+        short = {fn: n for fn, n in sass.items()
+                 if not all(n[op] for op in SM90_OPCODES)}
+        if not sass or short:
+            fail("%s: kernels without %s: %s" % (
+                SM90_LIBRARY, " and ".join(SM90_OPCODES), short or sass))
 
     timer = Timer(torch)
     forms = check_kernels(torch, timer)
@@ -904,12 +955,12 @@ def main(argv=None):
     } for form, _, _, replaces in FORMS] + [{
         "name": name,
         "route": "cuda",
-        "source": "veles_torch/csrc/flash_attention.cu",
+        "source": source,
         "replaces": replaces,
         "launches": lm_launches[name],
         "max_abs_err": flash_err[name],
         **flash_rows[name],
-    } for name, replaces in FLASH_KERNELS]})
+    } for name, source, replaces in FLASH_KERNELS]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

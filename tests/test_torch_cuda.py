@@ -176,3 +176,58 @@ def test_flash_two_kernel_backward_matches_plain(card, dtype, causal,
         assert g.dtype == dtype
         assert _rel(g, w) <= tol
         assert _rel(g, f) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 64, 16), (1, 2, 130, 32),
+                                   (4, 4, 256, 32), (2, 3, 200, 64),
+                                   (1, 2, 96, 128), (2, 3, 200, 128)],
+                         ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fused_backward_sm90_matches_plain(card, causal, shape):
+    """The bf16 fused backward (the wgmma kernel of csrc/flash_bwd_sm90.cu)
+    at every head dim it takes, S ragged or not: against its plain version
+    and the two-kernel backward (``_rel`` 2e-2), two launches bitwise
+    equal, one fused launch counted per call."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    q, k, v, dout = _flash_inputs(card, shape, torch.bfloat16, seed=13)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal)
+    FA.reset_launches()
+    grads = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    again = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                   delta=FA.row_delta(out, dout))
+    torch.cuda.synchronize()
+    assert FA.flash_attention_bwd.variant_launches == {"fused": 2, "dq": 0,
+                                                       "dkv": 0}
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    two = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                 fused=False)
+    for g, a, w, t in zip(grads, again, want, two):
+        assert torch.equal(g, a) and g.dtype == torch.bfloat16
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel(g, w) <= 2e-2
+        assert _rel(g, t) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_fused_backward_sm90_refuses_what_it_does_not_take(card):
+    """The bf16 fused backward's wrapper raises before any launch on a
+    head dim, dtype, device or layout the kernel does not take."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    q, k, v, dout = _flash_inputs(card, (1, 2, 64, 32), torch.bfloat16)
+    out, lse = FA.flash_attention_fwd(q, k, v)
+    FA.reset_launches()
+    q8 = torch.zeros((1, 2, 64, 8), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        FA.flash_attention_bwd(q8, q8, q8, q8, lse, q8)
+    with pytest.raises(TypeError):
+        FA.flash_attention_bwd(q.half(), k.half(), v.half(), out.half(), lse,
+                               dout.half())
+    with pytest.raises(TypeError):
+        FA.flash_attention_bwd(q, k, v, out, lse, dout.float())
+    with pytest.raises(ValueError):
+        FA.flash_attention_bwd(q, k, v, out, lse.cpu(), dout)
+    with pytest.raises(ValueError):
+        FA.flash_attention_bwd(q, k.transpose(2, 3).contiguous()
+                               .transpose(2, 3), v, out, lse, dout)
+    assert FA.flash_attention_bwd.launches == 0

@@ -2,7 +2,8 @@
 against the JAX package's Pallas kernels (parallel/pallas_attention.py,
 interpret mode on the CPU), fused and two-kernel backward alike, and its
 dense attention core, on inputs made from a numpy seed; the wrappers'
-refusals; and a pure-Python model of the CUDA kernels' launch plan."""
+refusals; and a pure-Python model of the CUDA kernels' launch plans,
+the bf16 fused backward's tickets and dq order included."""
 
 import collections
 
@@ -294,7 +295,7 @@ def test_forward_plan_covers_every_pair_once(s, causal):
                                      (4096, 8192, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_backward_plan_covers_every_pair_once(bh, s, dh, causal):
-    """The fused backward's chunks visit every (K tile, Q tile) pair
+    """The f32 fused backward's chunks visit every (K tile, Q tile) pair
     that holds an attended score exactly once; each chunk's first K tile
     covers every Q tile its later ones touch (so it writes, they add);
     dq_reduce sums, for each row, exactly the chunks that wrote it; the
@@ -380,3 +381,111 @@ def test_dkv_plan_covers_every_pair_once(bh, s, dh, causal):
     visits = [(qt, kt, masked) for kt in range(FA.n_tiles(s))
               for qt, masked in FA.dkv_plan(s, kt, causal)]
     _check_grid(s, causal, visits, rows_matter=True)
+
+
+#: (b*h, S, dh) of the plan tests, as above
+PLAN_SHAPES = [(96, 512, 64), (48, 8192, 64), (1, 200, 16), (8, 64, 32),
+               (4096, 8192, 128)]
+
+
+def _attended_sm90(s, qt, kt, causal):
+    """The (row, key) pairs of Q tile ``qt`` and K tile ``kt`` (of
+    SM90_BLOCK_K keys) that attend, over rows and keys below S."""
+    rows = numpy.arange(qt * 64, min(qt * 64 + 64, s))
+    keys = numpy.arange(kt * FA.SM90_BLOCK_K,
+                        min((kt + 1) * FA.SM90_BLOCK_K, s))
+    if causal:
+        return keys[None, :] <= rows[:, None]
+    return numpy.ones((len(rows), len(keys)), bool)
+
+
+@pytest.mark.parametrize("bh,s,dh", PLAN_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_plan_orders_every_pair_once(bh, s, dh, causal):
+    """The bf16 fused backward's plan, on two heads (every head's plan is
+    the same): tickets go head by head, K tiles descending; every
+    attended (K tile, Q tile) pair is visited exactly once and no other,
+    unmasked only where every pair attends and no key or row is padded;
+    each Q tile's contributors arrive in the order its counter admits
+    (K tiles descending, the visits in ticket order), each waits only on
+    an item with an earlier ticket, exactly one (the first) stores without
+    adding and exactly one (the last, K tile 0) writes the bf16 dq: the
+    same one for Q tile 0 of a causal run."""
+    heads = min(bh, 2)
+    items, order = FA.bwd_sm90_plan(heads, s, causal)
+    n_kt = FA.n_tiles(s, FA.SM90_BLOCK_K)
+    n_qt = FA.n_tiles(s)
+    assert [(b, kt) for b, kt, _ in items] == [
+        (b, kt) for b in range(heads) for kt in reversed(range(n_kt))]
+    ticket = {(b, kt): i for i, (b, kt, _) in enumerate(items)}
+    arrivals = collections.defaultdict(list)
+    for b, kt, steps in items:
+        for qt, masked in steps:
+            arrivals[b, qt].append(kt)
+            attended = _attended_sm90(s, qt, kt, causal)
+            assert attended.any(), (kt, qt)
+            if not masked:
+                assert attended.all(), (kt, qt)
+                assert (kt + 1) * FA.SM90_BLOCK_K <= s, (kt, qt)
+                assert (qt + 1) * 64 <= s, (kt, qt)
+    for b in range(heads):
+        for qt in range(n_qt):
+            want = [kt for kt in range(n_kt)
+                    if _attended_sm90(s, qt, kt, causal).any()]
+            got = arrivals[b, qt]
+            assert sorted(got) == want, (qt, got)
+            assert got == order[b, qt] == sorted(got, reverse=True)
+            assert got[-1] == 0
+            for before, after in zip(got, got[1:]):
+                assert ticket[b, before] < ticket[b, after]
+            stores = [kt for kt in got if kt == got[0]]
+            writes = [kt for kt in got if kt == 0]
+            assert len(stores) == len(writes) == 1
+            if causal and qt == 0:
+                assert got == [0]
+
+
+def _scaled_err(got, want):
+    """Worst element of ``got`` held to its own size and its row's rms
+    (chip_smoke.scaled_err without its absolute share)."""
+    g, w = got.double(), want.double()
+    scale = w.abs() + w.square().mean(-1, keepdim=True).sqrt()
+    return ((g - w).abs() / scale.clamp_min(1e-300)).max().item()
+
+
+@pytest.mark.parametrize("dh", [16, 128])
+@pytest.mark.parametrize("s", [64, 77, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sm90_dq_order_matches_plain(causal, s, dh):
+    """dq summed in f32 as the bf16 fused backward sums it: for each Q
+    tile, its K tiles in the plan's order, each tile's two 64-key halves
+    added first, the first contribution stored, the later ones added,
+    matches flash_attention_dq_plain (scaled error 1e-5: f32 sums taken
+    in another order)."""
+    b, h = 1, 2
+    q, k, v, dout = _t(*_inputs(s, b=b, h=h, dh=dh, seed=21))
+    out, lse = FA.flash_attention_fwd_plain(q, k, v, causal)
+    want = FA.flash_attention_dq_plain(q, k, v, out, lse, dout, causal)
+    scale = FA.scale_for(dh)
+    flat = [t.reshape(b * h, s, dh) for t in (q, k, v, dout, out)]
+    sc = torch.matmul(flat[0], flat[1].transpose(1, 2)) * scale
+    if causal:
+        sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1),
+                            FA.MASK_VALUE)
+    p = torch.exp(sc - lse.reshape(b * h, s, 1))
+    dp = torch.matmul(flat[3], flat[2].transpose(1, 2))
+    ds = p * (dp - FA.row_delta(out, dout).reshape(b * h, s, 1)) * scale
+    _, order = FA.bwd_sm90_plan(b * h, s, causal)
+    got = torch.empty((b * h, s, dh))
+    half = FA.SM90_BLOCK_K // 2
+    for (bh, qt), kts in order.items():
+        rows = slice(qt * 64, min(qt * 64 + 64, s))
+        acc = None
+        for kt in kts:
+            k0 = kt * FA.SM90_BLOCK_K
+            lo, hi = slice(k0, k0 + half), slice(k0 + half, k0 + 2 * half)
+            part = (torch.matmul(ds[bh, rows, lo], flat[1][bh, lo])
+                    + torch.matmul(ds[bh, rows, hi], flat[1][bh, hi]))
+            acc = part if acc is None else acc + part
+        got[bh, rows] = acc
+    assert _scaled_err(got.reshape(b, h, s, dh), want) <= 1e-5

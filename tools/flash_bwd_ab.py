@@ -1,0 +1,173 @@
+#!/usr/bin/env python3
+"""Compare versions of the bf16 fused flash backward on a CUDA card.
+
+    python3 tools/flash_bwd_ab.py OLD.cu NEW.cu   # A/B of two sources
+    python3 tools/flash_bwd_ab.py --ablate         # where a step's time goes
+
+The A/B builds both sources (each a copy of
+``veles_torch/csrc/flash_bwd_sm90.cu``) with the port's nvcc flags, checks
+that NEW agrees with OLD bit for bit and with the plain version at
+ragged, causal and non-causal shapes of every head dim, and times both in
+turns (old, new, new, old; L2 flushed) at the 110M and 110M_s8k
+attention shapes. ``--ablate`` builds the checked-in source and copies of
+it with one part of the work cut out (results then wrong; only the times
+mean anything) and times each: the gap to the full kernel is what that
+part costs. Prints one JSON line per shape; needs one card.
+"""
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+SOURCE = os.path.join(HERE, "veles_torch", "csrc", "flash_bwd_sm90.cu")
+#: (name, [(text in the source, its replacement)]): each cuts one part
+ABLATIONS = (
+    ("full", []),
+    ("no_wait", [("if (seen >= target) {", "if (true) {")]),
+    ("no_read", [("        if (kt != first) {\n          // probe the counter",
+                  "        if (false) {\n          // probe the counter")]),
+    ("no_writer", [("        if (kt < 0) {\n          break;\n        }\n",
+                    "        if (kt < 0) {\n          break;\n        }\n"
+                    "        __syncwarp();\n        if (lane == 0) {\n"
+                    "          mbar_arrive(&dq_empty[writer]);\n        }\n"
+                    "        continue;\n")]),
+    ("no_exp", [("float p = expf(x - lse_s[qi]);",
+                 "float p = x - lse_s[qi];")]),
+)
+CHECKS = (((2, 3, 200, 64), True), ((2, 3, 200, 64), False),
+          ((64, 4, 32, 16), True), ((4, 4, 256, 32), False),
+          ((2, 3, 200, 128), True), ((2, 3, 200, 128), False))
+TIMED = ((8, 12, 512, 64), (4, 12, 8192, 64))
+
+
+def build(sources):
+    """{name: ctypes library} of {name: source text}, built in parallel."""
+    import chip_smoke as C
+    from veles_torch import kernels
+    from veles_torch.znicz.ops import flash_attention as FA
+    # beside chip_smoke.py's traces and logs (git ignores the directory)
+    out = os.path.join(C.OUT_DIR, "flash_bwd_ab")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        src = os.path.join(out, "%s.cu" % name)
+        with open(src, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [kernels.nvcc(), *kernels.NVCC_FLAGS, "-o",
+             os.path.join(out, "lib%s.so" % name), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate(timeout=kernels.BUILD_TIMEOUT)
+        with open(os.path.join(out, "nvcc_%s.log" % name), "w") as f:
+            f.write(log)
+        if proc.returncode:
+            raise RuntimeError("nvcc failed for %s:\n%s" % (name, log))
+        lib = ctypes.CDLL(os.path.join(out, "lib%s.so" % name))
+        for fn, (restype, argtypes) in FA._SM90_SIGNATURES.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        libs[name] = lib
+    return libs
+
+
+def launcher(torch, lib, q, k, v, dout, lse, delta, causal):
+    """A call of ``lib``'s kernel on these inputs -> (dq, dk, dv)."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    b, h, s, dh = q.shape
+    n_qt = FA.n_tiles(s)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    acc = torch.empty((b * h, n_qt * FA.BLOCK_Q, dh), dtype=torch.float32,
+                      device=q.device)
+    sync = torch.empty(1 + b * h * n_qt, dtype=torch.int32, device=q.device)
+
+    def call():
+        sync.zero_()
+        rc = lib.veles_flash_bwd_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in grads),
+            acc.data_ptr(), sync.data_ptr(), b * h, s, dh, int(causal),
+            FA.scale_for(dh), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError("launch failed: %d" % rc)
+        return grads
+    return call
+
+
+def inputs(torch, shape, causal):
+    import chip_smoke as C
+    from veles_torch.znicz.ops import flash_attention as FA
+    q, k, v, dout = C.flash_inputs(torch, shape, torch.bfloat16)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal)
+    return q, k, v, dout, out, lse, FA.row_delta(out, dout)
+
+
+def main(argv):
+    import torch
+    import chip_smoke as C
+    from veles_torch.znicz.ops import flash_attention as FA
+    if not torch.cuda.is_available():
+        print("flash_bwd_ab: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    print(C.card_line(), flush=True)
+    timer = C.Timer(torch)
+    if argv == ["--ablate"]:
+        with open(SOURCE) as f:
+            text = f.read()
+        sources = {}
+        for name, edits in ABLATIONS:
+            variant = text
+            for old, new in edits:
+                if old not in variant:
+                    raise ValueError("%s: %r is not in the source"
+                                     % (name, old))
+                variant = variant.replace(old, new)
+            sources[name] = variant
+        libs = build(sources)
+        for shape in TIMED:
+            q, k, v, dout, _, lse, delta = inputs(torch, shape, True)
+            reps = 25 if shape[2] <= 1024 else 5
+            row = {"shape": shape}
+            for name, lib in libs.items():
+                call = launcher(torch, lib, q, k, v, dout, lse, delta, True)
+                row[name] = [timer(call, reps) for _ in range(2)]
+            print(json.dumps(row), flush=True)
+        return 0
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    texts = {}
+    for name, path in zip(("old", "new"), argv):
+        with open(path) as f:
+            texts[name] = f.read()
+    libs = build(texts)
+    for shape, causal in CHECKS + tuple((t, True) for t in TIMED):
+        q, k, v, dout, out, lse, delta = inputs(torch, shape, causal)
+        calls = {n: launcher(torch, lib, q, k, v, dout, lse, delta, causal)
+                 for n, lib in libs.items()}
+        got = {n: [t.clone() for t in call()] for n, call in calls.items()}
+        again = [t.clone() for t in calls["new"]()]
+        want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+        row = {"shape": shape, "causal": causal,
+               "new_equals_old": [torch.equal(a, b) for a, b in
+                                  zip(got["new"], got["old"])],
+               "new_repeats": all(torch.equal(a, b)
+                                  for a, b in zip(got["new"], again)),
+               "new_vs_plain": [C.scaled_err(a, b)
+                                for a, b in zip(got["new"], want)]}
+        if shape in TIMED:
+            reps = 25 if shape[2] <= 1024 else 5
+            row["ms"] = [[n, timer(calls[n], reps)]
+                         for n in ("old", "new", "new", "old")]
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -7,8 +7,10 @@
 //
 //   flash_fwd_{bf16,f32}<.., PIPE=false>  _fwd_kernel (flash_attention_fwd)
 //   flash_fwd_{bf16,f32}<.., PIPE=true>   _fwd_kernel_pipe (pipeline=True)
-//   flash_bwd_{bf16,f32} + dq_reduce      _dkvq_kernel (flash_attention_bwd,
-//                                                       fused=True)
+//   flash_bwd_f32 + dq_reduce             _dkvq_kernel (flash_attention_bwd,
+//                                         fused=True) for f32 inputs; bf16
+//                                         inputs take flash_bwd_sm90 in
+//                                         flash_bwd_sm90.cu (wgmma + TMA)
 //   flash_bwd_dq_{bf16,f32}               _dq_kernel (fused=False)
 //   flash_bwd_dkv_{bf16,f32}              _dkv_kernel (fused=False)
 //
@@ -36,7 +38,8 @@
 //   f32: *_f32 kernels. The tensor cores take no f32, so each thread
 //     owns a strided micro-tile of every product and runs scalar f32 FMAs
 //     out of shared memory, score tiles staged there too.
-// wgmma and TMA (the full Hopper rate) are later work.
+// wgmma and TMA (the full Hopper rate) are later work here; the bf16
+// fused backward has them (flash_bwd_sm90.cu).
 //
 // Bounds on an H100 (989 TFLOP/s bf16, 67 TFLOP/s f32 outside the
 // tensor cores, 3.35 TB/s):
@@ -68,9 +71,11 @@
 // ring does the same: tile j+1 is in flight while tile j computes. As on
 // the TPU, that variant applies the mask to every tile.
 //
-// Fused backward: the TPU kernel adds each K block's dq contribution
-// into a full-row f32 output block revisited over a sequential grid. A
-// GPU grid is parallel, so this is design (b) without float atomics:
+// Fused backward for f32 inputs (flash_bwd_f32, unchanged; the bf16 one,
+// the card's compute path, is flash_bwd_sm90.cu, whose dq needs no
+// partials): the TPU kernel adds each K block's dq contribution into a
+// full-row f32 output block revisited over a sequential grid. A GPU grid
+// is parallel, so this is design (b) without float atomics:
 // one CTA per (chunk, b*h) walks the K tiles kt = chunk, chunk + C, ...
 // in order (round robin, so causal work is balanced across chunks),
 // keeps dk/dv in registers, and writes its dq contribution into an f32
@@ -80,14 +85,15 @@
 // chunk count) is the caller's: one chunk per K tile unless the partial
 // buffer would grow past its cap (veles_torch/znicz/ops/flash_attention.py).
 // The partials are traffic of their own, beyond the bound above: 16 KB
-// per (K tile, Q tile) pair written, and reread for every K tile after a
-// chunk's first. At (8, 12, 512, 64) causal (8 chunks, one K tile each)
-// that is 57 MB written and 57 MB read by dq_reduce: 113 MB, 0.034 ms at
-// 3.35 TB/s, 2.6x the 44 MB the function must move. At (4, 12, 8192, 64)
-// (10 chunks) it is 6.5 GB written, 5.5 GB reread and 1.0 GB reduced:
-// 13 GB, 3.9 ms, 3.7x the operation bound. Dropping it takes design (a)
-// or a dq pass of its own: the two-kernel backward (flash_bwd_dq +
-// flash_bwd_dkv, the fused=False form below) is that alternative.
+// of f32 per (K tile, Q tile) pair written, and reread for every K tile
+// after a chunk's first. At (8, 12, 512, 64) causal (8 chunks, one K tile
+// each) that is 57 MB written and 57 MB read by dq_reduce: 113 MB, 2.6x
+// the 44 MB a bf16 backward must move; at (4, 12, 8192, 64) (10 chunks)
+// 6.5 GB written, 5.5 GB reread and 1.0 GB reduced: 13 GB, 3.9 ms at
+// 3.35 TB/s, 3.7x the bf16 operation bound (what the bf16 kernel of this
+// design paid before flash_bwd_sm90.cu replaced it). The
+// two-kernel backward (flash_bwd_dq + flash_bwd_dkv, the fused=False form
+// below) and flash_bwd_sm90.cu's ordered dq workspace avoid them.
 //
 // Plain C interface for ctypes (veles_torch/kernels.py): launches go on
 // the caller's stream and each function returns cudaGetLastError().
@@ -1065,191 +1071,6 @@ __global__ void __launch_bounds__(kFwdThreads)
 }
 
 template <int DH>
-constexpr size_t bwd_bf16_smem_bytes() {
-  return sizeof(bf16) * (Tile<bf16, DH>::kElems * 4 + kBQ * (kBK + 8)) +
-         sizeof(float) * 2 * kBQ;
-}
-
-// flash_bwd_f32's counterpart for bf16 inputs: the same chunk plan, the
-// products on the tensor cores. Warp w owns key rows w*16 .. +15 of the
-// tile: it computes
-// S^T = K.Q^T and dP^T = V.dO^T for them, so P^T and dS^T are A
-// fragments of dv += P^T.dO and dk += dS^T.Q straight from registers.
-// dS goes through shared memory, transposed, for dq = dS.K, where warp w
-// owns query rows w*16 .. +15.
-template <int DH>
-__global__ void __launch_bounds__(kFwdThreads)
-    flash_bwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, float* __restrict__ dq_part, int s,
-                  int causal, float scale) {
-  using TL = Tile<bf16, DH>;
-  constexpr int kLd = TL::kLd;
-  constexpr int kLdDS = kBK + 8;  // row stride of the dS tile [q][key]
-  constexpr int KS = DH / 16;
-  constexpr int NT = kBQ / 8;  // n-tiles over the tile's 64 query rows
-  constexpr int ON = DH / 8;
-  static_assert(kBK == 16 * (kFwdThreads / 32), "a warp per 16 rows");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + TL::kElems;
-  bf16* sQ = sV + TL::kElems;
-  bf16* sDO = sQ + TL::kElems;
-  bf16* sDS = sDO + TL::kElems;
-  float* sLse = reinterpret_cast<float*>(sDS + kBQ * kLdDS);
-  float* sDelta = sLse + kBQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int g = (tid % 32) / 4;
-  const int t = tid % 4;
-  const int chunk = blockIdx.x;
-  const int n_chunks = gridDim.x;
-  const int bh = blockIdx.y;
-  const int64_t base = static_cast<int64_t>(bh) * s * DH;
-  const float* lseb = lse + static_cast<int64_t>(bh) * s;
-  const float* deltab = delta + static_cast<int64_t>(bh) * s;
-  float* part =
-      dq_part + (static_cast<int64_t>(chunk) * gridDim.y + bh) * s * DH;
-  const int n_kt = (s + kBK - 1) / kBK;
-  const int n_qt = (s + kBQ - 1) / kBQ;
-  const bool ragged = s % kBK != 0;
-
-  for (int kt = chunk; kt < n_kt; kt += n_chunks) {
-    const int k0 = kt * kBK;
-    const bool first = kt == chunk;
-    const int key0 = k0 + warp * 16 + g;  // and key0 + 8
-    load_tile<bf16, DH, kFwdThreads>(sK, k + base, k0, s);
-    load_tile<bf16, DH, kFwdThreads>(sV, v + base, k0, s);
-    float dka[ON][4];
-    float dva[ON][4];
-    zero(dka);
-    zero(dva);
-    const int qlo = causal ? k0 / kBQ : 0;
-    for (int qt = qlo; qt < n_qt; ++qt) {
-      const int q0 = qt * kBQ;
-      load_tile<bf16, DH, kFwdThreads>(sQ, q + base, q0, s);
-      load_tile<bf16, DH, kFwdThreads>(sDO, dout + base, q0, s);
-      if (tid < kBQ) {
-        const bool in = q0 + tid < s;
-        sLse[tid] = in ? lseb[q0 + tid] : 0.0f;
-        sDelta[tid] = in ? deltab[q0 + tid] : 0.0f;
-      }
-      __syncthreads();
-
-      float pt[NT][4];
-      float dst[NT][4];
-      zero(pt);
-      zero(dst);
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ka[4];
-        uint32_t va[4];
-        ld_a(ka, sK, kLd, warp * 16, kk * 16, g, t);
-        ld_a(va, sV, kLd, warp * 16, kk * 16, g, t);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          uint32_t b0, b1;
-          ld_b_t(b0, b1, sQ, kLd, nt * 8, kk * 16, g, t);
-          mma16816(pt[nt], ka, b0, b1);
-          ld_b_t(b0, b1, sDO, kLd, nt * 8, kk * 16, g, t);
-          mma16816(dst[nt], va, b0, b1);
-        }
-      }
-      const bool masked = (causal && q0 < k0 + kBK - 1) ||
-                          (ragged && (kt == n_kt - 1 || qt == n_qt - 1));
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = nt * 8 + 2 * t + (e & 1);
-          const int row = q0 + qi;
-          const int key = key0 + 8 * (e >> 1);
-          float x = pt[nt][e] * scale;
-          if (masked && causal && key > row) {
-            x = kMaskValue;
-          }
-          float p = expf(x - sLse[qi]);
-          if (masked && (row >= s || key >= s)) {
-            p = 0.0f;
-          }
-          const float ds = p * (dst[nt][e] - sDelta[qi]) * scale;
-          pt[nt][e] = p;
-          dst[nt][e] = ds;
-          sDS[qi * kLdDS + warp * 16 + g + 8 * (e >> 1)] = __float2bfloat16(ds);
-        }
-      }
-      uint32_t pa[kBQ / 16][4];
-      uint32_t da[kBQ / 16][4];
-      c_to_a(pa, pt);
-      c_to_a(da, dst);
-#pragma unroll
-      for (int nt = 0; nt < ON; ++nt) {
-#pragma unroll
-        for (int ks = 0; ks < kBQ / 16; ++ks) {
-          uint32_t b0, b1;
-          ld_b(b0, b1, sDO, kLd, nt * 8, ks * 16, g, t);
-          mma16816(dva[nt], pa[ks], b0, b1);
-          ld_b(b0, b1, sQ, kLd, nt * 8, ks * 16, g, t);
-          mma16816(dka[nt], da[ks], b0, b1);
-        }
-      }
-      __syncthreads();
-
-      // dq rows q0 + warp*16 + g (+8): dS (from shared memory) . K
-      uint32_t dsa[kBK / 16][4];
-#pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) {
-        ld_a(dsa[ks], sDS, kLdDS, warp * 16, ks * 16, g, t);
-      }
-#pragma unroll
-      for (int nt = 0; nt < ON; ++nt) {
-        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int ks = 0; ks < kBK / 16; ++ks) {
-          uint32_t b0, b1;
-          ld_b(b0, b1, sK, kLd, nt * 8, ks * 16, g, t);
-          mma16816(c, dsa[ks], b0, b1);
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = q0 + warp * 16 + g + 8 * r;
-          if (row < s) {
-            float2* dst2 = reinterpret_cast<float2*>(
-                part + static_cast<int64_t>(row) * DH + nt * 8 + 2 * t);
-            float2 val = make_float2(c[2 * r], c[2 * r + 1]);
-            if (!first) {
-              const float2 old = *dst2;
-              val.x += old.x;
-              val.y += old.y;
-            }
-            *dst2 = val;
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
-      if (key < s) {
-        const int64_t off = base + static_cast<int64_t>(key) * DH + 2 * t;
-#pragma unroll
-        for (int nt = 0; nt < ON; ++nt) {
-          *reinterpret_cast<uint32_t*>(dk + off + nt * 8) =
-              pack_bf16(dka[nt][2 * r], dka[nt][2 * r + 1]);
-          *reinterpret_cast<uint32_t*>(dv + off + nt * 8) =
-              pack_bf16(dva[nt][2 * r], dva[nt][2 * r + 1]);
-        }
-      }
-    }
-  }
-}
-
-template <int DH>
 constexpr size_t bwd_dq_bf16_smem_bytes() {
   return sizeof(bf16) * Tile<bf16, DH>::kElems * 4;
 }
@@ -1380,10 +1201,11 @@ constexpr size_t bwd_dkv_bf16_smem_bytes() {
   return sizeof(bf16) * Tile<bf16, DH>::kElems * 4 + sizeof(float) * 2 * kBQ;
 }
 
-// flash_bwd_dkv_f32's counterpart for bf16 inputs: flash_bwd_bf16's K-tile
-// body without its dq product. Warp w owns key rows w*16 .. +15: S^T =
-// K.Q^T and dP^T = V.dO^T, so P^T and dS^T are the A fragments of dv +=
-// P^T.dO and dk += dS^T.Q straight from registers.
+// flash_bwd_dkv_f32's counterpart for bf16 inputs (the K-tile body of the
+// bf16 fused kernel that flash_bwd_sm90.cu replaced, without its dq
+// product). Warp w owns key rows w*16 .. +15: S^T = K.Q^T and dP^T =
+// V.dO^T, so P^T and dS^T are the A fragments of dv += P^T.dO and dk +=
+// dS^T.Q straight from registers.
 template <int DH>
 __global__ void __launch_bounds__(kFwdThreads)
     flash_bwd_dkv_bf16(const bf16* __restrict__ q,
@@ -1596,51 +1418,39 @@ struct LaunchFwd {
   }
 };
 
-// the fused backward and dq_reduce
+// the fused backward for f32 inputs and dq_reduce (bf16 inputs take
+// flash_bwd_sm90.cu)
 template <typename T, int DH>
 struct LaunchBwd {
+  static_assert(std::is_same<T, float>::value, "f32 inputs only");
   static cudaError_t run(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dq, void* dk, void* dv, void* dq_part, int bh,
                          int s, int causal, int n_chunks, float scale,
                          cudaStream_t stream) {
     const dim3 grid(n_chunks, bh);
-    cudaError_t rc;
-    if constexpr (std::is_same<T, bf16>::value) {
-      constexpr size_t bytes = bwd_bf16_smem_bytes<DH>();
-      rc = allow_smem(flash_bwd_bf16<DH>, bytes);
-      if (rc != cudaSuccess) {
-        return rc;
-      }
-      flash_bwd_bf16<DH><<<grid, kFwdThreads, bytes, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dk), static_cast<T*>(dv),
-          static_cast<float*>(dq_part), s, causal, scale);
-    } else {
-      constexpr size_t bytes = bwd_f32_smem_bytes<DH>();
-      rc = allow_smem(flash_bwd_f32<DH>, bytes);
-      if (rc != cudaSuccess) {
-        return rc;
-      }
-      flash_bwd_f32<DH><<<grid, kBwdThreads, bytes, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dk), static_cast<T*>(dv),
-          static_cast<float*>(dq_part), s, causal, scale);
+    constexpr size_t bytes = bwd_f32_smem_bytes<DH>();
+    cudaError_t rc = allow_smem(flash_bwd_f32<DH>, bytes);
+    if (rc != cudaSuccess) {
+      return rc;
     }
+    flash_bwd_f32<DH><<<grid, kBwdThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk), static_cast<float*>(dv),
+        static_cast<float*>(dq_part), s, causal, scale);
     rc = cudaGetLastError();
     if (rc != cudaSuccess) {
       return rc;
     }
     const int64_t total = static_cast<int64_t>(bh) * s * DH;
     constexpr int kThreads = 256;
-    dq_reduce<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
-                   kThreads, 0, stream>>>(static_cast<const float*>(dq_part),
-                                          static_cast<T*>(dq), total, s, DH,
-                                          n_chunks, causal);
+    dq_reduce<float>
+        <<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
+           kThreads, 0, stream>>>(static_cast<const float*>(dq_part),
+                                  static_cast<float*>(dq), total, s, DH,
+                                  n_chunks, causal);
     return cudaGetLastError();
   }
 };
@@ -1768,12 +1578,13 @@ extern "C" int veles_flash_bwd(const void* q, const void* k, const void* v,
                                void* dv, void* dq_part, int bh, int s, int dh,
                                int dtype, int causal, int n_chunks,
                                float scale, void* stream) {
-  if (bad_shape(bh, s) || n_chunks <= 0 || n_chunks > (s + kBK - 1) / kBK) {
+  if (bad_shape(bh, s) || n_chunks <= 0 ||
+      n_chunks > (s + kBK - 1) / kBK || dtype != kF32) {
     return cudaErrorInvalidValue;
   }
-  return dispatch<LaunchBwd>(dtype, dh, q, k, v, dout, lse, delta, dq, dk,
-                             dv, dq_part, bh, s, causal, n_chunks, scale,
-                             static_cast<cudaStream_t>(stream));
+  return by_dh<LaunchBwd, float>(dh, q, k, v, dout, lse, delta, dq, dk, dv,
+                                 dq_part, bh, s, causal, n_chunks, scale,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int veles_flash_bwd_dq(const void* q, const void* k, const void* v,

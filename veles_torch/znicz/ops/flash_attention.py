@@ -16,10 +16,12 @@ dtype before the PV product; ds rounded likewise before the dk/dq
 products; f32 accumulation.
 
 bf16 inputs (the card's compute dtype) run the block products on the
-tensor cores (``mma.sync``); f32 inputs run scalar f32 FMAs. What bounds
-them on an H100, and what the kernels do about it, is noted in the CUDA
-source. Tiles are the port's own (64 x 64 for every dh); the JAX
-``block_q``/``block_k`` are VMEM-sized and not carried over.
+tensor cores (``mma.sync``; the fused backward on ``wgmma`` with TMA
+loads); f32 inputs run scalar f32 FMAs. What bounds them on an H100, and
+what the kernels do about it, is noted in the CUDA sources. Tiles are the
+port's own (64 x 64 for every dh; the bf16 fused backward 128 keys x 64
+queries); the JAX ``block_q``/``block_k`` are VMEM-sized and not carried
+over.
 """
 
 import ctypes
@@ -33,6 +35,9 @@ from veles_torch import kernels
 HEAD_DIMS = (16, 32, 64, 128)
 #: query rows / key rows per tile (``kBQ`` / ``kBK`` in the CUDA source)
 BLOCK_Q = BLOCK_K = 64
+#: keys per work item of the bf16 fused backward (``kBK`` in
+#: csrc/flash_bwd_sm90.cu; its Q tiles are BLOCK_Q rows)
+SM90_BLOCK_K = 128
 #: causal mask value of the TPU kernels
 MASK_VALUE = -1e9
 #: most bytes the backward's per-chunk f32 dq partials may take
@@ -65,6 +70,15 @@ _SIGNATURES = {
         ctypes.c_float, ctypes.c_void_p]),
     "veles_flash_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+_SM90_SIGNATURES = {
+    "veles_flash_bwd_sm90": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p]),
+    "veles_flash_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 
 
 def scale_for(dh):
@@ -73,7 +87,7 @@ def scale_for(dh):
     return float(numpy.float32(1.0 / numpy.sqrt(dh)))
 
 
-# -- launch plan (mirrors the loops of csrc/flash_attention.cu) ----------
+# -- launch plans (mirror the loops of the CUDA kernels) ------------------
 
 
 def n_tiles(s, block=BLOCK_Q):
@@ -136,6 +150,30 @@ def dkv_plan(s, kt, causal):
     edge = ragged and kt == n_tiles(s, BLOCK_K) - 1
     return [(qt, qt < clear or edge or (ragged and qt == n_qt - 1))
             for qt in range(lo, n_qt)]
+
+
+def bwd_sm90_plan(bh, s, causal):
+    """The bf16 fused backward's work plan (csrc/flash_bwd_sm90.cu) ->
+    ``(items, order)``. ``items``: the work items in ticket order, each
+    ``(b, kt, [(qt, masked), ...])``: heads in turn, K tiles of
+    SM90_BLOCK_K keys descending within a head, each over the Q tiles
+    that attend it (from the diagonal when causal), masked on the tiles
+    that cross the diagonal or hold a padded key or row. ``order[b,
+    qt]``: the K tiles that add to that Q tile's dq, in the order its
+    counter admits them: descending, the first stores without adding,
+    the last (K tile 0) writes the bf16 dq."""
+    ratio = SM90_BLOCK_K // BLOCK_Q
+    n_kt, n_qt = n_tiles(s, SM90_BLOCK_K), n_tiles(s, BLOCK_Q)
+    edge_k = n_kt - 1 if s % SM90_BLOCK_K else None
+    edge_q = n_qt - 1 if s % BLOCK_Q else None
+    items = [(b, kt, [(qt, (causal and qt < ratio * (kt + 1))
+                       or kt == edge_k or qt == edge_q)
+                      for qt in range(ratio * kt if causal else 0, n_qt)])
+             for b in range(bh) for kt in reversed(range(n_kt))]
+    order = {(b, qt): list(reversed(range(
+        min(n_kt - 1, qt // ratio) + 1 if causal else n_kt)))
+        for b in range(bh) for qt in range(n_qt)}
+    return items, order
 
 
 # -- plain versions -------------------------------------------------------
@@ -339,10 +377,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
     """Block-recomputation backward from the saved lse -> (dq, dk, dv)
     in q.dtype, exact. ``delta``: optional precomputed
     ``rowsum(dout·out)`` (B, H, S). ``fused=True`` runs the single-pass
-    kernel (``_dkvq_kernel``'s counterpart); ``fused=False`` the dq kernel
-    and the dk/dv kernel (:func:`flash_attention_dq`,
-    :func:`flash_attention_dkv`), which recompute the scores in each
-    but need no dq partials. CUDA tensors go to the kernels (or this
+    kernel (``_dkvq_kernel``'s counterpart: for bf16 the wgmma kernel of
+    csrc/flash_bwd_sm90.cu, dq summed in a fixed order in one f32
+    workspace; for f32 the chunked kernel and its dq partials);
+    ``fused=False`` the dq kernel and the dk/dv kernel
+    (:func:`flash_attention_dq`, :func:`flash_attention_dkv`), which
+    recompute the scores in each. CUDA tensors go to the kernels (or this
     raises), CPU tensors to the plain versions."""
     if not fused:
         if delta is None:
@@ -356,6 +396,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
                                          delta)
     b, h, s, dh = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        n_qt = n_tiles(s, BLOCK_Q)
+        dq_acc = torch.empty((b * h, n_qt * BLOCK_Q, dh),
+                             dtype=torch.float32, device=q.device)
+        # the ticket, then one counter per (b*h, Q tile)
+        sync = torch.zeros(1 + b * h * n_qt, dtype=torch.int32,
+                           device=q.device)
+        lib = kernels.load("flash_bwd_sm90", _SM90_SIGNATURES)
+        rc = lib.veles_flash_bwd_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dq_acc.data_ptr(), sync.data_ptr(), b * h, s, dh,
+            int(causal), scale_for(dh), stream)
+        _raise_on(lib, rc, "flash_attention_bwd")
+        _launched("fused")
+        return dq, dk, dv
     n_chunks = bwd_chunks(b * h, s, dh)
     partial = torch.empty((n_chunks, b * h, s, dh), dtype=torch.float32,
                           device=q.device)
@@ -364,8 +421,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), partial.data_ptr(), b * h, s, dh,
-        _DTYPE_CODES[q.dtype], int(causal), n_chunks, scale_for(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODES[q.dtype], int(causal), n_chunks, scale_for(dh), stream)
     _raise_on(lib, rc, "flash_attention_bwd")
     _launched("fused")
     return dq, dk, dv
