@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card (the bias-gradient and
-flash-attention kernels, the two-kernel backward's too, against their
-plain versions, and their refusals); they skip without one.
+flash-attention kernels, the bf16 wgmma forward and backward and the
+two-kernel backward's too, against their plain versions, and their
+refusals); they skip without one.
 
 This file imports neither jax nor the JAX package, so it runs on a card
 host that has only PyTorch:
@@ -231,3 +232,72 @@ def test_flash_fused_backward_sm90_refuses_what_it_does_not_take(card):
         FA.flash_attention_bwd(q, k.transpose(2, 3).contiguous()
                                .transpose(2, 3), v, out, lse, dout)
     assert FA.flash_attention_bwd.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 77, 16), (64, 4, 32, 16),
+                                   (1, 2, 300, 16), (1, 2, 130, 32),
+                                   (4, 4, 256, 32), (2, 3, 200, 64),
+                                   (1, 2, 700, 64), (1, 2, 77, 128),
+                                   (2, 3, 200, 128), (1, 2, 520, 128)],
+                         ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_sm90_matches_plain(card, causal, shape):
+    """The bf16 forward (the wgmma kernel of csrc/flash_fwd_sm90.cu) at
+    every head dim it takes, S ragged or not, one K tile or several, more
+    than its load ring holds (S 700 at dh 64, 520 at dh 128), both
+    variants: against its
+    plain version (``_rel`` 2e-2, lse 1e-3); with the bf16 accumulator
+    against the plain bf16-accumulated version, which rounds the chain
+    once where the kernel rounds once per K tile (``_rel`` 5e-2); two
+    launches bitwise equal; the pipelined variant's extra mask tests
+    change no bit; each launch counted once in its variant."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    q, k, v, _ = _flash_inputs(card, shape, torch.bfloat16, seed=17)
+    FA.reset_launches()
+    got = {}
+    for acc in (None, torch.bfloat16):
+        want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v, causal,
+                                                          acc)
+        for pipeline in (False, True):
+            out, lse = FA.flash_attention_fwd(q, k, v, causal, pipeline,
+                                              acc)
+            again = FA.flash_attention_fwd(q, k, v, causal, pipeline, acc)
+            torch.cuda.synchronize()
+            assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+            assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+            assert bool(torch.isfinite(out.float()).all())
+            assert _rel(out, want_out) <= (2e-2 if acc is None else 5e-2)
+            assert (lse - want_lse).abs().max().item() <= 1e-3
+            got[acc, pipeline] = out, lse
+        for a, b in zip(got[acc, False], got[acc, True]):
+            assert torch.equal(a, b)
+    assert FA.flash_attention_fwd.variant_launches == {"fwd": 4,
+                                                       "fwd_pipe": 4}
+    assert FA.flash_attention_fwd.launches == 8
+
+
+@pytest.mark.cuda
+def test_flash_forward_sm90_refuses_what_it_does_not_take(card):
+    """The bf16 forward's wrapper raises before any launch on a head dim,
+    dtype, device, layout or accumulator the kernel does not take."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    q, k, v, _ = _flash_inputs(card, (1, 2, 64, 32), torch.bfloat16)
+    FA.reset_launches()
+    q8 = torch.zeros((1, 2, 64, 8), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd(q8, q8, q8)
+    with pytest.raises(TypeError):
+        FA.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        FA.flash_attention_fwd(q, k.float(), v)
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd(q, k.transpose(2, 3).contiguous()
+                               .transpose(2, 3), v)
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd(q, k, v, acc_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        FA.flash_attention_fwd(q, k[:, :, :32], v)
+    assert FA.flash_attention_fwd.launches == 0

@@ -489,3 +489,156 @@ def test_sm90_dq_order_matches_plain(causal, s, dh):
             acc = part if acc is None else acc + part
         got[bh, rows] = acc
     assert _scaled_err(got.reshape(b, h, s, dh), want) <= 1e-5
+
+
+# -- the bf16 forward of csrc/flash_fwd_sm90.cu ---------------------------
+
+
+def _attended_fwd_sm90(s, qt, kt, causal):
+    """The (row, key) pairs of Q tile ``qt`` (SM90_FWD_BLOCK_Q rows) and K
+    tile ``kt`` (SM90_BLOCK_K keys) that attend, over rows and keys below
+    S."""
+    rows = numpy.arange(qt * FA.SM90_FWD_BLOCK_Q,
+                        min((qt + 1) * FA.SM90_FWD_BLOCK_Q, s))
+    keys = numpy.arange(kt * FA.SM90_BLOCK_K,
+                        min((kt + 1) * FA.SM90_BLOCK_K, s))
+    if causal:
+        return keys[None, :] <= rows[:, None]
+    return numpy.ones((len(rows), len(keys)), bool)
+
+
+@pytest.mark.parametrize("s", [1, 77, 127, 128, 129, 200, 512, 8192])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("pipe", [False, True])
+def test_fwd_sm90_plan_covers_every_pair_once(pipe, causal, s):
+    """The bf16 forward's work items, on two heads: in order with the Q
+    tiles longest first and every head's tile in turn; every
+    attended (row, key) pair in exactly one visited (Q tile, K tile) and
+    no other tile visited; each CTA's K tiles ascending; ``pipe=True``
+    masks every visited tile, ``pipe=False`` exactly the tiles that hold
+    a masked pair or a padded key (padded query rows are never stored)."""
+    heads = 2
+    plan = FA.fwd_sm90_plan(heads, s, causal, pipe)
+    n_qt = FA.n_tiles(s, FA.SM90_FWD_BLOCK_Q)
+    n_kt = FA.n_tiles(s, FA.SM90_BLOCK_K)
+    assert [(b, qt) for b, qt, _ in plan] == [
+        (b, qt) for qt in reversed(range(n_qt)) for b in range(heads)]
+    for b, qt, visits in plan:
+        kts = [kt for kt, _ in visits]
+        assert kts == sorted(set(kts))
+        for kt in range(n_kt):
+            attended = _attended_fwd_sm90(s, qt, kt, causal)
+            assert (kt in kts) == bool(attended.any()), (qt, kt)
+        for kt, masked in visits:
+            attended = _attended_fwd_sm90(s, qt, kt, causal)
+            padded = (kt + 1) * FA.SM90_BLOCK_K > s
+            assert masked == (pipe or padded or not attended.all()), \
+                (qt, kt)
+
+
+@pytest.mark.parametrize("bh,s", [(96, 512), (48, 8192), (2, 77),
+                                  (256, 32), (1, 1000)])
+def test_fwd_sm90_deal_gives_every_item_once(bh, s):
+    """The persistent forward's deal over 132 SMs (an H100's; fewer CTAs
+    when there are fewer items): every item to exactly one CTA, each
+    CTA's items in plan order (longest first), and on a causal plan no
+    CTA's share of K tiles more than the longest item above the mean."""
+    plan = FA.fwd_sm90_plan(bh, s, True, False)
+    grid = min(len(plan), 132)
+    deal = FA.fwd_sm90_deal(len(plan), grid)
+    assert len(deal) == grid
+    assert sorted(i for items in deal for i in items) == list(range(len(plan)))
+    work = [sum(len(plan[i][2]) for i in items) for items in deal]
+    longest = max(len(visits) for _, _, visits in plan)
+    for items in deal:
+        assert items == sorted(items) and items
+    assert max(work) <= sum(work) / grid + longest
+
+
+def _fwd_sm90_sim(q, k, v, causal, pipe, acc_dtype=None):
+    """The bf16 forward's arithmetic in f32 on the CPU, after its plan:
+    per CTA, its K tiles in order, each an online-softmax step (running
+    max and sum in f32, p in the storage dtype for the PV product, the
+    mask only on the plan's masked tiles, padded keys left out as the
+    kernel's -inf leaves them); the PV chain in f32, or with ``acc_dtype``
+    bf16 rounded once per K tile as the kernel rounds it:
+    acc = bf16(bf16(acc * bf16(coef)) + bf16(pv))."""
+    b, h, s, dh = q.shape
+    scale = FA.scale_for(dh)
+    qf, kf, vf = (t.reshape(b * h, s, dh).float() for t in (q, k, v))
+    out = torch.empty((b * h, s, dh), dtype=q.dtype)
+    lse = torch.empty((b * h, s))
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float()
+
+    bq, bk = FA.SM90_FWD_BLOCK_Q, FA.SM90_BLOCK_K
+    for bh, qt, visits in FA.fwd_sm90_plan(b * h, s, causal, pipe):
+        rows = torch.arange(qt * bq, min(qt * bq + bq, s))
+        m = torch.full((len(rows), 1), -numpy.inf)
+        l = torch.zeros((len(rows), 1))
+        acc = torch.zeros((len(rows), dh))
+        for kt, masked in visits:
+            keys = torch.arange(kt * bk, min(kt * bk + bk, s))
+            x = torch.matmul(qf[bh, rows], kf[bh, keys].T) * scale
+            if masked and causal:
+                x = x.masked_fill(keys[None, :] > rows[:, None],
+                                  FA.MASK_VALUE)
+            m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+            p = torch.exp(x - m_new)
+            coef = torch.exp(m - m_new)
+            l = l * coef + p.sum(dim=-1, keepdim=True)
+            pv = torch.matmul(p.to(q.dtype).float(), vf[bh, keys])
+            if acc_dtype == torch.bfloat16:
+                acc = rnd(rnd(acc * rnd(coef)) + rnd(pv))
+            else:
+                acc = acc * coef + pv
+            m = m_new
+        out[bh, rows] = (acc / l).to(q.dtype)
+        lse[bh, rows] = (m + torch.log(l)).squeeze(-1)
+    return out.reshape(b, h, s, dh), lse.reshape(b, h, s)
+
+
+@pytest.mark.parametrize("s", [64, 77, 200, 300])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("pipe", [False, True])
+def test_fwd_sm90_simulation_matches_plain(pipe, causal, s):
+    """The bf16 forward's per-K-tile arithmetic with the f32 chain, on f32
+    inputs, against flash_attention_fwd_plain: out and lse to 1e-5 (the
+    same function with its sums taken per K tile)."""
+    q, k, v = _t(*_inputs(s, dh=32, seed=41)[:3])
+    out, lse = _fwd_sm90_sim(q, k, v, causal, pipe)
+    want_out, want_lse = FA.flash_attention_fwd_plain(q, k, v, causal)
+    _close(out, want_out, 1e-5)
+    _close(lse, want_lse, 1e-5)
+
+
+#: the bf16 chain against the Pallas kernel's, both rounding once per K
+#: tile of 128 keys: they differ only where an f32 exp or sum rounds
+#: differently and moves a bf16 rounding (read on this test's inputs:
+#: 9.5e-7 causal, 0 non-causal; the plain version, which rounds the chain
+#: once, reads 3.9e-3 against the same Pallas output)
+ACC_BF16_VS_PALLAS = 1e-3
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_sm90_acc_bf16_matches_pallas(causal):
+    """With the bf16 accumulator, bf16 inputs, S = 384 (three K tiles of
+    128): the simulation against the Pallas ``_fwd_kernel`` in interpret
+    mode with ``acc_dtype=bfloat16`` and ``block_k=128``, within
+    ACC_BF16_VS_PALLAS and closer than the plain version, which rounds
+    the chain once at the end; lse to 1e-5."""
+    q, k, v, _ = _inputs(384, dh=16, seed=43)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want, want_lse = PA.flash_attention_fwd(
+        jq, jk, jv, causal=causal, block_q=128, block_k=128, interpret=True,
+        acc_dtype=jnp.bfloat16)
+    want = numpy.asarray(want.astype(jnp.float32))
+    tq, tk, tv = _t(q, k, v, dtype=torch.bfloat16)
+    out, lse = _fwd_sm90_sim(tq, tk, tv, causal, False, torch.bfloat16)
+    plain = FA.flash_attention_fwd_plain(tq, tk, tv, causal,
+                                         torch.bfloat16)[0]
+    err = numpy.abs(out.float().numpy() - want).max()
+    err_plain = numpy.abs(plain.float().numpy() - want).max()
+    assert err <= ACC_BF16_VS_PALLAS and err < err_plain, (err, err_plain)
+    _close(lse, want_lse, 1e-5)

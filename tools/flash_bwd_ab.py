@@ -15,10 +15,8 @@ mean anything) and times each: the gap to the full kernel is what that
 part costs. Prints one JSON line per shape; needs one card.
 """
 
-import ctypes
 import json
 import os
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,30 +49,10 @@ def build(sources):
     from veles_torch import kernels
     from veles_torch.znicz.ops import flash_attention as FA
     # beside chip_smoke.py's traces and logs (git ignores the directory)
-    out = os.path.join(C.OUT_DIR, "flash_bwd_ab")
-    os.makedirs(out, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        src = os.path.join(out, "%s.cu" % name)
-        with open(src, "w") as f:
-            f.write(text)
-        procs[name] = subprocess.Popen(
-            [kernels.nvcc(), *kernels.NVCC_FLAGS, "-o",
-             os.path.join(out, "lib%s.so" % name), src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate(timeout=kernels.BUILD_TIMEOUT)
-        with open(os.path.join(out, "nvcc_%s.log" % name), "w") as f:
-            f.write(log)
-        if proc.returncode:
-            raise RuntimeError("nvcc failed for %s:\n%s" % (name, log))
-        lib = ctypes.CDLL(os.path.join(out, "lib%s.so" % name))
-        for fn, (restype, argtypes) in FA._SM90_SIGNATURES.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        libs[name] = lib
-    return libs
+    paths = kernels.build_copies(sources,
+                                 os.path.join(C.OUT_DIR, "flash_bwd_ab"))
+    return {name: kernels.open_library(path, FA._SM90_SIGNATURES)
+            for name, path in paths.items()}
 
 
 def launcher(torch, lib, q, k, v, dout, lse, delta, causal):

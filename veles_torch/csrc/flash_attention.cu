@@ -5,8 +5,12 @@
 // Replaces the Pallas TPU kernels of veles/znicz_tpu/parallel/
 // pallas_attention.py:
 //
-//   flash_fwd_{bf16,f32}<.., PIPE=false>  _fwd_kernel (flash_attention_fwd)
-//   flash_fwd_{bf16,f32}<.., PIPE=true>   _fwd_kernel_pipe (pipeline=True)
+//   flash_fwd_f32<.., PIPE=false>         _fwd_kernel (flash_attention_fwd)
+//                                         for f32 inputs; bf16 inputs take
+//                                         flash_fwd_sm90 in
+//                                         flash_fwd_sm90.cu (wgmma + TMA)
+//   flash_fwd_f32<.., PIPE=true>          _fwd_kernel_pipe (pipeline=True),
+//                                         likewise
 //   flash_bwd_f32 + dq_reduce             _dkvq_kernel (flash_attention_bwd,
 //                                         fused=True) for f32 inputs; bf16
 //                                         inputs take flash_bwd_sm90 in
@@ -31,15 +35,14 @@
 // column reads that spread over the banks). Any S: rows and columns
 // past S load as zeros and are masked in the kernel; the JAX version
 // needs tiles that divide S, this one does not. Two paths, by dtype:
-//   bf16 (the card's compute dtype, the main path): *_bf16 kernels, the
-//     block products on the tensor cores with mma.sync m16n8k16 (bf16
-//     in, f32 accumulate), 4 warps of 16 rows each; the online softmax
-//     stays in registers.
+//   bf16 (the card's compute dtype): the two-kernel backward's
+//     *_bf16 kernels, the block products on the tensor cores with
+//     mma.sync m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 rows
+//     each. The forward and the fused backward, the LM's path, run on
+//     wgmma with TMA loads in flash_fwd_sm90.cu and flash_bwd_sm90.cu.
 //   f32: *_f32 kernels. The tensor cores take no f32, so each thread
 //     owns a strided micro-tile of every product and runs scalar f32 FMAs
 //     out of shared memory, score tiles staged there too.
-// wgmma and TMA (the full Hopper rate) are later work here; the bf16
-// fused backward has them (flash_bwd_sm90.cu).
 //
 // Bounds on an H100 (989 TFLOP/s bf16, 67 TFLOP/s f32 outside the
 // tensor cores, 3.35 TB/s):
@@ -66,8 +69,8 @@
 // every fully masked tile (half the work), evaluate the mask only where
 // a tile can need it, and start the longest causal rows first.
 //
-// Pipelined forward: the TPU kernel double-buffers K/V blocks from HBM
-// with make_async_copy and DMA semaphores. Here a two-stage cp.async
+// Pipelined forward (f32): the TPU kernel double-buffers K/V blocks from
+// HBM with make_async_copy and DMA semaphores. Here a two-stage cp.async
 // ring does the same: tile j+1 is in flight while tile j computes. As on
 // the TPU, that variant applies the mask to every tile.
 //
@@ -813,8 +816,8 @@ __global__ void __launch_bounds__(kBwdThreads)
 // t = lane%4 a thread holds: of A, rows g and g+8 at columns 2t, 2t+1,
 // 2t+8, 2t+9; of B, k = 2t, 2t+1, 2t+8, 2t+9 at n = g; of C/D, rows g
 // and g+8 at columns 2t, 2t+1. Two f32 C tiles pack straight into the
-// A fragment of the next product (p after QK^T; P^T and dS^T in the
-// backward), rounded to bf16 as the TPU kernels round p and ds.
+// A fragment of the next product (dS in the dq kernel, P^T and dS^T in
+// the dk/dv kernel), rounded to bf16 as the TPU kernels round p and ds.
 
 using bf16 = __nv_bfloat16;
 
@@ -886,196 +889,12 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4][4],
   }
 }
 
-template <int DH, bool PIPE>
-constexpr size_t fwd_bf16_smem_bytes() {
-  return sizeof(bf16) * Tile<bf16, DH>::kElems * (1 + 2 * (PIPE ? 2 : 1));
-}
-
-// flash_fwd_f32's counterpart for bf16 inputs: the same CTA plan and
-// online softmax, with QK^T and PV on the tensor cores. Warp w owns query
-// rows w*16 .. +15; m and l live in registers (rows g and g+8 of the
-// warp).
-template <int DH, bool PIPE>
-__global__ void __launch_bounds__(kFwdThreads)
-    flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                  float* __restrict__ lse, int s, int causal, int acc_bf16,
-                  float scale) {
-  using TL = Tile<bf16, DH>;
-  constexpr int kLd = TL::kLd;
-  constexpr int KS = DH / 16;  // k steps over dh
-  constexpr int NT = kBK / 8;  // score n-tiles
-  constexpr int ON = DH / 8;   // output n-tiles
-  constexpr int kStages = PIPE ? 2 : 1;
-  static_assert(kBQ == 16 * (kFwdThreads / 32), "a warp per 16 rows");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + TL::kElems;
-  bf16* sV = sK + kStages * TL::kElems;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int g = (tid % 32) / 4;
-  const int t = tid % 4;
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int64_t base = static_cast<int64_t>(bh) * s * DH;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
-  const int n_kt = (s + kBK - 1) / kBK;
-  const int hi = causal ? min(n_kt, (q0 + kBQ + kBK - 1) / kBK) : n_kt;
-  const int clear = causal ? q0 / kBK : n_kt;
-  const bool ragged = s % kBK != 0;
-  const int row0 = q0 + warp * 16 + g;  // and row0 + 8
-
-  if constexpr (PIPE) {
-    load_tile_async<bf16, DH, kFwdThreads>(sK, kb, 0, s);
-    load_tile_async<bf16, DH, kFwdThreads>(sV, vb, 0, s);
-    cp_async_commit();
-  }
-  load_tile<bf16, DH, kFwdThreads>(sQ, q + base, q0, s);
-  __syncthreads();
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    ld_a(qa[kk], sQ, kLd, warp * 16, kk * 16, g, t);
-  }
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.0f, 0.0f};
-  float o[ON][4];
-  zero(o);
-
-  for (int j = 0; j < hi; ++j) {
-    const bf16* tK = sK;
-    const bf16* tV = sV;
-    if constexpr (PIPE) {
-      if (j + 1 < hi) {
-        const int nxt = (j + 1) & 1;
-        load_tile_async<bf16, DH, kFwdThreads>(sK + nxt * TL::kElems, kb,
-                                               (j + 1) * kBK, s);
-        load_tile_async<bf16, DH, kFwdThreads>(sV + nxt * TL::kElems, vb,
-                                               (j + 1) * kBK, s);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      tK = sK + (j & 1) * TL::kElems;
-      tV = sV + (j & 1) * TL::kElems;
-    } else {
-      load_tile<bf16, DH, kFwdThreads>(sK, kb, j * kBK, s);
-      load_tile<bf16, DH, kFwdThreads>(sV, vb, j * kBK, s);
-    }
-    __syncthreads();
-
-    float sc[NT][4];
-    zero(sc);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t b0, b1;
-        ld_b_t(b0, b1, tK, kLd, nt * 8, kk * 16, g, t);
-        mma16816(sc[nt], qa[kk], b0, b1);
-      }
-    }
-    const bool masked = PIPE || j >= clear || (ragged && j == n_kt - 1);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[nt][e] * scale;
-        if (masked) {
-          const int col = j * kBK + nt * 8 + 2 * t + (e & 1);
-          if (causal && col > row0 + 8 * (e >> 1)) {
-            x = kMaskValue;
-          }
-          if (col >= s) {
-            x = -INFINITY;
-          }
-        }
-        sc[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float coef[2];
-    float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      coef[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[nt][e] - m[e >> 1]);
-        sc[nt][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // butterfly over the row's 4 lanes: the same order-fixed sum in each
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * coef[r] + rs[r];
-    }
-    uint32_t pa[kBK / 16][4];
-    c_to_a(pa, sc);
-#pragma unroll
-    for (int nt = 0; nt < ON; ++nt) {
-      float c[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        c[e] = acc_bf16 ? 0.0f : o[nt][e] * coef[e >> 1];
-      }
-#pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) {
-        uint32_t b0, b1;
-        ld_b(b0, b1, tV, kLd, nt * 8, ks * 16, g, t);
-        mma16816(c, pa[ks], b0, b1);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        o[nt][e] = acc_bf16
-                       ? round_bf16(round_bf16(o[nt][e] *
-                                               round_bf16(coef[e >> 1])) +
-                                    round_bf16(c[e]))
-                       : c[e];
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row < s) {
-      bf16* dst = out + base + static_cast<int64_t>(row) * DH + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < ON; ++nt) {
-        *reinterpret_cast<uint32_t*>(dst + nt * 8) =
-            pack_bf16(o[nt][2 * r] / l[r], o[nt][2 * r + 1] / l[r]);
-      }
-      if (t == 0) {
-        lse[static_cast<int64_t>(bh) * s + row] = m[r] + logf(l[r]);
-      }
-    }
-  }
-}
-
 template <int DH>
 constexpr size_t bwd_dq_bf16_smem_bytes() {
   return sizeof(bf16) * Tile<bf16, DH>::kElems * 4;
 }
 
-// flash_bwd_dq_f32's counterpart for bf16 inputs, the forward's warp plan:
+// flash_bwd_dq_f32's counterpart for bf16 inputs, a warp per 16 rows:
 // warp w owns query rows w*16 .. +15 (rows g and g+8 of the warp in each
 // thread, with their lse and delta in registers). S = Q.K^T and dP =
 // dO.V^T land in C fragments, dS packs into the A fragments of dq += dS.K.
@@ -1374,47 +1193,37 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // the caller's stream and returns cudaGetLastError(); dispatch() picks T
 // and DH from the caller's dtype code and head dim.
 
-template <typename T, int DH, bool PIPE>
+// the forward for f32 inputs (bf16 inputs take flash_fwd_sm90.cu)
+template <int DH, bool PIPE>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                        void* lse, int bh, int s, int causal, int acc_bf16,
                        float scale, cudaStream_t stream) {
   const dim3 grid((s + kBQ - 1) / kBQ, bh);
-  if constexpr (std::is_same<T, bf16>::value) {
-    constexpr size_t bytes = fwd_bf16_smem_bytes<DH, PIPE>();
-    cudaError_t rc = allow_smem(flash_fwd_bf16<DH, PIPE>, bytes);
-    if (rc != cudaSuccess) {
-      return rc;
-    }
-    flash_fwd_bf16<DH, PIPE><<<grid, kFwdThreads, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), s, causal, acc_bf16, scale);
-  } else {
-    constexpr size_t bytes = fwd_f32_smem_bytes<DH, PIPE>();
-    cudaError_t rc = allow_smem(flash_fwd_f32<DH, PIPE>, bytes);
-    if (rc != cudaSuccess) {
-      return rc;
-    }
-    flash_fwd_f32<DH, PIPE><<<grid, kFwdThreads, bytes, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
-        static_cast<float*>(lse), s, causal, acc_bf16, scale);
+  constexpr size_t bytes = fwd_f32_smem_bytes<DH, PIPE>();
+  cudaError_t rc = allow_smem(flash_fwd_f32<DH, PIPE>, bytes);
+  if (rc != cudaSuccess) {
+    return rc;
   }
+  flash_fwd_f32<DH, PIPE><<<grid, kFwdThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), s, causal, acc_bf16, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 struct LaunchFwd {
+  static_assert(std::is_same<T, float>::value, "f32 inputs only");
   static cudaError_t run(const void* q, const void* k, const void* v,
                          void* out, void* lse, int bh, int s, int causal,
                          int pipeline, int acc_bf16, float scale,
                          cudaStream_t stream) {
     if (pipeline) {
-      return launch_fwd<T, DH, true>(q, k, v, out, lse, bh, s, causal,
-                                     acc_bf16, scale, stream);
+      return launch_fwd<DH, true>(q, k, v, out, lse, bh, s, causal,
+                                  acc_bf16, scale, stream);
     }
-    return launch_fwd<T, DH, false>(q, k, v, out, lse, bh, s, causal,
-                                    acc_bf16, scale, stream);
+    return launch_fwd<DH, false>(q, k, v, out, lse, bh, s, causal, acc_bf16,
+                                 scale, stream);
   }
 };
 
@@ -1564,12 +1373,12 @@ extern "C" int veles_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int bh, int s, int dh,
                                int dtype, int causal, int pipeline,
                                int acc_bf16, float scale, void* stream) {
-  if (bad_shape(bh, s)) {
+  if (bad_shape(bh, s) || dtype != kF32) {
     return cudaErrorInvalidValue;
   }
-  return dispatch<LaunchFwd>(dtype, dh, q, k, v, out, lse, bh, s, causal,
-                             pipeline, acc_bf16, scale,
-                             static_cast<cudaStream_t>(stream));
+  return by_dh<LaunchFwd, float>(dh, q, k, v, out, lse, bh, s, causal,
+                                 pipeline, acc_bf16, scale,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int veles_flash_bwd(const void* q, const void* k, const void* v,

@@ -87,19 +87,18 @@
 //     the three writers make up the third warpgroup; setmaxnreg gives it
 //     56 registers and the consumers 224.
 //
+// The PTX wrappers and the tensor-map encoder are in sm90.cuh, shared
+// with the forward (flash_fwd_sm90.cu).
+//
 // Plain C interface for ctypes (veles_torch/kernels.py): one launch on the
 // caller's stream, returning cudaGetLastError() or the tensor map's
 // encode failure.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace veles_sm90;
 
 constexpr int kBQ = 64;              // query rows per Q tile (a step)
 constexpr int kBK = 128;             // keys per work item, 64 per warpgroup
@@ -107,186 +106,9 @@ constexpr int kStages = 2;           // Q/dO ring depth
 constexpr int kThreads = 384;        // 2 consumer warpgroups + 1 producer
 constexpr int kConsumers = 256;
 constexpr float kMaskValue = -1e9f;  // the TPU kernels' causal mask
-constexpr uint64_t kSpinNs = 10000000000ull;  // a wait this long is a fault
 
 // named barriers (0 is __syncthreads): one per consumer warpgroup
 constexpr int kBarWarpgroup = 1;
-
-// -- PTX wrappers ---------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint64_t now_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// until the phase of parity ``parity`` has completed; a wait of seconds
-// is a fault, and traps rather than hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) {
-    return;
-  }
-  const uint64_t t0 = now_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    if (now_ns() - t0 > kSpinNs) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// 16 bytes global -> shared through L2 only (cp.async.cg)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ int ld_relaxed(const int* p) {
-  int v;
-  asm volatile("ld.global.relaxed.gpu.b32 %0, [%1];\n"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void red_release(int* p, int v) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// A shared-memory matrix descriptor for wgmma: 128-byte swizzle, 8-row
-// groups 1024 bytes apart (SBO); every operand here spans one swizzle atom
-// along its contiguous dimension, so the leading offset is never used.
-__device__ __forceinline__ uint64_t desc(const void* p) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-#define VELES_ACC32(d)                                                   \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
-      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
-      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
-      "+f"(d[30]), "+f"(d[31])
-#define VELES_D32                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "    \
-  "%28, %29, %30, %31}"
-
-// d (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64), both from shared
-// memory; TA/TB: 0 K-major, 1 MN-major. scale_d 0 overwrites d.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VELES_D32
-      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : VELES_ACC32(d)
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 registers) . B (shared memory)
-template <int TB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VELES_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : VELES_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
-        "n"(TB));
-}
-
-#undef VELES_ACC32
-#undef VELES_D32
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // -- shared memory --------------------------------------------------------
 
@@ -732,55 +554,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // -- host side ------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                             cudaEnableDefault, &found);
-#endif
-    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// (b*h, S, dh) bf16 rows as a 3-D map, boxes of 64 columns x ``rows``
-// rows, 128-byte swizzle; columns past dh and rows past S read as zeros
-bool make_map(CUtensorMap* map, const void* base, int bh, int s, int dh,
-              int rows) {
-  EncodeTiled encode = encode_fn();
-  if (encode == nullptr) {
-    return false;
-  }
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * 2,
-                                 static_cast<cuuint64_t>(s) * dh * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,

@@ -214,7 +214,8 @@ class MultiHeadAttention(Forward):
 
     Config knobs shared with the reference: ``attn_impl`` (None, "scan",
     "pallas"), ``attn_block_size``, ``pallas_tile``, ``attn_pipeline``
-    (the cp.async double-buffered forward kernel) and ``attn_acc``
+    (``_fwd_kernel_pipe``'s counterpart, the mask on every tile) and
+    ``attn_acc``
     (None/"f32", or "bf16": the narrowed PV accumulation)."""
 
     PARAMS = ("weights", "bias", "weights_out", "bias_out")

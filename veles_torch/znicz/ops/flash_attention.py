@@ -9,19 +9,22 @@ Replaces the Pallas TPU kernels of
 one at a time as :func:`flash_attention_dq` and
 :func:`flash_attention_dkv`). The public functions keep the JAX
 signatures and the (B, H, S, dh) layout. On the card the work goes to
-the hand-written CUDA kernels in ``veles_torch/csrc/flash_attention.cu``;
-on the CPU to the ``*_plain`` versions, dense softmax attention under the
-kernels' dtype rules: f32 scores, exp and lse; p rounded to the storage
-dtype before the PV product; ds rounded likewise before the dk/dq
-products; f32 accumulation.
+the hand-written CUDA kernels in ``veles_torch/csrc/`` (``flash_fwd_sm90.cu``
+and ``flash_bwd_sm90.cu`` for bf16 inputs, ``flash_attention.cu`` for f32
+inputs and the two-kernel backward); on the CPU to the ``*_plain``
+versions, dense softmax attention under the kernels' dtype rules: f32
+scores, exp and lse; p rounded to the storage dtype before the PV
+product; ds rounded likewise before the dk/dq products; f32
+accumulation.
 
 bf16 inputs (the card's compute dtype) run the block products on the
-tensor cores (``mma.sync``; the fused backward on ``wgmma`` with TMA
-loads); f32 inputs run scalar f32 FMAs. What bounds them on an H100, and
-what the kernels do about it, is noted in the CUDA sources. Tiles are the
-port's own (64 x 64 for every dh; the bf16 fused backward 128 keys x 64
-queries); the JAX ``block_q``/``block_k`` are VMEM-sized and not carried
-over.
+tensor cores: the forward and the fused backward on ``wgmma`` with TMA
+loads, the two-kernel backward on ``mma.sync``; f32 inputs run scalar f32
+FMAs. What bounds them on an H100, and what the kernels do about it, is
+noted in the CUDA sources. Tiles are the port's own (64 x 64 for every
+dh; the bf16 forward 128 query rows x 128 keys, the bf16 fused backward
+128 keys x 64 queries); the JAX ``block_q``/``block_k`` are VMEM-sized
+and not carried over.
 """
 
 import ctypes
@@ -36,8 +39,12 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: query rows / key rows per tile (``kBQ`` / ``kBK`` in the CUDA source)
 BLOCK_Q = BLOCK_K = 64
 #: keys per work item of the bf16 fused backward (``kBK`` in
-#: csrc/flash_bwd_sm90.cu; its Q tiles are BLOCK_Q rows)
+#: csrc/flash_bwd_sm90.cu; its Q tiles are BLOCK_Q rows), and per K tile
+#: of the bf16 forward (csrc/flash_fwd_sm90.cu)
 SM90_BLOCK_K = 128
+#: query rows per CTA of the bf16 forward (``kBQ`` in
+#: csrc/flash_fwd_sm90.cu)
+SM90_FWD_BLOCK_Q = 128
 #: causal mask value of the TPU kernels
 MASK_VALUE = -1e9
 #: most bytes the backward's per-chunk f32 dq partials may take
@@ -79,6 +86,14 @@ _SM90_SIGNATURES = {
         ctypes.c_void_p]),
     "veles_flash_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+_SM90_FWD_SIGNATURES = {
+    "veles_flash_fwd_sm90": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p]),
+    "veles_flash_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 
 
 def scale_for(dh):
@@ -103,6 +118,36 @@ def fwd_k_tiles(s, qt, causal):
         return n_kt, n_kt
     q0 = qt * BLOCK_Q
     return min(n_kt, -(-(q0 + BLOCK_Q) // BLOCK_K)), q0 // BLOCK_K
+
+
+def fwd_sm90_plan(bh, s, causal, pipe):
+    """The bf16 forward's work items (csrc/flash_fwd_sm90.cu) in order:
+    ``[(b, qt, [(kt, masked), ...]), ...]``, one per (b*h, Q tile of
+    SM90_FWD_BLOCK_Q rows), Q tiles longest first and the heads in turn,
+    each over its K tiles of SM90_BLOCK_K keys: up to the diagonal when
+    causal. ``pipe=False`` masks the tiles from the diagonal on and the
+    ragged last K tile; ``pipe=True`` every visited tile."""
+    n_qt = n_tiles(s, SM90_FWD_BLOCK_Q)
+    n_kt = n_tiles(s, SM90_BLOCK_K)
+    edge = n_kt - 1 if s % SM90_BLOCK_K else None
+    plan = []
+    for qt in reversed(range(n_qt)):
+        hi, clear = (min(n_kt, qt + 1), qt) if causal else (n_kt, n_kt)
+        for b in range(bh):
+            plan.append((b, qt, [(kt, pipe or kt >= clear or kt == edge)
+                                 for kt in range(hi)]))
+    return plan
+
+
+def fwd_sm90_deal(n_items, grid):
+    """The items of :func:`fwd_sm90_plan` each CTA of the persistent
+    forward takes, in order (``Deal`` in csrc/flash_fwd_sm90.cu): rounds
+    of one item per CTA, every other round in reverse."""
+    deal = [[] for _ in range(grid)]
+    for i in range(n_items):
+        r, x = divmod(i, grid)
+        deal[grid - 1 - x if r % 2 else x].append(i)
+    return deal
 
 
 def bwd_chunks(bh, s, dh):
@@ -323,11 +368,12 @@ def _raise_on(lib, rc, name):
 def flash_attention_fwd(q, k, v, causal=True, pipeline=False,
                         acc_dtype=None):
     """q/k/v: (B, H, S, dh) -> (out in q.dtype, lse (B, H, S) f32),
-    exact. ``pipeline=True`` takes the cp.async double-buffered kernel
-    (``_fwd_kernel_pipe``'s counterpart); ``acc_dtype=torch.bfloat16``
-    narrows the PV accumulation chain (the ``attn_acc="bf16"``
-    experiment). CUDA tensors go to the kernel (or this raises), CPU
-    tensors to :func:`flash_attention_fwd_plain`."""
+    exact. ``pipeline=True`` takes ``_fwd_kernel_pipe``'s counterpart,
+    which masks every visited tile; ``acc_dtype=torch.bfloat16`` narrows
+    the PV accumulation chain (the ``attn_acc="bf16"`` experiment). CUDA
+    tensors go to the kernels (bf16: the wgmma kernel of
+    csrc/flash_fwd_sm90.cu; f32: the scalar one of flash_attention.cu), or
+    this raises; CPU tensors to :func:`flash_attention_fwd_plain`."""
     if acc_dtype not in (None, torch.float32, torch.bfloat16):
         raise ValueError("acc_dtype must be None, float32 or bfloat16, "
                          "got %r" % (acc_dtype,))
@@ -336,12 +382,20 @@ def flash_attention_fwd(q, k, v, causal=True, pipeline=False,
     b, h, s, dh = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    lib = kernels.load("flash_attention", _SIGNATURES)
-    rc = lib.veles_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b * h, s, dh, _DTYPE_CODES[q.dtype], int(causal),
-        int(pipeline), int(acc_dtype == torch.bfloat16), scale_for(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    acc_bf16 = int(acc_dtype == torch.bfloat16)
+    if q.dtype == torch.bfloat16:
+        lib = kernels.load("flash_fwd_sm90", _SM90_FWD_SIGNATURES)
+        rc = lib.veles_flash_fwd_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b * h, s, dh, int(causal), int(pipeline),
+            acc_bf16, scale_for(dh), stream)
+    else:
+        lib = kernels.load("flash_attention", _SIGNATURES)
+        rc = lib.veles_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b * h, s, dh, _DTYPE_CODES[q.dtype],
+            int(causal), int(pipeline), acc_bf16, scale_for(dh), stream)
     _raise_on(lib, rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.variant_launches[
