@@ -17,12 +17,14 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    failing if one has none of either;
 3. kernels — holds the bias-gradient kernel against its plain PyTorch
    version on the card: every activation, float32 and bfloat16 inputs,
-   at the MNIST shapes and two large ones. The tolerance per column is
-   ``1e-4·Σ_n|dz[n,k]|`` against the plain math in float64 (f32 sums
-   taken in another order); two launches must agree bitwise. Times the
-   kernel, its plain version and, for the identity form, the one
-   PyTorch call that computes it, with the L2 cache flushed before
-   every launch, beside the least time the card could take;
+   at the MNIST shapes and two large ones; ``linear`` and ``tanh`` at the
+   110M LM step's shapes (``LM_SHAPES``) in the dtype the LM gives each.
+   The tolerance per column is ``1e-4·Σ_n|dz[n,k]|`` against the plain
+   math in float64 (f32 sums taken in another order); two launches must
+   agree bitwise. Times the kernel, its plain version and, for the
+   identity form, the one PyTorch call that computes it, with the L2
+   cache flushed before every launch, beside the least time the card
+   could take, at every shape;
 4. flash_kernels — the five flash-attention kernels (forward and
    pipelined forward: for bf16 the wgmma + TMA kernel of
    ``flash_fwd_sm90.cu``, for f32 the scalar one; fused backward: for bf16
@@ -60,7 +62,10 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    validation error must be below 0.15 and within 0.02 of the CPU run;
 7. profile — one more MNIST epoch under ``torch.profiler``: the
    device's busy time and idle share, launches per step, the top
-   device operations (trace in ``chiprun_out/mnist_epoch_trace.json``);
+   device operations, the bias-gradient kernel's device launches and
+   time by dtype, read from the trace by kernel name — one device launch
+   per call, or the run fails (trace in
+   ``chiprun_out/mnist_epoch_trace.json``);
 8. lm      — the transformer LM through the CLI entry point with
    ``attn_impl=pallas`` at seed 1337: (a) the sample's width on cuda
    and cpu for its 8 epochs — the validation loss must fall and end
@@ -85,7 +90,8 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    and dk/dv kernels;
 9. lm_profile — one full-width 110M train step under
    ``torch.profiler``: device busy time, idle share, top device
-   operations and the flash kernels' share (trace
+   operations, the flash kernels' share, and the bias-gradient kernel's
+   device time and launches by dtype, one device launch per call (trace
    ``lm_step_trace.json`` in the output directory of phase 7);
 10. the ``kernels`` summary line, the card line, and last
     ``{"ok": true, "device": {...}}``.
@@ -109,6 +115,19 @@ BF16_OPS_PER_S = 989e12
 ACTIVATIONS = ("linear", "softmax", "tanh", "relu", "strict_relu",
                "sigmoid")
 SHAPES = ((100, 100), (100, 10), (72900, 96), (4097, 1000))
+#: the bias gradients of the 110M LM step (N = B·S = 4096 rows): the
+#: attention and FFN output biases (768, bf16), the qkv bias (2304,
+#: bf16), the vocab head (16384, bf16), the layer norms' (768, f32) and
+#: the FFN's hidden bias (3072, f32)
+LM_SHAPES = (((4096, 768), "bfloat16"), ((4096, 2304), "bfloat16"),
+             ((4096, 16384), "bfloat16"), ((4096, 768), "float32"),
+             ((4096, 3072), "float32"))
+#: activations checked at LM_SHAPES: the identity form the LM runs and a
+#: masked one (every activation runs at SHAPES)
+LM_ACTIVATIONS = ("linear", "tanh")
+#: the bias-gradient kernel in a profiler trace (``bias_grad_kernel<T,
+#: ACT, VEC>`` in csrc/bias_grad.cu)
+BIAS_GRAD_KERNEL = "bias_grad_kernel"
 #: f32 operations per element of the masked sum, by activation
 #: (derivative, multiply by err, add); the identity form only adds
 OPS_PER_ELEMENT = {"linear": 1, "softmax": 1, "tanh": 5, "relu": 4,
@@ -314,49 +333,58 @@ class Timer:
         return times[len(times) // 2]
 
 
+def check_bias_grad(torch, err, y, act, forms):
+    """One (shape, dtype, activation) of phase kernels: the kernel twice
+    against the float64 math; -> max |error|."""
+    from veles_torch.znicz.ops import activations as A
+    from veles_torch.znicz.ops.bias_grad import bias_grad
+    n, k = err.shape
+    out = bias_grad(err, y, act)
+    again = bias_grad(err, y, act)
+    torch.cuda.synchronize()
+    if out.dtype != torch.float32 or out.shape != (k,):
+        fail("bias_grad %s %s: got %s %s"
+             % (act, (n, k), out.dtype, tuple(out.shape)))
+    if not torch.equal(out, again):
+        fail("bias_grad %s %s %s: two launches differ"
+             % (act, (n, k), err.dtype))
+    d = A.ACTIVATIONS[act][1](y.double())
+    dz = err.double() if isinstance(d, float) else err.double() * d
+    diff = (out.double() - dz.sum(dim=0)).abs()
+    limit = TOLERANCE * dz.abs().sum(dim=0)
+    if not bool((diff <= limit).all()):
+        fail("bias_grad %s %s %s: error %.3g over limit (worst ratio %.3g)"
+             % (act, (n, k), err.dtype, diff.max().item(),
+                (diff / limit.clamp_min(1e-30)).max().item()))
+    form = "identity" if A.is_identity(act) else "masked"
+    forms[form]["max_abs_err"] = max(forms[form]["max_abs_err"],
+                                     diff.max().item())
+    return diff.max().item()
+
+
 def check_kernels(torch, timer):
     """Phase 3; -> {form: {"max_abs_err", and the main-path times}}."""
-    from veles_torch.znicz.ops import activations as A
     from veles_torch.znicz.ops.bias_grad import bias_grad, bias_grad_plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1337)
     forms = {form: {"max_abs_err": 0.0} for form, _, _, _ in FORMS}
-    for n, k in SHAPES:
+    cases = [(shape, ("float32", "bfloat16"), ACTIVATIONS)
+             for shape in SHAPES] + [
+        (shape, (dname,), LM_ACTIVATIONS) for shape, dname in LM_SHAPES]
+    for (n, k), dnames, acts in cases:
         base_err = torch.randn((n, k), generator=gen, device="cuda")
         base_y = torch.randn((n, k), generator=gen, device="cuda")
-        for dtype in (torch.float32, torch.bfloat16):
+        for dname in dnames:
+            dtype = getattr(torch, dname)
             err, y = base_err.to(dtype), base_y.to(dtype)
-            worst = {}
-            for act in ACTIVATIONS:
-                out = bias_grad(err, y, act)
-                again = bias_grad(err, y, act)
-                torch.cuda.synchronize()
-                if out.dtype != torch.float32 or out.shape != (k,):
-                    fail("bias_grad %s %s: got %s %s"
-                         % (act, (n, k), out.dtype, tuple(out.shape)))
-                if not torch.equal(out, again):
-                    fail("bias_grad %s %s %s: two launches differ"
-                         % (act, (n, k), dtype))
-                d = A.ACTIVATIONS[act][1](y.double())
-                dz = err.double() if isinstance(d, float) \
-                    else err.double() * d
-                ref = dz.sum(dim=0)
-                diff = (out.double() - ref).abs()
-                limit = TOLERANCE * dz.abs().sum(dim=0)
-                if not bool((diff <= limit).all()):
-                    fail("bias_grad %s %s %s: error %.3g over limit "
-                         "(worst ratio %.3g)" % (
-                             act, (n, k), dtype, diff.max().item(),
-                             (diff / limit.clamp_min(1e-30)).max().item()))
-                form = "identity" if A.is_identity(act) else "masked"
-                forms[form]["max_abs_err"] = max(
-                    forms[form]["max_abs_err"], diff.max().item())
-                worst[act] = diff.max().item()
-            emit({"phase": "kernels", "shape": [n, k],
-                  "dtype": str(dtype).replace("torch.", ""),
+            worst = {act: check_bias_grad(torch, err, y, act, forms)
+                     for act in acts}
+            emit({"phase": "kernels", "shape": [n, k], "dtype": dname,
                   "max_abs_err": worst, "bitwise_repeat": True})
-        # timings in the card's activation dtype
-        err, y = base_err.to(torch.bfloat16), base_y.to(torch.bfloat16)
+        # timings in the card's activation dtype, or the LM's for its
+        # shapes
+        dtype = getattr(torch, dnames[-1])
+        err, y = base_err.to(dtype), base_y.to(dtype)
         for form, act, main_shape, _ in FORMS:
             row = {
                 "kernel_ms": timer(lambda: bias_grad(err, y, act)),
@@ -365,12 +393,15 @@ def check_kernels(torch, timer):
                     lambda: err.sum(0, dtype=torch.float32))
                 if form == "identity" else None,
             }
-            row["bound_ms"], row["bound_by"] = bound_ms(n, k, 2, act)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                n, k, err.element_size(), act)
             emit({"phase": "kernel_times", "form": form,
-                  "activation": act, "shape": [n, k], "dtype": "bfloat16",
+                  "activation": act, "shape": [n, k], "dtype": dnames[-1],
                   **row})
             if (n, k) == main_shape:
                 forms[form].update(row)
+        del base_err, base_y, err, y
+        torch.cuda.empty_cache()
     return forms
 
 
@@ -429,6 +460,27 @@ def top_ops(by_name, n=8):
             sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n]]
 
 
+def bias_grad_in_trace(by_name, calls, where):
+    """The bias-gradient kernel's device launches and ms in a trace, by
+    input dtype (read from the kernel name); fails unless the ``calls``
+    to the wrapper in the traced window launched one kernel each."""
+    rows = {}
+    for op, (count, ms) in by_name.items():
+        if BIAS_GRAD_KERNEL not in op:
+            continue
+        dname = "bfloat16" if "bfloat16" in op \
+            else "float16" if "__half" in op else "float32"
+        row = rows.setdefault(dname, {"launches": 0, "ms": 0.0})
+        row["launches"] += count
+        row["ms"] += ms
+    launches = sum(row["launches"] for row in rows.values())
+    if launches != calls:
+        fail("%s: %d bias-gradient kernels on the device for %d calls"
+             % (where, launches, calls))
+    return {"calls": calls, "launches": launches,
+            "ms": sum(row["ms"] for row in rows.values()), "by_dtype": rows}
+
+
 def profile_epoch(torch):
     """One steady MNIST epoch on the card under torch.profiler: device
     busy time (union of kernel, copy and memset intervals) against the
@@ -443,6 +495,7 @@ def profile_epoch(torch):
     wf.loader.next_epoch()
     steps0 = wf.step.train_steps
     torch.cuda.synchronize()
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -451,7 +504,9 @@ def profile_epoch(torch):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     busy_ms, n_ops, by_name, path = device_trace(prof,
                                                  "mnist_epoch_trace.json")
-    return {"phase": "profile", "wall_ms": wall_ms,
+    from veles_torch.znicz.ops.bias_grad import bias_grad
+    bias = bias_grad_in_trace(by_name, bias_grad.launches, "mnist epoch")
+    return {"phase": "profile", "wall_ms": wall_ms, "bias_grad": bias,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if n_ops else None,
             "device_ops": n_ops, "train_steps": wf.step.train_steps - steps0,
@@ -800,20 +855,25 @@ def run_lm(torch, name, device, *overrides, valid_must_fall=True):
     return wf, counts, summary
 
 
+def lm_batch(torch, wf):
+    """The first train minibatch of ``wf``'s loader on the card: (data,
+    labels, valid count), as ``TorchStep.train_minibatch`` takes it."""
+    from veles_torch.loader.base import CLASS_TRAIN
+    full = wf.loader.device_full_arrays("cuda")
+    idx_mat, valids = wf.loader.class_schedule(CLASS_TRAIN)
+    idx = torch.as_tensor(idx_mat[0], dtype=torch.int64, device="cuda")
+    return (torch.index_select(full["data"], 0, idx),
+            torch.index_select(full["labels"], 0, idx),
+            torch.tensor(int(valids[0]), device="cuda"))
+
+
 def profile_lm_step(torch, wf):
     """One full-width train step of ``wf`` (already run on the card)
     under torch.profiler: device busy time and idle share, the top
     device operations and the flash kernels' share; plus the host-clock
     time of 5 train steps."""
     from torch.profiler import ProfilerActivity, profile
-    from veles_torch.loader.base import CLASS_TRAIN
-    loader = wf.loader
-    full = loader.device_full_arrays("cuda")
-    idx_mat, valids = loader.class_schedule(CLASS_TRAIN)
-    idx = torch.as_tensor(idx_mat[0], dtype=torch.int64, device="cuda")
-    batch = (torch.index_select(full["data"], 0, idx),
-             torch.index_select(full["labels"], 0, idx),
-             torch.tensor(int(valids[0]), device="cuda"))
+    batch = lm_batch(torch, wf)
     wf.step.train_minibatch(*batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -821,6 +881,7 @@ def profile_lm_step(torch, wf):
         wf.step.train_minibatch(*batch)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / 5
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -830,6 +891,8 @@ def profile_lm_step(torch, wf):
     busy_ms, n_ops, by_name, path = device_trace(prof, "lm_step_trace.json")
     flash_ms = sum(t for op, (_, t) in by_name.items()
                    if "flash_" in op or "dq_reduce" in op)
+    from veles_torch.znicz.ops.bias_grad import bias_grad
+    bias = bias_grad_in_trace(by_name, bias_grad.launches, "110M step")
     b, s = batch[0].shape
     return {"phase": "lm_profile", "shape": [b, s], "step_ms": step_ms,
             "tokens_per_sec": b * s / step_ms * 1e3, "wall_ms": wall_ms,
@@ -837,6 +900,9 @@ def profile_lm_step(torch, wf):
             "device_idle_share": 1.0 - busy_ms / wall_ms if n_ops else None,
             "device_ops": n_ops, "flash_ms": flash_ms,
             "flash_share_of_busy": flash_ms / busy_ms if busy_ms else None,
+            "bias_grad": bias,
+            "bias_grad_share_of_busy": bias["ms"] / busy_ms if busy_ms
+            else None,
             "top_device_ops": top_ops(by_name, 12), "trace": path}
 
 

@@ -89,8 +89,8 @@ def test_two_kernel_matches_pallas(case):
     ``_dkv_kernel``) to 2e-4 on the reference's own cases; and, as
     ``test_pallas_bwd_fused_matches_two_kernel`` holds the reference's
     fused kernel to its two-kernel form, the port's fused call against
-    the same Pallas two-kernel output. dh 16: the wrappers refuse the
-    reference's dh 8, which no kernel of the port is built for."""
+    the same Pallas two-kernel output, at dh 16 (a head dim the kernels
+    are built for)."""
     q, k, v, dout = _inputs(case["s"], dh=16, seed=911)
     bq = case.get("bq", case.get("block"))
     bk = case.get("bk", case.get("block"))
@@ -238,7 +238,8 @@ def test_wrappers_take_cpu_tensors_to_the_plain_version():
 
 def test_wrappers_refuse_what_is_not_ported():
     """The wrappers' refusals; ``fused=False``, ported now, takes CPU
-    tensors to the plain versions and counts no launch."""
+    tensors to the plain versions and counts no launch, and so does a head
+    dim no kernel is built for (dh 8)."""
     q, k, v, dout = _t(*_inputs(64, dh=16))
     out, lse = FA.flash_attention_fwd(q, k, v)
     FA.reset_launches()
@@ -249,18 +250,76 @@ def test_wrappers_refuse_what_is_not_ported():
                        want[0])
     assert all(torch.equal(g, w) for g, w in zip(
         FA.flash_attention_dkv(q, k, v, out, lse, dout), want[1:]))
+    q8, k8, v8, do8 = _t(*_inputs(64, dh=8))
+    out8, lse8 = FA.flash_attention_fwd(q8, k8, v8)
+    assert torch.equal(out8, FA.flash_attention_fwd_plain(q8, k8, v8)[0])
+    got8 = FA.flash_attention_bwd(q8, k8, v8, out8, lse8, do8)
+    assert all(torch.equal(g, w) for g, w in zip(
+        got8, FA.flash_attention_bwd_plain(q8, k8, v8, out8, lse8, do8)))
+    assert FA.flash_attention_fwd.launches == 0
     assert FA.flash_attention_bwd.launches == 0
     assert FA.flash_attention_bwd.variant_launches == {"fused": 0, "dq": 0,
                                                        "dkv": 0}
-    q8, k8, v8 = _t(*_inputs(64, dh=8)[:3])
-    with pytest.raises(ValueError, match="head dim 8"):
-        FA.flash_attention_fwd(q8, k8, v8)
-    with pytest.raises(ValueError, match="head dim 8"):
-        FA.flash_attention_bwd(q8, k8, v8, q8, lse, q8)
     with pytest.raises(ValueError, match="acc_dtype"):
         FA.flash_attention_fwd(q, k, v, acc_dtype=torch.float16)
     with pytest.raises(ValueError, match="differ"):
         FA.flash_attention_fwd(q, k[:, :, :32], v)
+    with pytest.raises(ValueError, match="differ"):
+        FA.flash_attention_bwd(q8, k8, v8, q8, lse, q)
+
+
+@pytest.mark.parametrize("dh, kernel_dh", [
+    (1, 16), (8, 16), (16, 16), (17, 32), (40, 64), (48, 64), (64, 64),
+    (80, 128), (96, 128), (112, 128), (128, 128)])
+def test_kernel_head_dim_pads_to_the_next_built_one(dh, kernel_dh):
+    """A head dim up to 128 runs at the smallest built one that holds it,
+    zero-padded: the padded plain math at the true dh's scale gives the
+    unpadded result in its first dh columns (out, lse, dq, dk, dv) and
+    zeros in the rest."""
+    assert FA.kernel_head_dim(dh) == kernel_dh
+    q, k, v, dout = _t(*_inputs(40, b=1, dh=dh, seed=dh))
+    out, lse = FA.flash_attention_fwd_plain(q, k, v)
+    grads = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    wide = FA._widen((q, k, v, dout), kernel_dh)
+    assert all(t.shape[-1] == kernel_dh for t in wide)
+    scale = torch.tensor(FA.scale_for(dh))
+    sc = torch.matmul(wide[0], wide[1].transpose(-1, -2)) * scale
+    sc = sc.masked_fill(FA._causal_mask(40, sc.device), FA.MASK_VALUE)
+    p = torch.softmax(sc, dim=-1)
+    _close(FA._narrow(torch.matmul(p, wide[2]), dh), out.numpy(), FWD_ATOL)
+    _close(torch.logsumexp(sc, dim=-1), lse.numpy(), FWD_ATOL)
+    dp = torch.matmul(wide[3], wide[2].transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    for g, w in zip((torch.matmul(ds, wide[1]),
+                     torch.matmul(ds.transpose(-1, -2), wide[0]),
+                     torch.matmul(p.transpose(-1, -2), wide[3])), grads):
+        _close(FA._narrow(g, dh), w.numpy(), BWD_ATOL)
+        assert not bool(g[..., dh:].any())
+
+
+@pytest.mark.parametrize("dh", [161, 256])
+def test_kernel_head_dim_refuses_above_128(dh):
+    with pytest.raises(ValueError, match="ROADMAP"):
+        FA.kernel_head_dim(dh)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_48_matches_pallas(causal):
+    """dh 48, which no kernel is built for, at (1, 2, 32, 48): the
+    wrappers' forward and fused backward on the CPU against the Pallas
+    functions in interpret mode, forward to 2e-5 and backward to 2e-4."""
+    q, k, v, dout = _inputs(32, b=1, dh=48, seed=48)
+    out, lse, grads = _jax_pair(q, k, v, dout, causal, 32, 32)
+    got_out, got_lse = FA.flash_attention_fwd(*_t(q, k, v), causal=causal)
+    assert got_out.shape == (1, 2, 32, 48)
+    _close(got_out, out, FWD_ATOL)
+    _close(got_lse, lse, FWD_ATOL)
+    got = FA.flash_attention_bwd(*_t(q, k, v, out),
+                                 torch.from_numpy(numpy.asarray(lse)),
+                                 _t(dout)[0], causal=causal)
+    for g, w in zip(got, grads):
+        assert g.shape == (1, 2, 32, 48)
+        _close(g, w, BWD_ATOL)
 
 
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 512, 8192])

@@ -12,6 +12,7 @@ import json
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy
 import pytest
 import torch
@@ -27,6 +28,7 @@ from veles_torch.convert import params_from_jax, params_to_numpy
 from veles_torch.znicz.models import transformer_lm as tlm
 from veles_torch.znicz.ops import flash_attention as FA
 from veles_torch.znicz.ops.attention import MultiHeadAttention
+from veles_torch.znicz.ops.embedding import embedding_grad
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LM = os.path.join(REPO, "veles_torch", "znicz", "models", "transformer_lm.py")
@@ -44,6 +46,11 @@ STEP_ATOL = 1e-6
 #: the final parameters; the order differences above compound step by
 #: step. Observed: 3.6e-7 (losses), 1.3e-7 (parameters)
 EPOCHS_ATOL = 1e-5
+#: one step under the bf16 policy, against each momentum's largest
+#: element: both packages multiply the same bf16-rounded inputs in f32.
+#: Observed 5.2e-7; with products rounded to bf16 (the port's ``dot``
+#: once did) 3.7e-4 to 1.8e-2
+BF16_STEP_RTOL = 1e-5
 
 
 @contextlib.contextmanager
@@ -115,13 +122,23 @@ def test_same_seed_same_data_and_parameters():
             assert numpy.array_equal(value, got[unit][key]), (unit, key)
 
 
-@pytest.mark.parametrize("impl", ["pallas", None], ids=["pallas", "dense"])
-def test_one_train_step_matches_reference(impl):
-    """One train step from the reference's exported state: every
-    parameter and momentum within STEP_ATOL, the same loss and wrong-token
-    count."""
-    with lm_config(model={"attn_impl": impl}):
-        jw, tw = jax_lm(), torch_lm()
+@contextlib.contextmanager
+def bf16_policy():
+    """The card's dtype policy in both packages on the CPU:
+    ``root.common.engine.amp = compute_dtype = "bfloat16"``, cleared
+    after."""
+    try:
+        for r in (jroot, troot):
+            r.common.engine.amp = r.common.engine.compute_dtype = "bfloat16"
+        yield
+    finally:
+        for r in (jroot, troot):
+            r.common.engine.amp = r.common.engine.compute_dtype = None
+
+
+def one_step(jw, tw):
+    """One train step of both LMs from the reference's state ->
+    (reference tree, port tree, reference outputs, port metrics)."""
     tw.import_tree(params_from_jax(jax_tree(jw)))
     idx_mat, valids = jw.loader.class_schedule(2)
     data = jw.loader.original_data.mem[idx_mat[0]]
@@ -139,7 +156,39 @@ def test_one_train_step_matches_reference(impl):
     want = {u: {k: numpy.asarray(v) for k, v in
                 {**params.get(u, {}), **state.get(u, {})}.items()}
             for u in set(params) | set(state)}
-    assert_trees_close(want, params_to_numpy(tw.export_tree()), STEP_ATOL)
+    return want, params_to_numpy(tw.export_tree()), outs, metrics
+
+
+@pytest.mark.parametrize("impl", ["pallas", None], ids=["pallas", "dense"])
+def test_one_train_step_matches_reference(impl):
+    """One train step from the reference's exported state: every
+    parameter and momentum within STEP_ATOL, the same loss and wrong-token
+    count."""
+    with lm_config(model={"attn_impl": impl}):
+        jw, tw = jax_lm(), torch_lm()
+    want, got, outs, metrics = one_step(jw, tw)
+    assert_trees_close(want, got, STEP_ATOL)
+    assert abs(float(outs["loss"]) - float(metrics[0])) < STEP_ATOL
+    assert int(outs["n_err"]) == int(metrics[1])
+
+
+def test_one_train_step_matches_reference_bf16_policy():
+    """One pallas-mode train step under the card's dtype policy (bf16
+    products, activations and flash inputs), held on the CPU: every
+    momentum (from zero: the gradient times the rate) within
+    BF16_STEP_RTOL of the reference's largest element, the same loss (to
+    STEP_ATOL) and wrong-token count."""
+    with lm_config(), bf16_policy():
+        jw, tw = jax_lm(), torch_lm()
+        assert tw.device.compute_dtype == tw.device.act_dtype == \
+            torch.bfloat16
+        want, got, outs, metrics = one_step(jw, tw)
+    momenta = [(u, k) for u in want for k in want[u] if k.startswith("vel")]
+    assert len(momenta) == 15
+    for unit, key in momenta:
+        w = want[unit][key].astype(numpy.float64)
+        diff = numpy.abs(got[unit][key] - w).max() / numpy.abs(w).max()
+        assert diff <= BF16_STEP_RTOL, (unit, key, diff)
     assert abs(float(outs["loss"]) - float(metrics[0])) < STEP_ATOL
     assert int(outs["n_err"]) == int(metrics[1])
 
@@ -163,6 +212,27 @@ def test_epochs_match_reference(impl):
     assert th[-1]["validation"]["loss"] < th[0]["validation"]["loss"]
     assert_trees_close(jax_tree(jw), params_to_numpy(tw.export_tree()),
                        EPOCHS_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_grad_matches_reference_scatter(dtype):
+    """The embedding gradient (a stable sort, then a sum per id in the
+    order the ids appear) against the reference's ``zeros.at[ids].add``
+    (``GDEmbedding.xla_run``) on 256 tokens of a 13-word vocabulary: every
+    id repeated, ids 0 and 12 never seen (their rows stay 0); within 1e-6
+    (f32 sums; observed equal)."""
+    rng = numpy.random.default_rng(8)
+    ids = rng.integers(1, 12, (16, 16))
+    err = rng.normal(0, 1, (16, 16, 32)).astype(numpy.float32)
+    want = numpy.asarray(jnp.zeros((13, 32), jnp.float32).at[
+        jnp.asarray(ids.ravel(), jnp.int32)].add(
+        jnp.asarray(err, dtype).reshape(-1, 32)))
+    got = embedding_grad(torch.from_numpy(ids),
+                         torch.from_numpy(err).to(getattr(torch, dtype)), 13)
+    assert got.dtype == torch.float32 and got.shape == (13, 32)
+    assert not bool(got[0].any()) and not bool(got[12].any())
+    assert numpy.abs(got.numpy() - want).max() <= 1e-6, \
+        numpy.abs(got.numpy() - want).max()
 
 
 def test_pallas_mode_goes_through_the_flash_wrappers():

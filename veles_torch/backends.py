@@ -4,7 +4,9 @@ Counterpart of ``XLADevice`` in ``veles/backends.py``. The dtype policy
 is the reference's with ``cuda`` in the TPU's place:
 
 * ``compute_dtype`` — the dtype matmul inputs are cast to (bf16 on the
-  card, f32 on the CPU); products accumulate and come back in f32;
+  card, f32 on the CPU); products accumulate in f32 and come back as
+  that f32 sum, never rounded to the input dtype (the reference's
+  ``preferred_element_type=float32``, ``veles/accelerated_units.py``);
 * ``act_dtype`` — the dtype of tensors flowing between units (outputs,
   error flows): bf16 on the card, f32 on the CPU;
 
@@ -59,14 +61,43 @@ class TorchDevice:
         return torch.bfloat16 if self.platform == "cuda" else torch.float32
 
     def dot(self, a, b):
-        """``a @ b`` with inputs cast to ``compute_dtype``; the result is
-        float32."""
+        """``a @ b`` of the inputs rounded to ``compute_dtype``: the f32
+        accumulation, unrounded. On the card a bf16/f16 product runs as
+        one GEMM with an f32 output (:func:`f32_matmul`); on the CPU the
+        rounded inputs are multiplied in f32."""
         cd = self.compute_dtype
-        return torch.matmul(a.to(cd), b.to(cd)).to(torch.float32)
+        a, b = a.to(cd), b.to(cd)
+        if cd == torch.float32:
+            return torch.matmul(a, b)
+        if self.platform == "cuda":
+            return f32_matmul(a, b)
+        return torch.matmul(a.float(), b.float())
 
     def __repr__(self):
         return "<TorchDevice %s compute=%s act=%s>" % (
             self.device, self.compute_dtype, self.act_dtype)
+
+
+def f32_matmul(a, b):
+    """``a @ b`` of two bf16/f16 CUDA tensors as the GEMM's f32 output
+    (``torch.mm`` / ``torch.bmm`` with ``out_dtype``): ``(..., M, K) @
+    (K, N)`` on a 2-D view of ``a``'s rows, ``(..., M, K) @ (..., K, N)``
+    with equal leading dims as one batched product. Strided operands
+    (``w.t()``) go to the GEMM as they are. A torch without these
+    overloads raises; nothing rounds the product to the input dtype."""
+    out = torch.float32
+    if b.dim() == 2:
+        rows = a.reshape(-1, a.shape[-1])
+        return torch.mm(rows, b, out_dtype=out).reshape(
+            *a.shape[:-1], b.shape[-1])
+    if a.dim() == b.dim() >= 3 and a.shape[:-2] == b.shape[:-2]:
+        lead = a.shape[:-2]
+        c = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                      b.reshape(-1, *b.shape[-2:]), out_dtype=out)
+        return c.reshape(*lead, *c.shape[-2:])
+    raise ValueError("f32_matmul takes (..., M, K) @ (K, N) or equal "
+                     "leading dims, got %s @ %s"
+                     % (tuple(a.shape), tuple(b.shape)))
 
 
 def get_device(spec=None) -> TorchDevice:

@@ -5,38 +5,60 @@
 // Replaces the Pallas kernels _bias_grad_kernel (masked form) and
 // _sum_rows_kernel (identity form, never reads y) of
 // veles/znicz_tpu/ops/pallas_grads.py. The TPU kernel carries its sum in
-// an output block revisited across a sequential row grid; a GPU grid is
-// parallel, so this is two passes with no float atomics:
+// an output block revisited across a sequential row grid. A GPU grid is
+// parallel, so the rows are split over CTAs and the CTAs' sums meet in
+// the same launch:
 //
-//   pass 1  blocks tile (row chunk x column tile). blockDim.x threads run
-//           along K (coalesced loads), blockDim.y lanes interleave over
-//           the chunk's rows. Lanes are summed in a fixed order in shared
-//           memory and each block writes partials[row_block, k].
-//   pass 2  one thread per column sums partials over row_block in order.
-//           With a single row block, pass 1 writes out[] directly.
-//
-// Both passes sum in a fixed order that depends only on (N, K), so the
-// result is bitwise the same from run to run. The ragged row edge (the
-// last chunk) and column edge (the last tile) are masked in the kernel.
+//   grid    (column tiles, row blocks). A CTA has TX x TY threads: TX
+//           along K, each thread owning VEC adjacent columns, and TY lanes
+//           interleaved over the rows of the CTA's row block. TX is one
+//           warp (32) or, for narrow K, all of K, so a CTA's loads of one
+//           step cover whole rows back to back.
+//   loads   16 bytes a thread (8 bf16/f16 or 4 f32 columns) where the row
+//           pitch and the base pointers are 16-byte aligned (VEC > 1);
+//           otherwise one element a thread, the same code at VEC = 1 (the
+//           scalar path: MNIST's K = 10 and 100 in bf16). Each lane issues
+//           kUnroll independent loads (twice that in the masked form)
+//           before its first add: 16 KB in flight per CTA of 256 threads
+//           in the identity form, several CTAs per SM.
+//   sum     each lane adds its rows in order; the CTA adds its lanes in
+//           order through shared memory. With one row block the CTA
+//           writes out[]; with several it writes its f32 partial row and
+//           takes a ticket (an integer atomicAdd per column tile). The
+//           CTA that takes the last ticket adds the tile's partials, lane
+//           ty over row blocks ty, ty + TY, ..., then the lanes in order,
+//           writes out[] and sets the ticket back to 0, so the next
+//           launch needs no memset (and a CUDA graph can replay it). The
+//           order of every sum depends only on the launch plan, that is
+//           on (N, K, dtype, alignment), never on which CTA arrives when:
+//           the result is bitwise the same from run to run, with no float
+//           atomics.
 //
 // Bound: bytes. The function reads err (and y in the masked form) once:
-// 2*N*K*itemsize bytes (N*K*itemsize for the identity form) at
-// 3.35 TB/s; the derivative costs a few f32 operations per element,
-// far below the compute roofline.
+// N*K*itemsize bytes per input at 3.35 TB/s; the derivative costs a few
+// f32 operations per element, far below the compute roofline. What holds
+// a memory-bound kernel back is bytes in flight (about 20 KB per SM to
+// cover the latency at 3.35 TB/s), hence the wide, unrolled loads and a
+// grid of about four CTAs per SM at every K (ops/bias_grad.py plan()).
 //
 // Plain C interface for ctypes (see veles_torch/kernels.py); the launch
-// goes on the caller's stream and the function returns
-// cudaGetLastError() after the launches.
+// goes on the caller's stream, allocates nothing (partials and tickets
+// come from the caller) and the function returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
 constexpr int kThreads = 256;
+// loads each lane issues before it adds (ops/bias_grad.py UNROLL)
+constexpr int kUnroll = 4;
+// most row blocks a plan may have (ops/bias_grad.py MAX_ROW_BLOCKS)
+constexpr int kMaxRowBlocks = 264;
 
 // activation codes shared with veles_torch/znicz/ops/bias_grad.py
 enum Act : int {
@@ -75,120 +97,306 @@ __device__ __forceinline__ float deriv(float y) {
   }
 }
 
-template <typename T, int ACT>
+// VEC adjacent elements of one row: one 16-byte load, or one element
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load(const T* p) {
+  Pack<T, VEC> r;
+  if constexpr (sizeof(T) * VEC == 16) {
+    // read once: stream past L1
+    const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p));
+    memcpy(&r, &u, sizeof(r));
+  } else {
+    static_assert(VEC == 1, "a pack is 16 bytes or one element");
+    r.v[0] = p[0];
+  }
+  return r;
+}
+
+// VEC f32 values at p (16-byte aligned when VEC % 4 == 0), from L2: the
+// partials other CTAs wrote
+template <int VEC>
+__device__ __forceinline__ void load_f32(const float* p, float (&dst)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4) {
+      const float4 f = __ldcg(reinterpret_cast<const float4*>(p + i));
+      dst[i] = f.x;
+      dst[i + 1] = f.y;
+      dst[i + 2] = f.z;
+      dst[i + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      dst[i] = __ldcg(p + i);
+    }
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_f32(float* p, const float (&src)[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4) {
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(src[i], src[i + 1], src[i + 2], src[i + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      p[i] = src[i];
+    }
+  }
+}
+
+// The CTA's lanes added in order (lane 0 first) into `sum` of the lane-0
+// threads; `lanes` holds every thread's VEC values.
+template <int VEC>
+__device__ __forceinline__ void add_lanes(float* lanes, const float (&acc)[VEC],
+                                          int tx, int ty, int tx_n, int ty_n,
+                                          float (&sum)[VEC]) {
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    lanes[threadIdx.x * VEC + v] = acc[v];
+  }
+  __syncthreads();
+  if (ty == 0) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      sum[v] = acc[v];
+    }
+    for (int j = 1; j < ty_n; ++j) {
+      const float* other = lanes + (j * tx_n + tx) * VEC;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        sum[v] += other[v];
+      }
+    }
+  }
+}
+
+template <typename T, int ACT, int VEC>
 __global__ void __launch_bounds__(kThreads)
-    partial_sums(const T* __restrict__ err, const T* __restrict__ y,
-                 float* __restrict__ dst, int64_t n, int k,
-                 int64_t rows_per_block) {
-  __shared__ float lanes[kThreads];
-  const int bx = blockDim.x;
-  const int by = blockDim.y;
-  const int col = blockIdx.x * bx + threadIdx.x;
+    bias_grad_kernel(const T* __restrict__ err, const T* __restrict__ y,
+                     float* __restrict__ partials, float* __restrict__ out,
+                     unsigned int* __restrict__ tickets, int64_t n, int k,
+                     int tx_n, int ty_n, int64_t rows_per_block) {
+  __shared__ float lanes[kThreads * VEC];
+  __shared__ bool last;
+  const int tx = threadIdx.x % tx_n;
+  const int ty = threadIdx.x / tx_n;
+  const int64_t col = (static_cast<int64_t>(blockIdx.x) * tx_n + tx) * VEC;
+  // VEC divides K on the vector path, so a pack is all in or all out
+  const bool active = col < k;
+  const int row_blocks = gridDim.y;
   const int64_t r0 = static_cast<int64_t>(blockIdx.y) * rows_per_block;
   const int64_t r1 = r0 + rows_per_block < n ? r0 + rows_per_block : n;
-  float acc = 0.0f;
-  if (col < k) {
-    for (int64_t r = r0 + threadIdx.y; r < r1; r += by) {
-      const int64_t i = r * k + col;
-      float e = to_f32(err[i]);
-      if constexpr (ACT != kIdentity) {
-        e *= deriv<ACT>(to_f32(y[i]));
-      }
-      acc += e;
-    }
-  }
-  lanes[threadIdx.y * bx + threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < k) {
-    float s = lanes[threadIdx.x];
-    for (int j = 1; j < by; ++j) {
-      s += lanes[j * bx + threadIdx.x];
-    }
-    dst[static_cast<int64_t>(blockIdx.y) * k + col] = s;
-  }
-}
+  const int64_t step = static_cast<int64_t>(ty_n) * kUnroll;
 
-__global__ void sum_partials(const float* __restrict__ partials,
-                             float* __restrict__ out, int row_blocks,
-                             int k) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= k) {
+  float acc[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    acc[v] = 0.0f;
+  }
+  if (active) {
+    for (int64_t base = r0 + ty; base < r1; base += step) {
+      Pack<T, VEC> e[kUnroll];
+      Pack<T, VEC> d[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t r = base + static_cast<int64_t>(u) * ty_n;
+        if (r < r1) {
+          e[u] = load<T, VEC>(err + r * k + col);
+          if constexpr (ACT != kIdentity) {
+            d[u] = load<T, VEC>(y + r * k + col);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (base + static_cast<int64_t>(u) * ty_n < r1) {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            float x = to_f32(e[u].v[v]);
+            if constexpr (ACT != kIdentity) {
+              x *= deriv<ACT>(to_f32(d[u].v[v]));
+            }
+            acc[v] += x;
+          }
+        }
+      }
+    }
+  }
+
+  float sum[VEC];
+  add_lanes<VEC>(lanes, acc, tx, ty, tx_n, ty_n, sum);
+  if (row_blocks == 1) {
+    if (ty == 0 && active) {
+      store_f32<VEC>(out + col, sum);
+    }
     return;
   }
-  float s = 0.0f;
-  for (int rb = 0; rb < row_blocks; ++rb) {
-    s += partials[static_cast<int64_t>(rb) * k + col];
+  if (ty == 0 && active) {
+    store_f32<VEC>(partials + static_cast<int64_t>(blockIdx.y) * k + col, sum);
   }
-  out[col] = s;
+  // publish the partial, then take a ticket: the last CTA of the column
+  // tile sees every other CTA's partial
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(tickets + blockIdx.x, 1u) ==
+           static_cast<unsigned int>(row_blocks - 1);
+  }
+  __syncthreads();
+  if (!last) {
+    return;
+  }
+  __threadfence();
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    acc[v] = 0.0f;
+  }
+  if (active) {
+    for (int rb0 = ty; rb0 < row_blocks; rb0 += ty_n * kUnroll) {
+      float p[kUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int rb = rb0 + u * ty_n;
+        if (rb < row_blocks) {
+          load_f32<VEC>(partials + static_cast<int64_t>(rb) * k + col, p[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (rb0 + u * ty_n < row_blocks) {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) {
+            acc[v] += p[u][v];
+          }
+        }
+      }
+    }
+  }
+  // (the barriers around the ticket ended every read of the first sum)
+  add_lanes<VEC>(lanes, acc, tx, ty, tx_n, ty_n, sum);
+  if (ty == 0 && active) {
+    store_f32<VEC>(out + col, sum);
+  }
+  if (threadIdx.x == 0) {
+    tickets[blockIdx.x] = 0;  // ready for the next launch
+  }
 }
 
-template <typename T>
-cudaError_t launch(const void* err, const void* y, float* partials,
-                   float* out, int64_t n, int k, int act, int bx,
-                   int row_blocks, int64_t rows_per_block,
-                   cudaStream_t stream) {
-  if (bx <= 0 || kThreads % bx != 0 || row_blocks <= 0 ||
-      row_blocks > 65535 || (row_blocks > 1 && partials == nullptr)) {
-    return cudaErrorInvalidValue;
-  }
-  const dim3 block(bx, kThreads / bx);
-  const dim3 grid((k + bx - 1) / bx, row_blocks);
-  float* dst = row_blocks == 1 ? out : partials;
-  const T* e = static_cast<const T*>(err);
-  const T* yy = static_cast<const T*>(y);
+struct Launch {
+  const void* err;
+  const void* y;
+  float* partials;
+  float* out;
+  unsigned int* tickets;
+  int64_t n;
+  int k;
+  int tx;
+  int ty;
+  int row_blocks;
+  int64_t rows_per_block;
+  cudaStream_t stream;
+};
+
+template <typename T, int VEC, int ACT>
+void launch_act(const Launch& a) {
+  const int64_t units = a.k / VEC;
+  const dim3 grid(static_cast<unsigned int>((units + a.tx - 1) / a.tx),
+                  a.row_blocks);
+  bias_grad_kernel<T, ACT, VEC><<<grid, a.tx * a.ty, 0, a.stream>>>(
+      static_cast<const T*>(a.err), static_cast<const T*>(a.y), a.partials,
+      a.out, a.tickets, a.n, a.k, a.tx, a.ty, a.rows_per_block);
+}
+
+template <typename T, int VEC>
+cudaError_t launch_vec(const Launch& a, int act) {
   switch (act) {
     case kIdentity:
-      partial_sums<T, kIdentity>
-          <<<grid, block, 0, stream>>>(e, yy, dst, n, k, rows_per_block);
+      launch_act<T, VEC, kIdentity>(a);
       break;
     case kTanh:
-      partial_sums<T, kTanh>
-          <<<grid, block, 0, stream>>>(e, yy, dst, n, k, rows_per_block);
+      launch_act<T, VEC, kTanh>(a);
       break;
     case kSoftRelu:
-      partial_sums<T, kSoftRelu>
-          <<<grid, block, 0, stream>>>(e, yy, dst, n, k, rows_per_block);
+      launch_act<T, VEC, kSoftRelu>(a);
       break;
     case kStrictRelu:
-      partial_sums<T, kStrictRelu>
-          <<<grid, block, 0, stream>>>(e, yy, dst, n, k, rows_per_block);
+      launch_act<T, VEC, kStrictRelu>(a);
       break;
     case kSigmoid:
-      partial_sums<T, kSigmoid>
-          <<<grid, block, 0, stream>>>(e, yy, dst, n, k, rows_per_block);
+      launch_act<T, VEC, kSigmoid>(a);
       break;
     default:
       return cudaErrorInvalidValue;
   }
-  cudaError_t rc = cudaGetLastError();
-  if (rc != cudaSuccess || row_blocks == 1) {
-    return rc;
-  }
-  sum_partials<<<(k + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      partials, out, row_blocks, k);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T>
+cudaError_t launch(const Launch& a, int act, int vec) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (a.n <= 0 || a.k <= 0 || a.tx <= 0 || a.ty <= 0 ||
+      a.tx * a.ty > kThreads || a.row_blocks <= 0 ||
+      a.row_blocks > kMaxRowBlocks || a.rows_per_block <= 0 ||
+      a.rows_per_block * a.row_blocks < a.n ||
+      (a.row_blocks > 1 && (a.partials == nullptr || a.tickets == nullptr)) ||
+      (act != kIdentity && a.y == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (vec == kVec) {
+    // the vector path reads whole 16-byte packs: rows and bases aligned
+    if (a.k % kVec != 0 || !aligned16(a.err) ||
+        (act != kIdentity && !aligned16(a.y)) || !aligned16(a.out) ||
+        (a.partials != nullptr && !aligned16(a.partials))) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_vec<T, kVec>(a, act);
+  }
+  if (vec == 1) {
+    return launch_vec<T, 1>(a, act);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int veles_bias_grad(const void* err, const void* y,
-                               void* partials, void* out, long long n,
-                               int k, int dtype, int act, int bx,
-                               int row_blocks, long long rows_per_block,
-                               void* stream) {
-  float* p = static_cast<float*>(partials);
-  float* o = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                               void* partials, void* out, void* tickets,
+                               long long n, int k, int dtype, int act,
+                               int vec, int tx, int ty, int row_blocks,
+                               long long rows_per_block, void* stream) {
+  const Launch a{err,
+                 y,
+                 static_cast<float*>(partials),
+                 static_cast<float*>(out),
+                 static_cast<unsigned int*>(tickets),
+                 n,
+                 k,
+                 tx,
+                 ty,
+                 row_blocks,
+                 rows_per_block,
+                 static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case kF32:
-      return launch<float>(err, y, p, o, n, k, act, bx, row_blocks,
-                           rows_per_block, s);
+      return launch<float>(a, act, vec);
     case kBF16:
-      return launch<__nv_bfloat16>(err, y, p, o, n, k, act, bx, row_blocks,
-                                   rows_per_block, s);
+      return launch<__nv_bfloat16>(a, act, vec);
     case kF16:
-      return launch<__half>(err, y, p, o, n, k, act, bx, row_blocks,
-                            rows_per_block, s);
+      return launch<__half>(a, act, vec);
     default:
       return cudaErrorInvalidValue;
   }

@@ -13,7 +13,14 @@ The identity derivative (linear, and softmax, whose derivative the
 evaluator fuses with cross-entropy) is the python float ``1.0``, so
 callers can skip the multiply. ``csrc/bias_grad.cu`` repeats these
 derivative formulas in f32.
+
+A constant meets a tensor as JAX's weakly typed Python float does: it is
+rounded to the tensor's dtype first (torch would otherwise multiply a
+bf16 tensor by the f32 constant), so a bf16 derivative rounds where the
+reference's does.
 """
+
+import functools
 
 import torch
 
@@ -33,8 +40,15 @@ def tanh(v):
     return TANH_A * torch.tanh(TANH_B * v)
 
 
+@functools.lru_cache(maxsize=None)
+def _const(value, dtype):
+    """``value`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))
+
+
 def dtanh(y):
-    return (TANH_A * TANH_B) - (TANH_B / TANH_A) * y * y
+    return _const(TANH_A * TANH_B, y.dtype) \
+        - _const(TANH_B / TANH_A, y.dtype) * y * y
 
 
 def softrelu(v):

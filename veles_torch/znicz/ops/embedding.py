@@ -2,9 +2,10 @@
 
 Counterpart of ``veles/znicz_tpu/ops/embedding.py``: a (vocab, dim)
 lookup table with the fixed sinusoidal positional encoding added; the
-backward scatter-adds the error rows into an f32 table gradient with
-``index_add_`` (on the card that op sums with atomics, so repeated ids
-add in no fixed order).
+backward sums the error rows of each id into an f32 table gradient
+(:func:`embedding_grad`) in a fixed order, so two runs on the card give
+the same bits (``index_add_`` would add repeated ids with atomics, in no
+fixed order).
 """
 
 import numpy
@@ -22,6 +23,22 @@ def sinusoidal_positions(seq_len, dim):
     enc = numpy.where(i.astype(numpy.int64) % 2 == 0,
                       numpy.sin(angle), numpy.cos(angle))
     return enc.astype(numpy.float32)
+
+
+def embedding_grad(ids, err, vocab):
+    """(vocab, D) float32 gradient of the table: row ``v`` is the sum of
+    the error rows whose id is ``v``, as the reference's ``.at[ids].add``.
+    Deterministic on every device and free of host syncs: a stable sort
+    of the ids puts each id's rows together in the order they appear,
+    ``searchsorted`` finds every id's segment (empty for unseen ids), and
+    ``segment_reduce`` sums each segment in that order."""
+    ids = ids.reshape(-1).long()
+    rows = err.reshape(ids.shape[0], -1).to(torch.float32)
+    sorted_ids, order = torch.sort(ids, stable=True)
+    offsets = torch.searchsorted(
+        sorted_ids, torch.arange(vocab + 1, device=ids.device))
+    return torch.segment_reduce(rows[order], "sum", offsets=offsets,
+                                unsafe=True)
 
 
 @forward_unit("embedding")
@@ -59,17 +76,14 @@ class EmbeddingForward(Forward):
 
 @gradient_for(EmbeddingForward)
 class GDEmbedding(GradientDescentBase):
-    """Scatter-add error rows into the table; no err_input (ids are not
+    """Sum the error rows into the table's gradient
+    (:func:`embedding_grad`); no err_input (ids are not
     differentiable)."""
 
     def __init__(self, need_err_input=False, **kwargs):
         super().__init__(need_err_input=need_err_input, **kwargs)
 
     def run(self, x, y, err):
-        f = self.forward
-        grad = torch.zeros((f.vocab_size, f.dim), dtype=torch.float32,
-                           device=f.weights.device)
-        grad.index_add_(0, x.reshape(-1).long(),
-                        err.reshape(-1, f.dim).to(torch.float32))
-        self.update_weights(grad, None)
+        self.update_weights(
+            embedding_grad(x, err, self.forward.vocab_size), None)
         return None

@@ -24,7 +24,10 @@ FMAs. What bounds them on an H100, and what the kernels do about it, is
 noted in the CUDA sources. Tiles are the port's own (64 x 64 for every
 dh; the bf16 forward 128 query rows x 128 keys, the bf16 fused backward
 128 keys x 64 queries); the JAX ``block_q``/``block_k`` are VMEM-sized
-and not carried over.
+and not carried over. The kernels are built for head dims 16, 32, 64 and
+128; any other dh up to 128 runs zero-padded to the next of them
+(:func:`kernel_head_dim`), and the plain versions take any dh, as the
+reference does.
 """
 
 import ctypes
@@ -34,7 +37,8 @@ import torch
 
 from veles_torch import kernels
 
-#: head dims the kernels are built for
+#: head dims the kernels are built for; a smaller one runs zero-padded to
+#: the next of them (:func:`kernel_head_dim`)
 HEAD_DIMS = (16, 32, 64, 128)
 #: query rows / key rows per tile (``kBQ`` / ``kBK`` in the CUDA source)
 BLOCK_Q = BLOCK_K = 64
@@ -100,6 +104,32 @@ def scale_for(dh):
     """The softmax scale 1/sqrt(dh), rounded to float32 as the
     reference's."""
     return float(numpy.float32(1.0 / numpy.sqrt(dh)))
+
+
+def kernel_head_dim(dh):
+    """The head dim the kernels run a ``dh``-wide head at: the smallest
+    of HEAD_DIMS that holds it. The wrappers zero-pad q, k, v (and dout)
+    to it and pass the scale of the true ``dh``: zero columns change
+    neither q·kᵀ nor the first ``dh`` columns of out, dq, dk or dv, which
+    are sliced back. Raises above the widest built head dim."""
+    for built in HEAD_DIMS:
+        if dh <= built:
+            return built
+    raise ValueError(
+        "head dim %d: the kernels take head dims up to %d (wider heads are "
+        "ROADMAP Queue 2b item 5)" % (dh, HEAD_DIMS[-1]))
+
+
+def _widen(tensors, dh):
+    """``tensors`` zero-padded along the head dim to ``dh`` columns."""
+    return [t if t.shape[-1] == dh else
+            torch.nn.functional.pad(t, (0, dh - t.shape[-1]))
+            for t in tensors]
+
+
+def _narrow(t, dh):
+    """The first ``dh`` columns of a padded kernel output, contiguous."""
+    return t if t.shape[-1] == dh else t[..., :dh].contiguous()
 
 
 # -- launch plans (mirror the loops of the CUDA kernels) ------------------
@@ -327,15 +357,13 @@ def row_delta(out, dout):
 
 
 def _check(name, tensors):
-    """Shape/dh checks for every device; -> True when the kernel runs
-    (CUDA tensors), False for the plain version (CPU tensors)."""
+    """Shape checks for every device; -> True when the kernel runs (CUDA
+    tensors, at a head dim :func:`kernel_head_dim` takes), False for the
+    plain version (CPU tensors, any head dim)."""
     shape = tuple(tensors[0].shape)
     if len(shape) != 4:
         raise ValueError("%s: q must be (B, H, S, dh), got %s"
                          % (name, shape))
-    if shape[3] not in HEAD_DIMS:
-        raise ValueError("%s: head dim %d is not one of %s"
-                         % (name, shape[3], HEAD_DIMS))
     for t in tensors:
         if tuple(t.shape) != shape:
             raise ValueError("%s: shapes %s differ" % (
@@ -347,6 +375,7 @@ def _check(name, tensors):
     if dev.type != "cuda" or len(devices) != 1:
         raise ValueError("%s: the kernel needs every input on one CUDA "
                          "device, got %s" % (name, sorted(map(str, devices))))
+    kernel_head_dim(shape[3])
     dtype = tensors[0].dtype
     if dtype not in _DTYPE_CODES or any(t.dtype != dtype for t in tensors):
         raise TypeError("%s kernel takes one of %s for all inputs, got %s"
@@ -380,6 +409,8 @@ def flash_attention_fwd(q, k, v, causal=True, pipeline=False,
     if not _check("flash_attention_fwd", (q, k, v)):
         return flash_attention_fwd_plain(q, k, v, causal, acc_dtype)
     b, h, s, dh = q.shape
+    kdh = kernel_head_dim(dh)
+    q, k, v = _widen((q, k, v), kdh)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -388,19 +419,19 @@ def flash_attention_fwd(q, k, v, causal=True, pipeline=False,
         lib = kernels.load("flash_fwd_sm90", _SM90_FWD_SIGNATURES)
         rc = lib.veles_flash_fwd_sm90(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b * h, s, dh, int(causal), int(pipeline),
+            lse.data_ptr(), b * h, s, kdh, int(causal), int(pipeline),
             acc_bf16, scale_for(dh), stream)
     else:
         lib = kernels.load("flash_attention", _SIGNATURES)
         rc = lib.veles_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b * h, s, dh, _DTYPE_CODES[q.dtype],
+            lse.data_ptr(), b * h, s, kdh, _DTYPE_CODES[q.dtype],
             int(causal), int(pipeline), acc_bf16, scale_for(dh), stream)
     _raise_on(lib, rc, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.variant_launches[
         "fwd_pipe" if pipeline else "fwd"] += 1
-    return out, lse
+    return _narrow(out, dh), lse
 
 
 def _bwd_args(name, q, k, v, out, lse, dout, delta):
@@ -449,11 +480,13 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
                                          delta)
     b, h, s, dh = q.shape
+    kdh = kernel_head_dim(dh)
+    q, k, v, dout = _widen((q, k, v, dout), kdh)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.dtype == torch.bfloat16:
         n_qt = n_tiles(s, BLOCK_Q)
-        dq_acc = torch.empty((b * h, n_qt * BLOCK_Q, dh),
+        dq_acc = torch.empty((b * h, n_qt * BLOCK_Q, kdh),
                              dtype=torch.float32, device=q.device)
         # the ticket, then one counter per (b*h, Q tile)
         sync = torch.zeros(1 + b * h * n_qt, dtype=torch.int32,
@@ -462,23 +495,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
         rc = lib.veles_flash_bwd_sm90(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dq_acc.data_ptr(), sync.data_ptr(), b * h, s, dh,
+            dv.data_ptr(), dq_acc.data_ptr(), sync.data_ptr(), b * h, s, kdh,
             int(causal), scale_for(dh), stream)
         _raise_on(lib, rc, "flash_attention_bwd")
         _launched("fused")
-        return dq, dk, dv
-    n_chunks = bwd_chunks(b * h, s, dh)
-    partial = torch.empty((n_chunks, b * h, s, dh), dtype=torch.float32,
+        return tuple(_narrow(t, dh) for t in (dq, dk, dv))
+    n_chunks = bwd_chunks(b * h, s, kdh)
+    partial = torch.empty((n_chunks, b * h, s, kdh), dtype=torch.float32,
                           device=q.device)
     lib = kernels.load("flash_attention", _SIGNATURES)
     rc = lib.veles_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), partial.data_ptr(), b * h, s, dh,
+        dv.data_ptr(), partial.data_ptr(), b * h, s, kdh,
         _DTYPE_CODES[q.dtype], int(causal), n_chunks, scale_for(dh), stream)
     _raise_on(lib, rc, "flash_attention_bwd")
     _launched("fused")
-    return dq, dk, dv
+    return tuple(_narrow(t, dh) for t in (dq, dk, dv))
 
 
 def flash_attention_dq(q, k, v, out, lse, dout, causal=True, delta=None):
@@ -491,16 +524,18 @@ def flash_attention_dq(q, k, v, out, lse, dout, causal=True, delta=None):
         return flash_attention_dq_plain(q, k, v, out, lse, dout, causal,
                                         delta)
     b, h, s, dh = q.shape
+    kdh = kernel_head_dim(dh)
+    q, k, v, dout = _widen((q, k, v, dout), kdh)
     dq = torch.empty_like(q)
     lib = kernels.load("flash_attention", _SIGNATURES)
     rc = lib.veles_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, s, dh,
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, s, kdh,
         _DTYPE_CODES[q.dtype], int(causal), scale_for(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, rc, "flash_attention_dq")
     _launched("dq")
-    return dq
+    return _narrow(dq, dh)
 
 
 def flash_attention_dkv(q, k, v, out, lse, dout, causal=True, delta=None):
@@ -513,16 +548,18 @@ def flash_attention_dkv(q, k, v, out, lse, dout, causal=True, delta=None):
         return flash_attention_dkv_plain(q, k, v, out, lse, dout, causal,
                                          delta)
     b, h, s, dh = q.shape
+    kdh = kernel_head_dim(dh)
+    q, k, v, dout = _widen((q, k, v, dout), kdh)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
     lib = kernels.load("flash_attention", _SIGNATURES)
     rc = lib.veles_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b * h, s, dh, _DTYPE_CODES[q.dtype], int(causal), scale_for(dh),
+        b * h, s, kdh, _DTYPE_CODES[q.dtype], int(causal), scale_for(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, rc, "flash_attention_dkv")
     _launched("dkv")
-    return dk, dv
+    return _narrow(dk, dh), _narrow(dv, dh)
 
 
 def reset_launches():
