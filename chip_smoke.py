@@ -13,8 +13,9 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    ``nvcc_<source>.log`` in the output directory of phase 7); where
    ``cuobjdump`` exists, the count of ``HGMMA`` (wgmma) and ``UTMALDG``
    (TMA load) instructions in each kernel of the bf16 forward
-   (``flash_fwd_sm90.cu``) and fused backward (``flash_bwd_sm90.cu``),
-   failing if one has none of either;
+   (``flash_fwd_sm90.cu``), fused backward and dk/dv kernel
+   (``flash_bwd_sm90.cu``) and dq kernel (``flash_dq_sm90.cu``), failing
+   if one has none of either;
 3. kernels — holds the bias-gradient kernel against its plain PyTorch
    version on the card: every activation, float32 and bfloat16 inputs,
    at the MNIST shapes and two large ones; ``linear`` and ``tanh`` at the
@@ -29,13 +30,16 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    pipelined forward: for bf16 the wgmma + TMA kernel of
    ``flash_fwd_sm90.cu``, for f32 the scalar one; fused backward: for bf16
    the wgmma + TMA kernel of ``flash_bwd_sm90.cu``, for f32 the chunked
-   one; and the two-kernel backward's dq and dk/dv kernels) and their
+   one; and the two-kernel backward's dq and dk/dv kernels: for bf16 the
+   wgmma + TMA kernel of ``flash_dq_sm90.cu`` and that of
+   ``flash_bwd_sm90.cu`` without dq, for f32 the scalar ones) and their
    plain versions against the
    float64 math from the same inputs, f32 and bf16, causal and not, at
    (B, H, S, dh) = (64, 4, 32, 16) (the LM sample), (8, 12, 512, 64)
    (the 110M row), (2, 3, 200, 64) (ragged S), (4, 4, 256, 32) and
    (2, 3, 200, 128) (the other head dims, the second ragged) and
-   (4, 12, 8192, 64) (the 110M_s8k shape). Every element of out, dq, dk and dv is held to
+   (4, 12, 8192, 64) (the 110M_s8k shape). Every element of out, dq, dk
+   and dv is held to
    its own size and its row's (``scaled_err``: |got − ref| ≤ tol·(|ref|
    + rms of the row) + ATOL_SHARE·max|ref|, a row per (b, h, query) or
    (b, h, key)), since causal rows shrink with their position and a
@@ -45,10 +49,9 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    ``FLASH_ACC_BF16_TOL``. Kernel and plain version must agree with each
    other to ``FLASH_VS_PLAIN_TOL``, and two launches bitwise; the two-kernel
    backward (``fused=False``) also agrees with the fused kernel to
-   ``FLASH_VS_PLAIN_TOL`` (whether its dk and dv equal the fused
-   kernel's bit for bit is reported only: the bf16 fused kernel sums in
-   another order since it runs on wgmma), and a hoisted delta changes no
-   bit of it;
+   ``FLASH_VS_PLAIN_TOL``, in bf16 its dk and dv bit for bit (one
+   kernel, with and without dq; in f32 two kernels that sum in other
+   orders), and a hoisted delta changes no bit of it;
 5. flash_kernel_times — at the 110M and 110M_s8k shapes, bf16, causal:
    kernel, plain version and ``F.scaled_dot_product_attention`` (its
    autograd backward for the backward, and for the two-kernel pair: no
@@ -85,9 +88,8 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    forward cache (q, k, v, out, lse; bf16 (8, 12, 512, 64)) with a dout
    from a seeded generator, the fused and the two-kernel backward
    (``flash_attention_bwd(fused=False)``) agree to
-   ``FLASH_VS_PLAIN_TOL`` (how many units' dk and dv agree bit for bit
-   is reported only); counted from 0: 12 launches each of the fused, dq
-   and dk/dv kernels;
+   ``FLASH_VS_PLAIN_TOL`` and their dk and dv bit for bit; counted from
+   0: 12 launches each of the fused, dq and dk/dv kernels;
 9. lm_profile — one full-width 110M train step under
    ``torch.profiler``: device busy time, idle share, top device
    operations, the flash kernels' share, and the bias-gradient kernel's
@@ -169,7 +171,6 @@ LSE_ATOL = 1e-3
 #: delta) = 0 exactly)
 ATOL_SHARE = 1e-6
 #: (summary name, source of the bf16 kernel, TPU kernel replaced)
-FLASH_SOURCE = "veles_torch/csrc/flash_attention.cu"
 FLASH_KERNELS = (
     ("flash_fwd", "veles_torch/csrc/flash_fwd_sm90.cu",
      "veles/znicz_tpu/parallel/pallas_attention.py:161"),
@@ -177,13 +178,14 @@ FLASH_KERNELS = (
      "veles/znicz_tpu/parallel/pallas_attention.py:203"),
     ("flash_bwd_fused", "veles_torch/csrc/flash_bwd_sm90.cu",
      "veles/znicz_tpu/parallel/pallas_attention.py:384"),
-    ("flash_bwd_dq", FLASH_SOURCE,
+    ("flash_bwd_dq", "veles_torch/csrc/flash_dq_sm90.cu",
      "veles/znicz_tpu/parallel/pallas_attention.py:278"),
-    ("flash_bwd_dkv", FLASH_SOURCE,
+    ("flash_bwd_dkv", "veles_torch/csrc/flash_bwd_sm90.cu",
      "veles/znicz_tpu/parallel/pallas_attention.py:324"))
-#: the libraries of the bf16 forward and fused backward, and the
-#: instructions each of their kernels must hold: wgmma and TMA loads
-SM90_LIBRARIES = ("flash_fwd_sm90", "flash_bwd_sm90")
+#: the libraries of the bf16 forward, fused backward (with the dk/dv
+#: kernel) and dq kernel, and the instructions each of their kernels must
+#: hold: wgmma and TMA loads
+SM90_LIBRARIES = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_dq_sm90")
 SM90_OPCODES = ("HGMMA", "UTMALDG")
 #: per form: operations as multiples of B·H·S²·dh/2 (causal: each block
 #: product is 2·S²·dh/2 operations), bf16 (B, H, S, dh) tensors and f32
@@ -198,8 +200,9 @@ LM_SAMPLE = os.path.join(HERE, "veles_torch", "znicz", "models",
 #: final validation loss of the LM sample, cuda vs cpu: the card runs
 #: bf16 matmul inputs and activations, the CPU f32, and the loss drops
 #: through a transition (epochs 4-6 at seed 1337) whose timing moves
-#: with rounding
-LM_CPU_TOLERANCE = 0.3
+#: with rounding; since the card's products are the f32 sums of the
+#: rounded inputs, both read the same loss to 3e-4 (1.3473 and 1.3476)
+LM_CPU_TOLERANCE = 0.05
 #: the 110M row of bench.py (LM_ROWS["110M"]) with the flash kernels,
 #: its corpus cut to 64/16 sequences and 2 epochs
 LM_110M = ("root.lm.loader.minibatch_size=8", "root.lm.loader.n_train=64",
@@ -679,13 +682,16 @@ def check_flash(torch):
                             got[variant][gi].double()
                             - plain[variant][pi].double()).abs().max()
                             .item())
+                # bf16: one kernel computes dk and dv with dq and without
+                same = all(torch.equal(got["two"][i], got["bwd"][i])
+                           for i in (1, 2))
+                if dtype == torch.bfloat16 and not same:
+                    over.append("two-kernel dk, dv differ from the fused "
+                                "kernel's bits")
                 emit({"phase": "flash_kernels", "shape": list(shape),
                       "dtype": dname, "causal": causal,
                       "bitwise_repeat": True,
-                      # reported only (see check_two_kernel)
-                      "two_dk_dv_bitwise_fused": all(
-                          torch.equal(got["two"][i], got["bwd"][i])
-                          for i in (1, 2)),
+                      "two_dk_dv_bitwise_fused": same,
                       "scaled_err": row})
                 if over:
                     fail("flash %s %s causal=%s: %s"
@@ -930,10 +936,12 @@ def check_two_kernel(torch, wf):
             if not e <= tol:
                 over.append("%s %s scaled error %.3g over %.3g"
                             % (f.name, name, e, tol))
-        # reported only: the bf16 fused kernel (wgmma) and the dk/dv
-        # kernel (mma.sync) sum in different orders, so equal bits are
-        # not expected
-        bitwise += all(torch.equal(a, b) for a, b in zip(two[1:], fused[1:]))
+        # the dk/dv kernel is the fused kernel without dq: the same bits
+        same = all(torch.equal(a, b) for a, b in zip(two[1:], fused[1:]))
+        bitwise += same
+        if not same:
+            over.append("%s dk, dv differ from the fused kernel's bits"
+                        % f.name)
     torch.cuda.synchronize()
     counts = read_counts()
     want = dict({name: 0 for name in counts}, flash_bwd_fused=len(units),

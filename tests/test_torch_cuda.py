@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA card (the bias-gradient and
-flash-attention kernels, the bf16 wgmma forward and backward and the
-two-kernel backward's too, against their plain versions, and their
+flash-attention kernels, the bf16 wgmma forward, fused backward and
+two-kernel backward among them, against their plain versions, and their
 refusals; the f32 products of ``TorchDevice.dot``; the repeatable
 embedding gradient); they skip without one.
 
@@ -278,6 +278,44 @@ def test_flash_fused_backward_sm90_matches_plain(card, causal, shape):
         assert bool(torch.isfinite(g.float()).all())
         assert _rel(g, w) <= 2e-2
         assert _rel(g, t) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2, 77, 16), (1, 2, 130, 32),
+                                   (4, 4, 256, 32), (2, 3, 200, 48),
+                                   (2, 3, 200, 64), (8, 12, 512, 64),
+                                   (1, 2, 96, 128), (2, 3, 200, 128),
+                                   (4, 12, 384, 128)], ids=str)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_two_kernel_sm90_matches_plain(card, causal, shape):
+    """The bf16 two-kernel backward on wgmma (dq: csrc/flash_dq_sm90.cu;
+    dk/dv: flash_bwd_sm90 without dq) at every head dim (48 zero-padded
+    to 64), S ragged or not, one item per CTA or several: each within
+    ``_rel`` 2e-2 of its plain version, two launches (one with delta
+    hoisted) bitwise equal, dk and dv equal to the fused kernel's bit for
+    bit, one launch counted per call."""
+    from veles_torch.znicz.ops import flash_attention as FA
+    q, k, v, dout = _flash_inputs(card, shape, torch.bfloat16, seed=19)
+    out, lse = FA.flash_attention_fwd(q, k, v, causal)
+    delta = FA.row_delta(out, dout)
+    FA.reset_launches()
+    dq = FA.flash_attention_dq(q, k, v, out, lse, dout, causal)
+    dq_again = FA.flash_attention_dq(q, k, v, out, lse, dout, causal, delta)
+    dkv = FA.flash_attention_dkv(q, k, v, out, lse, dout, causal)
+    dkv_again = FA.flash_attention_dkv(q, k, v, out, lse, dout, causal,
+                                       delta)
+    fused = FA.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_bwd.variant_launches == {"fused": 1, "dq": 2,
+                                                       "dkv": 2}
+    want = (FA.flash_attention_dq_plain(q, k, v, out, lse, dout, causal),
+            *FA.flash_attention_dkv_plain(q, k, v, out, lse, dout, causal))
+    for g, a, w in zip((dq, *dkv), (dq_again, *dkv_again), want):
+        assert g.dtype == torch.bfloat16 and g.shape == q.shape
+        assert torch.equal(g, a)
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel(g, w) <= 2e-2
+    assert torch.equal(dkv[0], fused[1]) and torch.equal(dkv[1], fused[2])
 
 
 @pytest.mark.cuda

@@ -3,7 +3,8 @@ against the JAX package's Pallas kernels (parallel/pallas_attention.py,
 interpret mode on the CPU), fused and two-kernel backward alike, and its
 dense attention core, on inputs made from a numpy seed; the wrappers'
 refusals; and a pure-Python model of the CUDA kernels' launch plans,
-the bf16 fused backward's tickets and dq order included."""
+the bf16 fused backward's tickets and dq order included, and of the bf16
+kernels' arithmetic (the forward's and the dq kernel's)."""
 
 import collections
 
@@ -504,12 +505,14 @@ def test_sm90_plan_orders_every_pair_once(bh, s, dh, causal):
                 assert got == [0]
 
 
-def _scaled_err(got, want):
-    """Worst element of ``got`` held to its own size and its row's rms
-    (chip_smoke.scaled_err without its absolute share)."""
+def _scaled_err(got, want, atol_share=0.0):
+    """Worst element of ``got`` held to its own size and its row's rms,
+    beyond ``atol_share``·max|want| (chip_smoke.scaled_err, whose
+    absolute share is 1e-6)."""
     g, w = got.double(), want.double()
+    d = ((g - w).abs() - atol_share * w.abs().max()).clamp_min(0)
     scale = w.abs() + w.square().mean(-1, keepdim=True).sqrt()
-    return ((g - w).abs() / scale.clamp_min(1e-300)).max().item()
+    return (d / scale.clamp_min(1e-300)).max().item()
 
 
 @pytest.mark.parametrize("dh", [16, 128])
@@ -701,3 +704,167 @@ def test_fwd_sm90_acc_bf16_matches_pallas(causal):
     err_plain = numpy.abs(plain.float().numpy() - want).max()
     assert err <= ACC_BF16_VS_PALLAS and err < err_plain, (err, err_plain)
     _close(lse, want_lse, 1e-5)
+
+
+# -- the bf16 two-kernel backward: csrc/flash_dq_sm90.cu and
+# -- csrc/flash_bwd_sm90.cu without dq ---------------------------------------
+
+
+@pytest.mark.parametrize("s", [1, 77, 127, 128, 129, 200, 512, 8192])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_dq_sm90_plan_covers_every_pair_once(dh, causal, s):
+    """The bf16 dq kernel's work items, on two heads, over K tiles of 128
+    keys (64 at dh 128): in order with the Q tiles longest first and
+    every head's tile in turn; every attended (row, key) pair in exactly
+    one visited (Q tile, K tile) and no other tile visited; each item's K
+    tiles ascending; the mask on exactly the tiles that hold a masked
+    pair or a padded key (padded query rows are never stored)."""
+    heads = 2
+    bk = FA.dq_sm90_block_k(dh)
+    assert bk == (64 if dh == 128 else FA.SM90_BLOCK_K)
+    plan = FA.dq_sm90_plan(heads, s, causal, dh)
+    n_qt = FA.n_tiles(s, FA.SM90_FWD_BLOCK_Q)
+    n_kt = FA.n_tiles(s, bk)
+    assert [(b, qt) for b, qt, _ in plan] == [
+        (b, qt) for qt in reversed(range(n_qt)) for b in range(heads)]
+    rows_per_tile = FA.SM90_FWD_BLOCK_Q
+    for b, qt, visits in plan:
+        kts = [kt for kt, _ in visits]
+        assert kts == sorted(set(kts))
+        rows = numpy.arange(qt * rows_per_tile,
+                            min((qt + 1) * rows_per_tile, s))
+        for kt in range(n_kt):
+            keys = numpy.arange(kt * bk, min((kt + 1) * bk, s))
+            attended = (keys[None, :] <= rows[:, None] if causal
+                        else numpy.ones((len(rows), len(keys)), bool))
+            assert (kt in kts) == bool(attended.any()), (qt, kt)
+            if kt in kts:
+                masked = dict(visits)[kt]
+                padded = (kt + 1) * bk > s
+                assert masked == (padded or not attended.all()), (qt, kt)
+
+
+@pytest.mark.parametrize("bh,s,dh", PLAN_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_dkv_sm90_plan_covers_every_pair_once(bh, s, dh, causal):
+    """The bf16 dk/dv kernel's work items, on two heads: the fused
+    backward's items in the deal's order (K tiles ascending, the heads in
+    turn); every attended (K tile, Q tile) pair visited exactly once and
+    no other, unmasked only where every pair attends and no key or row is
+    padded."""
+    heads = min(bh, 2)
+    plan = FA.dkv_sm90_plan(heads, s, causal)
+    n_kt = FA.n_tiles(s, FA.SM90_BLOCK_K)
+    assert [(b, kt) for b, kt, _ in plan] == [
+        (b, kt) for kt in range(n_kt) for b in range(heads)]
+    fused, _ = FA.bwd_sm90_plan(heads, s, causal)
+    assert sorted(plan) == sorted(fused)
+    seen = collections.Counter()
+    for b, kt, steps in plan:
+        for qt, masked in steps:
+            seen[b, kt, qt] += 1
+            attended = _attended_sm90(s, qt, kt, causal)
+            assert attended.any(), (kt, qt)
+            assert masked == (not attended.all()
+                              or (kt + 1) * FA.SM90_BLOCK_K > s
+                              or (qt + 1) * 64 > s), (kt, qt)
+    assert set(seen.values()) == {1}
+    for b in range(heads):
+        for kt in range(n_kt):
+            for qt in range(FA.n_tiles(s)):
+                assert ((b, kt, qt) in seen) == bool(
+                    _attended_sm90(s, qt, kt, causal).any()), (kt, qt)
+
+
+@pytest.mark.parametrize("bh,s,dh", [(96, 512, 64), (48, 8192, 64),
+                                     (48, 384, 128), (2, 77, 16),
+                                     (1, 1000, 64)])
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_sm90_deal_gives_every_dq_and_dkv_item_once(kernel, bh, s, dh):
+    """The persistent dq and dk/dv kernels' deal over 132 SMs (fewer CTAs
+    when there are fewer items): every causal item to exactly one CTA,
+    each CTA's items in plan order (longest first), and no CTA's share of
+    tile pairs more than the longest item above the mean."""
+    plan = (FA.dq_sm90_plan(bh, s, True, dh) if kernel == "dq"
+            else FA.dkv_sm90_plan(bh, s, True))
+    grid = min(len(plan), 132)
+    deal = FA.fwd_sm90_deal(len(plan), grid)
+    assert sorted(i for items in deal for i in items) == list(range(len(plan)))
+    work = [sum(len(plan[i][2]) for i in items) for items in deal]
+    lengths = [len(steps) for _, _, steps in plan]
+    assert lengths == sorted(lengths, reverse=True)
+    for items in deal:
+        assert items == sorted(items) and items
+    assert max(work) <= sum(work) / grid + max(lengths)
+
+
+def _dq_sm90_sim(q, k, v, dout, lse, delta, causal):
+    """The bf16 dq kernel's arithmetic on the CPU, after its plan: per
+    item, its K tiles in order; s = q·kᵀ·scale in f32 with the -1e9 mask
+    on the plan's masked tiles (padded keys left out, as the kernel zeroes
+    their p); p = exp(s − lse) (the fused kernel's expression); ds =
+    p·(dp − δ)·scale rounded to bf16; dq summed in f32 over the K tiles
+    in order and rounded to bf16 once."""
+    b, h, s, dh = q.shape
+    scale = FA.scale_for(dh)
+    qf, kf, vf, dof = (t.reshape(b * h, s, dh).float()
+                       for t in (q, k, v, dout))
+    lr = lse.reshape(b * h, s).float()
+    dl = delta.reshape(b * h, s).float()
+    bk = FA.dq_sm90_block_k(FA.kernel_head_dim(dh))
+    bq = FA.SM90_FWD_BLOCK_Q
+    dq = torch.empty((b * h, s, dh), dtype=q.dtype)
+    for bh, qt, visits in FA.dq_sm90_plan(b * h, s, causal, dh):
+        rows = torch.arange(qt * bq, min(qt * bq + bq, s))
+        acc = torch.zeros((len(rows), dh))
+        for kt, masked in visits:
+            keys = torch.arange(kt * bk, min(kt * bk + bk, s))
+            x = torch.matmul(qf[bh, rows], kf[bh, keys].T) * scale
+            if masked and causal:
+                x = x.masked_fill(keys[None, :] > rows[:, None],
+                                  FA.MASK_VALUE)
+            p = torch.exp(x - lr[bh, rows, None])
+            dp = torch.matmul(dof[bh, rows], vf[bh, keys].T)
+            ds = (p * (dp - dl[bh, rows, None]) * scale).to(
+                q.dtype).float()
+            acc = acc + torch.matmul(ds, kf[bh, keys])
+        dq[bh, rows] = acc.to(q.dtype)
+    return dq.reshape(b, h, s, dh)
+
+
+#: the simulation against the Pallas _dq_kernel, both on the same bf16
+#: inputs and rounding ds and dq to bf16: their f32 sums and exps differ
+#: in order and by a few ulps, which can move a rounding of ds or of dq
+#: to the neighbouring bf16 value, 2^-8 = 3.9e-3 of an element; allowed
+#: twice, as _scaled_err, beyond 1e-6·max|dq| where a causal run's row 0
+#: cancels to 0 (ds = p·(dp − δ) with p = 1 and dp = δ up to f32
+#: rounding) (read on this test's inputs: at most 4.3e-3, as the plain
+#: version, which sums in another order)
+DQ_SIM_VS_PALLAS = 8e-3
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_dq_sm90_simulation_matches_pallas(dh, causal):
+    """bf16 inputs at (1, 2, 200, dh), S ragged for the kernel's 128-row
+    Q tiles and its K tiles: the simulation of the dq kernel against the
+    Pallas ``_dq_kernel`` (``fused=False``, interpret mode, 40-row
+    blocks, which divide 200) from the same lse and out, within
+    DQ_SIM_VS_PALLAS."""
+    q, k, v, dout = _inputs(200, b=1, h=2, dh=dh, seed=47)
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, dout))
+    out, lse = PA.flash_attention_fwd(jq, jk, jv, causal=causal, block_q=40,
+                                      block_k=40, interpret=True)
+    want = PA.flash_attention_bwd(jq, jk, jv, out, lse, jdo, causal=causal,
+                                  block_q=40, block_k=40, interpret=True,
+                                  fused=False)[0]
+    want = torch.from_numpy(numpy.asarray(want.astype(jnp.float32)))
+    tq, tk, tv, tdo = _t(q, k, v, dout, dtype=torch.bfloat16)
+    tout = torch.from_numpy(numpy.asarray(
+        out.astype(jnp.float32))).to(torch.bfloat16)
+    tlse = torch.from_numpy(numpy.asarray(lse))
+    got = _dq_sm90_sim(tq, tk, tv, tdo, tlse, FA.row_delta(tout, tdo),
+                       causal)
+    assert got.dtype == torch.bfloat16
+    assert _scaled_err(got, want, 1e-6) <= DQ_SIM_VS_PALLAS

@@ -37,11 +37,12 @@ def test_library_path_follows_the_source_and_every_header(tmp_path,
 
 
 def test_the_port_sources_share_one_hopper_header():
-    """Both wgmma + TMA sources include csrc/sm90.cuh, and it is hashed
+    """Every wgmma + TMA source includes csrc/sm90.cuh, and it is hashed
     into their libraries' names."""
+    sm90 = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_dq_sm90")
     names = kernels.sources()
-    assert {"flash_fwd_sm90", "flash_bwd_sm90"} <= set(names)
-    for name in ("flash_fwd_sm90", "flash_bwd_sm90"):
+    assert set(sm90) <= set(names)
+    for name in sm90:
         with open(os.path.join(kernels.SOURCE_DIR, name + ".cu")) as f:
             assert '#include "sm90.cuh"' in f.read()
     assert os.path.exists(os.path.join(kernels.SOURCE_DIR, "sm90.cuh"))

@@ -15,8 +15,14 @@
 //                                         fused=True) for f32 inputs; bf16
 //                                         inputs take flash_bwd_sm90 in
 //                                         flash_bwd_sm90.cu (wgmma + TMA)
-//   flash_bwd_dq_{bf16,f32}               _dq_kernel (fused=False)
-//   flash_bwd_dkv_{bf16,f32}              _dkv_kernel (fused=False)
+//   flash_bwd_dq_f32                      _dq_kernel (fused=False) for f32
+//                                         inputs; bf16 inputs take
+//                                         flash_dq_sm90 in
+//                                         flash_dq_sm90.cu (wgmma + TMA)
+//   flash_bwd_dkv_f32                     _dkv_kernel (fused=False) for f32
+//                                         inputs; bf16 inputs take
+//                                         flash_bwd_sm90<DH, false> in
+//                                         flash_bwd_sm90.cu (wgmma + TMA)
 //
 // What they compute, as the TPU kernels do: scores s = q.k^T * scale
 // with scale = 1/sqrt(dh), in f32 from the storage dtype (f32 or bf16);
@@ -34,15 +40,12 @@
 // rows padded by 16 bytes (16-byte aligned rows for cp.async, and
 // column reads that spread over the banks). Any S: rows and columns
 // past S load as zeros and are masked in the kernel; the JAX version
-// needs tiles that divide S, this one does not. Two paths, by dtype:
-//   bf16 (the card's compute dtype): the two-kernel backward's
-//     *_bf16 kernels, the block products on the tensor cores with
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 rows
-//     each. The forward and the fused backward, the LM's path, run on
-//     wgmma with TMA loads in flash_fwd_sm90.cu and flash_bwd_sm90.cu.
-//   f32: *_f32 kernels. The tensor cores take no f32, so each thread
-//     owns a strided micro-tile of every product and runs scalar f32 FMAs
-//     out of shared memory, score tiles staged there too.
+// needs tiles that divide S, this one does not. Every kernel here takes
+// f32 inputs (the CPU policy's dtype): the tensor cores take no f32, so
+// each thread owns a strided micro-tile of every product and runs scalar
+// f32 FMAs out of shared memory, score tiles staged there too. bf16
+// inputs, the card's compute dtype, run every function on wgmma with TMA
+// loads in flash_fwd_sm90.cu, flash_bwd_sm90.cu and flash_dq_sm90.cu.
 //
 // Bounds on an H100 (989 TFLOP/s bf16, 67 TFLOP/s f32 outside the
 // tensor cores, 3.35 TB/s):
@@ -64,10 +67,10 @@
 //   products and 2 exps per tile pair against the fused kernel's 5 and 1
 //   (1.46 ms against 1.04 ms at S=8192), and reads q, k, v, dO, lse and
 //   delta twice; in exchange it moves no dq partials (below).
-// The mma path's ceiling is the 989 TFLOP/s bf16 rate, the f32 path's
-// the 67 TFLOP/s f32 rate. Both keep the causal loop bounds, which skip
-// every fully masked tile (half the work), evaluate the mask only where
-// a tile can need it, and start the longest causal rows first.
+// The ceiling here is the 67 TFLOP/s f32 rate. The kernels keep the
+// causal loop bounds, which skip every fully masked tile (half the
+// work), evaluate the mask only where a tile can need it, and start the
+// longest causal rows first.
 //
 // Pipelined forward (f32): the TPU kernel double-buffers K/V blocks from
 // HBM with make_async_copy and DMA semaphores. Here a two-stage cp.async
@@ -126,10 +129,6 @@ __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
 }
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -809,355 +808,6 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
-// -- bf16 inputs: the products on the tensor cores ------------------------
-//
-// mma.sync m16n8k16 (bf16 in, f32 accumulate). A warp owns 16 rows of
-// each product. Fragments follow the PTX layout; with g = lane/4 and
-// t = lane%4 a thread holds: of A, rows g and g+8 at columns 2t, 2t+1,
-// 2t+8, 2t+9; of B, k = 2t, 2t+1, 2t+8, 2t+9 at n = g; of C/D, rows g
-// and g+8 at columns 2t, 2t+1. Two f32 C tiles pack straight into the
-// A fragment of the next product (dS in the dq kernel, P^T and dS^T in
-// the dk/dv kernel), rounded to bf16 as the TPU kernels round p and ds.
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two adjacent bf16 of one row
-__device__ __forceinline__ uint32_t ld_row2(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// one bf16 from each of two rows (lo from p0)
-__device__ __forceinline__ uint32_t ld_col2(const bf16* p0, const bf16* p1) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p0)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p1))
-          << 16);
-}
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows r0, r0+8 (row-major, stride ld) at columns k0..k0+15
-__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* base,
-                                     int ld, int r0, int k0, int g, int t) {
-  const bf16* p0 = base + (r0 + g) * ld + k0 + 2 * t;
-  const bf16* p1 = p0 + 8 * ld;
-  a[0] = ld_row2(p0);
-  a[1] = ld_row2(p1);
-  a[2] = ld_row2(p0 + 8);
-  a[3] = ld_row2(p1 + 8);
-}
-
-// B fragment (k0..k0+15) x (n0..n0+7) of B(k, n) = m[n][k] (m row-major)
-__device__ __forceinline__ void ld_b_t(uint32_t& b0, uint32_t& b1,
-                                       const bf16* m, int ld, int n0, int k0,
-                                       int g, int t) {
-  const bf16* p = m + (n0 + g) * ld + k0 + 2 * t;
-  b0 = ld_row2(p);
-  b1 = ld_row2(p + 8);
-}
-
-// B fragment of B(k, n) = m[k][n] (m row-major)
-__device__ __forceinline__ void ld_b(uint32_t& b0, uint32_t& b1,
-                                     const bf16* m, int ld, int n0, int k0,
-                                     int g, int t) {
-  const bf16* p = m + (k0 + 2 * t) * ld + n0 + g;
-  b0 = ld_col2(p, p + ld);
-  b1 = ld_col2(p + 8 * ld, p + 9 * ld);
-}
-
-// the A fragments over 64 columns from an f32 C tile of 8 n-tiles,
-// rounded to bf16
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4][4],
-                                       const float (&c)[8][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    a[ks][0] = pack_bf16(c[2 * ks][0], c[2 * ks][1]);
-    a[ks][1] = pack_bf16(c[2 * ks][2], c[2 * ks][3]);
-    a[ks][2] = pack_bf16(c[2 * ks + 1][0], c[2 * ks + 1][1]);
-    a[ks][3] = pack_bf16(c[2 * ks + 1][2], c[2 * ks + 1][3]);
-  }
-}
-
-template <int DH>
-constexpr size_t bwd_dq_bf16_smem_bytes() {
-  return sizeof(bf16) * Tile<bf16, DH>::kElems * 4;
-}
-
-// flash_bwd_dq_f32's counterpart for bf16 inputs, a warp per 16 rows:
-// warp w owns query rows w*16 .. +15 (rows g and g+8 of the warp in each
-// thread, with their lse and delta in registers). S = Q.K^T and dP =
-// dO.V^T land in C fragments, dS packs into the A fragments of dq += dS.K.
-template <int DH>
-__global__ void __launch_bounds__(kFwdThreads)
-    flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dq,
-                      int s, int causal, float scale) {
-  using TL = Tile<bf16, DH>;
-  constexpr int kLd = TL::kLd;
-  constexpr int KS = DH / 16;  // k steps over dh
-  constexpr int NT = kBK / 8;  // score n-tiles
-  constexpr int ON = DH / 8;   // dq n-tiles
-  static_assert(kBQ == 16 * (kFwdThreads / 32), "a warp per 16 rows");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sDO = sQ + TL::kElems;
-  bf16* sK = sDO + TL::kElems;
-  bf16* sV = sK + TL::kElems;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int g = (tid % 32) / 4;
-  const int t = tid % 4;
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int64_t base = static_cast<int64_t>(bh) * s * DH;
-  const int n_kt = (s + kBK - 1) / kBK;
-  const int hi = causal ? min(n_kt, (q0 + kBQ + kBK - 1) / kBK) : n_kt;
-  const int clear = causal ? q0 / kBK : n_kt;
-  const bool ragged = s % kBK != 0;
-  const int row0 = q0 + warp * 16 + g;  // and row0 + 8
-
-  load_tile<bf16, DH, kFwdThreads>(sQ, q + base, q0, s);
-  load_tile<bf16, DH, kFwdThreads>(sDO, dout + base, q0, s);
-  float lr[2];
-  float dr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    lr[r] = row < s ? lse[static_cast<int64_t>(bh) * s + row] : 0.0f;
-    dr[r] = row < s ? delta[static_cast<int64_t>(bh) * s + row] : 0.0f;
-  }
-  float acc[ON][4];
-  zero(acc);
-
-  for (int j = 0; j < hi; ++j) {
-    load_tile<bf16, DH, kFwdThreads>(sK, k + base, j * kBK, s);
-    load_tile<bf16, DH, kFwdThreads>(sV, v + base, j * kBK, s);
-    __syncthreads();
-
-    float sc[NT][4];
-    float dp[NT][4];
-    zero(sc);
-    zero(dp);
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa[4];
-      uint32_t da[4];
-      ld_a(qa, sQ, kLd, warp * 16, kk * 16, g, t);
-      ld_a(da, sDO, kLd, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        ld_b_t(b0, b1, sK, kLd, nt * 8, kk * 16, g, t);
-        mma16816(sc[nt], qa, b0, b1);
-        ld_b_t(b0, b1, sV, kLd, nt * 8, kk * 16, g, t);
-        mma16816(dp[nt], da, b0, b1);
-      }
-    }
-    const bool masked = j >= clear || (ragged && j == n_kt - 1);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * kBK + nt * 8 + 2 * t + (e & 1);
-        float x = sc[nt][e] * scale;
-        if (masked && causal && col > row0 + 8 * (e >> 1)) {
-          x = kMaskValue;
-        }
-        float p = expf(x - lr[e >> 1]);
-        // padded K columns: a very negative lse would overflow exp
-        if (masked && col >= s) {
-          p = 0.0f;
-        }
-        sc[nt][e] = p * (dp[nt][e] - dr[e >> 1]) * scale;
-      }
-    }
-    uint32_t dsa[kBK / 16][4];
-    c_to_a(dsa, sc);
-#pragma unroll
-    for (int nt = 0; nt < ON; ++nt) {
-#pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) {
-        uint32_t b0, b1;
-        ld_b(b0, b1, sK, kLd, nt * 8, ks * 16, g, t);
-        mma16816(acc[nt], dsa[ks], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row < s) {
-      bf16* dst = dq + base + static_cast<int64_t>(row) * DH + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < ON; ++nt) {
-        *reinterpret_cast<uint32_t*>(dst + nt * 8) =
-            pack_bf16(acc[nt][2 * r], acc[nt][2 * r + 1]);
-      }
-    }
-  }
-}
-
-template <int DH>
-constexpr size_t bwd_dkv_bf16_smem_bytes() {
-  return sizeof(bf16) * Tile<bf16, DH>::kElems * 4 + sizeof(float) * 2 * kBQ;
-}
-
-// flash_bwd_dkv_f32's counterpart for bf16 inputs (the K-tile body of the
-// bf16 fused kernel that flash_bwd_sm90.cu replaced, without its dq
-// product). Warp w owns key rows w*16 .. +15: S^T = K.Q^T and dP^T =
-// V.dO^T, so P^T and dS^T are the A fragments of dv += P^T.dO and dk +=
-// dS^T.Q straight from registers.
-template <int DH>
-__global__ void __launch_bounds__(kFwdThreads)
-    flash_bwd_dkv_bf16(const bf16* __restrict__ q,
-                       const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv, int s,
-                       int causal, float scale) {
-  using TL = Tile<bf16, DH>;
-  constexpr int kLd = TL::kLd;
-  constexpr int KS = DH / 16;
-  constexpr int NT = kBQ / 8;  // n-tiles over the tile's 64 query rows
-  constexpr int ON = DH / 8;
-  static_assert(kBK == 16 * (kFwdThreads / 32), "a warp per 16 rows");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + TL::kElems;
-  bf16* sQ = sV + TL::kElems;
-  bf16* sDO = sQ + TL::kElems;
-  float* sLse = reinterpret_cast<float*>(sDO + TL::kElems);
-  float* sDelta = sLse + kBQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int g = (tid % 32) / 4;
-  const int t = tid % 4;
-  const int kt = blockIdx.x;
-  const int k0 = kt * kBK;
-  const int bh = blockIdx.y;
-  const int64_t base = static_cast<int64_t>(bh) * s * DH;
-  const float* lseb = lse + static_cast<int64_t>(bh) * s;
-  const float* deltab = delta + static_cast<int64_t>(bh) * s;
-  const int n_kt = (s + kBK - 1) / kBK;
-  const int n_qt = (s + kBQ - 1) / kBQ;
-  const bool ragged = s % kBK != 0;
-  const int qlo = causal ? k0 / kBQ : 0;
-  const int clear = causal ? (k0 + kBK - 1 + kBQ - 1) / kBQ : 0;
-  const bool edge = ragged && kt == n_kt - 1;
-  const int key0 = k0 + warp * 16 + g;  // and key0 + 8
-
-  load_tile<bf16, DH, kFwdThreads>(sK, k + base, k0, s);
-  load_tile<bf16, DH, kFwdThreads>(sV, v + base, k0, s);
-  float dka[ON][4];
-  float dva[ON][4];
-  zero(dka);
-  zero(dva);
-  for (int qt = qlo; qt < n_qt; ++qt) {
-    const int q0 = qt * kBQ;
-    load_tile<bf16, DH, kFwdThreads>(sQ, q + base, q0, s);
-    load_tile<bf16, DH, kFwdThreads>(sDO, dout + base, q0, s);
-    if (tid < kBQ) {
-      const bool in = q0 + tid < s;
-      sLse[tid] = in ? lseb[q0 + tid] : 0.0f;
-      sDelta[tid] = in ? deltab[q0 + tid] : 0.0f;
-    }
-    __syncthreads();
-
-    float pt[NT][4];
-    float dst[NT][4];
-    zero(pt);
-    zero(dst);
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t ka[4];
-      uint32_t va[4];
-      ld_a(ka, sK, kLd, warp * 16, kk * 16, g, t);
-      ld_a(va, sV, kLd, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b0, b1;
-        ld_b_t(b0, b1, sQ, kLd, nt * 8, kk * 16, g, t);
-        mma16816(pt[nt], ka, b0, b1);
-        ld_b_t(b0, b1, sDO, kLd, nt * 8, kk * 16, g, t);
-        mma16816(dst[nt], va, b0, b1);
-      }
-    }
-    const bool masked = qt < clear || edge || (ragged && qt == n_qt - 1);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nt * 8 + 2 * t + (e & 1);
-        const int row = q0 + qi;
-        const int key = key0 + 8 * (e >> 1);
-        float x = pt[nt][e] * scale;
-        if (masked && causal && key > row) {
-          x = kMaskValue;
-        }
-        float p = expf(x - sLse[qi]);
-        // padded Q rows read lse 0: exp must not reach dk/dv
-        if (masked && (row >= s || key >= s)) {
-          p = 0.0f;
-        }
-        pt[nt][e] = p;
-        dst[nt][e] = p * (dst[nt][e] - sDelta[qi]) * scale;
-      }
-    }
-    uint32_t pa[kBQ / 16][4];
-    uint32_t da[kBQ / 16][4];
-    c_to_a(pa, pt);
-    c_to_a(da, dst);
-#pragma unroll
-    for (int nt = 0; nt < ON; ++nt) {
-#pragma unroll
-      for (int ks = 0; ks < kBQ / 16; ++ks) {
-        uint32_t b0, b1;
-        ld_b(b0, b1, sDO, kLd, nt * 8, ks * 16, g, t);
-        mma16816(dva[nt], pa[ks], b0, b1);
-        ld_b(b0, b1, sQ, kLd, nt * 8, ks * 16, g, t);
-        mma16816(dka[nt], da[ks], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key < s) {
-      const int64_t off = base + static_cast<int64_t>(key) * DH + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < ON; ++nt) {
-        *reinterpret_cast<uint32_t*>(dk + off + nt * 8) =
-            pack_bf16(dka[nt][2 * r], dka[nt][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + nt * 8) =
-            pack_bf16(dva[nt][2 * r], dva[nt][2 * r + 1]);
-      }
-    }
-  }
-}
-
 // dq[bh, row, d] = sum over the chunks that wrote row (in chunk order) of
 // dq_part[chunk, bh, row, d], in the storage dtype.
 template <typename T>
@@ -1264,74 +914,51 @@ struct LaunchBwd {
   }
 };
 
-// the two-kernel backward's dq kernel: one CTA per (Q tile, b*h)
+// the two-kernel backward's dq kernel for f32 inputs: one CTA per (Q
+// tile, b*h) (bf16 inputs take flash_dq_sm90.cu)
 template <typename T, int DH>
 struct LaunchBwdDq {
+  static_assert(std::is_same<T, float>::value, "f32 inputs only");
   static cudaError_t run(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dq, int bh, int s, int causal, float scale,
                          cudaStream_t stream) {
     const dim3 grid((s + kBQ - 1) / kBQ, bh);
-    cudaError_t rc;
-    if constexpr (std::is_same<T, bf16>::value) {
-      constexpr size_t bytes = bwd_dq_bf16_smem_bytes<DH>();
-      rc = allow_smem(flash_bwd_dq_bf16<DH>, bytes);
-      if (rc != cudaSuccess) {
-        return rc;
-      }
-      flash_bwd_dq_bf16<DH><<<grid, kFwdThreads, bytes, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dq), s, causal, scale);
-    } else {
-      constexpr size_t bytes = bwd_dq_f32_smem_bytes<DH>();
-      rc = allow_smem(flash_bwd_dq_f32<DH>, bytes);
-      if (rc != cudaSuccess) {
-        return rc;
-      }
-      flash_bwd_dq_f32<DH><<<grid, kBwdThreads, bytes, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dq), s, causal, scale);
+    constexpr size_t bytes = bwd_dq_f32_smem_bytes<DH>();
+    cudaError_t rc = allow_smem(flash_bwd_dq_f32<DH>, bytes);
+    if (rc != cudaSuccess) {
+      return rc;
     }
+    flash_bwd_dq_f32<DH><<<grid, kBwdThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dq), s, causal, scale);
     return cudaGetLastError();
   }
 };
 
-// the two-kernel backward's dk/dv kernel: one CTA per (K tile, b*h)
+// the two-kernel backward's dk/dv kernel for f32 inputs: one CTA per (K
+// tile, b*h) (bf16 inputs take flash_bwd_sm90<DH, false> in
+// flash_bwd_sm90.cu)
 template <typename T, int DH>
 struct LaunchBwdDkv {
+  static_assert(std::is_same<T, float>::value, "f32 inputs only");
   static cudaError_t run(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, int bh, int s, int causal,
                          float scale, cudaStream_t stream) {
     const dim3 grid((s + kBK - 1) / kBK, bh);
-    cudaError_t rc;
-    if constexpr (std::is_same<T, bf16>::value) {
-      constexpr size_t bytes = bwd_dkv_bf16_smem_bytes<DH>();
-      rc = allow_smem(flash_bwd_dkv_bf16<DH>, bytes);
-      if (rc != cudaSuccess) {
-        return rc;
-      }
-      flash_bwd_dkv_bf16<DH><<<grid, kFwdThreads, bytes, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dk), static_cast<T*>(dv), s, causal, scale);
-    } else {
-      constexpr size_t bytes = bwd_dkv_f32_smem_bytes<DH>();
-      rc = allow_smem(flash_bwd_dkv_f32<DH>, bytes);
-      if (rc != cudaSuccess) {
-        return rc;
-      }
-      flash_bwd_dkv_f32<DH><<<grid, kBwdThreads, bytes, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const T*>(dout),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<T*>(dk), static_cast<T*>(dv), s, causal, scale);
+    constexpr size_t bytes = bwd_dkv_f32_smem_bytes<DH>();
+    cudaError_t rc = allow_smem(flash_bwd_dkv_f32<DH>, bytes);
+    if (rc != cudaSuccess) {
+      return rc;
     }
+    flash_bwd_dkv_f32<DH><<<grid, kBwdThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk), static_cast<float*>(dv), s, causal, scale);
     return cudaGetLastError();
   }
 };
@@ -1348,18 +975,6 @@ cudaError_t by_dh(int dh, Args... args) {
       return Launch<T, 64>::run(args...);
     case 128:
       return Launch<T, 128>::run(args...);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-template <template <typename, int> class Launch, typename... Args>
-cudaError_t dispatch(int dtype, int dh, Args... args) {
-  switch (dtype) {
-    case kF32:
-      return by_dh<Launch, float>(dh, args...);
-    case kBF16:
-      return by_dh<Launch, bf16>(dh, args...);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1401,12 +1016,12 @@ extern "C" int veles_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* delta, void* dq, int bh, int s,
                                   int dh, int dtype, int causal, float scale,
                                   void* stream) {
-  if (bad_shape(bh, s)) {
+  if (bad_shape(bh, s) || dtype != kF32) {
     return cudaErrorInvalidValue;
   }
-  return dispatch<LaunchBwdDq>(dtype, dh, q, k, v, dout, lse, delta, dq, bh,
-                               s, causal, scale,
-                               static_cast<cudaStream_t>(stream));
+  return by_dh<LaunchBwdDq, float>(dh, q, k, v, dout, lse, delta, dq, bh, s,
+                                   causal, scale,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int veles_flash_bwd_dkv(const void* q, const void* k,
@@ -1415,12 +1030,12 @@ extern "C" int veles_flash_bwd_dkv(const void* q, const void* k,
                                    void* dk, void* dv, int bh, int s, int dh,
                                    int dtype, int causal, float scale,
                                    void* stream) {
-  if (bad_shape(bh, s)) {
+  if (bad_shape(bh, s) || dtype != kF32) {
     return cudaErrorInvalidValue;
   }
-  return dispatch<LaunchBwdDkv>(dtype, dh, q, k, v, dout, lse, delta, dk, dv,
-                                bh, s, causal, scale,
-                                static_cast<cudaStream_t>(stream));
+  return by_dh<LaunchBwdDkv, float>(dh, q, k, v, dout, lse, delta, dk, dv,
+                                    bh, s, causal, scale,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* veles_flash_error_string(int code) {

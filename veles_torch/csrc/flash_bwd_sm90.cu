@@ -1,16 +1,20 @@
 // The fused flash-attention backward for bf16 inputs on Hopper (sm_90a):
 // dq, dk and dv in one pass, the block products on wgmma, the Q-side
 // tiles brought in by TMA, dq summed in a fixed order without partials.
+// The same kernel without dq is the two-kernel backward's dk/dv kernel.
 //
 // Replaces the Pallas TPU kernel _dkvq_kernel of veles/znicz_tpu/
-// parallel/pallas_attention.py:384 (flash_attention_bwd, fused=True) for
-// bf16 inputs. f32 inputs keep flash_bwd_f32 + dq_reduce, unchanged, in
-// flash_attention.cu. What it computes, under the dtype rules in the
-// header of flash_attention.cu: per (K tile, Q tile) pair, s = q.k^T *
-// scale in f32, the causal -1e9 mask, p = exp(s - lse) in f32; dv +=
-// p^T.do with p rounded to bf16; ds = p*(do.v^T - delta)*scale rounded to
-// bf16; dk += ds^T.q and dq += ds.k; f32 accumulation; five block
-// products and one exp per pair, as the TPU kernel. Any S: Q and dO rows
+// parallel/pallas_attention.py:384 (flash_attention_bwd, fused=True) as
+// flash_bwd_sm90<DH, WITH_DQ=true>, and _dkv_kernel (:324, fused=False)
+// as flash_bwd_sm90<DH, WITH_DQ=false>, for bf16 inputs (the pair's dq
+// kernel is flash_dq_sm90.cu). f32 inputs keep flash_bwd_f32 + dq_reduce
+// and flash_bwd_dkv_f32, unchanged, in flash_attention.cu. What it
+// computes, under the dtype rules in the header of flash_attention.cu:
+// per (K tile, Q tile) pair, s = q.k^T * scale in f32, the causal -1e9
+// mask, p = exp(s - lse) in f32; dv += p^T.do with p rounded to bf16;
+// ds = p*(do.v^T - delta)*scale rounded to bf16; dk += ds^T.q and dq +=
+// ds.k; f32 accumulation; five block products and one exp per pair, as
+// the TPU kernel (four without dq, as _dkv_kernel). Any S: Q and dO rows
 // past S come in as zeros (TMA's out-of-bounds fill) and padded rows and
 // keys are masked. Head dims 16, 32, 64 and 128.
 //
@@ -18,7 +22,9 @@
 // operations causal. At the 110M shape (8, 12, 512, 64): 8.1 GFLOP = 8.1
 // us against 44 MB (q, k, v, dO, dq, dk, dv in bf16, lse and delta in
 // f32) = 13.3 us: bytes bound (0.0133 ms). At (4, 12, 8192, 64): 1.03
-// TFLOP = 1.042 ms against 0.4 GB = 0.12 ms: operations bound.
+// TFLOP = 1.042 ms against 0.4 GB = 0.12 ms: operations bound. Without
+// dq: 8*B*H*S^2*dh/2 operations; 38 MB (no dq) = 11.4 us at the 110M
+// shape (bytes), 0.834 ms at (4, 12, 8192, 64) (operations).
 //
 // Design, against what held the old kernel (design (b), flash_bwd_bf16 +
 // dq_reduce) back:
@@ -87,8 +93,17 @@
 //     the three writers make up the third warpgroup; setmaxnreg gives it
 //     56 registers and the consumers 224.
 //
+// Without dq (WITH_DQ=false, _dkv_kernel's counterpart) the kernel drops
+// the dS^T store, the dq share, the writer warps and their mbarriers,
+// dq_acc and the counters, and keeps four products per pair (S^T, dP^T,
+// dv, dk) in the same order and arithmetic, so its dk and dv are the
+// fused kernel's bit for bit. Its items need no order: they come from a
+// fixed deal (Deal in sm90.cuh), K tiles ascending (the longest causal
+// items first) and the heads in turn, so a launch needs no zeroed memory.
+//
 // The PTX wrappers and the tensor-map encoder are in sm90.cuh, shared
-// with the forward (flash_fwd_sm90.cu).
+// with the forward (flash_fwd_sm90.cu) and the dq kernel
+// (flash_dq_sm90.cu).
 //
 // Plain C interface for ctypes (veles_torch/kernels.py): one launch on the
 // caller's stream, returning cudaGetLastError() or the tensor map's
@@ -114,7 +129,7 @@ constexpr int kBarWarpgroup = 1;
 
 // byte offsets from a 1024-byte aligned base; a tile is DP/64 chunks of
 // 64 columns (128-byte rows, swizzled in 8-row atoms of 1024 bytes)
-template <int DH>
+template <int DH, bool WITH_DQ>
 struct Smem {
   static constexpr int kDP = DH < 64 ? 64 : DH;  // padded head dim
   static constexpr int kChunks = kDP / 64;
@@ -122,14 +137,14 @@ struct Smem {
   static constexpr int kQChunk = kBQ * 128;  // ... of a Q tile
   static constexpr int kLdPart = kDP + 8;    // f32 row stride of a dq half
   // dq tiles in flight to the writers, one writer warp each (one at dh
-  // 128, for room)
-  static constexpr int kDqBufs = DH == 128 ? 1 : 3;
+  // 128, for room; none without dq)
+  static constexpr int kDqBufs = !WITH_DQ ? 0 : DH == 128 ? 1 : 3;
   static constexpr int kK = 0;
   static constexpr int kV = kK + kChunks * kKChunk;
   static constexpr int kQ = kV + kChunks * kKChunk;  // [stage][chunk]
   static constexpr int kDO = kQ + kStages * kChunks * kQChunk;
   static constexpr int kDS = kDO + kStages * kChunks * kQChunk;  // [wg]
-  static constexpr int kPart = kDS + 2 * kBQ * 128;  // [buf][wg]
+  static constexpr int kPart = kDS + (WITH_DQ ? 2 * kBQ * 128 : 0);
   static constexpr int kLse = kPart + kDqBufs * 2 * kBQ * kLdPart * 4;
   static constexpr int kDelta = kLse + kStages * kBQ * 4;
   static constexpr int kBars = kDelta + kStages * kBQ * 4;
@@ -142,7 +157,7 @@ struct Smem {
 
 // -- the kernel -----------------------------------------------------------
 
-template <int DH>
+template <int DH, bool WITH_DQ>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -153,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                    bf16* __restrict__ dk, bf16* __restrict__ dv,
                    float* __restrict__ dq_acc, int* __restrict__ sync,
                    int bh_total, int s, int causal, float scale) {
-  using SM = Smem<DH>;
+  using SM = Smem<DH, WITH_DQ>;
   constexpr int C = SM::kChunks;
   constexpr int KS = DH / 16;  // k steps of S^T and dP^T over dh
 
@@ -295,12 +310,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     int stage = 0;
     uint32_t empty_par = 1;  // the ring starts empty
     uint32_t kv_par = 1;
-    for (;;) {
+    // without dq: item i of the deal is K tile i / bh_total of head
+    // i % bh_total, the longest causal items first
+    const Deal deal{static_cast<int>(blockIdx.x), static_cast<int>(gridDim.x),
+                    n_items};
+    for (int turn = 0;; ++turn) {
       int item = 0;
-      if (lane == 0) {
-        item = atomicAdd(sync, 1);
+      if constexpr (WITH_DQ) {
+        if (lane == 0) {
+          item = atomicAdd(sync, 1);
+        }
+        item = __shfl_sync(0xffffffffu, item, 0);
+      } else {
+        // as the ticket that names the same (b*h, K tile)
+        const int i = deal.item(turn);
+        item = i < 0 ? n_items
+                     : (i % bh_total) * n_kt + n_kt - 1 - i / bh_total;
       }
-      item = __shfl_sync(0xffffffffu, item, 0);
       const bool done = item >= n_items;
       mbar_wait(kv_empty, kv_par);
       kv_par ^= 1;
@@ -460,20 +486,22 @@ __global__ void __launch_bounds__(kThreads, 1)
             df[ks][r] = pack_bf16(pa[8 * ks + 2 * r], pa[8 * ks + 2 * r + 1]);
           }
         }
+        if constexpr (WITH_DQ) {
 #pragma unroll
-        for (int e = 0; e < 32; e += 2) {
-          const int key = 16 * warp + g + 8 * ((e >> 1) & 1);
-          const int chunk = (e / 4) ^ (key % 8);
-          *reinterpret_cast<uint32_t*>(s_ds + key * 128 + chunk * 16 +
-                                       4 * t4) =
-              df[e / 8][(e % 8) / 2];
+          for (int e = 0; e < 32; e += 2) {
+            const int key = 16 * warp + g + 8 * ((e >> 1) & 1);
+            const int chunk = (e / 4) ^ (key % 8);
+            *reinterpret_cast<uint32_t*>(s_ds + key * 128 + chunk * 16 +
+                                         4 * t4) =
+                df[e / 8][(e % 8) / 2];
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          bar_sync(kBarWarpgroup + wg, 128);  // dS^T is in shared memory
         }
 
         // dv += P^T.dO and dk += dS^T.Q (k = the 64 queries), then this
         // warpgroup's share of dq, dS (64 queries x its 64 keys) . K, in
         // 64-column chunks, all issued before the first wait
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        bar_sync(kBarWarpgroup + wg, 128);  // dS^T is in shared memory
         float qa[32];
         wgmma_fence();
 #pragma unroll
@@ -485,50 +513,57 @@ __global__ void __launch_bounds__(kThreads, 1)
             wgmma_rs<1>(dka[c], df[ks], desc(s_q + off));
           }
         }
+        if constexpr (WITH_DQ) {
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          wgmma_ss<1, 1>(qa, desc(s_ds + ks * 2048), desc(s_k + ks * 2048),
-                         ks > 0);
+          for (int ks = 0; ks < 4; ++ks) {
+            wgmma_ss<1, 1>(qa, desc(s_ds + ks * 2048), desc(s_k + ks * 2048),
+                           ks > 0);
+          }
         }
         wgmma_commit();
-        // the writers' buffer, which takes the two shares in order
-        float* part = s_part + (dbuf * 2 + wg) * kBQ * SM::kLdPart;
-        mbar_wait(&dq_empty[dbuf], dq_par);
+        if constexpr (WITH_DQ) {
+          // the writers' buffer, which takes the two shares in order
+          mbar_wait(&dq_empty[dbuf], dq_par);
+        }
         wgmma_wait_all();
         mbar_arrive(&empty[stage]);  // Q, dO, lse and delta are read
         if (++stage == kStages) {
           stage = 0;
           full_par ^= 1;
         }
+        if constexpr (WITH_DQ) {
+          float* part = s_part + (dbuf * 2 + wg) * kBQ * SM::kLdPart;
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          if (c > 0) {
-            wgmma_fence();
+          for (int c = 0; c < C; ++c) {
+            if (c > 0) {
+              wgmma_fence();
 #pragma unroll
-            for (int ks = 0; ks < 4; ++ks) {
-              wgmma_ss<1, 1>(qa, desc(s_ds + ks * 2048),
-                             desc(s_k + c * SM::kKChunk + ks * 2048), ks > 0);
+              for (int ks = 0; ks < 4; ++ks) {
+                wgmma_ss<1, 1>(qa, desc(s_ds + ks * 2048),
+                               desc(s_k + c * SM::kKChunk + ks * 2048),
+                               ks > 0);
+              }
+              wgmma_commit();
+              wgmma_wait_all();
             }
-            wgmma_commit();
-            wgmma_wait_all();
-          }
 #pragma unroll
-          for (int e = 0; e < 32; e += 2) {
-            const int row = 16 * warp + g + 8 * ((e >> 1) & 1);
-            const int col = c * 64 + 8 * (e / 4) + 2 * t4;
-            *reinterpret_cast<float2*>(part + row * SM::kLdPart + col) =
-                make_float2(qa[e], qa[e + 1]);
+            for (int e = 0; e < 32; e += 2) {
+              const int row = 16 * warp + g + 8 * ((e >> 1) & 1);
+              const int col = c * 64 + 8 * (e / 4) + 2 * t4;
+              *reinterpret_cast<float2*>(part + row * SM::kLdPart + col) =
+                  make_float2(qa[e], qa[e + 1]);
+            }
           }
-        }
-        if (tid == 0) {
-          s_meta[4 * dbuf] = bh;
-          s_meta[4 * dbuf + 1] = kt;
-          s_meta[4 * dbuf + 2] = qt;
-        }
-        mbar_arrive(&dq_full[dbuf]);
-        if (++dbuf == SM::kDqBufs) {
-          dbuf = 0;
-          dq_par ^= 1;
+          if (tid == 0) {
+            s_meta[4 * dbuf] = bh;
+            s_meta[4 * dbuf + 1] = kt;
+            s_meta[4 * dbuf + 2] = qt;
+          }
+          mbar_arrive(&dq_full[dbuf]);
+          if (++dbuf == SM::kDqBufs) {
+            dbuf = 0;
+            dq_par ^= 1;
+          }
         }
       }
 
@@ -555,7 +590,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- host side ------------------------------------------------------------
 
-template <int DH>
+template <int DH, bool WITH_DQ>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, void* dk, void* dv, void* dq_acc, void* sync,
@@ -567,9 +602,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !make_map(&tdo, dout, bh, s, DH, kBQ)) {
     return cudaErrorInvalidValue;
   }
-  constexpr int bytes = Smem<DH>::kBytes;
+  constexpr int bytes = Smem<DH, WITH_DQ>::kBytes;
+  auto kernel = flash_bwd_sm90<DH, WITH_DQ>;
   cudaError_t rc = cudaFuncSetAttribute(
-      flash_bwd_sm90<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (rc != cudaSuccess) {
     return rc;
   }
@@ -585,13 +621,40 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   const int items = bh * ((s + kBK - 1) / kBK);
   const int grid = items < n_sm ? items : n_sm;
-  flash_bwd_sm90<DH><<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       static_cast<float*>(dq_acc), static_cast<int*>(sync), bh, s, causal,
       scale);
   return cudaGetLastError();
+}
+
+template <bool WITH_DQ>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dq, void* dk,
+             void* dv, void* dq_acc, void* sync, int bh, int s, int dh,
+             int causal, float scale, void* stream) {
+  if (bh <= 0 || s <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16:
+      return launch<16, WITH_DQ>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                 dq_acc, sync, bh, s, causal, scale, st);
+    case 32:
+      return launch<32, WITH_DQ>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                 dq_acc, sync, bh, s, causal, scale, st);
+    case 64:
+      return launch<64, WITH_DQ>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                 dq_acc, sync, bh, s, causal, scale, st);
+    case 128:
+      return launch<128, WITH_DQ>(q, k, v, dout, lse, delta, dq, dk, dv,
+                                  dq_acc, sync, bh, s, causal, scale, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -606,26 +669,20 @@ extern "C" int veles_flash_bwd_sm90(const void* q, const void* k,
                                     void* dq_acc, void* sync, int bh, int s,
                                     int dh, int causal, float scale,
                                     void* stream) {
-  if (bh <= 0 || s <= 0) {
-    return cudaErrorInvalidValue;
-  }
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16:
-      return launch<16>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, sync,
-                        bh, s, causal, scale, st);
-    case 32:
-      return launch<32>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, sync,
-                        bh, s, causal, scale, st);
-    case 64:
-      return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, sync,
-                        bh, s, causal, scale, st);
-    case 128:
-      return launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc,
-                         sync, bh, s, causal, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch<true>(q, k, v, dout, lse, delta, dq, dk, dv, dq_acc, sync,
+                        bh, s, dh, causal, scale, stream);
+}
+
+// the two-kernel backward's dk/dv: q, k, v, dout, dk, dv: (bh, s, dh)
+// bf16; lse, delta: (bh, s) f32; no workspace
+extern "C" int veles_flash_dkv_sm90(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dk, void* dv, int bh, int s,
+                                    int dh, int causal, float scale,
+                                    void* stream) {
+  return dispatch<false>(q, k, v, dout, lse, delta, nullptr, dk, dv, nullptr,
+                         nullptr, bh, s, dh, causal, scale, stream);
 }
 
 extern "C" const char* veles_flash_error_string(int code) {

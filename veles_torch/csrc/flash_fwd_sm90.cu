@@ -123,28 +123,6 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// pins an operand's registers at this point of the program: after a
-// wgmma wait, so that later reads use the product's values and not copies
-// taken while it was in flight; before wgmma_fence, so that no write to
-// them sinks between the fence and the products that read them
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    asm volatile("" : "+f"(d[i])::"memory");
-  }
-}
-
-__device__ __forceinline__ void fence_frag(uint32_t (&a)[8][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      asm volatile("" : "+r"(a[ks][r])::"memory");
-    }
-  }
-}
-
 // The online-softmax step of one K tile on this thread's two rows (r0 and
 // r0 + 8; element e of the accumulator is row r0 + 8*((e>>1)&1), key k0 +
 // 8*(e/4) + 2*(lane%4) + (e&1)): raw scores sa -> p in place (f32), m
@@ -318,18 +296,6 @@ __device__ __forceinline__ void finish_pv(float (&o)[C][32],
   }
 }
 
-// The work items dealt to CTA ``cta`` of ``grid``, in order: item i is Q
-// tile n_qt - 1 - i / bh of head i % bh (the longest causal rows first),
-// and the items go out in rounds of ``grid``, every other round in
-// reverse, so the long and the short items even out across the CTAs.
-struct Deal {
-  int cta, grid, n_items, bh, n_qt;
-  __device__ __forceinline__ int item(int r) const {
-    const int i = r * grid + ((r & 1) ? grid - 1 - cta : cta);
-    return i < n_items ? i : -1;
-  }
-};
-
 template <int DH, bool PIPE, bool ACC_BF16>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
@@ -352,8 +318,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int n_kt = (s + kBK - 1) / kBK;
   const int n_qt = (s + kBQ - 1) / kBQ;
+  // item i is Q tile n_qt - 1 - i / bh_total of head i % bh_total: the
+  // longest causal rows first
   const Deal deal{static_cast<int>(blockIdx.x), static_cast<int>(gridDim.x),
-                  bh_total * n_qt, bh_total, n_qt};
+                  bh_total * n_qt};
 
   if (threadIdx.x == 0) {
     for (int b = 0; b < 2; ++b) {

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma + TMA
-// kernels (flash_bwd_sm90.cu, flash_fwd_sm90.cu): PTX wrappers for
-// mbarriers, TMA loads, wgmma descriptors and products, and the host-side
-// tensor-map encoder.
+// kernels (flash_bwd_sm90.cu, flash_dq_sm90.cu, flash_fwd_sm90.cu): PTX
+// wrappers for mbarriers, TMA loads, wgmma descriptors and products, the
+// register pins around them, the persistent grids' fixed deal, and the
+// host-side tensor-map encoder.
 //
 // Conventions: shared-memory tiles are rows of 128 bytes (64 bf16
 // columns), 128-byte swizzled in 8-row atoms of 1024 bytes, from a
@@ -230,6 +231,42 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// pins an operand's registers at this point of the program: after a
+// wgmma wait, so that later reads use the product's values and not copies
+// taken while it was in flight; before wgmma_fence, so that no write to
+// them sinks between the fence and the products that read them
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    asm volatile("" : "+f"(d[i])::"memory");
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int ks = 0; ks < N; ++ks) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      asm volatile("" : "+r"(a[ks][r])::"memory");
+    }
+  }
+}
+
+// The work items a persistent CTA ``cta`` of ``grid`` takes, in order,
+// from a list of ``n_items`` that its kernel orders longest first: rounds
+// of one item per CTA, every other round in reverse, so the long and the
+// short items even out across the CTAs. It needs no counter, so a launch
+// needs no zeroed memory.
+struct Deal {
+  int cta, grid, n_items;
+  __device__ __forceinline__ int item(int r) const {
+    const int i = r * grid + ((r & 1) ? grid - 1 - cta : cta);
+    return i < n_items ? i : -1;
+  }
+};
 
 // -- host side ------------------------------------------------------------
 

@@ -9,25 +9,25 @@ Replaces the Pallas TPU kernels of
 one at a time as :func:`flash_attention_dq` and
 :func:`flash_attention_dkv`). The public functions keep the JAX
 signatures and the (B, H, S, dh) layout. On the card the work goes to
-the hand-written CUDA kernels in ``veles_torch/csrc/`` (``flash_fwd_sm90.cu``
-and ``flash_bwd_sm90.cu`` for bf16 inputs, ``flash_attention.cu`` for f32
-inputs and the two-kernel backward); on the CPU to the ``*_plain``
-versions, dense softmax attention under the kernels' dtype rules: f32
-scores, exp and lse; p rounded to the storage dtype before the PV
-product; ds rounded likewise before the dk/dq products; f32
-accumulation.
+the hand-written CUDA kernels in ``veles_torch/csrc/`` (for bf16 inputs
+``flash_fwd_sm90.cu``, ``flash_bwd_sm90.cu`` — the fused backward and,
+without dq, the dk/dv kernel — and ``flash_dq_sm90.cu``; for f32 inputs
+``flash_attention.cu``); on the CPU to the ``*_plain`` versions, dense
+softmax attention under the kernels' dtype rules: f32 scores, exp and
+lse; p rounded to the storage dtype before the PV product; ds rounded
+likewise before the dk/dq products; f32 accumulation.
 
 bf16 inputs (the card's compute dtype) run the block products on the
-tensor cores: the forward and the fused backward on ``wgmma`` with TMA
-loads, the two-kernel backward on ``mma.sync``; f32 inputs run scalar f32
+tensor cores, on ``wgmma`` with TMA loads; f32 inputs run scalar f32
 FMAs. What bounds them on an H100, and what the kernels do about it, is
 noted in the CUDA sources. Tiles are the port's own (64 x 64 for every
-dh; the bf16 forward 128 query rows x 128 keys, the bf16 fused backward
-128 keys x 64 queries); the JAX ``block_q``/``block_k`` are VMEM-sized
-and not carried over. The kernels are built for head dims 16, 32, 64 and
-128; any other dh up to 128 runs zero-padded to the next of them
-(:func:`kernel_head_dim`), and the plain versions take any dh, as the
-reference does.
+dh in f32; in bf16 the forward and the dq kernel 128 query rows x 128
+keys (the dq kernel 64 keys at dh 128), the fused backward and the dk/dv
+kernel 128 keys x 64 queries); the JAX ``block_q``/``block_k`` are
+VMEM-sized and not carried over. The kernels are built for head dims
+16, 32, 64 and 128; any other dh up to 128 runs zero-padded to the next
+of them (:func:`kernel_head_dim`), and the plain versions take any dh,
+as the reference does.
 """
 
 import ctypes
@@ -46,8 +46,8 @@ BLOCK_Q = BLOCK_K = 64
 #: csrc/flash_bwd_sm90.cu; its Q tiles are BLOCK_Q rows), and per K tile
 #: of the bf16 forward (csrc/flash_fwd_sm90.cu)
 SM90_BLOCK_K = 128
-#: query rows per CTA of the bf16 forward (``kBQ`` in
-#: csrc/flash_fwd_sm90.cu)
+#: query rows per work item of the bf16 forward and dq kernel (``kBQ`` in
+#: csrc/flash_fwd_sm90.cu and csrc/flash_dq_sm90.cu)
 SM90_FWD_BLOCK_Q = 128
 #: causal mask value of the TPU kernels
 MASK_VALUE = -1e9
@@ -84,6 +84,19 @@ _SIGNATURES = {
 _SM90_SIGNATURES = {
     "veles_flash_bwd_sm90": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p]),
+    "veles_flash_dkv_sm90": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]),
+    "veles_flash_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+_SM90_DQ_SIGNATURES = {
+    "veles_flash_dq_sm90": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -150,19 +163,21 @@ def fwd_k_tiles(s, qt, causal):
     return min(n_kt, -(-(q0 + BLOCK_Q) // BLOCK_K)), q0 // BLOCK_K
 
 
-def fwd_sm90_plan(bh, s, causal, pipe):
+def fwd_sm90_plan(bh, s, causal, pipe, block_k=SM90_BLOCK_K):
     """The bf16 forward's work items (csrc/flash_fwd_sm90.cu) in order:
     ``[(b, qt, [(kt, masked), ...]), ...]``, one per (b*h, Q tile of
     SM90_FWD_BLOCK_Q rows), Q tiles longest first and the heads in turn,
-    each over its K tiles of SM90_BLOCK_K keys: up to the diagonal when
+    each over its K tiles of ``block_k`` keys: up to the diagonal when
     causal. ``pipe=False`` masks the tiles from the diagonal on and the
     ragged last K tile; ``pipe=True`` every visited tile."""
     n_qt = n_tiles(s, SM90_FWD_BLOCK_Q)
-    n_kt = n_tiles(s, SM90_BLOCK_K)
-    edge = n_kt - 1 if s % SM90_BLOCK_K else None
+    n_kt = n_tiles(s, block_k)
+    edge = n_kt - 1 if s % block_k else None
+    ratio = SM90_FWD_BLOCK_Q // block_k
     plan = []
     for qt in reversed(range(n_qt)):
-        hi, clear = (min(n_kt, qt + 1), qt) if causal else (n_kt, n_kt)
+        hi, clear = ((min(n_kt, ratio * (qt + 1)), ratio * qt) if causal
+                     else (n_kt, n_kt))
         for b in range(bh):
             plan.append((b, qt, [(kt, pipe or kt >= clear or kt == edge)
                                  for kt in range(hi)]))
@@ -178,6 +193,23 @@ def fwd_sm90_deal(n_items, grid):
         r, x = divmod(i, grid)
         deal[grid - 1 - x if r % 2 else x].append(i)
     return deal
+
+
+def dq_sm90_block_k(dh):
+    """Keys per K tile of the bf16 dq kernel (``kBK`` in
+    csrc/flash_dq_sm90.cu) at kernel head dim ``dh``: 64 at dh 128, where
+    the S, dP and dq accumulators of 128 keys would not fit the
+    registers, else SM90_BLOCK_K."""
+    return 64 if dh == 128 else SM90_BLOCK_K
+
+
+def dq_sm90_plan(bh, s, causal, dh):
+    """The bf16 dq kernel's work items (csrc/flash_dq_sm90.cu) in order,
+    as :func:`fwd_sm90_plan` without the pipeline, whose items and masks
+    it follows, over K tiles of :func:`dq_sm90_block_k` keys; the items
+    go to the CTAs by :func:`fwd_sm90_deal`."""
+    return fwd_sm90_plan(bh, s, causal, False,
+                         dq_sm90_block_k(kernel_head_dim(dh)))
 
 
 def bwd_chunks(bh, s, dh):
@@ -204,19 +236,19 @@ def dq_chunks(row, n_chunks, causal):
 
 
 def dq_plan(s, qt, causal):
-    """The (K tile, masked) pairs the dq CTA of Q tile ``qt`` visits, in
-    order: the forward's K tiles, the mask on the tail ``>= clear`` and on
-    the ragged last K tile (padded columns)."""
+    """The (K tile, masked) pairs the f32 dq kernel's CTA of Q tile
+    ``qt`` visits, in order: the forward's K tiles, the mask on the tail
+    ``>= clear`` and on the ragged last K tile (padded columns)."""
     hi, clear = fwd_k_tiles(s, qt, causal)
     last = n_tiles(s, BLOCK_K) - 1 if s % BLOCK_K else None
     return [(kt, kt >= clear or kt == last) for kt in range(hi)]
 
 
 def dkv_plan(s, kt, causal):
-    """The (Q tile, masked) pairs the dk/dv CTA of K tile ``kt`` visits,
-    in order: Q tiles from the diagonal (causal) or from 0, the mask on
-    the head ``< clear`` (the tiles that cross the diagonal) and on either
-    ragged edge (padded rows or keys)."""
+    """The (Q tile, masked) pairs the f32 dk/dv kernel's CTA of K tile
+    ``kt`` visits, in order: Q tiles from the diagonal (causal) or from 0,
+    the mask on the head ``< clear`` (the tiles that cross the diagonal)
+    and on either ragged edge (padded rows or keys)."""
     n_qt = n_tiles(s, BLOCK_Q)
     k0 = kt * BLOCK_K
     lo, clear = ((k0 // BLOCK_Q, -(-(k0 + BLOCK_K - 1) // BLOCK_Q))
@@ -239,16 +271,36 @@ def bwd_sm90_plan(bh, s, causal):
     the last (K tile 0) writes the bf16 dq."""
     ratio = SM90_BLOCK_K // BLOCK_Q
     n_kt, n_qt = n_tiles(s, SM90_BLOCK_K), n_tiles(s, BLOCK_Q)
-    edge_k = n_kt - 1 if s % SM90_BLOCK_K else None
-    edge_q = n_qt - 1 if s % BLOCK_Q else None
-    items = [(b, kt, [(qt, (causal and qt < ratio * (kt + 1))
-                       or kt == edge_k or qt == edge_q)
-                      for qt in range(ratio * kt if causal else 0, n_qt)])
+    items = [(b, kt, _bwd_sm90_steps(s, kt, causal))
              for b in range(bh) for kt in reversed(range(n_kt))]
     order = {(b, qt): list(reversed(range(
         min(n_kt - 1, qt // ratio) + 1 if causal else n_kt)))
         for b in range(bh) for qt in range(n_qt)}
     return items, order
+
+
+def _bwd_sm90_steps(s, kt, causal):
+    """The (Q tile, masked) steps of the bf16 backward's item of K tile
+    ``kt``: the Q tiles that attend it (from the diagonal when causal),
+    masked on those that cross the diagonal or hold a padded key or
+    row."""
+    ratio = SM90_BLOCK_K // BLOCK_Q
+    n_kt, n_qt = n_tiles(s, SM90_BLOCK_K), n_tiles(s, BLOCK_Q)
+    edge_k = n_kt - 1 if s % SM90_BLOCK_K else None
+    edge_q = n_qt - 1 if s % BLOCK_Q else None
+    return [(qt, (causal and qt < ratio * (kt + 1)) or kt == edge_k
+             or qt == edge_q)
+            for qt in range(ratio * kt if causal else 0, n_qt)]
+
+
+def dkv_sm90_plan(bh, s, causal):
+    """The bf16 dk/dv kernel's work items (csrc/flash_bwd_sm90.cu without
+    dq) in order: ``[(b, kt, [(qt, masked), ...]), ...]``, the fused
+    backward's items (:func:`bwd_sm90_plan`) with no ticket: K tiles
+    ascending (the longest causal items first) and the heads in turn,
+    dealt to the CTAs by :func:`fwd_sm90_deal`."""
+    return [(b, kt, _bwd_sm90_steps(s, kt, causal))
+            for kt in range(n_tiles(s, SM90_BLOCK_K)) for b in range(bh)]
 
 
 # -- plain versions -------------------------------------------------------
@@ -516,8 +568,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
 
 def flash_attention_dq(q, k, v, out, lse, dout, causal=True, delta=None):
     """dq of the backward, by the dq kernel (``_dq_kernel``'s
-    counterpart: one CTA per Q tile over the K tiles it attends) on CUDA
-    tensors, or :func:`flash_attention_dq_plain` on CPU tensors."""
+    counterpart: each Q tile over the K tiles it attends; for bf16 the
+    wgmma kernel of csrc/flash_dq_sm90.cu, for f32 the scalar one) on
+    CUDA tensors, or :func:`flash_attention_dq_plain` on CPU tensors."""
     on_card, delta = _bwd_args("flash_attention_dq", q, k, v, out, lse,
                                dout, delta)
     if not on_card:
@@ -527,12 +580,17 @@ def flash_attention_dq(q, k, v, out, lse, dout, causal=True, delta=None):
     kdh = kernel_head_dim(dh)
     q, k, v, dout = _widen((q, k, v, dout), kdh)
     dq = torch.empty_like(q)
-    lib = kernels.load("flash_attention", _SIGNATURES)
-    rc = lib.veles_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, s, kdh,
-        _DTYPE_CODES[q.dtype], int(causal), scale_for(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, s, kdh)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        lib = kernels.load("flash_dq_sm90", _SM90_DQ_SIGNATURES)
+        rc = lib.veles_flash_dq_sm90(*args, int(causal), scale_for(dh),
+                                     stream)
+    else:
+        lib = kernels.load("flash_attention", _SIGNATURES)
+        rc = lib.veles_flash_bwd_dq(*args, _DTYPE_CODES[q.dtype],
+                                    int(causal), scale_for(dh), stream)
     _raise_on(lib, rc, "flash_attention_dq")
     _launched("dq")
     return _narrow(dq, dh)
@@ -540,8 +598,10 @@ def flash_attention_dq(q, k, v, out, lse, dout, causal=True, delta=None):
 
 def flash_attention_dkv(q, k, v, out, lse, dout, causal=True, delta=None):
     """(dk, dv) of the backward, by the dk/dv kernel (``_dkv_kernel``'s
-    counterpart: one CTA per K tile over the Q tiles that attend it) on
-    CUDA tensors, or :func:`flash_attention_dkv_plain` on CPU tensors."""
+    counterpart: each K tile over the Q tiles that attend it; for bf16
+    the fused wgmma kernel of csrc/flash_bwd_sm90.cu without dq, whose dk
+    and dv it equals bit for bit, for f32 the scalar one) on CUDA
+    tensors, or :func:`flash_attention_dkv_plain` on CPU tensors."""
     on_card, delta = _bwd_args("flash_attention_dkv", q, k, v, out, lse,
                                dout, delta)
     if not on_card:
@@ -551,12 +611,18 @@ def flash_attention_dkv(q, k, v, out, lse, dout, causal=True, delta=None):
     kdh = kernel_head_dim(dh)
     q, k, v, dout = _widen((q, k, v, dout), kdh)
     dk, dv = torch.empty_like(q), torch.empty_like(q)
-    lib = kernels.load("flash_attention", _SIGNATURES)
-    rc = lib.veles_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b * h, s, kdh, _DTYPE_CODES[q.dtype], int(causal), scale_for(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * h, s, kdh)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        lib = kernels.load("flash_bwd_sm90", _SM90_SIGNATURES)
+        rc = lib.veles_flash_dkv_sm90(*args, int(causal), scale_for(dh),
+                                      stream)
+    else:
+        lib = kernels.load("flash_attention", _SIGNATURES)
+        rc = lib.veles_flash_bwd_dkv(*args, _DTYPE_CODES[q.dtype],
+                                     int(causal), scale_for(dh), stream)
     _raise_on(lib, rc, "flash_attention_dkv")
     _launched("dkv")
     return _narrow(dk, dh), _narrow(dv, dh)
