@@ -19,9 +19,13 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 3. kernels — holds the bias-gradient kernel against its plain PyTorch
    version on the card: every activation, float32 and bfloat16 inputs,
    at the MNIST shapes and two large ones; ``linear`` and ``tanh`` at the
-   110M LM step's shapes (``LM_SHAPES``) in the dtype the LM gives each.
+   110M LM step's shapes (``LM_SHAPES``) in the dtype the LM gives each;
+   ``relu`` (softplus) in bf16 at the conv path's shapes (``CONV_SHAPES``:
+   AlexNet's five conv GD views and FC layers at minibatch 128, CIFAR-10's
+   two at minibatch 100), timed beside ``err.sum(0, dtype=float32)``.
    The tolerance per column is ``1e-4·Σ_n|dz[n,k]|`` against the plain
-   math in float64 (f32 sums taken in another order); two launches must
+   math in float64 and against the plain version (f32 sums taken in
+   another order); two launches must
    agree bitwise. Times the kernel, its plain version and, for the
    identity form, the one PyTorch call that computes it, with the L2
    cache flushed before every launch, beside the least time the card
@@ -95,14 +99,37 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    operations, the flash kernels' share, and the bias-gradient kernel's
    device time and launches by dtype, one device launch per call (trace
    ``lm_step_trace.json`` in the output directory of phase 7);
-10. the ``kernels`` summary line, the card line, and last
-    ``{"ok": true, "device": {...}}``.
+10. cifar   — the CIFAR-10 sample through the CLI at its full width
+    (conv 32 and 64 kernels of 5×5, max pools, softmax) with the
+    reference test's data and settings (``CIFAR_RUN``: 600/200 images,
+    minibatch 50, 3 epochs, lr 0.01, moment 0.5, seed 2024) on the
+    port's CPU and on the card: the card's final validation error below
+    0.55 and within 0.08 of the CPU's; the bias-gradient kernel exactly
+    2 masked + 1 identity launches per train step, no flash launch;
+11. alexnet_parity — one AlexNet train step at full geometry (227×227,
+    every width), minibatch 8, dropout 0, in f32 (``compute_dtype = amp
+    = float32``) on the card and on the port's CPU from the same
+    weights and minibatch: every parameter and velocity within
+    ``ALEXNET_PARITY_RTOL`` of its largest element;
+12. alexnet — the AlexNet sample through the CLI at full width under the
+    bf16 policy (``ALEXNET_RUN``: minibatch 128, 1024/256 images of the
+    synthetic bank, 2 epochs, dropout 0.5): every parameter finite, the
+    last train loss below 1.5 times the first (the reference's bar), the
+    bias-gradient kernel exactly 7 masked + 1 identity launches per
+    train step; images/s over the warm epoch; alexnet_profile — one
+    train step under ``torch.profiler`` (busy, idle share, device
+    operations, top operations, the bias gradient's device launches and
+    ms; trace ``alexnet_step_trace.json``);
+13. the ``kernels`` summary line (the bias gradient's launches summed
+    over the MNIST, CIFAR-10 and AlexNet runs, each path's beside it),
+    the card line, and last ``{"ok": true, "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
 
 import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -127,6 +154,13 @@ LM_SHAPES = (((4096, 768), "bfloat16"), ((4096, 2304), "bfloat16"),
 #: activations checked at LM_SHAPES: the identity form the LM runs and a
 #: masked one (every activation runs at SHAPES)
 LM_ACTIVATIONS = ("linear", "tanh")
+#: the bias gradients of the conv path (relu, i.e. softplus, bf16), each a
+#: GD unit's (B·oy·ox, K) view: AlexNet at minibatch 128 (conv1 (128·55·55,
+#: 96), conv2 (128·27·27, 256), conv3-4 (128·13·13, 384), conv5 (.., 256),
+#: the two FC layers (128, 4096)) and CIFAR-10 at its minibatch 100 (conv1
+#: (100·32·32, 32), conv2 (100·16·16, 64))
+CONV_SHAPES = ((387200, 96), (93312, 256), (21632, 384), (21632, 256),
+               (128, 4096), (102400, 32), (25600, 64))
 #: the bias-gradient kernel in a profiler trace (``bias_grad_kernel<T,
 #: ACT, VEC>`` in csrc/bias_grad.cu)
 BIAS_GRAD_KERNEL = "bias_grad_kernel"
@@ -195,8 +229,37 @@ SM90_OPCODES = ("HGMMA", "UTMALDG")
 #: bytes, though its two kernels between them read 11 tensors and 4 rows.
 FLASH_WORK = {"fwd": (4, 4, 1), "bwd": (10, 7, 2), "dq": (6, 5, 2),
               "dkv": (8, 6, 2), "pair": (14, 7, 2)}
-LM_SAMPLE = os.path.join(HERE, "veles_torch", "znicz", "models",
-                         "transformer_lm.py")
+MODELS = os.path.join(HERE, "veles_torch", "znicz", "models")
+LM_SAMPLE = os.path.join(MODELS, "transformer_lm.py")
+CIFAR_SAMPLE = os.path.join(MODELS, "cifar10.py")
+IMAGENET_SAMPLE = os.path.join(MODELS, "imagenet.py")
+#: the reference test's reduced CIFAR-10 run (tests/test_cifar_functional.py:
+#: 600/200 images, minibatch 50, 3 epochs, lr 0.01, moment 0.5, seed
+#: 2024) at the sample's full width; its bars: the validation error below
+#: 0.55, and within 0.08 of the port's CPU run (the reference's numpy
+#: against XLA)
+CIFAR_RUN = ("root.cifar.loader.n_train=600", "root.cifar.loader.n_valid=200",
+             "root.cifar.loader.minibatch_size=50",
+             "root.cifar.decision.max_epochs=3")
+CIFAR_MAX_ERROR = 0.55
+CIFAR_CPU_TOLERANCE = 0.08
+#: the AlexNet sample at full width under the card's bf16 policy,
+#: minibatch 128, its bank cut to 1024/256 images and 2 epochs
+ALEXNET_RUN = ("root.imagenet.loader.n_train=1024",
+               "root.imagenet.loader.n_valid=256",
+               "root.imagenet.decision.max_epochs=2")
+#: one AlexNet train step at full geometry, minibatch 8, dropout 0, in
+#: f32 (compute_dtype = amp = float32): every parameter and velocity on
+#: the card within ALEXNET_PARITY_RTOL of its largest element of the
+#: port's CPU step from the same weights, routed through the card's max
+#: pool winners (f32 sums in another order; without the routing, a near
+#: tie that picks another winner moves conv1's bias and velocity far
+#: beyond that error)
+ALEXNET_PARITY_RTOL = 1e-4
+#: a max pool's winner may differ between the card and the CPU only where
+#: the two candidates lie within this share of the input's largest
+#: element (f32 sums in another order: some 1e-7 relative)
+NEAR_TIE = 1e-5
 #: final validation loss of the LM sample, cuda vs cpu: the card runs
 #: bf16 matmul inputs and activations, the CPU f32, and the loss drops
 #: through a transition (epochs 4-6 at seed 1337) whose timing moves
@@ -338,9 +401,10 @@ class Timer:
 
 def check_bias_grad(torch, err, y, act, forms):
     """One (shape, dtype, activation) of phase kernels: the kernel twice
-    against the float64 math; -> max |error|."""
+    against the float64 math and its plain version; -> max |error|
+    against the float64 math."""
     from veles_torch.znicz.ops import activations as A
-    from veles_torch.znicz.ops.bias_grad import bias_grad
+    from veles_torch.znicz.ops.bias_grad import bias_grad, bias_grad_plain
     n, k = err.shape
     out = bias_grad(err, y, act)
     again = bias_grad(err, y, act)
@@ -355,10 +419,14 @@ def check_bias_grad(torch, err, y, act, forms):
     dz = err.double() if isinstance(d, float) else err.double() * d
     diff = (out.double() - dz.sum(dim=0)).abs()
     limit = TOLERANCE * dz.abs().sum(dim=0)
-    if not bool((diff <= limit).all()):
-        fail("bias_grad %s %s %s: error %.3g over limit (worst ratio %.3g)"
+    plain = (out.double() - bias_grad_plain(err, y, act).double()).abs()
+    if not bool((diff <= limit).all() and (plain <= limit).all()):
+        fail("bias_grad %s %s %s: error %.3g (%.3g from the plain version) "
+             "over limit (worst ratio %.3g)"
              % (act, (n, k), err.dtype, diff.max().item(),
-                (diff / limit.clamp_min(1e-30)).max().item()))
+                plain.max().item(),
+                (torch.maximum(diff, plain)
+                 / limit.clamp_min(1e-30)).max().item()))
     form = "identity" if A.is_identity(act) else "masked"
     forms[form]["max_abs_err"] = max(forms[form]["max_abs_err"],
                                      diff.max().item())
@@ -371,10 +439,14 @@ def check_kernels(torch, timer):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1337)
     forms = {form: {"max_abs_err": 0.0} for form, _, _, _ in FORMS}
-    cases = [(shape, ("float32", "bfloat16"), ACTIVATIONS)
+    timed = [(form, act) for form, act, _, _ in FORMS]
+    cases = [(shape, ("float32", "bfloat16"), ACTIVATIONS, timed)
              for shape in SHAPES] + [
-        (shape, (dname,), LM_ACTIVATIONS) for shape, dname in LM_SHAPES]
-    for (n, k), dnames, acts in cases:
+        (shape, (dname,), LM_ACTIVATIONS, timed)
+        for shape, dname in LM_SHAPES] + [
+        (shape, ("bfloat16",), ("relu",), [("masked", "relu")])
+        for shape in CONV_SHAPES]
+    for (n, k), dnames, acts, timed in cases:
         base_err = torch.randn((n, k), generator=gen, device="cuda")
         base_y = torch.randn((n, k), generator=gen, device="cuda")
         for dname in dnames:
@@ -385,23 +457,24 @@ def check_kernels(torch, timer):
             emit({"phase": "kernels", "shape": [n, k], "dtype": dname,
                   "max_abs_err": worst, "bitwise_repeat": True})
         # timings in the card's activation dtype, or the LM's for its
-        # shapes
+        # shapes; err.sum is the one PyTorch call of the identity form,
+        # and beside the masked form a yardstick of the same bytes of err
         dtype = getattr(torch, dnames[-1])
         err, y = base_err.to(dtype), base_y.to(dtype)
-        for form, act, main_shape, _ in FORMS:
+        for form, act in timed:
+            sum_ms = timer(lambda: err.sum(0, dtype=torch.float32))
             row = {
                 "kernel_ms": timer(lambda: bias_grad(err, y, act)),
                 "plain_ms": timer(lambda: bias_grad_plain(err, y, act)),
-                "library_ms": timer(
-                    lambda: err.sum(0, dtype=torch.float32))
-                if form == "identity" else None,
+                "library_ms": sum_ms if form == "identity" else None,
+                "err_sum_ms": sum_ms,
             }
             row["bound_ms"], row["bound_by"] = bound_ms(
                 n, k, err.element_size(), act)
             emit({"phase": "kernel_times", "form": form,
                   "activation": act, "shape": [n, k], "dtype": dnames[-1],
                   **row})
-            if (n, k) == main_shape:
+            if any((n, k) == main and form == f for f, _, main, _ in FORMS):
                 forms[form].update(row)
         del base_err, base_y, err, y
         torch.cuda.empty_cache()
@@ -421,10 +494,7 @@ def check_mnist(torch, wf, name):
     if len(history) != 3:
         fail("%s: %d epochs in the history, expected 3"
              % (name, len(history)))
-    for unit, sub in wf.export_tree().items():
-        for key, t in sub.items():
-            if not bool(torch.isfinite(t.float()).all()):
-                fail("%s: %s.%s is not finite" % (name, unit, key))
+    check_params_finite(torch, wf, name)
     shapes = {u.name: tuple(u.weights.shape) for u in wf.forwards}
     if list(shapes.values()) != [(784, 100), (100, 10)]:
         fail("%s: weight shapes %s" % (name, shapes))
@@ -456,6 +526,23 @@ def device_trace(prof, name):
         n, t = by_name.get(op, (0, 0.0))
         by_name[op] = (n + 1, t + (hi - lo) / 1e3)
     return busy_us / 1e3, len(spans), by_name, os.path.relpath(path, HERE)
+
+
+#: kinds of device operation in a trace, by kernel name, first match wins
+OP_KINDS = (("bias_grad", BIAS_GRAD_KERNEL), ("flash", "flash_|dq_reduce"),
+            ("convolution", "implicit_gemm|cudnn|conv"),
+            ("gemm", "gemm|nvjet|cublas|cutlass"),
+            ("copy_cast", "copy|Memcpy|Memset"), ("elementwise", ""))
+
+
+def ops_by_kind(by_name):
+    """{kind of OP_KINDS: [count, ms]} of a trace's device operations."""
+    kinds = {kind: [0, 0.0] for kind, _ in OP_KINDS}
+    for op, (count, ms) in by_name.items():
+        kind = next(k for k, pattern in OP_KINDS if re.search(pattern, op))
+        kinds[kind][0] += count
+        kinds[kind][1] += ms
+    return kinds
 
 
 def top_ops(by_name, n=8):
@@ -832,10 +919,7 @@ def run_lm(torch, name, device, *overrides, valid_must_fall=True):
         want = dict(want, **{k: 0 for k in want})
     if counts != want:
         fail("lm %s: launches %s, expected %s" % (name, counts, want))
-    for unit, sub in wf.export_tree().items():
-        for key, t in sub.items():
-            if not bool(torch.isfinite(t.float()).all()):
-                fail("lm %s: %s.%s is not finite" % (name, unit, key))
+    check_params_finite(torch, wf, "lm " + name)
     hist = wf.decision.history
     valid = [h["validation"]["loss"] for h in hist]
     train_loss = [h["train"]["loss"] for h in hist]
@@ -861,55 +945,20 @@ def run_lm(torch, name, device, *overrides, valid_must_fall=True):
     return wf, counts, summary
 
 
-def lm_batch(torch, wf):
-    """The first train minibatch of ``wf``'s loader on the card: (data,
-    labels, valid count), as ``TorchStep.train_minibatch`` takes it."""
-    from veles_torch.loader.base import CLASS_TRAIN
-    full = wf.loader.device_full_arrays("cuda")
-    idx_mat, valids = wf.loader.class_schedule(CLASS_TRAIN)
-    idx = torch.as_tensor(idx_mat[0], dtype=torch.int64, device="cuda")
-    return (torch.index_select(full["data"], 0, idx),
-            torch.index_select(full["labels"], 0, idx),
-            torch.tensor(int(valids[0]), device="cuda"))
-
-
 def profile_lm_step(torch, wf):
     """One full-width train step of ``wf`` (already run on the card)
-    under torch.profiler: device busy time and idle share, the top
-    device operations and the flash kernels' share; plus the host-clock
-    time of 5 train steps."""
-    from torch.profiler import ProfilerActivity, profile
-    batch = lm_batch(torch, wf)
-    wf.step.train_minibatch(*batch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        wf.step.train_minibatch(*batch)
-    torch.cuda.synchronize()
-    step_ms = 1e3 * (time.perf_counter() - t0) / 5
-    reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        wf.step.train_minibatch(*batch)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_ms, n_ops, by_name, path = device_trace(prof, "lm_step_trace.json")
+    under torch.profiler (:func:`profile_step`), with the flash kernels'
+    share of the device's busy time."""
+    row, batch, by_name = profile_step(torch, wf, "lm_step_trace.json",
+                                       "110M step")
     flash_ms = sum(t for op, (_, t) in by_name.items()
                    if "flash_" in op or "dq_reduce" in op)
-    from veles_torch.znicz.ops.bias_grad import bias_grad
-    bias = bias_grad_in_trace(by_name, bias_grad.launches, "110M step")
     b, s = batch[0].shape
-    return {"phase": "lm_profile", "shape": [b, s], "step_ms": step_ms,
-            "tokens_per_sec": b * s / step_ms * 1e3, "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms if n_ops else None,
-            "device_ops": n_ops, "flash_ms": flash_ms,
-            "flash_share_of_busy": flash_ms / busy_ms if busy_ms else None,
-            "bias_grad": bias,
-            "bias_grad_share_of_busy": bias["ms"] / busy_ms if busy_ms
-            else None,
-            "top_device_ops": top_ops(by_name, 12), "trace": path}
+    return {"phase": "lm_profile", "shape": [b, s],
+            "tokens_per_sec": b * s / row["step_ms"] * 1e3, **row,
+            "flash_ms": flash_ms,
+            "flash_share_of_busy": flash_ms / row["device_busy_ms"]
+            if row["device_busy_ms"] else None}
 
 
 def check_two_kernel(torch, wf):
@@ -980,6 +1029,255 @@ def check_lm(torch):
                 flash_bwd_dkv=two["flash_bwd_dkv"])
 
 
+# -- the conv slice: CIFAR-10 and AlexNet -----------------------------------
+
+
+def check_params_finite(torch, wf, name):
+    """Fail unless every parameter and state tensor of ``wf`` is finite."""
+    for unit, sub in wf.export_tree().items():
+        for key, t in sub.items():
+            if not bool(torch.isfinite(t.float()).all()):
+                fail("%s: %s.%s is not finite" % (name, unit, key))
+
+
+def conv_launches_ok(counts, train, masked_per_step):
+    """The conv path's launch counts: the bias-gradient kernel's masked
+    form ``masked_per_step`` and its identity form once per train step,
+    no flash kernel."""
+    want = dict({name: 0 for name in counts},
+                **{"bias_grad[masked]": masked_per_step * train,
+                   "bias_grad[identity]": train})
+    return counts == want, want
+
+
+def warm_images_per_sec(wf):
+    """Images (train + validation) per second by the host clock over the
+    epochs after the first (which carries the uploads and first
+    launches)."""
+    warm = wf.step.epoch_seconds[1:]
+    return sum(wf.loader.class_lengths) * len(warm) / sum(warm)
+
+
+def check_cifar(torch):
+    """Phase cifar: the CIFAR-10 sample through the CLI at its full width
+    (32 and 64 kernels of 5×5) with the reference test's data and
+    settings (CIFAR_RUN, lr 0.01, moment 0.5, seed 2024) on the port's
+    CPU and on the card, the launches counted from 0 just before the
+    card run; -> the card run's launch counts."""
+    import copy
+    from veles_torch.__main__ import main as cli
+    from veles_torch.config import root
+    from veles_torch.znicz.models import cifar10  # noqa: F401 (defaults)
+    layers = copy.deepcopy(root.cifar.layers)
+    for layer in layers:
+        if "<-" in layer:
+            layer["<-"].update(learning_rate=0.01, gradient_moment=0.5)
+    args = [CIFAR_SAMPLE, *CIFAR_RUN, "root.cifar.layers=%r" % (layers,),
+            "--seed", "2024"]
+    errors = {}
+    for device in ("cpu", "cuda"):
+        reset_counts()
+        wf = cli(args + ["-d", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = read_counts()
+        check_params_finite(torch, wf, "cifar " + device)
+        errors[device] = [h["validation"]["metric"]
+                          for h in wf.decision.history]
+    train = wf.step.train_steps
+    ok, want = conv_launches_ok(counts, train, 2)
+    emit({"phase": "cifar", "train_steps": train,
+          "eval_steps": wf.step.eval_steps, "launches": counts,
+          "validation_error_cuda": errors["cuda"],
+          "validation_error_cpu": errors["cpu"],
+          "images_per_sec": warm_images_per_sec(wf),
+          "epoch_seconds": wf.step.epoch_seconds})
+    err_cuda, err_cpu = errors["cuda"][-1], errors["cpu"][-1]
+    if not ok:
+        fail("cifar: launches %s, expected %s" % (counts, want))
+    if not err_cuda < CIFAR_MAX_ERROR \
+            or abs(err_cuda - err_cpu) > CIFAR_CPU_TOLERANCE:
+        fail("cifar: final validation error %.4f on cuda vs %.4f on cpu"
+             % (err_cuda, err_cpu))
+    return counts
+
+
+def alexnet_parity_workflow(device):
+    """AlexNet at full geometry (227×227 crops of the 256×256 bank, every
+    width), minibatch 8, dropout 0, initialized on ``device``."""
+    from veles_torch import prng
+    from veles_torch.config import root
+    from veles_torch.znicz.models import imagenet
+    from veles_torch.znicz.standard_workflow import StandardWorkflow
+    root.imagenet.loader.update({"minibatch_size": 8, "n_train": 8,
+                                 "n_valid": 8})
+    layers = imagenet.alexnet_layers(root.imagenet.loader.n_classes)
+    for layer in layers:
+        if layer["type"] == "dropout":
+            layer["->"]["dropout_ratio"] = 0.0
+    prng.seed_all(1337)
+    wf = StandardWorkflow(name="AlexNetParity", layers=layers,
+                          loader_factory=imagenet.make_loader,
+                          decision_config={"max_epochs": 1})
+    return wf.initialize(device=device)
+
+
+def check_alexnet_parity(torch):
+    """Phase alexnet_parity: one AlexNet train step at full geometry in
+    f32 on the card, then on the port's CPU from the same weights and
+    minibatch. The two forwards sum in other orders, so a max pool's
+    window whose two largest values lie within that noise may pick
+    another winner (a near tie) and route its error elsewhere: the CPU's
+    backward takes the card's winners, every differing winner must be a
+    near tie (``NEAR_TIE`` of the input's largest element apart on the
+    CPU), and then every parameter and velocity must lie within
+    ALEXNET_PARITY_RTOL of its largest element."""
+    from veles_torch.config import root
+    from veles_torch.znicz.ops.pooling import MaxPooling
+    engine = root.common.engine
+    saved = (engine.to_dict(), root.imagenet.loader.to_dict())
+    engine.compute_dtype = engine.amp = "float32"
+    try:
+        wf = alexnet_parity_workflow("cuda")
+        start = {u: {k: t.clone() for k, t in sub.items()}
+                 for u, sub in wf.export_tree().items()}
+        loss_cuda = float(wf.step.train_minibatch(
+            *first_train_batch(torch, wf))[0])
+        pools = [i for i, f in enumerate(wf.forwards)
+                 if isinstance(f, MaxPooling)]
+        routes = {i: wf.forwards[i].input_offset.cpu() for i in pools}
+        card = {u: {k: t.double().cpu() for k, t in sub.items()}
+                for u, sub in wf.export_tree().items()}
+        wf = alexnet_parity_workflow("cpu")
+        wf.import_tree(start)
+        data, labels, valid = first_train_batch(torch, wf)
+        inputs, last = wf.step._forward(data, True)
+        flips = {}
+        for i in pools:
+            f = wf.forwards[i]
+            values = torch.stack([v for _, v in f.taps(inputs[i].float())])
+            own, theirs = (values.gather(0, sel[None].long())[0]
+                           for sel in (f.input_offset, routes[i]))
+            gap = (own - theirs).abs().max().item()
+            flips[f.name] = {
+                "windows": int((f.input_offset != routes[i]).sum()),
+                "gap": gap}
+            if gap > NEAR_TIE * inputs[i].abs().max().item():
+                fail("alexnet_parity: %s picks winners %.3g apart on the "
+                     "card and the CPU" % (f.name, gap))
+            f.input_offset = routes[i]
+        loss_cpu = float(wf.step.train_backward(inputs, last, labels,
+                                                valid)[0])
+        cpu = {u: {k: t.double() for k, t in sub.items()}
+               for u, sub in wf.export_tree().items()}
+    finally:
+        engine.update(saved[0])
+        root.imagenet.loader.update(saved[1])
+    worst, over = {}, []
+    for unit, sub in cpu.items():
+        for key, want in sub.items():
+            e = ((card[unit][key] - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30)).item()
+            worst["%s.%s" % (unit, key)] = e
+            if not e <= ALEXNET_PARITY_RTOL:
+                over.append("%s.%s %.3g" % (unit, key, e))
+    emit({"phase": "alexnet_parity", "minibatch": int(data.shape[0]),
+          "crop": list(data.shape[1:3]), "loss_cuda": loss_cuda,
+          "loss_cpu": loss_cpu, "rtol": ALEXNET_PARITY_RTOL,
+          "pool_winners_differing": flips,
+          "max_rel_err": max(worst.values()), "rel_err": worst})
+    if over:
+        fail("alexnet_parity: over %g of the largest element: %s"
+             % (ALEXNET_PARITY_RTOL, "; ".join(over)))
+
+
+def first_train_batch(torch, wf):
+    """The first train minibatch of ``wf``'s loader on its device, as
+    ``TorchStep.train_minibatch`` takes it (after ``batch_transform``):
+    (data, labels, valid count)."""
+    from veles_torch.loader.base import CLASS_TRAIN
+    dev = wf.device.device
+    full = wf.loader.device_full_arrays(dev)
+    idx_mat, valids = wf.loader.class_schedule(CLASS_TRAIN)
+    idx = torch.as_tensor(idx_mat[0], dtype=torch.int64, device=dev)
+    return (wf.loader.batch_transform(
+                torch.index_select(full["data"], 0, idx), True),
+            torch.index_select(full["labels"], 0, idx),
+            torch.tensor(int(valids[0]), device=dev))
+
+
+def profile_step(torch, wf, trace_name, where):
+    """One train step of ``wf`` (already run on the card) under
+    torch.profiler, after the host-clock time of 5 steps: step ms, device
+    busy ms and idle share, device operations, the top operations, and
+    the bias-gradient kernel's device launches and ms (one device launch
+    per call, or this fails). -> (row, the batch, {device op: (count,
+    ms)})."""
+    from torch.profiler import ProfilerActivity, profile
+    from veles_torch.znicz.ops.bias_grad import bias_grad
+    batch = first_train_batch(torch, wf)
+    wf.step.train_minibatch(*batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        wf.step.train_minibatch(*batch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 5
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        wf.step.train_minibatch(*batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms, n_ops, by_name, path = device_trace(prof, trace_name)
+    bias = bias_grad_in_trace(by_name, bias_grad.launches, where)
+    return {"step_ms": step_ms, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if n_ops else None,
+            "device_ops": n_ops, "ops_by_kind": ops_by_kind(by_name),
+            "bias_grad": bias,
+            "bias_grad_share_of_busy": bias["ms"] / busy_ms if busy_ms
+            else None,
+            "top_device_ops": top_ops(by_name, 12), "trace": path}, \
+        batch, by_name
+
+
+def check_alexnet(torch):
+    """Phases alexnet and alexnet_profile: the AlexNet sample through the
+    CLI at full width under the bf16 policy (ALEXNET_RUN: minibatch 128,
+    227×227, dropout 0.5, seed 1337), launches counted from 0; losses
+    finite and the last train loss below 1.5 times the first (the
+    reference's bar, tests/test_image_loader.py); images/s over the warm
+    epoch; then one profiled step. -> the run's launch counts."""
+    from veles_torch.__main__ import main as cli
+    reset_counts()
+    wf = cli([IMAGENET_SAMPLE, *ALEXNET_RUN, "--seed", "1337", "-d", "cuda"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_params_finite(torch, wf, "alexnet")
+    train = wf.step.train_steps
+    losses = [h["train"]["loss"] for h in wf.decision.history]
+    ok, want = conv_launches_ok(counts, train, 7)
+    emit({"phase": "alexnet", "train_steps": train,
+          "eval_steps": wf.step.eval_steps, "launches": counts,
+          "train_loss": losses,
+          "validation_error": [h["validation"]["metric"]
+                               for h in wf.decision.history],
+          "images_per_sec": warm_images_per_sec(wf),
+          "epoch_seconds": wf.step.epoch_seconds})
+    if not ok:
+        fail("alexnet: launches %s, expected %s" % (counts, want))
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 1.5 * losses[0]:
+        fail("alexnet: train losses %s" % (losses,))
+    row, batch, _ = profile_step(torch, wf, "alexnet_step_trace.json",
+                                 "AlexNet step")
+    b = batch[0].shape[0]
+    emit({"phase": "alexnet_profile", "shape": list(batch[0].shape),
+          "images_per_sec_step": b / row["step_ms"] * 1e3, **row})
+    return counts
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -1025,13 +1323,21 @@ def main(argv=None):
     flash_rows = time_flash(torch, timer)
     launches = check_mnist_path(torch)
     lm_launches = check_lm(torch)
+    cifar = check_cifar(torch)
+    check_alexnet_parity(torch)
+    alexnet = check_alexnet(torch)
+    by_path = {form: {"mnist": launches[form],
+                      "cifar": cifar["bias_grad[%s]" % form],
+                      "alexnet": alexnet["bias_grad[%s]" % form]}
+               for form, _, _, _ in FORMS}
 
     emit({"kernels": [{
         "name": "bias_grad[%s]" % form,
         "route": "cuda",
         "source": "veles_torch/csrc/bias_grad.cu",
         "replaces": replaces,
-        "launches": launches[form],
+        "launches": sum(by_path[form].values()),
+        "launches_by_path": by_path[form],
         "max_abs_err": forms[form]["max_abs_err"],
         "ms": forms[form]["kernel_ms"],
         "plain_ms": forms[form]["plain_ms"],

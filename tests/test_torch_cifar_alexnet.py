@@ -1,0 +1,287 @@
+"""The port's conv samples (veles_torch/znicz/models: cifar10, imagenet)
+against the JAX package's on the CPU.
+
+CIFAR-10 (the reference's sample, BASELINE config #2): the same seed
+gives the same normalized images, initial weights and shuffle bit for
+bit; one train step from the reference's state lands within
+``STEP_ATOL`` of its parameters and velocities; 3 epochs at the
+reference test's settings (tests/test_cifar_functional.py: 600/200
+images, minibatch 50, lr 0.01, moment 0.5) end within
+``CIFAR_EPOCHS_TOL`` of its validation error.
+
+AlexNet at the reference's reduced geometry (tests/test_grad_end_to_end.py:
+scale 75, crop 67, minibatch 8, 4 classes, dropout 0, every width in
+full): the synthetic bank and the transformed batches (train and eval)
+bit for bit against the reference's ``_augment``, and one train step
+within ``ALEX_RTOL`` of each parameter's and velocity's largest element.
+
+Both samples also run through the port's CLI on ``-d cpu``, and without
+``-d`` they ask for a card, which a card-less host refuses."""
+
+import copy
+import json
+import os
+
+import jax
+import numpy
+import pytest
+import torch
+
+import veles.prng as jprng
+from veles.config import root as jroot
+from veles.znicz_tpu.models import cifar10 as jcifar
+from veles.znicz_tpu.models import imagenet as jimagenet
+from veles.znicz_tpu.standard_workflow import \
+    StandardWorkflow as JaxStandardWorkflow
+import veles_torch.prng as tprng
+from veles_torch.__main__ import main as torch_main
+from veles_torch.config import root as troot
+from veles_torch.convert import params_from_jax, params_to_numpy
+from veles_torch.znicz.models import cifar10 as tcifar
+from veles_torch.znicz.models import imagenet as timagenet
+from veles_torch.znicz.standard_workflow import \
+    StandardWorkflow as TorchStandardWorkflow
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODELS = os.path.join(REPO, "veles_torch", "znicz", "models")
+#: one CIFAR train step: parameters and velocities in absolute terms
+#: (f32 convolutions summed in another order; observed 1.5e-8)
+STEP_ATOL = 1e-6
+#: final validation error after 3 epochs, port against reference (the
+#: reference's own numpy-vs-XLA bar is 0.08; observed 0.0)
+CIFAR_EPOCHS_TOL = 0.02
+#: one AlexNet step: each parameter and velocity against its largest
+#: element (f32 sums in another order through 8 layers; observed 2.5e-6,
+#: on a velocity)
+ALEX_RTOL = 1e-4
+#: the reference test's CIFAR settings
+CIFAR_SMALL = {"n_train": 600, "n_valid": 200, "minibatch_size": 50}
+#: the reference test's reduced AlexNet geometry
+ALEX_SMALL = {"minibatch_size": 8, "n_train": 32, "n_valid": 16,
+              "n_classes": 4, "scale": (75, 75), "crop": (67, 67)}
+
+
+@pytest.fixture
+def configs():
+    """Save and restore ``root.cifar`` / ``root.imagenet`` of both
+    packages."""
+    saved = [(r, copy.deepcopy(getattr(r, k).to_dict()))
+             for r in (jroot, troot) for k in ("cifar", "imagenet")]
+    yield
+    for (r, tree), key in zip(saved, ("cifar", "imagenet") * 2):
+        getattr(r, key).update(tree)
+
+
+def set_cifar(epochs, lr=0.01, moment=0.5):
+    for r in (jroot, troot):
+        r.cifar.loader.update(CIFAR_SMALL)
+        r.cifar.decision.max_epochs = epochs
+        for layer in r.cifar.layers:
+            if "<-" in layer:
+                layer["<-"]["learning_rate"] = lr
+                layer["<-"]["gradient_moment"] = moment
+
+
+def cifar_pair(epochs, seed=2024):
+    jprng.seed_all(seed)
+    jw = jcifar.create_workflow(name="JaxCifar")
+    jw.initialize(device="cpu")
+    tprng.seed_all(seed)
+    tw = tcifar.create_workflow(name="TorchCifar").initialize(device="cpu")
+    return jw, tw
+
+
+def alex_layers():
+    layers = jimagenet.alexnet_layers(ALEX_SMALL["n_classes"])
+    for layer in layers:
+        if layer["type"] == "dropout":
+            layer["->"]["dropout_ratio"] = 0.0
+    return layers
+
+
+def alex_pair(seed=2929):
+    for r in (jroot, troot):
+        r.imagenet.loader.update(ALEX_SMALL)
+    jprng.seed_all(seed)
+    jw = JaxStandardWorkflow(
+        None, name="JaxAlex", layers=alex_layers(),
+        loader_factory=jimagenet.make_loader,
+        decision_config={"max_epochs": 1})
+    jw.initialize(device="cpu")
+    tprng.seed_all(seed)
+    tw = TorchStandardWorkflow(
+        name="TorchAlex", layers=alex_layers(),
+        loader_factory=timagenet.make_loader,
+        decision_config={"max_epochs": 1})
+    return jw, tw.initialize(device="cpu")
+
+
+def jax_tree(wf):
+    """{unit: {key: ndarray}} of the reference's params and state (units
+    without either left out)."""
+    tree = {u.name: {**u.export_params(), **u.export_state()}
+            for u in wf.forwards + wf.gds}
+    return {u: sub for u, sub in tree.items() if sub}
+
+
+def one_step(jw, tw, data, torch_data, labels, valid):
+    """One train step of both from the reference's state -> (reference
+    tree, port tree, reference outputs, port metrics)."""
+    tw.import_tree(params_from_jax(jax_tree(jw)))
+    step = jw.xla_step
+    fn = step.compiler.compile(step._batch_spec, train=True)
+    params, state, outs = fn(
+        step.params, step.state,
+        {"data": data, "labels": labels, "batch_size": numpy.int32(valid)},
+        step._gather_hyper(), jax.random.PRNGKey(0))
+    metrics = tw.step.train_minibatch(
+        torch_data, torch.from_numpy(labels.astype(numpy.int64)),
+        torch.tensor(int(valid)))
+    want = {u: {k: numpy.asarray(v) for k, v in
+                {**params.get(u, {}), **state.get(u, {})}.items()}
+            for u in set(params) | set(state)}
+    return ({u: s for u, s in want.items() if s},
+            params_to_numpy(tw.export_tree()), outs, metrics)
+
+
+def worst(want, got, relative):
+    """Largest difference over every tensor (relative: to the tensor's
+    largest element); -> (diff, unit, key)."""
+    assert sorted(want) == sorted(got)
+    out = (0.0, "", "")
+    for unit, sub in want.items():
+        assert sorted(sub) == sorted(got[unit]), unit
+        for key, value in sub.items():
+            value = numpy.asarray(value, numpy.float64)
+            d = numpy.abs(got[unit][key] - value).max()
+            if relative:
+                d /= max(numpy.abs(value).max(), 1e-30)
+            out = max(out, (d, unit, key))
+    return out
+
+
+def test_cifar_same_data_weights_and_shuffle(configs):
+    set_cifar(1)
+    jw, tw = cifar_pair(1)
+    assert numpy.array_equal(jw.loader.original_data.mem,
+                             tw.loader.original_data)
+    assert numpy.array_equal(jw.loader.original_labels.mem,
+                             tw.loader.original_labels)
+    jt, tt = jax_tree(jw), params_to_numpy(tw.export_tree())
+    for unit in ("ConvRELU", "ConvRELU_2", "All2AllSoftmax"):
+        for key in ("weights", "bias"):
+            assert numpy.array_equal(jt[unit][key], tt[unit][key])
+    assert numpy.array_equal(jw.loader.class_schedule(2)[0],
+                             tw.loader.class_schedule(2)[0])
+
+
+def test_cifar_one_train_step(configs):
+    """Weights, biases and velocities within STEP_ATOL; the step's loss
+    to 1e-5 and the same error count."""
+    set_cifar(1)
+    jw, tw = cifar_pair(1)
+    idx_mat, valids = jw.loader.class_schedule(2)
+    data = jw.loader.original_data.mem[idx_mat[0]]
+    labels = jw.loader.original_labels.mem[idx_mat[0]]
+    want, got, outs, metrics = one_step(
+        jw, tw, data, torch.from_numpy(data), labels, valids[0])
+    diff = worst(want, got, relative=False)
+    assert diff[0] <= STEP_ATOL, diff
+    assert abs(float(outs["loss"]) - float(metrics[0])) < 1e-5
+    assert int(outs["n_err"]) == int(metrics[1])
+
+
+def test_cifar_three_epochs(configs):
+    """The reference test's settings for 3 epochs: the port's validation
+    error falls, stays below the reference's 0.55 bar and ends within
+    CIFAR_EPOCHS_TOL of the JAX package's."""
+    set_cifar(3)
+    jw, tw = cifar_pair(3)
+    jw.run()
+    tw.run()
+    hist = [h["validation"]["metric"] for h in tw.decision.history]
+    err_j = jw.decision.history[-1]["validation"]["metric"]
+    assert len(hist) == 3 and hist[-1] < hist[0] and hist[-1] < 0.55, hist
+    assert abs(hist[-1] - err_j) <= CIFAR_EPOCHS_TOL, (hist, err_j)
+
+
+def test_alexnet_bank_and_transform_bit_for_bit(configs):
+    """The uint8 bank, its labels and the train/eval transforms of a
+    minibatch equal the reference's (``_augment`` in numpy)."""
+    jw, tw = alex_pair()
+    bank = jw.loader.original_data.mem
+    assert bank.dtype == numpy.uint8
+    assert numpy.array_equal(bank, tw.loader.original_data)
+    assert numpy.array_equal(jw.loader.original_labels.mem,
+                             tw.loader.original_labels)
+    full = tw.loader.device_full_arrays("cpu")["data"]
+    assert full.dtype == torch.uint8
+    idx = jw.loader.class_schedule(2)[0][0]
+    for train in (True, False):
+        want = jw.loader._augment(numpy, bank[idx], train=train)
+        got = tw.loader.batch_transform(
+            torch.index_select(full, 0, torch.from_numpy(idx).long()), train)
+        assert got.dtype == torch.float32
+        assert numpy.array_equal(got.numpy(), want), train
+    assert tw.loader.sample_shape() == (67, 67, 3)
+
+
+def test_alexnet_one_train_step(configs):
+    """The whole stack — conv/s4, LRN, overlapping pools, dropout 0, FC
+    4096 — one train step from the reference's state: every parameter
+    and velocity within ALEX_RTOL of its largest element; the same loss
+    to 1e-5."""
+    jw, tw = alex_pair()
+    idx_mat, valids = jw.loader.class_schedule(2)
+    bank = jw.loader.original_data.mem
+    data = jw.loader._augment(numpy, bank[idx_mat[0]], train=True)
+    torch_data = tw.loader.batch_transform(
+        torch.from_numpy(bank[idx_mat[0]]), True)
+    labels = jw.loader.original_labels.mem[idx_mat[0]]
+    want, got, outs, metrics = one_step(jw, tw, data, torch_data, labels,
+                                        valids[0])
+    assert "MaxPooling_3" in [f.name for f in tw.forwards]
+    diff = worst(want, got, relative=True)
+    assert diff[0] <= ALEX_RTOL, diff
+    assert abs(float(outs["loss"]) - float(metrics[0])) < 1e-5
+
+
+@pytest.mark.parametrize("sample,overrides", [
+    ("cifar10.py", ["root.cifar.loader.n_train=100",
+                    "root.cifar.loader.n_valid=50",
+                    "root.cifar.loader.minibatch_size=50",
+                    "root.cifar.decision.max_epochs=2"]),
+    ("imagenet.py", ["root.imagenet.loader.n_train=16",
+                     "root.imagenet.loader.n_valid=8",
+                     "root.imagenet.loader.minibatch_size=8",
+                     "root.imagenet.loader.n_classes=4",
+                     "root.imagenet.loader.scale=(75, 75)",
+                     "root.imagenet.loader.crop=(67, 67)",
+                     "root.imagenet.decision.max_epochs=2"])],
+    ids=["cifar10", "imagenet"])
+def test_entry_point(configs, capsys, sample, overrides):
+    """The sample trains through ``python -m veles_torch ... -d cpu``
+    (the last stdout line is the JSON history); without ``-d`` it asks
+    for a card, which a card-less host refuses."""
+    path = os.path.join(MODELS, sample)
+    wf = torch_main([path, *overrides, "-d", "cpu", "--seed", "5"])
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["device"] == "cpu" and len(last["history"]) == 2
+    assert all(numpy.isfinite(h["train"]["loss"]) for h in last["history"])
+    assert wf.step.train_steps == 2 * (
+        wf.loader.class_lengths[2] // wf.loader.max_minibatch_size)
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        torch_main([path, *overrides])
+
+
+def test_real_imagenet_tree_is_refused(configs, tmp_path):
+    """A real image tree needs the streaming loader, which is not ported:
+    it raises naming its ROADMAP item, and never falls back to the
+    synthetic bank."""
+    (tmp_path / "n01").mkdir()
+    (tmp_path / "n01" / "a.jpg").write_bytes(b"")
+    troot.imagenet.loader.base_dir = str(tmp_path)
+    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+        timagenet.create_workflow()

@@ -505,3 +505,125 @@ def test_embedding_grad_repeats_bit_for_bit(card):
         0, ids.reshape(-1), err.reshape(-1, 768).float())
     rel = ((got - want).abs().max() / want.abs().max()).item()
     assert got.shape == (16384, 768) and rel <= 1e-5, rel
+
+
+#: the TF32 route against cuDNN's f32 convolution of the same rounded
+#: inputs, as a share of the largest element: sums of up to 3456 f32
+#: products in two orders (read on an H100: 1.4e-5 at conv2's 2400-term
+#: sums); a bf16-rounded output would read some 2e-3
+CONV_F32_TOL = 5e-5
+#: AlexNet's conv geometries at minibatch 4: (input NHWC, n_kernels, k,
+#: stride, padding)
+CONV_CASES = [((4, 227, 227, 3), 96, 11, 4, 0),
+              ((4, 27, 27, 96), 256, 5, 1, 2),
+              ((4, 13, 13, 256), 384, 3, 1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES, ids=str)
+def test_bf16_conv_returns_the_f32_accumulation(card, case):
+    """Under the card's bf16 policy ``TorchDevice.conv2d`` and
+    ``conv2d_grads`` return f32 equal, to f32 summation order
+    (``CONV_F32_TOL`` of the largest element), to an f32 convolution of
+    the same bf16-rounded inputs with TF32 off — not the bf16 rounding of
+    it (2^-9 relative, some 2e-3 of the largest element) — and leave
+    cuDNN's TF32 flag off."""
+    from veles_torch.backends import TorchDevice
+    shape, k, ksize, stride, pad = case
+    dev = TorchDevice("cuda")
+    assert dev.compute_dtype == torch.bfloat16
+    gen = torch.Generator(device=card)
+    gen.manual_seed(9)
+    x = torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+    w = torch.randn((k, shape[3], ksize, ksize), generator=gen,
+                    device=card).to(torch.bfloat16)
+    xc = x.permute(0, 3, 1, 2)
+    w = w.to(memory_format=torch.channels_last)
+    got = dev.conv2d(xc, w, (stride, stride), (pad, pad))
+    assert got.dtype == torch.float32
+    assert torch.backends.cudnn.allow_tf32 is False
+    want = torch.nn.functional.conv2d(xc.float(), w.float(), stride=stride,
+                                      padding=pad)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= CONV_F32_TOL * scale
+    assert (got - got.to(torch.bfloat16).float()).abs().max().item() > 0
+    dz = torch.randn(got.shape, generator=gen, device=card) \
+        .to(torch.bfloat16).to(memory_format=torch.channels_last)
+    gx, gw = dev.conv2d_grads(dz, xc, w, (stride, stride), (pad, pad))
+    wx, ww, _ = torch.ops.aten.convolution_backward(
+        dz.float(), xc.float(), w.float(), None, [stride] * 2, [pad] * 2,
+        [1, 1], False, [0, 0], 1, [True, True, False])
+    for g, r in ((gx, wx), (gw, ww)):
+        assert g.dtype == torch.float32
+        assert (g - r).abs().max().item() <= \
+            CONV_F32_TOL * r.abs().max().item()
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, form", [("ConvRELU", "masked"),
+                                        ("Conv", "identity")])
+def test_conv_gd_launches_the_bias_grad_kernel(card, name, form):
+    """A conv GD unit on the card takes its bias gradient through the
+    kernel: one launch per step, of the form of its activation, equal to
+    the plain version on the same (B·oy·ox, K) views."""
+    from veles_torch.backends import TorchDevice
+    from veles_torch.znicz.nn_units import gradient_unit_for
+    from veles_torch.znicz.ops import conv as TC
+    cls = getattr(TC, name)
+    fwd = cls(n_kernels=96, kx=11, ky=11, sliding=4)
+    fwd.initialize((4, 67, 67, 3), TorchDevice("cuda"))
+    gd = gradient_unit_for(cls)(learning_rate=0.0)
+    gd.setup_forward(fwd)
+    gd.initialize()
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    x = torch.randn((4, 67, 67, 3), generator=gen, device=card) \
+        .to(torch.bfloat16)
+    y = fwd(x)
+    err = torch.randn(y.shape, generator=gen, device=card) \
+        .to(torch.bfloat16)
+    bias0 = fwd.bias.clone()
+    before = dict(TBG.bias_grad.form_launches)
+    gd.learning_rate_bias = 1.0
+    gd.run(x, y, err)
+    after = TBG.bias_grad.form_launches
+    assert after[form] == before[form] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    want = TBG.bias_grad_plain(err.reshape(-1, 96), y.reshape(-1, 96),
+                               gd.ACTIVATION)
+    assert torch.allclose(bias0 - fwd.bias, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["MaxPooling", "AvgPooling"])
+def test_pool_backward_is_repeatable(card, name):
+    """AlexNet's overlapping 3×3/s2 pool at pool1's shape, bf16, with
+    ties (quantized input): two backward launches agree bit for bit, and
+    with the CPU's result of the same inputs (the same f32 adds in the
+    same order, no atomics)."""
+    from veles_torch.backends import TorchDevice
+    from veles_torch.znicz.nn_units import gradient_unit_for
+    from veles_torch.znicz.ops import pooling as TP
+    cls = getattr(TP, name)
+    rng = numpy.random.default_rng(55)
+    x = torch.from_numpy((rng.integers(0, 4, (8, 55, 55, 96)) * 0.5)
+                         .astype(numpy.float32)).to(torch.bfloat16)
+    err = torch.from_numpy(rng.normal(0, 1, (8, 27, 27, 96)).astype(
+        numpy.float32)).to(torch.bfloat16)
+    results = []
+    for spec, xs, es in (("cuda", x.to(card), err.to(card)),
+                         ("cuda", x.to(card), err.to(card)),
+                         ("cpu", x, err)):
+        dev = TorchDevice(spec)
+        dev.act_dtype = torch.bfloat16
+        fwd = cls(kx=3, ky=3, sliding=2)
+        fwd.initialize(tuple(x.shape), dev)
+        gd = gradient_unit_for(cls)()
+        gd.setup_forward(fwd)
+        gd.initialize()
+        y = fwd(xs)
+        results.append((y.cpu(), gd.run(xs, y, es).cpu()))
+    for y, ei in results[1:]:
+        assert torch.equal(y, results[0][0])
+        assert torch.equal(ei, results[0][1])

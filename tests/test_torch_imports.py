@@ -57,3 +57,15 @@ def test_importing_the_port_loads_no_jax_or_veles():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "znicz/ops/conv_math.py", "znicz/ops/conv.py", "znicz/ops/gd_conv.py",
+    "znicz/ops/pooling.py", "znicz/ops/gd_pooling.py",
+    "znicz/ops/normalization.py", "znicz/ops/dropout.py",
+    "znicz/models/cifar10.py", "znicz/models/imagenet.py"])
+def test_conv_slice_modules_are_scanned(module):
+    """The conv slice's modules are among the files both checks above
+    read (the package walk finds them, the fresh interpreter imports
+    them)."""
+    assert os.path.join(REPO, "veles_torch", module) in _port_files()

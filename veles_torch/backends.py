@@ -17,10 +17,22 @@ TF32 is off for both float32 matmuls and cuDNN convolutions
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` are set False and stated in
 ``allow_tf32``), so a float32 product means float32 on every device.
+One exception, where TF32 loses nothing: a convolution of bf16 or f16
+inputs (:meth:`TorchDevice.conv2d`, :meth:`TorchDevice.conv2d_grads`).
+cuDNN returns bf16 from bf16 inputs, rounding the f32 sum the reference
+keeps (``preferred_element_type=float32`` in its conv products). So the
+port convolves the compute-dtype-rounded inputs held in f32, with
+``cudnn.allow_tf32`` True for that call only: a bf16 or f16 value is
+exact in TF32 (8 or 11 significant bits of TF32's 11), the product of
+two is exact in f32, and the tensor cores sum in f32. The result is the
+f32 accumulation of the rounded inputs, as from the CPU, where the same
+f32 convolution runs without TF32.
 
 A device is asked for by name. ``cuda`` on a host without a card raises:
 nothing falls back to the CPU on its own.
 """
+
+import contextlib
 
 import torch
 
@@ -72,6 +84,45 @@ class TorchDevice:
         if self.platform == "cuda":
             return f32_matmul(a, b)
         return torch.matmul(a.float(), b.float())
+
+    def _conv_operands(self, *tensors):
+        """The tensors rounded to ``compute_dtype``, held in f32."""
+        cd = self.compute_dtype
+        return tuple(t.to(cd).to(torch.float32) for t in tensors)
+
+    @contextlib.contextmanager
+    def _conv_math(self):
+        """cuDNN's TF32 on inside the block where the operands are bf16 or
+        f16 values (exact in TF32) on the card; otherwise as set."""
+        if self.platform != "cuda" or self.compute_dtype == torch.float32:
+            yield
+            return
+        cudnn = torch.backends.cudnn
+        before = cudnn.allow_tf32
+        cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32 = before
+
+    def conv2d(self, x, w, stride, padding):
+        """``F.conv2d`` of NCHW ``x`` and KCHW ``w`` rounded to
+        ``compute_dtype``: the f32 accumulation, unrounded."""
+        x, w = self._conv_operands(x, w)
+        with self._conv_math():
+            return torch.nn.functional.conv2d(x, w, stride=stride,
+                                              padding=padding)
+
+    def conv2d_grads(self, dz, x, w, stride, padding, need_input=True):
+        """-> (dL/dx or None, dL/dw) of :meth:`conv2d` for ``dz`` = dL/d
+        output, each the f32 accumulation of the rounded operands (cuDNN's
+        backward convolutions, ``aten.convolution_backward``)."""
+        dz, x, w = self._conv_operands(dz, x, w)
+        with self._conv_math():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                dz, x, w, None, list(stride), list(padding), [1, 1], False,
+                [0, 0], 1, [bool(need_input), True, False])
+        return gx, gw
 
     def __repr__(self):
         return "<TorchDevice %s compute=%s act=%s>" % (

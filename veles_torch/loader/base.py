@@ -42,6 +42,17 @@ class Loader:
         ``device``; minibatches are gathered from it by index."""
         raise NotImplementedError
 
+    def sample_shape(self):
+        """Shape of one sample as the first forward unit receives it
+        (after :meth:`batch_transform`)."""
+        raise NotImplementedError
+
+    def batch_transform(self, data, train):
+        """The minibatch ``data`` gathered on the device -> what the
+        forwards take (the reference's ``xla_batch_transform``); ``train``
+        is True for a train minibatch. The identity by default."""
+        return data
+
     @property
     def total_samples(self):
         return int(sum(self.class_lengths))

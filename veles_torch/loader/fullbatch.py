@@ -34,6 +34,9 @@ class FullBatchLoader(Loader):
                              % (self.name, len(self.original_data),
                                 self.total_samples))
 
+    def sample_shape(self):
+        return tuple(self.original_data.shape[1:])
+
     def device_full_arrays(self, device):
         """Upload the whole dataset once per device."""
         device = torch.device(device)

@@ -3,4 +3,5 @@
 
 # importing the op modules fills the layer registry
 from veles_torch.znicz.ops import (  # noqa: F401
-    all2all, attention, embedding, gd, layernorm)
+    all2all, attention, conv, dropout, embedding, gd, gd_conv, gd_pooling,
+    layernorm, normalization, pooling)

@@ -1,11 +1,12 @@
 """Dataset acquisition for the port's samples.
 
 Counterpart of ``veles/znicz_tpu/models/datasets.py``: ``load_mnist``
-reads the real idx files when they are under
-``root.common.dirs.datasets`` and otherwise generates the same
+and ``load_cifar10`` read the real files (MNIST's idx files, CIFAR-10's
+``cifar-10-batches-bin``) when they are under
+``root.common.dirs.datasets`` and otherwise generate the same
 deterministic synthetic stand-in as the reference (seeded class
-prototypes + noise under the ``"mnist_synth"`` generator), bit for bit
-at the same seed.
+prototypes + noise under the ``"mnist_synth"`` / ``"cifar_synth"``
+generator), bit for bit at the same seed.
 """
 
 import gzip
@@ -111,3 +112,41 @@ def _smooth(img):
             img = (numpy.roll(img, 1, axis) + img
                    + numpy.roll(img, -1, axis)) / 3.0
     return img
+
+
+def load_cifar10():
+    """(train_x, train_y, test_x, test_y), x in CHW float [0,1]; the real
+    binary batches if on disk, else the synthetic stand-in (5000/1000
+    images, drawn in the reference's order)."""
+    d = os.path.join(root.common.dirs.datasets, "cifar-10-batches-bin")
+    if os.path.isdir(d):
+        try:
+            xs, ys = zip(*(_read_cifar_bin(
+                os.path.join(d, "data_batch_%d.bin" % i))
+                for i in range(1, 6)))
+            vx, vy = _read_cifar_bin(os.path.join(d, "test_batch.bin"))
+        except (OSError, ValueError) as exc:
+            logger.warning("dataset cifar10: %s failed validation (%s); "
+                           "using the synthetic stand-in", d, exc)
+        else:
+            logger.warning("dataset cifar10: REAL dir=%s", d)
+            return numpy.concatenate(xs), numpy.concatenate(ys), vx, vy
+    logger.warning("dataset cifar10: SYNTHETIC")
+    return synthetic_images(n_train=5000, n_valid=1000, shape=(32, 32),
+                            channels=3, n_classes=10, key="cifar_synth")
+
+
+def _read_cifar_bin(path):
+    """(images (N, 3, 32, 32) float [0,1], labels (N,) int32) of one
+    CIFAR-10 binary batch of 3073-byte records."""
+    raw = numpy.fromfile(path, dtype=numpy.uint8)
+    if raw.size == 0 or raw.size % 3073:
+        raise ValueError("%s: size %d is not a multiple of the "
+                         "3073-byte CIFAR record" % (path, raw.size))
+    raw = raw.reshape(-1, 3073)
+    labels = raw[:, 0].astype(numpy.int32)
+    if labels.max() > 9:
+        raise ValueError("%s: label %d out of range"
+                         % (path, int(labels.max())))
+    images = raw[:, 1:].reshape(-1, 3, 32, 32).astype(numpy.float32) / 255.
+    return images, labels

@@ -269,3 +269,15 @@ class GradientDescentBase:
                 h["l1_vs_l2" + sfx])
             setattr(f, pname, w)
             setattr(self, "vel_" + pname, vel)
+
+
+class RoutingGradientBase(GradientDescentBase):
+    """Backward unit of a forward without parameters (pooling, LRN,
+    dropout): it only transforms the error, so it has no state and no
+    update."""
+
+    STATE = ()
+
+    def initialize(self):
+        if self.forward is None:
+            raise ValueError("%s: setup_forward() not called" % self.name)

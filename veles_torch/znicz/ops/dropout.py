@@ -1,0 +1,60 @@
+"""Dropout unit pair of the port.
+
+Counterpart of ``veles/znicz_tpu/ops/dropout.py``: in train mode the
+forward multiplies by the mask ``(u < keep) / keep`` in the activation
+dtype, ``u`` uniform in [0, 1) and ``keep = 1 − dropout_ratio``
+(inverted dropout, so eval needs no rescale); in eval mode (``.eval()``)
+it is the identity. The backward masks the error with the same mask.
+The uniforms come from an explicit ``torch.Generator`` per unit
+(``prng.torch_generator``), which cannot reproduce the reference's
+``jax.random`` bits: parity is tested with the mask injected
+(:meth:`DropoutForward.draw_mask`) and statistically.
+"""
+
+import torch
+
+from veles_torch import prng
+from veles_torch.znicz.nn_units import (
+    Forward, RoutingGradientBase, forward_unit, gradient_for)
+
+
+@forward_unit("dropout")
+class DropoutForward(Forward):
+    PARAMS = ()
+
+    def __init__(self, dropout_ratio=0.5, prng_key="dropout", **kwargs):
+        kwargs["include_bias"] = False
+        super().__init__(**kwargs)
+        self.dropout_ratio = float(dropout_ratio)
+        self.prng_key = prng_key
+        self.generator = None
+        #: the mask of the last train forward
+        self.mask = None
+
+    def initialize(self, input_shape, device):
+        self.device = device
+        self.generator = prng.torch_generator(
+            "%s/%s" % (self.prng_key, self.name), device.device)
+        return tuple(input_shape)
+
+    def draw_mask(self, x):
+        """``(u < keep) / keep`` in the activation dtype, x's shape."""
+        keep = 1.0 - self.dropout_ratio
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return (u < keep).to(self.device.act_dtype) / keep
+
+    def forward(self, x):
+        if not self.training:
+            return x
+        self.mask = self.draw_mask(x)
+        return (x * self.mask).to(self.device.act_dtype)
+
+
+@gradient_for(DropoutForward)
+class DropoutBackward(RoutingGradientBase):
+    def run(self, x, y, err):
+        if not self.need_err_input:
+            return None
+        mask = self.forward.mask
+        return (err.reshape(mask.shape) * mask).to(
+            self.forward.device.act_dtype)

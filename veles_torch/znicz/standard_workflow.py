@@ -92,7 +92,7 @@ class StandardWorkflow:
         self.device = get_device(device)
         self.loader.initialize()
         shape = (self.loader.max_minibatch_size,) \
-            + self.loader.original_data.shape[1:]
+            + self.loader.sample_shape()
         for fwd in self.forwards:
             shape = fwd.initialize(shape, self.device)
         for gd in self.gds:

@@ -9,6 +9,11 @@ evaluator. An epoch walks the loader's class schedule in serving order
 minibatch is gathered there by index; each class's per-minibatch
 metrics stay on the device until the class ends and come to the host in
 one copy, which is then handed to the decision minibatch by minibatch.
+Each gathered minibatch goes through the loader's ``batch_transform``
+(the reference's ``xla_batch_transform``: AlexNet's crop, mirror and
+normalize) on the device; the forwards run in train mode (``.train()``)
+in a train step and in eval mode in an eval step, which dropout and
+stochastic pooling read.
 
 Eager PyTorch: each operation is its own launch (no CUDA graph yet).
 """
@@ -37,8 +42,12 @@ class TorchStep:
         #: host seconds of each finished epoch (metric fetches included)
         self.epoch_seconds = []
 
-    def _forward(self, data):
-        """-> the input of every forward, and the last output."""
+    def _forward(self, data, train):
+        """-> the input of every forward, and the last output; the
+        forwards in train mode (``.train()``) or eval mode."""
+        for f in self.forwards:
+            if f.training != train:
+                f.train(train)
         inputs = []
         x = data
         for f in self.forwards:
@@ -48,7 +57,7 @@ class TorchStep:
 
     def eval_minibatch(self, data, labels, valid):
         """Forward + evaluator; -> the (4,) metrics tensor."""
-        _, last = self._forward(data)
+        _, last = self._forward(data, False)
         _, metrics = self.evaluator.run(last, labels, valid,
                                         self.device.act_dtype)
         self.eval_steps += 1
@@ -56,7 +65,13 @@ class TorchStep:
 
     def train_minibatch(self, data, labels, valid):
         """One train step with its updates; -> the (4,) metrics tensor."""
-        inputs, last = self._forward(data)
+        return self.train_backward(*self._forward(data, True), labels,
+                                   valid)
+
+    def train_backward(self, inputs, last, labels, valid):
+        """The evaluator and the reversed GD chain with its updates, after
+        a train-mode :meth:`_forward` that gave ``inputs`` and ``last``;
+        -> the (4,) metrics tensor."""
         err, metrics = self.evaluator.run(last, labels, valid,
                                           self.device.act_dtype)
         outputs = inputs[1:] + [last]
@@ -83,7 +98,9 @@ class TorchStep:
                                   dtype=torch.float32, device=dev)
             for i in range(len(idx_mat)):
                 metrics[i] = step(
-                    torch.index_select(full["data"], 0, idx[i]),
+                    loader.batch_transform(
+                        torch.index_select(full["data"], 0, idx[i]),
+                        cls == CLASS_TRAIN),
                     torch.index_select(full["labels"], 0, idx[i]),
                     valid_dev[i])
             host = metrics.cpu().numpy()
