@@ -120,9 +120,40 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     train step under ``torch.profiler`` (busy, idle share, device
     operations, top operations, the bias gradient's device launches and
     ms; trace ``alexnet_step_trace.json``);
-13. the ``kernels`` summary line (the bias gradient's launches summed
-    over the MNIST, CIFAR-10 and AlexNet runs, each path's beside it),
-    the card line, and last ``{"ok": true, "device": {...}}``.
+13. serve_predict — the MNIST and AlexNet workflows of phases 6 and 12
+    exported (``export_inference``), loaded by ``ArchiveModel`` on the
+    card, every bucket of an ``InferenceEngine(max_batch=64)`` (1 to 64
+    rows) against the port's training forward in eval mode with the f32
+    policy on the same rows, the CPU ``ArchiveModel`` (all 64 MNIST rows,
+    2 AlexNet rows) and the bucket without pad rows, each within
+    ``SERVE_RTOL`` of the largest output; ms by the host clock and rows/s
+    per bucket; a ``MicroBatcher`` under ``SERVE_CLIENTS`` concurrent
+    client threads (its batch fill and latencies); no hand-written kernel
+    may launch (counts from 0 just before);
+14. serve_decode — (a) the LM sample of phase 8 exported and decoded
+    greedily by ``GenerativeEngine`` + ``ContinuousBatcher`` (8 slots) on
+    the card and on the CPU, two concurrent prompts of different
+    lengths, equal token for token to the port's ``generate()`` on the
+    card, the slots all free after; (b) the 110M LM of phase 8 at full
+    width and depth exported and decoded with ``DECODE_SLOTS`` slots of
+    ``DECODE_MAX_LEN`` positions: the first decode step's logits within
+    ``LOGIT_RTOL`` of a full forward over prompt + token, greedy tokens
+    equal to ``generate()``'s except where the top-two gap is within
+    ``LOGIT_RTOL`` (a near tie; the positions reported), tokens/s with
+    ``DECODE_REQUESTS`` requests of 64–256 prompt tokens and 64 new
+    tokens submitted at once and one at a time, first-token latency,
+    the step's ms (and three steps under ``torch.profiler``: device busy
+    and idle share, operations per step; traces
+    ``decode_step_trace_<mode>.json``), a warm prefill's ms at 64 and 256
+    tokens, the pool's bytes and the peak device memory; (c) the
+    same with int8 and fp8 weights at rest: their bytes, tokens/s, the
+    post-softmax outputs within ``QUANT_PROB_ATOL`` of f32 along the f32
+    greedy chain and the greedy tokens equal along its strong-margin
+    prefix (the reference's bounds); no hand-written kernel may launch;
+15. the ``kernels`` summary line (the bias gradient's launches summed
+    over the MNIST, CIFAR-10 and AlexNet runs, each path's beside it,
+    the serving paths' among them), the card line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
@@ -274,11 +305,34 @@ LM_110M = ("root.lm.loader.minibatch_size=8", "root.lm.loader.n_train=64",
            "root.lm.model.dim=768", "root.lm.model.heads=12",
            "root.lm.model.layers=12", "root.lm.model.ffn_hidden=3072",
            "root.lm.model.attn_block=256", "root.lm.decision.max_epochs=2")
+#: a serving forward on the card against the port's f32 training forward
+#: of the same rows, the CPU ArchiveModel, and the bucket run without pad
+#: rows: each within this share of the largest output (f32 on every side,
+#: sums in other orders)
+SERVE_RTOL = 1e-5
+#: concurrent clients of the MicroBatcher and the requests each sends
+SERVE_CLIENTS, SERVE_REQUESTS = 32, 4
+#: the 110M decode: KV slots and positions, requests, new tokens each,
+#: and the prompt lengths drawn between these bounds
+DECODE_SLOTS, DECODE_MAX_LEN = 8, 512
+DECODE_REQUESTS, DECODE_NEW = 16, 64
+DECODE_PROMPT = (64, 256)
+#: the first decode step's logits against a full forward over prompt +
+#: token, as a share of the largest logit (f32 through 12 layers, the
+#: cached and the dense attention summing in other orders); also the
+#: top-two gap within which greedy tokens of two f32 paths may differ
+#: (a near tie)
+LOGIT_RTOL = 1e-4
+#: the reference's quantized-parity bound (tests/test_wquant.py):
+#: post-softmax outputs of a quantized forward against f32
+QUANT_PROB_ATOL = 2e-2
 #: where traces and the full log go (listed in .gitignore)
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 #: every JSON line printed, in full (the end of stdout may be all that a
 #: remote runner keeps)
 LOG_PATH = os.path.join(OUT_DIR, "chip_smoke.jsonl")
+#: the workflows the training phases leave for the serving phases
+TRAINED = {}
 
 
 def emit(obj):
@@ -1010,7 +1064,7 @@ def check_lm(torch):
     flash kernels on their paths (the 110M run; the pipelined run for
     flash_fwd_pipe; the 110M activations for the two-kernel backward)."""
     _, _, cpu = run_lm(torch, "sample", "cpu")
-    _, _, cuda = run_lm(torch, "sample", "cuda")
+    TRAINED["lm_sample"], _, cuda = run_lm(torch, "sample", "cuda")
     gap = abs(cuda["validation_loss"][-1] - cpu["validation_loss"][-1])
     if gap > LM_CPU_TOLERANCE:
         fail("lm sample: final validation loss %.4f on cuda vs %.4f on cpu"
@@ -1022,6 +1076,7 @@ def check_lm(torch):
     # the validation loss need not yet
     wf, full, _ = run_lm(torch, "110M", "cuda", *LM_110M,
                          valid_must_fall=False)
+    TRAINED["lm_110M"] = wf
     two = check_two_kernel(torch, wf)
     emit(profile_lm_step(torch, wf))
     return dict(full, flash_fwd_pipe=pipe["flash_fwd_pipe"],
@@ -1253,6 +1308,7 @@ def check_alexnet(torch):
     reset_counts()
     wf = cli([IMAGENET_SAMPLE, *ALEXNET_RUN, "--seed", "1337", "-d", "cuda"])
     torch.cuda.synchronize()
+    TRAINED["alexnet"] = wf
     counts = read_counts()
     check_params_finite(torch, wf, "alexnet")
     train = wf.step.train_steps
@@ -1275,6 +1331,448 @@ def check_alexnet(torch):
     b = batch[0].shape[0]
     emit({"phase": "alexnet_profile", "shape": list(batch[0].shape),
           "images_per_sec_step": b / row["step_ms"] * 1e3, **row})
+    return counts
+
+
+# -- serving: the predict and decode planes on the card ---------------------
+
+
+def no_launches(name):
+    """Read the kernel counts after a serving phase (set to 0 before it):
+    serving runs none of the hand-written kernels; -> the counts."""
+    counts = read_counts()
+    if any(counts.values()):
+        fail("%s launched hand-written kernels: %s" % (name, counts))
+    return counts
+
+
+def max_rel(got, want):
+    """max |got − want| over max |want|, as floats on the host."""
+    import numpy
+    got, want = (numpy.asarray(t.cpu() if hasattr(t, "cpu") else t,
+                               numpy.float64) for t in (got, want))
+    return float(numpy.abs(got - want).max()
+                 / max(numpy.abs(want).max(), 1e-30))
+
+
+@functools.lru_cache(maxsize=None)
+def archive_dir(name):
+    """A fresh directory for one exported archive (removed at exit)."""
+    import atexit
+    import shutil
+    import tempfile
+    path = tempfile.mkdtemp(prefix="chip_smoke_%s_" % name)
+    atexit.register(shutil.rmtree, path, True)
+    return path
+
+
+def train_forward_f32(torch, wf, x):
+    """The port's training forward of ``wf`` in eval mode with its
+    device's dtype policy set to f32 for the call."""
+    dev = wf.device
+    saved = (dev.compute_dtype, dev.act_dtype)
+    dev.compute_dtype = dev.act_dtype = torch.float32
+    try:
+        with torch.no_grad():
+            return wf.step._forward(x, False)[1].float()
+    finally:
+        dev.compute_dtype, dev.act_dtype = saved
+
+
+def serving_rows(wf):
+    """64 rows of ``wf``'s data as its first forward takes them (the
+    eval transform on the card for AlexNet)."""
+    dev = wf.device.device
+    data = wf.loader.device_full_arrays(dev)["data"][:64]
+    return wf.loader.batch_transform(data, False).float()
+
+
+def serve_one(torch, name):
+    """Phase serve_predict for one trained workflow: export, load on the
+    card and on the CPU, every bucket of an InferenceEngine(max_batch=64)
+    against the training forward, pad rows, and the MicroBatcher under
+    concurrent clients; -> the summary row."""
+    import threading
+    import numpy
+    from veles_torch.serving import (ArchiveModel, InferenceEngine,
+                                     MicroBatcher)
+    from veles_torch.serving.engine import bucket_sizes
+    wf = TRAINED[name]
+    path = archive_dir(name)
+    t0 = time.perf_counter()
+    wf.export_inference(path)
+    export_s = time.perf_counter() - t0
+    model = ArchiveModel.from_dir(path)
+    if model.device.type != "cuda":
+        fail("serve_predict %s: the ArchiveModel is on %s" % (name,
+                                                             model.device))
+    engine = InferenceEngine(model, max_batch=64)
+    first_run = engine.warmup()
+    rows = serving_rows(wf)
+    want = train_forward_f32(torch, wf, rows)
+    host = rows.cpu().numpy()
+    worst, buckets, over = {}, {}, []
+    for b in bucket_sizes(64):
+        out, bucket = engine.predict(host[:b])
+        e = max_rel(out, want[:b])
+        worst[b] = e
+        if bucket != b or not e <= SERVE_RTOL:
+            over.append("bucket %d (got %d): %.3g" % (b, bucket, e))
+        reps = 20 if name == "mnist" else 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            engine.predict(host[:b])
+        ms = 1e3 * (time.perf_counter() - t0) / reps
+        buckets[b] = {"ms": ms, "rows_per_sec": b / ms * 1e3}
+    # pad rows: 3 rows in bucket 4 against each row alone (bucket 1)
+    padded = engine.predict(host[:3])[0]
+    alone = numpy.concatenate([engine.predict(host[i:i + 1])[0]
+                               for i in range(3)])
+    pad_err = max_rel(padded, alone)
+    cpu = ArchiveModel.from_dir(path, device="cpu")
+    n_cpu = 64 if name == "mnist" else 2
+    cpu_err = max_rel(engine.predict(host[:n_cpu])[0], cpu(host[:n_cpu]))
+    batcher = MicroBatcher(engine.predict, max_batch=64, max_wait_ms=2.0,
+                           default_timeout_ms=60000.0)
+    results, errors = {}, []
+
+    def client(c):
+        try:
+            for r in range(SERVE_REQUESTS):
+                i = (c * SERVE_REQUESTS + r) % 64
+                results[(c, r)] = (i, batcher.predict(host[i:i + 1]))
+        except Exception as exc:        # reported below, fails the phase
+            errors.append("%s: %s" % (type(exc).__name__, exc))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    batch_s = time.perf_counter() - t0
+    batcher.close()
+    metrics = batcher.metrics()
+    batch_err = max((max_rel(out, want[i:i + 1])
+                     for i, out in results.values()), default=None)
+    row = {"model": name, "input_sample_shape": list(model.input_sample_shape),
+           "export_seconds": export_s, "first_run_seconds": first_run,
+           "max_rel_err_vs_train_forward": max(worst.values()),
+           "rel_err_by_bucket": worst, "pad_rows_rel_err": pad_err,
+           "cpu_rel_err": cpu_err, "cpu_rows": n_cpu, "buckets": buckets,
+           "batcher": {"clients": SERVE_CLIENTS,
+                       "requests": SERVE_CLIENTS * SERVE_REQUESTS,
+                       "seconds": batch_s,
+                       "requests_per_sec": len(results) / batch_s,
+                       "max_rel_err": batch_err, **metrics}}
+    if over or errors or len(results) != SERVE_CLIENTS * SERVE_REQUESTS:
+        fail("serve_predict %s: %s" % (name, "; ".join(over + errors)
+                                       or "requests lost"))
+    if not (pad_err <= SERVE_RTOL and cpu_err <= SERVE_RTOL
+            and batch_err <= SERVE_RTOL):
+        fail("serve_predict %s: pad rows %.3g, cpu %.3g, batcher %.3g over "
+             "%g" % (name, pad_err, cpu_err, batch_err, SERVE_RTOL))
+    return row
+
+
+def check_serve_predict(torch):
+    """Phase serve_predict: the MNIST and AlexNet workflows the earlier
+    phases trained, exported and served on the card (see serve_one),
+    the kernels' counts set to 0 just before and read just after; -> the
+    counts."""
+    reset_counts()
+    rows = [serve_one(torch, name) for name in ("mnist", "alexnet")]
+    torch.cuda.synchronize()
+    counts = no_launches("serve_predict")
+    for row in rows:
+        emit({"phase": "serve_predict", "launches": counts, **row})
+    return counts
+
+
+def periodic_prompts(n, vocab, lengths, seed=4242):
+    """``n`` prompts of the LM corpus' kind (a random pattern of period 2
+    to 8 repeated) with lengths drawn from ``lengths`` = (lo, hi)."""
+    import numpy
+    rng = numpy.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        size = int(rng.integers(lengths[0], lengths[1] + 1))
+        pattern = rng.integers(0, vocab, int(rng.integers(2, 9)))
+        out.append(numpy.tile(pattern, size // len(pattern) + 1)[:size]
+                   .tolist())
+    return out
+
+
+def first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def top2_gap(logits):
+    top = logits.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def greedy_vs_generate(torch, wf, model, batcher, prompts, n_new):
+    """Greedy continuous decode of ``prompts`` (submitted together)
+    against the port's generate() on ``wf``, token for token; where the
+    two first differ, the top-two gap of the full forward's logits
+    there; -> [(prompt length, first differing index or None, gap)]."""
+    from veles_torch.znicz.generate import generate
+    handles = [batcher.submit(p, max_tokens=n_new) for p in prompts]
+    got = [h.wait(600) for h in handles]
+    out = []
+    for p, toks in zip(prompts, got):
+        want = generate(wf, [p], n_new)[0].tolist()
+        i = first_divergence(toks, want)
+        gap = None
+        if i is not None:
+            with torch.no_grad():
+                logits = model([p + want[:i]])[0, -1]
+            gap = top2_gap(logits) / float(logits.abs().max())
+        out.append((len(p), i, gap))
+    return out
+
+
+def decode_throughput(torch, batcher, prompts, n_new):
+    """Tokens/s with every prompt submitted at once (continuous) and one
+    at a time (sequential), first-token latencies of the continuous run;
+    -> dict."""
+    import numpy
+    t0 = time.perf_counter()
+    handles = [batcher.submit(p, max_tokens=n_new) for p in prompts]
+    toks = [h.wait(600) for h in handles]
+    cont_s = time.perf_counter() - t0
+    first = [1e3 * (h.t_first - h.t_submit) for h in handles]
+    t0 = time.perf_counter()
+    for p in prompts:
+        batcher.generate(p, max_tokens=n_new, wait_s=600)
+    seq_s = time.perf_counter() - t0
+    n = sum(len(t) for t in toks)
+    if n != len(prompts) * n_new:
+        fail("serve_decode: %d tokens for %d requests" % (n, len(prompts)))
+    return {"requests": len(prompts), "new_tokens": n_new,
+            "continuous_seconds": cont_s,
+            "tokens_per_sec_continuous": n / cont_s,
+            "sequential_seconds": seq_s,
+            "tokens_per_sec_sequential": n / seq_s,
+            "first_token_ms_p50": float(numpy.median(first)),
+            "first_token_ms_max": float(max(first))}
+
+
+def step_ms(torch, engine, reps=30):
+    """One decode step over every slot (positions mid-pool), by the host
+    clock over ``reps`` steps (each ends in the token copy to the
+    host)."""
+    import numpy
+    n = engine.pool.n_slots
+    tokens = numpy.arange(n, dtype=numpy.int32)
+    pos = numpy.full(n, engine.max_len // 2, numpy.int32)
+    temp = numpy.zeros(n, numpy.float32)
+    engine.step(tokens, pos, temp)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine.step(tokens, pos, temp)
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def profile_decode_step(torch, engine, trace_name, reps=3):
+    """``reps`` decode steps over every slot under torch.profiler: wall
+    and device-busy ms per step, idle share, device operations per step,
+    by kind and the largest (trace in the output directory)."""
+    import numpy
+    from torch.profiler import ProfilerActivity, profile
+    n = engine.pool.n_slots
+    tokens = numpy.arange(n, dtype=numpy.int32)
+    pos = numpy.full(n, engine.max_len // 2, numpy.int32)
+    temp = numpy.zeros(n, numpy.float32)
+    engine.step(tokens, pos, temp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            engine.step(tokens, pos, temp)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    busy_ms, n_ops, by_name, path = device_trace(prof, trace_name)
+    busy_ms /= reps
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_ops": n_ops / reps,
+            "ops_by_kind": {k: [c / reps, t / reps] for k, (c, t) in
+                            ops_by_kind(by_name).items()},
+            "top_device_ops": top_ops(by_name, 10), "trace": path}
+
+
+def prefill_ms(torch, engine, prompt, reps=5):
+    """A warm prefill of ``prompt`` into slot 0, by the host clock (each
+    ends in the first token's copy to the host)."""
+    engine.prefill_into(0, prompt, 0.0)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine.prefill_into(0, prompt, 0.0)
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def decode_sample(torch):
+    """serve_decode (1): the LM sample phase lm trained on the card,
+    exported and decoded greedily through a ContinuousBatcher on the card
+    and on the CPU, two concurrent prompts of different lengths, against
+    generate() on the card, token for token."""
+    from veles_torch.serving import (ArchiveModel, ContinuousBatcher,
+                                     GenerativeEngine)
+    from veles_torch.znicz.generate import generate
+    wf = TRAINED["lm_sample"]
+    path = archive_dir("lm_sample")
+    wf.export_inference(path)
+    prompts = ([1, 2, 3, 4, 5, 1, 2, 3], [5, 6, 5])
+    got = {}
+    for dev in ("cuda", "cpu"):
+        engine = GenerativeEngine(ArchiveModel.from_dir(path, device=dev),
+                                  n_slots=DECODE_SLOTS, max_len=256,
+                                  device=dev)
+        batcher = ContinuousBatcher(engine)
+        try:
+            handles = [batcher.submit(p, max_tokens=24) for p in prompts]
+            got[dev] = [h.wait(600) for h in handles]
+        finally:
+            batcher.close()
+        if engine.pool.in_use:
+            fail("serve_decode sample: %d slots in use after the run on %s"
+                 % (engine.pool.in_use, dev))
+    want = [generate(wf, [p], 24)[0].tolist() for p in prompts]
+    row = {"run": "sample", "tokens_cuda": got["cuda"],
+           "tokens_cpu": got["cpu"], "generate_cuda": want,
+           "max_len": engine.max_len}
+    if not got["cuda"] == want == got["cpu"]:
+        fail("serve_decode sample: continuous decode %s on cuda, %s on cpu, "
+             "generate() %s" % (got["cuda"], got["cpu"], want))
+    return row
+
+
+def decode_110m(torch):
+    """serve_decode (2, 3): the 110M LM phase lm trained, exported and
+    decoded on the card with DECODE_SLOTS slots of DECODE_MAX_LEN
+    positions: the first step's logits against a full forward, greedy
+    tokens against generate() except at near ties, throughput continuous
+    and sequential, the step's ms; then the same with int8 and fp8
+    weights at rest (bytes, tokens/s, post-softmax parity against f32 and
+    the greedy tokens along the strong prefix); -> [rows]."""
+    import numpy
+    from veles_torch.serving import (ArchiveModel, ContinuousBatcher,
+                                     GenerativeEngine)
+    from veles_torch.serving.quant import quantize_tree, tree_nbytes
+    wf = TRAINED["lm_110M"]
+    path = archive_dir("lm_110M")
+    t0 = time.perf_counter()
+    wf.export_inference(path)
+    export_s = time.perf_counter() - t0
+    vocab = wf.forwards[0].vocab_size
+    prompts = periodic_prompts(DECODE_REQUESTS, vocab, DECODE_PROMPT)
+    rows, f32 = [], {}
+    for mode in ("none", "int8", "fp8"):
+        model = ArchiveModel.from_dir(path)
+        f32_bytes = tree_nbytes(model.params)
+        model.params = quantize_tree(model.params, mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        engine = GenerativeEngine(model, n_slots=DECODE_SLOTS,
+                                  max_len=DECODE_MAX_LEN)
+        warm = engine.warmup([64, 128, 256])
+        row = {"run": "110M", "quantize": mode, "export_seconds": export_s,
+               "at_rest_bytes": tree_nbytes(model.params),
+               "at_rest_share_of_f32": tree_nbytes(model.params) / f32_bytes,
+               "kv_pool_bytes": engine.pool.nbytes(),
+               "slots": DECODE_SLOTS, "max_len": engine.max_len,
+               "first_run_seconds": warm}
+        # the first decode step's logits against a full forward
+        p = prompts[0]
+        tok = engine.prefill_into(0, p, 0.0)
+        n = engine.pool.n_slots
+        toks = numpy.zeros(n, numpy.int32)
+        pos = numpy.zeros(n, numpy.int32)
+        toks[0], pos[0] = tok, len(p)
+        step = engine.logits(toks, pos)[0]
+        with torch.no_grad():
+            full = model([p + [tok]])[0, -1]
+        row["first_step_logits_rel_err"] = max_rel(step, full)
+        batcher = ContinuousBatcher(engine, max_queue=DECODE_REQUESTS)
+        try:
+            if mode == "none":
+                pairs = greedy_vs_generate(torch, wf, model, batcher,
+                                           prompts[:2], DECODE_NEW)
+                row["greedy_vs_generate"] = [
+                    {"prompt": a, "first_differing": i, "top2_gap": g}
+                    for a, i, g in pairs]
+                for a, i, g in pairs:
+                    if i is not None and not g <= LOGIT_RTOL:
+                        fail("serve_decode 110M: greedy tokens differ from "
+                             "generate() at %d of a %d-token prompt, top-two "
+                             "gap %.3g (no near tie)" % (i, a, g))
+            row.update(decode_throughput(torch, batcher, prompts,
+                                         DECODE_NEW))
+            chain = batcher.generate(p, max_tokens=DECODE_NEW, wait_s=600)
+        finally:
+            batcher.close()
+        if engine.pool.in_use:
+            fail("serve_decode 110M: %d slots in use after the run"
+                 % engine.pool.in_use)
+        row["decode_step_ms"] = step_ms(torch, engine)
+        row["prefill_ms"] = {n: prefill_ms(torch, engine, [1] * n)
+                             for n in (64, 256)}
+        row["decode_step_profile"] = profile_decode_step(
+            torch, engine, "decode_step_trace_%s.json" % mode)
+        row["kv_pool_bytes_reported"] = engine.pool.nbytes()
+        row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        row["memory_allocated_before_engine"] = base
+        # teacher-forced logits along the f32 greedy chain
+        if mode == "none":
+            f32 = {"chain": chain}
+        with torch.no_grad():
+            seq = p + f32["chain"][:-1]
+            logits = model([seq])[0, len(p) - 1:].float()
+        probs = torch.softmax(logits, -1)
+        if mode == "none":
+            f32.update(logits=logits, probs=probs)
+        else:
+            prob_diff = float((probs - f32["probs"]).abs().max())
+            logit_diff = float((logits - f32["logits"]).abs().max())
+            top2 = f32["logits"].topk(2, dim=-1).values
+            strong = (top2[:, 0] - top2[:, 1] > 2 * logit_diff).tolist()
+            agree = 0
+            for i, s in enumerate(strong):
+                if not s:
+                    break
+                if chain[i] != f32["chain"][i]:
+                    fail("serve_decode 110M %s: greedy token %d differs from "
+                         "f32 at a strong margin" % (mode, i))
+                agree += 1
+            row.update(prob_max_abs_diff=prob_diff,
+                       logit_max_abs_diff=logit_diff,
+                       strong_prefix_tokens_agreeing=agree)
+            if not prob_diff < QUANT_PROB_ATOL:
+                fail("serve_decode 110M %s: probabilities %.3g from f32 "
+                     "(bound %g)" % (mode, prob_diff, QUANT_PROB_ATOL))
+        if not row["first_step_logits_rel_err"] <= LOGIT_RTOL:
+            fail("serve_decode 110M %s: first step's logits %.3g from the "
+                 "full forward" % (mode, row["first_step_logits_rel_err"]))
+        rows.append(row)
+        del engine, batcher, model
+    return rows
+
+
+def check_serve_decode(torch):
+    """Phase serve_decode: decode_sample and decode_110m, the kernels'
+    counts set to 0 just before and read just after; -> the counts."""
+    reset_counts()
+    rows = [decode_sample(torch)] + decode_110m(torch)
+    torch.cuda.synchronize()
+    counts = no_launches("serve_decode")
+    for row in rows:
+        emit({"phase": "serve_decode", "launches": counts, **row})
     return counts
 
 
@@ -1326,9 +1824,13 @@ def main(argv=None):
     cifar = check_cifar(torch)
     check_alexnet_parity(torch)
     alexnet = check_alexnet(torch)
+    serving = {"serve_predict": check_serve_predict(torch),
+               "serve_decode": check_serve_decode(torch)}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
-                      "alexnet": alexnet["bias_grad[%s]" % form]}
+                      "alexnet": alexnet["bias_grad[%s]" % form],
+                      **{path: counts["bias_grad[%s]" % form]
+                         for path, counts in serving.items()}}
                for form, _, _, _ in FORMS}
 
     emit({"kernels": [{
@@ -1350,6 +1852,9 @@ def main(argv=None):
         "source": source,
         "replaces": replaces,
         "launches": lm_launches[name],
+        "launches_by_path": {"lm": lm_launches[name],
+                             **{path: counts[name]
+                                for path, counts in serving.items()}},
         "max_abs_err": flash_err[name],
         **flash_rows[name],
     } for name, source, replaces in FLASH_KERNELS]})
@@ -1369,6 +1874,7 @@ def check_mnist_path(torch):
     reset_counts()
     wf = run_mnist(torch, "cuda")
     torch.cuda.synchronize()
+    TRAINED["mnist"] = wf
     launches = dict(bias_grad.form_launches, total=bias_grad.launches)
     err_cuda = check_mnist(torch, wf, "cuda")
     steps = wf.step.train_steps

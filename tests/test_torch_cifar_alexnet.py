@@ -54,6 +54,20 @@ CIFAR_EPOCHS_TOL = 0.02
 #: element (f32 sums in another order through 8 layers; observed 2.5e-6,
 #: on a velocity)
 ALEX_RTOL = 1e-4
+#: one CIFAR step under the card's bf16 policy, against each tensor's
+#: largest element. Two things set it apart from f32: (1) the reference's
+#: default conv bias gradient sums dz rounded to bf16 (``ones @ dz`` of
+#: bf16 operands), the port's kernel sums the f32 products, as the
+#: reference's ``fused_bias_grad`` hatch (the Pallas kernel) does, so the
+#: reference runs with that hatch on here; (2) bf16 rounding of the
+#: activations turns f32 summation-order differences into whole bf16
+#: steps on a few elements. Perturbing only the port's convolution sums
+#: (float64, then rounded) moves its own step by 4.9e-3 of a velocity's
+#: largest element, more than its gap to the reference (2.5e-3, on the
+#: first conv's bias), which the test also holds; with the hatch off the
+#: second conv's bias reads 1.15e-3 against 1.1e-4 with it on (printed by
+#: the test with -s)
+BF16_STEP_RTOL = 1e-2
 #: the reference test's CIFAR settings
 CIFAR_SMALL = {"n_train": 600, "n_valid": 200, "minibatch_size": 50}
 #: the reference test's reduced AlexNet geometry
@@ -188,6 +202,71 @@ def test_cifar_one_train_step(configs):
     diff = worst(want, got, relative=False)
     assert diff[0] <= STEP_ATOL, diff
     assert abs(float(outs["loss"]) - float(metrics[0])) < 1e-5
+    assert int(outs["n_err"]) == int(metrics[1])
+
+
+def bf16_cifar_step(monkeypatch, fused, f64_convs=False):
+    """One CIFAR step of both packages under ``amp = compute_dtype =
+    bfloat16``, the reference's GD units with ``fused_bias_grad=fused``,
+    the port's convolutions summed in float64 (then rounded) with
+    ``f64_convs``; -> :func:`one_step`'s result."""
+    set_cifar(1)
+    for layer in jroot.cifar.layers:
+        if "<-" in layer:
+            layer["<-"]["fused_bias_grad"] = fused
+    try:
+        for r in (jroot, troot):
+            r.common.engine.amp = r.common.engine.compute_dtype = "bfloat16"
+        jw, tw = cifar_pair(1)
+        if f64_convs:
+            def conv2d_f64(self, x, w, stride, padding):
+                x, w = self._conv_operands(x, w)
+                return torch.nn.functional.conv2d(
+                    x.double(), w.double(), stride=stride,
+                    padding=padding).float()
+            monkeypatch.setattr(type(tw.device), "conv2d", conv2d_f64)
+        idx_mat, valids = jw.loader.class_schedule(2)
+        data = jw.loader.original_data.mem[idx_mat[0]]
+        labels = jw.loader.original_labels.mem[idx_mat[0]]
+        return one_step(jw, tw, data, torch.from_numpy(data), labels,
+                        valids[0])
+    finally:
+        for r in (jroot, troot):
+            r.common.engine.amp = r.common.engine.compute_dtype = None
+        monkeypatch.undo()
+
+
+def test_cifar_one_train_step_bf16_policy(configs, monkeypatch):
+    """Under the bf16 policy in both packages, against the reference with
+    ``fused_bias_grad=True`` (the form of the port's kernel): every
+    parameter and velocity within BF16_STEP_RTOL of its largest element;
+    the gap no larger than the port's own move when only its convolution
+    sums change order; the loss to 1e-4 and the same error count. Without
+    the hatch the reference's second conv bias (a sum of bf16-rounded dz)
+    lies at least 5 times further from the port's."""
+    want, got, outs, metrics = bf16_cifar_step(monkeypatch, True)
+    _, moved, _, _ = bf16_cifar_step(monkeypatch, True, f64_convs=True)
+    unfused, got2, _, _ = bf16_cifar_step(monkeypatch, False)
+    gap = worst(want, got, relative=True)
+    floor = max(
+        numpy.abs(moved[u][k] - got[u][k]).max()
+        / max(numpy.abs(numpy.asarray(want[u][k])).max(), 1e-30)
+        for u in want for k in want[u])
+
+    def bias_gap(ref, port):
+        b = numpy.asarray(ref["ConvRELU_2"]["bias"], numpy.float64)
+        return numpy.abs(port["ConvRELU_2"]["bias"] - b).max() \
+            / numpy.abs(b).max()
+
+    fused_bias, unfused_bias = bias_gap(want, got), bias_gap(unfused, got2)
+    print("bf16 CIFAR step: gap %.3g (%s.%s), floor %.3g, second conv "
+          "bias %.3g fused / %.3g unfused" % (gap[0], gap[1], gap[2],
+                                              floor, fused_bias,
+                                              unfused_bias))
+    assert gap[0] <= BF16_STEP_RTOL, gap
+    assert gap[0] <= floor, (gap, floor)
+    assert unfused_bias >= 5 * fused_bias, (unfused_bias, fused_bias)
+    assert abs(float(outs["loss"]) - float(metrics[0])) < 1e-4
     assert int(outs["n_err"]) == int(metrics[1])
 
 

@@ -2,7 +2,9 @@
 flash-attention kernels, the bf16 wgmma forward, fused backward and
 two-kernel backward among them, against their plain versions, and their
 refusals; the f32 products of ``TorchDevice.dot``; the repeatable
-embedding gradient); they skip without one.
+embedding gradient; the serving forward and decode step against the CPU,
+and the f32 serving convolution with TF32 on for the process); they skip
+without one.
 
 This file imports neither jax nor the JAX package, so it runs on a card
 host that has only PyTorch:
@@ -627,3 +629,162 @@ def test_pool_backward_is_repeatable(card, name):
     for y, ei in results[1:]:
         assert torch.equal(y, results[0][0])
         assert torch.equal(ei, results[0][1])
+
+
+# -- serving (veles_torch/serving) -----------------------------------------
+
+#: a serving forward on the card against the CPU's, as a share of the
+#: largest output: f32 on both (cuBLAS and cuDNN with TF32 off), sums in
+#: other orders
+SERVE_RTOL = 1e-5
+
+
+def _serving_model(kind, device):
+    """An in-memory ArchiveModel from seeded weights: ``mlp`` (MNIST's
+    784-100-10), ``conv`` (conv, pools, LRN, softmax at CIFAR-10's input)
+    or ``lm`` (embedding, attention, layernorm, FFN, token dense)."""
+    from veles_torch.serving import ArchiveModel
+    rng = numpy.random.default_rng(21)
+
+    def w(*shape, s=0.1):
+        return torch.from_numpy(rng.normal(0, s, shape).astype(
+            numpy.float32))
+
+    if kind == "mlp":
+        units = [{"type": "all2all_tanh", "name": "h",
+                  "config": {"neurons": 100, "output_sample_shape": [100]}},
+                 {"type": "softmax", "name": "o",
+                  "config": {"neurons": 10, "output_sample_shape": [10]}}]
+        params = {"h": {"weights": w(784, 100), "bias": w(100)},
+                  "o": {"weights": w(100, 10), "bias": w(10)}}
+        shape = (784,)
+    elif kind == "conv":
+        units = [{"type": "conv_relu", "name": "c1",
+                  "config": {"n_kernels": 32, "kx": 5, "ky": 5,
+                             "sliding": [1, 1], "padding": [2, 2, 2, 2]}},
+                 {"type": "max_pooling", "name": "p1",
+                  "config": {"kx": 3, "ky": 3, "sliding": [2, 2]}},
+                 {"type": "norm", "name": "n1",
+                  "config": {"alpha": 1e-4, "beta": 0.75, "n": 5,
+                             "k": 2.0}},
+                 {"type": "conv_str", "name": "c2",
+                  "config": {"n_kernels": 64, "kx": 5, "ky": 5,
+                             "sliding": [1, 1], "padding": [2, 2, 2, 2]}},
+                 {"type": "avg_pooling", "name": "p2",
+                  "config": {"kx": 2, "ky": 2, "sliding": [2, 2]}},
+                 {"type": "softmax", "name": "o",
+                  "config": {"neurons": 10, "output_sample_shape": [10]}}]
+        params = {"c1": {"weights": w(32, 75), "bias": w(32)},
+                  "c2": {"weights": w(64, 800, s=0.05), "bias": w(64)},
+                  "o": {"weights": w(64 * 8 * 8, 10, s=0.02), "bias": w(10)}}
+        shape = (32, 32, 3)
+    else:
+        d = 64
+        units = [{"type": "embedding", "name": "e",
+                  "config": {"vocab_size": 16, "dim": d}}]
+        params = {"e": {"weights": w(16, d, s=1.0),
+                        "positions": w(256, d, s=0.5)}}
+        for i in range(2):
+            units += [{"type": "attention", "name": "a%d" % i,
+                       "config": {"heads": 4, "causal": True,
+                                  "residual": True, "include_bias": True}},
+                      {"type": "layernorm", "name": "l%d" % i,
+                       "config": {"eps": 1e-5}},
+                      {"type": "transformer_ffn", "name": "f%d" % i,
+                       "config": {"hidden": 128, "residual": True}}]
+            params["a%d" % i] = {"weights": w(d, 3 * d), "bias": w(3 * d),
+                                 "weights_out": w(d, d), "bias_out": w(d)}
+            params["l%d" % i] = {"weights": 1 + w(d), "bias": w(d)}
+            params["f%d" % i] = {"weights": w(d, 128), "bias": w(128),
+                                 "weights2": w(128, d), "bias2": w(d)}
+        units.append({"type": "token_dense", "name": "t",
+                      "config": {"output_features": 16}})
+        params["t"] = {"weights": w(d, 16, s=0.5), "bias": w(16)}
+        shape = (32,)
+    return ArchiveModel("w", shape, units, params, device=device), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlp", "conv", "lm"])
+def test_serving_forward_card_matches_cpu(card, kind):
+    """The engine's bucketed forward on the card (its default device)
+    equals the CPU's within SERVE_RTOL of the largest output, pad rows
+    changing no real row."""
+    from veles_torch.serving import InferenceEngine
+    model, shape = _serving_model(kind, "cpu")
+    rng = numpy.random.default_rng(5)
+    x = (rng.integers(0, 16, (5,) + shape) if kind == "lm"
+         else rng.normal(0, 1, (5,) + shape)).astype(numpy.float32)
+    want = model(x).numpy()
+    eng = InferenceEngine(_serving_model(kind, "cuda")[0], max_batch=8)
+    assert eng.device.type == "cuda"
+    got, bucket = eng.predict(x)
+    assert bucket == 8
+    tol = SERVE_RTOL * numpy.abs(want).max()
+    assert numpy.abs(got - want).max() <= tol
+    alone = numpy.concatenate([eng.predict(x[i:i + 1])[0]
+                               for i in range(5)])
+    assert numpy.abs(alone - want).max() <= tol
+
+
+@pytest.mark.cuda
+def test_serving_convolution_is_f32_with_tf32_on(card):
+    """With cuDNN's TF32 switched on for the process, a serving
+    convolution of 800-term sums still reads f32 (within 1e-5 of the
+    float64 result's largest element; TF32 reads some 1e-3), and the
+    process's flag is as it was after."""
+    from veles_torch.serving.model import FORWARD_OPS
+    rng = numpy.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(0, 1, (8, 16, 16, 32)).astype(
+        numpy.float32))
+    p = {"weights": torch.from_numpy(rng.normal(0, 0.1, (64, 800)).astype(
+        numpy.float32)), "bias": torch.zeros(64)}
+    spec = {"type": "conv", "name": "c",
+            "config": {"n_kernels": 64, "kx": 5, "ky": 5,
+                       "sliding": [1, 1], "padding": [2, 2, 2, 2]}}
+    want = FORWARD_OPS["conv"](x.double(), {k: v.double() for k, v in
+                                            p.items()}, spec)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = FORWARD_OPS["conv"](x.to(card), {k: v.to(card) for k, v in
+                                               p.items()}, spec)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    err = (got.double().cpu() - want).abs().max() / want.abs().max()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_decode_step_card_matches_cpu(card):
+    """The same prompts prefilled and the same tokens stepped on the card
+    and on the CPU: every K/V the pools hold agrees within SERVE_RTOL of
+    the pool's largest element; greedy continuous decode on the card runs
+    and returns its slots."""
+    from veles_torch.serving import ContinuousBatcher, GenerativeEngine
+    pools = {}
+    for dev in ("cpu", "cuda"):
+        eng = GenerativeEngine(_serving_model("lm", dev)[0], n_slots=4,
+                               max_len=64, device=dev)
+        toks = numpy.zeros(4, numpy.int32)
+        pos = numpy.zeros(4, numpy.int32)
+        for slot, prompt in enumerate(([1, 2, 3], [4, 5, 6, 7, 8],
+                                       [9], [3, 1, 4, 1, 5, 9, 2])):
+            toks[slot] = eng.prefill_into(slot, prompt, 0.0)
+            pos[slot] = len(prompt)
+        for i in range(5):
+            eng.step(toks, pos, numpy.zeros(4, numpy.float32))
+            toks = (toks + 3 * i + 1) % 16
+            pos = pos + 1
+        pools[dev] = [t.cpu() for t in eng.pool.K + eng.pool.V]
+    for a, b in zip(pools["cpu"], pools["cuda"]):
+        assert (a - b).abs().max() <= SERVE_RTOL * a.abs().max()
+    batcher = ContinuousBatcher(GenerativeEngine(
+        _serving_model("lm", "cuda")[0], n_slots=2, max_len=64))
+    try:
+        h = [batcher.submit(p, max_tokens=10) for p in ([1, 2], [5, 6, 7])]
+        assert all(len(r.wait(120)) == 10 for r in h)
+        assert batcher.engine.pool.in_use == 0
+    finally:
+        batcher.close()

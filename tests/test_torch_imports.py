@@ -63,9 +63,12 @@ def test_importing_the_port_loads_no_jax_or_veles():
     "znicz/ops/conv_math.py", "znicz/ops/conv.py", "znicz/ops/gd_conv.py",
     "znicz/ops/pooling.py", "znicz/ops/gd_pooling.py",
     "znicz/ops/normalization.py", "znicz/ops/dropout.py",
-    "znicz/models/cifar10.py", "znicz/models/imagenet.py"])
+    "znicz/models/cifar10.py", "znicz/models/imagenet.py",
+    "export_inference.py", "znicz/generate.py", "serving/__init__.py",
+    "serving/quant.py", "serving/model.py", "serving/engine.py",
+    "serving/batcher.py", "serving/decode.py"])
 def test_conv_slice_modules_are_scanned(module):
-    """The conv slice's modules are among the files both checks above
-    read (the package walk finds them, the fresh interpreter imports
-    them)."""
+    """The conv and serving slices' modules are among the files both
+    checks above read (the package walk finds them, the fresh interpreter
+    imports them)."""
     assert os.path.join(REPO, "veles_torch", module) in _port_files()

@@ -2,6 +2,9 @@
 
     python -m veles_torch <workflow.py> [root.x.y=v ...] [-d cuda|cpu]
                           [--seed N] [--result-file PATH]
+                          [--export-inference DIR]
+                          [--generate IDS [--gen-tokens N]
+                           [--gen-temperature T]]
 
 Counterpart of ``python -m veles`` for the samples ported so far: the
 workflow module is imported first (its ``root`` defaults land), then the
@@ -11,6 +14,13 @@ the device and trained. Each finished epoch prints its summary line; the
 last line of standard output is one JSON object with the decision
 history. The device is ``cuda`` unless ``-d cpu`` is given; asking for
 ``cuda`` on a host without a card fails.
+
+After training, ``--export-inference DIR`` writes the inference archive
+(``contents.json`` + ``.npy``, the reference's format) and prints
+``inference archive -> DIR``; ``--generate 1,2,3`` decodes
+``--gen-tokens`` tokens from the trained LM (``znicz/generate.py``;
+greedy, or sampled at ``--gen-temperature``) and prints ``generated:
+...``. Both lines come before the final JSON line.
 """
 
 import argparse
@@ -20,8 +30,11 @@ import logging
 import os
 import sys
 
+import numpy
+
 from veles_torch import prng
 from veles_torch.config import root
+from veles_torch.znicz.generate import generate
 
 
 def build_argparser():
@@ -37,6 +50,21 @@ def build_argparser():
                    help="master seed for every named generator")
     p.add_argument("--result-file", default=None,
                    help="also write the final JSON here")
+    p.add_argument("--export-inference", default=None, metavar="DIR",
+                   help="after the run, export the inference archive "
+                        "(contents.json + .npy) to DIR")
+    p.add_argument("--generate", default=None, metavar="IDS",
+                   help="after the run, decode from the trained LM: "
+                        "comma-separated prompt token ids (e.g. "
+                        "'1,2,3'); prints the continuation")
+    p.add_argument("--generate-text", default=None, metavar="PROMPT",
+                   help="like --generate but with text through the "
+                        "loader's character vocabulary (not ported yet)")
+    p.add_argument("--gen-tokens", type=int, default=32,
+                   help="tokens to generate with --generate")
+    p.add_argument("--gen-temperature", type=float, default=0.0,
+                   help="sampling temperature for --generate "
+                        "(0 = greedy)")
     return p
 
 
@@ -53,6 +81,19 @@ def import_file(path, name=None):
 def main(argv=None):
     """Run the CLI; -> the trained workflow."""
     args = build_argparser().parse_intermixed_args(argv)
+    if args.generate_text is not None:
+        raise SystemExit(
+            "--generate-text needs the text-corpus loader (TextLMLoader, "
+            "root.lm.loader.text_file), which is not ported yet (ROADMAP "
+            "Queue 1 item 8)")
+    prompt = None
+    if args.generate:
+        try:
+            prompt = numpy.array(
+                [[int(t) for t in args.generate.split(",")]], numpy.int32)
+        except ValueError:
+            raise SystemExit("--generate: expected comma-separated integer "
+                             "token ids, got %r" % args.generate)
     logger = logging.getLogger("veles_torch")
     if not logger.handlers:
         handler = logging.StreamHandler(sys.stdout)
@@ -68,6 +109,14 @@ def main(argv=None):
     wf = module.create_workflow()
     wf.initialize(device=args.device)
     wf.run()
+    if args.export_inference:
+        wf.export_inference(args.export_inference)
+        print("inference archive -> %s" % args.export_inference, flush=True)
+    if prompt is not None:
+        out = generate(wf, prompt, args.gen_tokens,
+                       temperature=args.gen_temperature)
+        print("generated: %s" % ",".join(str(t) for t in out[0].tolist()),
+              flush=True)
     result = {"workflow": wf.name, "device": str(wf.device.device),
               "history": wf.decision.history,
               "best_metric": float(wf.decision.best_metric)}

@@ -46,15 +46,7 @@ class TorchDevice:
     """A ``torch.device`` plus the dtype policy units compute under."""
 
     def __init__(self, spec="cuda"):
-        spec = str(spec or "cuda")
-        if spec != "cpu" and spec.split(":")[0] != "cuda":
-            raise ValueError("device must be 'cuda', 'cuda:N' or 'cpu', "
-                             "got %r" % spec)
-        if spec != "cpu" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device %r requested but torch sees no CUDA device; "
-                "pass -d cpu / device='cpu' to run on the CPU" % spec)
-        self.device = torch.device(spec)
+        self.device = torch_device(spec)
         self.platform = self.device.type
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -149,6 +141,28 @@ def f32_matmul(a, b):
     raise ValueError("f32_matmul takes (..., M, K) @ (K, N) or equal "
                      "leading dims, got %s @ %s"
                      % (tuple(a.shape), tuple(b.shape)))
+
+
+def torch_device(spec="cuda"):
+    """``torch.device`` of ``"cuda"``, ``"cuda:N"`` or ``"cpu"`` (or a
+    ``torch.device``); ``None`` means ``cuda``. A CUDA device on a host
+    without a card raises: nothing falls back to the CPU."""
+    spec = str(spec or "cuda")
+    if spec != "cpu" and spec.split(":")[0] != "cuda":
+        raise ValueError("device must be 'cuda', 'cuda:N' or 'cpu', "
+                         "got %r" % spec)
+    if spec != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device %r requested but torch sees no CUDA device; "
+            "pass -d cpu / device='cpu' to run on the CPU" % spec)
+    return torch.device(spec)
+
+
+def bind_thread(device):
+    """Make ``device`` the calling thread's current CUDA device when it
+    names one (``cuda:N``); nothing for ``cpu`` or plain ``cuda``."""
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
 
 
 def get_device(spec=None) -> TorchDevice:

@@ -20,6 +20,21 @@ from veles_torch.znicz.ops import activations as A
 from veles_torch.znicz.ops import conv_math as CM
 
 
+def conv_geometry(x, weights, ky, kx, padding):
+    """-> (NCHW view of the NHWC ``x``, padded first where cuDNN cannot,
+    KCHW view of the ``(K, ky·kx·C)`` weights, cuDNN's symmetric
+    padding) for ``padding`` = (top, bottom, left, right)."""
+    top, bottom, left, right = padding
+    if top == bottom and left == right:
+        pad = (top, left)
+    else:
+        x = CM.pad_nhwc(x, padding)
+        pad = (0, 0)
+    w = weights.reshape(weights.shape[0], ky, kx,
+                        x.shape[3]).permute(0, 3, 1, 2)
+    return x.permute(0, 3, 1, 2), w, pad
+
+
 class ConvBase(Forward):
     """Convolution: output = act(conv(input, weights) + bias)."""
 
@@ -54,17 +69,9 @@ class ConvBase(Forward):
         return self.output_shape_for(input_shape)
 
     def conv_geometry(self, x):
-        """-> (NCHW view of ``x``, padded where cuDNN cannot, KCHW view
-        of the weights, cuDNN's symmetric padding)."""
-        top, bottom, left, right = self.padding
-        if top == bottom and left == right:
-            pad = (top, left)
-        else:
-            x = CM.pad_nhwc(x, self.padding)
-            pad = (0, 0)
-        w = self.weights.reshape(self.n_kernels, self.ky, self.kx,
-                                 x.shape[3]).permute(0, 3, 1, 2)
-        return x.permute(0, 3, 1, 2), w, pad
+        """:func:`conv_geometry` of ``x`` and this unit's weights."""
+        return conv_geometry(x, self.weights, self.ky, self.kx,
+                             self.padding)
 
     def forward(self, x):
         xc, w, pad = self.conv_geometry(x)

@@ -21,6 +21,22 @@ from veles_torch.znicz.nn_units import (
 from veles_torch.znicz.ops import conv_math as CM
 
 
+def lrn_denominator(x, alpha, n, k):
+    """``k + alpha·Σ x²`` over the centered window of ``n`` channels."""
+    return k + alpha * CM.sliding_channel_sum(x * x, n)
+
+
+def lrn_dpow(d, beta):
+    """``d ** (-beta)``; for beta 0.75 two square roots and a multiply,
+    as the reference. The roots are ``torch.pow(·, 0.5)``, which CUDA
+    computes as its square root: ``torch.sqrt`` of float32 on the CPU
+    (torch 2.13.0+cpu on an AVX512 host) returned roots off in their
+    fourth digit on some runs, the power never."""
+    if beta == 0.75:
+        return 1.0 / torch.pow(d * torch.pow(d, 0.5), 0.5)
+    return d ** (-beta)
+
+
 @forward_unit("norm")
 class LRNormalizerForward(Forward):
     """Cross-map LRN (no weights)."""
@@ -40,17 +56,10 @@ class LRNormalizerForward(Forward):
         return tuple(input_shape)
 
     def dpow(self, d):
-        """``d ** (-beta)``; for beta 0.75 two square roots and a
-        multiply, as the reference. The roots are ``torch.pow(·, 0.5)``,
-        which CUDA computes as its square root: ``torch.sqrt`` of float32
-        on the CPU (torch 2.13.0+cpu on an AVX512 host) returned roots
-        off in their fourth digit on some runs, the power never."""
-        if self.beta == 0.75:
-            return 1.0 / torch.pow(d * torch.pow(d, 0.5), 0.5)
-        return d ** (-self.beta)
+        return lrn_dpow(d, self.beta)
 
     def denominator(self, x):
-        return self.k + self.alpha * CM.sliding_channel_sum(x * x, self.n)
+        return lrn_denominator(x, self.alpha, self.n, self.k)
 
     def forward(self, x):
         y = x * self.dpow(self.denominator(x))

@@ -31,6 +31,65 @@ from veles_torch.znicz.nn_units import Forward, forward_unit
 from veles_torch.znicz.ops import conv_math as CM
 
 
+def pool_shape(ishape, ky, kx, sliding):
+    """(B, oy, ox, C) output of a ceil-mode pool over (B, H, W, C): the
+    partial windows at the bottom and right edges are pooled."""
+    b, h, w, c = ishape
+    sy, sx = sliding
+    return (b, -(-max(h - ky, 0) // sy) + 1, -(-max(w - kx, 0) // sx) + 1,
+            c)
+
+
+def pool_taps(x, ky, kx, sliding, pad_value):
+    """-> [(t, (B, oy, ox, C) view)] of ``x`` padded with ``pad_value`` so
+    that every ceil-mode window is full, in window order."""
+    _, h, w, _ = x.shape
+    _, oy, ox, _ = pool_shape(x.shape, ky, kx, sliding)
+    sy, sx = sliding
+    need_h, need_w = (oy - 1) * sy + ky, (ox - 1) * sx + kx
+    x = CM.pad_nhwc(x, (0, need_h - h, 0, need_w - w), pad_value)
+    return CM.window_taps(x, ky, kx, sliding, oy, ox)
+
+
+def max_pool(x, ky, kx, sliding, pad_value=-float("inf"), key=None):
+    """Running maximum of ``key(v)`` (``v`` itself by default) over the
+    window taps of ``x`` -> (winner's value, (B, oy, ox, C) int32 winning
+    tap); a later tap wins only when strictly greater."""
+    best = sel = best_key = None
+    for t, piece in pool_taps(x, ky, kx, sliding, pad_value):
+        k = piece if key is None else key(piece)
+        if best is None:
+            best, best_key = piece, k
+            sel = torch.zeros(piece.shape, dtype=torch.int32,
+                              device=piece.device)
+            continue
+        better = k > best_key
+        best = torch.where(better, piece, best)
+        best_key = torch.where(better, k, best_key)
+        sel.masked_fill_(better, t)
+    return best, sel
+
+
+def window_counts(ishape, ky, kx, sliding, device):
+    """(oy, ox, 1) f32 count of the real cells in each window."""
+    _, h, w, _ = ishape
+    _, oy, ox, _ = pool_shape(ishape, ky, kx, sliding)
+    sy, sx = sliding
+    rows = [min(i * sy + ky, h) - i * sy for i in range(oy)]
+    cols = [min(j * sx + kx, w) - j * sx for j in range(ox)]
+    counts = torch.tensor(rows, dtype=torch.float32)[:, None] \
+        * torch.tensor(cols, dtype=torch.float32)[None, :]
+    return counts.clamp_min(1.0)[:, :, None].to(device)
+
+
+def avg_pool(x, ky, kx, sliding):
+    """Window sums of ``x`` tap after tap, over the true window size."""
+    total = None
+    for _, piece in pool_taps(x, ky, kx, sliding, 0.0):
+        total = piece.clone() if total is None else total.add_(piece)
+    return total / window_counts(x.shape, ky, kx, sliding, x.device)
+
+
 class PoolingBase(Forward):
     """Window-reduce over NHWC input. No weights."""
 
@@ -49,11 +108,7 @@ class PoolingBase(Forward):
         self.sliding = tuple(int(s) for s in sliding)
 
     def output_shape_for(self, ishape):
-        b, h, w, c = ishape
-        sy, sx = self.sliding
-        oy = -(-max(h - self.ky, 0) // sy) + 1
-        ox = -(-max(w - self.kx, 0) // sx) + 1
-        return (b, oy, ox, c)
+        return pool_shape(ishape, self.ky, self.kx, self.sliding)
 
     def padded_hw(self, ishape):
         """(need_h, need_w): the input extent padded so that every
@@ -67,14 +122,10 @@ class PoolingBase(Forward):
         return self.output_shape_for(input_shape)
 
     def taps(self, x, pad_value=None):
-        """-> [(t, (B, oy, ox, C) view)] of ``x`` padded to
-        :meth:`padded_hw` with ``pad_value``, in window order."""
-        _, h, w, _ = x.shape
-        _, oy, ox, _ = self.output_shape_for(x.shape)
-        need_h, need_w = self.padded_hw(x.shape)
-        x = CM.pad_nhwc(x, (0, need_h - h, 0, need_w - w),
-                        self.PAD_VALUE if pad_value is None else pad_value)
-        return CM.window_taps(x, self.ky, self.kx, self.sliding, oy, ox)
+        """:func:`pool_taps` of ``x``, padded with ``pad_value`` (default
+        ``PAD_VALUE``)."""
+        return pool_taps(x, self.ky, self.kx, self.sliding,
+                         self.PAD_VALUE if pad_value is None else pad_value)
 
     def patches(self, x):
         """(B, oy, ox, ky·kx, C) stack of the taps (stochastic pooling)."""
@@ -88,7 +139,7 @@ class PoolingBase(Forward):
 
 
 class MaxPoolingBase(PoolingBase):
-    """Running maximum of :meth:`key` over the taps; the winner's value
+    """Running maximum of ``key`` over the taps; the winner's value
     (sign kept) and offset."""
 
     def __init__(self, **kwargs):
@@ -96,24 +147,12 @@ class MaxPoolingBase(PoolingBase):
         #: (B, oy, ox, C) int32 winning tap of the last forward
         self.input_offset = None
 
-    @staticmethod
-    def key(v):
-        return v
+    #: the value compared (None: the value itself)
+    key = None
 
     def pool(self, x):
-        best = sel = best_key = None
-        for t, piece in self.taps(x):
-            if best is None:
-                best, best_key = piece, self.key(piece)
-                sel = torch.zeros(piece.shape, dtype=torch.int32,
-                                  device=piece.device)
-                continue
-            k = self.key(piece)
-            better = k > best_key
-            best = torch.where(better, piece, best)
-            best_key = torch.where(better, k, best_key)
-            sel.masked_fill_(better, t)
-        self.input_offset = sel
+        best, self.input_offset = max_pool(
+            x, self.ky, self.kx, self.sliding, self.PAD_VALUE, self.key)
         return best
 
 
@@ -132,21 +171,10 @@ class MaxAbsPooling(MaxPoolingBase):
 @forward_unit("avg_pooling")
 class AvgPooling(PoolingBase):
     def window_counts(self, ishape, device):
-        """(oy, ox, 1) f32 count of the real cells in each window."""
-        _, h, w, _ = ishape
-        _, oy, ox, _ = self.output_shape_for(ishape)
-        sy, sx = self.sliding
-        rows = [min(i * sy + self.ky, h) - i * sy for i in range(oy)]
-        cols = [min(j * sx + self.kx, w) - j * sx for j in range(ox)]
-        counts = torch.tensor(rows, dtype=torch.float32)[:, None] \
-            * torch.tensor(cols, dtype=torch.float32)[None, :]
-        return counts.clamp_min(1.0)[:, :, None].to(device)
+        return window_counts(ishape, self.ky, self.kx, self.sliding, device)
 
     def pool(self, x):
-        total = None
-        for _, piece in self.taps(x):
-            total = piece.clone() if total is None else total.add_(piece)
-        return total / self.window_counts(x.shape, x.device)
+        return avg_pool(x, self.ky, self.kx, self.sliding)
 
 
 @forward_unit("stochastic_pooling")

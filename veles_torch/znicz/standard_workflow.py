@@ -18,6 +18,7 @@ completes.
 """
 
 from veles_torch.backends import get_device
+from veles_torch.export_inference import export_inference
 from veles_torch.znicz.decision import DecisionGD, DecisionMSE
 from veles_torch.znicz.nn_units import forward_by_name, gradient_unit_for
 from veles_torch.znicz.ops.all2all import All2AllSoftmax
@@ -108,6 +109,11 @@ class StandardWorkflow:
             if self.decision.complete:
                 return self
             self.loader.next_epoch()
+
+    def export_inference(self, path):
+        """Write the inference archive (contents.json + .npy weights) of
+        this workflow's forward chain; -> the path of its contents.json."""
+        return export_inference(self, path)
 
     # -- state exchange with the reference (see veles_torch/convert.py) --
 
