@@ -22,7 +22,9 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
    110M LM step's shapes (``LM_SHAPES``) in the dtype the LM gives each;
    ``relu`` (softplus) in bf16 at the conv path's shapes (``CONV_SHAPES``:
    AlexNet's five conv GD views and FC layers at minibatch 128, CIFAR-10's
-   two at minibatch 100), timed beside ``err.sum(0, dtype=float32)``.
+   two at minibatch 100), timed beside ``err.sum(0, dtype=float32)``;
+   ``tanh`` in f32 and bf16 at the autoencoders' (``AE_SHAPES``), timed
+   in both.
    The tolerance per column is ``1e-4·Σ_n|dz[n,k]|`` against the plain
    math in float64 and against the plain version (f32 sums taken in
    another order); two launches must
@@ -120,17 +122,34 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     train step under ``torch.profiler`` (busy, idle share, device
     operations, top operations, the bias gradient's device launches and
     ms; trace ``alexnet_step_trace.json``);
-13. serve_predict — the MNIST and AlexNet workflows of phases 6 and 12
-    exported (``export_inference``), loaded by ``ArchiveModel`` on the
-    card, every bucket of an ``InferenceEngine(max_batch=64)`` (1 to 64
-    rows) against the port's training forward in eval mode with the f32
-    policy on the same rows, the CPU ``ArchiveModel`` (all 64 MNIST rows,
-    2 AlexNet rows) and the bucket without pad rows, each within
+13. ae, video_ae — the MnistAE and VideoAE samples through the CLI at
+    the reference's own configuration (``AE_RUNS``: MnistAE 2000/500
+    images, minibatch 100, 4 epochs; VideoAE 40 clips × 16 frames of
+    24×24, minibatch 50, 5 epochs; seed 1337) on the port's CPU and on
+    the card: the validation MSE falls on both and the card's last lies
+    within max(0.15·mse, 1e-3) of the CPU's (the reference's bound,
+    tests/test_mnist_ae.py); exactly one masked bias-gradient launch per
+    train step (the conv_tanh GD at (57600, 9) and (20000, 8)) and no
+    other kernel; one f32 step on the card and the CPU from the same
+    weights, every parameter and velocity within ``AE_PARITY_RTOL`` of
+    its largest element; one bf16 step under ``torch.profiler`` (phases
+    ``ae_profile``, ``video_ae_profile``; traces ``<phase>_step_trace.
+    json``); ae_units — Deconv/GDDeconv (strided, unequal padding) and
+    Depooling/GDDepooling (overlapping windows, cropped output) on the
+    card in f32 with TF32 off, within ``AE_UNIT_RTOL`` of the CPU and
+    bitwise equal on two launches;
+14. serve_predict — the MNIST, AlexNet and MnistAE workflows of phases
+    6, 12 and 13 exported (``export_inference``), loaded by
+    ``ArchiveModel`` on the card, every bucket of an
+    ``InferenceEngine(max_batch=64)`` (1 to 64 rows) against the port's
+    training forward in eval mode with the f32 policy on the same rows,
+    the CPU ``ArchiveModel`` (all 64 MNIST and MnistAE rows, 2 AlexNet
+    rows) and the bucket without pad rows, each within
     ``SERVE_RTOL`` of the largest output; ms by the host clock and rows/s
     per bucket; a ``MicroBatcher`` under ``SERVE_CLIENTS`` concurrent
     client threads (its batch fill and latencies); no hand-written kernel
     may launch (counts from 0 just before);
-14. serve_decode — (a) the LM sample of phase 8 exported and decoded
+15. serve_decode — (a) the LM sample of phase 8 exported and decoded
     greedily by ``GenerativeEngine`` + ``ContinuousBatcher`` (8 slots) on
     the card and on the CPU, two concurrent prompts of different
     lengths, equal token for token to the port's ``generate()`` on the
@@ -150,9 +169,9 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     post-softmax outputs within ``QUANT_PROB_ATOL`` of f32 along the f32
     greedy chain and the greedy tokens equal along its strong-margin
     prefix (the reference's bounds); no hand-written kernel may launch;
-15. the ``kernels`` summary line (the bias gradient's launches summed
-    over the MNIST, CIFAR-10 and AlexNet runs, each path's beside it,
-    the serving paths' among them), the card line, and last
+16. the ``kernels`` summary line (the bias gradient's launches summed
+    over the MNIST, CIFAR-10, AlexNet and autoencoder runs, each path's
+    beside it, the serving paths' among them), the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
@@ -192,6 +211,10 @@ LM_ACTIVATIONS = ("linear", "tanh")
 #: (100·32·32, 32), conv2 (100·16·16, 64))
 CONV_SHAPES = ((387200, 96), (93312, 256), (21632, 384), (21632, 256),
                (128, 4096), (102400, 32), (25600, 64))
+#: the bias gradients of the autoencoders (tanh, masked): MnistAE's
+#: conv_tanh GD view at minibatch 100 (100·24·24, 9) and VideoAE's at
+#: minibatch 50 (50·20·20, 8), checked and timed in f32 and bf16
+AE_SHAPES = ((57600, 9), (20000, 8))
 #: the bias-gradient kernel in a profiler trace (``bias_grad_kernel<T,
 #: ACT, VEC>`` in csrc/bias_grad.cu)
 BIAS_GRAD_KERNEL = "bias_grad_kernel"
@@ -326,6 +349,22 @@ LOGIT_RTOL = 1e-4
 #: the reference's quantized-parity bound (tests/test_wquant.py):
 #: post-softmax outputs of a quantized forward against f32
 QUANT_PROB_ATOL = 2e-2
+#: the autoencoder samples at the reference's own configuration (nothing
+#: cut): (phase, sample file, seed); MnistAE 2000/500 images, minibatch
+#: 100, 4 epochs; VideoAE 40 clips × 16 frames of 24×24, minibatch 50, 5
+#: epochs
+AE_RUNS = (("ae", "mnist_ae.py", 1337), ("video_ae", "video_ae.py", 1337))
+#: the card's final validation MSE against the port's CPU run: the
+#: reference's own bound between its backends (tests/test_mnist_ae.py),
+#: max(AE_CPU_RTOL·mse, AE_CPU_ATOL)
+AE_CPU_RTOL, AE_CPU_ATOL = 0.15, 1e-3
+#: one f32 autoencoder step, card against CPU, every parameter and
+#: velocity against its largest element (as ALEXNET_PARITY_RTOL)
+AE_PARITY_RTOL = 1e-4
+#: the deconvolution and depooling units on the card against the CPU, f32
+#: with TF32 off, as a share of the largest element (f32 sums in another
+#: order)
+AE_UNIT_RTOL = 1e-5
 #: where traces and the full log go (listed in .gitignore)
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 #: every JSON line printed, in full (the end of stdout may be all that a
@@ -494,13 +533,18 @@ def check_kernels(torch, timer):
     gen.manual_seed(1337)
     forms = {form: {"max_abs_err": 0.0} for form, _, _, _ in FORMS}
     timed = [(form, act) for form, act, _, _ in FORMS]
-    cases = [(shape, ("float32", "bfloat16"), ACTIVATIONS, timed)
+    both = ("float32", "bfloat16")
+    # (shape, dtypes checked, activations, (form, activation) timed,
+    # dtypes timed)
+    cases = [(shape, both, ACTIVATIONS, timed, both[-1:])
              for shape in SHAPES] + [
-        (shape, (dname,), LM_ACTIVATIONS, timed)
+        (shape, (dname,), LM_ACTIVATIONS, timed, (dname,))
         for shape, dname in LM_SHAPES] + [
-        (shape, ("bfloat16",), ("relu",), [("masked", "relu")])
-        for shape in CONV_SHAPES]
-    for (n, k), dnames, acts, timed in cases:
+        (shape, ("bfloat16",), ("relu",), [("masked", "relu")],
+         ("bfloat16",)) for shape in CONV_SHAPES] + [
+        (shape, both, ("tanh",), [("masked", "tanh")], both)
+        for shape in AE_SHAPES]
+    for (n, k), dnames, acts, timed, timed_dtypes in cases:
         base_err = torch.randn((n, k), generator=gen, device="cuda")
         base_y = torch.randn((n, k), generator=gen, device="cuda")
         for dname in dnames:
@@ -511,25 +555,29 @@ def check_kernels(torch, timer):
             emit({"phase": "kernels", "shape": [n, k], "dtype": dname,
                   "max_abs_err": worst, "bitwise_repeat": True})
         # timings in the card's activation dtype, or the LM's for its
-        # shapes; err.sum is the one PyTorch call of the identity form,
-        # and beside the masked form a yardstick of the same bytes of err
-        dtype = getattr(torch, dnames[-1])
-        err, y = base_err.to(dtype), base_y.to(dtype)
-        for form, act in timed:
-            sum_ms = timer(lambda: err.sum(0, dtype=torch.float32))
-            row = {
-                "kernel_ms": timer(lambda: bias_grad(err, y, act)),
-                "plain_ms": timer(lambda: bias_grad_plain(err, y, act)),
-                "library_ms": sum_ms if form == "identity" else None,
-                "err_sum_ms": sum_ms,
-            }
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                n, k, err.element_size(), act)
-            emit({"phase": "kernel_times", "form": form,
-                  "activation": act, "shape": [n, k], "dtype": dnames[-1],
-                  **row})
-            if any((n, k) == main and form == f for f, _, main, _ in FORMS):
-                forms[form].update(row)
+        # shapes (both for the autoencoders'); err.sum is the one PyTorch
+        # call of the identity form, and beside the masked form a
+        # yardstick of the same bytes of err
+        for dname in timed_dtypes:
+            dtype = getattr(torch, dname)
+            err, y = base_err.to(dtype), base_y.to(dtype)
+            for form, act in timed:
+                sum_ms = timer(lambda: err.sum(0, dtype=torch.float32))
+                row = {
+                    "kernel_ms": timer(lambda: bias_grad(err, y, act)),
+                    "plain_ms": timer(lambda: bias_grad_plain(err, y,
+                                                              act)),
+                    "library_ms": sum_ms if form == "identity" else None,
+                    "err_sum_ms": sum_ms,
+                }
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    n, k, err.element_size(), act)
+                emit({"phase": "kernel_times", "form": form,
+                      "activation": act, "shape": [n, k], "dtype": dname,
+                      **row})
+                if any((n, k) == main and form == f
+                       for f, _, main, _ in FORMS):
+                    forms[form].update(row)
         del base_err, base_y, err, y
         torch.cuda.empty_cache()
     return forms
@@ -1248,16 +1296,15 @@ def check_alexnet_parity(torch):
 
 def first_train_batch(torch, wf):
     """The first train minibatch of ``wf``'s loader on its device, as
-    ``TorchStep.train_minibatch`` takes it (after ``batch_transform``):
-    (data, labels, valid count)."""
+    ``TorchStep.train_minibatch`` takes it (``TorchStep.gather``: after
+    ``batch_transform``, with the evaluator's target): (data, target,
+    valid count)."""
     from veles_torch.loader.base import CLASS_TRAIN
     dev = wf.device.device
     full = wf.loader.device_full_arrays(dev)
     idx_mat, valids = wf.loader.class_schedule(CLASS_TRAIN)
     idx = torch.as_tensor(idx_mat[0], dtype=torch.int64, device=dev)
-    return (wf.loader.batch_transform(
-                torch.index_select(full["data"], 0, idx), True),
-            torch.index_select(full["labels"], 0, idx),
+    return (*wf.step.gather(full, idx, True),
             torch.tensor(int(valids[0]), device=dev))
 
 
@@ -1332,6 +1379,189 @@ def check_alexnet(torch):
     emit({"phase": "alexnet_profile", "shape": list(batch[0].shape),
           "images_per_sec_step": b / row["step_ms"] * 1e3, **row})
     return counts
+
+
+# -- the autoencoders: MnistAE and VideoAE --------------------------------
+
+
+def f32_policy():
+    """Set ``root.common.engine`` to f32 (compute_dtype = amp = float32);
+    -> a function that restores it."""
+    from veles_torch.config import root
+    engine = root.common.engine
+    saved = engine.to_dict()
+    engine.compute_dtype = engine.amp = "float32"
+    return lambda: engine.update(saved)
+
+
+def rel_errors(card, cpu):
+    """{unit.key: max |card − cpu| over max |cpu|} of two export trees
+    (host float64)."""
+    return {"%s.%s" % (unit, key): (
+                (card[unit][key] - want).abs().max()
+                / want.abs().max().clamp_min(1e-30)).item()
+            for unit, sub in cpu.items() for key, want in sub.items()}
+
+
+def ae_parity(torch, module, seed):
+    """One f32 train step of the sample ``module`` on the card and on the
+    port's CPU from the same weights and minibatch; -> (loss on each,
+    {tensor: error relative to its largest element})."""
+    from veles_torch import prng
+    restore = f32_policy()
+    try:
+        trees, losses = {}, {}
+        start = None
+        for device in ("cuda", "cpu"):
+            prng.seed_all(seed)
+            wf = module.create_workflow(name="AEParity").initialize(
+                device=device)
+            if start is None:
+                start = {u: {k: t.clone() for k, t in sub.items()}
+                         for u, sub in wf.export_tree().items()}
+            wf.import_tree(start)
+            losses[device] = float(wf.step.train_minibatch(
+                *first_train_batch(torch, wf))[0])
+            trees[device] = {u: {k: t.double().cpu() for k, t in sub.items()}
+                             for u, sub in wf.export_tree().items()}
+    finally:
+        restore()
+    return losses, rel_errors(trees["cuda"], trees["cpu"])
+
+
+def check_ae(torch, phase, sample, seed):
+    """Phases ae and video_ae: the sample through the CLI at the
+    reference's own configuration on the port's CPU and on the card, the
+    launches counted from 0 just before the card run: the validation MSE
+    falls on both, the card's last within max(AE_CPU_RTOL·mse,
+    AE_CPU_ATOL) of the CPU's, exactly one masked bias-gradient launch per
+    train step and no other kernel; one f32 step card against CPU within
+    AE_PARITY_RTOL; one bf16 step under torch.profiler. -> the card run's
+    launch counts."""
+    import importlib
+    from veles_torch.__main__ import main as cli
+    path = os.path.join(MODELS, sample)
+    mse = {}
+    for device in ("cpu", "cuda"):
+        reset_counts()
+        wf = cli([path, "--seed", str(seed), "-d", device])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = read_counts()
+        check_params_finite(torch, wf, "%s %s" % (phase, device))
+        mse[device] = [h["validation"]["metric"]
+                       for h in wf.decision.history]
+    TRAINED[phase] = wf
+    train = wf.step.train_steps
+    want = dict({name: 0 for name in counts}, **{"bias_grad[masked]": train})
+    module = importlib.import_module(
+        "veles_torch.znicz.models." + sample[:-3])
+    losses, errors = ae_parity(torch, module, seed)
+    row, batch, _ = profile_step(torch, wf, "%s_step_trace.json" % phase,
+                                 "%s step" % phase)
+    cpu, card = mse["cpu"][-1], mse["cuda"][-1]
+    bound = max(AE_CPU_RTOL * cpu, AE_CPU_ATOL)
+    emit({"phase": phase, "train_steps": train,
+          "eval_steps": wf.step.eval_steps, "launches": counts,
+          "validation_mse_cuda": mse["cuda"],
+          "validation_mse_cpu": mse["cpu"], "cpu_bound": bound,
+          "images_per_sec": warm_images_per_sec(wf),
+          "epoch_seconds": wf.step.epoch_seconds,
+          "parity_loss": losses, "parity_rtol": AE_PARITY_RTOL,
+          "parity_max_rel_err": max(errors.values()),
+          "parity_rel_err": errors})
+    emit({"phase": phase + "_profile", "shape": list(batch[0].shape),
+          **row})
+    if counts != want:
+        fail("%s: launches %s, expected %s" % (phase, counts, want))
+    for device, hist in mse.items():
+        if not hist[-1] < hist[0]:
+            fail("%s: the validation MSE did not fall on %s: %s"
+                 % (phase, device, hist))
+    if not abs(card - cpu) <= bound:
+        fail("%s: final validation MSE %.6g on cuda vs %.6g on cpu"
+             % (phase, card, cpu))
+    over = {k: e for k, e in errors.items() if not e <= AE_PARITY_RTOL}
+    if over:
+        fail("%s: f32 step over %g of the largest element: %s"
+             % (phase, AE_PARITY_RTOL, over))
+    return counts
+
+
+#: the unit checks: (forward class, its kwargs, input shape); a strided
+#: deconvolution with unequal padding (the stride remainders at the
+#: bottom and right) and depooling with overlapping windows onto a
+#: cropped output
+AE_UNIT_CASES = (
+    ("Deconv", dict(n_kernels=16, kx=4, ky=5, sliding=(2, 3),
+                    padding=(2, 1, 1, 2), n_channels=8), (16, 12, 10, 16)),
+    ("Depooling", dict(kx=3, ky=3, sliding=2,
+                       output_shape_source=(None, 24, 24, 9)),
+     (16, 12, 12, 9)),
+)
+
+
+def unit_step(torch, cls, kwargs, shape, device, x, err, start):
+    """Forward and GD (learning rate 1) of one unit on ``device`` from the
+    weights ``start`` (or its own when None); -> (output, err_input,
+    weights or None)."""
+    from veles_torch.backends import TorchDevice
+    from veles_torch.znicz.nn_units import gradient_unit_for
+    fwd = cls(**kwargs)
+    fwd.initialize(shape, TorchDevice(device))
+    if start is not None:
+        fwd.weights = start.to(device)
+    gd = gradient_unit_for(cls)(learning_rate=1.0).setup_forward(fwd)
+    gd.initialize()
+    x, err = x.to(device), err.to(device)
+    y = fwd(x)
+    ei = gd.run(x, y, err)
+    return y, ei, fwd.weights
+
+
+def check_ae_units(torch):
+    """Phase ae_units: Deconv/GDDeconv and Depooling/GDDepooling on the
+    card, f32 with TF32 off, against the port's CPU path from the same
+    input, error and weights: the output, err_input and updated weights
+    within AE_UNIT_RTOL of the largest element, and two launches on the
+    card equal bit for bit."""
+    from veles_torch.backends import TorchDevice
+    from veles_torch.znicz.ops import deconv
+    restore = f32_policy()
+    try:
+        gen = torch.Generator().manual_seed(1337)
+        for name, kwargs, shape in AE_UNIT_CASES:
+            cls = getattr(deconv, name)
+            x = torch.randn(shape, generator=gen)
+            probe = cls(**kwargs)
+            err = torch.randn(probe.initialize(shape, TorchDevice("cpu")),
+                              generator=gen)
+            start = probe.weights
+            cpu = unit_step(torch, cls, kwargs, shape, "cpu", x, err, start)
+            card = [unit_step(torch, cls, kwargs, shape, "cuda", x, err,
+                              start) for _ in range(2)]
+            torch.cuda.synchronize()
+            if torch.backends.cuda.matmul.allow_tf32 \
+                    or torch.backends.cudnn.allow_tf32:
+                fail("ae_units: TF32 is on")
+            errors, bitwise = {}, True
+            for part, a, b, want in zip(("output", "err_input", "weights"),
+                                        card[0], card[1], cpu):
+                if want is None:
+                    continue
+                bitwise = bitwise and torch.equal(a, b)
+                errors[part] = max_rel(a, want)
+            emit({"phase": "ae_units", "unit": name, "kwargs": kwargs,
+                  "input": list(shape),
+                  "rel_err": errors, "rtol": AE_UNIT_RTOL,
+                  "bitwise_repeat": bitwise})
+            if not bitwise:
+                fail("ae_units %s: two launches differ" % name)
+            over = {k: e for k, e in errors.items() if not e <= AE_UNIT_RTOL}
+            if over:
+                fail("ae_units %s: over %g: %s" % (name, AE_UNIT_RTOL, over))
+    finally:
+        restore()
 
 
 # -- serving: the predict and decode planes on the card ---------------------
@@ -1418,7 +1648,7 @@ def serve_one(torch, name):
         worst[b] = e
         if bucket != b or not e <= SERVE_RTOL:
             over.append("bucket %d (got %d): %.3g" % (b, bucket, e))
-        reps = 20 if name == "mnist" else 5
+        reps = 5 if name == "alexnet" else 20
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -1431,7 +1661,7 @@ def serve_one(torch, name):
                                for i in range(3)])
     pad_err = max_rel(padded, alone)
     cpu = ArchiveModel.from_dir(path, device="cpu")
-    n_cpu = 64 if name == "mnist" else 2
+    n_cpu = 2 if name == "alexnet" else 64
     cpu_err = max_rel(engine.predict(host[:n_cpu])[0], cpu(host[:n_cpu]))
     batcher = MicroBatcher(engine.predict, max_batch=64, max_wait_ms=2.0,
                            default_timeout_ms=60000.0)
@@ -1478,12 +1708,12 @@ def serve_one(torch, name):
 
 
 def check_serve_predict(torch):
-    """Phase serve_predict: the MNIST and AlexNet workflows the earlier
-    phases trained, exported and served on the card (see serve_one),
-    the kernels' counts set to 0 just before and read just after; -> the
-    counts."""
+    """Phase serve_predict: the MNIST, AlexNet and MnistAE workflows the
+    earlier phases trained, exported and served on the card (see
+    serve_one), the kernels' counts set to 0 just before and read just
+    after; -> the counts."""
     reset_counts()
-    rows = [serve_one(torch, name) for name in ("mnist", "alexnet")]
+    rows = [serve_one(torch, name) for name in ("mnist", "alexnet", "ae")]
     torch.cuda.synchronize()
     counts = no_launches("serve_predict")
     for row in rows:
@@ -1824,13 +2054,16 @@ def main(argv=None):
     cifar = check_cifar(torch)
     check_alexnet_parity(torch)
     alexnet = check_alexnet(torch)
+    ae = {phase: check_ae(torch, phase, sample, seed)
+          for phase, sample, seed in AE_RUNS}
+    check_ae_units(torch)
     serving = {"serve_predict": check_serve_predict(torch),
                "serve_decode": check_serve_decode(torch)}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],
                       **{path: counts["bias_grad[%s]" % form]
-                         for path, counts in serving.items()}}
+                         for path, counts in {**ae, **serving}.items()}}
                for form, _, _, _ in FORMS}
 
     emit({"kernels": [{
@@ -1853,8 +2086,8 @@ def main(argv=None):
         "replaces": replaces,
         "launches": lm_launches[name],
         "launches_by_path": {"lm": lm_launches[name],
-                             **{path: counts[name]
-                                for path, counts in serving.items()}},
+                             **{path: counts[name] for path, counts in
+                                {**ae, **serving}.items()}},
         "max_abs_err": flash_err[name],
         **flash_rows[name],
     } for name, source, replaces in FLASH_KERNELS]})

@@ -77,7 +77,8 @@ PLAN_SHAPES = [(1, 1, 4), (100, 10, 2), (100, 100, 2), (100, 100, 4),
                (4096, 768, 2), (4096, 2304, 2), (4096, 16384, 2),
                (4096, 768, 4), (4096, 3072, 4), (72900, 96, 2),
                (4097, 1000, 2), (4097, 1000, 4), (333, 40, 2), (10 ** 8, 3, 4),
-               (7, 100000, 2)]
+               (7, 100000, 2), (57600, 9, 2), (57600, 9, 4), (20000, 8, 2),
+               (20000, 8, 4)]
 
 
 def _covered(n, k, p):
@@ -180,3 +181,70 @@ def test_tickets_are_one_zeroed_buffer_per_stream():
     wide = TBG.tickets(dev, 1, a.numel() + 1)
     assert wide.numel() > a.numel() and not wide.any()
     assert TBG.tickets(dev, 1, 5) is wide
+
+
+#: the autoencoders' conv GD views: MnistAE's conv_tanh at minibatch 100
+#: (100·24·24, 9) and VideoAE's at minibatch 50 (50·20·20, 8), with the
+#: plan each dtype takes: K = 9 is no multiple of a 16-byte pack in
+#: either dtype (the scalar path, 9 × 28 = 252 threads, warps straddling
+#: rows); K = 8 is one in both (f32: 2 packs of 4; bf16: 1 pack of 8)
+AE_PLANS = [((57600, 9), 4, (1, 9, 28)), ((57600, 9), 2, (1, 9, 28)),
+            ((20000, 8), 4, (4, 2, 128)), ((20000, 8), 2, (8, 1, 256))]
+
+
+def kernel_model(err, y, activation, p):
+    """The sums of csrc/bias_grad.cu under plan ``p``, in float32 numpy:
+    each lane's rows in order, the lanes of a CTA in order, then the row
+    blocks' partials in :func:`sum_order`. The kernel's own rounding may
+    differ where its compiler fuses a multiply and an add."""
+    n, k = err.shape
+    d = TA.ACTIVATIONS[activation][1](torch.from_numpy(y))
+    dz = err if isinstance(d, float) else err * d.numpy()
+    dz = dz.astype(numpy.float32)
+    lanes_rows = -(-p.rows_per_block // p.ty) * p.ty
+    blocks = numpy.zeros((p.row_blocks, lanes_rows, k), numpy.float32)
+    for b in range(p.row_blocks):
+        part = dz[b * p.rows_per_block:(b + 1) * p.rows_per_block]
+        blocks[b, :len(part)] = part
+    blocks = blocks.reshape(p.row_blocks, -1, p.ty, k)
+    lane = blocks[:, 0].copy()
+    for j in range(1, blocks.shape[1]):
+        lane += blocks[:, j]
+    partial = lane[:, 0].copy()
+    for t in range(1, p.ty):
+        partial += lane[:, t]
+    if p.row_blocks == 1:
+        return partial[0]
+    order = TBG.sum_order(p)
+    acc = numpy.zeros((p.ty, k), numpy.float32)
+    for t, rbs in enumerate(order):
+        for rb in rbs:
+            acc[t] += partial[rb]
+    out = acc[0].copy()
+    for t in range(1, p.ty):
+        out += acc[t]
+    return out
+
+
+@pytest.mark.parametrize("case", AE_PLANS,
+                         ids=lambda c: "%s-%dB" % (c[0], c[1]))
+def test_autoencoder_shapes(case):
+    """The plan at the autoencoders' shapes, and its sums (the kernel's
+    order, modelled in f32) and the plain version within the card check's
+    bound of the float64 sum: 1e-4·Σ|dz| per column (chip_smoke.py
+    TOLERANCE), tanh, inputs rounded to the dtype."""
+    (n, k), itemsize, (vec, tx, ty) = case
+    p = TBG.plan(n, k, itemsize)
+    assert (p.vec, p.tx, p.ty) == (vec, tx, ty)
+    assert p.col_tiles == 1 and p.row_blocks > 1
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    err, y = (torch.from_numpy(a).to(dtype).float().numpy()
+              for a in _inputs((n, k), seed=9))
+    d = 1.7159 * 2 / 3 - (2 / 3 / 1.7159) * y.astype(numpy.float64) ** 2
+    dz = err.astype(numpy.float64) * d
+    exact, limit = dz.sum(0), 1e-4 * numpy.abs(dz).sum(0)
+    model = kernel_model(err, y, "tanh", p)
+    plain = TBG.bias_grad_plain(torch.from_numpy(err).to(dtype),
+                                torch.from_numpy(y).to(dtype), "tanh")
+    assert (numpy.abs(model - exact) <= limit).all()
+    assert (numpy.abs(plain.numpy() - exact) <= limit).all()

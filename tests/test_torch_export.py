@@ -1,8 +1,9 @@
 """The port's inference archive (veles_torch/export_inference.py) against
 the JAX package's (veles/export_inference.py), on the CPU.
 
-For the MNIST, CIFAR-10 and LM samples (at small data sizes, their
-widths in full; the LM at its sample width, dim 64, 2 layers): both
+For the MNIST, CIFAR-10, MnistAE (deconv and depooling) and LM samples
+(at small data sizes, their widths in full; the LM at its sample width,
+dim 64, 2 layers): both
 packages are built at one seed, the reference's parameters are imported
 into the port (``import_tree``), and each package exports its archive.
 The two archives are the same: ``contents.json`` equal as JSON and every
@@ -25,6 +26,7 @@ from veles.config import root as jroot
 from veles.serving import ArchiveModel as JaxArchiveModel
 from veles.znicz_tpu.models import cifar10 as jcifar
 from veles.znicz_tpu.models import mnist as jmnist
+from veles.znicz_tpu.models import mnist_ae as jmnist_ae
 from veles.znicz_tpu.models import transformer_lm as jlm
 import veles_torch.prng as tprng
 from veles_torch.__main__ import main as torch_main
@@ -34,6 +36,7 @@ from veles_torch.export_inference import unit_spec
 from veles_torch.serving import ArchiveModel
 from veles_torch.znicz.models import cifar10 as tcifar
 from veles_torch.znicz.models import mnist as tmnist
+from veles_torch.znicz.models import mnist_ae as tmnist_ae
 from veles_torch.znicz.models import transformer_lm as tlm
 from veles_torch.znicz.ops.pooling import MaxAbsPooling, StochasticPooling
 
@@ -43,9 +46,11 @@ MODELS = os.path.join(REPO, "veles_torch", "znicz", "models")
 #: forward, as a share of the largest output: f32 sums in other orders
 #: (the LM's attention dense on one side, the plain flash version on the
 #: other; CIFAR-10's 5×5×32 convolutions an im2col GEMM in numpy, a direct
-#: convolution in the port). Observed: MNIST 4.3e-7, LM 6.0e-7, CIFAR-10
-#: 3.0e-6
-TRAIN_FWD_RTOL = {"mnist": 1e-6, "lm": 1e-6, "cifar10": 1e-5}
+#: convolution in the port; MnistAE's deconvolution a col2im in numpy, a
+#: transposed convolution in the port). Observed: MNIST 4.3e-7, LM 6.0e-7,
+#: CIFAR-10 3.0e-6, MnistAE 4.7e-7
+TRAIN_FWD_RTOL = {"mnist": 1e-6, "lm": 1e-6, "cifar10": 1e-5,
+                  "mnist_ae": 1e-6}
 #: each sample at a small data size, its widths in full (the LM's whole
 #: config set in both packages: other tests may leave theirs changed)
 SAMPLES = {
@@ -55,6 +60,9 @@ SAMPLES = {
     "cifar10": (jcifar, tcifar, "cifar",
                 {"loader": {"minibatch_size": 25, "n_train": 50,
                             "n_valid": 25}}),
+    "mnist_ae": (jmnist_ae, tmnist_ae, "mnist_ae",
+                 {"loader": {"minibatch_size": 25, "n_train": 50,
+                             "n_valid": 25}}),
     "lm": (jlm, tlm, "lm",
            {"loader": {"minibatch_size": 16, "n_train": 64, "n_valid": 16,
                        "seq_len": 32, "vocab": 16, "max_period": 6},
@@ -70,7 +78,7 @@ SAMPLES = {
 @pytest.fixture
 def configs():
     """Save and restore the samples' config subtrees in both packages."""
-    keys = ("mnist", "cifar", "lm")
+    keys = ("mnist", "cifar", "lm", "mnist_ae")
     saved = [(r, k, copy.deepcopy(getattr(r, k).to_dict()))
              for r in (jroot, troot) for k in keys]
     yield

@@ -66,9 +66,12 @@ def test_importing_the_port_loads_no_jax_or_veles():
     "znicz/models/cifar10.py", "znicz/models/imagenet.py",
     "export_inference.py", "znicz/generate.py", "serving/__init__.py",
     "serving/quant.py", "serving/model.py", "serving/engine.py",
-    "serving/batcher.py", "serving/decode.py"])
+    "serving/batcher.py", "serving/decode.py", "normalization.py",
+    "znicz/ops/cutter.py", "znicz/ops/deconv.py",
+    "znicz/ops/mean_disp_normalizer.py", "znicz/models/mnist_ae.py",
+    "znicz/models/video_ae.py"])
 def test_conv_slice_modules_are_scanned(module):
-    """The conv and serving slices' modules are among the files both
-    checks above read (the package walk finds them, the fresh interpreter
-    imports them)."""
+    """The conv, serving and autoencoder slices' modules are among the
+    files both checks above read (the package walk finds them, the fresh
+    interpreter imports them)."""
     assert os.path.join(REPO, "veles_torch", module) in _port_files()

@@ -3,7 +3,8 @@ against the JAX package's (veles/serving), on the CPU.
 
 Every forward op the port serves equals the reference's numpy op on the
 same seeded inputs and parameters; an archive the reference wrote (MNIST,
-CIFAR-10, the LM sample) served by the port's ``ArchiveModel`` equals the
+CIFAR-10, MnistAE, the LM sample) served by the port's ``ArchiveModel``
+equals the
 reference's ``ArchiveModel``, both within ``OP_RTOL`` of the largest
 output; the types the port does not compute yet are refused when an
 archive is loaded. Then the engine's bucket ladder, padding and hot swap,
@@ -25,6 +26,7 @@ from veles.serving import ArchiveModel as JaxArchiveModel
 from veles.serving.model import FORWARD_OPS as JAX_OPS
 from veles.znicz_tpu.models import cifar10 as jcifar
 from veles.znicz_tpu.models import mnist as jmnist
+from veles.znicz_tpu.models import mnist_ae as jmnist_ae
 from veles.znicz_tpu.models import transformer_lm as jlm
 from veles_torch.serving import (
     ArchiveModel, DeadlineExceeded, InferenceEngine, MicroBatcher,
@@ -93,6 +95,24 @@ def _attention_case(t, causal=True):
              "bias_out": r.normal(0, 0.1, 8)})
 
 
+def _deconv_case(t, sliding=(2, 2), padding=(0, 0, 0, 0),
+                 out_shape=(8, 7, 2)):
+    """Input (2, 4, 3, 3) through 3 kernels of 2×3 (ky, kx) onto
+    ``out_shape``."""
+    r = _rng()
+    return (r.normal(0, 1, (2, 4, 3, 3)),
+            {"config": {"n_kernels": 3, "kx": 3, "ky": 2,
+                        "sliding": list(sliding), "padding": list(padding),
+                        "out_shape": list(out_shape)}},
+            {"weights": r.normal(0, 1, (3, 2 * 3 * out_shape[2]))})
+
+
+def _depooling_case(t, k=2, sliding=(2, 2), out_shape=(8, 6, 3)):
+    return (_rng().normal(0, 1, (2, 4, 3, 3)),
+            {"config": {"kx": k, "ky": k, "sliding": list(sliding),
+                        "out_shape": list(out_shape)}}, {})
+
+
 def _embedding_case(t):
     r = _rng()
     return (r.integers(0, 10, (3, 6)).astype(numpy.float64),
@@ -111,6 +131,13 @@ OP_CASES = {
     "conv[unequal padding]": (_conv_case, {"padding": (1, 0, 2, 1)}),
     "max_pooling": (_pool_case, {}),
     "avg_pooling": (_pool_case, {}),
+    "deconv": (_deconv_case, {}),
+    "deconv[strided, unequal padding]": (
+        _deconv_case, {"sliding": (2, 3), "padding": (1, 0, 2, 1),
+                       "out_shape": (7, 6, 2)}),
+    "depooling": (_depooling_case, {}),
+    "depooling[overlapping, cropped]": (
+        _depooling_case, {"k": 3, "out_shape": (8, 6, 3)}),
     "norm": (lambda t: (_rng().normal(0, 2, (2, 4, 4, 8)),
                         {"config": {"alpha": 1e-3, "beta": 0.75, "n": 5,
                                     "k": 2.0}}, {}), {}),
@@ -157,6 +184,9 @@ SAMPLES = {
                                            "n_train": 100, "n_valid": 25}}),
     "cifar10": (jcifar, "cifar", {"loader": {"minibatch_size": 25,
                                              "n_train": 50, "n_valid": 25}}),
+    "mnist_ae": (jmnist_ae, "mnist_ae",
+                 {"loader": {"minibatch_size": 25, "n_train": 50,
+                             "n_valid": 25}}),
     "lm": (jlm, "lm", {"loader": {"minibatch_size": 16, "n_train": 64,
                                   "n_valid": 16, "seq_len": 32,
                                   "vocab": 16, "max_period": 6},
@@ -172,7 +202,7 @@ SAMPLES = {
 @pytest.fixture
 def configs():
     saved = [(k, copy.deepcopy(getattr(jroot, k).to_dict()))
-             for k in ("mnist", "cifar", "lm")]
+             for k in ("mnist", "cifar", "lm", "mnist_ae")]
     yield
     for k, tree in saved:
         getattr(jroot, k).update(tree)

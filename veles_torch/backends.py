@@ -21,8 +21,9 @@ One exception, where TF32 loses nothing: a convolution of bf16 or f16
 inputs (:meth:`TorchDevice.conv2d`, :meth:`TorchDevice.conv2d_grads`).
 cuDNN returns bf16 from bf16 inputs, rounding the f32 sum the reference
 keeps (``preferred_element_type=float32`` in its conv products). So the
-port convolves the compute-dtype-rounded inputs held in f32, with
-``cudnn.allow_tf32`` True for that call only: a bf16 or f16 value is
+port convolves the compute-dtype-rounded inputs held in f32 (forward,
+transposed and backward convolutions alike), with ``cudnn.allow_tf32``
+True for that call only: a bf16 or f16 value is
 exact in TF32 (8 or 11 significant bits of TF32's 11), the product of
 two is exact in f32, and the tensor cores sum in f32. The result is the
 f32 accumulation of the rounded inputs, as from the CPU, where the same
@@ -104,6 +105,14 @@ class TorchDevice:
         with self._conv_math():
             return torch.nn.functional.conv2d(x, w, stride=stride,
                                               padding=padding)
+
+    def conv_transpose2d(self, x, w, stride):
+        """``F.conv_transpose2d`` of NCHW ``x`` and ``w`` (in, out, kH,
+        kW) without padding, rounded to ``compute_dtype``: the f32
+        accumulation, unrounded."""
+        x, w = self._conv_operands(x, w)
+        with self._conv_math():
+            return torch.nn.functional.conv_transpose2d(x, w, stride=stride)
 
     def conv2d_grads(self, dz, x, w, stride, padding, need_input=True):
         """-> (dL/dx or None, dL/dw) of :meth:`conv2d` for ``dz`` = dL/d

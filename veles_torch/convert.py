@@ -6,7 +6,10 @@ name: ``{"All2AllTanh": {"weights": ..., "bias": ...}, "GDTanh":
 {"vel_weights": ..., "vel_bias": ..., "iteration": ...}, ...}``. The
 port's ``StandardWorkflow.export_tree`` / ``import_tree`` use the same
 names and keys with torch tensors, so both packages can compute from
-one state.
+one state. :func:`tree_from_jax` reads that tree off a JAX-package
+workflow object (duck-typed: nothing of the JAX package is imported),
+a ZeroFiller's mask included, as the port keys it (``zero_mask`` of the
+masked forward).
 """
 
 import numpy
@@ -19,6 +22,26 @@ def params_from_jax(tree, device="cpu"):
     return {unit: {key: torch.tensor(numpy.asarray(value), device=device)
                    for key, value in sub.items()}
             for unit, sub in tree.items()}
+
+
+def tree_from_jax(workflow):
+    """{unit: {key: ndarray}} of a JAX-package workflow: its forwards'
+    ``export_params()`` (with a ZeroFiller's mask as ``zero_mask``) and
+    its GD units' ``export_state()`` — every weight, bias and velocity,
+    the deconvolution's among them."""
+    tree = {}
+    for f in workflow.forwards:
+        sub = dict(f.export_params())
+        mask = getattr(f, "zero_mask", None)
+        if mask is not None and mask:
+            sub["zero_mask"] = numpy.array(mask.map_read().mem,
+                                           numpy.float32)
+        if sub:
+            tree[f.name] = sub
+    for gd in workflow.gds:
+        if gd is not None and gd.export_state():
+            tree[gd.name] = dict(gd.export_state())
+    return tree
 
 
 def params_to_numpy(tree):

@@ -28,6 +28,7 @@ from veles_torch.znicz.ops.all2all import All2AllBase
 from veles_torch.znicz.ops.attention import (
     MultiHeadAttention, TokenDenseBase, TransformerFFN)
 from veles_torch.znicz.ops.conv import ConvBase
+from veles_torch.znicz.ops.deconv import Deconv, Depooling
 from veles_torch.znicz.ops.dropout import DropoutForward
 from veles_torch.znicz.ops.embedding import (
     EmbeddingForward, sinusoidal_positions)
@@ -82,6 +83,19 @@ def unit_spec(unit):
                     "sliding": list(unit.sliding),
                     "padding": list(unit.padding)})
         params = {"weights": p["weights"], "bias": p.get("bias")}
+    elif isinstance(unit, Deconv):
+        # the resolved output geometry: output_shape_source pins it at
+        # initialize, and an engine cannot derive it from the config
+        cfg.update({"n_kernels": int(unit.n_kernels),
+                    "kx": int(unit.kx), "ky": int(unit.ky),
+                    "sliding": list(unit.sliding),
+                    "padding": list(unit.padding),
+                    "out_shape": [int(d) for d in unit.out_shape]})
+        params = {"weights": p["weights"]}
+    elif isinstance(unit, Depooling):
+        cfg.update({"kx": int(unit.kx), "ky": int(unit.ky),
+                    "sliding": list(unit.sliding),
+                    "out_shape": [int(d) for d in unit.out_shape]})
     elif isinstance(unit, StochasticPooling):
         raise ValueError(
             "%s: stochastic pooling has no deterministic inference form "

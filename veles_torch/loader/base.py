@@ -5,12 +5,15 @@ Counterpart of ``veles/loader/base.py``: three sample classes laid out
 train class is reshuffled every epoch from the ``"loader"`` generator
 (the same draws as the reference at the same seed); a class's minibatch
 schedule is an index matrix padded by :meth:`Loader.pad_indices`, with
-the true row count of each minibatch beside it.
+the true row count of each minibatch beside it. A loader takes the
+reference's ``normalization_type`` / ``normalization_parameters`` and
+builds its normalizer (``veles_torch/normalization.py``); a loader that
+cannot apply one refuses it at initialize, as the reference's does.
 """
 
 import numpy
 
-from veles_torch import prng
+from veles_torch import normalization, prng
 
 CLASS_TEST, CLASS_VALID, CLASS_TRAIN = 0, 1, 2
 TRIAGE = ("test", "validation", "train")
@@ -22,12 +25,17 @@ class Loader:
     :meth:`device_full_arrays`."""
 
     def __init__(self, workflow=None, name="loader", minibatch_size=100,
-                 shuffle=True, prng_key="loader"):
+                 shuffle=True, prng_key="loader", normalization_type=None,
+                 normalization_parameters=None):
         self.workflow = workflow
         self.name = name
         self.max_minibatch_size = int(minibatch_size)
         self.shuffle_enabled = bool(shuffle)
         self.prng = prng.get(prng_key)
+        #: fitted on the train rows, applied by :meth:`apply_normalization`
+        self.normalizer = normalization.factory(
+            normalization_type, **(normalization_parameters or {}))
+        self._normalization_applied = False
         #: samples per class: [test, valid, train]
         self.class_lengths = [0, 0, 0]
         self.epoch_number = 0
@@ -38,9 +46,22 @@ class Loader:
         raise NotImplementedError
 
     def device_full_arrays(self, device):
-        """{"data": tensor, "labels": tensor} of the whole dataset on
-        ``device``; minibatches are gathered from it by index."""
+        """{"data": tensor, "labels" and/or "targets": tensor} of the whole
+        dataset on ``device``; minibatches are gathered from it by
+        index."""
         raise NotImplementedError
+
+    def apply_normalization(self):
+        """Fit and apply ``normalizer`` (a subclass's hook). The base
+        refuses any normalizer but ``none``: a configured
+        ``normalization_type`` that no code applies would train on raw
+        data without a word."""
+        if not isinstance(self.normalizer, normalization.NoneNormalizer):
+            raise NotImplementedError(
+                "%s does not implement pluggable normalization "
+                "(normalization_type=%r); use a full-batch loader or "
+                "normalize in load_data" % (type(self).__name__,
+                                            self.normalizer.NAME))
 
     def sample_shape(self):
         """Shape of one sample as the first forward unit receives it
@@ -65,6 +86,9 @@ class Loader:
             self.load_data()
         if self.total_samples == 0:
             raise ValueError("%s loaded an empty dataset" % self.name)
+        if not self._normalization_applied:
+            self.apply_normalization()
+            self._normalization_applied = True
         self.epoch_number = 0
         self._order = self._generate_order()
 

@@ -7,15 +7,16 @@ loads that archive onto a device and evaluates it as a pure function
 ``apply(params, x)`` on torch tensors, in float32. The per-type forward
 math is the port's own training math wherever the training units have
 it as a function (``dense_attention_core_fwd``, ``ln_fwd``,
-``conv_geometry``, ``max_pool``/``avg_pool``, ``lrn_denominator``/
-``lrn_dpow``, the activation table), so serving cannot drift from
-training. Unknown unit types fail loudly, as the C++ ``UnitFactory``
-does; the types the port does not compute yet (``UNPORTED``) are refused
-when the archive is loaded.
+``conv_geometry``, ``max_pool``/``avg_pool``, ``deconv_fwd``/``depool``,
+``lrn_denominator``/``lrn_dpow``, the activation table), so serving
+cannot drift from training. Unknown unit types fail loudly, as the C++
+``UnitFactory`` does; the types the port does not compute yet
+(``UNPORTED``) are refused when the archive is loaded.
 
-The convolutions run in true f32: cuDNN's TF32 is switched off for each
-serving convolution call (and restored after), whatever the process's
-default, as the reference serves in f32.
+The convolutions (and the deconvolution's transposed ones) run in true
+f32: cuDNN's TF32 is switched off for each serving convolution call (and
+restored after), whatever the process's default, as the reference serves
+in f32.
 
 Parameters live outside the specs (a ``{unit_name: {key: tensor}}``
 tree), so an engine can hold its own device copy and swap new weights
@@ -36,6 +37,7 @@ from veles_torch.znicz.ops import activations as A
 from veles_torch.znicz.ops import conv_math as CM
 from veles_torch.znicz.ops.attention import dense_attention_core_fwd
 from veles_torch.znicz.ops.conv import conv_geometry
+from veles_torch.znicz.ops.deconv import deconv_fwd, depool
 from veles_torch.znicz.ops.flash_attention import MASK_VALUE, scale_for
 from veles_torch.znicz.ops.layernorm import ln_fwd
 from veles_torch.znicz.ops.normalization import lrn_denominator, lrn_dpow
@@ -109,6 +111,25 @@ def _max_pool(x, p, spec):
 def _avg_pool(x, p, spec):
     cfg = spec["config"]
     return avg_pool(x, cfg["ky"], cfg["kx"], tuple(cfg["sliding"]))
+
+
+def _f32_conv_transpose(x, w, stride):
+    with f32_convolutions():
+        return F.conv_transpose2d(x, w, stride=stride)
+
+
+def _deconv(x, p, spec):
+    cfg = spec["config"]
+    return deconv_fwd(x, p["weights"], cfg["ky"], cfg["kx"],
+                      cfg["sliding"], CM.normalize_padding(
+                          tuple(cfg["padding"])),
+                      cfg["out_shape"][:2], _f32_conv_transpose).contiguous()
+
+
+def _depooling(x, p, spec):
+    cfg = spec["config"]
+    return depool(x, cfg["ky"], cfg["kx"], tuple(cfg["sliding"]),
+                  cfg["out_shape"][:2]).contiguous()
 
 
 def _lrn(x, p, spec):
@@ -228,6 +249,8 @@ FORWARD_OPS = {
     "conv_sigmoid": _conv("sigmoid"),
     "max_pooling": _max_pool,
     "avg_pooling": _avg_pool,
+    "deconv": _deconv,
+    "depooling": _depooling,
     "norm": _lrn,
     "dropout": _identity,       # inverted dropout: inference identity
     "activation_tanh": _activation("tanh"),
@@ -247,8 +270,6 @@ FORWARD_OPS = {
 UNPORTED = {
     "moe_ffn": "item 8 (the MoE FFN)",
     "transformer_stack": "item 8 (the fused transformer_stack)",
-    "deconv": "item 6 (Deconv)",
-    "depooling": "item 6 (Depooling)",
 }
 
 #: spec keys that are metadata, not .npy parameter references

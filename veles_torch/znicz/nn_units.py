@@ -11,7 +11,9 @@ Counterpart of ``veles/znicz_tpu/nn_units.py``:
   the attention out-projection, the FFN's second layer) get their own
   ``vel_<name>`` state under the reference's key names. Every bias
   gradient goes through ``ops/bias_grad.bias_grad``: the kernel on the
-  card, its plain version on the CPU;
+  card, its plain version on the CPU. A forward's ``zero_mask`` (set by
+  ``ops/cutter.ZeroFiller``) multiplies its weights inside each update,
+  once per step, as the reference's traced update does;
 * the registry mapping config names to forward classes and forward
   classes to their GD classes. It is the port's own, separate from the
   reference's, so a process can hold both packages.
@@ -85,6 +87,11 @@ class Forward(nn.Module):
         self.prng = prng.get(prng_key)
         #: the TorchDevice this unit computes on (set by initialize)
         self.device = None
+        #: the (B, ...) shape of this unit's input, set by the workflow
+        #: before initialize (what ``output_shape_source`` reads)
+        self.input_shape = None
+        #: weights mask of a ZeroFiller: masked entries stay 0
+        self.zero_mask = None
         for param in dict.fromkeys(("weights", "bias") + self.PARAMS):
             self.register_buffer(param, None)
 
@@ -244,6 +251,8 @@ class GradientDescentBase:
         f.weights, self.vel_weights = self.apply_update(
             f.weights, self.vel_weights, grad_w.to(f.weights.dtype),
             h["lr"], h["moment"], h["l2"], h["l1_vs_l2"])
+        if f.zero_mask is not None:
+            f.weights = f.weights * f.zero_mask
         if f.include_bias and grad_b is not None:
             f.bias, self.vel_bias = self.apply_update(
                 f.bias, self.vel_bias, grad_b.to(f.bias.dtype),

@@ -45,6 +45,14 @@ def pad_nhwc(x, pads, value=0.0):
     return F.pad(x, (0, 0, left, right, top, bottom), value=value)
 
 
+def crop_nhwc(x, top, left, h, w):
+    """The (h, w) window at (top, left) of the H and W axes of a (B, H, W,
+    C) tensor, zero where it reaches past the bottom or right edge."""
+    x = pad_nhwc(x, (0, max(0, top + h - x.shape[1]),
+                     0, max(0, left + w - x.shape[2])))
+    return x[:, top:top + h, left:left + w, :]
+
+
 def window_taps(x, ky, kx, stride, oy, ox):
     """-> [(p·kx + q, view)] over the ky·kx taps of a (B, H, W, C) tensor
     already padded: tap (p, q) is the (B, oy, ox, C) strided view of the
@@ -88,7 +96,7 @@ def col2im(cols, input_shape, ky, kx, stride, pads):
     acc = scatter_taps(lambda t: cols[:, :, :, t, :],
                        (b, h + top + bottom, w + left + right, c),
                        ky, kx, stride, cols.dtype)
-    return acc[:, top:top + h, left:left + w, :]
+    return crop_nhwc(acc, top, left, h, w)
 
 
 def sliding_channel_sum(x, window, reverse=False):

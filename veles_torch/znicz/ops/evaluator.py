@@ -1,29 +1,52 @@
-"""Cross-entropy evaluators of the PyTorch port.
+"""Loss evaluators of the PyTorch port.
 
-Counterparts of ``EvaluatorSoftmax`` and ``EvaluatorLM`` in
-``veles/znicz_tpu/ops/evaluator.py``:
+Counterparts of ``EvaluatorSoftmax``, ``EvaluatorMSE`` and
+``EvaluatorLM`` in ``veles/znicz_tpu/ops/evaluator.py``:
 
 * :class:`EvaluatorSoftmax` — from softmax probabilities and integer
   labels, the fused softmax+CE gradient ``err_output = (p − onehot)/valid``
   and the minibatch metrics: mean cross-entropy ``loss``, wrong-count
   ``n_err``, and the worst valid row's loss ``max_err`` with its index;
+  with ``compute_confusion`` it also adds each minibatch's (predicted,
+  true) counts into ``confusion_matrix``, an int32 tensor on the device
+  (no host sync per minibatch);
+* :class:`EvaluatorMSE` — from any output and a target of the same
+  size, ``err_output = 2·(y − t)/valid`` (no 1/D: the reference's
+  learning rates are tuned to it) and the mean over valid rows of each
+  row's mean squared error as ``loss``, the worst valid row's as
+  ``max_err``; ``n_err`` is 0;
 * :class:`EvaluatorLM` — next-token softmax cross-entropy over (B, S, V)
   logits with (B, S) labels, per token: ``err = (softmax −
   onehot)/(valid·S)`` and ``n_err`` = wrong token predictions.
 
 All of it in f32. Rows at or past ``valid`` (the padding of a short last
-minibatch) are masked out of the gradient and the metrics. Both return
-the metrics vector in the :data:`METRICS` layout.
+minibatch) are masked out of the gradient and the metrics. Each returns
+the metrics vector in the :data:`METRICS` layout, and names the loader
+array it compares against in ``TARGET`` (``"labels"`` or
+``"targets"``).
 """
 
 import torch
 
 
+def worst_row(per_sample, fmask):
+    """(max, first-occurrence argmax) of a per-row loss over the valid
+    rows, as the reference's ``_worst``."""
+    masked = per_sample * fmask
+    return masked.max(), torch.argmax(masked)
+
+
 class EvaluatorSoftmax:
     """Fused softmax + cross-entropy loss."""
 
-    def __init__(self, name="evaluator"):
+    TARGET = "labels"
+
+    def __init__(self, name="evaluator", compute_confusion=False):
         self.name = name
+        self.compute_confusion = compute_confusion
+        #: (predicted, true) int32 counts over every minibatch run, on the
+        #: device; made at the first minibatch
+        self.confusion_matrix = None
 
     @staticmethod
     def compute(probs, labels, valid):
@@ -42,22 +65,73 @@ class EvaluatorSoftmax:
         loss = -torch.sum(logp * fmask) / denom
         max_idx = torch.argmax(probs, dim=-1)
         n_err = torch.sum((max_idx != labels) & mask)
-        # first-occurrence argmax, as the reference
-        worst = -logp * fmask
-        return err, loss, n_err, worst.max(), torch.argmax(worst)
+        return (err, loss, n_err) + worst_row(-logp, fmask)
+
+    def accumulate_confusion(self, probs, labels, valid):
+        """Add the valid rows' (argmax, label) counts into
+        ``confusion_matrix`` on the device."""
+        b, n = probs.shape
+        if self.confusion_matrix is None:
+            self.confusion_matrix = torch.zeros(
+                (n, n), dtype=torch.int32, device=probs.device)
+        valid = torch.as_tensor(valid, device=probs.device)
+        cell = torch.argmax(probs, dim=-1) * n + labels.long()
+        ones = (torch.arange(b, device=probs.device) < valid) \
+            .to(torch.int32)
+        self.confusion_matrix.view(-1).scatter_add_(0, cell, ones)
 
     def run(self, probs, labels, valid, act_dtype):
         """-> (err_output in ``act_dtype``, metrics (4,) f32 tensor of
         loss, n_err, max_err, max_err_idx)."""
+        probs = probs.to(torch.float32)
         err, loss, n_err, max_err, max_err_idx = self.compute(
-            probs.to(torch.float32), labels, valid)
+            probs, labels, valid)
+        if self.compute_confusion:
+            self.accumulate_confusion(probs, labels, valid)
         metrics = torch.stack([loss, n_err.to(torch.float32), max_err,
                                max_err_idx.to(torch.float32)])
         return err.to(act_dtype), metrics
 
 
+class EvaluatorMSE:
+    """Mean squared error against a target array."""
+
+    TARGET = "targets"
+
+    def __init__(self, name="evaluator", root_metric=True):
+        self.name = name
+        #: accepted as the reference's option; like the reference, the
+        #: metric is the MSE itself
+        self.root_metric = root_metric
+
+    @staticmethod
+    def compute(y, t, valid):
+        """-> (err (B, D), mse, max_err, max_err_idx) of f32 ``y`` and
+        ``t`` viewed as (B, D) rows; ``valid`` is the true row count."""
+        b = y.shape[0]
+        y2, t2 = y.reshape(b, -1), t.reshape(b, -1)
+        valid = torch.as_tensor(valid, device=y.device).to(y2.dtype)
+        fmask = (torch.arange(b, device=y.device) < valid).to(y2.dtype)
+        diff = (y2 - t2) * fmask[:, None]
+        err = 2.0 * diff / valid
+        per_sample = torch.mean(diff * diff, dim=1)
+        mse = torch.sum(per_sample) / valid
+        return (err, mse) + worst_row(per_sample, fmask)
+
+    def run(self, y, targets, valid, act_dtype):
+        """-> (err_output shaped as ``y`` in ``act_dtype``, metrics (4,)
+        f32 tensor of mse, 0, max_err, max_err_idx)."""
+        err, mse, max_err, max_err_idx = self.compute(
+            y.to(torch.float32), targets.to(torch.float32), valid)
+        metrics = torch.stack([mse, torch.zeros_like(mse), max_err,
+                               max_err_idx.to(torch.float32)])
+        return err.reshape(y.shape).to(act_dtype), metrics
+
+
 class EvaluatorLM:
     """Next-token softmax cross-entropy over (B, S, V) logits."""
+
+    TARGET = "labels"
 
     def __init__(self, name="evaluator"):
         self.name = name

@@ -7,14 +7,18 @@ Counterpart of ``veles/znicz_tpu/standard_workflow.py``: from the same
              "<-": {...gd kwargs...}}, ...]
 
 (ints are shorthand: hidden all2all_tanh, final softmax) it builds the
-loader, the forwards through the port's registry, the evaluator (an
-``evaluator_factory(workflow)`` when given, else the softmax evaluator
-for a softmax-terminated stack), the decision (``DecisionGD`` after the
-softmax evaluator, ``DecisionMSE`` after any other, as the reference
-picks) and the reversed GD chain, with the reference's unit names (class
-name, made unique with ``_2``, ``_3``...). ``initialize`` places
-everything on a device; ``run`` trains epoch by epoch until the decision
-completes.
+loader, the forwards through the port's registry (an int
+``output_shape_source`` names an earlier forward by index, as the
+reference's autoencoders pin a deconv or depooling to the mirrored
+unit's input shape), the evaluator (an ``evaluator_factory(workflow)``
+when given, else the softmax evaluator for a softmax-terminated stack
+and ``EvaluatorMSE`` against the loader's targets for any other), the
+decision (``DecisionGD`` after the softmax evaluator, ``DecisionMSE``
+after any other, as the reference picks) and the reversed GD chain, with
+the reference's unit names (class name, made unique with ``_2``,
+``_3``...). :meth:`StandardWorkflow.link_zero_filler` pins weight
+entries of a forward at zero. ``initialize`` places everything on a
+device; ``run`` trains epoch by epoch until the decision completes.
 """
 
 from veles_torch.backends import get_device
@@ -22,7 +26,8 @@ from veles_torch.export_inference import export_inference
 from veles_torch.znicz.decision import DecisionGD, DecisionMSE
 from veles_torch.znicz.nn_units import forward_by_name, gradient_unit_for
 from veles_torch.znicz.ops.all2all import All2AllSoftmax
-from veles_torch.znicz.ops.evaluator import EvaluatorSoftmax
+from veles_torch.znicz.ops.cutter import ZeroFiller
+from veles_torch.znicz.ops.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from veles_torch.znicz.step import TorchStep
 
 
@@ -52,7 +57,11 @@ class StandardWorkflow:
         self.forwards = []
         for spec in self.layers_config:
             cls = forward_by_name(spec["type"])
-            fwd = cls(**dict(spec.get("->", {})))
+            kwargs = dict(spec.get("->", {}))
+            src = kwargs.get("output_shape_source")
+            if isinstance(src, int) and not isinstance(src, bool):
+                kwargs["output_shape_source"] = self.forwards[src]
+            fwd = cls(**kwargs)
             fwd.name = self._unique(fwd.name)
             self.forwards.append(fwd)
         if evaluator_factory is not None:
@@ -60,9 +69,7 @@ class StandardWorkflow:
         elif isinstance(self.forwards[-1], All2AllSoftmax):
             self.evaluator = EvaluatorSoftmax(name="evaluator")
         else:
-            raise NotImplementedError(
-                "EvaluatorMSE (the reference's evaluator for a stack not "
-                "ending in softmax) is not ported yet")
+            self.evaluator = EvaluatorMSE(name="evaluator")
         decision_cls = DecisionGD \
             if isinstance(self.evaluator, EvaluatorSoftmax) else DecisionMSE
         self.decision = decision_cls(name="decision",
@@ -75,6 +82,7 @@ class StandardWorkflow:
                 **dict(self.layers_config[i].get("<-", {})))
             gd.name = self._unique(gd.name)
             self.gds[i] = gd.setup_forward(fwd)
+        self.zero_fillers = []
         self.device = None
         self.step = None
 
@@ -95,12 +103,27 @@ class StandardWorkflow:
         shape = (self.loader.max_minibatch_size,) \
             + self.loader.sample_shape()
         for fwd in self.forwards:
+            fwd.input_shape = shape
             shape = fwd.initialize(shape, self.device)
         for gd in self.gds:
             gd.initialize()
+        for zf in self.zero_fillers:
+            zf.initialize()
         self.step = TorchStep(self.loader, self.forwards, self.evaluator,
                               self.gds, self.decision, self.device)
         return self
+
+    def link_zero_filler(self, target, mask=None, name="zerofiller"):
+        """A :class:`ZeroFiller` of ``target`` (a forward unit or its
+        index), initialized with the workflow (at once when the workflow
+        already is); -> the ZeroFiller."""
+        if isinstance(target, int):
+            target = self.forwards[target]
+        zf = ZeroFiller(target=target, mask=mask, name=self._unique(name))
+        self.zero_fillers.append(zf)
+        if self.device is not None:
+            zf.initialize()
+        return zf
 
     def run(self):
         """Train until the decision completes."""
@@ -122,11 +145,16 @@ class StandardWorkflow:
         return {u.name: u for u in self.forwards + self.gds}
 
     def export_tree(self):
-        """{unit: {key: tensor}}: forwards' params and GDs' state."""
+        """{unit: {key: tensor}}: forwards' params (and a ZeroFiller's
+        mask as ``zero_mask``) and GDs' state."""
         tree = {}
         for name, u in self.units().items():
-            sub = u.export_params() if u in self.forwards \
-                else u.export_state()
+            if u in self.forwards:
+                sub = u.export_params()
+                if u.zero_mask is not None:
+                    sub["zero_mask"] = u.zero_mask
+            else:
+                sub = u.export_state()
             if sub:
                 tree[name] = sub
         return tree

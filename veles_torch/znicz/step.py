@@ -13,7 +13,10 @@ Each gathered minibatch goes through the loader's ``batch_transform``
 (the reference's ``xla_batch_transform``: AlexNet's crop, mirror and
 normalize) on the device; the forwards run in train mode (``.train()``)
 in a train step and in eval mode in an eval step, which dropout and
-stochastic pooling read.
+stochastic pooling read. The evaluator's target is the loader array it
+names (``TARGET``: ``"labels"``, or an MSE evaluator's ``"targets"``),
+gathered by the same indices; targets that are the data tensor itself
+(an autoencoder's) are the gathered data, not a second gather.
 
 Eager PyTorch: each operation is its own launch (no CUDA graph yet).
 """
@@ -55,24 +58,34 @@ class TorchStep:
             x = f(x)
         return inputs, x
 
-    def eval_minibatch(self, data, labels, valid):
+    def gather(self, full, idx, train):
+        """(data as the forwards take it, the evaluator's target) of the
+        rows ``idx`` (a device index vector) of the loader's
+        ``device_full_arrays`` ``full``."""
+        rows = torch.index_select(full["data"], 0, idx)
+        target = full[self.evaluator.TARGET]
+        target = rows if target is full["data"] \
+            else torch.index_select(target, 0, idx)
+        return self.loader.batch_transform(rows, train), target
+
+    def eval_minibatch(self, data, target, valid):
         """Forward + evaluator; -> the (4,) metrics tensor."""
         _, last = self._forward(data, False)
-        _, metrics = self.evaluator.run(last, labels, valid,
+        _, metrics = self.evaluator.run(last, target, valid,
                                         self.device.act_dtype)
         self.eval_steps += 1
         return metrics
 
-    def train_minibatch(self, data, labels, valid):
+    def train_minibatch(self, data, target, valid):
         """One train step with its updates; -> the (4,) metrics tensor."""
-        return self.train_backward(*self._forward(data, True), labels,
+        return self.train_backward(*self._forward(data, True), target,
                                    valid)
 
-    def train_backward(self, inputs, last, labels, valid):
+    def train_backward(self, inputs, last, target, valid):
         """The evaluator and the reversed GD chain with its updates, after
         a train-mode :meth:`_forward` that gave ``inputs`` and ``last``;
         -> the (4,) metrics tensor."""
-        err, metrics = self.evaluator.run(last, labels, valid,
+        err, metrics = self.evaluator.run(last, target, valid,
                                           self.device.act_dtype)
         outputs = inputs[1:] + [last]
         for i in reversed(range(len(self.gds))):
@@ -97,12 +110,9 @@ class TorchStep:
             metrics = torch.empty((len(idx_mat), len(METRICS)),
                                   dtype=torch.float32, device=dev)
             for i in range(len(idx_mat)):
-                metrics[i] = step(
-                    loader.batch_transform(
-                        torch.index_select(full["data"], 0, idx[i]),
-                        cls == CLASS_TRAIN),
-                    torch.index_select(full["labels"], 0, idx[i]),
-                    valid_dev[i])
+                metrics[i] = step(*self.gather(full, idx[i],
+                                               cls == CLASS_TRAIN),
+                                  valid_dev[i])
             host = metrics.cpu().numpy()
             last_cls = ci == len(plan) - 1
             for i, row in enumerate(host):
