@@ -19,7 +19,8 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
 3. kernels — holds the bias-gradient kernel against its plain PyTorch
    version on the card: every activation, float32 and bfloat16 inputs,
    at the MNIST shapes and two large ones; ``linear`` and ``tanh`` at the
-   110M LM step's shapes (``LM_SHAPES``) in the dtype the LM gives each;
+   110M LM step's shapes (``LM_SHAPES``) in the dtype the LM gives each,
+   and the stacked 110M's f32 qkv bias sum (``STACK_SHAPES``);
    ``relu`` (softplus) in bf16 at the conv path's shapes (``CONV_SHAPES``:
    AlexNet's five conv GD views and FC layers at minibatch 128, CIFAR-10's
    two at minibatch 100), timed beside ``err.sum(0, dtype=float32)``;
@@ -169,10 +170,44 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     post-softmax outputs within ``QUANT_PROB_ATOL`` of f32 along the f32
     greedy chain and the greedy tokens equal along its strong-margin
     prefix (the reference's bounds); no hand-written kernel may launch;
-16. the ``kernels`` summary line (the bias gradient's launches summed
-    over the MNIST, CIFAR-10, AlexNet and autoencoder runs, each path's
-    beside it, the serving paths' among them), the card line, and last
-    ``{"ok": true, "device": {...}}``.
+16. lm_adam — the 110M row as bench.py configures it (``attn_block``
+    256 and no ``attn_impl``: the auto policy, which resolves to the
+    kernels at S 512 on the card) under AdamW and a warmup-cosine
+    schedule (``ADAM_RUN``) through the CLI: launches as the resolved
+    mode implies (rows 2, 3 and 5), every parameter and solver tensor
+    finite, the train loss falls, and the validation loss in a run at the
+    sample's width (``SAMPLE_ADAM_RUN``: S 32, the scan); two steps under
+    ``accumulate_gradient=2`` (no parameter moves on the first, every one
+    on the second); one f32 AdamW step of a small LM on the card against
+    the port's CPU within ``LM_PARITY_RTOL``; the step's time split beside
+    the momentum 110M's (``lm_adam_step_trace.json``,
+    ``lm_momentum_step_trace.json``);
+17. attn_policy — the scan against the kernels on one bf16 input
+    (FLASH_MAIN) within the bf16 bound of phase 4; the 110M train step by
+    the host clock with the scan and with the kernels, in turns, at each
+    ``POLICY_SHAPES`` entry; the threshold the table implies beside
+    ``MultiHeadAttention.PALLAS_AUTO_MIN_S``;
+18. lm_stack — the stacked 110M (one ``transformer_stack`` unit of 12
+    blocks, dense attention) under AdamW through the CLI with remat off
+    and on (the train loss falls, 6 identity launches a block + 1 a step,
+    no flash kernel; the validation loss in a stacked run with remat at
+    the sample's width); one step with remat bit for bit equal to one
+    without, each step's peak device memory and ms; the archive served
+    and decoded greedily against ``generate()`` but at near ties;
+19. text_lm — the README's text-LM command (SURVEY.md as the corpus,
+    AdamW, warmup-cosine, ``--generate-text``) on the CPU and the card:
+    the final validation losses within ``LM_CPU_TOLERANCE``; the card's
+    greedy text equal to the CPU's decode of the card's weights but at
+    near ties;
+20. moe — the MoE LM at the 110M width, 4 layers, 8 experts
+    (``LM_110M_MOE``) under AdamW: the validation loss falls, the tokens
+    each layer drops in a step; a small MoE LM's drops equal on the card
+    and the CPU (f32); the archive served within ``SERVE_RTOL`` of the
+    f32 training forward;
+21. the ``kernels`` summary line (the bias gradient's launches summed
+    over the MNIST, CIFAR-10, AlexNet, autoencoder and LM-slice runs,
+    each path's beside it, the serving paths' among them), the card
+    line, and last ``{"ok": true, "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
@@ -201,6 +236,10 @@ SHAPES = ((100, 100), (100, 10), (72900, 96), (4097, 1000))
 LM_SHAPES = (((4096, 768), "bfloat16"), ((4096, 2304), "bfloat16"),
              ((4096, 16384), "bfloat16"), ((4096, 768), "float32"),
              ((4096, 3072), "float32"))
+#: the stacked 110M's bias sums not among LM_SHAPES: the stack runs in
+#: f32 from its boundary on, so its qkv bias sum is (4096, 2304) f32 (its
+#: (4096, 768) and (4096, 3072) sums are f32 too)
+STACK_SHAPES = (((4096, 2304), "float32"),)
 #: activations checked at LM_SHAPES: the identity form the LM runs and a
 #: masked one (every activation runs at SHAPES)
 LM_ACTIVATIONS = ("linear", "tanh")
@@ -539,7 +578,7 @@ def check_kernels(torch, timer):
     cases = [(shape, both, ACTIVATIONS, timed, both[-1:])
              for shape in SHAPES] + [
         (shape, (dname,), LM_ACTIVATIONS, timed, (dname,))
-        for shape, dname in LM_SHAPES] + [
+        for shape, dname in LM_SHAPES + STACK_SHAPES] + [
         (shape, ("bfloat16",), ("relu",), [("masked", "relu")],
          ("bfloat16",)) for shape in CONV_SHAPES] + [
         (shape, both, ("tanh",), [("masked", "tanh")], both)
@@ -994,46 +1033,90 @@ def read_counts():
             "bias_grad[masked]": bias_grad.form_launches["masked"]}
 
 
-def run_lm(torch, name, device, *overrides, valid_must_fall=True):
-    """One LM run through the CLI entry point, its launches counted from
-    0; -> (workflow, counts, summary dict). Fails on a wrong count, a
-    non-finite parameter, or a train loss (and, with
-    ``valid_must_fall``, a validation loss) that does not fall."""
-    from veles_torch.__main__ import main as cli
+def identity_sums_per_step(wf):
+    """Column sums a train step of the LM ``wf`` takes through the
+    bias-gradient kernel's identity form: 2 per attention and FFN unit, 1
+    per layernorm and token dense, 6 per block of a stack, none in an MoE
+    FFN (its expert bias sums are batched torch sums)."""
+    from veles_torch.znicz.ops.attention import (
+        MultiHeadAttention, TokenDenseBase, TransformerFFN)
+    from veles_torch.znicz.ops.layernorm import LayerNormForward
+    from veles_torch.znicz.ops.transformer_stack import TransformerBlockStack
+    per = ((MultiHeadAttention, 2), (TransformerFFN, 2),
+           (LayerNormForward, 1), (TokenDenseBase, 1))
+    n = 0
+    for f in wf.forwards:
+        if isinstance(f, TransformerBlockStack):
+            n += 6 * f.layers
+        else:
+            n += next((k for cls, k in per if isinstance(f, cls)), 0)
+    return n
+
+
+def lm_expected_counts(wf, device):
+    """The launches an LM run of ``wf`` implies: the flash kernels as its
+    attention's dispatch resolves (``mode``: the kernels, or the scan,
+    dense and nothing), the fused backward, and the identity form once per
+    column sum of every train step; all 0 on the CPU; -> (counts, mode)."""
     from veles_torch.znicz.ops.attention import MultiHeadAttention
+    attn = [f for f in wf.forwards if isinstance(f, MultiHeadAttention)]
+    mode = attn[0].mode(wf.loader.original_data.shape[1]) if attn else None
+    train, evals = wf.step.train_steps, wf.step.eval_steps
+    kernels = mode == "pallas"
+    fwd = len(attn) * (train + evals) if kernels else 0
+    pipeline = kernels and attn[0].attn_pipeline
+    want = {"flash_fwd": 0 if pipeline else fwd,
+            "flash_fwd_pipe": fwd if pipeline else 0,
+            "flash_bwd_fused": len(attn) * train if kernels else 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "bias_grad[identity]": train * identity_sums_per_step(wf),
+            "bias_grad[masked]": 0}
+    if device == "cpu":
+        want = dict.fromkeys(want, 0)
+    return want, mode
+
+
+def run_lm(torch, name, device, *overrides, valid_must_fall=True,
+           impl="pallas", phase="lm", cli_args=(), stdout=None):
+    """One LM run through the CLI entry point (``attn_impl`` set to
+    ``impl`` unless None; ``root.lm.train`` emptied first, so no earlier
+    run's solver options remain), its launches counted from 0; ->
+    (workflow, counts, summary dict). Fails on a launch count other than
+    the run implies (:func:`lm_expected_counts`), a non-finite parameter
+    or solver tensor, or a train loss (and, with ``valid_must_fall``, a
+    validation loss) that does not fall. ``cli_args`` go to the CLI after
+    the rest; with ``stdout`` (a text stream) the CLI prints there."""
+    import contextlib
+    from veles_torch.__main__ import main as cli
+    from veles_torch.config import root
+    root.lm.train = {}
     reset_counts()
-    wf = cli([LM_SAMPLE, "root.lm.model.attn_impl=pallas", *overrides,
-              "--seed", "1337", "-d", device])
+    impl_arg = ("root.lm.model.attn_impl=%s" % impl,) if impl else ()
+    with contextlib.redirect_stdout(stdout or sys.stdout):
+        wf = cli([LM_SAMPLE, *impl_arg, *overrides, "--seed", "1337", "-d",
+                  device, *cli_args])
     if device == "cuda":
         torch.cuda.synchronize()
     counts = read_counts()
-    layers = sum(isinstance(f, MultiHeadAttention) for f in wf.forwards)
-    pipeline = wf.forwards[1].attn_pipeline
-    train, evals = wf.step.train_steps, wf.step.eval_steps
-    fwd = layers * (train + evals)
-    want = {"flash_fwd": 0 if pipeline else fwd,
-            "flash_fwd_pipe": fwd if pipeline else 0,
-            "flash_bwd_fused": layers * train,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "bias_grad[identity]": train * (6 * layers + 1),
-            "bias_grad[masked]": 0}
-    if device == "cpu":
-        want = dict(want, **{k: 0 for k in want})
+    want, mode = lm_expected_counts(wf, device)
     if counts != want:
-        fail("lm %s: launches %s, expected %s" % (name, counts, want))
-    check_params_finite(torch, wf, "lm " + name)
+        fail("%s %s: launches %s, expected %s" % (phase, name, counts, want))
+    check_params_finite(torch, wf, "%s %s" % (phase, name))
     hist = wf.decision.history
     valid = [h["validation"]["loss"] for h in hist]
     train_loss = [h["train"]["loss"] for h in hist]
     if (valid_must_fall and not valid[-1] < valid[0]) \
             or not train_loss[-1] < train_loss[0]:
-        fail("lm %s: loss did not fall: validation %s, train %s"
-             % (name, valid, train_loss))
+        fail("%s %s: loss did not fall: validation %s, train %s"
+             % (phase, name, valid, train_loss))
+    train, evals = wf.step.train_steps, wf.step.eval_steps
     per_epoch = (train + evals) / len(hist)
     tokens = (sum(wf.loader.class_lengths)
               * wf.loader.original_data.shape[1])
-    summary = {"phase": "lm", "run": name, "device": device,
-               "layers": layers, "train_steps": train, "eval_steps": evals,
+    summary = {"phase": phase, "run": name, "device": device,
+               "attention_mode": mode,
+               "layers": root.lm.model.layers,
+               "train_steps": train, "eval_steps": evals,
                "launches": counts, "validation_loss": valid,
                "train_loss": train_loss,
                "epoch_seconds": wf.step.epoch_seconds}
@@ -2006,6 +2089,526 @@ def check_serve_decode(torch):
     return counts
 
 
+# -- the LM as its users configure it: solvers, the scan, the stack, the --
+# -- text corpus, the MoE FFN ----------------------------------------------
+
+#: AdamW (beta1 0.9) under a warmup-cosine schedule over the 110M run's 16
+#: train steps
+ADAM_RUN = ("root.lm.train.solver=adam", "root.lm.train.learning_rate=0.001",
+            "root.lm.train.gradient_moment=0.9",
+            "root.lm.train.lr_policy={'name': 'warmup_cosine', "
+            "'warmup': 4, 'total': 16}")
+#: one f32 AdamW step of a small LM (the sample's width, S 32, attn_block
+#: 16: the scan on both sides, under the auto threshold) on the card
+#: against the port's CPU from the same weights and minibatch: every
+#: parameter, ``vel_*`` and ``sq_*`` within this share of its largest
+#: element (f32 sums in another order, as ALEXNET_PARITY_RTOL). adam_eps
+#: 1e-2 keeps AdamW's step well conditioned: at 1e-8 the attention's key
+#: bias, whose gradient is 0 in exact arithmetic, moves by ±lr with the
+#: sign of each device's rounding noise (0.08 of its largest element
+#: apart on an NVIDIA H100), as in tests/test_torch_solvers.py
+LM_PARITY_RTOL = 1e-4
+LM_PARITY_RUN = ("root.lm.loader.n_train=256", "root.lm.loader.n_valid=64",
+                 "root.lm.model.attn_block=16", "root.lm.train.solver=adam",
+                 "root.lm.train.learning_rate=0.002",
+                 "root.lm.train.gradient_moment=0.9",
+                 "root.lm.train.adam_eps=0.01")
+#: the LM sample's width and corpus (S 32, 8 epochs, 256 train steps)
+#: under AdamW and warmup-cosine, with attn_block 16 (the auto policy: the
+#: scan on the card below PALLAS_AUTO_MIN_S), per-layer and stacked: the
+#: validation loss falls. At the 110M width the 16 train steps lower the
+#: train loss only: the validation windows hold random tokens of a
+#: 16384-word vocabulary the run never saw (phase lm says the same)
+SAMPLE_ADAM_RUN = ("root.lm.train.solver=adam",
+                   "root.lm.train.learning_rate=0.003",
+                   "root.lm.train.gradient_moment=0.9",
+                   "root.lm.train.lr_policy={'name': 'warmup_cosine', "
+                   "'warmup': 16, 'total': 256}")
+#: the auto policy's table: (S, minibatch) of the 110M train step, the
+#: scan against the kernels by the host clock, POLICY_STEPS steps after a
+#: warm one, in turns (scan, kernels, kernels, scan)
+POLICY_SHAPES = ((512, 8), (1024, 8), (2048, 8), (8192, 4))
+POLICY_STEPS = 3
+#: steps a host-clock step time averages over (lm_adam, lm_stack)
+STEPS_TIMED = 5
+#: the scan's block: LM_ROWS' attn_block
+SCAN_BLOCK = 256
+#: the stacked 110M: one transformer_stack unit of 12 blocks, dense
+#: attention inside (the reference refuses attn_block there)
+LM_110M_STACKED = tuple(o for o in LM_110M if "attn_block" not in o) + (
+    "root.lm.model.stacked=True",)
+#: the README's text-LM command on the repo's SURVEY.md (a file no change
+#: edits): the default root.lm model, AdamW, warmup-cosine over 24 epochs
+#: of 17 steps. At lr 0.01 the bf16 policy leaves the characters' unigram
+#: plateau (3.5) some 8 epochs after f32 does (2.90 on an NVIDIA H100
+#: against 2.48 on the CPU after 40 epochs; 2.88 with the bf16 policy on
+#: the CPU); at 0.003 both leave it together (2.67 bf16 and
+#: 2.69 f32 on the CPU, under two thread counts) and write words
+TEXT_CORPUS = os.path.join(HERE, "SURVEY.md")
+TEXT_RUN = ("root.lm.loader.text_file=%r" % TEXT_CORPUS,
+            "root.lm.decision.max_epochs=24",
+            "root.lm.train.solver=adam", "root.lm.train.learning_rate=0.003",
+            "root.lm.train.gradient_moment=0.9",
+            "root.lm.train.lr_policy={'name': 'warmup_cosine', "
+            "'warmup': 20, 'total': 408}")
+TEXT_PROMPT, TEXT_TOKENS = "The ", 64
+#: the MoE FFN at the 110M width (dim 768, ffn 3072, 12 heads, S 512,
+#: minibatch 8), 8 experts of capacity factor 2 and aux weight 0.01, its
+#: depth cut from 12 to 4 layers
+LM_110M_MOE = LM_110M + ("root.lm.model.layers=4",
+                         "root.lm.model.moe_experts=8",
+                         "root.lm.model.moe_capacity_factor=2.0",
+                         "root.lm.model.moe_aux_weight=0.01")
+#: the MoE run's drops, card against CPU: the sample's width with 4
+#: experts at capacity factor 1 (tokens dropped), f32
+MOE_SMALL = ("root.lm.loader.n_train=256", "root.lm.loader.n_valid=64",
+             "root.lm.model.moe_experts=4",
+             "root.lm.model.moe_capacity_factor=1.0")
+
+
+def build_lm(*overrides, device="cuda", seed=1337, name="LM"):
+    """The LM sample with ``overrides`` applied after its defaults (and
+    ``root.lm.train`` emptied first), initialized on ``device``."""
+    from veles_torch import prng
+    from veles_torch.config import root
+    from veles_torch.znicz.models import transformer_lm as tlm
+    root.lm.train = {}
+    root.lm.update(tlm.DEFAULTS)
+    for override in overrides:
+        root.apply_override(override)
+    prng.seed_all(seed)
+    return tlm.create_workflow(name=name).initialize(device=device)
+
+
+def host_tree(wf):
+    return {u: {k: t.double().cpu() for k, t in sub.items()}
+            for u, sub in wf.export_tree().items()}
+
+
+def f32_step_parity(torch, overrides, name):
+    """One f32 train step of the LM of ``overrides`` on the card and on the
+    port's CPU from the same weights and minibatch -> ({tensor: error
+    relative to its largest element}, losses)."""
+    restore = f32_policy()
+    try:
+        trees, losses, start = {}, {}, None
+        for device in ("cuda", "cpu"):
+            wf = build_lm(*overrides, device=device, name=name)
+            if start is None:
+                start = {u: {k: t.clone() for k, t in sub.items()}
+                         for u, sub in wf.export_tree().items()}
+            wf.import_tree(start)
+            losses[device] = float(wf.step.train_minibatch(
+                *first_train_batch(torch, wf))[0])
+            trees[device] = host_tree(wf)
+    finally:
+        restore()
+    return rel_errors(trees["cuda"], trees["cpu"]), losses
+
+
+def accumulation_steps(torch):
+    """Two train steps of the 110M under AdamW with accumulate_gradient=2:
+    no parameter moves on the first, every one on the second; ->
+    summary."""
+    wf = build_lm(*LM_110M, *ADAM_RUN, "root.lm.train.accumulate_gradient=2",
+                  name="Accumulate")
+    batch = first_train_batch(torch, wf)
+    params = [(f.name, k, t) for f in wf.forwards
+              for k, t in f.export_params().items()]
+    before = [t.clone() for _, _, t in params]
+    moved = []
+    for _ in range(2):
+        wf.step.train_minibatch(*batch)
+        torch.cuda.synchronize()
+        now = [t for f in wf.forwards for t in f.export_params().values()]
+        moved.append(sum(not torch.equal(a, b) for a, b in zip(before, now)))
+    counts = sorted({int(g.acc_count) for g in wf.gds
+                     if g.acc_count is not None})
+    if moved != [0, len(params)] or counts != [0]:
+        fail("lm_adam accumulate 2: %s of %d parameters moved on each call, "
+             "acc_count %s" % (moved, len(params), counts))
+    return {"parameters": len(params), "moved_per_call": moved}
+
+
+def check_lm_adam(torch):
+    """Phase lm_adam: the 110M row as bench.py configures it (attn_block
+    256, no attn_impl: the auto policy) under AdamW and a warmup-cosine
+    schedule through the CLI, launches from 0 as the resolved mode implies;
+    every parameter and solver tensor finite, the train loss falls (the
+    validation loss in a run at the sample's width, SAMPLE_ADAM_RUN); one
+    accumulation pair; the f32 step card vs CPU; the step's time split
+    beside the momentum 110M's. -> the 110M run's counts."""
+    from veles_torch.config import root
+    _, sample, _ = run_lm(torch, "sample_adam", "cuda",
+                          "root.lm.model.attn_block=16", *SAMPLE_ADAM_RUN,
+                          impl=None, phase="lm_adam")
+    wf, counts, summary = run_lm(torch, "110M_adam", "cuda", *LM_110M,
+                                 *ADAM_RUN, impl=None, phase="lm_adam",
+                                 valid_must_fall=False)
+    sq = [k for sub in wf.export_tree().values() for k in sub
+          if k.startswith("sq_")]
+    if not sq or summary["attention_mode"] != expected_auto_mode(512):
+        fail("lm_adam: %d second moments, attention mode %s"
+             % (len(sq), summary["attention_mode"]))
+    accumulate = accumulation_steps(torch)
+    errors, losses = f32_step_parity(torch, LM_PARITY_RUN, "AdamParity")
+    worst = max(errors, key=errors.get)
+    momentum_wf = TRAINED["lm_110M"]
+    batch = first_train_batch(torch, wf)
+    turns = {"adam": [], "momentum": []}
+    for name in ("adam", "momentum", "momentum", "adam"):
+        run = wf if name == "adam" else momentum_wf
+        turns[name].append(time_steps(torch, run, batch))
+    adam, _, _ = profile_step(torch, wf, "lm_adam_step_trace.json",
+                              "110M adam step")
+    momentum, _, _ = profile_step(torch, momentum_wf,
+                                  "lm_momentum_step_trace.json",
+                                  "110M momentum step")
+    root.lm.train = {}
+    emit({"phase": "lm_adam", "card": card_line(), "launches": counts,
+          "sample_launches": sample,
+          "second_moments": len(sq), "accumulate_2": accumulate,
+          "f32_parity": {"losses": losses, "worst": worst,
+                         "worst_rel_err": errors[worst],
+                         "bound": LM_PARITY_RTOL},
+          "step_ms_in_turns": turns,
+          "adam_step": adam, "momentum_step": momentum,
+          "adam_extra_ms": adam["step_ms"] - momentum["step_ms"],
+          "adam_extra_device_ops": adam["device_ops"]
+          - momentum["device_ops"]})
+    if not errors[worst] <= LM_PARITY_RTOL:
+        fail("lm_adam f32 step: %s %.3g from the CPU (bound %g)"
+             % (worst, errors[worst], LM_PARITY_RTOL))
+    TRAINED["lm_adam"] = wf
+    return counts
+
+
+def expected_auto_mode(s):
+    """What the auto policy resolves to on the card at sequence ``s``."""
+    from veles_torch.znicz.ops.attention import MultiHeadAttention
+    return "pallas" if s >= MultiHeadAttention.PALLAS_AUTO_MIN_S else "scan"
+
+
+def scan_vs_kernels(torch):
+    """The scan and the kernels from the same bf16 inputs at FLASH_MAIN,
+    causal: out, dq, dk, dv held to each other by scaled_err within
+    FLASH_VS_PLAIN_TOL["bfloat16"]; -> {tensor: scaled error}."""
+    from veles_torch.backends import TorchDevice
+    from veles_torch.znicz.ops import flash_attention as FA
+    from veles_torch.znicz.ops import scan_attention as SA
+    q, k, v, dout = flash_inputs(torch, FLASH_MAIN, torch.bfloat16)
+    dot = TorchDevice("cuda").dot
+    out, lse = SA.blocked_attention_fwd(q, k, v, block=SCAN_BLOCK, dot=dot)
+    grads = SA.blocked_attention_bwd(q, k, v, out, lse, dout,
+                                     block=SCAN_BLOCK, dot=dot)
+    fout, flse = FA.flash_attention_fwd(q, k, v, causal=True)
+    fgrads = FA.flash_attention_bwd(q, k, v, fout, flse, dout, causal=True)
+    errs = {name: scaled_err(a, b) for name, a, b in zip(
+        ("out", "dq", "dk", "dv"), (out, *grads), (fout, *fgrads))}
+    errs["lse_max_abs"] = float((lse - flse).abs().max())
+    tol = FLASH_VS_PLAIN_TOL["bfloat16"]
+    if not all(e <= tol for n, e in errs.items() if n != "lse_max_abs") \
+            or not errs["lse_max_abs"] <= LSE_ATOL:
+        fail("attn_policy: scan vs kernels %s (bounds %g, lse %g)"
+             % (errs, tol, LSE_ATOL))
+    return errs
+
+
+def check_attn_policy(torch):
+    """Phase attn_policy: the 110M train step by the host clock with
+    attn_impl "scan" and "pallas" (the kernels) at each POLICY_SHAPES
+    entry, in turns on one workflow per shape; the threshold the table
+    implies (the smallest S from which the kernels win at every larger S)
+    beside PALLAS_AUTO_MIN_S; the scan against the kernels on one input.
+    -> the counts (the kernels' turns)."""
+    from veles_torch.znicz.ops.attention import MultiHeadAttention
+    agree = scan_vs_kernels(torch)
+    reset_counts()
+    rows, steps = [], 0
+    for s, b in POLICY_SHAPES:
+        wf = build_lm(*LM_110M, "root.lm.loader.seq_len=%d" % s,
+                      "root.lm.loader.minibatch_size=%d" % b,
+                      "root.lm.loader.n_train=%d" % (2 * b),
+                      "root.lm.loader.n_valid=%d" % b, name="Policy")
+        batch = first_train_batch(torch, wf)
+        attn = [f for f in wf.forwards if isinstance(f, MultiHeadAttention)]
+        layers = len(attn)
+        times = {"scan": [], "pallas": []}
+        for impl in ("scan", "pallas", "pallas", "scan"):
+            for f in attn:
+                f.attn_impl = impl
+            wf.step.train_minibatch(*batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(POLICY_STEPS):
+                wf.step.train_minibatch(*batch)
+            torch.cuda.synchronize()
+            times[impl].append(1e3 * (time.perf_counter() - t0)
+                               / POLICY_STEPS)
+            steps += POLICY_STEPS + 1
+        scan_ms, kernel_ms = (sum(times[m]) / 2 for m in ("scan", "pallas"))
+        rows.append({"seq_len": s, "minibatch": b, "scan_ms": scan_ms,
+                     "kernels_ms": kernel_ms, "turns_ms": times,
+                     "kernels_faster": kernel_ms < scan_ms,
+                     "tokens_per_sec_scan": b * s / scan_ms * 1e3,
+                     "tokens_per_sec_kernels": b * s / kernel_ms * 1e3})
+        del wf, batch, attn
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    kernel_steps = layers * len(POLICY_SHAPES) * 2 * (POLICY_STEPS + 1)
+    want = dict.fromkeys(counts, 0)
+    want.update({"flash_fwd": kernel_steps, "flash_bwd_fused": kernel_steps,
+                 "bias_grad[identity]": steps * (6 * layers + 1)})
+    threshold = None
+    for row in reversed(rows):
+        if not row["kernels_faster"]:
+            break
+        threshold = row["seq_len"]
+    emit({"phase": "attn_policy", "card": card_line(), "table": rows,
+          "measured_threshold": threshold,
+          "PALLAS_AUTO_MIN_S": MultiHeadAttention.PALLAS_AUTO_MIN_S,
+          "scan_vs_kernels": agree, "launches": counts})
+    if counts != want:
+        fail("attn_policy: launches %s, expected %s" % (counts, want))
+    return counts
+
+
+def time_steps(torch, wf, batch, n=STEPS_TIMED):
+    """ms of one train step of ``wf`` by the host clock, over ``n`` steps
+    on ``batch`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        wf.step.train_minibatch(*batch)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def remat_bitwise(torch):
+    """One AdamW step of the stacked 110M with remat and one without, from
+    the same state and minibatch: every tensor bit for bit; then, in turns
+    (cached, remat, remat, cached), the step's ms over STEPS_TIMED steps
+    and its peak device memory above what was allocated before it; ->
+    summary."""
+    wf = build_lm(*LM_110M_STACKED, *ADAM_RUN, name="Remat")
+    stack = wf.forwards[1]
+    batch = first_train_batch(torch, wf)
+    start = {u: {k: t.clone() for k, t in sub.items()}
+             for u, sub in wf.export_tree().items()}
+    trees, out = [], {}
+    for remat in (False, True):
+        wf.import_tree(start)
+        stack.remat = remat
+        wf.step.train_minibatch(*batch)
+        trees.append({u: {k: t.clone() for k, t in sub.items()}
+                      for u, sub in wf.export_tree().items()})
+    for remat in (False, True, True, False):
+        stack.remat = remat
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        row = out.setdefault("remat" if remat else "cached",
+                             {"step_ms": [], "peak_bytes": 0})
+        row["step_ms"].append(time_steps(torch, wf, batch))
+        row["peak_bytes"] = max(row["peak_bytes"],
+                                torch.cuda.max_memory_allocated() - base)
+    bad = [(u, k) for u, sub in trees[0].items() for k, t in sub.items()
+           if not torch.equal(t, trees[1][u][k])]
+    if bad:
+        fail("lm_stack: one step with remat differs from one without at %s"
+             % bad[:5])
+    del wf, stack, trees, start
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_stack(torch, wf):
+    """The stacked 110M exported and served on the card: a full forward
+    through ArchiveModel, greedy continuous decode of two prompts against
+    generate() except at near ties; -> summary."""
+    from veles_torch.serving import (ArchiveModel, ContinuousBatcher,
+                                     GenerativeEngine)
+    path = archive_dir("lm_stack")
+    wf.export_inference(path)
+    model = ArchiveModel.from_dir(path)
+    engine = GenerativeEngine(model, n_slots=4, max_len=DECODE_MAX_LEN)
+    prompts = periodic_prompts(2, wf.forwards[0].vocab_size, (64, 128))
+    batcher = ContinuousBatcher(engine, max_queue=4)
+    try:
+        pairs = greedy_vs_generate(torch, wf, model, batcher, prompts, 32)
+    finally:
+        batcher.close()
+    for a, i, g in pairs:
+        if i is not None and not g <= LOGIT_RTOL:
+            fail("lm_stack: greedy tokens differ from generate() at %d of a "
+                 "%d-token prompt, top-two gap %.3g (no near tie)" % (i, a, g))
+    if engine.pool.in_use:
+        fail("lm_stack: %d slots in use after decoding" % engine.pool.in_use)
+    return {"caches": engine.plan.n_caches,
+            "greedy_vs_generate": [{"prompt": a, "first_differing": i,
+                                    "top2_gap": g} for a, i, g in pairs]}
+
+
+def check_lm_stack(torch):
+    """Phase lm_stack: the stacked 110M (12 blocks in one unit, dense
+    attention) through the CLI under AdamW, remat off and on (the train
+    loss falls, the bias-gradient kernel 6 launches a block + 1 per step,
+    no flash kernel; the validation loss falls in a stacked run with remat
+    at the sample's width), remat bit for bit against no remat, peak
+    memory and step ms of each, the archive served and decoded. -> the
+    110M runs' counts (summed)."""
+    _, sample, _ = run_lm(torch, "sample_stacked_remat", "cuda",
+                          "root.lm.model.stacked=True",
+                          "root.lm.model.remat=True", *SAMPLE_ADAM_RUN,
+                          impl=None, phase="lm_stack")
+    total = {}
+    runs = {}
+    for remat in (False, True):
+        wf, counts, summary = run_lm(
+            torch, "110M_stacked" + ("_remat" if remat else ""), "cuda",
+            *LM_110M_STACKED, *ADAM_RUN, "root.lm.model.remat=%s" % remat,
+            impl=None, phase="lm_stack", valid_must_fall=False)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        runs[remat] = wf
+    profile, _, _ = profile_step(torch, runs[True],
+                                 "lm_stack_step_trace.json",
+                                 "stacked 110M remat step")
+    served = serve_stack(torch, runs[True])
+    del runs
+    torch.cuda.empty_cache()
+    steps = remat_bitwise(torch)
+    emit({"phase": "lm_stack", "card": card_line(), "launches": total,
+          "sample_launches": sample,
+          "remat_bitwise": True, "steps": steps, "remat_step": profile,
+          "serving": served})
+    return total
+
+
+def generated_text(torch, cli_args, *overrides, device):
+    """One text-LM run through the CLI (as run_lm) -> (workflow, counts,
+    summary, the text its ``generated:`` line printed)."""
+    import io
+    out = io.StringIO()
+    wf, counts, summary = run_lm(
+        torch, "text_" + device, device, *overrides, impl=None,
+        phase="text_lm", cli_args=cli_args, stdout=out)
+    lines = [line for line in out.getvalue().splitlines()
+             if line.startswith("generated: ")]
+    if len(lines) != 1:
+        fail("text_lm %s: %d generated lines" % (device, len(lines)))
+    return wf, counts, summary, lines[0][len("generated: "):]
+
+
+def check_text_lm(torch):
+    """Phase text_lm: the README's command (a text corpus, AdamW, a
+    warmup-cosine schedule, ``--generate-text``) through the CLI on the
+    CPU and the card: the card's final validation loss within
+    LM_CPU_TOLERANCE of the CPU's; the card's greedy text equal to the CPU
+    generate() from the card's weights but at near ties; how far the
+    CPU-trained text agrees. -> the card run's counts."""
+    import numpy
+    from veles_torch.znicz.generate import generate
+    args = ("--generate-text", TEXT_PROMPT, "--gen-tokens", str(TEXT_TOKENS))
+    cpu_wf, _, cpu, cpu_text = generated_text(torch, args, *TEXT_RUN,
+                                              device="cpu")
+    wf, counts, card, text = generated_text(torch, args, *TEXT_RUN,
+                                            device="cuda")
+    gap = abs(card["validation_loss"][-1] - cpu["validation_loss"][-1])
+    # the card's weights decoded on the CPU: the same text but at near ties
+    cpu_wf.import_tree({u: {k: t.cpu() for k, t in sub.items()}
+                        for u, sub in wf.export_tree().items()})
+    prompt = wf.loader.encode(TEXT_PROMPT)
+    want = generate(cpu_wf, prompt, TEXT_TOKENS)[0].tolist()
+    got = [int(i) for i in wf.loader.encode(text[len(TEXT_PROMPT):])[0]]
+    i = first_divergence(got, want)
+    tie = None
+    if i is not None:
+        with torch.no_grad():
+            ids = torch.from_numpy(numpy.array([prompt[0].tolist()
+                                                + want[:i]]))
+            logits = cpu_wf.step._forward(ids, False)[1][0, -1]
+        tie = top2_gap(logits) / float(logits.abs().max())
+    agree = first_divergence(text, cpu_text)
+    emit({"phase": "text_lm", "card": card_line(),
+          "corpus": os.path.relpath(TEXT_CORPUS, HERE),
+          "vocab": wf.forwards[0].vocab_size,
+          "windows": sum(wf.loader.class_lengths),
+          "final_validation_loss": {"cuda": card["validation_loss"][-1],
+                                    "cpu": cpu["validation_loss"][-1]},
+          "text_cuda": text, "text_cpu_trained": cpu_text,
+          "card_weights_first_differing_on_cpu": i, "top2_gap": tie,
+          "cpu_trained_text_agrees_chars": len(text) if agree is None
+          else agree, "launches": counts})
+    if gap > LM_CPU_TOLERANCE:
+        fail("text_lm: final validation loss %.4f on cuda vs %.4f on cpu"
+             % (card["validation_loss"][-1], cpu["validation_loss"][-1]))
+    if len(text) != len(TEXT_PROMPT) + TEXT_TOKENS \
+            or (i is not None and not tie <= LOGIT_RTOL):
+        fail("text_lm: the card's text %r differs from the CPU's decode of "
+             "its weights at %s (top-two gap %s)" % (text, i, tie))
+    return counts
+
+
+def check_moe(torch):
+    """Phase moe: the MoE LM at the 110M width (LM_110M_MOE, 4 layers)
+    through the CLI under AdamW: the validation loss falls, the tokens
+    each MoE layer drops in a step; the drops of a small MoE LM equal on
+    the card and the CPU (f32, same weights and minibatch); the 110M MoE
+    archive served on the card within SERVE_RTOL of the f32 training
+    forward, each sample on its own. -> the counts."""
+    from veles_torch.serving import ArchiveModel
+    from veles_torch.znicz.ops.moe import MoEFFN
+    wf, counts, summary = run_lm(torch, "110M_moe", "cuda", *LM_110M_MOE,
+                                 *ADAM_RUN, impl=None, phase="moe")
+    units = [f for f in wf.forwards if isinstance(f, MoEFFN)]
+    batch = first_train_batch(torch, wf)
+    wf.step.train_minibatch(*batch)
+    dropped = [int(f.dropped) for f in units]
+    restore = f32_policy()
+    try:
+        small = {}
+        start = None
+        for device in ("cuda", "cpu"):
+            sw = build_lm(*MOE_SMALL, device=device, name="MoEDrops")
+            if start is None:
+                start = {u: {k: t.clone() for k, t in sub.items()}
+                         for u, sub in sw.export_tree().items()}
+            sw.import_tree(start)
+            sw.step.train_minibatch(*first_train_batch(torch, sw))
+            small[device] = [int(f.dropped) for f in sw.forwards
+                             if isinstance(f, MoEFFN)]
+    finally:
+        restore()
+    path = archive_dir("lm_moe")
+    wf.export_inference(path)
+    model = ArchiveModel.from_dir(path)
+    rows = wf.loader.device_full_arrays(wf.device.device)["data"][:2]
+    served = [max_rel(model(rows[i:i + 1].float()),
+                      train_forward_f32(torch, wf, rows[i:i + 1]))
+              for i in range(2)]
+    emit({"phase": "moe", "card": card_line(), "experts": units[0].experts,
+          "capacity": units[0].capacity(batch[0].numel()),
+          "dropped_per_layer_110M": dropped,
+          "dropped_small": small, "serve_rel_err": served,
+          "launches": counts})
+    if small["cuda"] != small["cpu"] or not max(served) <= SERVE_RTOL:
+        fail("moe: drops %s on cuda vs %s on cpu; served %s (bound %g)"
+             % (small["cuda"], small["cpu"], served, SERVE_RTOL))
+    return counts
+
+
+def check_lm_slice(torch):
+    """The phases lm_adam, attn_policy, lm_stack, text_lm and moe; -> their
+    counts by path."""
+    return {"lm_adam": check_lm_adam(torch),
+            "attn_policy": check_attn_policy(torch),
+            "lm_stack": check_lm_stack(torch),
+            "text_lm": check_text_lm(torch),
+            "moe": check_moe(torch)}
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -2059,11 +2662,13 @@ def main(argv=None):
     check_ae_units(torch)
     serving = {"serve_predict": check_serve_predict(torch),
                "serve_decode": check_serve_decode(torch)}
+    lm_slice = check_lm_slice(torch)
+    paths = {**ae, **serving, **lm_slice}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],
                       **{path: counts["bias_grad[%s]" % form]
-                         for path, counts in {**ae, **serving}.items()}}
+                         for path, counts in paths.items()}}
                for form, _, _, _ in FORMS}
 
     emit({"kernels": [{
@@ -2087,7 +2692,7 @@ def main(argv=None):
         "launches": lm_launches[name],
         "launches_by_path": {"lm": lm_launches[name],
                              **{path: counts[name] for path, counts in
-                                {**ae, **serving}.items()}},
+                                paths.items()}},
         "max_abs_err": flash_err[name],
         **flash_rows[name],
     } for name, source, replaces in FLASH_KERNELS]})

@@ -205,14 +205,13 @@ def test_edges_and_refusals(lms):
         tgen.generate(tw, [1, 2, 3], 4)
     with pytest.raises(ValueError, match="top_k"):
         tgen.generate(tw, PROMPTS, 4, temperature=1.0, top_k=-1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tgen.block_decode()
 
 
 def test_cli_generate(capsys):
     """``--generate 1,2,3 --gen-tokens 8`` prints the greedy continuation
     of the trained LM before the final JSON line; ``--generate-text``
-    and a malformed prompt exit."""
+    without a text corpus (before training) and a malformed prompt
+    exit."""
     saved = troot.lm.to_dict()
     try:
         wf = torch_main([LM, "root.lm.loader.n_train=128",
@@ -224,7 +223,7 @@ def test_cli_generate(capsys):
         want = tgen.generate(wf, [[1, 2, 3]], 8)[0]
         assert lines[-2] == "generated: " + ",".join(map(str, want))
         assert json.loads(lines[-1])["device"] == "cpu"
-        with pytest.raises(SystemExit, match="Queue 1 item 8"):
+        with pytest.raises(SystemExit, match="text-corpus loader"):
             torch_main([LM, "-d", "cpu", "--generate-text", "ab"])
         with pytest.raises(SystemExit, match="comma-separated"):
             torch_main([LM, "-d", "cpu", "--generate", "1,x"])

@@ -75,3 +75,53 @@ def test_conv_slice_modules_are_scanned(module):
     files both checks above read (the package walk finds them, the fresh
     interpreter imports them)."""
     assert os.path.join(REPO, "veles_torch", module) in _port_files()
+
+
+@pytest.mark.parametrize("module", [
+    "znicz/lr_adjust.py", "znicz/ops/scan_attention.py",
+    "znicz/parallel/__init__.py", "znicz/parallel/pipeline.py",
+    "znicz/ops/transformer_stack.py", "znicz/ops/moe.py"])
+def test_lm_slice_modules_are_scanned(module):
+    """The LM slice's modules (solvers and schedules, the scan, the
+    stacked block, the MoE FFN) are among the files both checks read."""
+    assert os.path.join(REPO, "veles_torch", module) in _port_files()
+
+
+def test_serving_stack_and_moe_archives_loads_no_jax_or_veles(tmp_path):
+    """Train a tiny stacked LM and a tiny MoE LM for one epoch in a fresh
+    interpreter, export both, load them with ArchiveModel and decode a
+    step with GenerativeEngine on the CPU: no jax or veles module is
+    loaded along the way."""
+    script = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import numpy\n"
+        "from veles_torch.config import root\n"
+        "from veles_torch.serving import ArchiveModel, GenerativeEngine\n"
+        "from veles_torch.znicz.models import transformer_lm as tlm\n"
+        "root.lm.loader.update({'n_train': 64, 'n_valid': 16,\n"
+        "                       'minibatch_size': 16})\n"
+        "root.lm.decision.max_epochs = 1\n"
+        "for i, model in enumerate(({'stacked': True, 'remat': True},\n"
+        "                           {'moe_experts': 4})):\n"
+        "    root.lm.model.update(dict({'stacked': False, 'remat': False,\n"
+        "                               'moe_experts': 0}, **model))\n"
+        "    wf = tlm.create_workflow().initialize(device='cpu')\n"
+        "    wf.run()\n"
+        "    path = %r + '/a%%d' %% i\n"
+        "    wf.export_inference(path)\n"
+        "    model = ArchiveModel.from_dir(path, device='cpu')\n"
+        "    types = [u['type'] for u in model.units]\n"
+        "    assert ('transformer_stack' if i == 0 else 'moe_ffn') in types\n"
+        "    engine = GenerativeEngine(model, n_slots=2, max_len=64,\n"
+        "                              device='cpu')\n"
+        "    engine.prefill_into(0, [1, 2, 3], 0.0)\n"
+        "    engine.step(numpy.array([1, 0]), numpy.array([3, 0]),\n"
+        "                numpy.zeros(2, numpy.float32))\n"
+        "new = set(sys.modules) - before\n"
+        "print(sorted(m for m in new if m.split('.')[0] in %r))\n"
+        % (str(tmp_path), FORBIDDEN))
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout

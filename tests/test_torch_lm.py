@@ -274,8 +274,6 @@ def test_knob_refusals_match_reference():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"attn_impl": "scan", "attn_block_size": 16},
-    {"attn_block_size": 16},
     {"attn_impl": "pallas", "pallas_tile": 16}], ids=str)
 def test_unported_attention_modes_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -283,10 +281,9 @@ def test_unported_attention_modes_raise(kwargs):
 
 
 @pytest.mark.parametrize("override", [
-    {"model": {"stacked": True}},
-    {"model": {"moe_experts": 4}},
-    {"loader": {"text_file": "corpus.txt"}},
-    {"parallel": {"seq": 2}}], ids=str)
+    {"parallel": {"seq": 2}},
+    {"parallel": {"pipe": 2}},
+    {"parallel": {"expert": 2}}], ids=str)
 def test_unported_lm_options_raise(override):
     with lm_config(**override):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

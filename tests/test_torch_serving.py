@@ -6,8 +6,8 @@ same seeded inputs and parameters; an archive the reference wrote (MNIST,
 CIFAR-10, MnistAE, the LM sample) served by the port's ``ArchiveModel``
 equals the
 reference's ``ArchiveModel``, both within ``OP_RTOL`` of the largest
-output; the types the port does not compute yet are refused when an
-archive is loaded. Then the engine's bucket ladder, padding and hot swap,
+output; an unknown type is refused when an archive is loaded. Then the
+engine's bucket ladder, padding and hot swap,
 and the micro-batcher's coalescing, deadlines, shedding and mixed sample
 shapes, in the shape of tests/test_serving.py."""
 
@@ -32,7 +32,7 @@ from veles_torch.serving import (
     ArchiveModel, DeadlineExceeded, InferenceEngine, MicroBatcher,
     QueueFull)
 from veles_torch.serving.engine import bucket_sizes
-from veles_torch.serving.model import FORWARD_OPS, UNPORTED
+from veles_torch.serving.model import FORWARD_OPS
 
 #: the port's op against the reference's numpy op, as a share of the
 #: largest output (f32 sums in other orders). Observed: at most 1.5e-7 for
@@ -95,6 +95,37 @@ def _attention_case(t, causal=True):
              "bias_out": r.normal(0, 0.1, 8)})
 
 
+def _stack_case(t, causal=True):
+    """Two stacked blocks of dim 8, 2 heads, hidden 16."""
+    r = _rng()
+    n, d, h = 2, 8, 16
+    shapes = {"weights": (n, d, 3 * d), "bias": (n, 3 * d),
+              "weights_out": (n, d, d), "bias_out": (n, d),
+              "ln1_g": (n, d), "ln1_b": (n, d), "ffn_w1": (n, d, h),
+              "ffn_b1": (n, h), "ffn_w2": (n, h, d), "ffn_b2": (n, d),
+              "ln2_g": (n, d), "ln2_b": (n, d)}
+    p = {k: (1.0 if k.endswith("_g") else 0.0) + r.normal(0, 0.3, s)
+         for k, s in shapes.items()}
+    return (r.normal(0, 1, (2, 5, d)),
+            {"config": {"layers": n, "heads": 2, "hidden": h,
+                        "causal": causal, "eps": 1e-5}}, p)
+
+
+def _moe_case(t, capacity_factor=2.0, residual=True):
+    """4 experts of hidden 16 over 3 samples of 6 tokens (dim 8); at a
+    capacity factor of 0.5 each sample drops tokens."""
+    r = _rng()
+    e, d, h = 4, 8, 16
+    return (r.normal(0, 1, (3, 6, d)),
+            {"config": {"experts": e, "hidden": h, "residual": residual,
+                        "capacity_factor": capacity_factor}},
+            {"weights": r.normal(0, 0.3, (e, d, h)),
+             "bias": r.normal(0, 0.1, (e, h)),
+             "weights2": r.normal(0, 0.3, (e, h, d)),
+             "bias2": r.normal(0, 0.1, (e, d)),
+             "router": r.normal(0, 1, (d, e))})
+
+
 def _deconv_case(t, sliding=(2, 2), padding=(0, 0, 0, 0),
                  out_shape=(8, 7, 2)):
     """Input (2, 4, 3, 3) through 3 kernels of 2×3 (ky, kx) onto
@@ -152,12 +183,17 @@ OP_CASES = {
                                     "token_dense_relu", "transformer_ffn")},
     "attention": (_attention_case, {}),
     "attention[non-causal]": (_attention_case, {"causal": False}),
+    "transformer_stack": (_stack_case, {}),
+    "transformer_stack[non-causal]": (_stack_case, {"causal": False}),
+    "moe_ffn": (_moe_case, {}),
+    "moe_ffn[drops, no residual]": (_moe_case, {"capacity_factor": 0.5,
+                                                "residual": False}),
 }
 
 
 def test_every_served_type_has_a_case():
     assert {c.split("[")[0] for c in OP_CASES} == set(FORWARD_OPS)
-    assert set(FORWARD_OPS) | set(UNPORTED) == set(JAX_OPS)
+    assert set(FORWARD_OPS) == set(JAX_OPS)
 
 
 @pytest.mark.parametrize("case", sorted(OP_CASES))
@@ -239,15 +275,6 @@ def _one_unit_archive(path, spec, arrays=None):
     (path / "contents.json").write_text(json.dumps({
         "format": 1, "workflow": "w", "input_sample_shape": [4],
         "units": [spec]}))
-
-
-@pytest.mark.parametrize("kind", sorted(UNPORTED))
-def test_unported_types_are_refused_at_load(tmp_path, kind):
-    item = "item 8" if kind in ("moe_ffn", "transformer_stack") \
-        else "item 6"
-    _one_unit_archive(tmp_path, {"type": kind, "name": "u", "config": {}})
-    with pytest.raises(NotImplementedError, match="Queue 1 " + item):
-        ArchiveModel.from_dir(str(tmp_path), device="cpu")
 
 
 def test_unknown_type_and_format_are_refused(tmp_path):

@@ -3,8 +3,8 @@
     python -m veles_torch <workflow.py> [root.x.y=v ...] [-d cuda|cpu]
                           [--seed N] [--result-file PATH]
                           [--export-inference DIR]
-                          [--generate IDS [--gen-tokens N]
-                           [--gen-temperature T]]
+                          [--generate IDS | --generate-text PROMPT
+                           [--gen-tokens N] [--gen-temperature T]]
 
 Counterpart of ``python -m veles`` for the samples ported so far: the
 workflow module is imported first (its ``root`` defaults land), then the
@@ -20,7 +20,10 @@ After training, ``--export-inference DIR`` writes the inference archive
 ``inference archive -> DIR``; ``--generate 1,2,3`` decodes
 ``--gen-tokens`` tokens from the trained LM (``znicz/generate.py``;
 greedy, or sampled at ``--gen-temperature``) and prints ``generated:
-...``. Both lines come before the final JSON line.
+...``; ``--generate-text "The "`` does the same from text through a
+text-corpus LM's character vocabulary (``root.lm.loader.text_file``) and
+prints the prompt with its continuation. These lines come before the
+final JSON line.
 """
 
 import argparse
@@ -58,8 +61,9 @@ def build_argparser():
                         "comma-separated prompt token ids (e.g. "
                         "'1,2,3'); prints the continuation")
     p.add_argument("--generate-text", default=None, metavar="PROMPT",
-                   help="like --generate but with text through the "
-                        "loader's character vocabulary (not ported yet)")
+                   help="like --generate but with TEXT through the "
+                        "loader's character vocabulary (text-corpus "
+                        "LMs: root.lm.loader.text_file)")
     p.add_argument("--gen-tokens", type=int, default=32,
                    help="tokens to generate with --generate")
     p.add_argument("--gen-temperature", type=float, default=0.0,
@@ -81,11 +85,6 @@ def import_file(path, name=None):
 def main(argv=None):
     """Run the CLI; -> the trained workflow."""
     args = build_argparser().parse_intermixed_args(argv)
-    if args.generate_text is not None:
-        raise SystemExit(
-            "--generate-text needs the text-corpus loader (TextLMLoader, "
-            "root.lm.loader.text_file), which is not ported yet (ROADMAP "
-            "Queue 1 item 8)")
     prompt = None
     if args.generate:
         try:
@@ -107,7 +106,15 @@ def main(argv=None):
     if args.seed is not None:
         prng.seed_all(args.seed)
     wf = module.create_workflow()
+    if args.generate_text and not hasattr(wf.loader, "encode"):
+        raise SystemExit("--generate-text needs a text-corpus loader "
+                         "(root.lm.loader.text_file)")
     wf.initialize(device=args.device)
+    if args.generate_text:
+        try:
+            prompt = wf.loader.encode(args.generate_text)
+        except ValueError as exc:
+            raise SystemExit("--generate-text: %s" % exc)
     wf.run()
     if args.export_inference:
         wf.export_inference(args.export_inference)
@@ -115,8 +122,12 @@ def main(argv=None):
     if prompt is not None:
         out = generate(wf, prompt, args.gen_tokens,
                        temperature=args.gen_temperature)
-        print("generated: %s" % ",".join(str(t) for t in out[0].tolist()),
-              flush=True)
+        if args.generate_text:
+            text = args.generate_text + wf.loader.decode(out[0])
+            print("generated: %s" % text, flush=True)
+        else:
+            print("generated: %s" % ",".join(str(t) for t in
+                                             out[0].tolist()), flush=True)
     result = {"workflow": wf.name, "device": str(wf.device.device),
               "history": wf.decision.history,
               "best_metric": float(wf.decision.best_metric)}

@@ -9,7 +9,9 @@ names and keys with torch tensors, so both packages can compute from
 one state. :func:`tree_from_jax` reads that tree off a JAX-package
 workflow object (duck-typed: nothing of the JAX package is imported),
 a ZeroFiller's mask included, as the port keys it (``zero_mask`` of the
-masked forward).
+masked forward); the solver state (``sq_*``, ``acc_*``, ``acc_count``),
+a stack's (L, ...) parameters and an MoE FFN's router and experts come
+along under their own keys.
 """
 
 import numpy

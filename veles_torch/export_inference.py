@@ -23,7 +23,7 @@ import os
 import numpy
 import torch
 
-from veles_torch.serving.model import FORWARD_OPS, UNPORTED
+from veles_torch.serving.model import FORWARD_OPS
 from veles_torch.znicz.ops.all2all import All2AllBase
 from veles_torch.znicz.ops.attention import (
     MultiHeadAttention, TokenDenseBase, TransformerFFN)
@@ -34,12 +34,13 @@ from veles_torch.znicz.ops.embedding import (
     EmbeddingForward, sinusoidal_positions)
 from veles_torch.znicz.ops.layernorm import LayerNormForward
 from veles_torch.znicz.ops.normalization import LRNormalizerForward
+from veles_torch.znicz.ops.moe import MoEFFN
 from veles_torch.znicz.ops.pooling import PoolingBase, StochasticPooling
+from veles_torch.znicz.ops.transformer_stack import TransformerBlockStack
 
-#: the types the serving planes (``serving/model.py``: computed, or refused
-#: as not ported yet) and the C++ engine (libveles/src/units.cc) know; the
-#: exporter refuses any other
-ENGINE_TYPES = frozenset(FORWARD_OPS) | frozenset(UNPORTED)
+#: the types the serving planes (``serving/model.py``) and the C++ engine
+#: (libveles/src/units.cc) know; the exporter refuses any other
+ENGINE_TYPES = frozenset(FORWARD_OPS)
 
 
 def host_f32(t):
@@ -128,6 +129,17 @@ def unit_spec(unit):
                     "residual": bool(unit.residual)})
         params = {k: p[k] for k in ("weights", "bias", "weights2",
                                     "bias2")}
+    elif isinstance(unit, MoEFFN):
+        cfg.update({"experts": int(unit.experts), "hidden": int(unit.hidden),
+                    "residual": bool(unit.residual),
+                    "capacity_factor": float(unit.capacity_factor)})
+        params = {k: p[k] for k in ("weights", "bias", "weights2", "bias2",
+                                    "router")}
+    elif isinstance(unit, TransformerBlockStack):
+        cfg.update({"layers": int(unit.layers), "heads": int(unit.heads),
+                    "hidden": int(unit.hidden), "causal": bool(unit.causal),
+                    "eps": float(unit.eps)})
+        params = {k: p[k] for k in unit.PARAMS}
     elif isinstance(unit, TokenDenseBase):
         cfg["output_features"] = int(unit.output_features)
         params = {"weights": p["weights"], "bias": p.get("bias")}

@@ -50,7 +50,8 @@ from veles_torch.backends import bind_thread, torch_device
 from veles_torch.serving.batcher import (
     DeadlineExceeded, QueueFull, percentile, timeout_seconds)
 from veles_torch.serving.engine import bucket_sizes
-from veles_torch.serving.model import FORWARD_OPS, attention_kv, attn_decode
+from veles_torch.serving.model import (
+    FORWARD_OPS, attention_kv, attn_decode, block_decode, stack_kv)
 from veles_torch.serving.quant import dense_params, gather_rows
 
 log = logging.getLogger("veles_torch.serving")
@@ -58,7 +59,7 @@ log = logging.getLogger("veles_torch.serving")
 #: unit types that are sequence-free at decode time
 _TOKEN_TYPES = frozenset({
     "layernorm", "token_dense", "token_dense_relu", "transformer_ffn",
-    "activation_tanh", "activation_relu", "activation_str",
+    "moe_ffn", "activation_tanh", "activation_relu", "activation_str",
     "activation_sigmoid",
 })
 
@@ -73,13 +74,15 @@ WEDGE_AFTER_S = 60.0
 class DecodePlan:
     """Ordered decode walk over an :class:`ArchiveModel`'s unit specs:
     ``steps`` is ``(kind, spec, cache_index)`` with kinds ``embed`` /
-    ``attn`` / ``token``. Raises ValueError for archives that cannot
-    generate (no leading embedding, non-causal attention, other unit
-    types)."""
+    ``attn`` / ``stack`` (a stacked block: one cache per inner layer, from
+    ``cache_index`` on) / ``token``. Raises ValueError for archives that
+    cannot generate (no leading embedding, non-causal attention, other
+    unit types)."""
 
     def __init__(self, steps, cache_specs, dim, vocab):
         self.steps = steps
-        #: (heads, head_dim) of each attention layer
+        #: (heads, head_dim) of each attention layer (a stack's inner
+        #: layers each count)
         self.cache_specs = cache_specs
         self.dim = dim
         self.vocab = vocab
@@ -111,6 +114,14 @@ class DecodePlan:
                 steps.append(("attn", spec, len(cache_specs)))
                 cache_specs.append((int(cfg["heads"]),
                                     dim // int(cfg["heads"])))
+            elif t == "transformer_stack":
+                if not cfg.get("causal"):
+                    raise ValueError("%s: generation needs causal "
+                                     "attention" % spec["name"])
+                steps.append(("stack", spec, len(cache_specs)))
+                heads = int(cfg["heads"])
+                cache_specs.extend([(heads, dim // heads)]
+                                   * int(cfg["layers"]))
             elif t == "dropout":
                 continue            # identity at inference
             elif t in _TOKEN_TYPES:
@@ -290,12 +301,17 @@ class GenerativeEngine:
         for (kind, spec, ci), p in zip(self.plan.steps[1:],
                                        self._params[1:]):
             p = dense_params(p)
-            if kind == "attn":
-                x, k, v = attention_kv(x, p, spec["config"])
-                for pool, new in ((self.pool.K[ci], k), (self.pool.V[ci],
-                                                         v)):
-                    pool[slot, :, :bucket] = new[0]
-                    pool[slot, :, bucket:] = 0.0
+            if kind in ("attn", "stack"):
+                if kind == "attn":
+                    x, k, v = attention_kv(x, p, spec["config"])
+                    kv = [(k, v)]
+                else:
+                    x, kv = stack_kv(x, p, spec["config"])
+                for i, (k, v) in enumerate(kv):
+                    for pool, new in ((self.pool.K[ci + i], k),
+                                      (self.pool.V[ci + i], v)):
+                        pool[slot, :, :bucket] = new[0]
+                        pool[slot, :, bucket:] = 0.0
             else:
                 x = FORWARD_OPS[spec["type"]](x, p, spec)
         return int(_sample_tokens(x[:, n - 1, :], [temperature],
@@ -321,12 +337,18 @@ class GenerativeEngine:
         for (kind, spec, ci), p in zip(self.plan.steps[1:],
                                        self._params[1:]):
             p = dense_params(p)
+            cfg = spec["config"]
             if kind == "attn":
-                cfg = spec["config"]
                 x = attn_decode(x, pos, (self.pool.K[ci], self.pool.V[ci]),
                                 p, int(cfg["heads"]),
                                 p.get("bias") is not None,
                                 bool(cfg.get("residual")))
+            elif kind == "stack":
+                for i in range(int(cfg["layers"])):
+                    x = block_decode(
+                        x, pos, (self.pool.K[ci + i], self.pool.V[ci + i]),
+                        {k: t[i] for k, t in p.items()}, int(cfg["heads"]),
+                        float(cfg["eps"]))
             else:
                 x = FORWARD_OPS[spec["type"]](x, p, spec)
         return x[:, 0, :]

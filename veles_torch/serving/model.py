@@ -9,9 +9,9 @@ math is the port's own training math wherever the training units have
 it as a function (``dense_attention_core_fwd``, ``ln_fwd``,
 ``conv_geometry``, ``max_pool``/``avg_pool``, ``deconv_fwd``/``depool``,
 ``lrn_denominator``/``lrn_dpow``, the activation table), so serving
-cannot drift from training. Unknown unit types fail loudly, as the C++
-``UnitFactory`` does; the types the port does not compute yet
-(``UNPORTED``) are refused when the archive is loaded.
+cannot drift from training (the stacked block's ``block_fwd``, the MoE
+FFN's ``moe_forward``, routed per sample). Unknown unit types fail
+loudly, as the C++ ``UnitFactory`` does.
 
 The convolutions (and the deconvolution's transposed ones) run in true
 f32: cuDNN's TF32 is switched off for each serving convolution call (and
@@ -40,8 +40,10 @@ from veles_torch.znicz.ops.conv import conv_geometry
 from veles_torch.znicz.ops.deconv import deconv_fwd, depool
 from veles_torch.znicz.ops.flash_attention import MASK_VALUE, scale_for
 from veles_torch.znicz.ops.layernorm import ln_fwd
+from veles_torch.znicz.ops.moe import moe_forward
 from veles_torch.znicz.ops.normalization import lrn_denominator, lrn_dpow
 from veles_torch.znicz.ops.pooling import avg_pool, max_pool
+from veles_torch.znicz.parallel.pipeline import ACT, block_fwd
 
 
 def _act(name, v):
@@ -219,8 +221,45 @@ def attn_decode(x, pos, kv, p, heads, include_bias, residual):
     return y + x if residual else y
 
 
+def block_decode(x, pos, kv, lp, heads, eps):
+    """One decode step through a stacked transformer block: the attention
+    on its cache (:func:`attn_decode`, K/V written in place), then the
+    block's layernorms and FFN; -> y (B, 1, D)."""
+    a = attn_decode(x, pos, kv, {k: lp[k] for k in (
+        "weights", "bias", "weights_out", "bias_out")}, heads, True, True)
+    n1 = ln_fwd(a, lp["ln1_g"], lp["ln1_b"], eps)
+    h = _act(ACT, torch.matmul(n1, lp["ffn_w1"]) + lp["ffn_b1"])
+    fo = torch.matmul(h, lp["ffn_w2"]) + lp["ffn_b2"] + n1
+    return ln_fwd(fo, lp["ln2_g"], lp["ln2_b"], eps)
+
+
 def _attention(x, p, spec):
     return attention_kv(x, p, spec["config"])[0]
+
+
+def stack_kv(x, p, cfg):
+    """The stacked blocks over (B, S, D) -> (y, [(k, v) per layer])."""
+    kv = []
+    for i in range(cfg["layers"]):
+        x, cache = block_fwd(x, {k: t[i] for k, t in p.items()},
+                             cfg["heads"], cfg["causal"], cfg["eps"])
+        kv.append((cache["k"], cache["v"]))
+    return x, kv
+
+
+def _transformer_stack(x, p, spec):
+    return stack_kv(x, p, spec["config"])[0]
+
+
+def _moe_ffn(x, p, spec):
+    # each sample routed over its own tokens: a served answer depends on
+    # its input alone, never on co-batched requests or pad rows
+    cfg = spec["config"]
+    y = torch.cat([moe_forward(x[i:i + 1], p, cfg["experts"],
+                               cfg["capacity_factor"], "strict_relu",
+                               torch.matmul)[0]
+                   for i in range(x.shape[0])], dim=0)
+    return y + x if cfg["residual"] else y
 
 
 def _identity(x, p, spec):
@@ -234,7 +273,7 @@ def _activation(act):
 
 
 #: type name -> forward fn(x, params, spec); the keys are the engine
-#: types of ``export_inference.ENGINE_TYPES`` less :data:`UNPORTED`
+#: types of ``export_inference.ENGINE_TYPES``
 FORWARD_OPS = {
     "all2all": _dense("linear"),
     "all2all_tanh": _dense("tanh"),
@@ -263,13 +302,8 @@ FORWARD_OPS = {
     "token_dense_relu": _token_dense("strict_relu"),
     "transformer_ffn": _ffn,
     "attention": _attention,
-}
-
-#: engine types the port cannot compute yet -> the ROADMAP item that
-#: ports them (Queue 1)
-UNPORTED = {
-    "moe_ffn": "item 8 (the MoE FFN)",
-    "transformer_stack": "item 8 (the fused transformer_stack)",
+    "moe_ffn": _moe_ffn,
+    "transformer_stack": _transformer_stack,
 }
 
 #: spec keys that are metadata, not .npy parameter references
@@ -278,15 +312,10 @@ _NON_PARAM_KEYS = frozenset({"type", "name", "config",
 
 
 def check_unit_types(units):
-    """Refuse an archive whose units the port cannot serve: the types of
-    :data:`UNPORTED` raise ``NotImplementedError`` naming their ROADMAP
-    item, unknown types ``ValueError``."""
+    """Refuse an archive with a unit type the engines do not know
+    (``ValueError``)."""
     for spec in units:
         t = spec["type"]
-        if t in UNPORTED:
-            raise NotImplementedError(
-                "cannot serve unit %s: type %r is not ported yet "
-                "(ROADMAP Queue 1 %s)" % (spec.get("name"), t, UNPORTED[t]))
         if t not in FORWARD_OPS:
             raise ValueError("cannot serve unit %s: unknown type %r"
                              % (spec.get("name"), t))

@@ -4,5 +4,5 @@
 # importing the op modules fills the layer registry
 from veles_torch.znicz.ops import (  # noqa: F401
     all2all, attention, conv, cutter, deconv, dropout, embedding, gd,
-    gd_conv, gd_pooling, layernorm, mean_disp_normalizer, normalization,
-    pooling)
+    gd_conv, gd_pooling, layernorm, mean_disp_normalizer, moe, normalization,
+    pooling, transformer_stack)

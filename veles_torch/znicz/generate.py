@@ -30,16 +30,17 @@ joins sequences of different lengths with; here every row sits at the
 same position.
 
 Supported units: Embedding, MultiHeadAttention (causal), LayerNorm,
-TransformerFFN, TokenDense(+RELU), Dropout (identity). The stacked
-transformer block and MoE are not ported (ROADMAP Queue 1 item 8).
+TransformerFFN, MoEFFN (each sample's tokens routed on their own, as the
+serving op does), TokenDense(+RELU), TransformerBlockStack (a KV cache
+per inner layer, :func:`block_decode`), Dropout (identity).
 """
 
 import numpy
 import torch
 
 from veles_torch.export_inference import unit_spec
-from veles_torch.serving.model import (  # noqa: F401 (attn_decode)
-    FORWARD_OPS, attention_kv, attn_decode)
+from veles_torch.serving.model import (  # noqa: F401 (re-exported)
+    FORWARD_OPS, attention_kv, attn_decode, block_decode, stack_kv)
 from veles_torch.znicz.ops.attention import (
     MultiHeadAttention, TokenDenseBase, TransformerFFN)
 from veles_torch.znicz.ops.dropout import DropoutForward
@@ -47,20 +48,14 @@ from veles_torch.znicz.ops.embedding import (
     EmbeddingForward, sinusoidal_positions)
 from veles_torch.znicz.ops.flash_attention import MASK_VALUE
 from veles_torch.znicz.ops.layernorm import LayerNormForward
-
-
-def block_decode(*args, **kwargs):
-    """One decode step through a stacked transformer block: the port has
-    no ``transformer_stack`` yet."""
-    raise NotImplementedError(
-        "block_decode: the fused transformer_stack is not ported yet "
-        "(ROADMAP Queue 1 item 8)")
+from veles_torch.znicz.ops.moe import MoEFFN
+from veles_torch.znicz.ops.transformer_stack import TransformerBlockStack
 
 
 def _plan(workflow):
     """-> (steps, n_caches): the decode walk over the forward units, each
-    step (kind, unit, cache index), kinds ``embed``, ``attn`` and
-    ``token``."""
+    step (kind, unit, first cache index), kinds ``embed``, ``attn``,
+    ``stack`` (a cache per inner layer) and ``token``."""
     steps, n_caches = [], 0
     for unit in workflow.forwards:
         if isinstance(unit, EmbeddingForward):
@@ -71,7 +66,13 @@ def _plan(workflow):
                                  % unit.name)
             steps.append(("attn", unit, n_caches))
             n_caches += 1
-        elif isinstance(unit, (LayerNormForward, TransformerFFN,
+        elif isinstance(unit, TransformerBlockStack):
+            if not unit.causal:
+                raise ValueError("%s: generation needs causal attention"
+                                 % unit.name)
+            steps.append(("stack", unit, n_caches))
+            n_caches += unit.layers
+        elif isinstance(unit, (LayerNormForward, TransformerFFN, MoEFFN,
                                TokenDenseBase)):
             steps.append(("token", unit, None))
         elif isinstance(unit, DropoutForward):
@@ -157,15 +158,23 @@ def generate(workflow, prompt_ids, n_tokens, temperature=0.0, seed=0,
         if positions is not None:
             x = x + positions[:p_len]
         caches = [None] * n_caches
+
+        def cache(ci, k, v):
+            K = torch.zeros(k.shape[:2] + (maxlen, k.shape[3]),
+                            dtype=torch.float32, device=dev)
+            V = torch.zeros_like(K)
+            K[:, :, :p_len] = k
+            V[:, :, :p_len] = v
+            caches[ci] = (K, V)
+
         for kind, spec, p, ci in walk:
             if kind == "attn":
                 x, k, v = attention_kv(x, p, spec["config"])
-                K = torch.zeros(k.shape[:2] + (maxlen, k.shape[3]),
-                                dtype=torch.float32, device=dev)
-                V = torch.zeros_like(K)
-                K[:, :, :p_len] = k
-                V[:, :, :p_len] = v
-                caches[ci] = (K, V)
+                cache(ci, k, v)
+            elif kind == "stack":
+                x, kv = stack_kv(x, p, spec["config"])
+                for i, (k, v) in enumerate(kv):
+                    cache(ci + i, k, v)
             else:
                 x = FORWARD_OPS[spec["type"]](x, p, spec)
         tok = draw(x[:, -1, :])
@@ -176,10 +185,16 @@ def generate(workflow, prompt_ids, n_tokens, temperature=0.0, seed=0,
             if positions is not None:
                 x = x + positions[pos][:, None, :]
             for kind, spec, p, ci in walk:
+                cfg = spec["config"]
                 if kind == "attn":
-                    cfg = spec["config"]
                     x = attn_decode(x, pos, caches[ci], p, cfg["heads"],
                                     cfg["include_bias"], cfg["residual"])
+                elif kind == "stack":
+                    for i in range(cfg["layers"]):
+                        x = block_decode(
+                            x, pos, caches[ci + i],
+                            {k: t[i] for k, t in p.items()}, cfg["heads"],
+                            cfg["eps"])
                 else:
                     x = FORWARD_OPS[spec["type"]](x, p, spec)
             tok = draw(x[:, 0, :])

@@ -5,14 +5,22 @@ Counterpart of ``veles/znicz_tpu/models/transformer_lm.py`` with the same
 N × [MHA(residual) → LayerNorm → FFN(residual) → LayerNorm] →
 TokenDense(vocab logits), trained next-token on the deterministic
 synthetic periodic-sequence corpus (the same ``"lm_data"`` draws at the
-same seed). ``root.lm.model.attn_impl="pallas"`` runs attention through
-the hand-written flash kernels, e.g.
+same seed), or on a UTF-8 text file at character level
+(``root.lm.loader.text_file``: :class:`TextLMLoader`, the vocabulary
+sized from the file before the layers are built). ``root.lm.train``
+reaches every GD unit (``solver``, ``lr_policy``,
+``accumulate_gradient``...). ``root.lm.model.attn_impl="pallas"`` runs
+attention through the hand-written flash kernels, ``attn_block`` without
+``attn_impl`` through the auto policy (the blocked scan on the CPU, the
+kernels on the card from ``PALLAS_AUTO_MIN_S``); ``stacked=True`` builds
+one ``transformer_stack`` unit (with ``remat``); ``moe_experts > 0``
+swaps the dense FFN for the top-1 routed MoE FFN. E.g.
 ``python -m veles_torch veles_torch/znicz/models/transformer_lm.py
-root.lm.model.attn_impl=pallas -d cuda --seed 1337``.
+root.lm.loader.text_file=corpus.txt root.lm.train.solver=adam -d cuda
+--generate-text "The "``.
 
-Ported: the per-layer model with a dense FFN on one device. Refused
-until they are ported: ``text_file`` (TextLMLoader), ``stacked``,
-``moe_experts > 0`` and any ``root.lm.parallel`` axis above 1.
+Refused until they are ported: any ``root.lm.parallel`` axis above 1
+(ROADMAP Queue 1 item 10).
 """
 
 import numpy
@@ -23,7 +31,8 @@ from veles_torch.loader.fullbatch import FullBatchLoader
 from veles_torch.znicz.ops.evaluator import EvaluatorLM
 from veles_torch.znicz.standard_workflow import StandardWorkflow
 
-root.lm.update({
+#: the sample's root.lm defaults (the reference's)
+DEFAULTS = {
     "loader": {"minibatch_size": 64, "n_train": 2048, "n_valid": 256,
                "seq_len": 32, "vocab": 16, "max_period": 6,
                "text_file": None, "valid_ratio": 0.1},
@@ -39,7 +48,20 @@ root.lm.update({
     "parallel": {"seq": 1, "model": 1, "data": 1, "expert": 1,
                  "pipe": 1, "microbatches": 4, "ep_routing": "gather",
                  "schedule": "gpipe"},
-})
+}
+root.lm.update(DEFAULTS)
+
+
+def text_vocab(path, text=None):
+    """Sorted character vocabulary of a text file (or of ``text`` when the
+    caller already read it) -> (itos, stoi)."""
+    if text is None:
+        with open(path, "r", encoding="utf-8", errors="replace") as f:
+            text = f.read()
+    chars = sorted(set(text))
+    if not chars:
+        raise ValueError("%s: empty corpus" % path)
+    return chars, {c: i for i, c in enumerate(chars)}
 
 
 def _tail_valid_order(n, n_valid):
@@ -74,20 +96,61 @@ class PeriodicLMLoader(FullBatchLoader):
         self.serve_dtype = numpy.int32
 
 
+class TextLMLoader(FullBatchLoader):
+    """Character-level corpus loader: ``root.lm.loader.text_file`` becomes
+    (B, S) next-character windows, the last ``valid_ratio`` of them held
+    out (at least one). The vocabulary is the one :func:`_loader_factory`
+    sized the model with; a file that changed on disk since is refused."""
+
+    def load_data(self):
+        cfg = root.lm.loader
+        path = cfg.text_file
+        s = cfg.get("seq_len", 32)
+        with open(path, "r", encoding="utf-8", errors="replace") as f:
+            text = f.read()
+        cached = getattr(cfg, "_vocab_cache", None)
+        if cached and cached[0] == path:
+            vocab = set(cached[1])
+            extra = sorted(set(text) - vocab)
+            if extra:
+                raise ValueError(
+                    "%s changed on disk after the model was sized: %d "
+                    "characters (%r...) are not in the %d-char vocabulary "
+                    "the embedding was built for; restart the run"
+                    % (path, len(extra), "".join(extra[:8]), len(vocab)))
+            self.itos = list(cached[1])
+            self.stoi = {c: i for i, c in enumerate(self.itos)}
+        else:
+            self.itos, self.stoi = text_vocab(path, text)
+        stream = numpy.fromiter((self.stoi[c] for c in text), numpy.int32,
+                                len(text))
+        n = (len(stream) - 1) // s
+        if n < 2:
+            raise ValueError("%s: corpus too short for seq_len %d"
+                             % (path, s))
+        data = numpy.stack([stream[i * s:i * s + s + 1] for i in range(n)])
+        n_valid = max(1, int(n * cfg.get("valid_ratio", 0.1)))
+        data = data[_tail_valid_order(n, n_valid)]
+        self.original_data = data[:, :-1]
+        self.original_labels = data[:, 1:]
+        self.class_lengths = [0, n_valid, n - n_valid]
+        self.serve_dtype = numpy.int32
+
+    def encode(self, text):
+        """A prompt -> (1, len) int32 ids; characters outside the corpus
+        are refused."""
+        bad = sorted(set(text) - set(self.stoi))
+        if bad:
+            raise ValueError(
+                "prompt characters %r are not in the corpus vocabulary "
+                "(%d known characters)" % ("".join(bad), len(self.itos)))
+        return numpy.array([[self.stoi[c] for c in text]], numpy.int32)
+
+    def decode(self, ids):
+        return "".join(self.itos[int(i)] for i in numpy.ravel(ids))
+
+
 def _refuse_unported():
-    m = root.lm.model
-    if root.lm.loader.get("text_file"):
-        raise NotImplementedError(
-            "root.lm.loader.text_file: TextLMLoader is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
-    if m.get("stacked"):
-        raise NotImplementedError(
-            "root.lm.model.stacked: the fused transformer_stack (with "
-            "remat) is not ported yet (ROADMAP Queue 1 item 8)")
-    if m.get("moe_experts"):
-        raise NotImplementedError(
-            "root.lm.model.moe_experts=%r: the MoE FFN is not ported yet "
-            "(ROADMAP Queue 1 item 8)" % m.moe_experts)
     par = root.lm.get("parallel")
     spec = par.to_dict() if hasattr(par, "to_dict") else dict(par or {})
     wide = {k: v for k, v in spec.items()
@@ -95,22 +158,56 @@ def _refuse_unported():
             and int(v) > 1}
     if wide:
         raise NotImplementedError(
-            "root.lm.parallel %s: multi-device parallelism is not ported "
-            "yet (ROADMAP Queue 1 item 10)" % wide)
+            "root.lm.parallel %s: multi-device parallelism (the mesh "
+            "axes, the pipeline schedules, expert parallelism) is not "
+            "ported yet (ROADMAP Queue 1 item 10)" % wide)
 
 
 def build_layers():
-    """The per-layer LM stack of ``root.lm`` (the reference's layer
-    list, dense FFN)."""
+    """The LM layer list of ``root.lm`` (the reference's): per-layer
+    units, or one ``transformer_stack`` with ``stacked``."""
     _refuse_unported()
     m = root.lm.model
     t = root.lm.train.to_dict()
     layers = [{"type": "embedding",
                "->": {"vocab_size": root.lm.loader.vocab, "dim": m.dim},
                "<-": dict(t)}]
-    ffn_layer = {"type": "transformer_ffn",
-                 "->": {"hidden": m.ffn_hidden, "residual": True},
-                 "<-": dict(t)}
+    if m.get("stacked"):
+        if m.get("moe_experts"):
+            raise ValueError(
+                "stacked=True builds dense-FFN blocks; it cannot honour "
+                "moe_experts=%r (use the per-layer model for MoE)"
+                % m.moe_experts)
+        if m.get("attn_block") or m.get("attn_impl") \
+                or m.get("attn_pipeline") \
+                or m.get("attn_acc") not in (None, "f32"):
+            raise ValueError(
+                "stacked=True uses dense attention inside the block stack; "
+                "attn_block=%r / attn_impl=%r / attn_pipeline=%r / "
+                "attn_acc=%r are not supported there (use the per-layer "
+                "model for the scan or the flash kernels)"
+                % (m.get("attn_block"), m.get("attn_impl"),
+                   m.get("attn_pipeline"), m.get("attn_acc")))
+        return layers + [
+            {"type": "transformer_stack",
+             "->": {"layers": m.layers, "heads": m.heads,
+                    "hidden": m.ffn_hidden, "causal": True,
+                    "remat": bool(m.get("remat"))},
+             "<-": dict(t)},
+            {"type": "token_dense",
+             "->": {"output_features": root.lm.loader.vocab},
+             "<-": dict(t)}]
+    if m.get("moe_experts"):
+        ffn_layer = {
+            "type": "moe_ffn",
+            "->": {"experts": m.moe_experts, "hidden": m.ffn_hidden,
+                   "residual": True,
+                   "capacity_factor": m.get("moe_capacity_factor", 2.0)},
+            "<-": dict(t, aux_weight=m.get("moe_aux_weight", 0.01))}
+    else:
+        ffn_layer = {"type": "transformer_ffn",
+                     "->": {"hidden": m.ffn_hidden, "residual": True},
+                     "<-": dict(t)}
     for _ in range(m.layers):
         layers += [
             {"type": "attention",
@@ -135,12 +232,26 @@ def lm_evaluator_factory(wf):
     return EvaluatorLM(name="evaluator")
 
 
+def _loader_factory():
+    """The corpus: a text file (character level, its vocabulary written
+    into ``root.lm.loader.vocab`` BEFORE the layers are built) or the
+    synthetic periodic task."""
+    cfg = root.lm.loader
+    if cfg.get("text_file"):
+        itos, _ = text_vocab(cfg.text_file)
+        cfg.vocab = len(itos)
+        cfg._vocab_cache = (cfg.text_file, "".join(itos))
+        cls = TextLMLoader
+    else:
+        cls = PeriodicLMLoader
+    return lambda wf: cls(wf, name="loader",
+                          minibatch_size=cfg.minibatch_size)
+
+
 def create_workflow(name="TransformerLM"):
     cfg = root.lm
-    layers = build_layers()
+    factory = _loader_factory()
     return StandardWorkflow(
-        name=name, layers=layers,
-        loader_factory=lambda wf: PeriodicLMLoader(
-            wf, name="loader", minibatch_size=cfg.loader.minibatch_size),
+        name=name, layers=build_layers(), loader_factory=factory,
         evaluator_factory=lm_evaluator_factory,
         decision_config=cfg.decision.to_dict())

@@ -6,10 +6,11 @@ Counterpart of ``veles/znicz_tpu/nn_units.py``:
   buffers, filled from the ``"default"`` numpy generator exactly as the
   reference fills them (same draws at the same seed);
 * :class:`GradientDescentBase` — the explicit backward unit: learning
-  rates, L2/L1 decay, momentum, ``lr_scale``, and the momentum update
-  :meth:`apply_update`; parameters beyond weights/bias (``EXTRA_PARAMS``:
-  the attention out-projection, the FFN's second layer) get their own
-  ``vel_<name>`` state under the reference's key names. Every bias
+  rates and their schedules (``lr_adjust.py``), L2/L1 decay, momentum or
+  AdamW, gradient accumulation, ``lr_scale``; parameters beyond
+  weights/bias (``EXTRA_PARAMS``: the attention out-projection, the
+  FFN's second layer) get their own ``vel_``/``acc_``/``sq_<name>``
+  state under the reference's key names. Every bias
   gradient goes through ``ops/bias_grad.bias_grad``: the kernel on the
   card, its plain version on the CPU. A forward's ``zero_mask`` (set by
   ``ops/cutter.ZeroFiller``) multiplies its weights inside each update,
@@ -26,6 +27,7 @@ import torch
 from torch import nn
 
 from veles_torch import prng
+from veles_torch.znicz.lr_adjust import make_policy
 
 _FORWARD_BY_NAME = {}
 _GRADIENT_FOR = {}
@@ -133,44 +135,50 @@ class Forward(nn.Module):
 class GradientDescentBase:
     """Base backward unit: err_output -> err_input + parameter update.
 
-    Update rule (the reference's): ``reg = grad + l2·(1−l1_vs_l2)·W +
-    l2·l1_vs_l2·sign(W)``; ``vel = moment·vel − lr·reg``; ``W += vel``,
-    with separate lr / decay / moment for the bias, and the learning
-    rates multiplied by ``lr_scale``.
+    Update rules (the reference's traced ones,
+    ``veles/znicz_tpu/nn_units.py``):
+
+    * ``solver="momentum"``: ``reg = grad + l2·(1−l1_vs_l2)·W +
+      l2·l1_vs_l2·sign(W)``; ``vel = moment·vel − lr·reg``; ``W += vel``;
+    * ``solver="adam"`` (AdamW): beta1 is ``gradient_moment``, the second
+      moment ``sq_*`` decays by ``adam_beta2``, the decay ``l2·W`` is
+      decoupled (added to the step, not the gradient), and the bias
+      correction counts applied steps as the f32 ``(t+1)/accumulate``;
+
+    with separate lr / decay / moment for the bias. ``lr`` is the base rate
+    through the unit's lr policy (``lr_adjust.py``, evaluated on the
+    device's ``iteration`` counter), THEN times ``lr_scale``: a policy that
+    replaces the base rate (``arbitrary_step``) keeps the scale. With
+    ``accumulate_gradient = N > 1`` the gradients add up in ``acc_*`` (the
+    grown sum is stored) and every N-th step applies it and zeroes it;
+    weights, ``vel_*`` and ``sq_*`` move only on that step.
     """
 
     FORWARD = None
     ACTIVATION = "linear"
-    STATE = ("vel_weights", "vel_bias", "iteration")
-    #: reference options this port does not implement yet; a config that
-    #: sets one to anything but its default is refused
-    UNSUPPORTED = {"solver": "momentum", "accumulate_gradient": 1,
-                   "lr_policy": None, "lr_policy_bias": None}
+    STATE = ("vel_weights", "vel_bias", "acc_weights", "acc_bias",
+             "sq_weights", "sq_bias", "acc_count", "iteration")
     #: (param_name, bias_like) of forward parameters beyond
-    #: weights/bias; ``vel_<param_name>`` joins STATE. ``bias_like``
-    #: picks the bias hyper-parameters (lr_bias, moment_bias, decay_bias)
+    #: weights/bias; ``vel_<p>``, ``acc_<p>`` and ``sq_<p>`` join STATE.
+    #: ``bias_like`` picks the bias hyper-parameters (lr_bias,
+    #: moment_bias, decay_bias, lr_policy_bias)
     EXTRA_PARAMS = ()
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
-        extra = tuple("vel_" + p for p, _ in
-                      cls.__dict__.get("EXTRA_PARAMS", ()))
-        if extra:
+        derived = [n for p, _ in cls.__dict__.get("EXTRA_PARAMS", ())
+                   for n in ("vel_" + p, "acc_" + p, "sq_" + p)]
+        if derived:
             cls.STATE = tuple(cls.STATE) + tuple(
-                n for n in extra if n not in cls.STATE)
+                n for n in derived if n not in cls.STATE)
 
     def __init__(self, name=None, need_err_input=True, learning_rate=0.01,
                  learning_rate_bias=None, weights_decay=0.0,
                  weights_decay_bias=0.0, l1_vs_l2=0.0, l1_vs_l2_bias=None,
                  gradient_moment=0.0, gradient_moment_bias=None,
-                 fused_bias_grad=None, **unsupported):
-        for key, value in unsupported.items():
-            if key not in self.UNSUPPORTED:
-                raise TypeError("%s: unknown option %r"
-                                % (type(self).__name__, key))
-            if value != self.UNSUPPORTED[key]:
-                raise NotImplementedError(
-                    "%s=%r is not ported yet" % (key, value))
+                 solver="momentum", adam_beta2=0.999, adam_eps=1e-8,
+                 accumulate_gradient=1, lr_policy=None, lr_policy_bias=None,
+                 fused_bias_grad=None):
         self.name = name or type(self).__name__
         self.need_err_input = need_err_input
         self.learning_rate = learning_rate
@@ -184,37 +192,61 @@ class GradientDescentBase:
         self.gradient_moment = gradient_moment
         self.gradient_moment_bias = gradient_moment \
             if gradient_moment_bias is None else gradient_moment_bias
+        if solver not in ("momentum", "adam"):
+            raise ValueError("solver must be 'momentum' or 'adam', got %r"
+                             % (solver,))
+        self.solver = solver
+        self.adam_beta2 = float(adam_beta2)
+        self.adam_eps = float(adam_eps)
+        self.accumulate_gradient = int(accumulate_gradient)
+        self.lr_policy = make_policy(lr_policy)
+        self.lr_policy_bias = make_policy(
+            lr_policy if lr_policy_bias is None else lr_policy_bias)
         # accepted so layer configs shared with the reference load; the
         # port always takes the bias gradient through ops/bias_grad
         self.fused_bias_grad = fused_bias_grad
-        #: multiplier on both learning rates
+        #: multiplier on both learning rates, applied after the policy
         self.lr_scale = 1.0
+        #: this step's (lr, adam corrections) by weight/bias set
+        self._scalars = {}
         self.forward = None
-        self.vel_weights = None
-        self.vel_bias = None
-        #: train-minibatch counter (int32 on the device)
-        self.iteration = None
-        for pname, _ in self.EXTRA_PARAMS:
-            setattr(self, "vel_" + pname, None)
+        for key in dict.fromkeys(GradientDescentBase.STATE + self.STATE):
+            setattr(self, key, None)
 
     def setup_forward(self, forward):
         """Bind to the paired forward unit."""
         self.forward = forward
         return self
 
+    @property
+    def adam(self):
+        return self.solver == "adam"
+
+    @property
+    def accumulating(self):
+        return self.accumulate_gradient > 1
+
     def initialize(self):
         f = self.forward
         if f is None:
             raise ValueError("%s: setup_forward() not called" % self.name)
-        self.vel_weights = torch.zeros_like(f.weights)
+        params = [("weights", f.weights)]
         if f.include_bias:
-            self.vel_bias = torch.zeros_like(f.bias)
-        self.iteration = torch.zeros((), dtype=torch.int32,
-                                     device=f.weights.device)
-        for pname, _ in self.EXTRA_PARAMS:
-            src = getattr(f, pname)
-            if src is not None:
-                setattr(self, "vel_" + pname, torch.zeros_like(src))
+            params.append(("bias", f.bias))
+        params += [(p, getattr(f, p)) for p, _ in self.EXTRA_PARAMS]
+        for pname, src in params:
+            if src is None:
+                continue
+            setattr(self, "vel_" + pname, torch.zeros_like(src))
+            if self.accumulating:
+                setattr(self, "acc_" + pname, torch.zeros_like(src))
+            if self.adam:
+                setattr(self, "sq_" + pname, torch.zeros_like(src))
+        device = f.weights.device
+        self.iteration = torch.zeros((), dtype=torch.int32, device=device)
+        if self.accumulating:
+            self.acc_count = torch.zeros((), dtype=torch.int32,
+                                         device=device)
 
     def export_state(self):
         return {n: getattr(self, n) for n in self.STATE
@@ -225,59 +257,138 @@ class GradientDescentBase:
         traced hyper-parameters are."""
         f32 = numpy.float32
         return {
-            "lr": f32(self.learning_rate) * f32(self.lr_scale),
-            "lr_bias": f32(self.learning_rate_bias) * f32(self.lr_scale),
+            "lr": f32(self.learning_rate),
+            "lr_bias": f32(self.learning_rate_bias),
             "l2": f32(self.weights_decay),
             "l2_bias": f32(self.weights_decay_bias),
             "l1_vs_l2": f32(self.l1_vs_l2),
             "l1_vs_l2_bias": f32(self.l1_vs_l2_bias),
             "moment": f32(self.gradient_moment),
             "moment_bias": f32(self.gradient_moment_bias),
+            "lr_scale": f32(self.lr_scale),
+            "beta2": f32(self.adam_beta2),
+            "adam_eps": f32(self.adam_eps),
         }
+
+    def step_scalars(self, h, bias_like, t):
+        """(lr, adam's bias corrections ``1 − beta1**step`` and ``1 −
+        beta2**step`` or None) of this step for the weight-like or the
+        bias-like parameters, computed once a step and shared by every
+        parameter of the set (the same values the reference computes for
+        each). ``lr`` is the base rate through the policy, on the device
+        at iteration ``t``, then times ``lr_scale``; without a policy, the
+        f32 product as a Python float."""
+        key = bool(bias_like)
+        if key not in self._scalars:
+            sfx = "_bias" if bias_like else ""
+            policy = self.lr_policy_bias if bias_like else self.lr_policy
+            if policy is None:
+                lr = float(h["lr" + sfx] * h["lr_scale"])
+            else:
+                lr = policy(float(h["lr" + sfx]), t) * float(h["lr_scale"])
+            corrections = None
+            if self.adam:
+                step = (t + 1).to(torch.float32) / max(
+                    1, self.accumulate_gradient)
+                beta1 = h["moment_bias" if bias_like else "moment"]
+                corrections = (1.0 - torch.pow(float(beta1), step),
+                               1.0 - torch.pow(float(h["beta2"]), step))
+            self._scalars[key] = (lr, corrections)
+        return self._scalars[key]
 
     @staticmethod
     def apply_update(w, vel, grad, lr, moment, l2, l1_vs_l2):
-        """-> (new w, new vel); scalars are float32 numpy values."""
+        """-> (new w, new vel); scalars are float32 numpy values, ``lr`` a
+        Python float or an f32 device scalar."""
         f32 = numpy.float32
         reg = grad + w * float(l2 * (f32(1.0) - l1_vs_l2)) \
             + torch.sign(w) * float(l2 * l1_vs_l2)
-        vel = vel * float(moment) - float(lr) * reg
+        vel = vel * float(moment) - lr * reg
         return w + vel, vel
 
+    @staticmethod
+    def apply_update_adam(w, m, v, grad, lr, beta1, beta2, eps, l2,
+                          corrections):
+        """AdamW -> (new w, new m, new v): bias-corrected moments and the
+        decoupled decay ``l2·w``; ``corrections`` are ``1 − beta**step``
+        of both moments, ``step`` counting applied updates from 1."""
+        f32 = numpy.float32
+        m = float(beta1) * m + float(f32(1.0) - beta1) * grad
+        v = float(beta2) * v + float(f32(1.0) - beta2) * grad * grad
+        mhat = m / corrections[0]
+        vhat = v / corrections[1]
+        w = w - lr * (mhat / (torch.sqrt(vhat) + float(eps))
+                      + float(l2) * w)
+        return w, m, v
+
+    def _step_param(self, pname, grad, apply_now, t, h, bias_like):
+        """One (possibly accumulated) step of the forward's parameter
+        ``pname`` under the configured solver, its state updated in
+        place of the old tensors."""
+        f = self.forward
+        sfx = "_bias" if bias_like else ""
+        w = getattr(f, pname)
+        vel = getattr(self, "vel_" + pname)
+        acc = getattr(self, "acc_" + pname) if self.accumulating else None
+        lr, corrections = self.step_scalars(h, bias_like, t)
+        g = grad.to(w.dtype)
+        if acc is not None:
+            g = acc + g
+        sq = nsq = None
+        if self.adam:
+            sq = getattr(self, "sq_" + pname)
+            nw, nv, nsq = self.apply_update_adam(
+                w, vel, sq, g, lr, h["moment" + sfx], h["beta2"],
+                h["adam_eps"], h["l2" + sfx], corrections)
+        else:
+            nw, nv = self.apply_update(w, vel, g, lr, h["moment" + sfx],
+                                       h["l2" + sfx], h["l1_vs_l2" + sfx])
+        if acc is not None:
+            nw = torch.where(apply_now, nw, w)
+            nv = torch.where(apply_now, nv, vel)
+            # the GROWN accumulator, zeroed once applied
+            setattr(self, "acc_" + pname,
+                    torch.where(apply_now, torch.zeros_like(g), g))
+            if nsq is not None:
+                nsq = torch.where(apply_now, nsq, sq)
+        setattr(f, pname, nw)
+        setattr(self, "vel_" + pname, nv)
+        if nsq is not None:
+            setattr(self, "sq_" + pname, nsq)
+
     def update_weights(self, grad_w, grad_b):
-        """One momentum step of the paired forward's weights and bias."""
+        """One step of the paired forward's weights and bias; advances
+        ``iteration`` (and the accumulation count)."""
         f = self.forward
         h = self.hyperparams()
-        f.weights, self.vel_weights = self.apply_update(
-            f.weights, self.vel_weights, grad_w.to(f.weights.dtype),
-            h["lr"], h["moment"], h["l2"], h["l1_vs_l2"])
+        t = self.iteration
+        self._scalars = {}
+        apply_now = None
+        if self.accumulating:
+            count = self.acc_count + 1
+            apply_now = count >= self.accumulate_gradient
+            self.acc_count = torch.where(apply_now, 0, count).to(
+                torch.int32)
+        self._step_param("weights", grad_w, apply_now, t, h, False)
         if f.zero_mask is not None:
             f.weights = f.weights * f.zero_mask
         if f.include_bias and grad_b is not None:
-            f.bias, self.vel_bias = self.apply_update(
-                f.bias, self.vel_bias, grad_b.to(f.bias.dtype),
-                h["lr_bias"], h["moment_bias"], h["l2_bias"],
-                h["l1_vs_l2_bias"])
-        self.iteration += 1
+            self._step_param("bias", grad_b, apply_now, t, h, True)
+        self.iteration = t + 1
 
     def update_extra(self, grads):
-        """One momentum step of each EXTRA_PARAMS parameter with a
-        gradient in ``grads`` ({name: grad or None}), under the weight or
-        bias hyper-parameters; run after :meth:`update_weights`."""
-        f = self.forward
+        """One step of each EXTRA_PARAMS parameter with a gradient in
+        ``grads`` ({name: grad or None}), under the weight or bias
+        hyper-parameters, in lockstep with :meth:`update_weights` (which
+        must run first: ``t = iteration − 1``, applied when ``acc_count``
+        is back at 0; the step's scalars are those it computed)."""
         h = self.hyperparams()
+        t = self.iteration - 1
+        apply_now = self.acc_count == 0 if self.accumulating else None
         for pname, bias_like in self.EXTRA_PARAMS:
             grad = grads.get(pname)
-            if grad is None:
-                continue
-            sfx = "_bias" if bias_like else ""
-            w = getattr(f, pname)
-            w, vel = self.apply_update(
-                w, getattr(self, "vel_" + pname), grad.to(w.dtype),
-                h["lr" + sfx], h["moment" + sfx], h["l2" + sfx],
-                h["l1_vs_l2" + sfx])
-            setattr(f, pname, w)
-            setattr(self, "vel_" + pname, vel)
+            if grad is not None:
+                self._step_param(pname, grad, apply_now, t, h, bias_like)
 
 
 class RoutingGradientBase(GradientDescentBase):

@@ -10,12 +10,15 @@ the reference's explicit forward/backward math (no autograd):
   extra parameters ``weights2``/``bias2``;
 * ``MultiHeadAttention`` — causal (or full) self-attention with a fused
   qkv projection ``weights`` (D, 3D), an out-projection ``weights_out``
-  (D, D) and an internal residual. Two modes of the reference's
+  (D, D) and an internal residual. Three modes of the reference's
   ``_traced_mode`` are ported: ``"dense"`` (the (B, H, S, S) score
-  matrix, :func:`dense_attention_core_fwd`/``_bwd``) and ``"pallas"``,
-  which keeps its config name and means the hand-written flash kernels
-  (``ops/flash_attention.py``: ``csrc/flash_attention.cu`` on the card,
-  the plain version on the CPU).
+  matrix, :func:`dense_attention_core_fwd`/``_bwd``), ``"scan"`` (the
+  blocked scan of ``ops/scan_attention.py``) and ``"pallas"``, which
+  keeps its config name and means the hand-written flash kernels
+  (``ops/flash_attention.py``: the sm_90a kernels on the card, the plain
+  version on the CPU). ``attn_block_size`` without ``attn_impl`` takes
+  the kernels on the card from ``PALLAS_AUTO_MIN_S`` on, the scan
+  otherwise.
 
 The projections around the kernels are ``torch.matmul`` through
 ``TorchDevice.dot``, as the reference leaves them to XLA. Every bias
@@ -29,18 +32,19 @@ from veles_torch.znicz.nn_units import (
     Forward, GradientDescentBase, forward_unit, gradient_for)
 from veles_torch.znicz.ops import activations as A
 from veles_torch.znicz.ops import flash_attention as FA
+from veles_torch.znicz.ops import scan_attention as SA
 from veles_torch.znicz.ops.bias_grad import bias_grad
 
 
-def _rows(t):
+def rows(t):
     """(..., K) -> contiguous (N, K)."""
     return t.reshape(-1, t.shape[-1]).contiguous()
 
 
-def _column_sum(t):
+def column_sum(t):
     """f32 sum over every leading dim (the identity form of the
     bias-gradient kernel)."""
-    t2 = _rows(t)
+    t2 = rows(t)
     return bias_grad(t2, t2, "linear")
 
 
@@ -93,8 +97,8 @@ class GDTokenDenseBase(GradientDescentBase):
         err = err.reshape(y.shape)
         d = A.ACTIVATIONS[self.ACTIVATION][1](y)
         dz = err if isinstance(d, float) else err * d
-        grad_w = dev.dot(_rows(x).t(), _rows(dz))
-        grad_b = bias_grad(_rows(err), _rows(y), self.ACTIVATION) \
+        grad_w = dev.dot(rows(x).t(), rows(dz))
+        grad_b = bias_grad(rows(err), rows(y), self.ACTIVATION) \
             if f.include_bias else None
         dx = dev.dot(dz, f.weights.t()).to(dev.act_dtype) \
             if self.need_err_input else None
@@ -165,10 +169,10 @@ class GDTransformerFFN(GradientDescentBase):
         hcur = f.cache_h
         dh = dot(err, f.weights2.t()) \
             * A.ACTIVATIONS[f.ACTIVATION][1](hcur)
-        gw2 = dot(_rows(hcur).t(), _rows(err))
-        gb2 = _column_sum(err)
-        gw1 = dot(_rows(x).t(), _rows(dh))
-        gb1 = _column_sum(dh)
+        gw2 = dot(rows(hcur).t(), rows(err))
+        gb2 = column_sum(err)
+        gw1 = dot(rows(x).t(), rows(dh))
+        gb1 = column_sum(dh)
         dx = None
         if self.need_err_input:
             dx = dot(dh, f.weights.t())
@@ -239,18 +243,35 @@ class MultiHeadAttention(Forward):
             raise ValueError("attn_acc must be None, 'f32' or 'bf16', "
                              "got %r" % (attn_acc,))
         #: the forward's cache for the GD unit: (q, k, v, out_heads, lse,
-        #: merged) in the "pallas" mode, (q, k, v, probs, merged) dense
+        #: merged) in the "pallas" and "scan" modes, (q, k, v, probs,
+        #: merged) dense
         self.cache = None
+
+    #: the auto policy: with ``attn_block_size`` set and ``attn_impl``
+    #: None, the flash kernels take over on the card once S reaches this
+    #: bound, the scan runs below it and everywhere on the CPU (the
+    #: reference's ``PALLAS_AUTO_MIN_S``, 1024, was measured on a TPU).
+    #: ``chip_smoke.py`` phase ``attn_policy`` timed the 110M train step by
+    #: the host clock, scan (block 256) against the kernels, on an NVIDIA
+    #: H100 80GB HBM3 at 700 W: S 512 (B 8) 106.6 vs 67.0 ms, S 1024 178.6
+    #: vs 71.7, S 2048 373.4 vs 100.0, S 8192 (B 4) 2379.7 vs 226.7. The
+    #: kernels win from the smallest S measured on
+    PALLAS_AUTO_MIN_S = 512
 
     def mode(self, s):
         """The reference's dispatch resolver (``_traced_mode``) for a
-        single-device sequence of length ``s``: "pallas" or "dense". The
-        experiment knobs are refused off the pallas mode; the modes not
-        ported yet raise."""
+        single-device sequence of length ``s``: "pallas" (the flash
+        kernels), "scan" (the blocked scan) or "dense". The experiment
+        knobs are refused off the pallas mode, and ``pallas_tile`` (a TPU
+        tile override) on it."""
+        on_card = self.device is not None and self.device.platform == "cuda"
         if self.attn_impl == "pallas":
             mode = "pallas"
         elif not self.attn_block_size:
             mode = "dense"
+        elif self.attn_impl is None and on_card \
+                and s >= self.PALLAS_AUTO_MIN_S:
+            mode = "pallas"
         else:
             mode = "scan"
         if mode != "pallas" and (self.attn_pipeline
@@ -260,12 +281,6 @@ class MultiHeadAttention(Forward):
                 "single-shard pallas forward, but this dispatch resolves "
                 "to %r (S=%d) — force attn_impl='pallas' or clear the "
                 "knob" % (self.attn_pipeline, self.attn_acc, mode, s))
-        if mode == "scan":
-            raise NotImplementedError(
-                "%s: the blocked scan attention (attn_block_size=%r with "
-                "attn_impl=%r) is not ported yet (ROADMAP Queue 1 item 8: "
-                "parallel/flash.py and an H100-measured auto policy)"
-                % (self.name, self.attn_block_size, self.attn_impl))
         if mode == "pallas" and self.pallas_tile is not None:
             raise NotImplementedError(
                 "%s: pallas_tile=%r is a TPU tile override; the port's "
@@ -320,15 +335,22 @@ class MultiHeadAttention(Forward):
 
     def forward(self, x):
         q, k, v = self.project_qkv(x)
-        if self.mode(x.shape[1]) == "pallas":
+        mode = self.mode(x.shape[1])
+        if mode in ("pallas", "scan"):
             # q/k/v in the compute dtype (bf16 on the card): matched
             # kernel inputs and half the cache
             cd = self.device.compute_dtype
             q, k, v = (t.to(cd).contiguous() for t in (q, k, v))
-            out_heads, lse = FA.flash_attention_fwd(
-                q, k, v, causal=self.causal, pipeline=self.attn_pipeline,
-                acc_dtype=torch.bfloat16 if self.attn_acc == "bf16"
-                else None)
+            if mode == "pallas":
+                out_heads, lse = FA.flash_attention_fwd(
+                    q, k, v, causal=self.causal,
+                    pipeline=self.attn_pipeline,
+                    acc_dtype=torch.bfloat16 if self.attn_acc == "bf16"
+                    else None)
+            else:
+                out_heads, lse = SA.blocked_attention_fwd(
+                    q, k, v, causal=self.causal,
+                    block=self.attn_block_size, dot=self.device.dot)
             merged = self.merge(out_heads)
             self.cache = (q, k, v, out_heads, lse, merged)
         else:
@@ -355,21 +377,27 @@ class GDMultiHeadAttention(GradientDescentBase):
         d = x.shape[-1]
         err = err.reshape(x.shape)
         *qkv, merged = f.cache
-        gwo = dot(_rows(merged).t(), _rows(err))
-        gbo = _column_sum(err) if f.include_bias else None
+        gwo = dot(rows(merged).t(), rows(err))
+        gbo = column_sum(err) if f.include_bias else None
         dctx = f.split(dot(err, f.weights_out.t()))
-        if f.mode(x.shape[1]) == "pallas":
+        mode = f.mode(x.shape[1])
+        if mode == "pallas":
             q, k, v, out_heads, lse = qkv
             dq, dk, dv = FA.flash_attention_bwd(
                 q, k, v, out_heads, lse,
                 dctx.to(dev.compute_dtype).contiguous(), causal=f.causal)
+        elif mode == "scan":
+            q, k, v, out_heads, lse = qkv
+            dq, dk, dv = SA.blocked_attention_bwd(
+                q, k, v, out_heads, lse, dctx.to(dev.compute_dtype),
+                causal=f.causal, block=f.attn_block_size, dot=dot)
         else:
             q, k, v, probs = qkv
             dq, dk, dv = dense_attention_core_bwd(
                 q, k, v, probs, dctx, f.scale(d), dot)
         dqkv = torch.cat([f.merge(dq), f.merge(dk), f.merge(dv)], dim=-1)
-        gw = dot(_rows(x).t(), _rows(dqkv))
-        gb = _column_sum(dqkv) if f.include_bias else None
+        gw = dot(rows(x).t(), rows(dqkv))
+        gb = column_sum(dqkv) if f.include_bias else None
         dx = None
         if self.need_err_input:
             dx = dot(dqkv, f.weights.t())

@@ -17,13 +17,17 @@ decision (``DecisionGD`` after the softmax evaluator, ``DecisionMSE``
 after any other, as the reference picks) and the reversed GD chain, with
 the reference's unit names (class name, made unique with ``_2``,
 ``_3``...). :meth:`StandardWorkflow.link_zero_filler` pins weight
-entries of a forward at zero. ``initialize`` places everything on a
-device; ``run`` trains epoch by epoch until the decision completes.
+entries of a forward at zero; :meth:`StandardWorkflow.link_lr_adjuster`
+gives every GD unit an lr schedule (a layer's ``"<-"`` kwargs carry the
+solver options and per-layer policies, as in the reference).
+``initialize`` places everything on a device; ``run`` trains epoch by
+epoch until the decision completes.
 """
 
 from veles_torch.backends import get_device
 from veles_torch.export_inference import export_inference
 from veles_torch.znicz.decision import DecisionGD, DecisionMSE
+from veles_torch.znicz.lr_adjust import make_policy
 from veles_torch.znicz.nn_units import forward_by_name, gradient_unit_for
 from veles_torch.znicz.ops.all2all import All2AllSoftmax
 from veles_torch.znicz.ops.cutter import ZeroFiller
@@ -124,6 +128,17 @@ class StandardWorkflow:
         if self.device is not None:
             zf.initialize()
         return zf
+
+    def link_lr_adjuster(self, lr_policy=None, bias_lr_policy=None):
+        """Give every GD unit an lr schedule (objects or config dicts, see
+        ``lr_adjust.py``); the bias policy defaults to ``lr_policy``.
+        -> the GD units."""
+        policy = make_policy(lr_policy)
+        bias_policy = make_policy(bias_lr_policy) or policy
+        for gd in self.gds:
+            gd.lr_policy = policy
+            gd.lr_policy_bias = bias_policy
+        return self.gds
 
     def run(self):
         """Train until the decision completes."""
