@@ -204,14 +204,42 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     each layer drops in a step; a small MoE LM's drops equal on the card
     and the CPU (f32); the archive served within ``SERVE_RTOL`` of the
     f32 training forward;
-21. the ``kernels`` summary line (the bias gradient's launches summed
-    over the MNIST, CIFAR-10, AlexNet, autoencoder and LM-slice runs,
-    each path's beside it, the serving paths' among them), the card
+21. resume — (a) the 110M row as phase lm_adam runs it (``RESUME_RUN``:
+    ``LM_110M`` + ``ADAM_RUN``, 64/16 sequences, 2 epochs) through the CLI:
+    run A, 2 epochs in one go; run B with ``--snapshots DIR`` as a user
+    runs it (the improvement-gated ``gz`` checkpoint at epoch 0's
+    valid/train boundary, the epoch-entry clone at each train class,
+    each clone's ms and bytes), preempted by a SIGTERM
+    ``PREEMPT_B_AFTER`` train steps into epoch 1's train class: it must
+    exit 75 with a ``current`` checkpoint of epoch 1's entry; then a fresh
+    process (the CLI with ``--snapshots DIR --snapshot auto``) restarts
+    epoch 1 from it and writes its final state. Every parameter and
+    solver tensor of A and B must be equal bit for bit, and so must
+    their decisions (history, best metric, epochs since the best). The
+    checkpoint's bytes and its write and read seconds, for ``gz`` (run
+    B's own writes) and ``""`` (the same state written again, equal
+    array for array). (b) MNIST preemption through the CLI on the card
+    in a child process (``PREEMPT_RUN``): a SIGTERM once the first
+    ``_current-`` checkpoint exists; the process must exit 75 and leave
+    checkpoints that verify; ``--snapshot auto`` then completes an epoch
+    (in this process: rows 1 and 2 counted).
+    (c) ``--profile-dir`` around a short 110M run (``PROFILE_RUN``): the
+    trace must hold the flash forward and backward kernels and the
+    bias-gradient kernel by name. (d) ``ArchiveModel.load_checkpoint``:
+    run A's 110M archive refreshed from run B's preemption checkpoint,
+    its logits within ``SERVE_RTOL`` of the f32 training forward of run B
+    restored to that checkpoint, on a minibatch. Launches are counted
+    from 0 in every run of the phase (the child's read in the child) and
+    must be what each run implies;
+22. the ``kernels`` summary line (the bias gradient's launches summed
+    over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice and resume
+    runs, each path's beside it, the serving paths' among them), the card
     line, and last ``{"ok": true, "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
 
+import contextlib
 import functools
 import json
 import math
@@ -2609,6 +2637,371 @@ def check_lm_slice(torch):
             "moe": check_moe(torch)}
 
 
+# -- state and launcher -----------------------------------------------------
+
+#: the 110M row as phase lm_adam runs it: AdamW, warmup-cosine, 64/16
+#: sequences of 512, minibatch 8, 2 epochs
+RESUME_RUN = LM_110M + ADAM_RUN
+MNIST_SAMPLE = os.path.join(MODELS, "mnist.py")
+#: the device of the phase's runs (a rehearsal on a host without a card
+#: sets "cpu" and shrinks RESUME_RUN)
+RESUME_DEVICE = "cuda"
+#: the reference's preemption test (tests/test_durability.py) on the card:
+#: the MNIST sample at full size, rolling checkpoints every 0.2 s, a run
+#: of 500 epochs that the SIGTERM cuts short
+PREEMPT_RUN = ("--checkpoint-every", "0.2",
+               "root.mnist.decision.max_epochs=500")
+#: seconds the first rolling checkpoint may take to appear, and the
+#: preempted process to exit
+PREEMPT_DEADLINE = 300
+#: the --profile-dir run: the 110M row's width and depth, its sequences
+#: cut to 16/8 (2 train steps, 1 evaluation)
+PROFILE_RUN = ("root.lm.loader.n_train=16", "root.lm.loader.n_valid=8",
+               "root.lm.decision.max_epochs=1")
+#: run B is preempted (a SIGTERM to its process) after this many train
+#: steps of epoch 1, while the train class is in flight
+PREEMPT_B_AFTER = 2
+#: run B's second process (arguments: an output directory, the train
+#: steps the checkpoint carries, then the CLI's): the CLI's main, then its
+#: launch counts, what its own steps imply, its decision, and its final
+#: state (uncompressed) in the output directory
+RESUME_CHILD = """
+import json, sys, torch
+import chip_smoke as C
+from veles_torch.__main__ import main
+from veles_torch.snapshotter import FileSnapshotStore, write_checkpoint
+C.reset_counts()
+wf = main(sys.argv[3:])
+if wf.device.device.type == "cuda":
+    torch.cuda.synchronize()
+counts = C.read_counts()
+path, _ = write_checkpoint(FileSnapshotStore(sys.argv[1]), "final.ckpt.npz",
+                           wf.checkpoint_state(), compression="")
+wf.step.train_steps -= int(sys.argv[2])
+print(json.dumps({"counts": counts,
+                  "expected": C.lm_expected_counts(
+                      wf, wf.device.device.type)[0],
+                  "decision": wf.decision.get_state(), "final": path}))
+"""
+
+
+def child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def sync(torch):
+    if RESUME_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def lm_cli(torch, *args, preempted=None):
+    """One run of the LM sample through the CLI entry point in this
+    process (``root.lm.train`` emptied first), its launches counted from 0
+    and held to what it implies; -> (workflow, counts). With
+    ``preempted`` (a dict that run B's hooks fill with its workflow) the
+    run must end in the launcher's preemption exit."""
+    from veles_torch.__main__ import main as cli
+    from veles_torch.config import root
+    from veles_torch.launcher import EXIT_PREEMPTED
+    root.lm.train = {}
+    reset_counts()
+    code = 0
+    with contextlib.redirect_stdout(sys.stdout):
+        try:
+            wf = cli([LM_SAMPLE, *args, "--seed", "1337", "-d",
+                      RESUME_DEVICE])
+        except SystemExit as exc:
+            code = exc.code
+            wf = (preempted or {}).get("workflow")
+    sync(torch)
+    counts = read_counts()
+    if code != (0 if preempted is None else EXIT_PREEMPTED):
+        fail("resume %s: the CLI exited %s" % (args[-1:], code))
+    want, _ = lm_expected_counts(wf, RESUME_DEVICE)
+    if counts != want:
+        fail("resume %s: launches %s, expected %s" % (args[-1:], counts,
+                                                      want))
+    return wf, counts
+
+
+def add_counts(*runs):
+    return {k: sum(c[k] for c in runs) for k in runs[0]}
+
+
+def host_state(tree):
+    """The params and solver sections of a checkpoint tree."""
+    return {"%s/%s/%s" % (sec, u, k): v for sec in ("params", "state")
+            for u, sub in tree[sec].items() for k, v in sub.items()}
+
+
+@contextlib.contextmanager
+def run_b_hooks(torch, seen):
+    """Run B's hooks: each epoch-entry clone timed (its ms, the bytes it
+    clones and, on the card, what the allocator grew by), the workflow
+    kept in ``seen``; and ``PREEMPT_B_AFTER`` train steps into epoch 1's
+    train class a SIGTERM to this process, as a preemption sends it."""
+    import signal
+    from veles_torch.znicz.standard_workflow import StandardWorkflow
+    from veles_torch.znicz.step import TorchStep
+    copy_view, train = StandardWorkflow._copy_view, TorchStep.train_minibatch
+
+    def timed_copy(wf):
+        sync(torch)
+        on_card = RESUME_DEVICE == "cuda"
+        before = torch.cuda.memory_allocated() if on_card else None
+        t0 = time.perf_counter()
+        view = copy_view(wf)
+        sync(torch)
+        ms = (time.perf_counter() - t0) * 1e3
+        seen["workflow"] = wf
+        seen["clones"].append({
+            "ms": ms, "bytes": sum(t.numel() * t.element_size()
+                                   for sec in ("params", "state")
+                                   for sub in view[sec].values()
+                                   for t in sub.values()),
+            "allocated_bytes": torch.cuda.memory_allocated() - before
+            if on_card else None})
+        return view
+
+    def preempting_train(step, *args):
+        out = train(step, *args)
+        if step.decision.epoch_number == 1 and \
+                step.train_steps == step.entry["step_index"] \
+                + PREEMPT_B_AFTER:
+            signal.raise_signal(signal.SIGTERM)
+        return out
+
+    StandardWorkflow._copy_view = timed_copy
+    TorchStep.train_minibatch = preempting_train
+    try:
+        yield
+    finally:
+        StandardWorkflow._copy_view = copy_view
+        TorchStep.train_minibatch = train
+
+
+def raw_costs(wf, directory):
+    """Write ``wf``'s checkpoint uncompressed through a snapshotter and
+    read it back; -> ({bytes, write_s, read_s}, its tree)."""
+    from veles_torch import snapshotter as S
+    snap = wf.link_snapshotter(directory=directory, compression="",
+                               prefix="resume_raw")
+    t0 = time.perf_counter()
+    path = snap.export_snapshot(slot="current")
+    write_s = time.perf_counter() - t0
+    if path is None:
+        fail("resume: the uncompressed checkpoint was not written")
+    t0 = time.perf_counter()
+    tree = S.load_snapshot(path)
+    return {"bytes": os.path.getsize(path), "write_s": write_s,
+            "read_s": time.perf_counter() - t0}, tree
+
+
+def unequal_tensors(want, got):
+    """{tensor: max abs difference} of the params and solver sections of
+    two checkpoint trees that are not bit for bit equal."""
+    import numpy
+    want, got = host_state(want), host_state(got)
+    if sorted(want) != sorted(got):
+        fail("resume: tensors %s vs %s" % (sorted(want)[:4],
+                                           sorted(got)[:4]))
+    return {k: float(numpy.abs(got[k].astype(numpy.float64)
+                               - want[k]).max())
+            for k in want if not numpy.array_equal(want[k], got[k])}
+
+
+def resume_110m(torch, tmp):
+    """Part (a): runs A and B of the 110M; -> (summary, counts, run B's
+    preemption checkpoint, run A, run B restored to that checkpoint)."""
+    from veles_torch import snapshotter as S
+    wf_a, counts_a = lm_cli(torch, *RESUME_RUN)
+    snaps = os.path.join(tmp, "b")
+    seen = {"clones": []}
+    writes = len(S.COUNTERS.write_seconds)
+    with run_b_hooks(torch, seen):
+        wf_b, counts_b1 = lm_cli(torch, *RESUME_RUN, "--snapshots", snaps,
+                                 preempted=seen)
+    gz_writes = S.COUNTERS.write_seconds[writes:]
+    path = wf_b.snapshotter.destination
+    t0 = time.perf_counter()
+    tree = S.load_snapshot(path)
+    gz_read = time.perf_counter() - t0
+    entry_step = int(tree["meta"]["step_index"])
+    names = sorted(os.listdir(snaps))
+    if "_current-" not in path or tree["decision"]["epoch_number"] != 1 \
+            or entry_step != wf_b.step.entry["step_index"] \
+            or wf_b.step.train_steps != entry_step + PREEMPT_B_AFTER \
+            or len(seen["clones"]) != 2 or len(gz_writes) != len(names):
+        fail("resume: run B's preemption checkpoint %s: epoch %s, step %d "
+             "(run stopped at %d), %d entry clones, %d writes, store %s"
+             % (path, tree["decision"]["epoch_number"], entry_step,
+                wf_b.step.train_steps, len(seen["clones"]), len(gz_writes),
+                names))
+    raw, raw_tree = raw_costs(wf_b, os.path.join(tmp, "raw"))
+    if unequal_tensors(tree, raw_tree):
+        fail("resume: the uncompressed checkpoint of run B's entry differs "
+             "from its preemption checkpoint")
+    out = os.path.join(tmp, "b2")
+    os.makedirs(out)
+    child = subprocess.run(
+        [sys.executable, "-c", RESUME_CHILD, out, str(entry_step),
+         LM_SAMPLE, *RESUME_RUN, "--snapshots", snaps, "--snapshot", "auto",
+         "--seed", "1337", "-d", RESUME_DEVICE],
+        cwd=HERE, env=child_env(), capture_output=True, text=True,
+        timeout=900)
+    if child.returncode:
+        fail("resume: run B's second process exited %d: %s"
+             % (child.returncode, child.stderr[-2000:]))
+    report = json.loads(child.stdout.strip().splitlines()[-1])
+    if report["counts"] != report["expected"]:
+        fail("resume: run B's second process launched %s, expected %s"
+             % (report["counts"], report["expected"]))
+    want = wf_a.checkpoint_state()
+    unequal = unequal_tensors(want, S.load_snapshot(report["final"]))
+    if unequal or report["decision"] != want["decision"]:
+        fail("resume: run B differs from run A: %d tensors (%s), "
+             "decisions equal: %s" % (
+                 len(unequal), sorted(unequal.items(),
+                                      key=lambda kv: -kv[1])[:5],
+                 report["decision"] == want["decision"]))
+    wf_b.restore_state(tree)
+    summary = {"tensors": len(host_state(want)), "bitwise_equal": True,
+               "history": report["decision"]["history"],
+               "preempted_at_step": entry_step + PREEMPT_B_AFTER,
+               "resumed_from": os.path.basename(path),
+               "store": names, "entry_clones": seen["clones"],
+               "checkpoint": {"gz": {"bytes": os.path.getsize(path),
+                                     "write_s": gz_writes,
+                                     "read_s": gz_read},
+                              "raw": raw},
+               "launches": {"run_a": counts_a, "run_b_first": counts_b1,
+                            "run_b_second": report["counts"]}}
+    return (summary, add_counts(counts_a, counts_b1, report["counts"]),
+            path, wf_a, wf_b)
+
+
+def preempt_mnist(torch, tmp):
+    """Part (b); -> (summary, counts of the resumed run)."""
+    import signal
+    from veles_torch import snapshotter as S
+    from veles_torch.__main__ import main as cli
+    from veles_torch.znicz.ops.bias_grad import bias_grad
+    snaps = os.path.join(tmp, "mnist")
+    base = [MNIST_SAMPLE, "-d", RESUME_DEVICE, "--seed", "1337",
+            "--snapshots", snaps]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veles_torch", *base, *PREEMPT_RUN],
+        cwd=HERE, env=child_env(), stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + PREEMPT_DEADLINE
+        while not (os.path.isdir(snaps) and any(
+                "_current-" in n for n in os.listdir(snaps))):
+            if proc.poll() is not None:
+                fail("resume: the MNIST run ended (%d) before a rolling "
+                     "checkpoint: %s" % (proc.returncode,
+                                         proc.stderr.read()[-2000:]))
+            if time.monotonic() > deadline:
+                fail("resume: no rolling checkpoint in %d s"
+                     % PREEMPT_DEADLINE)
+            time.sleep(0.05)
+        t_signal = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=PREEMPT_DEADLINE)
+        exit_s = time.monotonic() - t_signal
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 75:
+        fail("resume: the preempted MNIST run exited %d: %s"
+             % (rc, proc.stderr.read()[-2000:]))
+    infos = S.scan_checkpoints(snaps)
+    if not infos or any(i.status != "valid" for i in infos):
+        fail("resume: the preempted run's store: %s" % infos)
+    tree, name, _ = S.resolve_auto(snaps)
+    epoch = tree["decision"]["epoch_number"]
+    reset_counts()
+    wf = cli(base + ["--snapshot", "auto",
+                     "root.mnist.decision.max_epochs=%d" % (epoch + 1)])
+    sync(torch)
+    counts = read_counts()
+    steps = wf.step.train_steps - int(tree["meta"]["step_index"])
+    launches = bias_grad.form_launches
+    if steps <= 0 or launches != {"identity": steps, "masked": steps} \
+            or len(wf.decision.history) != epoch + 1:
+        fail("resume: MNIST resumed from %s (epoch %d): %d train steps, "
+             "bias_grad %s, %d epochs" % (name, epoch, steps, launches,
+                                          len(wf.decision.history)))
+    return {"exit_code": rc, "seconds_to_exit": exit_s,
+            "checkpoints": [(i.name, i.status) for i in infos],
+            "resumed_from": name, "resumed_epoch": epoch,
+            "train_steps": steps, "launches": counts}, counts
+
+
+def profile_dir_run(torch, tmp):
+    """Part (c); -> (summary, counts)."""
+    from veles_torch.launcher import TRACE_NAME
+    prof = os.path.join(tmp, "profile")
+    _, counts = lm_cli(torch, *RESUME_RUN, *PROFILE_RUN, "--profile-dir",
+                       prof)
+    path = os.path.join(prof, TRACE_NAME)
+    with open(path) as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    named = {key: sum(pattern in k for k in kernels) for key, pattern in
+             (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_bwd"),
+              ("bias_grad", BIAS_GRAD_KERNEL))}
+    if not all(named.values()):
+        fail("resume: the --profile-dir trace misses kernels: %s" % named)
+    return {"trace_bytes": os.path.getsize(path),
+            "device_kernels": len(kernels), "by_name": named,
+            "launches": counts}, counts
+
+
+def refresh_archive(torch, wf_a, wf_b, ckpt):
+    """Part (d): run A's archive refreshed from run B's preemption
+    checkpoint, against run B restored to it."""
+    from veles_torch.serving.model import ArchiveModel
+    path = archive_dir("resume_110m")
+    wf_a.export_inference(path)
+    model = ArchiveModel.from_dir(path, device=RESUME_DEVICE)
+    rows = first_train_batch(torch, wf_b)[0][:2]
+    want = train_forward_f32(torch, wf_b, rows)
+    before = max_rel(model(rows), want)
+    loaded = model.load_checkpoint(ckpt)
+    after = max_rel(model(rows), want)
+    if not after <= SERVE_RTOL or not before > SERVE_RTOL:
+        fail("resume: load_checkpoint: logits %.3g of run B's before the "
+             "refresh, %.3g after (bound %g)" % (before, after, SERVE_RTOL))
+    return {"tensors_loaded": loaded, "rel_err_before": before,
+            "rel_err_after": after, "bound": SERVE_RTOL}
+
+
+def check_resume(torch):
+    """Phase resume; -> its launches (every run of the phase that this
+    process or run B's second process counted)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        summary, counts, ckpt, wf_a, wf_b = resume_110m(torch, tmp)
+        emit({"phase": "resume", "part": "110M", "card": card_line(),
+              **summary})
+        preempt, mnist = preempt_mnist(torch, tmp)
+        emit({"phase": "resume", "part": "mnist_preemption", **preempt})
+        profile, prof_counts = profile_dir_run(torch, tmp)
+        emit({"phase": "resume", "part": "profile_dir", **profile})
+        refresh = refresh_archive(torch, wf_a, wf_b, ckpt)
+        emit({"phase": "resume", "part": "load_checkpoint", **refresh})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return add_counts(counts, mnist, prof_counts)
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -2663,7 +3056,8 @@ def main(argv=None):
     serving = {"serve_predict": check_serve_predict(torch),
                "serve_decode": check_serve_decode(torch)}
     lm_slice = check_lm_slice(torch)
-    paths = {**ae, **serving, **lm_slice}
+    resume = check_resume(torch)
+    paths = {**ae, **serving, **lm_slice, "resume": resume}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

@@ -125,3 +125,13 @@ def test_serving_stack_and_moe_archives_loads_no_jax_or_veles(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_state_and_launcher_modules_are_checked():
+    """The checkpoint, launcher and rollback modules are among the files
+    the source check covers (each is also imported by the fresh
+    interpreter above)."""
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {os.path.join("veles_torch", "snapshotter.py"),
+            os.path.join("veles_torch", "launcher.py"),
+            os.path.join("veles_torch", "znicz", "nn_rollback.py")} <= files

@@ -1,0 +1,199 @@
+"""The port's launcher and CLI (veles_torch/launcher.py,
+veles_torch/__main__.py) on the CPU: SIGTERM preemption and ``--snapshot
+auto`` in process (a hook sends the signal after an epoch; nothing polls
+the file system against a clock), SIGINT, the config-file positional
+against the reference CLI's ``--result-file``, ``--dump-config``,
+``--profile-dir``'s trace, and the reference CLI's options the port does
+not have yet, each refused naming its ROADMAP item."""
+
+import json
+import logging
+import os
+import signal
+
+import pytest
+
+from veles.__main__ import main as jax_main
+from veles.config import root as jroot
+import veles_torch.snapshotter as TS
+from veles_torch.__main__ import UNPORTED, main as torch_main
+from veles_torch.config import root as troot
+from veles_torch.launcher import EXIT_PREEMPTED, TRACE_NAME
+from veles_torch.znicz.standard_workflow import StandardWorkflow
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TORCH_MNIST = os.path.join(REPO, "veles_torch", "znicz", "models",
+                           "mnist.py")
+JAX_MNIST = os.path.join(REPO, "veles", "znicz_tpu", "models", "mnist.py")
+SMALL = ["root.mnist.loader.n_train=200", "root.mnist.loader.n_valid=50",
+         "root.mnist.loader.minibatch_size=50"]
+#: a config file's epochs' losses against the reference CLI's (f32 order
+#: error over 8 updates)
+LOSS_RTOL = 1e-6
+
+
+@pytest.fixture(autouse=True)
+def restore_roots():
+    saved = [(r, r.mnist.to_dict()) for r in (jroot, troot)]
+    yield
+    for r, tree in saved:
+        r.mnist.update(tree)
+
+
+@pytest.fixture
+def signal_after_epoch(monkeypatch):
+    """-> arm(sig, epoch): the workflow sends ``sig`` to its own process
+    once ``epoch`` has ended (the launcher's handler must be in place)."""
+    armed = {}
+    after = StandardWorkflow._after_decision
+
+    def hooked(self, cls):
+        after(self, cls)
+        if armed and self.decision.epoch_ended \
+                and self.decision.epoch_number == armed["epoch"]:
+            sig = armed.pop("sig")
+            armed.clear()
+            assert signal.getsignal(sig) not in (signal.SIG_DFL,
+                                                 signal.SIG_IGN)
+            os.kill(os.getpid(), sig)
+
+    monkeypatch.setattr(StandardWorkflow, "_after_decision", hooked)
+
+    def arm(sig, epoch):
+        armed.update(sig=sig, epoch=epoch)
+
+    return arm
+
+
+def _history(path):
+    with open(path) as f:
+        return json.load(f)["history"]
+
+
+def test_sigterm_preemption_and_auto_resume(tmp_path, signal_after_epoch,
+                                            capsys):
+    """SIGTERM after epoch 1 of a 500-epoch run: the run stops before its
+    next minibatch, writes a ``current`` checkpoint that verifies and
+    exits with EXIT_PREEMPTED; ``--snapshot auto`` resumes it and
+    completes, with the history of an uninterrupted run."""
+    snaps = str(tmp_path / "snaps")
+    base = [TORCH_MNIST, "-d", "cpu", "--seed", "7", "--snapshots", snaps,
+            *SMALL]
+    before = signal.getsignal(signal.SIGTERM)
+    signal_after_epoch(signal.SIGTERM, 2)
+    with pytest.raises(SystemExit) as exit_info:
+        torch_main(base + ["--checkpoint-every", "3600",
+                           "root.mnist.decision.max_epochs=500"])
+    assert exit_info.value.code == EXIT_PREEMPTED == 75
+    infos = TS.scan_checkpoints(snaps)
+    current = [i for i in infos if "_current-" in i.name]
+    assert [i.status for i in current] == ["valid"]
+    tree = TS.load_snapshot(os.path.join(snaps, current[0].name))
+    assert tree["decision"]["epoch_number"] == 2
+    assert signal.getsignal(signal.SIGTERM) == before
+    resumed = str(tmp_path / "resumed.json")
+    torch_main(base + ["--snapshot", "auto", "--result-file", resumed,
+                       "root.mnist.decision.max_epochs=3"])
+    straight = str(tmp_path / "straight.json")
+    torch_main([TORCH_MNIST, "-d", "cpu", "--seed", "7", *SMALL,
+                "--result-file", straight, "root.mnist.decision.max_epochs=3"])
+    capsys.readouterr()
+    assert _history(resumed) == _history(straight)
+    assert len(_history(resumed)) == 3
+
+
+def test_sigint_stops_the_run(tmp_path, signal_after_epoch, capsys):
+    """SIGINT after epoch 1 ends the run before its next minibatch, with
+    no checkpoint and no exit: the CLI prints its result."""
+    before = signal.getsignal(signal.SIGINT)
+    signal_after_epoch(signal.SIGINT, 1)
+    wf = torch_main([TORCH_MNIST, "-d", "cpu", *SMALL,
+                     "root.mnist.decision.max_epochs=5"])
+    assert len(wf.decision.history) == 1
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["history"]
+    assert signal.getsignal(signal.SIGINT) == before
+
+
+@pytest.fixture
+def port_logs(caplog, monkeypatch):
+    """caplog that sees the port's records: the CLI's handler stops
+    ``veles_torch`` records from propagating to the root logger."""
+    monkeypatch.setattr(logging.getLogger("veles_torch"), "propagate", True)
+    return caplog
+
+
+def test_auto_needs_a_store_and_the_cadence_a_snapshotter(port_logs):
+    with pytest.raises(ValueError, match="checkpoint location"):
+        torch_main([TORCH_MNIST, "-d", "cpu", *SMALL, "--snapshot", "auto",
+                    "root.mnist.decision.max_epochs=1"])
+    torch_main([TORCH_MNIST, "-d", "cpu", *SMALL, "--checkpoint-every", "1",
+                "root.mnist.decision.max_epochs=1"])
+    assert "NO interval checkpoints" in port_logs.text
+
+
+def _config_file(path, package):
+    with open(path, "w") as f:
+        f.write("from %s.config import root\n"
+                "root.mnist.loader.update({'n_train': 200, 'n_valid': 50,\n"
+                "                          'minibatch_size': 25})\n"
+                "root.mnist.decision.max_epochs = 5\n" % package)
+    return str(path)
+
+
+def test_config_file_equals_the_reference_cli(tmp_path, capsys):
+    """A config file (python mutating root) plus overrides after it, the
+    same on both CLIs: the same --result-file history (error rates equal,
+    losses within LOSS_RTOL); a lone ``a.b=c`` in the config position is
+    an override."""
+    tail = ["root.mnist.decision.max_epochs=2", "-d", "cpu", "--seed", "11",
+            "--result-file"]
+    want = str(tmp_path / "want.json")
+    jax_main([JAX_MNIST, _config_file(tmp_path / "jcfg.py", "veles"),
+              *tail, want, "--no-stats"])
+    got = str(tmp_path / "got.json")
+    torch_main([TORCH_MNIST, _config_file(tmp_path / "tcfg.py",
+                                          "veles_torch"), *tail, got])
+    capsys.readouterr()
+    jh, th = _history(want), _history(got)
+    assert len(jh) == len(th) == 2
+    for j, t in zip(jh, th):
+        for cls in ("validation", "train"):
+            assert j[cls]["metric"] == t[cls]["metric"]
+            assert j[cls]["samples"] == t[cls]["samples"] == \
+                {"validation": 50, "train": 200}[cls]
+            assert abs(j[cls]["loss"] - t[cls]["loss"]) <= \
+                LOSS_RTOL * j[cls]["loss"]
+    wf = torch_main([TORCH_MNIST, "root.mnist.decision.max_epochs=1", *SMALL,
+                     "-d", "cpu", "--dump-config"])
+    assert len(wf.decision.history) == 1
+    dumped = capsys.readouterr().err
+    assert '"max_epochs": 1' in dumped and '"n_train": 200' in dumped
+
+
+def test_profile_dir_writes_a_trace_of_the_run(tmp_path, capsys):
+    """``--profile-dir`` on ``-d cpu``: a torch.profiler Chrome trace in
+    the directory that holds the run's operators (the train step's
+    matrix products)."""
+    prof = str(tmp_path / "prof")
+    torch_main([TORCH_MNIST, "-d", "cpu", *SMALL, "--profile-dir", prof,
+                "root.mnist.decision.max_epochs=1"])
+    capsys.readouterr()
+    with open(os.path.join(prof, TRACE_NAME)) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"aten::mm", "aten::index_select"} <= names, sorted(names)[:20]
+
+
+def _argv(flag, kwargs):
+    if kwargs.get("action") == "store_true" or kwargs.get("nargs") == "?":
+        return [flag]
+    if "choices" in kwargs:
+        return [flag, kwargs["choices"][0]]
+    return [flag, "1"]
+
+
+@pytest.mark.parametrize("flag,kwargs,item", UNPORTED,
+                         ids=[u[0] for u in UNPORTED])
+def test_unported_options_name_their_roadmap_item(flag, kwargs, item):
+    with pytest.raises(NotImplementedError,
+                       match=r"%s .*item %d\)" % (flag, item)):
+        torch_main([TORCH_MNIST, "-d", "cpu", *_argv(flag, kwargs)])

@@ -286,8 +286,11 @@ def test_unknown_type_and_format_are_refused(tmp_path):
         "format": 2, "units": []}))
     with pytest.raises(ValueError, match="format"):
         ArchiveModel.from_dir(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ArchiveModel("w", [4], [], {}, device="cpu").load_checkpoint("x")
+    # load_checkpoint is ported (tests/test_torch_resume.py); a missing
+    # checkpoint file is refused
+    with pytest.raises(FileNotFoundError):
+        ArchiveModel("w", [4], [], {}, device="cpu").load_checkpoint(
+            str(tmp_path / "missing.ckpt.npz"))
 
 
 # -- engine --------------------------------------------------------------

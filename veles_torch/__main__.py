@@ -1,19 +1,34 @@
 """Command-line entry point of the PyTorch port.
 
-    python -m veles_torch <workflow.py> [root.x.y=v ...] [-d cuda|cpu]
-                          [--seed N] [--result-file PATH]
+    python -m veles_torch <workflow.py> [<config.py>] [root.x.y=v ...]
+                          [-d cuda|cpu] [--seed N] [--result-file PATH]
+                          [--dump-config]
+                          [--snapshots DIR] [--checkpoint-every SECS]
+                          [--snapshot FILE|auto|auto:DIR]
+                          [--profile-dir DIR]
                           [--export-inference DIR]
                           [--generate IDS | --generate-text PROMPT
                            [--gen-tokens N] [--gen-temperature T]]
+    python -m veles_torch checkpoints <DIR> [--json]
 
 Counterpart of ``python -m veles`` for the samples ported so far: the
 workflow module is imported first (its ``root`` defaults land), then the
-dot-path overrides are applied, then ``--seed`` re-seeds every named
-generator; the module's ``create_workflow()`` is built, initialized on
-the device and trained. Each finished epoch prints its summary line; the
-last line of standard output is one JSON object with the decision
-history. The device is ``cuda`` unless ``-d cpu`` is given; asking for
-``cuda`` on a host without a card fails.
+config file (python mutating ``root``; a lone ``a.b=c`` in its place is
+an override), then the dot-path overrides, then ``--seed`` re-seeds every
+named generator; the module's ``create_workflow()`` is built and run by
+the launcher (``launcher.py``): initialized on the device, resumed from
+``--snapshot`` (a checkpoint file, or ``auto``: the newest checkpoint
+that verifies in the ``--snapshots`` store, ``auto:DIR`` another store),
+trained. ``--snapshots DIR`` links a snapshotter when the workflow has
+none (improvement-gated checkpoints in the reference's format);
+``--checkpoint-every SECS`` adds rolling ``current`` checkpoints. SIGTERM
+stops the run before its next minibatch, writes a final ``current``
+checkpoint and exits with code 75; ``--snapshot auto`` picks it up.
+``--profile-dir DIR`` writes a ``torch.profiler`` trace of the run there.
+Each finished epoch prints its summary line; the last line of standard
+output is one JSON object with the decision history. The device is
+``cuda`` unless ``-d cpu`` is given; asking for ``cuda`` on a host
+without a card fails.
 
 After training, ``--export-inference DIR`` writes the inference archive
 (``contents.json`` + ``.npy``, the reference's format) and prints
@@ -24,6 +39,12 @@ greedy, or sampled at ``--gen-temperature``) and prints ``generated:
 text-corpus LM's character vocabulary (``root.lm.loader.text_file``) and
 prints the prompt with its continuation. These lines come before the
 final JSON line.
+
+``checkpoints DIR`` audits a snapshot store: every checkpoint with its
+manifest verdict (valid, legacy, corrupt), slot, schema, health verdict
+and age, or ``--json`` rows; exit 1 when one is corrupt, 2 when the store
+cannot be read. The reference CLI's options the port has not ported
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 import argparse
@@ -37,7 +58,36 @@ import numpy
 
 from veles_torch import prng
 from veles_torch.config import root
+from veles_torch.launcher import Launcher
+from veles_torch.snapshotter import scan_checkpoints
 from veles_torch.znicz.generate import generate
+
+#: the reference CLI's options not ported yet: (flag, argparse kwargs,
+#: ROADMAP Queue 1 item)
+UNPORTED = (
+    ("--web-status", {"type": int}, 9),
+    ("--trace-out", {}, 9),
+    ("--slo-config", {}, 9),
+    ("--model-stats", {"choices": ("on", "off")}, 3),
+    ("--stats-interval", {"type": int}, 3),
+    ("--rollback-on-divergence", {"action": "store_true"}, 3),
+    ("--listen-address", {}, 10),
+    ("--master-address", {}, 10),
+    ("--slave-timeout", {"type": float}, 10),
+    ("--slave-retries", {"type": int}, 10),
+    ("--grad-codec", {}, 10),
+    ("--grad-topk-percent", {"type": float}, 10),
+    ("--stash-interval", {"type": int}, 10),
+    ("--continual", {"type": int, "nargs": "?", "const": 0}, 6),
+    ("--ensemble", {"type": int}, 13),
+    ("--optimize", {}, 13),
+    ("--graphics-dir", {}, 12),
+    ("--workflow-graph", {}, 11),
+    ("--dump-unit-sizes", {"action": "store_true"}, 11),
+    ("--no-stats", {"action": "store_true"}, 11),
+    ("--background", {"action": "store_true"}, 11),
+    ("--log-file", {}, 11),
+)
 
 
 def build_argparser():
@@ -45,6 +95,8 @@ def build_argparser():
         prog="python -m veles_torch",
         description="Train a workflow of the PyTorch/CUDA port")
     p.add_argument("workflow", help="path to the workflow python module")
+    p.add_argument("config", nargs="?", default=None,
+                   help="python config file mutating root.*")
     p.add_argument("overrides", nargs="*", default=[],
                    help="root.x.y=value dot-path overrides")
     p.add_argument("-d", "--device", default="cuda",
@@ -53,6 +105,22 @@ def build_argparser():
                    help="master seed for every named generator")
     p.add_argument("--result-file", default=None,
                    help="also write the final JSON here")
+    p.add_argument("--dump-config", action="store_true",
+                   help="print the effective config before running")
+    p.add_argument("--snapshot", default=None,
+                   help="checkpoint to resume from: a file, 'auto' (the "
+                        "newest checkpoint that verifies in the --snapshots "
+                        "store) or 'auto:DIR'")
+    p.add_argument("--snapshots", default=None, metavar="DIR",
+                   help="write improvement-gated checkpoints to DIR (links "
+                        "a snapshotter when the workflow has none)")
+    p.add_argument("--checkpoint-every", type=float, default=None,
+                   metavar="SECS",
+                   help="also write rolling 'current' checkpoints at the "
+                        "first class boundary after every SECS seconds")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run to "
+                        "DIR/trace.json")
     p.add_argument("--export-inference", default=None, metavar="DIR",
                    help="after the run, export the inference archive "
                         "(contents.json + .npy) to DIR")
@@ -69,7 +137,20 @@ def build_argparser():
     p.add_argument("--gen-temperature", type=float, default=0.0,
                    help="sampling temperature for --generate "
                         "(0 = greedy)")
+    for flag, kwargs, item in UNPORTED:
+        p.add_argument(flag, default=None,
+                       help="not ported yet (ROADMAP Queue 1 item %d)" % item,
+                       **kwargs)
     return p
+
+
+def refuse_unported(args):
+    for flag, kwargs, item in UNPORTED:
+        value = getattr(args, flag[2:].replace("-", "_"))
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                "%s is not ported yet (ROADMAP Queue 1 item %d)"
+                % (flag, item))
 
 
 def import_file(path, name=None):
@@ -82,9 +163,62 @@ def import_file(path, name=None):
     return module
 
 
+def checkpoints_main(argv):
+    """``checkpoints DIR [--json]``: the store audit; -> the exit code (0,
+    1 when a checkpoint is corrupt, 2 when the store cannot be read)."""
+    import time
+    p = argparse.ArgumentParser(
+        prog="python -m veles_torch checkpoints",
+        description="List checkpoints in a store with their manifest "
+                    "verification status")
+    p.add_argument("store", help="snapshot directory")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable output")
+    args = p.parse_args(argv)
+    try:
+        infos = scan_checkpoints(args.store)
+    except (OSError, ValueError) as exc:
+        print("error: %s: %s" % (type(exc).__name__, exc), file=sys.stderr)
+        return 2
+    rows = []
+    for info in infos:
+        m = info.manifest or {}
+        age = None
+        if info.wall_time:
+            age = round(time.time() - info.wall_time, 1)
+        rows.append({"name": info.name, "status": info.status,
+                     "slot": m.get("slot"), "schema": m.get("schema"),
+                     "age_s": age, "error": info.error,
+                     "verdict": info.health_verdict})
+    if args.json:
+        print(json.dumps(rows, indent=2))
+    else:
+        print("%-8s %-9s %-7s %-9s %12s  %s"
+              % ("STATUS", "SLOT", "SCHEMA", "VERDICT", "AGE(s)", "NAME"))
+        for r in rows:
+            print("%-8s %-9s %-7s %-9s %12s  %s"
+                  % (r["status"], r["slot"] or "-",
+                     r["schema"] if r["schema"] is not None else "-",
+                     r["verdict"] or "-",
+                     r["age_s"] if r["age_s"] is not None else "-",
+                     r["name"]))
+            if r["error"]:
+                print("         !! %s" % r["error"])
+        print("%d checkpoint(s): %d valid, %d legacy, %d corrupt"
+              % (len(rows), sum(r["status"] == "valid" for r in rows),
+                 sum(r["status"] == "legacy" for r in rows),
+                 sum(r["status"] == "corrupt" for r in rows)))
+    return 1 if any(r["status"] == "corrupt" for r in rows) else 0
+
+
 def main(argv=None):
-    """Run the CLI; -> the trained workflow."""
+    """Run the CLI; -> the trained workflow (the exit code for
+    ``checkpoints``)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "checkpoints":
+        return checkpoints_main(argv[1:])
     args = build_argparser().parse_intermixed_args(argv)
+    refuse_unported(args)
     prompt = None
     if args.generate:
         try:
@@ -101,21 +235,37 @@ def main(argv=None):
         logger.setLevel(logging.INFO)
         logger.propagate = False
     module = import_file(args.workflow, "veles_torch_workflow_module")
+    # a lone "a.b=c" positional is an override, not a config file
+    if args.config and "=" in args.config \
+            and not os.path.exists(args.config):
+        args.overrides.insert(0, args.config)
+        args.config = None
+    if args.config:
+        import_file(args.config, "veles_torch_config_module")
     for override in args.overrides:
         root.apply_override(override)
     if args.seed is not None:
         prng.seed_all(args.seed)
+    if args.dump_config:
+        json.dump(root.to_dict(), sys.stderr, indent=2, sort_keys=True,
+                  default=str)
+        print(file=sys.stderr)
     wf = module.create_workflow()
     if args.generate_text and not hasattr(wf.loader, "encode"):
         raise SystemExit("--generate-text needs a text-corpus loader "
                          "(root.lm.loader.text_file)")
-    wf.initialize(device=args.device)
+    if args.snapshots and wf.snapshotter is None:
+        wf.link_snapshotter(directory=args.snapshots)
+    launcher = Launcher(device=args.device, snapshot=args.snapshot,
+                        checkpoint_every=args.checkpoint_every,
+                        profile_dir=args.profile_dir)
+    launcher.initialize(wf)
     if args.generate_text:
         try:
             prompt = wf.loader.encode(args.generate_text)
         except ValueError as exc:
             raise SystemExit("--generate-text: %s" % exc)
-    wf.run()
+    launcher.run()
     if args.export_inference:
         wf.export_inference(args.export_inference)
         print("inference archive -> %s" % args.export_inference, flush=True)
@@ -139,4 +289,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    result = main()
+    sys.exit(result if isinstance(result, int) else 0)

@@ -106,6 +106,10 @@ root.common.update({
         "datasets": os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
             "datasets"),
+        # a snapshotter linked without a directory writes here
+        "snapshots": os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "snapshots"),
     },
     # dtype policy overrides read by backends.TorchDevice:
     # compute_dtype (matmul inputs) and amp (tensors between units)

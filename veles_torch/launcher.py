@@ -1,0 +1,163 @@
+"""Run orchestration of the PyTorch port: the reference's ``Launcher``
+(``veles/launcher.py``) in its standalone mode.
+
+    launcher = Launcher(device="cuda", snapshot="auto",
+                        checkpoint_every=600, profile_dir="prof")
+    launcher.initialize(workflow)
+    launcher.run()
+
+:meth:`Launcher.initialize` places the workflow on its device, turns
+``checkpoint_every`` into the snapshotter's wall-clock interval (warning
+when no snapshotter is linked: nothing would be written) and applies
+``snapshot``: a checkpoint file, ``auto`` (the newest checkpoint that
+verifies in the snapshotter's store, of this workflow's prefixes) or
+``auto:DIR``. :meth:`Launcher.run` trains: SIGINT stops the run; SIGTERM
+(preemption) stops it before the next minibatch, then, outside the
+signal handler, writes a final ``current`` checkpoint and exits with
+:data:`EXIT_PREEMPTED`. ``profile_dir`` wraps the run in
+``torch.profiler`` (CPU, and CUDA on the card) and writes its Chrome
+trace into the directory, the twin of the reference's
+``jax.profiler.trace``. The master and slave modes are not ported yet
+(ROADMAP Queue 1 item 10).
+"""
+
+import logging
+import os
+import signal
+
+import torch
+
+from veles_torch.snapshotter import load_snapshot, resolve_auto
+
+logger = logging.getLogger("veles_torch.launcher")
+
+#: exit code after a SIGTERM preemption: "checkpointed, reschedule me"
+#: (BSD EX_TEMPFAIL), apart from success and crash
+EXIT_PREEMPTED = 75
+
+#: the trace file ``profile_dir`` receives
+TRACE_NAME = "trace.json"
+
+
+class Launcher:
+    """Drives one standalone workflow run."""
+
+    def __init__(self, device="cuda", snapshot=None, checkpoint_every=None,
+                 profile_dir=None):
+        self.device = device
+        self.snapshot = snapshot
+        self.checkpoint_every = checkpoint_every
+        self.profile_dir = profile_dir
+        self.workflow = None
+        self.interrupted = False
+        #: SIGTERM asked for a preemption shutdown
+        self.preempted = False
+
+    def initialize(self, workflow):
+        self.workflow = workflow
+        workflow.initialize(device=self.device)
+        snap = workflow.snapshotter
+        if snap is not None and self.checkpoint_every and not snap.interval:
+            snap.interval = float(self.checkpoint_every)
+        elif snap is None and self.checkpoint_every:
+            logger.warning(
+                "--checkpoint-every %.6g has no snapshotter to drive (pass "
+                "--snapshots DIR or link one) — NO interval checkpoints "
+                "will be written", self.checkpoint_every)
+        if self.snapshot:
+            self._restore_snapshot(workflow)
+        return workflow
+
+    def _restore_snapshot(self, workflow):
+        target = self.snapshot
+        if target != "auto" and not target.startswith("auto:"):
+            workflow.restore_state(load_snapshot(target))
+            logger.info("resumed from %s", target)
+            return
+        snap = workflow.snapshotter
+        if target.startswith("auto:"):
+            base = target[len("auto:"):]
+        elif snap is not None:
+            base = snap.directory
+        else:
+            raise ValueError(
+                "--snapshot auto needs a checkpoint location: pass "
+                "--snapshots DIR (or --snapshot auto:DIR) or link a "
+                "snapshotter")
+        # only this run's names: a shared store holds other workflows'
+        prefixes = {workflow.name}
+        if snap is not None:
+            prefixes.add(snap.prefix)
+        resolved = resolve_auto(base, prefixes=prefixes)
+        if resolved is None:
+            logger.info("--snapshot auto: no verifiable checkpoint in the "
+                        "store — starting fresh")
+            return
+        state, name, corrupt = resolved
+        if corrupt:
+            logger.warning("--snapshot auto: the store holds %d corrupt "
+                           "checkpoint(s); resuming %s", corrupt, name)
+        workflow.restore_state(state)
+        logger.info("resumed from %s", name)
+
+    def _profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.workflow.device.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
+    def run(self):
+        """Train; -> the workflow. After SIGTERM: a final checkpoint,
+        then ``SystemExit(EXIT_PREEMPTED)``."""
+        wf = self.workflow
+        previous = signal.getsignal(signal.SIGINT)
+        previous_term = signal.getsignal(signal.SIGTERM)
+
+        def on_sigint(sig, frame):
+            self.interrupted = True
+            logger.warning("interrupt: stopping the workflow")
+            wf.stop()
+            signal.signal(signal.SIGINT, previous)
+
+        def on_sigterm(sig, frame):
+            # never checkpoint here: the run stops before its next
+            # minibatch and the checkpoint follows once it has unwound
+            self.preempted = True
+            logger.warning("SIGTERM: preemption shutdown — stopping before "
+                           "the next minibatch")
+            wf.stop()
+
+        try:
+            signal.signal(signal.SIGINT, on_sigint)
+            signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:          # not on the main thread
+            previous = previous_term = None
+        try:
+            if self.profile_dir:
+                os.makedirs(self.profile_dir, exist_ok=True)
+                with self._profiler() as prof:
+                    wf.run()
+                    if wf.device.device.type == "cuda":
+                        torch.cuda.synchronize()
+                path = os.path.join(self.profile_dir, TRACE_NAME)
+                prof.export_chrome_trace(path)
+                logger.info("profiler trace -> %s", path)
+            else:
+                wf.run()
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGINT, previous)
+            if previous_term is not None:
+                signal.signal(signal.SIGTERM, previous_term)
+        if self.preempted:
+            self._preemption_exit()
+        return wf
+
+    def _preemption_exit(self):
+        snap = self.workflow.snapshotter
+        if snap is not None:
+            path = snap.preempt_snapshot()
+            if path:
+                logger.info("preemption checkpoint -> %s", path)
+        logger.warning("preempted: exiting with code %d", EXIT_PREEMPTED)
+        raise SystemExit(EXIT_PREEMPTED)

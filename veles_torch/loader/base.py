@@ -9,11 +9,22 @@ the true row count of each minibatch beside it. A loader takes the
 reference's ``normalization_type`` / ``normalization_parameters`` and
 builds its normalizer (``veles_torch/normalization.py``); a loader that
 cannot apply one refuses it at initialize, as the reference's does.
+
+An epoch's order is drawn when it is first served, so the generator's
+state before the draw is the epoch's entry state. :meth:`Loader.get_state`
+gives the epoch number, that entry state (the PCG64 ``bit_generator``
+state, the reference's key ``prng_state``) and the fitted normalizer;
+:meth:`Loader.set_state` restores them and restarts the epoch, drawing
+its order again from the restored state, as the reference's does.
 """
+
+import logging
 
 import numpy
 
 from veles_torch import normalization, prng
+
+logger = logging.getLogger("veles_torch.loader")
 
 CLASS_TEST, CLASS_VALID, CLASS_TRAIN = 0, 1, 2
 TRIAGE = ("test", "validation", "train")
@@ -39,7 +50,11 @@ class Loader:
         #: samples per class: [test, valid, train]
         self.class_lengths = [0, 0, 0]
         self.epoch_number = 0
-        self._order = []          # [(cls, ndarray of global indices)]
+        #: [(cls, ndarray of global indices)] of the current epoch, None
+        #: until it is drawn
+        self._order = None
+        #: the generator's state before the current order was drawn
+        self._entry_state = None
 
     def load_data(self):
         """Discover the dataset: set ``class_lengths`` and the data."""
@@ -90,7 +105,7 @@ class Loader:
             self.apply_normalization()
             self._normalization_applied = True
         self.epoch_number = 0
-        self._order = self._generate_order()
+        self._order = None
 
     def _class_indices(self, cls):
         off = self.class_offset(cls)
@@ -105,10 +120,51 @@ class Loader:
                 for cls in (CLASS_TEST, CLASS_VALID, CLASS_TRAIN)
                 if self.class_lengths[cls] > 0]
 
+    def _current_order(self):
+        if self._order is None:
+            self._entry_state = self.prng_state()
+            self._order = self._generate_order()
+        return self._order
+
     def next_epoch(self):
-        """Advance to the next epoch (draws its train shuffle)."""
+        """Advance to the next epoch (its train shuffle is drawn when it
+        is first served)."""
         self.epoch_number += 1
-        self._order = self._generate_order()
+        self._order = None
+
+    def prng_state(self):
+        """The shuffle generator's PCG64 state (a fresh dict)."""
+        return self.prng._gen.bit_generator.state
+
+    # -- checkpoint support: a restore restarts the epoch ---------------
+
+    def get_state(self):
+        """{epoch_number, prng_state (at the epoch's entry), normalizer}:
+        the reference's keys."""
+        entry = self._entry_state if self._order is not None \
+            else self.prng_state()
+        return {"epoch_number": self.epoch_number,
+                "prng_state": dict(entry),
+                "normalizer": self.normalizer.state()}
+
+    def set_state(self, state):
+        """Restore :meth:`get_state`'s values and restart the epoch: its
+        order is drawn again from the restored generator state. A
+        checkpoint's normalizer of another type replaces the configured
+        one (warned)."""
+        self.epoch_number = int(state["epoch_number"])
+        self.prng._gen.bit_generator.state = state["prng_state"]
+        norm = state.get("normalizer")
+        if norm:
+            name = norm.get("__name__")
+            if name and name != self.normalizer.NAME:
+                logger.warning("%s: restoring the %r normalizer of the "
+                               "checkpoint (configured: %r)", self.name,
+                               name, self.normalizer.NAME)
+                self.normalizer = normalization.from_state(norm)
+            else:
+                self.normalizer.set_state(norm)
+        self._order = None
 
     @staticmethod
     def pad_indices(chunk, size):
@@ -123,7 +179,7 @@ class Loader:
     def class_schedule(self, cls):
         """(idx_mat (n_mb, mb) int32, valids (n_mb,) int32) of ``cls`` in
         the current epoch."""
-        for c, indices in self._order:
+        for c, indices in self._current_order():
             if c != cls:
                 continue
             mb = self.max_minibatch_size
@@ -140,4 +196,5 @@ class Loader:
     def epoch_plan(self):
         """[(cls, idx_mat, valids), ...] of the current epoch in serving
         order."""
-        return [(cls, *self.class_schedule(cls)) for cls, _ in self._order]
+        return [(cls, *self.class_schedule(cls))
+                for cls, _ in self._current_order()]

@@ -9,7 +9,10 @@ master seed therefore gives the JAX package's numpy draws bit for bit
 Randomness inside a step on the device comes from a ``torch.Generator``
 seeded from the same named seed (:func:`torch_generator`); its numbers
 differ from ``jax.random``'s, so device-side randomness matches the
-reference only statistically.
+reference only statistically. A unit holding one checkpoints its state
+(:func:`generator_state`), so a resumed run draws what the uninterrupted
+one would have; the reference derives its device randomness from the
+step index and keeps no such state.
 """
 
 import hashlib
@@ -76,6 +79,17 @@ def torch_generator(key: str, device="cpu") -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(get(key).state_seed)
     return gen
+
+
+def generator_state(gen: torch.Generator) -> numpy.ndarray:
+    """A ``torch.Generator``'s state as a uint8 array (a checkpoint
+    leaf)."""
+    return gen.get_state().numpy().copy()
+
+
+def set_generator_state(gen: torch.Generator, state) -> None:
+    """Restore :func:`generator_state`'s array into ``gen``."""
+    gen.set_state(torch.as_tensor(numpy.asarray(state, numpy.uint8)))
 
 
 def _key_seed(master: int, key: str) -> int:

@@ -9,6 +9,20 @@ shape as the reference's, and set ``complete`` at ``max_epochs`` or
 after ``fail_iterations`` epochs without improvement. ``DecisionGD``'s
 metric is the number of errors, ``DecisionMSE``'s the loss times the
 minibatch's sample count (so its normalised metric is the mean loss).
+
+As in the reference, ``improved`` and ``epoch_ended`` describe the last
+minibatch accounted (a new best on the judged class's last minibatch,
+the epoch's last minibatch), ``last_epoch_metrics`` holds the finished
+epoch's per-class sums, and :meth:`DecisionGD.get_state` /
+:meth:`DecisionGD.set_state` carry the reference's checkpoint keys.
+
+Inside an epoch, :meth:`DecisionGD.get_state` gives the state as the
+epoch began: a resume restarts the epoch and accounts its classes again,
+so a checkpoint taken after the validation class was judged must not
+carry that judgement, or the resumed run would judge the same metric a
+second time (no improvement, one more epoch since the best). The
+reference checkpoints the judged state; a resume of its checkpoint
+judges twice.
 """
 
 import logging
@@ -34,17 +48,30 @@ class DecisionGD:
         self.max_epochs = max_epochs
         self.fail_iterations = fail_iterations
         self.complete = False
+        #: the judged class's metric hit a new best on the last minibatch
+        self.improved = False
+        #: the last minibatch ended an epoch
+        self.epoch_ended = False
         self.epoch_number = 0
+        self.minibatch_count = 0
         self.epoch_metrics = [None, None, None]
+        #: the finished epoch's per-class sums
+        self.last_epoch_metrics = [None, None, None]
         self.best_metric = numpy.inf
         self.best_epoch = -1
         self._epochs_since_best = 0
         #: one summary dict per finished epoch
         self.history = []
+        #: get_state() as the epoch in flight began (None between epochs)
+        self._entry_state = None
 
     def on_minibatch(self, cls, n, n_err, loss, last_minibatch,
                      epoch_ended, has_valid):
         """Account one served minibatch of ``n`` valid rows."""
+        if self._entry_state is None:
+            self._entry_state = self._state()
+        self.improved = self.epoch_ended = False
+        self.minibatch_count += 1
         acc = self.epoch_metrics[cls]
         if acc is None:
             acc = self.epoch_metrics[cls] = {
@@ -70,10 +97,14 @@ class DecisionGD:
                 self.best_metric = value
                 self.best_epoch = self.epoch_number
                 self._epochs_since_best = 0
+                self.improved = True
             else:
                 self._epochs_since_best += 1
 
     def _on_epoch_ended(self):
+        self._entry_state = None
+        self.epoch_ended = True
+        self.last_epoch_metrics = list(self.epoch_metrics)
         summary = {"epoch": self.epoch_number}
         for cls in (CLASS_TEST, CLASS_VALID, CLASS_TRAIN):
             acc = self.epoch_metrics[cls]
@@ -92,6 +123,31 @@ class DecisionGD:
             self.complete = True
         if self._epochs_since_best >= self.fail_iterations:
             self.complete = True
+
+    def get_state(self):
+        """The checkpoint keys: as the epoch in flight began, or now,
+        between epochs."""
+        if self._entry_state is not None:
+            return dict(self._entry_state)
+        return self._state()
+
+    def _state(self):
+        return {"epoch_number": self.epoch_number,
+                "minibatch_count": self.minibatch_count,
+                "best_metric": float(self.best_metric),
+                "best_epoch": self.best_epoch,
+                "epochs_since_best": self._epochs_since_best,
+                "history": list(self.history)}
+
+    def set_state(self, state):
+        self.epoch_number = int(state["epoch_number"])
+        self.minibatch_count = int(state["minibatch_count"])
+        self.best_metric = float(state["best_metric"])
+        self.best_epoch = int(state["best_epoch"])
+        self._epochs_since_best = int(state["epochs_since_best"])
+        self.history = list(state["history"])
+        self.epoch_metrics = [None, None, None]
+        self._entry_state = None
 
 
 class DecisionMSE(DecisionGD):

@@ -37,6 +37,14 @@ class DropoutForward(Forward):
             "%s/%s" % (self.prng_key, self.name), device.device)
         return tuple(input_shape)
 
+    def get_state(self):
+        """The generator's state (a checkpoint's ``units`` section), so a
+        resumed run draws what an uninterrupted one would."""
+        return {"generator": prng.generator_state(self.generator)}
+
+    def set_state(self, state):
+        prng.set_generator_state(self.generator, state["generator"])
+
     def draw_mask(self, x):
         """``(u < keep) / keep`` in the activation dtype, x's shape."""
         keep = 1.0 - self.dropout_ratio

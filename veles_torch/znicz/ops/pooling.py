@@ -194,6 +194,14 @@ class StochasticPooling(PoolingBase):
             "%s/%s" % (self.prng_key, self.name), device.device)
         return super().initialize(input_shape, device)
 
+    def get_state(self):
+        """The generator's state (a checkpoint's ``units`` section), so a
+        resumed run draws what an uninterrupted one would."""
+        return {"generator": prng.generator_state(self.generator)}
+
+    def set_state(self, state):
+        prng.set_generator_state(self.generator, state["generator"])
+
     def uniform(self, shape, device):
         """The (B, oy, ox, C) uniforms of one train forward."""
         return torch.rand(shape, generator=self.generator, device=device)

@@ -21,18 +21,51 @@ entries of a forward at zero; :meth:`StandardWorkflow.link_lr_adjuster`
 gives every GD unit an lr schedule (a layer's ``"<-"`` kwargs carry the
 solver options and per-layer policies, as in the reference).
 ``initialize`` places everything on a device; ``run`` trains epoch by
-epoch until the decision completes.
+epoch until the decision completes, or until :meth:`StandardWorkflow.stop`
+ends it before the next minibatch.
+
+State (the reference's ``NNWorkflow``): :meth:`StandardWorkflow.
+checkpoint_state` is the checkpoint tree in the reference's sections
+(``params`` and ``state`` by unit name, ``decision``, ``loader``,
+``rollback``, ``lr_scales``, ``meta`` and ``units``: the device
+generators' states) and :meth:`StandardWorkflow.restore_state` loads one
+into an initialized workflow; :meth:`StandardWorkflow.stash_state` /
+:meth:`StandardWorkflow.restore_stash` are NNRollback's copies on the
+device. After each class of an epoch reaches the decision the workflow
+runs, in the reference's order, the end of the epoch's bookkeeping (the
+loader moves to the next epoch), the snapshotter
+(:meth:`StandardWorkflow.link_snapshotter`, or ``snapshotter_config``)
+and the rollback (:meth:`StandardWorkflow.link_rollback`).
+
+A checkpoint holds the state at the last class boundary the run passed:
+before the train class and while it runs, the epoch's entry (the copy
+the step keeps once a snapshotter or rollback is linked; the state the
+validation metric was measured on), with the loader's generator state
+from before the epoch's shuffle; after the train class, the live state,
+with the loader already in the next epoch. A resume restarts the
+loader's epoch and redraws its shuffle from that state, so a resumed run
+equals the uninterrupted one.
 """
+
+import logging
+
+import numpy
+import torch
 
 from veles_torch.backends import get_device
 from veles_torch.export_inference import export_inference
+from veles_torch.snapshotter import (
+    CorruptCheckpointError, Snapshotter, host_copy)
 from veles_torch.znicz.decision import DecisionGD, DecisionMSE
 from veles_torch.znicz.lr_adjust import make_policy
+from veles_torch.znicz.nn_rollback import NNRollback
 from veles_torch.znicz.nn_units import forward_by_name, gradient_unit_for
 from veles_torch.znicz.ops.all2all import All2AllSoftmax
 from veles_torch.znicz.ops.cutter import ZeroFiller
 from veles_torch.znicz.ops.evaluator import EvaluatorMSE, EvaluatorSoftmax
 from veles_torch.znicz.step import TorchStep
+
+logger = logging.getLogger("veles_torch.workflow")
 
 
 def normalize_layers(layers):
@@ -51,7 +84,7 @@ class StandardWorkflow:
 
     def __init__(self, layers=None, loader_factory=None,
                  decision_config=None, evaluator_factory=None,
-                 name="StandardWorkflow"):
+                 name="StandardWorkflow", snapshotter_config=None):
         if loader_factory is None:
             raise ValueError("no loader_factory given")
         self.name = name
@@ -89,6 +122,12 @@ class StandardWorkflow:
         self.zero_fillers = []
         self.device = None
         self.step = None
+        self.snapshotter = None
+        self.rollback = None
+        #: runs started (the reference's ``meta.run_number``)
+        self.run_number = 0
+        if snapshotter_config is not None:
+            self.link_snapshotter(**snapshotter_config)
 
     def _unique(self, name):
         base, i = name, 2
@@ -115,7 +154,17 @@ class StandardWorkflow:
             zf.initialize()
         self.step = TorchStep(self.loader, self.forwards, self.evaluator,
                               self.gds, self.decision, self.device)
+        if self.snapshotter is not None:
+            self.snapshotter.initialize()
+        self._keep_entry()
         return self
+
+    def _keep_entry(self):
+        """The step keeps an epoch-entry copy only for a consumer: a
+        snapshotter or a rollback."""
+        if self.step is not None:
+            keep = self.snapshotter is not None or self.rollback is not None
+            self.step.take_entry = self._copy_view if keep else None
 
     def link_zero_filler(self, target, mask=None, name="zerofiller"):
         """A :class:`ZeroFiller` of ``target`` (a forward unit or its
@@ -140,13 +189,50 @@ class StandardWorkflow:
             gd.lr_policy_bias = bias_policy
         return self.gds
 
+    def link_snapshotter(self, **cfg):
+        """A :class:`Snapshotter` (its prefix defaults to the workflow's
+        name), run after the decision at each class boundary;
+        initialized at once when the workflow already is. -> it."""
+        cfg.setdefault("prefix", self.name)
+        snap = Snapshotter(self, **cfg)
+        snap.decision = self.decision
+        self.snapshotter = snap
+        if self.step is not None:
+            snap.initialize()
+        self._keep_entry()
+        return snap
+
+    def link_rollback(self, **cfg):
+        """An :class:`NNRollback`, run after the snapshotter at each
+        epoch's end. -> it."""
+        self.rollback = NNRollback(self, **cfg)
+        self._keep_entry()
+        return self.rollback
+
     def run(self):
-        """Train until the decision completes."""
-        while True:
-            self.step.run_epoch()
-            if self.decision.complete:
-                return self
+        """Train until the decision completes or :meth:`stop` is
+        called."""
+        self.run_number += 1
+        while self.step.run_epoch(self._after_decision) \
+                and not self.decision.complete:
+            pass
+        return self
+
+    def _after_decision(self, cls):
+        """The units after the decision, in the reference's order."""
+        if self.decision.epoch_ended:
             self.loader.next_epoch()
+        if self.snapshotter is not None:
+            self.snapshotter.run()
+        if self.rollback is not None:
+            self.rollback.run()
+
+    def stop(self):
+        """End :meth:`run` before its next minibatch (the minibatches of
+        the class in flight are not accounted); a later :meth:`run` ends
+        at once."""
+        if self.step is not None:
+            self.step.stop_requested = True
 
     def export_inference(self, path):
         """Write the inference archive (contents.json + .npy weights) of
@@ -174,18 +260,134 @@ class StandardWorkflow:
                 tree[name] = sub
         return tree
 
-    def import_tree(self, tree):
-        """Load a tree shaped like :meth:`export_tree` (tensors are copied
-        to this workflow's device; shapes and keys must match)."""
+    # -- checkpoint / resume (the reference's NNWorkflow) ----------------
+
+    def _generator_units(self):
+        return [u for u in self.forwards if hasattr(u, "get_state")]
+
+    def _live_view(self):
+        """{params, state, units, step_index} of the live tensors."""
+        return {"params": {f.name: f.export_params() for f in self.forwards},
+                "state": {g.name: g.export_state() for g in self.gds},
+                "units": {u.name: u.get_state()
+                          for u in self._generator_units()},
+                "step_index": self.step.train_steps}
+
+    def _copy_view(self):
+        """A clone of :meth:`_live_view` on the device (the step's
+        epoch-entry copy, a rollback's stash)."""
+        view = self._live_view()
+        for section in ("params", "state"):
+            view[section] = {name: {k: t.clone() for k, t in sub.items()}
+                             for name, sub in view[section].items()}
+        return view
+
+    def _checkpoint_view(self):
+        if not self.step.in_train:
+            return self._live_view()
+        if self.step.entry is None:
+            raise RuntimeError(
+                "%s: no epoch-entry copy to checkpoint while the train "
+                "class runs (link the snapshotter before the epoch)"
+                % self.name)
+        return self.step.entry
+
+    def checkpoint_state(self):
+        """The checkpoint tree (host arrays and JSON-able values) of the
+        last class boundary the run passed."""
+        view = self._checkpoint_view()
+        tree = {"params": {}, "state": {},
+                "meta": {"workflow": self.name,
+                         "run_number": self.run_number,
+                         "step_index": int(view["step_index"])}}
+        for section in ("params", "state"):
+            for name, sub in view[section].items():
+                if sub:
+                    tree[section][name] = {k: host_copy(t)
+                                           for k, t in sub.items()}
+        tree["decision"] = self.decision.get_state()
+        tree["loader"] = self.loader.get_state()
+        if self.rollback is not None:
+            tree["rollback"] = self.rollback.get_state()
+        tree["lr_scales"] = {gd.name: float(gd.lr_scale) for gd in self.gds}
+        if view["units"]:
+            tree["units"] = dict(view["units"])
+        return tree
+
+    def restore_state(self, tree):
+        """Load a checkpoint tree (this package's or the reference's) into
+        the initialized workflow; the loader restarts its epoch. Each unit
+        of the workflow takes its own entries: a shape or key it lacks
+        raises :class:`CorruptCheckpointError`; a unit name the workflow
+        lacks is warned and skipped."""
+        for section in ("params", "state"):
+            self.import_tree(tree.get(section, {}), skip_unknown=True)
+        if "decision" in tree:
+            self.decision.set_state(tree["decision"])
+        if "loader" in tree:
+            self.loader.set_state(tree["loader"])
+        if self.rollback is not None and "rollback" in tree:
+            self.rollback.set_state(tree["rollback"])
+        for gd in self.gds:
+            if gd.name in tree.get("lr_scales", {}):
+                gd.lr_scale = float(tree["lr_scales"][gd.name])
+        others = {u.name: u for u in self._generator_units()}
+        for name, state in tree.get("units", {}).items():
+            if name not in others:
+                logger.warning("checkpoint names unknown unit %r — "
+                               "skipped", name)
+                continue
+            others[name].set_state(state)
+        self.step.train_steps = int(tree.get("meta", {}).get("step_index",
+                                                             0))
+        self.step.entry, self.step.in_train = None, False
+
+    def stash_state(self, at_valid=False):
+        """A copy of every unit's params and solver state on the device;
+        ``at_valid``: the epoch-entry copy, on which the epoch's
+        validation metric was measured. Load it back with
+        :meth:`restore_stash`."""
+        if not at_valid:
+            return self._copy_view()
+        if self.step.entry is None:
+            raise RuntimeError("%s: no epoch-entry copy (link a snapshotter "
+                               "or rollback before the epoch)" % self.name)
+        return self.step.entry
+
+    def restore_stash(self, stash):
+        """Load a :meth:`stash_state` copy back, COPYING it: the updates
+        that follow must not write into the stash, or a second rollback
+        would restore diverged values."""
+        for section in ("params", "state"):
+            self.import_tree(stash[section])
+
+    def import_tree(self, tree, skip_unknown=False):
+        """Load a tree shaped like :meth:`export_tree` (a checkpoint's
+        ``params`` or ``state`` section): every value is copied onto the
+        device and dtype of the unit's tensor. A key the unit lacks or
+        another shape raises :class:`CorruptCheckpointError`, and so does
+        a unit name this workflow lacks, unless ``skip_unknown``: then it
+        is warned and skipped (the reference's rule for a resume)."""
         units = self.units()
         for name, sub in tree.items():
-            unit = units[name]
+            unit = units.get(name)
+            if unit is None:
+                if not skip_unknown:
+                    raise CorruptCheckpointError(
+                        "%s: no unit named %r" % (self.name, name))
+                logger.warning("checkpoint names unknown unit %r — "
+                               "skipped", name)
+                continue
             for key, value in sub.items():
                 old = getattr(unit, key, None)
-                if old is None:
-                    raise KeyError("%s has no %r" % (name, key))
-                if tuple(old.shape) != tuple(value.shape):
-                    raise ValueError("%s.%s: shape %s != %s" % (
-                        name, key, tuple(value.shape), tuple(old.shape)))
-                setattr(unit, key, value.to(device=old.device,
-                                            dtype=old.dtype, copy=True))
+                if not isinstance(old, torch.Tensor):
+                    raise CorruptCheckpointError(
+                        "checkpoint entry %s/%s: the unit has no such "
+                        "tensor" % (name, key))
+                if tuple(old.shape) != tuple(numpy.shape(value)):
+                    raise CorruptCheckpointError(
+                        "checkpoint entry %s/%s: shape %s, the unit's %s"
+                        % (name, key, tuple(numpy.shape(value)),
+                           tuple(old.shape)))
+                setattr(unit, key, torch.as_tensor(value).to(
+                    device=old.device, dtype=old.dtype, copy=True))

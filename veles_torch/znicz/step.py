@@ -18,6 +18,15 @@ names (``TARGET``: ``"labels"``, or an MSE evaluator's ``"targets"``),
 gathered by the same indices; targets that are the data tensor itself
 (an autoencoder's) are the gathered data, not a second gather.
 
+After each class reaches the decision, ``run_epoch`` calls its
+``after_class`` hook (the workflow's snapshotter and rollback). Before
+every minibatch it reads ``stop_requested``: a stopped epoch ends there,
+and the class in flight never reaches the decision. With ``take_entry``
+set (a snapshotter or rollback is linked) the train class starts by
+keeping ``entry``, the workflow's clone of params, solver state and
+generator states: the state the epoch's validation metric was measured
+on, and what a checkpoint holds while the train class is in flight.
+
 Eager PyTorch: each operation is its own launch (no CUDA graph yet).
 """
 
@@ -44,6 +53,14 @@ class TorchStep:
         self.eval_steps = 0
         #: host seconds of each finished epoch (metric fetches included)
         self.epoch_seconds = []
+        #: read before every minibatch; True ends the epoch there
+        self.stop_requested = False
+        #: a callable -> the epoch-entry copy, or None to keep none
+        self.take_entry = None
+        #: the copy ``take_entry`` made as the current train class began
+        self.entry = None
+        #: the train class is running (not yet accounted)
+        self.in_train = False
 
     def _forward(self, data, train):
         """-> the input of every forward, and the last output; the
@@ -93,9 +110,10 @@ class TorchStep:
         self.train_steps += 1
         return metrics
 
-    def run_epoch(self):
+    def run_epoch(self, after_class=None):
         """Serve every class of the loader's current epoch and feed the
-        decision."""
+        decision, calling ``after_class(cls)`` after each; -> False when
+        ``stop_requested`` ended the epoch first."""
         t0 = time.perf_counter()
         loader = self.loader
         dev = self.device.device
@@ -103,15 +121,19 @@ class TorchStep:
         plan = loader.epoch_plan()
         has_valid = loader.class_lengths[CLASS_VALID] > 0
         for ci, (cls, idx_mat, valids) in enumerate(plan):
-            step = self.train_minibatch if cls == CLASS_TRAIN \
-                else self.eval_minibatch
+            train = cls == CLASS_TRAIN
+            if train:
+                self.entry = self.take_entry() if self.take_entry else None
+                self.in_train = True
+            step = self.train_minibatch if train else self.eval_minibatch
             idx = torch.as_tensor(idx_mat, dtype=torch.int64).to(dev)
             valid_dev = torch.as_tensor(valids).to(dev)
             metrics = torch.empty((len(idx_mat), len(METRICS)),
                                   dtype=torch.float32, device=dev)
             for i in range(len(idx_mat)):
-                metrics[i] = step(*self.gather(full, idx[i],
-                                               cls == CLASS_TRAIN),
+                if self.stop_requested:
+                    return False
+                metrics[i] = step(*self.gather(full, idx[i], train),
                                   valid_dev[i])
             host = metrics.cpu().numpy()
             last_cls = ci == len(plan) - 1
@@ -121,4 +143,8 @@ class TorchStep:
                     cls, int(valids[i]), int(row[1]), float(row[0]),
                     last_minibatch=last, epoch_ended=last and last_cls,
                     has_valid=has_valid)
+            self.in_train = False
+            if after_class is not None:
+                after_class(cls)
         self.epoch_seconds.append(time.perf_counter() - t0)
+        return True
