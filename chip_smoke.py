@@ -231,10 +231,35 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     restored to that checkpoint, on a minibatch. Launches are counted
     from 0 in every run of the phase (the child's read in the child) and
     must be what each run implies;
-22. the ``kernels`` summary line (the bias gradient's launches summed
-    over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice and resume
-    runs, each path's beside it, the serving paths' among them), the card
-    line, and last ``{"ok": true, "device": {...}}``.
+22. model_health — the model-health plane on the card, each run under
+    a fresh monitor of the port: (a) MNIST (3 epochs, seed 1337) through
+    the launcher with the layer stats at stride 1 and 8, on the card and on
+    the CPU: the same (step index, layers) sequence, every norm within
+    ``HEALTH_MNIST_RTOL`` of the CPU's, finite, update ratios in (0, 1),
+    the verdict healthy, 2 bias-gradient launches a train step; the
+    stride-8 card run's ImageSaver files (``SAVER_LIMIT`` an epoch, each
+    the loader's sample). (b) the learning rate NaN on train step
+    ``NAN_STEP`` with ``--rollback-on-divergence`` and a rollback: the
+    verdict diverged on that step's stats with the reasons
+    ``NAN_REASONS`` (the CPU's too), one rollback, the rates cut, healthy
+    at the end; a checkpoint written meanwhile stamped diverged and
+    passed over by ``resolve_auto``; ``--model-stats off`` stamps
+    ``unknown``. (c) the 110M row (``LM_110M``, momentum, the kernels)
+    through the CLI with the stats off, at stride 8 and 1: the launches
+    each run implies (the stats change none), the vectors finite; then in
+    turns (``STATS_TURNS``) the step's host ms, and its device
+    operations from the profiler. (d) the stride-8 MNIST archive through
+    a ``MicroBatcher`` on the card: the monitor's entropy and margin equal
+    the numpy formula on the sampled batch's outputs. (e) the eight
+    activation pairs forward and backward at AlexNet conv1's output
+    (``ACTIVATION_SHAPE``) in f32 and bf16 against the CPU
+    (``ACTIVATION_TOL``). Also, at the 110M flash shape, SDPA's backward
+    with its backend pinned (flash, then memory-efficient) beside phase
+    flash_kernel_times;
+23. the ``kernels`` summary line (the bias gradient's launches summed
+    over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume and
+    model-health runs, each path's beside it, the serving paths' among
+    them), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
@@ -650,9 +675,19 @@ def check_kernels(torch, timer):
     return forms
 
 
-def run_mnist(torch, device):
+def cli_run(argv, monitor=None):
+    """The port's CLI entry point in this process, under a fresh
+    model-health monitor (or ``monitor``), as a process of its own runs
+    it: one run's losses must not judge (and stamp the checkpoints of)
+    another."""
+    from veles_torch import model_health
     from veles_torch.__main__ import main as cli
-    return cli([os.path.join(HERE, "veles_torch", "znicz", "models",
+    with model_health.scoped(monitor):
+        return cli(argv)
+
+
+def run_mnist(torch, device):
+    return cli_run([os.path.join(HERE, "veles_torch", "znicz", "models",
                              "mnist.py"),
                 "root.mnist.decision.max_epochs=3", "--seed", "1337",
                 "-d", device])
@@ -969,6 +1004,25 @@ def flash_bound_ms(shape, form):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
+def sdpa_backward_pinned(torch, timer, q, k, v, dout, reps):
+    """SDPA's backward (causal) with its backend pinned by
+    ``torch.nn.attention.sdpa_kernel``: flash, then memory-efficient; each
+    row names the autograd node that ran."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    row = {"phase": "sdpa_backward_pinned", "shape": list(q.shape),
+           "dtype": str(q.dtype)[6:], "causal": True, "reps": reps}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+        with sdpa_kernel(backend):
+            out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        row[name + "_ms"] = timer(lambda: torch.autograd.grad(
+            out, (qr, kr, vr), dout, retain_graph=True), reps)
+        row[name + "_node"] = type(out.grad_fn).__name__
+    return row
+
+
 def time_flash(torch, timer):
     """Phase flash_kernel_times; -> {kernel: the main shape's row}."""
     import torch.nn.functional as F
@@ -988,6 +1042,8 @@ def time_flash(torch, timer):
             q, k, v, is_causal=True), reps)
         lib_bwd = timer(lambda: torch.autograd.grad(
             lib_out, (qr, kr, vr), dout, retain_graph=True), reps)
+        if shape == FLASH_MAIN:
+            emit(sdpa_backward_pinned(torch, timer, q, k, v, dout, reps))
         pair = functools.partial(FA.flash_attention_bwd, *grads,
                                  delta=delta, fused=False)
         # no one PyTorch call computes dq alone or dk/dv alone: their rows
@@ -1105,7 +1161,7 @@ def lm_expected_counts(wf, device):
 
 
 def run_lm(torch, name, device, *overrides, valid_must_fall=True,
-           impl="pallas", phase="lm", cli_args=(), stdout=None):
+           impl="pallas", phase="lm", cli_args=(), stdout=None, monitor=None):
     """One LM run through the CLI entry point (``attn_impl`` set to
     ``impl`` unless None; ``root.lm.train`` emptied first, so no earlier
     run's solver options remain), its launches counted from 0; ->
@@ -1113,16 +1169,17 @@ def run_lm(torch, name, device, *overrides, valid_must_fall=True,
     the run implies (:func:`lm_expected_counts`), a non-finite parameter
     or solver tensor, or a train loss (and, with ``valid_must_fall``, a
     validation loss) that does not fall. ``cli_args`` go to the CLI after
-    the rest; with ``stdout`` (a text stream) the CLI prints there."""
+    the rest; with ``stdout`` (a text stream) the CLI prints there; the run
+is judged by ``monitor`` (a model-health monitor; a fresh one by
+default)."""
     import contextlib
-    from veles_torch.__main__ import main as cli
     from veles_torch.config import root
     root.lm.train = {}
     reset_counts()
     impl_arg = ("root.lm.model.attn_impl=%s" % impl,) if impl else ()
     with contextlib.redirect_stdout(stdout or sys.stdout):
-        wf = cli([LM_SAMPLE, *impl_arg, *overrides, "--seed", "1337", "-d",
-                  device, *cli_args])
+        wf = cli_run([LM_SAMPLE, *impl_arg, *overrides, "--seed", "1337",
+                      "-d", device, *cli_args], monitor)
     if device == "cuda":
         torch.cuda.synchronize()
     counts = read_counts()
@@ -1279,7 +1336,6 @@ def check_cifar(torch):
     CPU and on the card, the launches counted from 0 just before the
     card run; -> the card run's launch counts."""
     import copy
-    from veles_torch.__main__ import main as cli
     from veles_torch.config import root
     from veles_torch.znicz.models import cifar10  # noqa: F401 (defaults)
     layers = copy.deepcopy(root.cifar.layers)
@@ -1291,7 +1347,7 @@ def check_cifar(torch):
     errors = {}
     for device in ("cpu", "cuda"):
         reset_counts()
-        wf = cli(args + ["-d", device])
+        wf = cli_run(args + ["-d", device])
         if device == "cuda":
             torch.cuda.synchronize()
         counts = read_counts()
@@ -1462,9 +1518,8 @@ def check_alexnet(torch):
     finite and the last train loss below 1.5 times the first (the
     reference's bar, tests/test_image_loader.py); images/s over the warm
     epoch; then one profiled step. -> the run's launch counts."""
-    from veles_torch.__main__ import main as cli
     reset_counts()
-    wf = cli([IMAGENET_SAMPLE, *ALEXNET_RUN, "--seed", "1337", "-d", "cuda"])
+    wf = cli_run([IMAGENET_SAMPLE, *ALEXNET_RUN, "--seed", "1337", "-d", "cuda"])
     torch.cuda.synchronize()
     TRAINED["alexnet"] = wf
     counts = read_counts()
@@ -1550,12 +1605,11 @@ def check_ae(torch, phase, sample, seed):
     AE_PARITY_RTOL; one bf16 step under torch.profiler. -> the card run's
     launch counts."""
     import importlib
-    from veles_torch.__main__ import main as cli
     path = os.path.join(MODELS, sample)
     mse = {}
     for device in ("cpu", "cuda"):
         reset_counts()
-        wf = cli([path, "--seed", str(seed), "-d", device])
+        wf = cli_run([path, "--seed", str(seed), "-d", device])
         if device == "cuda":
             torch.cuda.synchronize()
         counts = read_counts()
@@ -2703,7 +2757,6 @@ def lm_cli(torch, *args, preempted=None):
     and held to what it implies; -> (workflow, counts). With
     ``preempted`` (a dict that run B's hooks fill with its workflow) the
     run must end in the launcher's preemption exit."""
-    from veles_torch.__main__ import main as cli
     from veles_torch.config import root
     from veles_torch.launcher import EXIT_PREEMPTED
     root.lm.train = {}
@@ -2711,7 +2764,7 @@ def lm_cli(torch, *args, preempted=None):
     code = 0
     with contextlib.redirect_stdout(sys.stdout):
         try:
-            wf = cli([LM_SAMPLE, *args, "--seed", "1337", "-d",
+            wf = cli_run([LM_SAMPLE, *args, "--seed", "1337", "-d",
                       RESUME_DEVICE])
         except SystemExit as exc:
             code = exc.code
@@ -2887,7 +2940,6 @@ def preempt_mnist(torch, tmp):
     """Part (b); -> (summary, counts of the resumed run)."""
     import signal
     from veles_torch import snapshotter as S
-    from veles_torch.__main__ import main as cli
     from veles_torch.znicz.ops.bias_grad import bias_grad
     snaps = os.path.join(tmp, "mnist")
     base = [MNIST_SAMPLE, "-d", RESUME_DEVICE, "--seed", "1337",
@@ -2925,7 +2977,7 @@ def preempt_mnist(torch, tmp):
     tree, name, _ = S.resolve_auto(snaps)
     epoch = tree["decision"]["epoch_number"]
     reset_counts()
-    wf = cli(base + ["--snapshot", "auto",
+    wf = cli_run(base + ["--snapshot", "auto",
                      "root.mnist.decision.max_epochs=%d" % (epoch + 1)])
     sync(torch)
     counts = read_counts()
@@ -3002,6 +3054,472 @@ def check_resume(torch):
     return add_counts(counts, mnist, prof_counts)
 
 
+# -- the model-health plane --------------------------------------------------
+
+#: the layer stats of an MNIST card run against the port's CPU run at the
+#: same seed, relative: bf16 activations and products on the card, f32 on
+#: the CPU, over 180 steps (phase mnist holds the final validation errors
+#: within 0.02)
+HEALTH_MNIST_RTOL = 5e-2
+#: the injected blow-up: the learning rate is NaN on this train step (the
+#: eleventh of epoch 1: MNIST takes 60 a epoch), so that update writes NaN
+#: into every weight and its stats read a non-finite weight norm
+NAN_STEP = 70
+#: the reasons the reference's detector gives for that observation
+NAN_REASONS = ["nonfinite:GDSoftmax", "nonfinite:GDTanh"]
+#: the 110M stats cost, in turns: stats off, at stride 8, at stride 1
+STATS_TURNS = (None, 8, 1, 1, 8, None)
+#: train steps timed a turn (a multiple of 8: one due step in 8 at stride
+#: 8), and profiled once a setting
+STATS_STEPS = 16
+STATS_PROFILED = 8
+#: the activation pairs at AlexNet conv1's output (minibatch 128)
+ACTIVATION_SHAPE = (128, 55, 55, 96)
+#: each pair on the card against the CPU, as a share of max(|cpu|, 1): in
+#: f32 the tier-1 bound (tests/test_torch_activation.py), in bf16 two
+#: roundings of 2^-8
+ACTIVATION_TOL = {"float32": 2e-5, "bfloat16": 1.6e-2}
+#: the device of the phase's card runs (``cpu`` rehearses the phase)
+HEALTH_DEVICE = "cuda"
+#: the ImageSaver's per-epoch limit in the MNIST card run
+SAVER_LIMIT = 16
+#: the serving drift against the numpy formula (the document rounds to
+#: 6 decimals)
+DRIFT_ATOL = 1e-6
+
+
+def health_sync(torch):
+    if HEALTH_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def per_step(steps):
+    """Launches of a kernel that runs once a train step: 0 on the CPU."""
+    return steps if HEALTH_DEVICE == "cuda" else 0
+
+
+def recording_monitor():
+    """A fresh model-health monitor of the port that also records each
+    layer-stats observation: (step index, layers, float64 vectors), and the
+    (verdict, reasons) after it."""
+    import numpy
+    from veles_torch import model_health
+
+    class Recording(model_health.ModelHealthMonitor):
+        def __init__(self):
+            super().__init__()
+            self.seen, self.verdicts = [], []
+
+        def observe_stats(self, stats, step_index=None):
+            self.seen.append((step_index, list(stats), numpy.array(
+                [numpy.asarray(v, numpy.float64) for v in stats.values()])))
+            super().observe_stats(stats, step_index)
+            self.verdicts.append(self.verdict_state())
+
+    return Recording()
+
+
+def health_mnist(torch, device, stride, saver_dir=None, blowup=False,
+                 snap_dir=None):
+    """The MNIST sample (root.mnist, 3 epochs, seed 1337) through the
+    launcher on ``device`` with the stats every ``stride`` steps, under a
+    fresh recording monitor; ``saver_dir`` links an ImageSaver; ``blowup``
+    makes the learning rate NaN on train step ``NAN_STEP`` and links a
+    rollback armed by ``--rollback-on-divergence``; ``snap_dir`` links a
+    snapshotter writing at every class boundary. -> (workflow, monitor,
+    launches)."""
+    from veles_torch import model_health, prng
+    from veles_torch.launcher import Launcher
+    from veles_torch.znicz.lr_adjust import ArbitraryStepPolicy
+    from veles_torch.znicz.models import mnist
+    monitor = recording_monitor()
+    with model_health.scoped(monitor):
+        prng.seed_all(1337)
+        wf = mnist.create_workflow(name="MnistHealth")
+        wf.decision.max_epochs = 3
+        if saver_dir:
+            wf.link_image_saver(saver_dir, limit_per_epoch=SAVER_LIMIT)
+        if blowup:
+            wf.link_lr_adjuster(ArbitraryStepPolicy(
+                [(0.02, NAN_STEP), (float("nan"), 1), (0.02, 1)]))
+            wf.link_rollback()
+        if snap_dir:
+            wf.link_snapshotter(directory=snap_dir, interval=1e-9,
+                                keep_interval=1000, compression="")
+        launcher = Launcher(device=device, stats_interval=stride,
+                            rollback_on_divergence=blowup)
+        launcher.initialize(wf)
+        reset_counts()
+        launcher.run()
+        health_sync(torch)
+        counts = read_counts()
+    return wf, monitor, counts
+
+
+def stats_errors(want, got):
+    """Max relative error of each STAT_FIELDS norm of two recorded runs,
+    after checking the same (step index, layers) sequence and non-finite
+    counts; -> {field: error}."""
+    import numpy
+    if [(s, n) for s, n, _ in want] != [(s, n) for s, n, _ in got]:
+        fail("model_health: the stats sequences differ: %s ... against %s "
+             "..." % ([(s, n) for s, n, _ in want][:3],
+                      [(s, n) for s, n, _ in got][:3]))
+    a = numpy.stack([v for _, _, v in want])
+    b = numpy.stack([v for _, _, v in got])
+    if not numpy.array_equal(a[..., 3], b[..., 3]):
+        fail("model_health: non-finite counts differ")
+    rel = numpy.abs(b - a) / numpy.maximum(numpy.abs(a), 1e-30)
+    return {f: float(rel[..., i].max()) for i, f in enumerate(
+        ("grad_norm", "weight_norm", "update_ratio"))}
+
+
+def check_stats_sane(monitor, where):
+    """Every recorded vector finite with no non-finite count, every
+    update ratio in (0, 1), the verdict healthy."""
+    import numpy
+    for _, _, v in monitor.seen:
+        if not (numpy.isfinite(v).all() and (v[:, 3] == 0).all()
+                and (v[:, 2] > 0).all() and (v[:, 2] < 1).all()):
+            fail("%s: stat vectors %s" % (where, v.tolist()))
+    if monitor.verdict_state() != ("healthy", []):
+        fail("%s: verdict %s" % (where, monitor.verdict_state()))
+
+
+def check_saver(wf, saver_dir):
+    """The ImageSaver's files of a 3-epoch run: SAVER_LIMIT an epoch,
+    each named by its class, global index and label, each array equal to
+    the loader's sample."""
+    import numpy
+    saver = wf.image_saver
+    found = 0
+    for epoch in range(3):
+        d = os.path.join(saver_dir, "epoch%04d" % epoch)
+        names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        if len(names) != SAVER_LIMIT:
+            fail("image_saver: %d files in %s, expected %d"
+                 % (len(names), d, SAVER_LIMIT))
+        for name in names:
+            m = re.match(r"c(\d)_i(\d+)_pred-1_true(\d+)\.npy$", name)
+            gidx = int(m.group(2)) if m else -1
+            if not m or int(m.group(3)) != int(
+                    wf.loader.original_labels[gidx]) or not numpy.array_equal(
+                        numpy.load(os.path.join(d, name)),
+                        wf.loader.original_data[gidx]):
+                fail("image_saver: %s is not the loader's sample" % name)
+            found += 1
+    if saver.total_saved != found:
+        fail("image_saver: total_saved %d, %d files" % (saver.total_saved,
+                                                       found))
+    return {"files": found, "per_epoch": SAVER_LIMIT,
+            "state": saver.get_state()}
+
+
+def health_mnist_strides(torch, tmp):
+    """Part (a): MNIST on the card and on the CPU at stride 1 and 8."""
+    rows, launches = [], []
+    for stride in (1, 8):
+        _, cpu_mon, _ = health_mnist(torch, "cpu", stride)
+        saver_dir = os.path.join(tmp, "saver") if stride == 8 else None
+        wf, mon, counts = health_mnist(torch, HEALTH_DEVICE, stride,
+                                       saver_dir)
+        steps = wf.step.train_steps
+        due = len(range(0, steps, stride))
+        errors = stats_errors(cpu_mon.seen, mon.seen)
+        check_stats_sane(mon, "model_health mnist stride %d" % stride)
+        row = {"phase": "model_health", "part": "mnist", "stride": stride,
+               "train_steps": steps, "observations": len(mon.seen),
+               "rel_err_vs_cpu": errors, "bound": HEALTH_MNIST_RTOL,
+               "launches": counts, "verdict": mon.verdict_state()[0],
+               "epoch_seconds": wf.step.epoch_seconds}
+        if len(mon.seen) != due or max(errors.values()) > HEALTH_MNIST_RTOL \
+                or counts["bias_grad[identity]"] != per_step(steps) \
+                or counts["bias_grad[masked]"] != per_step(steps):
+            fail("model_health mnist stride %d: %s" % (stride, row))
+        if saver_dir:
+            row["image_saver"] = check_saver(wf, saver_dir)
+            TRAINED["mnist_health"] = wf
+        emit(row)
+        launches.append(counts)
+    return launches
+
+
+def health_blowup(torch, tmp):
+    """Part (b): the NaN step on the card (and on the CPU, for the
+    reasons), the rollback, the stamped checkpoints, resolve_auto, and
+    ``--model-stats off``."""
+    from veles_torch import snapshotter as S
+    snaps = os.path.join(tmp, "blowup")
+    wf, mon, counts = health_mnist(torch, HEALTH_DEVICE, 1, blowup=True,
+                                   snap_dir=snaps)
+    _, cpu_mon, _ = health_mnist(torch, "cpu", 1, blowup=True)
+    first = [v for v, _ in mon.verdicts].index("diverged")
+    reasons = mon.verdicts[first][1]
+    check_params_finite(torch, wf, "model_health blow-up")
+    infos = S.scan_checkpoints(snaps)
+    stamps = [i.health_verdict for i in infos]
+    skips0 = S.COUNTERS.diverged_skips
+    _, resumed, _ = S.resolve_auto(snaps)
+    skipped = S.COUNTERS.diverged_skips - skips0
+    resumed_verdict = next(i.health_verdict for i in infos
+                           if i.name == resumed)
+    row = {"phase": "model_health", "part": "blowup", "nan_step": NAN_STEP,
+           "first_diverged_observation": first, "reasons": reasons,
+           "cpu_first_diverged": [v for v, _ in cpu_mon.verdicts].index(
+               "diverged"),
+           "cpu_reasons": cpu_mon.verdicts[first][1],
+           "rollbacks": wf.rollback.rollback_count,
+           "lr_scales": [gd.lr_scale for gd in wf.gds],
+           "final_verdict": mon.verdict_state(),
+           "checkpoint_verdicts": {v: stamps.count(v) for v in set(stamps)},
+           "resolve_auto": resumed, "resolve_auto_verdict": resumed_verdict,
+           "diverged_skips": skipped,
+           "launches": counts}
+    steps = wf.step.train_steps
+    if first != NAN_STEP or row["cpu_first_diverged"] != NAN_STEP \
+            or reasons != NAN_REASONS or row["cpu_reasons"] != NAN_REASONS \
+            or wf.rollback.rollback_count != 1 \
+            or any(s != 0.5 for s in row["lr_scales"]) \
+            or mon.verdict_state() != ("healthy", []) \
+            or "diverged" not in stamps or resumed_verdict == "diverged" \
+            or not skipped \
+            or counts["bias_grad[identity]"] != per_step(steps) \
+            or counts["bias_grad[masked]"] != per_step(steps):
+        fail("model_health blow-up: %s" % row)
+    # --model-stats off: the plane stands down, checkpoints say unknown
+    off_dir = os.path.join(tmp, "off")
+    reset_counts()
+    off = cli_run([MNIST_SAMPLE, "root.mnist.decision.max_epochs=1",
+                   "--seed", "1337", "-d", HEALTH_DEVICE, "--snapshots",
+                   off_dir, "--model-stats", "off"])
+    health_sync(torch)
+    off_counts = read_counts()
+    off_stamps = sorted({i.health_verdict
+                         for i in S.scan_checkpoints(off_dir)})
+    row_off = {"phase": "model_health", "part": "model_stats_off",
+               "checkpoint_verdicts": off_stamps, "launches": off_counts,
+               "stat_units": off.step.stat_names}
+    if off_stamps != ["unknown"] or off.step.stat_names is not None \
+            or off_counts["bias_grad[masked]"] != per_step(
+                off.step.train_steps):
+        fail("model_health --model-stats off: %s" % row_off)
+    emit(row)
+    emit(row_off)
+    return [counts, off_counts]
+
+
+def count_device_ops(prof):
+    """Device operations (kernels, copies, memsets) in a profile; the
+    trace is read from a temporary file, not kept."""
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    return sum(1 for e in events if e.get("ph") == "X" and e.get("cat")
+               in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def set_stats(wf, stride):
+    """Stats off (``stride`` None) or every ``stride`` steps."""
+    wf.step.set_stats_enabled(stride is not None)
+    wf.step.stats_interval = stride or 8
+
+
+def health_110m(torch):
+    """Part (c): the 110M row (momentum, the flash kernels) through the
+    CLI with the stats off, at stride 8 and at stride 1: the launches each
+    run implies (the flash kernels and 73 identity bias sums a step,
+    whatever the stats), the vectors finite with update ratios below 1;
+    then on one workflow, in turns, the step's host ms, and its device
+    operations from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    runs, wf = [], None
+    for stride in (None, 8, 1):
+        flags = ("--model-stats", "off") if stride is None \
+            else ("--stats-interval", str(stride))
+        monitor = recording_monitor()
+        wf, counts, summary = run_lm(
+            torch, "110M stats %s" % (stride or "off"), HEALTH_DEVICE,
+            *LM_110M,
+            valid_must_fall=False, phase="model_health", cli_args=flags,
+            monitor=monitor)
+        steps = wf.step.train_steps
+        want = 0 if stride is None else len(range(0, steps, stride))
+        if stride is not None:
+            check_stats_sane(monitor, "model_health 110M stride %d" % stride)
+        if len(monitor.seen) != want:
+            fail("model_health 110M stride %s: %d observations, expected "
+                 "%d" % (stride, len(monitor.seen), want))
+        if counts["bias_grad[identity]"] != per_step(
+                steps * identity_sums_per_step(wf)):
+            fail("model_health 110M: %d identity sums in %d steps"
+                 % (counts["bias_grad[identity]"], steps))
+        runs.append(counts)
+        if stride is not None:
+            last = monitor.seen[-1][2]
+            emit({"phase": "model_health", "part": "110M_vectors",
+                  "stride": stride, "observations": len(monitor.seen),
+                  "stat_units": len(wf.step.stat_names),
+                  "update_ratio_max": float(max(v[:, 2].max() for _, _, v
+                                                in monitor.seen)),
+                  "last": {"grad_norm_max": float(last[:, 0].max()),
+                           "weight_norm_max": float(last[:, 1].max())}})
+    batch = first_train_batch(torch, wf)
+    turns = []
+    for stride in STATS_TURNS:
+        set_stats(wf, stride)
+        turns.append((stride, time_steps(torch, wf, batch, STATS_STEPS)))
+    ops = {}
+    activities = [ProfilerActivity.CPU]
+    if HEALTH_DEVICE == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    for stride in (None, 8, 1):
+        set_stats(wf, stride)
+        wf.step.train_minibatch(*batch)
+        health_sync(torch)
+        # STATS_PROFILED is a multiple of 8: one due step at stride 8
+        with profile(activities=activities) as prof:
+            for _ in range(STATS_PROFILED):
+                wf.step.train_minibatch(*batch)
+            health_sync(torch)
+        ops[stride or "off"] = count_device_ops(prof) / STATS_PROFILED
+    set_stats(wf, 8)
+    ms = {key: [t for s, t in turns if (s or "off") == key]
+          for key in ("off", 8, 1)}
+    mean = {key: sum(v) / len(v) for key, v in ms.items()}
+    row = {"phase": "model_health", "part": "110M_stats_cost",
+           "card": card_line() if HEALTH_DEVICE == "cuda" else None,
+           "steps_a_turn": STATS_STEPS,
+           "turns": [[s or "off", t] for s, t in turns],
+           "step_ms": ms, "device_ops_per_step": ops,
+           "due_step_ms_over_off": mean[1] - mean["off"],
+           "due_step_ops_over_off": ops[1] - ops["off"],
+           "stride8_ms_over_off": mean[8] - mean["off"],
+           "stride8_ops_over_off": ops[8] - ops["off"],
+           "launches": runs}
+    emit(row)
+    if HEALTH_DEVICE == "cuda" and not ops[1] > ops[8] > ops["off"]:
+        fail("model_health 110M: device operations a step %s" % ops)
+    return runs
+
+
+def entropy_margin(rows):
+    """The drift gauges' formula in numpy: softmax of logits (rows that
+    are not a distribution), mean entropy and mean top-1 − top-2."""
+    import numpy
+    p = numpy.asarray(rows, numpy.float64)
+    if (p < 0).any() or not numpy.allclose(p.sum(1), 1.0, atol=1e-3):
+        e = numpy.exp(p - p.max(1, keepdims=True))
+        p = e / e.sum(1, keepdims=True)
+    ent = -(p * numpy.log(numpy.maximum(p, 1e-12))).sum(1).mean()
+    top = numpy.sort(p, 1)
+    return float(ent), float((top[:, -1] - top[:, -2]).mean())
+
+
+def health_serving(torch):
+    """Part (d): the MNIST archive of part (a) through a MicroBatcher on
+    the card, one request a batch: the monitor's entropy and margin of
+    the stride's sampled batch against the numpy formula on its outputs."""
+    from veles_torch import model_health
+    from veles_torch.serving import (ArchiveModel, InferenceEngine,
+                                     MicroBatcher)
+    wf = TRAINED.pop("mnist_health")
+    path = archive_dir("mnist_health")
+    wf.export_inference(path)
+    engine = InferenceEngine(ArchiveModel.from_dir(path,
+                                                   device=HEALTH_DEVICE),
+                             max_batch=64, device=HEALTH_DEVICE)
+    host = serving_rows(wf).cpu().numpy()
+    with model_health.scoped() as monitor:
+        batcher = MicroBatcher(engine.predict, max_batch=64,
+                               default_timeout_ms=60000.0, name="mnist")
+        try:
+            outs = [batcher.predict(host[i:i + 1])
+                    for i in range(monitor.serving_stride + 1)]
+        finally:
+            batcher.close()
+        doc = monitor.snapshot()["serving"]["mnist"]
+        gauges = monitor.metrics()
+    want = entropy_margin(outs[monitor.serving_stride])
+    got = (doc["entropy"], doc["top1_margin"])
+    gauge = (gauges["veles_serving_logit_entropy"]['model="mnist"'],
+             gauges["veles_serving_top1_margin"]['model="mnist"'])
+    row = {"phase": "model_health", "part": "serving_drift",
+           "batches": len(outs), "stride": monitor.serving_stride,
+           "monitor": got, "gauges": gauge, "numpy": want,
+           "max_abs_err": max(abs(a - b) for a, b in zip(gauge, want))}
+    emit(row)
+    if any(abs(a - b) > DRIFT_ATOL for a, b in zip(got + gauge, want * 2)):
+        fail("model_health serving drift: %s" % row)
+
+
+def health_activations(torch):
+    """Part (e): the eight activation pairs forward and backward on the
+    card at ACTIVATION_SHAPE in f32 and bf16, against the CPU on the same
+    inputs."""
+    from veles_torch.backends import TorchDevice
+    from veles_torch.znicz.nn_units import forward_by_name, \
+        gradient_unit_for
+    gen = torch.Generator(device=HEALTH_DEVICE)
+    gen.manual_seed(1337)
+    x32 = 2.0 * torch.randn(ACTIVATION_SHAPE, generator=gen,
+                            device=HEALTH_DEVICE)
+    e32 = torch.randn(ACTIVATION_SHAPE, generator=gen, device=HEALTH_DEVICE)
+    worst = {}
+    for dname, tol in ACTIVATION_TOL.items():
+        dtype = getattr(torch, dname)
+        x, err = x32.to(dtype), e32.to(dtype)
+        xc, ec = x.cpu(), err.cpu()
+        for name in ("activation_tanh", "activation_relu", "activation_str",
+                     "activation_sigmoid", "activation_log",
+                     "activation_mul", "activation_tanhlog",
+                     "activation_sincos"):
+            got, want = [], []
+            for dev_name, xi, ei, out in ((HEALTH_DEVICE, x, err, got),
+                                          ("cpu", xc, ec, want)):
+                dev = TorchDevice(dev_name)
+                dev.act_dtype = dtype
+                fwd = forward_by_name(name)()
+                fwd.initialize(ACTIVATION_SHAPE, dev)
+                gd = gradient_unit_for(type(fwd))().setup_forward(fwd)
+                y = fwd(xi)
+                out += [y, gd.run(xi, y, ei)]
+            health_sync(torch)
+            for part, a, b in zip(("forward", "backward"), got, want):
+                b = b.double()
+                e = float(((a.cpu().double() - b).abs()
+                           / b.abs().clamp_min(1.0)).max())
+                worst["%s %s %s" % (name, part, dname)] = e
+                if not e <= tol or a.dtype != dtype:
+                    fail("model_health %s %s %s: %.3g over %g (%s)"
+                         % (name, part, dname, e, tol, a.dtype))
+        del x, err, xc, ec
+    emit({"phase": "model_health", "part": "activations",
+          "shape": list(ACTIVATION_SHAPE), "tolerance": ACTIVATION_TOL,
+          "max_err": worst})
+
+
+def check_model_health(torch):
+    """Phase model_health; -> its launches (the MNIST and 110M runs)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_health_")
+    try:
+        runs = health_mnist_strides(torch, tmp)
+        runs += health_blowup(torch, tmp)
+        runs += health_110m(torch)
+        health_serving(torch)
+        health_activations(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return add_counts(*runs)
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -3057,7 +3575,9 @@ def main(argv=None):
                "serve_decode": check_serve_decode(torch)}
     lm_slice = check_lm_slice(torch)
     resume = check_resume(torch)
-    paths = {**ae, **serving, **lm_slice, "resume": resume}
+    health = check_model_health(torch)
+    paths = {**ae, **serving, **lm_slice, "resume": resume,
+             "model_health": health}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

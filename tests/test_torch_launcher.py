@@ -15,11 +15,14 @@ import pytest
 
 from veles.__main__ import main as jax_main
 from veles.config import root as jroot
+import veles_torch.model_health as TMH
 import veles_torch.snapshotter as TS
 from veles_torch.__main__ import UNPORTED, main as torch_main
 from veles_torch.config import root as troot
 from veles_torch.launcher import EXIT_PREEMPTED, TRACE_NAME
 from veles_torch.znicz.standard_workflow import StandardWorkflow
+
+from tests.torch_monitor import port_model_health_isolation  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TORCH_MNIST = os.path.join(REPO, "veles_torch", "znicz", "models",
@@ -197,3 +200,68 @@ def test_unported_options_name_their_roadmap_item(flag, kwargs, item):
     with pytest.raises(NotImplementedError,
                        match=r"%s .*item %d\)" % (flag, item)):
         torch_main([TORCH_MNIST, "-d", "cpu", *_argv(flag, kwargs)])
+
+
+# -- the model-health plane's options ------------------------------------
+
+
+class Recording(TMH.ModelHealthMonitor):
+    """Counts the layer-stat observations."""
+
+    def __init__(self):
+        super().__init__()
+        self.observed = 0
+
+    def observe_stats(self, stats, step_index=None):
+        self.observed += 1
+        super().observe_stats(stats, step_index)
+
+
+def _health_cli(tmp_path, *flags):
+    """One MNIST epoch (4 train steps) with a snapshotter."""
+    return torch_main([TORCH_MNIST, "-d", "cpu", *SMALL,
+                       "root.mnist.decision.max_epochs=1",
+                       "--snapshots", str(tmp_path), *flags])
+
+
+@pytest.mark.parametrize("flags,observed", [((), 1),
+                                            (("--stats-interval", "1"), 4),
+                                            (("--stats-interval", "3"), 2)])
+def test_stats_interval_reaches_the_step(tmp_path, flags, observed):
+    """The stats are on by default at stride 8; ``--stats-interval``
+    sets the step's stride; the checkpoint is stamped ``healthy``."""
+    with TMH.scoped(Recording()) as monitor:
+        wf = _health_cli(tmp_path, *flags)
+    assert wf.step.collect_model_stats and monitor.observed == observed
+    assert wf.step.stats_interval == (int(flags[1]) if flags else 8)
+    assert [i.health_verdict for i in TS.scan_checkpoints(
+        str(tmp_path))] == ["healthy"]
+
+
+def test_model_stats_off_stands_the_plane_down(tmp_path):
+    """``--model-stats off``: no stats, a disabled monitor, checkpoints
+    stamped ``unknown``."""
+    with TMH.scoped() as monitor:
+        wf = _health_cli(tmp_path, "--model-stats", "off")
+        assert not monitor.enabled and not wf.step.collect_model_stats
+        assert monitor.snapshot()["layers"] == {}
+    assert [i.health_verdict for i in TS.scan_checkpoints(
+        str(tmp_path))] == ["unknown"]
+
+
+def test_rollback_on_divergence_arms_the_rollback(tmp_path, port_logs,
+                                                  monkeypatch):
+    """A workflow without a rollback gets the reference's warning and
+    runs on; one with a rollback has it armed."""
+    wf = _health_cli(tmp_path, "--rollback-on-divergence")
+    assert wf.rollback is None and wf.decision.epoch_number == 1
+    assert "no rollback unit" in port_logs.text
+    initialize = StandardWorkflow.initialize
+
+    def with_rollback(self, *args, **kwargs):
+        self.link_rollback()
+        return initialize(self, *args, **kwargs)
+
+    monkeypatch.setattr(StandardWorkflow, "initialize", with_rollback)
+    wf = _health_cli(tmp_path / "b", "--rollback-on-divergence")
+    assert wf.rollback.rollback_on_divergence

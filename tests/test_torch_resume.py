@@ -32,6 +32,7 @@ from veles.znicz_tpu.models import mnist as jmnist
 from veles.znicz_tpu.models.mnist import MnistLoader as JaxMnistLoader
 from veles.znicz_tpu.standard_workflow import \
     StandardWorkflow as JaxStandardWorkflow
+import veles_torch.model_health as TMH
 import veles_torch.prng as tprng
 import veles_torch.snapshotter as TS
 from veles_torch.config import root as troot
@@ -46,6 +47,7 @@ from veles_torch.znicz.standard_workflow import \
 from tests.test_torch_lm import lm_config
 from tests.test_torch_solvers import (
     ADAM, EPOCHS_RTOL, assert_close_rel, jax_tree)
+from tests.torch_monitor import port_model_health_isolation  # noqa: F401
 
 #: MNIST at the size of tests/test_torch_mnist.py: 5 train and 2
 #: validation minibatches an epoch
@@ -570,8 +572,21 @@ def test_rollback_restore_copies():
     tw.restore_stash(stash)
     tw.forwards[0].weights.add_(1.0)
     assert torch.equal(stash["params"]["All2AllTanh"]["weights"], kept)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tw.link_rollback(rollback_on_divergence=True)
+    # the divergence tick: a NaN in the live weights and a diverged
+    # verdict restore the stash (copied) and cut the rates
+    rb = tw.link_rollback(rollback_on_divergence=True)
+    rb._stash = stash
+    tw.forwards[0].weights[0, 0] = float("nan")
+    monitor = TMH.get_model_monitor()
+    monitor.note_wire_nonfinite("GDTanh", 1)
+    rb.run()
+    assert rb.rollback_count == 1
+    assert torch.equal(tw.forwards[0].weights, kept)
+    assert tw.forwards[0].weights is not kept
+    assert all(gd.lr_scale == 0.5 for gd in tw.gds)
+    assert monitor.verdict_state() == ("suspect", ["rolled_back"])
+    rb.run()                            # no longer diverged: no restore
+    assert rb.rollback_count == 1
     # the check runs at every epoch's end: an interval is refused, never
     # stored unread
     with pytest.raises(TypeError, match="interval"):

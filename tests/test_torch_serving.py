@@ -34,6 +34,8 @@ from veles_torch.serving import (
 from veles_torch.serving.engine import bucket_sizes
 from veles_torch.serving.model import FORWARD_OPS
 
+from tests.torch_monitor import port_model_health_isolation  # noqa: F401
+
 #: the port's op against the reference's numpy op, as a share of the
 #: largest output (f32 sums in other orders). Observed: at most 1.5e-7 for
 #: an op (softmax); 3.1e-7 (MNIST), 4.7e-7 (LM) and 1.7e-6 (CIFAR-10's

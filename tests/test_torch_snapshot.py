@@ -20,10 +20,12 @@ import torch
 import veles.snapshotter as JS
 from veles.__main__ import checkpoints_main as jax_checkpoints_main
 from veles.chaos import corrupt_store_entry, flip_bit, truncate_blob
+import veles_torch.model_health as TMH
 import veles_torch.snapshotter as TS
 from veles_torch.__main__ import checkpoints_main, main as torch_main
 
 from tests.test_torch_resume import torch_mnist
+from tests.torch_monitor import port_model_health_isolation  # noqa: F401
 
 COMPRESSIONS = ["", "gz", "bz2", "xz"]
 
@@ -281,7 +283,7 @@ def test_interval_checkpoints_during_run(tmp_path):
     assert len(current) == 2 and best and len(best) <= 2, names
     tree, name, _ = TS.resolve_auto(str(tmp_path))
     info = TS.scan_checkpoints(str(tmp_path))[0]
-    assert info.name == name and info.health_verdict == "unknown"
+    assert info.name == name and info.health_verdict == "healthy"
     fresh = torch_mnist(4)
     fresh.restore_state(tree)
     fresh.run()
@@ -290,6 +292,18 @@ def test_interval_checkpoints_during_run(tmp_path):
     assert counts["writes_by_slot"]["current"] >= 2
     assert counts["bytes_total"] > 0 and counts["write_seconds"]
     assert 0.0 <= counts["last_success_age_seconds"] < 60.0
+
+
+def test_disabled_plane_stamps_unknown(tmp_path):
+    """With the model-health plane off (``--model-stats off``) every
+    checkpoint is stamped ``unknown``, and auto-resume takes it."""
+    TMH.get_model_monitor().enabled = False
+    wf = torch_mnist(2, snapdir=str(tmp_path), interval=1e-6)
+    wf.step.set_stats_enabled(False)
+    wf.run()
+    infos = TS.scan_checkpoints(str(tmp_path))
+    assert infos and {i.health_verdict for i in infos} == {"unknown"}
+    assert TS.resolve_auto(str(tmp_path)) is not None
 
 
 def _broken_store(snap, fails):

@@ -6,6 +6,8 @@
                           [--snapshots DIR] [--checkpoint-every SECS]
                           [--snapshot FILE|auto|auto:DIR]
                           [--profile-dir DIR]
+                          [--model-stats on|off] [--stats-interval N]
+                          [--rollback-on-divergence]
                           [--export-inference DIR]
                           [--generate IDS | --generate-text PROMPT
                            [--gen-tokens N] [--gen-temperature T]]
@@ -25,6 +27,11 @@ none (improvement-gated checkpoints in the reference's format);
 stops the run before its next minibatch, writes a final ``current``
 checkpoint and exits with code 75; ``--snapshot auto`` picks it up.
 ``--profile-dir DIR`` writes a ``torch.profiler`` trace of the run there.
+The model-health plane is on: layer stats every ``--stats-interval``
+(8) train steps, the loss of each epoch, a verdict stamped into every
+checkpoint; ``--model-stats off`` turns it off (checkpoints stamped
+``unknown``), ``--rollback-on-divergence`` restores the workflow's
+rollback stash when the verdict reads ``diverged``.
 Each finished epoch prints its summary line; the last line of standard
 output is one JSON object with the decision history. The device is
 ``cuda`` unless ``-d cpu`` is given; asking for ``cuda`` on a host
@@ -68,9 +75,6 @@ UNPORTED = (
     ("--web-status", {"type": int}, 9),
     ("--trace-out", {}, 9),
     ("--slo-config", {}, 9),
-    ("--model-stats", {"choices": ("on", "off")}, 3),
-    ("--stats-interval", {"type": int}, 3),
-    ("--rollback-on-divergence", {"action": "store_true"}, 3),
     ("--listen-address", {}, 10),
     ("--master-address", {}, 10),
     ("--slave-timeout", {"type": float}, 10),
@@ -121,6 +125,18 @@ def build_argparser():
     p.add_argument("--profile-dir", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the run to "
                         "DIR/trace.json")
+    p.add_argument("--model-stats", choices=("on", "off"), default="on",
+                   help="the model-health plane: layer stats, loss "
+                        "z-score and the divergence verdict stamped into "
+                        "checkpoints (off: the whole plane, checkpoints "
+                        "stamped 'unknown')")
+    p.add_argument("--stats-interval", type=int, default=None,
+                   metavar="N",
+                   help="take the layer stats every N train steps "
+                        "(default 8)")
+    p.add_argument("--rollback-on-divergence", action="store_true",
+                   help="restore the rollback unit's last good weights "
+                        "when the model-health verdict reads diverged")
     p.add_argument("--export-inference", default=None, metavar="DIR",
                    help="after the run, export the inference archive "
                         "(contents.json + .npy) to DIR")
@@ -258,7 +274,10 @@ def main(argv=None):
         wf.link_snapshotter(directory=args.snapshots)
     launcher = Launcher(device=args.device, snapshot=args.snapshot,
                         checkpoint_every=args.checkpoint_every,
-                        profile_dir=args.profile_dir)
+                        profile_dir=args.profile_dir,
+                        model_stats=args.model_stats != "off",
+                        stats_interval=args.stats_interval,
+                        rollback_on_divergence=args.rollback_on_divergence)
     launcher.initialize(wf)
     if args.generate_text:
         try:

@@ -24,6 +24,7 @@ import numpy
 import torch
 
 from veles_torch.serving.model import FORWARD_OPS
+from veles_torch.znicz.ops.activation import ActivationForward
 from veles_torch.znicz.ops.all2all import All2AllBase
 from veles_torch.znicz.ops.attention import (
     MultiHeadAttention, TokenDenseBase, TransformerFFN)
@@ -143,8 +144,8 @@ def unit_spec(unit):
     elif isinstance(unit, TokenDenseBase):
         cfg["output_features"] = int(unit.output_features)
         params = {"weights": p["weights"], "bias": p.get("bias")}
-    elif isinstance(unit, DropoutForward):
-        pass                    # identity at inference
+    elif isinstance(unit, (DropoutForward, ActivationForward)):
+        pass                    # no parameters, no configuration
     else:
         raise ValueError("cannot export unit %s (%s): no C++ engine "
                          "counterpart" % (unit.name, type(unit).__name__))

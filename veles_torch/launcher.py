@@ -2,7 +2,9 @@
 (``veles/launcher.py``) in its standalone mode.
 
     launcher = Launcher(device="cuda", snapshot="auto",
-                        checkpoint_every=600, profile_dir="prof")
+                        checkpoint_every=600, profile_dir="prof",
+                        model_stats=True, stats_interval=8,
+                        rollback_on_divergence=False)
     launcher.initialize(workflow)
     launcher.run()
 
@@ -11,7 +13,12 @@
 when no snapshotter is linked: nothing would be written) and applies
 ``snapshot``: a checkpoint file, ``auto`` (the newest checkpoint that
 verifies in the snapshotter's store, of this workflow's prefixes) or
-``auto:DIR``. :meth:`Launcher.run` trains: SIGINT stops the run; SIGTERM
+``auto:DIR``, then wires the model-health plane (``model_health.py``) as
+the reference does: ``model_stats=False`` (``--model-stats off``) turns
+the whole plane off, so checkpoints are stamped ``unknown``;
+``stats_interval`` sets the step's stats stride; ``rollback_on_divergence``
+arms the workflow's rollback (a workflow without one gets a warning).
+:meth:`Launcher.run` trains: SIGINT stops the run; SIGTERM
 (preemption) stops it before the next minibatch, then, outside the
 signal handler, writes a final ``current`` checkpoint and exits with
 :data:`EXIT_PREEMPTED`. ``profile_dir`` wraps the run in
@@ -27,6 +34,7 @@ import signal
 
 import torch
 
+from veles_torch import model_health
 from veles_torch.snapshotter import load_snapshot, resolve_auto
 
 logger = logging.getLogger("veles_torch.launcher")
@@ -43,11 +51,15 @@ class Launcher:
     """Drives one standalone workflow run."""
 
     def __init__(self, device="cuda", snapshot=None, checkpoint_every=None,
-                 profile_dir=None):
+                 profile_dir=None, model_stats=True, stats_interval=None,
+                 rollback_on_divergence=False):
         self.device = device
         self.snapshot = snapshot
         self.checkpoint_every = checkpoint_every
         self.profile_dir = profile_dir
+        self.model_stats = bool(model_stats)
+        self.stats_interval = stats_interval
+        self.rollback_on_divergence = bool(rollback_on_divergence)
         self.workflow = None
         self.interrupted = False
         #: SIGTERM asked for a preemption shutdown
@@ -66,7 +78,29 @@ class Launcher:
                 "will be written", self.checkpoint_every)
         if self.snapshot:
             self._restore_snapshot(workflow)
+        self._wire_model_health(workflow)
         return workflow
+
+    def _wire_model_health(self, workflow):
+        """The model-health plane's options on the monitor, the step and
+        the rollback."""
+        step = workflow.step
+        if not self.model_stats:
+            # the whole plane stands down, not only the stats: the loss
+            # feed must not stamp checkpoints diverged either
+            model_health.get_model_monitor().enabled = False
+            step.set_stats_enabled(False)
+        if self.stats_interval:
+            step.stats_interval = max(1, int(self.stats_interval))
+        if not self.model_stats or not self.rollback_on_divergence:
+            return
+        if workflow.rollback is not None:
+            workflow.rollback.rollback_on_divergence = True
+        else:
+            logger.warning(
+                "--rollback-on-divergence: workflow has no rollback unit "
+                "(link_rollback) — divergence is judged but nothing "
+                "restores weights")
 
     def _restore_snapshot(self, workflow):
         target = self.snapshot

@@ -17,6 +17,9 @@ Overload policy, in order:
   already expired when the worker takes it gets
   :class:`DeadlineExceeded` without a forward.
 
+After each dispatched batch the model-health monitor sees its outputs
+(``observe_serving``: entropy and top-1 margin, every 16th batch).
+
 It serves the single default tenant (weight 1, first in first out), as
 the reference does when no tenant table is installed; the counters are
 plain attributes read by :meth:`MicroBatcher.metrics` (the reference's
@@ -31,6 +34,8 @@ import threading
 import time
 
 import numpy
+
+from veles_torch import model_health
 
 log = logging.getLogger("veles_torch.serving")
 
@@ -218,6 +223,11 @@ class MicroBatcher:
                 req.result = outputs[off:off + n]
                 off += n
                 req.event.set()
+            # the model-health plane's drift gauges, labelled by the
+            # batcher's name: the monitor computes them on every
+            # serving_stride-th batch of that name
+            model_health.get_model_monitor().observe_serving(
+                self.name, outputs)
             with self._lock:
                 c = self.counts
                 c["batches_total"] += 1

@@ -11,9 +11,9 @@ state) written as one npz whose layout is the reference's:
   object keyed by path);
 * the integrity manifest under ``__manifest__``: schema version, wall
   time, slot, config hash and a sha256 per array over dtype + shape +
-  bytes, plus the ``model_health`` stamp of a disabled health plane
-  (verdict ``unknown``: the port has no live verdict yet, ROADMAP Queue
-  1 item 3).
+  bytes, plus the ``model_health`` stamp: the model-health monitor's
+  verdict and the stats it was judged on (``unknown`` while the plane is
+  off, ``--model-stats off``).
 
 So a blob written by either package verifies and loads in the other.
 Compression is ``""``, ``gz``, ``bz2`` or ``xz``, read from the name's
@@ -54,6 +54,7 @@ import time
 import numpy
 import torch
 
+from veles_torch import model_health
 from veles_torch.config import root
 
 logger = logging.getLogger("veles_torch.snapshotter")
@@ -65,13 +66,6 @@ SCHEMA_VERSION = 1
 
 #: npz entry holding the integrity manifest (JSON as uint8 bytes)
 MANIFEST_KEY = "__manifest__"
-
-#: the ``model_health`` manifest stamp of a disabled health plane (the
-#: reference's ``ModelMonitor.manifest_stamp`` with ``enabled`` False)
-HEALTH_STAMP = {"verdict": "unknown", "reasons": [], "loss": None,
-                "loss_zscore": None, "epoch": None, "nonfinite_total": 0,
-                "layers": {}}
-
 
 def _unported_http(target):
     return NotImplementedError(
@@ -774,7 +768,8 @@ class Snapshotter:
             path, _ = write_checkpoint(
                 self.store, name, self.workflow.checkpoint_state(),
                 compression=self.compression, slot=slot,
-                extra_meta={"model_health": dict(HEALTH_STAMP)})
+                extra_meta={"model_health": model_health.get_model_monitor()
+                            .manifest_stamp()})
         except Exception as exc:
             self._store_failures += 1
             if self._store_failures >= self.max_store_failures:

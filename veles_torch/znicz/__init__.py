@@ -3,6 +3,6 @@
 
 # importing the op modules fills the layer registry
 from veles_torch.znicz.ops import (  # noqa: F401
-    all2all, attention, conv, cutter, deconv, dropout, embedding, gd,
+    activation, all2all, attention, conv, cutter, deconv, dropout, embedding, gd,
     gd_conv, gd_pooling, layernorm, mean_disp_normalizer, moe, normalization,
     pooling, transformer_stack)

@@ -13,7 +13,8 @@ minibatch's sample count (so its normalised metric is the mean loss).
 As in the reference, ``improved`` and ``epoch_ended`` describe the last
 minibatch accounted (a new best on the judged class's last minibatch,
 the epoch's last minibatch), ``last_epoch_metrics`` holds the finished
-epoch's per-class sums, and :meth:`DecisionGD.get_state` /
+epoch's per-class sums, each epoch's end feeds the judged class's mean
+loss to the model-health monitor (``observe_loss``), and :meth:`DecisionGD.get_state` /
 :meth:`DecisionGD.set_state` carry the reference's checkpoint keys.
 
 Inside an epoch, :meth:`DecisionGD.get_state` gives the state as the
@@ -29,6 +30,7 @@ import logging
 
 import numpy
 
+from veles_torch import model_health
 from veles_torch.loader.base import (
     CLASS_TEST, CLASS_VALID, CLASS_TRAIN, TRIAGE)
 
@@ -116,6 +118,14 @@ class DecisionGD:
                 }
         self.history.append(summary)
         logger.info(summary_line(summary))
+        # the model-health plane's evaluation tick: the judged class's
+        # mean loss (NNRollback's class preference)
+        for cls in (CLASS_VALID, CLASS_TRAIN):
+            acc = self.epoch_metrics[cls]
+            if acc and acc["samples"]:
+                model_health.get_model_monitor().observe_loss(
+                    acc["loss"] / acc["samples"], epoch=self.epoch_number)
+                break
         self.epoch_metrics = [None, None, None]
         self.epoch_number += 1
         if self.max_epochs is not None \

@@ -13,16 +13,25 @@ mean loss, the validation class's, else the train class's:
   ``lr_cut`` — applied after the lr policy, so a schedule that replaces
   the base rate is cut too. With no stash yet, only the cut.
 
+With ``rollback_on_divergence`` (``--rollback-on-divergence``) it also
+watches the model-health verdict (``model_health.py``) after every class,
+where that class's layer stats were just published: when it reads
+``diverged``, it restores the stash and cuts the rates as above (only the
+cut without a stash) and tells the monitor (``note_rollback``), whose
+verdict then steps down to ``suspect``. The reference checks the verdict
+after every minibatch; the port's stats reach the host once a class, so
+a blow-up the stats catch inside a class is rolled back at its end.
+
 ``rollback_count`` and the best loss are checkpointed (the workflow's
 ``rollback`` section). The check runs at every epoch's end: the
 reference's ``interval`` argument, which it stores and never reads, is
-not taken. ``rollback_on_divergence`` needs the model-health
-plane, which is not ported yet (ROADMAP Queue 1 item 3).
+not taken.
 """
 
 import logging
 import math
 
+from veles_torch import model_health
 from veles_torch.loader.base import CLASS_TRAIN, CLASS_VALID
 
 logger = logging.getLogger("veles_torch.rollback")
@@ -33,16 +42,14 @@ class NNRollback:
 
     def __init__(self, workflow, lr_cut=0.5, blowup_factor=4.0,
                  rollback_on_divergence=False, name="rollback"):
-        if rollback_on_divergence:
-            raise NotImplementedError(
-                "rollback_on_divergence needs the model-health plane, not "
-                "ported yet (ROADMAP Queue 1 item 3)")
         self.workflow = workflow
         self.name = name
         #: multiply the learning rates by this on a rollback
         self.lr_cut = float(lr_cut)
         #: loss > blowup_factor × best loss: roll back (NaN/inf always)
         self.blowup_factor = float(blowup_factor)
+        #: also restore when the model-health verdict reads diverged
+        self.rollback_on_divergence = bool(rollback_on_divergence)
         self.rollback_count = 0
         self._stash = None
         self._best_loss = None
@@ -59,7 +66,38 @@ class NNRollback:
         for gd in self.workflow.gds:
             gd.lr_scale *= self.lr_cut
 
+    def _restore(self):
+        self.workflow.restore_stash(self._stash)
+        self._cut_lr()
+        self.rollback_count += 1
+        logger.warning(
+            "model_rollback: loss blow-up: rolled back to the last good "
+            "weights, learning rates cut by %.3g (rollback #%d)",
+            self.lr_cut, self.rollback_count)
+
+    def _divergence_tick(self):
+        """Restore the stash once the model-health verdict reads
+        ``diverged``."""
+        monitor = model_health.get_model_monitor()
+        verdict, reasons = monitor.verdict_state()
+        if verdict != "diverged":
+            return
+        if self._stash is not None:
+            logger.warning("model-health verdict diverged (%s): restoring "
+                           "the last good weights",
+                           "; ".join(reasons) or "?")
+            self._restore()
+        else:
+            self._cut_lr()
+            logger.warning(
+                "model-health verdict diverged (%s) before any good "
+                "stash: learning rates cut by %.3g",
+                "; ".join(reasons) or "?", self.lr_cut)
+        monitor.note_rollback()
+
     def run(self):
+        if self.rollback_on_divergence:
+            self._divergence_tick()
         if not self.workflow.decision.epoch_ended:
             return
         loss = self._epoch_loss()
@@ -70,13 +108,7 @@ class NNRollback:
             and loss > self.blowup_factor * self._best_loss)
         if blown:
             if self._stash is not None:
-                self.workflow.restore_stash(self._stash)
-                self.rollback_count += 1
-                self._cut_lr()
-                logger.warning(
-                    "loss blow-up: rolled back to the last good weights, "
-                    "learning rates cut by %.3g (rollback #%d)",
-                    self.lr_cut, self.rollback_count)
+                self._restore()
             else:
                 # never stash a blown state: a NaN best loss would
                 # disable every later comparison

@@ -209,6 +209,9 @@ class GradientDescentBase:
         self.lr_scale = 1.0
         #: this step's (lr, adam corrections) by weight/bias set
         self._scalars = {}
+        #: a list while the step's layer stats are due: ``update_weights``
+        #: appends ``(name, tensors)`` for :func:`layer_stats`
+        self.stats_sink = None
         self.forward = None
         for key in dict.fromkeys(GradientDescentBase.STATE + self.STATE):
             setattr(self, key, None)
@@ -369,12 +372,21 @@ class GradientDescentBase:
             apply_now = count >= self.accumulate_gradient
             self.acc_count = torch.where(apply_now, 0, count).to(
                 torch.int32)
+        # the updates rebind new tensors: the old ones stay intact for
+        # the stats
+        old_w, old_b = f.weights, f.bias
         self._step_param("weights", grad_w, apply_now, t, h, False)
         if f.zero_mask is not None:
             f.weights = f.weights * f.zero_mask
-        if f.include_bias and grad_b is not None:
+        with_bias = f.include_bias and grad_b is not None
+        if with_bias:
             self._step_param("bias", grad_b, apply_now, t, h, True)
         self.iteration = t + 1
+        if self.stats_sink is not None:
+            pairs = [(grad_w, old_w, f.weights)]
+            if with_bias:
+                pairs.append((grad_b, old_b, f.bias))
+            self.stats_sink.append((self.name, pairs))
 
     def update_extra(self, grads):
         """One step of each EXTRA_PARAMS parameter with a gradient in
@@ -389,6 +401,51 @@ class GradientDescentBase:
             grad = grads.get(pname)
             if grad is not None:
                 self._step_param(pname, grad, apply_now, t, h, bias_like)
+
+
+#: (device, owners) -> the device index tensor of layer_stats
+_STATS_INDEX = {}
+
+
+def layer_stats(entries):
+    """The model-health stat vectors of one train step: ``entries`` is
+    ``[(name, [(grad, old, new), ...]), ...]`` (a GD unit's weights, then
+    its bias when the step updated one; the extra parameters are left
+    out, as in the reference); -> an ``(len(entries), 4)`` f32 tensor of
+    ``STAT_FIELDS`` rows: ``[‖grad‖, ‖new‖, ‖new − old‖ / (‖new‖ +
+    1e-12), non-finite entries of the gradients]``, each norm over the
+    unit's weights and bias together, in f32. The reductions of all
+    units run grouped (``torch._foreach_*``); the non-finite count is the
+    count of non-zeros of ``grad − grad``, 0 where an entry is finite and
+    NaN where it is not."""
+    f32 = torch.float32
+
+    def as_f32(t):
+        return t if t.dtype == f32 else t.to(f32)
+
+    grads, news, olds, owner = [], [], [], []
+    for u, (_, pairs) in enumerate(entries):
+        for grad, old, new in pairs:
+            grads.append(as_f32(grad))
+            olds.append(as_f32(old))
+            news.append(as_f32(new))
+            owner.append(u)
+    dev = grads[0].device
+    # made once: a copy from pageable host memory can wait for the device
+    key = (str(dev), tuple(owner))
+    if key not in _STATS_INDEX:
+        _STATS_INDEX[key] = torch.tensor(owner, device=dev)
+    deltas = torch._foreach_sub(news, olds)
+    norms = torch.stack(
+        torch._foreach_norm(grads) + torch._foreach_norm(news)
+        + torch._foreach_norm(deltas)
+        + torch._foreach_norm(torch._foreach_sub(grads, grads), 0)
+    ).view(4, -1)
+    rows = torch.cat([norms[:3] * norms[:3], norms[3:]])
+    per = torch.zeros((4, len(entries)), dtype=f32, device=dev).index_add_(
+        1, _STATS_INDEX[key], rows)
+    gnorm, wnorm, unorm = torch.sqrt(per[:3])
+    return torch.stack([gnorm, wnorm, unorm / (wnorm + 1e-12), per[3]], 1)
 
 
 class RoutingGradientBase(GradientDescentBase):

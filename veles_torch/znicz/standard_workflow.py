@@ -19,7 +19,9 @@ the reference's unit names (class name, made unique with ``_2``,
 ``_3``...). :meth:`StandardWorkflow.link_zero_filler` pins weight
 entries of a forward at zero; :meth:`StandardWorkflow.link_lr_adjuster`
 gives every GD unit an lr schedule (a layer's ``"<-"`` kwargs carry the
-solver options and per-layer policies, as in the reference).
+solver options and per-layer policies, as in the reference);
+:meth:`StandardWorkflow.link_image_saver` dumps each minibatch's worst
+sample (``image_saver.py``).
 ``initialize`` places everything on a device; ``run`` trains epoch by
 epoch until the decision completes, or until :meth:`StandardWorkflow.stop`
 ends it before the next minibatch.
@@ -57,6 +59,7 @@ from veles_torch.export_inference import export_inference
 from veles_torch.snapshotter import (
     CorruptCheckpointError, Snapshotter, host_copy)
 from veles_torch.znicz.decision import DecisionGD, DecisionMSE
+from veles_torch.znicz.image_saver import ImageSaver
 from veles_torch.znicz.lr_adjust import make_policy
 from veles_torch.znicz.nn_rollback import NNRollback
 from veles_torch.znicz.nn_units import forward_by_name, gradient_unit_for
@@ -124,6 +127,7 @@ class StandardWorkflow:
         self.step = None
         self.snapshotter = None
         self.rollback = None
+        self.image_saver = None
         #: runs started (the reference's ``meta.run_number``)
         self.run_number = 0
         if snapshotter_config is not None:
@@ -157,6 +161,7 @@ class StandardWorkflow:
         if self.snapshotter is not None:
             self.snapshotter.initialize()
         self._keep_entry()
+        self._hook_image_saver()
         return self
 
     def _keep_entry(self):
@@ -188,6 +193,19 @@ class StandardWorkflow:
             gd.lr_policy = policy
             gd.lr_policy_bias = bias_policy
         return self.gds
+
+    def link_image_saver(self, out_dir, **cfg):
+        """An :class:`ImageSaver` writing each minibatch's worst sample
+        under ``out_dir``, run after the decision accounted the
+        minibatch. -> it."""
+        self.image_saver = ImageSaver(self, out_dir=out_dir,
+                                      name="image_saver", **cfg)
+        self._hook_image_saver()
+        return self.image_saver
+
+    def _hook_image_saver(self):
+        if self.step is not None and self.image_saver is not None:
+            self.step.after_minibatch = self.image_saver.on_minibatch
 
     def link_snapshotter(self, **cfg):
         """A :class:`Snapshotter` (its prefix defaults to the workflow's
@@ -265,6 +283,14 @@ class StandardWorkflow:
     def _generator_units(self):
         return [u for u in self.forwards if hasattr(u, "get_state")]
 
+    def _other_state_units(self):
+        """The units whose ``get_state`` rides in a checkpoint's
+        ``units`` section: the device generators, the ImageSaver."""
+        units = self._generator_units()
+        if self.image_saver is not None:
+            units.append(self.image_saver)
+        return units
+
     def _live_view(self):
         """{params, state, units, step_index} of the live tensors."""
         return {"params": {f.name: f.export_params() for f in self.forwards},
@@ -310,8 +336,11 @@ class StandardWorkflow:
         if self.rollback is not None:
             tree["rollback"] = self.rollback.get_state()
         tree["lr_scales"] = {gd.name: float(gd.lr_scale) for gd in self.gds}
-        if view["units"]:
-            tree["units"] = dict(view["units"])
+        units = dict(view["units"])
+        if self.image_saver is not None:
+            units[self.image_saver.name] = self.image_saver.get_state()
+        if units:
+            tree["units"] = units
         return tree
 
     def restore_state(self, tree):
@@ -331,7 +360,7 @@ class StandardWorkflow:
         for gd in self.gds:
             if gd.name in tree.get("lr_scales", {}):
                 gd.lr_scale = float(tree["lr_scales"][gd.name])
-        others = {u.name: u for u in self._generator_units()}
+        others = {u.name: u for u in self._other_state_units()}
         for name, state in tree.get("units", {}).items():
             if name not in others:
                 logger.warning("checkpoint names unknown unit %r — "
@@ -340,6 +369,7 @@ class StandardWorkflow:
             others[name].set_state(state)
         self.step.train_steps = int(tree.get("meta", {}).get("step_index",
                                                              0))
+        self.step.sync_iteration()
         self.step.entry, self.step.in_train = None, False
 
     def stash_state(self, at_valid=False):
@@ -360,6 +390,7 @@ class StandardWorkflow:
         would restore diverged values."""
         for section in ("params", "state"):
             self.import_tree(stash[section])
+        self.step.sync_iteration()
 
     def import_tree(self, tree, skip_unknown=False):
         """Load a tree shaped like :meth:`export_tree` (a checkpoint's

@@ -18,6 +18,22 @@ names (``TARGET``: ``"labels"``, or an MSE evaluator's ``"targets"``),
 gathered by the same indices; targets that are the data tensor itself
 (an autoencoder's) are the gathered data, not a second gather.
 
+The model-health plane (``model_health.py``): on every
+``stats_interval``-th train step, counted by the GD units' ``iteration``
+before the step (``t % stats_interval == 0``, as the reference's traced
+cadence; the step keeps a host mirror of it, so deciding costs no
+device read), each GD unit with parameters hands its tensors to
+``nn_units.layer_stats``; the step's (units, 4) vectors go into the
+class's device buffer beside the metrics and reach the host in the same
+one copy. Before the decision sees the class, each due step's vectors go
+to the monitor's ``observe_stats`` in step order, layers sorted by name
+(the reference's output order), with ``step_index`` the minibatches
+served through the class (the reference publishes a fused dispatch's
+stats with its step counter after the dispatch). A step that is not due
+computes nothing; :meth:`TorchStep.set_stats_enabled` (False) removes
+the work entirely. ``after_minibatch(cls, indices, valid, row)`` runs
+after the decision accounted each minibatch (the ImageSaver).
+
 After each class reaches the decision, ``run_epoch`` calls its
 ``after_class`` hook (the workflow's snapshotter and rollback). Before
 every minibatch it reads ``stop_requested``: a stopped epoch ends there,
@@ -34,7 +50,9 @@ import time
 
 import torch
 
+from veles_torch import model_health
 from veles_torch.loader.base import CLASS_TRAIN, CLASS_VALID
+from veles_torch.znicz.nn_units import RoutingGradientBase, layer_stats
 from veles_torch.znicz.ops.evaluator import METRICS
 
 
@@ -61,6 +79,41 @@ class TorchStep:
         self.entry = None
         #: the train class is running (not yet accounted)
         self.in_train = False
+        #: layer stats for the model-health plane, every
+        #: ``stats_interval``-th train step
+        self.collect_model_stats = True
+        self.stats_interval = 8
+        #: the GD units that update parameters (the stat rows)
+        self.stat_units = [gd for gd in self.gds
+                           if not isinstance(gd, RoutingGradientBase)]
+        #: host mirror of the GD units' ``iteration``
+        self.iteration = 0
+        #: the stat rows' layer names, and the last due step's (units, 4)
+        #: vectors on the device
+        self.stat_names = None
+        self.last_stats = None
+        #: called with (cls, indices, valid, metrics row) after the
+        #: decision accounted each minibatch
+        self.after_minibatch = None
+
+    def set_stats_enabled(self, enabled):
+        """Turn the layer stats on or off (off: no stat work at all)."""
+        self.collect_model_stats = bool(enabled)
+
+    def sync_iteration(self):
+        """Set the host mirror of ``iteration`` from the GD units (after
+        their state was loaded: one device read)."""
+        for gd in self.stat_units:
+            if gd.iteration is not None:
+                self.iteration = int(gd.iteration)
+                return
+
+    def stats_due(self, t=None):
+        """Whether the train step at ``iteration`` ``t`` (the next one by
+        default) takes layer stats."""
+        t = self.iteration if t is None else t
+        return bool(self.collect_model_stats and self.stat_units) \
+            and t % max(1, int(self.stats_interval)) == 0
 
     def _forward(self, data, train):
         """-> the input of every forward, and the last output; the
@@ -102,13 +155,38 @@ class TorchStep:
         """The evaluator and the reversed GD chain with its updates, after
         a train-mode :meth:`_forward` that gave ``inputs`` and ``last``;
         -> the (4,) metrics tensor."""
+        sink = [] if self.stats_due() else None
+        self.last_stats = None
+        for gd in self.stat_units:
+            gd.stats_sink = sink
         err, metrics = self.evaluator.run(last, target, valid,
                                           self.device.act_dtype)
         outputs = inputs[1:] + [last]
-        for i in reversed(range(len(self.gds))):
-            err = self.gds[i].run(inputs[i], outputs[i], err)
+        try:
+            for i in reversed(range(len(self.gds))):
+                err = self.gds[i].run(inputs[i], outputs[i], err)
+        finally:
+            for gd in self.stat_units:
+                gd.stats_sink = None
+        self.iteration += 1
         self.train_steps += 1
+        if sink is not None:
+            sink.sort(key=lambda entry: entry[0])
+            names = [name for name, _ in sink]
+            if self.stat_names is not None and names != self.stat_names:
+                raise RuntimeError("layer stats of %s, expected %s"
+                                   % (names, self.stat_names))
+            self.stat_names = names
+            self.last_stats = layer_stats(sink)
         return metrics
+
+    def _publish_stats(self, rows, step_index):
+        """Hand each due step's host (units, 4) stat rows to the
+        model-health monitor, in step order."""
+        monitor = model_health.get_model_monitor()
+        for row in rows:
+            monitor.observe_stats(dict(zip(self.stat_names, row)),
+                                  step_index=step_index)
 
     def run_epoch(self, after_class=None):
         """Serve every class of the loader's current epoch and feed the
@@ -128,14 +206,35 @@ class TorchStep:
             step = self.train_minibatch if train else self.eval_minibatch
             idx = torch.as_tensor(idx_mat, dtype=torch.int64).to(dev)
             valid_dev = torch.as_tensor(valids).to(dev)
-            metrics = torch.empty((len(idx_mat), len(METRICS)),
-                                  dtype=torch.float32, device=dev)
-            for i in range(len(idx_mat)):
+            n = len(idx_mat)
+            # the class's one device buffer: its metrics, then the stat
+            # rows of its due train steps
+            due = sum(self.stats_due(self.iteration + i)
+                      for i in range(n)) if train else 0
+            width = len(METRICS)
+            stat_width = len(model_health.STAT_FIELDS)
+            buf = torch.empty(
+                n * width + due * len(self.stat_units) * stat_width,
+                dtype=torch.float32, device=dev)
+            metrics = buf[:n * width].view(n, width)
+            stats = buf[n * width:].view(due, len(self.stat_units),
+                                         stat_width)
+            j = 0
+            for i in range(n):
                 if self.stop_requested:
                     return False
                 metrics[i] = step(*self.gather(full, idx[i], train),
                                   valid_dev[i])
-            host = metrics.cpu().numpy()
+                if train and self.last_stats is not None:
+                    stats[j] = self.last_stats
+                    self.last_stats = None
+                    j += 1
+            host = buf.cpu().numpy()
+            if due:
+                self._publish_stats(
+                    host[n * width:].reshape(stats.shape),
+                    self.decision.minibatch_count + n)
+            host = host[:n * width].reshape(n, width)
             last_cls = ci == len(plan) - 1
             for i, row in enumerate(host):
                 last = i == len(host) - 1
@@ -143,6 +242,9 @@ class TorchStep:
                     cls, int(valids[i]), int(row[1]), float(row[0]),
                     last_minibatch=last, epoch_ended=last and last_cls,
                     has_valid=has_valid)
+                if self.after_minibatch is not None:
+                    self.after_minibatch(cls, idx_mat[i], int(valids[i]),
+                                         row)
             self.in_train = False
             if after_class is not None:
                 after_class(cls)
