@@ -256,10 +256,39 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     (``ACTIVATION_TOL``). Also, at the 110M flash shape, SDPA's backward
     with its backend pinned (flash, then memory-efficient) beside phase
     flash_kernel_times;
-23. the ``kernels`` summary line (the bias gradient's launches summed
-    over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume and
-    model-health runs, each path's beside it, the serving paths' among
-    them), the card line, and last ``{"ok": true, "device": {...}}``.
+23. unsupervised — the Kohonen SOM and the MnistRBM samples through the
+    CLI at the reference's own configurations (8×8 map, 1000 points,
+    minibatch 50, 20 epochs; 784 → 64, 2000/500 images, minibatch 100, 5
+    epochs; seed 1337) on the port's CPU and on the card, with the
+    model-health plane on (no stat unit on either path): the SOM's
+    quantization error on the card below 0.3 and within
+    ``KOHONEN_QE_TOL`` of the CPU's, its final weights within
+    ``KOHONEN_CARD_ATOL`` of the CPU's largest; the RBM's validation error
+    falling by 13% on both and the card's last within 35% of the CPU's
+    (``RBM_FALL``, ``RBM_CROSS_RTOL``: the reference's bounds between its
+    backends); each run's checkpoint restored by a fresh workflow on the
+    other device bit for bit and trained one more epoch; no kernel
+    launched; each sample's ms per epoch and one more epoch under
+    ``torch.profiler`` (device operations per step, idle share; traces
+    ``kohonen_epoch_trace.json``, ``rbm_epoch_trace.json``);
+24. plots — phase mnist's run with the confusion matrix on
+    (``PLOTS_RUN``) through the CLI with ``--graphics-dir``: the renderer
+    process's ``plot_metric``, ``plot_weights`` and ``plot_confusion``
+    PNGs and ``plots.json``, each PNG decoded (no plotting library) to a
+    non-constant image; one bias-gradient launch of each form per train
+    step, as phase mnist; ``WeightDiversity`` of the first layer against
+    a float64 numpy recomputation from the exported weights
+    (``DIVERSITY_ATOL``); the device operations of an epoch without and
+    with the plotters in turns, the plotted ones ``PLOT_DEVICE_READS``
+    more (the weights' and the confusion matrix's one copy each, after
+    the classes); the Kohonen sample on the card through the launcher
+    with a graphics server and its ``som_hits`` and ``som_umatrix``
+    maps;
+25. the ``kernels`` summary line (the bias gradient's launches summed
+    over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume,
+    model-health, unsupervised and plots runs, each path's beside it, the
+    serving paths' among them), the card line, and last ``{"ok": true,
+    "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
@@ -3520,6 +3549,348 @@ def check_model_health(torch):
     return add_counts(*runs)
 
 
+# -- the unsupervised samples and the plotting plane -------------------------
+
+KOHONEN_SAMPLE = os.path.join(MODELS, "kohonen.py")
+RBM_SAMPLE = os.path.join(MODELS, "mnist_rbm.py")
+UNSUPERVISED_SEED = 1337
+#: the device of phases unsupervised and plots (a rehearsal on a host
+#: without a card sets "cpu")
+UNSUPERVISED_DEVICE = "cuda"
+#: the SOM's quantization error on the card: below the reference test's
+#: bar (tests/test_unsupervised.py), and within KOHONEN_QE_TOL of the
+#: CPU's
+KOHONEN_QE_MAX = 0.3
+KOHONEN_QE_TOL = 1e-4
+#: the SOM's final weights on the card against the CPU's, a share of the
+#: largest weight: f32 products (TF32 off) summed in another order; a
+#: winner that flips between the two (a near tie) moves a neighbourhood
+#: and shows far above it
+KOHONEN_CARD_ATOL = 1e-5
+#: the RBM's validation error falls by 13% over the run and its last
+#: value is within 35% of the CPU's (the reference's thresholds between
+#: its own two backends, tests/test_unsupervised.py): the Binarization's
+#: uniforms differ between devices
+RBM_FALL = 0.87
+RBM_CROSS_RTOL = 0.35
+#: the plots phase's MNIST run: phase mnist's, with the confusion matrix
+PLOTS_RUN = ("root.mnist.decision.max_epochs=3",
+             "root.mnist.evaluator.compute_confusion=True")
+#: the files the plotted MNIST run's renderer must write
+MNIST_PLOTS = ("plot_metric", "plot_weights", "plot_confusion")
+#: device reads a plotted MNIST epoch adds, all after its classes: the
+#: first layer's weights (Weights2D) and the confusion matrix, one copy
+#: each
+PLOT_DEVICE_READS = 2
+#: WeightDiversity's statistics against a float64 numpy recomputation
+DIVERSITY_ATOL = 1e-6
+
+
+def unsupervised_sync(torch):
+    if UNSUPERVISED_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def profile_run_epoch(torch, wf, trace_name):
+    """One more epoch of ``wf`` (its units after the decision included)
+    under torch.profiler: host ms, device busy ms, idle share, device
+    operations in all and per step, the top operations; the trace goes
+    to the output directory."""
+    from torch.profiler import ProfilerActivity, profile
+    from veles_torch import model_health
+    activities = [ProfilerActivity.CPU]
+    if UNSUPERVISED_DEVICE == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    steps0 = wf.step.train_steps + wf.step.eval_steps
+    unsupervised_sync(torch)
+    with model_health.scoped(), profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        wf.step.run_epoch(wf._after_decision)
+        unsupervised_sync(torch)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms, n_ops, by_name, path = device_trace(prof, trace_name)
+    steps = wf.step.train_steps + wf.step.eval_steps - steps0
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if n_ops else None,
+            "device_ops": n_ops, "steps": steps,
+            "device_ops_per_step": n_ops / steps,
+            "top_device_ops": top_ops(by_name), "trace": path}
+
+
+def unsupervised_runs(torch, sample):
+    """``sample`` through the CLI at its own configuration on the CPU and
+    on the card, under fresh monitors, the model-health plane on (no stat
+    unit: neither trainer is a GD unit); -> ({device: workflow}, the card
+    run's launches counted from 0)."""
+    runs = {}
+    for device in ("cpu", UNSUPERVISED_DEVICE):
+        reset_counts()
+        wf = cli_run([sample, "--seed", str(UNSUPERVISED_SEED), "-d",
+                      device])
+        unsupervised_sync(torch)
+        check_params_finite(torch, wf, "%s %s"
+                            % (os.path.basename(sample), device))
+        if wf.step.stat_units:
+            fail("%s: stat units %s (no GD unit on the path)"
+                 % (sample, wf.step.stat_units))
+        runs[device] = wf
+    return runs, read_counts()
+
+
+def quantization_error(x, w):
+    import numpy
+    d = ((x[:, None, :] - w[None, :, :]) ** 2).sum(axis=-1)
+    return float(numpy.sqrt(d.min(axis=1)).mean())
+
+
+def cross_resume(torch, module, runs, tmp):
+    """Each run's checkpoint restored by a fresh workflow on the other
+    device (the same seed, so the same data): every array bit for bit,
+    then one more epoch; -> {direction: checkpoint bytes}."""
+    import numpy
+    from veles_torch import model_health, prng
+    from veles_torch import snapshotter as TS
+    out = {}
+    for src, dst in (("cpu", UNSUPERVISED_DEVICE),
+                     (UNSUPERVISED_DEVICE, "cpu")):
+        wf = runs[src]
+        tree = wf.checkpoint_state()
+        uri, nbytes = TS.write_checkpoint(
+            TS.FileSnapshotStore(tmp), "%s_%s_initial.ckpt.npz"
+            % (wf.name, src), tree, compression="")
+        prng.seed_all(UNSUPERVISED_SEED)
+        with model_health.scoped():
+            fresh = module.create_workflow(name=wf.name)
+            fresh.initialize(device=dst)
+            fresh.restore_state(TS.load_snapshot(uri))
+            for section in ("params", "state"):
+                for unit, sub in tree[section].items():
+                    got = fresh.units()[unit].export_params() \
+                        if section == "params" \
+                        else fresh.units()[unit].export_state()
+                    for key, value in sub.items():
+                        if not numpy.array_equal(
+                                got[key].cpu().numpy(), value):
+                            fail("%s: %s/%s/%s of the %s checkpoint "
+                                 "restored on %s differs" % (
+                                     wf.name, section, unit, key, src, dst))
+            epochs = len(fresh.decision.history)
+            fresh.decision.max_epochs = epochs + 1
+            fresh.run()
+            unsupervised_sync(torch)
+        if len(fresh.decision.history) != epochs + 1:
+            fail("%s resumed on %s: %d epochs in the history, expected %d"
+                 % (wf.name, dst, len(fresh.decision.history), epochs + 1))
+        check_params_finite(torch, fresh, "%s resumed on %s" % (wf.name, dst))
+        out["%s->%s" % (src, dst)] = nbytes
+    return out
+
+
+def check_kohonen(torch, tmp):
+    """The SOM: quantization error, weights against the CPU, the
+    checkpoint both ways, one profiled epoch; -> the card run's
+    launches."""
+    import numpy
+    from veles_torch.znicz.models import kohonen
+    runs, counts = unsupervised_runs(torch, KOHONEN_SAMPLE)
+    cpu, card = runs["cpu"], runs[UNSUPERVISED_DEVICE]
+    x = card.loader.original_data
+    w_cpu = cpu.forwards[0].weights.cpu().numpy()
+    w_card = card.forwards[0].weights.cpu().numpy()
+    qe = {"cpu": quantization_error(x, w_cpu),
+          "card": quantization_error(x, w_card)}
+    diff = float(numpy.abs(w_card - w_cpu).max())
+    limit = KOHONEN_CARD_ATOL * float(numpy.abs(w_cpu).max())
+    metric = {d: [h["train"]["metric"] for h in wf.decision.history]
+              for d, wf in (("cpu", cpu), ("card", card))}
+    steps = card.step.train_steps
+    ckpt = cross_resume(torch, kohonen, runs, tmp)
+    prof = profile_run_epoch(torch, card, "kohonen_epoch_trace.json")
+    emit({"phase": "unsupervised", "sample": "kohonen",
+          "train_steps": steps, "launches": counts,
+          "epoch_ms": [1e3 * t for t in card.step.epoch_seconds],
+          "quantization_error": qe, "weights_max_abs_diff": diff,
+          "weights_limit": limit, "train_metric": metric,
+          "checkpoint_bytes": ckpt, "profile": prof})
+    if len(metric["card"]) != len(metric["cpu"]):
+        fail("kohonen: %d epochs on the card, %d on the CPU"
+             % (len(metric["card"]), len(metric["cpu"])))
+    if not qe["card"] < KOHONEN_QE_MAX \
+            or abs(qe["card"] - qe["cpu"]) > KOHONEN_QE_TOL:
+        fail("kohonen: quantization error %s" % qe)
+    if not diff <= limit:
+        fail("kohonen: final weights %.3g from the CPU's (limit %.3g)"
+             % (diff, limit))
+    return counts
+
+
+def check_rbm(torch, tmp):
+    """The RBM: the validation error falls and ends near the CPU's, the
+    checkpoint both ways, one profiled epoch; -> the card run's
+    launches."""
+    from veles_torch.znicz.models import mnist_rbm
+    runs, counts = unsupervised_runs(torch, RBM_SAMPLE)
+    hist = {d: [h["validation"]["metric"] for h in wf.decision.history]
+            for d, wf in (("cpu", runs["cpu"]),
+                          ("card", runs[UNSUPERVISED_DEVICE]))}
+    card = runs[UNSUPERVISED_DEVICE]
+    steps = (card.step.train_steps, card.step.eval_steps)
+    ckpt = cross_resume(torch, mnist_rbm, runs, tmp)
+    prof = profile_run_epoch(torch, card, "rbm_epoch_trace.json")
+    emit({"phase": "unsupervised", "sample": "mnist_rbm",
+          "train_steps": steps[0], "eval_steps": steps[1],
+          "launches": counts,
+          "epoch_ms": [1e3 * t for t in card.step.epoch_seconds],
+          "validation_mse": hist, "checkpoint_bytes": ckpt,
+          "profile": prof})
+    for device, h in hist.items():
+        if not h[-1] < RBM_FALL * h[0]:
+            fail("rbm on %s: the validation error fell from %.4g to %.4g, "
+                 "not by %.0f%%" % (device, h[0], h[-1],
+                                    100 * (1 - RBM_FALL)))
+    rel = abs(hist["card"][-1] - hist["cpu"][-1]) / hist["cpu"][-1]
+    if not rel < RBM_CROSS_RTOL:
+        fail("rbm: last validation error %.4g on the card, %.4g on the CPU"
+             % (hist["card"][-1], hist["cpu"][-1]))
+    return counts
+
+
+def check_unsupervised(torch):
+    """Phase unsupervised; -> its launches (none of the kernels is on
+    either path)."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_unsupervised_")
+    try:
+        counts = add_counts(check_kohonen(torch, tmp), check_rbm(torch, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(counts.values()):
+        fail("unsupervised: kernel launches %s, expected none" % counts)
+    return counts
+
+
+def check_pngs(out, names):
+    """Each ``names`` PNG in ``out`` decodes to a non-constant image and
+    ``plots.json`` names it; -> {name: (height, width)}."""
+    from veles_torch.graphics_client import read_png
+    with open(os.path.join(out, "plots.json")) as f:
+        index = json.load(f)
+    shapes = {}
+    for name in names:
+        entry = index.get(name)
+        if entry is None or entry["file"] != name + ".png":
+            fail("plots.json of %s: %r for %s" % (out, entry, name))
+        img = read_png(os.path.join(out, entry["file"]))
+        if not img.std() > 0:
+            fail("%s/%s is a constant image" % (out, entry["file"]))
+        shapes[name] = list(img.shape[:2])
+    return shapes
+
+
+def diversity_errors(wf):
+    """WeightDiversity of MNIST's first layer against a float64 numpy
+    recomputation from the exported weights; -> (stats, {field: error})."""
+    import numpy
+    from veles_torch.znicz.diversity import WeightDiversity
+    unit = WeightDiversity(wf)
+    unit.make_payload()
+    rows = wf.forwards[0].export_params()["weights"].cpu().numpy() \
+        .astype(numpy.float64).T
+    norms = numpy.linalg.norm(rows, axis=1)
+    unit_rows = rows / numpy.where(norms == 0, 1.0, norms)[:, None]
+    sim = unit_rows @ unit_rows.T
+    off = numpy.abs(sim[~numpy.eye(len(sim), dtype=bool)])
+    want = {"n_units": len(rows), "mean_abs_similarity": off.mean(),
+            "max_abs_similarity": off.max(),
+            "similar_pairs": int((numpy.abs(numpy.triu(sim, 1))
+                                  >= unit.threshold).sum()),
+            "dead_units": int((norms == 0).sum())}
+    return unit.stats, {k: abs(unit.stats[k] - v) for k, v in want.items()}
+
+
+def plotted_epoch_ops(torch, wf):
+    """Device operations of a MNIST epoch without and with the plotters,
+    in turns (without, with, with, without), with the layer stats off: at
+    stride 8 the 60 train steps of an epoch hold 7 or 8 due steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from veles_torch import model_health
+    plotters, ops = wf.plotters, []
+    wf.step.set_stats_enabled(False)
+    for plotted in (False, True, True, False):
+        wf.plotters = plotters if plotted else []
+        unsupervised_sync(torch)
+        with model_health.scoped(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wf.step.run_epoch(wf._after_decision)
+            unsupervised_sync(torch)
+        ops.append(count_device_ops(prof))
+    wf.plotters = plotters
+    wf.step.set_stats_enabled(True)
+    return ops
+
+
+def check_plots(torch):
+    """Phase plots; -> the plotted MNIST run's launches."""
+    import shutil
+    import tempfile
+    from veles_torch import model_health, prng
+    from veles_torch.config import root
+    from veles_torch.launcher import Launcher
+    from veles_torch.znicz import nn_plotting_units as P
+    from veles_torch.znicz.models import kohonen
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plots_")
+    try:
+        out = os.path.join(tmp, "mnist")
+        reset_counts()
+        wf = cli_run([MNIST_SAMPLE, *PLOTS_RUN, "--seed",
+                      str(UNSUPERVISED_SEED), "-d", UNSUPERVISED_DEVICE,
+                      "--graphics-dir", out])
+        unsupervised_sync(torch)
+        counts = read_counts()
+        root.mnist.evaluator.compute_confusion = False
+        train = wf.step.train_steps
+        per_step = train if UNSUPERVISED_DEVICE == "cuda" else 0
+        want = dict({name: 0 for name in counts},
+                    **{"bias_grad[identity]": per_step,
+                       "bias_grad[masked]": per_step})
+        shapes = check_pngs(out, MNIST_PLOTS)
+        stats, errors = diversity_errors(wf)
+        ops = plotted_epoch_ops(torch, wf) \
+            if UNSUPERVISED_DEVICE == "cuda" else None
+        som_out = os.path.join(tmp, "kohonen")
+        prng.seed_all(UNSUPERVISED_SEED)
+        with model_health.scoped():
+            som = kohonen.create_workflow(name="KohonenPlots")
+            som.plotters += [
+                P.KohonenHits(som, forward=som.forwards[0],
+                              name="som_hits"),
+                P.KohonenNeighborMap(som, forward=som.forwards[0],
+                                     name="som_umatrix")]
+            launcher = Launcher(device=UNSUPERVISED_DEVICE,
+                                graphics_dir=som_out)
+            launcher.initialize(som)
+            launcher.run()
+        shapes.update(check_pngs(som_out, ("som_hits", "som_umatrix")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "plots", "train_steps": train, "launches": counts,
+          "png_shapes": shapes, "diversity": stats,
+          "diversity_errors": errors,
+          "epoch_device_ops_without_with_with_without": ops,
+          "plot_device_reads": PLOT_DEVICE_READS})
+    if counts != want:
+        fail("plots: launches %s, expected %s" % (counts, want))
+    over = {k: e for k, e in errors.items() if not e <= DIVERSITY_ATOL}
+    if over:
+        fail("plots: WeightDiversity off the numpy recomputation: %s" % over)
+    if ops is not None and (ops[1] - ops[0] != PLOT_DEVICE_READS
+                            or ops[2] - ops[3] != PLOT_DEVICE_READS):
+        fail("plots: device operations of an epoch without/with the plots "
+             "%s, expected %d more with" % (ops, PLOT_DEVICE_READS))
+    return counts
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -3576,8 +3947,11 @@ def main(argv=None):
     lm_slice = check_lm_slice(torch)
     resume = check_resume(torch)
     health = check_model_health(torch)
+    unsupervised = check_unsupervised(torch)
+    plots = check_plots(torch)
     paths = {**ae, **serving, **lm_slice, "resume": resume,
-             "model_health": health}
+             "model_health": health, "unsupervised": unsupervised,
+             "plots": plots}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``veles_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or anything of the JAX package
-``veles``, checked in the source and in a fresh interpreter."""
+``veles``, checked in the source and in a fresh interpreter; nor
+matplotlib: the port's renderer draws its PNGs itself."""
 
 import ast
 import os
@@ -10,7 +11,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "veles")
+FORBIDDEN = ("jax", "jaxlib", "veles", "matplotlib")
 
 
 def _port_files():
@@ -135,3 +136,58 @@ def test_state_and_launcher_modules_are_checked():
     assert {os.path.join("veles_torch", "snapshotter.py"),
             os.path.join("veles_torch", "launcher.py"),
             os.path.join("veles_torch", "znicz", "nn_rollback.py")} <= files
+
+
+@pytest.mark.parametrize("module", [
+    "graphics.py", "graphics_client.py", "znicz/nn_plotting_units.py",
+    "znicz/diversity.py", "znicz/ops/kohonen.py", "znicz/ops/rbm.py",
+    "znicz/models/kohonen.py", "znicz/models/mnist_rbm.py"])
+def test_unsupervised_and_plotting_modules_are_scanned(module):
+    """The unsupervised samples' and the plotting plane's modules are
+    among the files both checks read (neither jax, veles nor
+    matplotlib)."""
+    assert os.path.join(REPO, "veles_torch", module) in _port_files()
+
+
+def test_plots_and_unsupervised_runs_load_no_jax_veles_or_matplotlib(
+        tmp_path):
+    """In a fresh interpreter: a Kohonen epoch with its SOM maps and an
+    RBM epoch, each drawn by the renderer process of a GraphicsServer, and
+    the four renderers in process; no jax, veles or matplotlib module is
+    loaded, and the PNGs are written."""
+    script = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import numpy\n"
+        "from veles_torch.config import root\n"
+        "from veles_torch.graphics import GraphicsServer\n"
+        "from veles_torch.graphics_client import render_payload\n"
+        "from veles_torch.znicz import nn_plotting_units as P\n"
+        "from veles_torch.znicz.models import kohonen, mnist_rbm\n"
+        "root.kohonen.update({'decision': {'max_epochs': 1}})\n"
+        "root.mnist_rbm.update({'decision': {'max_epochs': 1},\n"
+        "                       'loader': {'n_train': 200, 'n_valid': 100}})\n"
+        "out = %r\n"
+        "wf = kohonen.create_workflow()\n"
+        "wf.plotters += [P.KohonenHits(wf, forward=wf.forwards[0]),\n"
+        "                P.KohonenNeighborMap(wf, forward=wf.forwards[0])]\n"
+        "wf.graphics = GraphicsServer(out)\n"
+        "wf.initialize(device='cpu').run()\n"
+        "wf.graphics.close()\n"
+        "mnist_rbm.create_workflow().initialize(device='cpu').run()\n"
+        "for kind, arrays in (\n"
+        "        ('curves', {'a': numpy.arange(3.0)}),\n"
+        "        ('image', {'image': numpy.eye(3)}),\n"
+        "        ('grid', {'tiles': numpy.ones((2, 3, 3))}),\n"
+        "        ('matrix', {'matrix': numpy.eye(3, dtype=int)})):\n"
+        "    render_payload({'kind': kind, 'name': kind}, arrays, out)\n"
+        "new = set(sys.modules) - before\n"
+        "print(sorted(m for m in new if m.split('.')[0] in %r))\n"
+        % (str(tmp_path), FORBIDDEN))
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+    assert sorted(os.listdir(str(tmp_path))) == [
+        "KohonenHits.png", "KohonenNeighborMap.png", "curves.png",
+        "grid.png", "image.png", "matrix.png", "plots.json"]

@@ -8,6 +8,7 @@
                           [--profile-dir DIR]
                           [--model-stats on|off] [--stats-interval N]
                           [--rollback-on-divergence]
+                          [--graphics-dir DIR]
                           [--export-inference DIR]
                           [--generate IDS | --generate-text PROMPT
                            [--gen-tokens N] [--gen-temperature T]]
@@ -32,6 +33,11 @@ The model-health plane is on: layer stats every ``--stats-interval``
 checkpoint; ``--model-stats off`` turns it off (checkpoints stamped
 ``unknown``), ``--rollback-on-divergence`` restores the workflow's
 rollback stash when the verdict reads ``diverged``.
+``--graphics-dir DIR`` links the reference's standard plotters when the
+workflow has none and can (``link_plotters``), and the launcher streams
+their frames to a renderer process that writes ``DIR/<name>.png`` and
+``DIR/plots.json`` (``graphics.py``, ``graphics_client.py``; no
+plotting library needed).
 Each finished epoch prints its summary line; the last line of standard
 output is one JSON object with the decision history. The device is
 ``cuda`` unless ``-d cpu`` is given; asking for ``cuda`` on a host
@@ -85,7 +91,6 @@ UNPORTED = (
     ("--continual", {"type": int, "nargs": "?", "const": 0}, 6),
     ("--ensemble", {"type": int}, 13),
     ("--optimize", {}, 13),
-    ("--graphics-dir", {}, 12),
     ("--workflow-graph", {}, 11),
     ("--dump-unit-sizes", {"action": "store_true"}, 11),
     ("--no-stats", {"action": "store_true"}, 11),
@@ -137,6 +142,9 @@ def build_argparser():
     p.add_argument("--rollback-on-divergence", action="store_true",
                    help="restore the rollback unit's last good weights "
                         "when the model-health verdict reads diverged")
+    p.add_argument("--graphics-dir", default=None, metavar="DIR",
+                   help="render the workflow's plots into DIR (links the "
+                        "standard plotters when the workflow has none)")
     p.add_argument("--export-inference", default=None, metavar="DIR",
                    help="after the run, export the inference archive "
                         "(contents.json + .npy) to DIR")
@@ -270,6 +278,9 @@ def main(argv=None):
     if args.generate_text and not hasattr(wf.loader, "encode"):
         raise SystemExit("--generate-text needs a text-corpus loader "
                          "(root.lm.loader.text_file)")
+    if args.graphics_dir and not wf.plotters \
+            and hasattr(wf, "link_plotters"):
+        wf.link_plotters(out_dir=args.graphics_dir)
     if args.snapshots and wf.snapshotter is None:
         wf.link_snapshotter(directory=args.snapshots)
     launcher = Launcher(device=args.device, snapshot=args.snapshot,
@@ -277,14 +288,18 @@ def main(argv=None):
                         profile_dir=args.profile_dir,
                         model_stats=args.model_stats != "off",
                         stats_interval=args.stats_interval,
-                        rollback_on_divergence=args.rollback_on_divergence)
-    launcher.initialize(wf)
-    if args.generate_text:
-        try:
-            prompt = wf.loader.encode(args.generate_text)
-        except ValueError as exc:
-            raise SystemExit("--generate-text: %s" % exc)
-    launcher.run()
+                        rollback_on_divergence=args.rollback_on_divergence,
+                        graphics_dir=args.graphics_dir)
+    try:
+        launcher.initialize(wf)
+        if args.generate_text:
+            try:
+                prompt = wf.loader.encode(args.generate_text)
+            except ValueError as exc:
+                raise SystemExit("--generate-text: %s" % exc)
+        launcher.run()
+    finally:
+        launcher.close()
     if args.export_inference:
         wf.export_inference(args.export_inference)
         print("inference archive -> %s" % args.export_inference, flush=True)

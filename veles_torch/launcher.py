@@ -4,7 +4,8 @@
     launcher = Launcher(device="cuda", snapshot="auto",
                         checkpoint_every=600, profile_dir="prof",
                         model_stats=True, stats_interval=8,
-                        rollback_on_divergence=False)
+                        rollback_on_divergence=False,
+                        graphics_dir="plots")
     launcher.initialize(workflow)
     launcher.run()
 
@@ -17,14 +18,19 @@ verifies in the snapshotter's store, of this workflow's prefixes) or
 the reference does: ``model_stats=False`` (``--model-stats off``) turns
 the whole plane off, so checkpoints are stamped ``unknown``;
 ``stats_interval`` sets the step's stats stride; ``rollback_on_divergence``
-arms the workflow's rollback (a workflow without one gets a warning).
+arms the workflow's rollback (a workflow without one gets a warning);
+``graphics_dir`` starts a :class:`GraphicsServer` (``graphics.py``) whose
+renderer process writes the workflow's plots there, and attaches it as
+``workflow.graphics``.
 :meth:`Launcher.run` trains: SIGINT stops the run; SIGTERM
 (preemption) stops it before the next minibatch, then, outside the
 signal handler, writes a final ``current`` checkpoint and exits with
 :data:`EXIT_PREEMPTED`. ``profile_dir`` wraps the run in
 ``torch.profiler`` (CPU, and CUDA on the card) and writes its Chrome
 trace into the directory, the twin of the reference's
-``jax.profiler.trace``. The master and slave modes are not ported yet
+``jax.profiler.trace``. The graphics server is closed when
+:meth:`Launcher.run` ends, on every path out of it (a SIGTERM's exit
+included), or by :meth:`Launcher.close`. The master and slave modes are not ported yet
 (ROADMAP Queue 1 item 10).
 """
 
@@ -35,6 +41,7 @@ import signal
 import torch
 
 from veles_torch import model_health
+from veles_torch.graphics import GraphicsServer
 from veles_torch.snapshotter import load_snapshot, resolve_auto
 
 logger = logging.getLogger("veles_torch.launcher")
@@ -52,7 +59,7 @@ class Launcher:
 
     def __init__(self, device="cuda", snapshot=None, checkpoint_every=None,
                  profile_dir=None, model_stats=True, stats_interval=None,
-                 rollback_on_divergence=False):
+                 rollback_on_divergence=False, graphics_dir=None):
         self.device = device
         self.snapshot = snapshot
         self.checkpoint_every = checkpoint_every
@@ -60,6 +67,9 @@ class Launcher:
         self.model_stats = bool(model_stats)
         self.stats_interval = stats_interval
         self.rollback_on_divergence = bool(rollback_on_divergence)
+        self.graphics_dir = graphics_dir
+        #: the GraphicsServer of ``graphics_dir`` while the run lasts
+        self.graphics = None
         self.workflow = None
         self.interrupted = False
         #: SIGTERM asked for a preemption shutdown
@@ -79,7 +89,17 @@ class Launcher:
         if self.snapshot:
             self._restore_snapshot(workflow)
         self._wire_model_health(workflow)
+        if self.graphics_dir:
+            self.graphics = GraphicsServer(self.graphics_dir)
+            workflow.graphics = self.graphics
         return workflow
+
+    def close(self):
+        """Stop the graphics server (its renderer draws what it received
+        and exits)."""
+        if self.graphics is not None:
+            self.graphics.close()
+            self.workflow.graphics = self.graphics = None
 
     def _wire_model_health(self, workflow):
         """The model-health plane's options on the monitor, the step and
@@ -167,25 +187,32 @@ class Launcher:
         except ValueError:          # not on the main thread
             previous = previous_term = None
         try:
-            if self.profile_dir:
-                os.makedirs(self.profile_dir, exist_ok=True)
-                with self._profiler() as prof:
-                    wf.run()
-                    if wf.device.device.type == "cuda":
-                        torch.cuda.synchronize()
-                path = os.path.join(self.profile_dir, TRACE_NAME)
-                prof.export_chrome_trace(path)
-                logger.info("profiler trace -> %s", path)
-            else:
-                wf.run()
+            try:
+                self._train()
+            finally:
+                if previous is not None:
+                    signal.signal(signal.SIGINT, previous)
+                if previous_term is not None:
+                    signal.signal(signal.SIGTERM, previous_term)
+            if self.preempted:
+                self._preemption_exit()
         finally:
-            if previous is not None:
-                signal.signal(signal.SIGINT, previous)
-            if previous_term is not None:
-                signal.signal(signal.SIGTERM, previous_term)
-        if self.preempted:
-            self._preemption_exit()
+            self.close()
         return wf
+
+    def _train(self):
+        wf = self.workflow
+        if self.profile_dir:
+            os.makedirs(self.profile_dir, exist_ok=True)
+            with self._profiler() as prof:
+                wf.run()
+                if wf.device.device.type == "cuda":
+                    torch.cuda.synchronize()
+            path = os.path.join(self.profile_dir, TRACE_NAME)
+            prof.export_chrome_trace(path)
+            logger.info("profiler trace -> %s", path)
+        else:
+            wf.run()
 
     def _preemption_exit(self):
         snap = self.workflow.snapshotter

@@ -12,13 +12,18 @@ differ from ``jax.random``'s, so device-side randomness matches the
 reference only statistically. A unit holding one checkpoints its state
 (:func:`generator_state`), so a resumed run draws what the uninterrupted
 one would have; the reference derives its device randomness from the
-step index and keeps no such state.
+step index and keeps no such state. A state saved on another device
+(another generator) is not loaded: that generator goes on from its own
+state.
 """
 
 import hashlib
+import logging
 
 import numpy
 import torch
+
+logger = logging.getLogger("veles_torch.prng")
 
 _generators = {}
 _master_seed = None
@@ -53,6 +58,9 @@ class RandomGenerator:
         arr[...] = self._gen.normal(mean, stddev, size=arr.shape) \
             .astype(arr.dtype)
 
+    def uniform(self, vmin, vmax, shape, dtype=numpy.float32):
+        return self._gen.uniform(vmin, vmax, size=shape).astype(dtype)
+
     def normal(self, mean, stddev, shape, dtype=numpy.float32):
         return self._gen.normal(mean, stddev, size=shape).astype(dtype)
 
@@ -61,6 +69,9 @@ class RandomGenerator:
 
     def randint(self, low, high=None, size=None):
         return self._gen.integers(low, high, size=size)
+
+    def random_sample(self, shape) -> numpy.ndarray:
+        return self._gen.random(size=shape, dtype=numpy.float64)
 
 
 def get(key: str = "default") -> RandomGenerator:
@@ -87,9 +98,22 @@ def generator_state(gen: torch.Generator) -> numpy.ndarray:
     return gen.get_state().numpy().copy()
 
 
-def set_generator_state(gen: torch.Generator, state) -> None:
-    """Restore :func:`generator_state`'s array into ``gen``."""
-    gen.set_state(torch.as_tensor(numpy.asarray(state, numpy.uint8)))
+def set_generator_state(gen: torch.Generator, state) -> bool:
+    """Restore :func:`generator_state`'s array into ``gen``; -> whether it
+    did. The state of another device's generator (the CPU's Mersenne
+    Twister, a card's Philox seed and offset: another size) cannot be
+    loaded: ``gen`` goes on from its own state, with a warning. The two
+    devices draw different numbers anyway."""
+    state = torch.as_tensor(numpy.asarray(state, numpy.uint8))
+    own = gen.get_state()
+    if state.shape != own.shape:
+        logger.warning(
+            "a generator state of %d bytes does not fit this %s generator "
+            "(%d bytes; a checkpoint of another device): it goes on from "
+            "its own state", state.numel(), gen.device, own.numel())
+        return False
+    gen.set_state(state)
+    return True
 
 
 def _key_seed(master: int, key: str) -> int:

@@ -41,8 +41,15 @@ class DecisionGD:
     """Epoch bookkeeping + stop criteria; metric = number of errors."""
 
     @staticmethod
-    def minibatch_metric(n, n_err, loss):
-        return n_err
+    def minibatch_loss(row):
+        """The loss of a minibatch's host metrics row (``METRICS``
+        layout: loss, n_err, max_err, max_err_idx)."""
+        return float(row[0])
+
+    @staticmethod
+    def minibatch_metric(n, row):
+        """The metric a minibatch of ``n`` valid rows adds."""
+        return int(row[1])
 
     def __init__(self, name="decision", max_epochs=None,
                  fail_iterations=100):
@@ -67,9 +74,10 @@ class DecisionGD:
         #: get_state() as the epoch in flight began (None between epochs)
         self._entry_state = None
 
-    def on_minibatch(self, cls, n, n_err, loss, last_minibatch,
-                     epoch_ended, has_valid):
-        """Account one served minibatch of ``n`` valid rows."""
+    def on_minibatch(self, cls, n, row, last_minibatch, epoch_ended,
+                     has_valid):
+        """Account one served minibatch of ``n`` valid rows and its host
+        metrics ``row``."""
         if self._entry_state is None:
             self._entry_state = self._state()
         self.improved = self.epoch_ended = False
@@ -79,8 +87,8 @@ class DecisionGD:
             acc = self.epoch_metrics[cls] = {
                 "samples": 0, "loss": 0.0, "metric": 0.0}
         acc["samples"] += n
-        acc["metric"] += self.minibatch_metric(n, n_err, loss)
-        acc["loss"] += float(loss) * n
+        acc["metric"] += self.minibatch_metric(n, row)
+        acc["loss"] += self.minibatch_loss(row) * n
         if last_minibatch and cls in (CLASS_VALID, CLASS_TRAIN):
             self._on_class_ended(cls, has_valid)
         if epoch_ended:
@@ -163,9 +171,9 @@ class DecisionGD:
 class DecisionMSE(DecisionGD):
     """Regression/LM decision: metric = loss × sample count."""
 
-    @staticmethod
-    def minibatch_metric(n, n_err, loss):
-        return float(loss) * n
+    @classmethod
+    def minibatch_metric(cls, n, row):
+        return cls.minibatch_loss(row) * n
 
 
 def summary_line(summary):

@@ -13,6 +13,7 @@ import numpy
 from veles_torch.config import root
 from veles_torch.loader.fullbatch import FullBatchLoader
 from veles_torch.znicz.models import datasets
+from veles_torch.znicz.ops.evaluator import EvaluatorSoftmax
 from veles_torch.znicz.standard_workflow import StandardWorkflow
 
 root.mnist.update({
@@ -55,8 +56,14 @@ class MnistLoader(FullBatchLoader):
 
 def create_workflow(name="MnistWorkflow"):
     cfg = root.mnist
+    # root.mnist.evaluator (unset by default): the softmax evaluator's
+    # options, e.g. compute_confusion=True for the confusion plot
+    evaluator = cfg.get("evaluator")
     return StandardWorkflow(
         name=name, layers=cfg.layers,
         loader_factory=lambda wf: MnistLoader(
             wf, name="loader", minibatch_size=cfg.loader.minibatch_size),
-        decision_config=cfg.decision.to_dict())
+        decision_config=cfg.decision.to_dict(),
+        evaluator_factory=None if evaluator is None else (
+            lambda wf: EvaluatorSoftmax(name="evaluator",
+                                        **evaluator.to_dict())))

@@ -22,22 +22,37 @@ gives every GD unit an lr schedule (a layer's ``"<-"`` kwargs carry the
 solver options and per-layer policies, as in the reference);
 :meth:`StandardWorkflow.link_image_saver` dumps each minibatch's worst
 sample (``image_saver.py``).
+:meth:`StandardWorkflow.link_plotters` attaches the reference's
+standard plot set (``nn_plotting_units.py``).
 ``initialize`` places everything on a device; ``run`` trains epoch by
-epoch until the decision completes, or until :meth:`StandardWorkflow.stop`
+epoch until the decision completes, or until :meth:`NNWorkflow.stop`
 ends it before the next minibatch.
 
-State (the reference's ``NNWorkflow``): :meth:`StandardWorkflow.
+:class:`NNWorkflow` (the reference's ``NNWorkflow``) is the part that
+does not depend on a GD chain: the slots (loader, forwards, evaluator,
+decision, gds), the run loop, the units after the decision and the
+state below. A workflow whose updates are not a GD chain (the Kohonen map,
+the RBM) subclasses it, builds its units, initializes them in
+:meth:`NNWorkflow.initialize_units` and gives the step its own
+``step_body`` (``step.py``). Its plotters (``plotters``) run once an
+epoch after the decision ended it, each publishing to the workflow's
+``graphics`` server when the launcher attached one, else rendering into
+its own ``out_dir``.
+
+State (the reference's ``NNWorkflow``): :meth:`NNWorkflow.
 checkpoint_state` is the checkpoint tree in the reference's sections
 (``params`` and ``state`` by unit name, ``decision``, ``loader``,
-``rollback``, ``lr_scales``, ``meta`` and ``units``: the device
-generators' states) and :meth:`StandardWorkflow.restore_state` loads one
-into an initialized workflow; :meth:`StandardWorkflow.stash_state` /
-:meth:`StandardWorkflow.restore_stash` are NNRollback's copies on the
+``rollback``, ``lr_scales`` of the units that have one, ``meta`` and
+``units``: the device generators' states; the params of every forward
+and the state of every gds unit that has some, the reference's
+``_stateful_units``) and :meth:`NNWorkflow.restore_state` loads one
+into an initialized workflow; :meth:`NNWorkflow.stash_state` /
+:meth:`NNWorkflow.restore_stash` are NNRollback's copies on the
 device. After each class of an epoch reaches the decision the workflow
 runs, in the reference's order, the end of the epoch's bookkeeping (the
-loader moves to the next epoch), the snapshotter
-(:meth:`StandardWorkflow.link_snapshotter`, or ``snapshotter_config``)
-and the rollback (:meth:`StandardWorkflow.link_rollback`).
+loader moves to the next epoch), at an epoch's end the plotters, then
+the snapshotter (:meth:`NNWorkflow.link_snapshotter`, or
+``snapshotter_config``) and the rollback (:meth:`NNWorkflow.link_rollback`).
 
 A checkpoint holds the state at the last class boundary the run passed:
 before the train class and while it runs, the epoch's entry (the copy
@@ -61,6 +76,8 @@ from veles_torch.snapshotter import (
 from veles_torch.znicz.decision import DecisionGD, DecisionMSE
 from veles_torch.znicz.image_saver import ImageSaver
 from veles_torch.znicz.lr_adjust import make_policy
+from veles_torch.znicz.nn_plotting_units import (
+    AccumulatingPlotter, ConfusionMatrixPlotter, Weights2D)
 from veles_torch.znicz.nn_rollback import NNRollback
 from veles_torch.znicz.nn_units import forward_by_name, gradient_unit_for
 from veles_torch.znicz.ops.all2all import All2AllSoftmax
@@ -82,56 +99,32 @@ def normalize_layers(layers):
     return out
 
 
-class StandardWorkflow:
-    """loader -> forwards -> evaluator -> decision -> reversed GDs."""
+class NNWorkflow:
+    """The slots, run loop and state of a workflow of the port."""
 
-    def __init__(self, layers=None, loader_factory=None,
-                 decision_config=None, evaluator_factory=None,
-                 name="StandardWorkflow", snapshotter_config=None):
-        if loader_factory is None:
-            raise ValueError("no loader_factory given")
+    #: ``body(data, target, valid, train) -> (4,) metrics`` of a workflow
+    #: whose updates are not a GD chain, or None (``step.py``)
+    step_body = None
+
+    def __init__(self, name):
         self.name = name
-        self.layers_config = normalize_layers(layers or [])
         self._names = set()
-        self.loader = loader_factory(self)
+        self.loader = None
         self.forwards = []
-        for spec in self.layers_config:
-            cls = forward_by_name(spec["type"])
-            kwargs = dict(spec.get("->", {}))
-            src = kwargs.get("output_shape_source")
-            if isinstance(src, int) and not isinstance(src, bool):
-                kwargs["output_shape_source"] = self.forwards[src]
-            fwd = cls(**kwargs)
-            fwd.name = self._unique(fwd.name)
-            self.forwards.append(fwd)
-        if evaluator_factory is not None:
-            self.evaluator = evaluator_factory(self)
-        elif isinstance(self.forwards[-1], All2AllSoftmax):
-            self.evaluator = EvaluatorSoftmax(name="evaluator")
-        else:
-            self.evaluator = EvaluatorMSE(name="evaluator")
-        decision_cls = DecisionGD \
-            if isinstance(self.evaluator, EvaluatorSoftmax) else DecisionMSE
-        self.decision = decision_cls(name="decision",
-                                     **dict(decision_config or {}))
-        self.gds = [None] * len(self.forwards)
-        for i in reversed(range(len(self.forwards))):
-            fwd = self.forwards[i]
-            gd = gradient_unit_for(type(fwd))(
-                need_err_input=i > 0,
-                **dict(self.layers_config[i].get("<-", {})))
-            gd.name = self._unique(gd.name)
-            self.gds[i] = gd.setup_forward(fwd)
-        self.zero_fillers = []
+        self.evaluator = None
+        self.decision = None
+        self.gds = []
         self.device = None
         self.step = None
         self.snapshotter = None
         self.rollback = None
         self.image_saver = None
+        #: plot units run once an epoch after the decision
+        self.plotters = []
+        #: the GraphicsServer plots publish to (set by the launcher)
+        self.graphics = None
         #: runs started (the reference's ``meta.run_number``)
         self.run_number = 0
-        if snapshotter_config is not None:
-            self.link_snapshotter(**snapshotter_config)
 
     def _unique(self, name):
         base, i = name, 2
@@ -147,22 +140,24 @@ class StandardWorkflow:
         TorchDevice)."""
         self.device = get_device(device)
         self.loader.initialize()
-        shape = (self.loader.max_minibatch_size,) \
-            + self.loader.sample_shape()
-        for fwd in self.forwards:
-            fwd.input_shape = shape
-            shape = fwd.initialize(shape, self.device)
-        for gd in self.gds:
-            gd.initialize()
-        for zf in self.zero_fillers:
-            zf.initialize()
+        self.initialize_units()
         self.step = TorchStep(self.loader, self.forwards, self.evaluator,
-                              self.gds, self.decision, self.device)
+                              self.gds, self.decision, self.device,
+                              body=self.step_body)
         if self.snapshotter is not None:
             self.snapshotter.initialize()
         self._keep_entry()
         self._hook_image_saver()
         return self
+
+    def initialize_units(self):
+        """Create the units' parameters and state on ``self.device`` (the
+        loader is initialized)."""
+        raise NotImplementedError
+
+    def _hook_image_saver(self):
+        if self.step is not None and self.image_saver is not None:
+            self.step.after_minibatch = self.image_saver.on_minibatch
 
     def _keep_entry(self):
         """The step keeps an epoch-entry copy only for a consumer: a
@@ -170,42 +165,6 @@ class StandardWorkflow:
         if self.step is not None:
             keep = self.snapshotter is not None or self.rollback is not None
             self.step.take_entry = self._copy_view if keep else None
-
-    def link_zero_filler(self, target, mask=None, name="zerofiller"):
-        """A :class:`ZeroFiller` of ``target`` (a forward unit or its
-        index), initialized with the workflow (at once when the workflow
-        already is); -> the ZeroFiller."""
-        if isinstance(target, int):
-            target = self.forwards[target]
-        zf = ZeroFiller(target=target, mask=mask, name=self._unique(name))
-        self.zero_fillers.append(zf)
-        if self.device is not None:
-            zf.initialize()
-        return zf
-
-    def link_lr_adjuster(self, lr_policy=None, bias_lr_policy=None):
-        """Give every GD unit an lr schedule (objects or config dicts, see
-        ``lr_adjust.py``); the bias policy defaults to ``lr_policy``.
-        -> the GD units."""
-        policy = make_policy(lr_policy)
-        bias_policy = make_policy(bias_lr_policy) or policy
-        for gd in self.gds:
-            gd.lr_policy = policy
-            gd.lr_policy_bias = bias_policy
-        return self.gds
-
-    def link_image_saver(self, out_dir, **cfg):
-        """An :class:`ImageSaver` writing each minibatch's worst sample
-        under ``out_dir``, run after the decision accounted the
-        minibatch. -> it."""
-        self.image_saver = ImageSaver(self, out_dir=out_dir,
-                                      name="image_saver", **cfg)
-        self._hook_image_saver()
-        return self.image_saver
-
-    def _hook_image_saver(self):
-        if self.step is not None and self.image_saver is not None:
-            self.step.after_minibatch = self.image_saver.on_minibatch
 
     def link_snapshotter(self, **cfg):
         """A :class:`Snapshotter` (its prefix defaults to the workflow's
@@ -240,6 +199,8 @@ class StandardWorkflow:
         """The units after the decision, in the reference's order."""
         if self.decision.epoch_ended:
             self.loader.next_epoch()
+            for plotter in self.plotters:
+                plotter.run()
         if self.snapshotter is not None:
             self.snapshotter.run()
         if self.rollback is not None:
@@ -335,7 +296,10 @@ class StandardWorkflow:
         tree["loader"] = self.loader.get_state()
         if self.rollback is not None:
             tree["rollback"] = self.rollback.get_state()
-        tree["lr_scales"] = {gd.name: float(gd.lr_scale) for gd in self.gds}
+        lr_scales = {gd.name: float(gd.lr_scale) for gd in self.gds
+                     if hasattr(gd, "lr_scale")}
+        if lr_scales:
+            tree["lr_scales"] = lr_scales
         units = dict(view["units"])
         if self.image_saver is not None:
             units[self.image_saver.name] = self.image_saver.get_state()
@@ -422,3 +386,110 @@ class StandardWorkflow:
                            tuple(old.shape)))
                 setattr(unit, key, torch.as_tensor(value).to(
                     device=old.device, dtype=old.dtype, copy=True))
+
+
+class StandardWorkflow(NNWorkflow):
+    """loader -> forwards -> evaluator -> decision -> reversed GDs."""
+
+    def __init__(self, layers=None, loader_factory=None,
+                 decision_config=None, evaluator_factory=None,
+                 name="StandardWorkflow", snapshotter_config=None):
+        if loader_factory is None:
+            raise ValueError("no loader_factory given")
+        super().__init__(name)
+        self.layers_config = normalize_layers(layers or [])
+        self.loader = loader_factory(self)
+        for spec in self.layers_config:
+            cls = forward_by_name(spec["type"])
+            kwargs = dict(spec.get("->", {}))
+            src = kwargs.get("output_shape_source")
+            if isinstance(src, int) and not isinstance(src, bool):
+                kwargs["output_shape_source"] = self.forwards[src]
+            fwd = cls(**kwargs)
+            fwd.name = self._unique(fwd.name)
+            self.forwards.append(fwd)
+        if evaluator_factory is not None:
+            self.evaluator = evaluator_factory(self)
+        elif isinstance(self.forwards[-1], All2AllSoftmax):
+            self.evaluator = EvaluatorSoftmax(name="evaluator")
+        else:
+            self.evaluator = EvaluatorMSE(name="evaluator")
+        decision_cls = DecisionGD \
+            if isinstance(self.evaluator, EvaluatorSoftmax) else DecisionMSE
+        self.decision = decision_cls(name="decision",
+                                     **dict(decision_config or {}))
+        self.gds = [None] * len(self.forwards)
+        for i in reversed(range(len(self.forwards))):
+            fwd = self.forwards[i]
+            gd = gradient_unit_for(type(fwd))(
+                need_err_input=i > 0,
+                **dict(self.layers_config[i].get("<-", {})))
+            gd.name = self._unique(gd.name)
+            self.gds[i] = gd.setup_forward(fwd)
+        self.zero_fillers = []
+        if snapshotter_config is not None:
+            self.link_snapshotter(**snapshotter_config)
+
+    def initialize_units(self):
+        shape = (self.loader.max_minibatch_size,) \
+            + self.loader.sample_shape()
+        for fwd in self.forwards:
+            fwd.input_shape = shape
+            shape = fwd.initialize(shape, self.device)
+        for gd in self.gds:
+            gd.initialize()
+        for zf in self.zero_fillers:
+            zf.initialize()
+
+    def link_zero_filler(self, target, mask=None, name="zerofiller"):
+        """A :class:`ZeroFiller` of ``target`` (a forward unit or its
+        index), initialized with the workflow (at once when the workflow
+        already is); -> the ZeroFiller."""
+        if isinstance(target, int):
+            target = self.forwards[target]
+        zf = ZeroFiller(target=target, mask=mask, name=self._unique(name))
+        self.zero_fillers.append(zf)
+        if self.device is not None:
+            zf.initialize()
+        return zf
+
+    def link_lr_adjuster(self, lr_policy=None, bias_lr_policy=None):
+        """Give every GD unit an lr schedule (objects or config dicts, see
+        ``lr_adjust.py``); the bias policy defaults to ``lr_policy``.
+        -> the GD units."""
+        policy = make_policy(lr_policy)
+        bias_policy = make_policy(bias_lr_policy) or policy
+        for gd in self.gds:
+            gd.lr_policy = policy
+            gd.lr_policy_bias = bias_policy
+        return self.gds
+
+    def link_image_saver(self, out_dir, **cfg):
+        """An :class:`ImageSaver` writing each minibatch's worst sample
+        under ``out_dir``, run after the decision accounted the
+        minibatch. -> it."""
+        self.image_saver = ImageSaver(self, out_dir=out_dir,
+                                      name="image_saver", **cfg)
+        self._hook_image_saver()
+        return self.image_saver
+
+    def link_plotters(self, out_dir=None, weights=True, confusion=None):
+        """The reference's standard plot set, run once an epoch after the
+        decision: the metric curves (``plot_metric``), the first layer's
+        weights (``plot_weights``) and, by default when the evaluator
+        computes one, the confusion matrix (``plot_confusion``). Each
+        publishes to ``graphics`` when the launcher attached a server,
+        else renders into ``out_dir``. -> the plotters."""
+        units = [AccumulatingPlotter(self, name="plot_metric",
+                                     out_dir=out_dir)]
+        if weights:
+            units.append(Weights2D(self, name="plot_weights",
+                                   out_dir=out_dir))
+        if confusion is None:
+            confusion = isinstance(self.evaluator, EvaluatorSoftmax) \
+                and self.evaluator.compute_confusion
+        if confusion:
+            units.append(ConfusionMatrixPlotter(
+                self, name="plot_confusion", out_dir=out_dir))
+        self.plotters = units
+        return units

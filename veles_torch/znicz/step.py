@@ -43,6 +43,17 @@ keeping ``entry``, the workflow's clone of params, solver state and
 generator states: the state the epoch's validation metric was measured
 on, and what a checkpoint holds while the train class is in flight.
 
+A workflow whose updates are not a GD chain (the Kohonen map, the RBM's
+contrastive divergence) hands the step its own ``body(data, target,
+valid, train)``, which returns the (4,) metrics row of one minibatch; the
+step then runs that body in place of forward -> evaluator -> GD chain and
+keeps everything else: the class schedule, the device-resident index
+matrix, the class's one metrics copy, the decision feed and the hooks. Its
+evaluator, when it has one, names the target (``TARGET``); without one the
+body gets no target. Only :class:`GradientDescentBase` units give stat
+rows, as only the reference's ``GradientDescentBase.update_weights``
+exports layer stats.
+
 Eager PyTorch: each operation is its own launch (no CUDA graph yet).
 """
 
@@ -52,20 +63,24 @@ import torch
 
 from veles_torch import model_health
 from veles_torch.loader.base import CLASS_TRAIN, CLASS_VALID
-from veles_torch.znicz.nn_units import RoutingGradientBase, layer_stats
+from veles_torch.znicz.nn_units import (
+    GradientDescentBase, RoutingGradientBase, layer_stats)
 from veles_torch.znicz.ops.evaluator import METRICS
 
 
 class TorchStep:
     """Runs the forward/evaluator/GD units of one workflow."""
 
-    def __init__(self, loader, forwards, evaluator, gds, decision, device):
+    def __init__(self, loader, forwards, evaluator, gds, decision, device,
+                 body=None):
         self.loader = loader
         self.forwards = list(forwards)
         self.evaluator = evaluator
         self.gds = list(gds)
         self.decision = decision
         self.device = device
+        #: the workflow's own step body, or None for the GD chain
+        self.body = body
         #: train and evaluation minibatches run so far
         self.train_steps = 0
         self.eval_steps = 0
@@ -85,7 +100,8 @@ class TorchStep:
         self.stats_interval = 8
         #: the GD units that update parameters (the stat rows)
         self.stat_units = [gd for gd in self.gds
-                           if not isinstance(gd, RoutingGradientBase)]
+                           if isinstance(gd, GradientDescentBase)
+                           and not isinstance(gd, RoutingGradientBase)]
         #: host mirror of the GD units' ``iteration``
         self.iteration = 0
         #: the stat rows' layer names, and the last due step's (units, 4)
@@ -133,21 +149,32 @@ class TorchStep:
         rows ``idx`` (a device index vector) of the loader's
         ``device_full_arrays`` ``full``."""
         rows = torch.index_select(full["data"], 0, idx)
-        target = full[self.evaluator.TARGET]
-        target = rows if target is full["data"] \
-            else torch.index_select(target, 0, idx)
+        key = getattr(self.evaluator, "TARGET", None)
+        target = None if key is None else full[key]
+        if target is full["data"]:
+            target = rows
+        elif target is not None:
+            target = torch.index_select(target, 0, idx)
         return self.loader.batch_transform(rows, train), target
 
     def eval_minibatch(self, data, target, valid):
-        """Forward + evaluator; -> the (4,) metrics tensor."""
-        _, last = self._forward(data, False)
-        _, metrics = self.evaluator.run(last, target, valid,
-                                        self.device.act_dtype)
+        """Forward + evaluator (or the body); -> the (4,) metrics
+        tensor."""
+        if self.body is not None:
+            metrics = self.body(data, target, valid, False)
+        else:
+            _, last = self._forward(data, False)
+            _, metrics = self.evaluator.run(last, target, valid,
+                                            self.device.act_dtype)
         self.eval_steps += 1
         return metrics
 
     def train_minibatch(self, data, target, valid):
         """One train step with its updates; -> the (4,) metrics tensor."""
+        if self.body is not None:
+            metrics = self.body(data, target, valid, True)
+            self.train_steps += 1
+            return metrics
         return self.train_backward(*self._forward(data, True), target,
                                    valid)
 
@@ -239,9 +266,8 @@ class TorchStep:
             for i, row in enumerate(host):
                 last = i == len(host) - 1
                 self.decision.on_minibatch(
-                    cls, int(valids[i]), int(row[1]), float(row[0]),
-                    last_minibatch=last, epoch_ended=last and last_cls,
-                    has_valid=has_valid)
+                    cls, int(valids[i]), row, last_minibatch=last,
+                    epoch_ended=last and last_cls, has_valid=has_valid)
                 if self.after_minibatch is not None:
                     self.after_minibatch(cls, idx_mat[i], int(valids[i]),
                                          row)
