@@ -284,11 +284,35 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     the classes); the Kohonen sample on the card through the launcher
     with a graphics server and its ``som_hits`` and ``som_umatrix``
     maps;
-25. the ``kernels`` summary line (the bias gradient's launches summed
+25. serve_http — the serving plane over HTTP: phase mnist's run through
+    the CLI with ``--snapshots`` on an HTTP store (a stdlib server in
+    this script; improvement-gated and rolling checkpoints, written by
+    ``HTTPSnapshotStore``) and ``--export-inference``, one bias-gradient
+    launch of each form per train step and no flash launch; then
+    ``python -m veles_torch serve -d cuda`` in a child process with the
+    MNIST archive (``--checkpoint`` the store's oldest checkpoint,
+    ``--refresh-every 1``) and phase serve_decode's 110M archive
+    (``DECODE_SLOTS`` × ``DECODE_MAX_LEN``): the newest checkpoint served
+    as version 2; ``/readyz`` 200; ``SERVE_CLIENTS`` concurrent
+    ``/v1/predict`` clients within ``SERVE_RTOL`` of an in-process engine
+    on the same checkpoint, batch fill above 1; per bucket
+    (``HTTP_BUCKETS``) p50/p99 latency and rows/s over HTTP and in
+    process; a client's ``traceparent`` echoed and on the server's
+    ``/debug/trace`` spans; greedy ``/v1/generate`` of the 110M streamed
+    over a raw socket and not streamed, token for token equal to the
+    in-process decode; ``DECODE_REQUESTS`` concurrent streams' tokens/s
+    and first-token latency beside serve_decode's; a client leaving
+    mid-stream frees its KV slot and is counted
+    (``veles_serving_rejected_total{reason="disconnect"}``); a newer
+    checkpoint stamped diverged skipped and counted while version 2
+    serves on; ``/metrics`` exporting ``HTTP_FAMILIES``; the server
+    stopped by SIGTERM and exiting 0 (its output in
+    ``serve_http_server.log``);
+26. the ``kernels`` summary line (the bias gradient's launches summed
     over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume,
-    model-health, unsupervised and plots runs, each path's beside it, the
-    serving paths' among them), the card line, and last ``{"ok": true,
-    "device": {...}}``.
+    model-health, unsupervised, plots and serve_http runs, each path's
+    beside it, the serving paths' among them), the card line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
@@ -2138,6 +2162,8 @@ def decode_110m(torch):
                              "gap %.3g (no near tie)" % (i, a, g))
             row.update(decode_throughput(torch, batcher, prompts,
                                          DECODE_NEW))
+            if mode == "none":
+                SERVE_DECODE_ROW.update(row)
             chain = batcher.generate(p, max_tokens=DECODE_NEW, wait_s=600)
         finally:
             batcher.close()
@@ -3891,6 +3917,514 @@ def check_plots(torch):
     return counts
 
 
+# -- the serving plane over HTTP ---------------------------------------------
+
+#: the device of the serve_http phase (the CPU only to rehearse it)
+SERVE_HTTP_DEVICE = "cuda"
+#: phase mnist's run, its checkpoints written through the HTTP store: the
+#: improvement-gated ones and a rolling one at every class boundary
+SERVE_HTTP_RUN = ("root.mnist.decision.max_epochs=3", "--seed", "1337",
+                  "--checkpoint-every", "0.001")
+#: the LM archive the server decodes (None: the 110M one serve_decode
+#: exported)
+SERVE_HTTP_LM = None
+#: the predict buckets timed over HTTP and in process, requests each
+HTTP_BUCKETS, HTTP_TIMED = (1, 8, 64), 20
+#: seconds the server may take to print its first line, and a refresh
+#: or a disconnect to show
+HTTP_START_S, HTTP_WAIT_S = 300.0, 60.0
+#: serve_decode's 110M f32 row (tokens/s, first-token latency), what the
+#: HTTP decode is held beside
+SERVE_DECODE_ROW = {}
+#: the serving families the server's /metrics must export
+HTTP_FAMILIES = ("veles_serving_requests_total", "veles_serving_batches_total",
+                 "veles_serving_latency_seconds", "veles_serving_queue_rows",
+                 "veles_serving_model_version",
+                 "veles_serving_checkpoint_wall_seconds",
+                 "veles_serving_forward_cache_bytes",
+                 "veles_serving_generated_tokens_total",
+                 "veles_serving_kv_pool_slots",
+                 "veles_serving_kv_slots_in_use",
+                 "veles_serving_first_token_seconds",
+                 "veles_serving_rejected_total",
+                 "veles_serving_tenant_requests_total",
+                 "veles_checkpoint_diverged_skips_total")
+
+
+@contextlib.contextmanager
+def http_store(directory):
+    """A stdlib HTTP server speaking the snapshot-store protocol over
+    ``directory`` (GET/PUT/DELETE ``<base>/<name>``, GET ``<base>/`` the
+    JSON list); -> the base URL. Shut down on exit."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    os.makedirs(directory, exist_ok=True)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _name(self):
+            name = self.path.rstrip("/").rsplit("/", 1)[-1]
+            return "" if name == "store" else name
+
+        def _send(self, code, body=b""):
+            self.send_response(code)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            name = self._name()
+            if not name:
+                return self._send(200, json.dumps(
+                    sorted(os.listdir(directory))).encode())
+            try:
+                with open(os.path.join(directory, name), "rb") as f:
+                    self._send(200, f.read())
+            except OSError:
+                self._send(404)
+
+        def do_PUT(self):
+            data = self.rfile.read(int(self.headers["Content-Length"]))
+            tmp = os.path.join(directory, "." + self._name())
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, os.path.join(directory, self._name()))
+            self._send(201)
+
+        def do_DELETE(self):
+            try:
+                os.remove(os.path.join(directory, self._name()))
+            except OSError:
+                pass
+            self._send(204)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield "http://127.0.0.1:%d/store" % httpd.server_address[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+def http_call(port, path, doc=None, headers=None, timeout=120.0):
+    """One request to the server on ``port`` (POST when ``doc`` is given);
+    -> (status, JSON body or text, headers)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d%s" % (port, path),
+        data=None if doc is None else json.dumps(doc).encode(),
+        headers=dict(headers or {}),
+        method="GET" if doc is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, body, hdr = resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as exc:
+        code, body, hdr = exc.code, exc.read(), exc.headers
+    ctype = hdr.get("Content-Type", "")
+    return code, (json.loads(body) if "json" in ctype else body.decode()), \
+        dict(hdr)
+
+
+def http_stream(port, doc, stop_after=None):
+    """POST /v1/generate on a raw socket and read the chunked ndjson; ->
+    (lines, ms to the first token line, seconds to the end). With
+    ``stop_after`` the socket closes after that many lines (a client
+    that leaves mid-stream)."""
+    import socket
+    body = json.dumps(doc).encode()
+    t0 = time.perf_counter()
+    first = None
+    sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+    try:
+        sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: "
+                     b"%d\r\n\r\n" % len(body) + body)
+        buf, lines = b"", []
+        while b"\r\n\r\n" not in buf:
+            buf += sock.recv(65536)
+        head, buf = buf.split(b"\r\n\r\n", 1)
+        if b" 200 " not in head.split(b"\r\n")[0] \
+                or b"transfer-encoding: chunked" not in head.lower():
+            fail("serve_http: /v1/generate answered %r" % head[:200])
+        while True:
+            while b"\r\n" not in buf:
+                more = sock.recv(65536)
+                if not more:
+                    return lines, first, time.perf_counter() - t0
+                buf += more
+            size_s, buf = buf.split(b"\r\n", 1)
+            size = int(size_s, 16)
+            if size == 0:
+                return lines, first, time.perf_counter() - t0
+            while len(buf) < size + 2:
+                buf += sock.recv(65536)
+            for line in buf[:size].decode().splitlines():
+                lines.append(json.loads(line))
+                if first is None and "token" in lines[-1]:
+                    first = 1e3 * (time.perf_counter() - t0)
+                if stop_after is not None and len(lines) >= stop_after:
+                    return lines, first, time.perf_counter() - t0
+            buf = buf[size + 2:]
+    finally:
+        sock.close()
+
+
+@contextlib.contextmanager
+def serve_subprocess(args, record):
+    """``python -m veles_torch serve --port 0 ARGS`` in a child process,
+    its output copied to ``serve_http_server.log`` in the output
+    directory; -> (its first JSON line, its port). On exit it gets
+    SIGTERM (a kill past 30 s); ``record["exit_code"]`` is its exit code,
+    ``record["alive_at_end"]`` whether it still ran when asked to stop."""
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veles_torch", "serve", "--port", "0",
+         *args], cwd=HERE, env=child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    first = {}
+    ready = threading.Event()
+    log = open(os.path.join(OUT_DIR, "serve_http_server.log"), "w")
+
+    def pump():
+        for line in proc.stdout:
+            log.write(line)
+            log.flush()
+            if not first and line.startswith("{"):
+                first.update(json.loads(line))
+                ready.set()
+        ready.set()
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        if not ready.wait(HTTP_START_S) or not first:
+            fail("serve_http: the server printed no JSON line in %gs (exit "
+                 "code %s)" % (HTTP_START_S, proc.poll()))
+        yield first, int(first["serving"].rsplit(":", 1)[1])
+    finally:
+        record["alive_at_end"] = proc.poll() is None
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+        log.close()
+        record["exit_code"] = proc.returncode
+
+
+def poll_until(fn, what, timeout=HTTP_WAIT_S):
+    """Call ``fn`` until it returns a true value; -> that value (fails
+    the run past ``timeout`` seconds)."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        got = fn()
+        if got:
+            return got
+        time.sleep(0.05)
+    fail("serve_http: timed out waiting for %s" % what)
+
+
+def percentiles_ms(seconds):
+    import numpy
+    ms = 1e3 * numpy.asarray(seconds)
+    return {"p50_ms": float(numpy.percentile(ms, 50)),
+            "p99_ms": float(numpy.percentile(ms, 99))}
+
+
+def http_predict(torch, port, engine, host, served):
+    """Concurrent /v1/predict clients against the in-process engine, and
+    the per-bucket latency and rows/s over HTTP and in process; -> the
+    row."""
+    import threading
+    want = engine.predict(host)[0]
+    results, errors = [], []
+
+    def client(c):
+        for r in range(SERVE_REQUESTS):
+            i = (c * SERVE_REQUESTS + r) % len(host)
+            code, doc, _ = http_call(port, "/v1/predict", {
+                "model": "mnist", "inputs": host[i:i + 1].tolist(),
+                "timeout_ms": 60000})
+            if code != 200:
+                errors.append("%d %s" % (code, doc))
+            else:
+                results.append((i, doc["version"], doc["outputs"]))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    err = max((max_rel(out, want[i:i + 1]) for i, _, out in results),
+              default=None)
+    versions = sorted({v for _, v, _ in results})
+    metrics = http_call(port, "/metrics.json")[1]["models"]["mnist"]
+    row = {"clients": SERVE_CLIENTS,
+           "requests": SERVE_CLIENTS * SERVE_REQUESTS,
+           "seconds": seconds, "requests_per_sec": len(results) / seconds,
+           "max_rel_err_vs_in_process": err, "versions": versions,
+           "batch_fill_ratio": metrics["batch_fill_ratio"],
+           "bucket_pad_ratio": metrics["bucket_pad_ratio"]}
+    if errors or len(results) != SERVE_CLIENTS * SERVE_REQUESTS:
+        fail("serve_http predict: %s" % ("; ".join(errors[:4])
+                                         or "requests lost"))
+    if not err <= SERVE_RTOL or versions != [served]:
+        fail("serve_http predict: %.3g from the in-process engine (bound "
+             "%g), versions %s (want [%d])" % (err, SERVE_RTOL, versions,
+                                               served))
+    if not metrics["batch_fill_ratio"] > 1:
+        fail("serve_http predict: batch fill %s under %d concurrent clients"
+             % (metrics["batch_fill_ratio"], SERVE_CLIENTS))
+    buckets = {}
+    for b in HTTP_BUCKETS:
+        over, inproc = [], []
+        for _ in range(HTTP_TIMED):
+            t0 = time.perf_counter()
+            code, _, _ = http_call(port, "/v1/predict", {
+                "model": "mnist", "inputs": host[:b].tolist()})
+            over.append(time.perf_counter() - t0)
+            if code != 200:
+                fail("serve_http predict: bucket %d answered %d" % (b, code))
+            t0 = time.perf_counter()
+            engine.predict(host[:b])
+            inproc.append(time.perf_counter() - t0)
+        buckets[b] = {
+            "http": dict(percentiles_ms(over),
+                         rows_per_sec=b * len(over) / sum(over)),
+            "in_process": dict(percentiles_ms(inproc),
+                               rows_per_sec=b * len(inproc) / sum(inproc))}
+    row["buckets"] = buckets
+    return row
+
+
+def http_decode(torch, port, lm_path):
+    """Greedy /v1/generate of the LM streamed over a raw socket and not
+    streamed, against the in-process decode of the same archive token for
+    token; DECODE_REQUESTS concurrent streams' tokens/s and first-token
+    latency beside serve_decode's; a client leaving mid-stream frees its
+    KV slot and is counted; -> the row."""
+    import threading
+    from veles_torch.serving import (ArchiveModel, ContinuousBatcher,
+                                     GenerativeEngine)
+    model = ArchiveModel.from_dir(lm_path, device=SERVE_HTTP_DEVICE)
+    vocab = int(model.units[0]["config"]["vocab_size"])
+    prompts = periodic_prompts(DECODE_REQUESTS, vocab, DECODE_PROMPT)
+    engine = GenerativeEngine(model, n_slots=DECODE_SLOTS,
+                              max_len=DECODE_MAX_LEN,
+                              device=SERVE_HTTP_DEVICE)
+    batcher = ContinuousBatcher(engine)
+    try:
+        want = [batcher.generate(p, max_tokens=DECODE_NEW, wait_s=600)
+                for p in prompts[:2]]
+    finally:
+        batcher.close()
+    del engine, batcher, model
+    got_stream, got_once, first_ms = [], [], []
+    for p in prompts[:2]:
+        lines, first, _ = http_stream(port, {"model": "lm", "prompt": p,
+                                             "max_tokens": DECODE_NEW})
+        if not lines or not lines[-1].get("done"):
+            fail("serve_http decode: the stream ended without its done "
+                 "line: %s" % lines[-2:])
+        got_stream.append([ln["token"] for ln in lines[1:-1]])
+        first_ms.append(first)
+        code, doc, _ = http_call(port, "/v1/generate", {
+            "model": "lm", "prompt": p, "max_tokens": DECODE_NEW,
+            "stream": False})
+        got_once.append(doc.get("tokens") if code == 200 else code)
+    if not got_stream == want == got_once:
+        fail("serve_http decode: streamed %s, one reply %s, in process %s"
+             % ([t[:8] for t in got_stream], [t[:8] if isinstance(t, list)
+                                              else t for t in got_once],
+                [t[:8] for t in want]))
+    streams = [None] * len(prompts)
+
+    def stream(i):
+        streams[i] = http_stream(port, {"model": "lm", "prompt": prompts[i],
+                                        "max_tokens": DECODE_NEW})
+
+    threads = [threading.Thread(target=stream, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    n = sum(len(s[0]) - 2 for s in streams)
+    if n != len(prompts) * DECODE_NEW:
+        fail("serve_http decode: %d tokens for %d streams" % (n, len(prompts)))
+    # a client leaving mid-stream
+    lines, _, _ = http_stream(port, {"model": "lm", "prompt": prompts[0],
+                                     "max_tokens": DECODE_MAX_LEN
+                                     - len(prompts[0])}, stop_after=3)
+
+    def freed():
+        doc = http_call(port, "/metrics.json")[1]["models"]["lm"]["decode"]
+        text = http_call(port, "/metrics")[1]
+        seen = re.search(r'veles_serving_rejected_total\{reason="disconnect",'
+                         r'tenant="[^"]*"\} (\d+)', text)
+        return doc if doc["kv_slots_in_use"] == 0 and seen \
+            and int(seen.group(1)) == 1 else None
+
+    after = poll_until(freed, "the disconnected stream's KV slot")
+    import numpy
+    first_all = [s[1] for s in streams]
+    return {"greedy_tokens_equal": True, "new_tokens": DECODE_NEW,
+            "first_token_ms_single": first_ms,
+            "streams": len(prompts), "seconds": seconds,
+            "tokens_per_sec_http": n / seconds,
+            "first_token_ms_p50_http": float(numpy.median(first_all)),
+            "first_token_ms_max_http": float(max(first_all)),
+            "serve_decode_in_process": {
+                k: SERVE_DECODE_ROW.get(k) for k in (
+                    "tokens_per_sec_continuous", "first_token_ms_p50",
+                    "first_token_ms_max")},
+            "after_disconnect": {k: after[k] for k in (
+                "kv_slots_in_use", "kv_pool_slots", "generated_tokens_total",
+                "steps_total")}}
+
+
+def check_serve_http(torch):
+    """Phase serve_http: the serving plane over HTTP on the card, the
+    kernels' counts set to 0 just before and read just after; -> the
+    counts."""
+    import shutil
+    import tempfile
+    from veles_torch import snapshotter, telemetry
+    from veles_torch.serving import ArchiveModel, InferenceEngine
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_http_")
+    server = {}
+    row = {"phase": "serve_http"}
+    try:
+        with http_store(os.path.join(tmp, "store")) as base:
+            reset_counts()
+            mnist = os.path.join(tmp, "mnist")
+            wf = cli_run([MNIST_SAMPLE, *SERVE_HTTP_RUN, "-d",
+                          SERVE_HTTP_DEVICE, "--snapshots", base,
+                          "--export-inference", mnist])
+            if SERVE_HTTP_DEVICE == "cuda":
+                torch.cuda.synchronize()
+            steps = wf.step.train_steps
+            valid = [i for i in snapshotter.scan_checkpoints(base)
+                     if i.status == "valid"]
+            if len(valid) < 2:
+                fail("serve_http: %d valid checkpoints in the HTTP store"
+                     % len(valid))
+            oldest, newest = valid[-1], valid[0]
+            lm = SERVE_HTTP_LM or archive_dir("lm_110M")
+            args = ["-d", SERVE_HTTP_DEVICE, "--model", "mnist=" + mnist,
+                    "--model", "lm=" + lm,
+                    "--checkpoint", "mnist=%s/%s" % (base, oldest.name),
+                    "--refresh-every", "1",
+                    "--decode-slots", str(DECODE_SLOTS),
+                    "--decode-max-len", str(DECODE_MAX_LEN),
+                    "--max-batch", "64", "--timeout-ms", "60000"]
+            t0 = time.perf_counter()
+            with serve_subprocess(args, server) as (first, port):
+                row["server_start_seconds"] = time.perf_counter() - t0
+                row["first_line"] = first
+                models = {m["name"]: m for m in first["models"]}
+                if models["mnist"]["backend"] != "torch:" \
+                        + SERVE_HTTP_DEVICE:
+                    fail("serve_http: the server's backend is %s"
+                         % models["mnist"]["backend"])
+
+                def version(v):
+                    doc = http_call(port, "/v1/models")[1]["models"]
+                    entry = {m["name"]: m for m in doc}["mnist"]
+                    return entry if entry["version"] == v else None
+
+                entry = poll_until(lambda: version(2),
+                                   "the newer checkpoint as version 2")
+                if not entry["checkpoint"].endswith("/" + newest.name):
+                    fail("serve_http: version 2 serves %s, not the newest %s"
+                         % (entry["checkpoint"], newest.name))
+                code, ready, _ = http_call(port, "/readyz")
+                if code != 200 or not ready["ready"]:
+                    fail("serve_http: /readyz %d %s" % (code, ready))
+                model = ArchiveModel.from_dir(mnist, device=SERVE_HTTP_DEVICE)
+                model.load_checkpoint("%s/%s" % (base, newest.name))
+                engine = InferenceEngine(model, max_batch=64,
+                                         device=SERVE_HTTP_DEVICE)
+                host = serving_rows(wf).cpu().numpy()
+                row["predict"] = http_predict(torch, port, engine, host, 2)
+                # a client's trace reaches the server's spans
+                tp = telemetry.TraceContext.new()
+                code, _, hdr = http_call(
+                    port, "/v1/predict",
+                    {"model": "mnist", "inputs": host[:2].tolist()},
+                    headers={"traceparent": tp.to_traceparent()})
+                echoed = telemetry.TraceContext.from_traceparent(
+                    hdr.get("traceparent"))
+                spans = [e for e in http_call(port, "/debug/trace")[1]
+                         ["traceEvents"] if e.get("args", {}).get(
+                             "trace_id") == tp.trace_id]
+                names = sorted({e["name"] for e in spans})
+                row["trace_spans"] = names
+                if code != 200 or echoed is None \
+                        or echoed.trace_id != tp.trace_id \
+                        or "http.predict" not in names:
+                    fail("serve_http: traceparent %s echoed %s, spans %s"
+                         % (tp.trace_id, hdr.get("traceparent"), names))
+                row["decode"] = http_decode(torch, port, lm)
+                # a newer checkpoint stamped diverged: skipped and counted
+                state, _ = snapshotter.load_snapshot_meta(
+                    "%s/%s" % (base, newest.name))
+                snapshotter.write_checkpoint(
+                    snapshotter.store_for_base(base),
+                    "zz_diverged.ckpt.npz.gz", state,
+                    extra_meta={"model_health": {"verdict": "diverged"}})
+
+                def skipped():
+                    text = http_call(port, "/metrics")[1]
+                    m = re.search(r"^veles_checkpoint_diverged_skips_total "
+                                  r"(\S+)$", text, re.M)
+                    return (float(m.group(1)), text) \
+                        if m and float(m.group(1)) >= 1 else None
+
+                skips, text = poll_until(skipped,
+                                         "the diverged checkpoint skipped")
+                row["diverged_skips"] = skips
+                if version(2) is None:
+                    fail("serve_http: the diverged checkpoint was loaded")
+                missing = [f for f in HTTP_FAMILIES
+                           if "# TYPE %s " % f not in text]
+                row["missing_families"] = missing
+                if missing:
+                    fail("serve_http: /metrics lacks %s" % missing)
+                row["server_metrics"] = http_call(port, "/metrics.json")[1]
+            if SERVE_HTTP_DEVICE == "cuda":
+                torch.cuda.synchronize()
+            counts = read_counts()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row.update(launches=counts, train_steps=steps,
+               server_exit_code=server.get("exit_code"),
+               server_alive_at_end=server.get("alive_at_end"))
+    emit(row)
+    per_step = steps if SERVE_HTTP_DEVICE == "cuda" else 0
+    want = dict({name: 0 for name in counts},
+                **{"bias_grad[identity]": per_step,
+                   "bias_grad[masked]": per_step})
+    if counts != want:
+        fail("serve_http: launches %s, expected %s" % (counts, want))
+    if not server.get("alive_at_end") or server.get("exit_code") != 0:
+        fail("serve_http: the server was alive at the end: %s, exit code %s"
+             % (server.get("alive_at_end"), server.get("exit_code")))
+    return counts
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -3949,9 +4483,10 @@ def main(argv=None):
     health = check_model_health(torch)
     unsupervised = check_unsupervised(torch)
     plots = check_plots(torch)
+    serve_http = check_serve_http(torch)
     paths = {**ae, **serving, **lm_slice, "resume": resume,
              "model_health": health, "unsupervised": unsupervised,
-             "plots": plots}
+             "plots": plots, "serve_http": serve_http}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

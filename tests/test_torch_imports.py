@@ -191,3 +191,14 @@ def test_plots_and_unsupervised_runs_load_no_jax_veles_or_matplotlib(
     assert sorted(os.listdir(str(tmp_path))) == [
         "KohonenHits.png", "KohonenNeighborMap.png", "curves.png",
         "grid.png", "image.png", "matrix.png", "plots.json"]
+
+
+@pytest.mark.parametrize("module", [
+    "logger.py", "telemetry.py", "reactor.py", "health.py",
+    "web_status.py", "serving/tenants.py", "serving/registry.py",
+    "serving/frontend.py"])
+def test_http_serving_plane_modules_are_scanned(module):
+    """The HTTP serving plane's modules (the port's copies of the
+    reference's telemetry, reactor, health, web status and tenants, and
+    the registry and frontend) are among the files both checks read."""
+    assert os.path.join(REPO, "veles_torch", module) in _port_files()

@@ -155,11 +155,16 @@ def test_file_store_commit_is_atomic(tmp_path):
 
 
 def test_http_targets_name_their_roadmap_item():
-    for call in (lambda: TS.store_for("http://h/b/x.ckpt.npz"),
-                 lambda: TS.store_for_base("https://h/b"),
-                 lambda: TS.load_snapshot("http://h/b/x.ckpt.npz")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    """http(s) targets are no longer refused: they resolve to the one
+    breaker-sharing HTTPSnapshotStore of their base URL (nothing is
+    fetched here; the stores' traffic is in test_torch_frontend.py)."""
+    store, name = TS.store_for("http://127.0.0.1:9/b/x.ckpt.npz")
+    assert isinstance(store, TS.HTTPSnapshotStore)
+    assert (store.base_url, name) == ("http://127.0.0.1:9/b", "x.ckpt.npz")
+    assert TS.store_for_base("http://127.0.0.1:9/b/") is store
+    assert TS.store_for_base("https://127.0.0.1:9/c").base_url == \
+        "https://127.0.0.1:9/c"
+    assert TS.store_for("/tmp/x.ckpt.npz") == (None, "/tmp/x.ckpt.npz")
 
 
 # -- scan / auto-resume -------------------------------------------------

@@ -9,10 +9,14 @@
                           [--model-stats on|off] [--stats-interval N]
                           [--rollback-on-divergence]
                           [--graphics-dir DIR]
+                          [--web-status PORT] [--trace-out PATH]
+                          [--slo-config PATH]
                           [--export-inference DIR]
                           [--generate IDS | --generate-text PROMPT
                            [--gen-tokens N] [--gen-temperature T]]
-    python -m veles_torch checkpoints <DIR> [--json]
+    python -m veles_torch checkpoints <DIR|URL> [--json]
+    python -m veles_torch serve --model NAME=DIR [...] [-d cuda|cpu]
+    python -m veles_torch debug URL [--window SECS] [--trace-out PATH]
 
 Counterpart of ``python -m veles`` for the samples ported so far: the
 workflow module is imported first (its ``root`` defaults land), then the
@@ -38,6 +42,13 @@ workflow has none and can (``link_plotters``), and the launcher streams
 their frames to a renderer process that writes ``DIR/<name>.png`` and
 ``DIR/plots.json`` (``graphics.py``, ``graphics_client.py``; no
 plotting library needed).
+``--web-status PORT`` serves the run's status dashboard (``web_status.py``:
+``/``, ``/status.json``, the health probes, ``/metrics``, ``/debug/*``)
+while it trains; ``--slo-config PATH`` loads SLO objectives into the
+health monitor (``health.py``); ``--trace-out PATH`` starts the span
+tracer before the workflow is initialized and dumps it (Chrome trace /
+Perfetto JSON, ``telemetry.py``) when the run ends, also when it fails:
+every class of an epoch is a ``torch.dispatch.<kind>`` span there.
 Each finished epoch prints its summary line; the last line of standard
 output is one JSON object with the decision history. The device is
 ``cuda`` unless ``-d cpu`` is given; asking for ``cuda`` on a host
@@ -53,11 +64,16 @@ text-corpus LM's character vocabulary (``root.lm.loader.text_file``) and
 prints the prompt with its continuation. These lines come before the
 final JSON line.
 
-``checkpoints DIR`` audits a snapshot store: every checkpoint with its
-manifest verdict (valid, legacy, corrupt), slot, schema, health verdict
-and age, or ``--json`` rows; exit 1 when one is corrupt, 2 when the store
-cannot be read. The reference CLI's options the port has not ported
-raise ``NotImplementedError`` naming their ROADMAP item.
+``checkpoints DIR`` audits a snapshot store (a directory or an
+``http(s)://`` base): every checkpoint with its manifest verdict (valid,
+legacy, corrupt), slot, schema, health verdict and age, or ``--json``
+rows; exit 1 when one is corrupt, 2 when the store cannot be read.
+``serve`` is the reference's ``velescli serve`` on the port
+(``serving/frontend.py``), on ``cuda`` unless ``-d cpu`` is given.
+``debug URL`` reads the ``/debug/events`` and ``/debug/trace`` surfaces
+of a live dashboard or serving frontend (exit 2 when unreachable). The
+reference CLI's options the port has not ported raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 import argparse
@@ -69,7 +85,7 @@ import sys
 
 import numpy
 
-from veles_torch import prng
+from veles_torch import prng, telemetry
 from veles_torch.config import root
 from veles_torch.launcher import Launcher
 from veles_torch.snapshotter import scan_checkpoints
@@ -78,9 +94,6 @@ from veles_torch.znicz.generate import generate
 #: the reference CLI's options not ported yet: (flag, argparse kwargs,
 #: ROADMAP Queue 1 item)
 UNPORTED = (
-    ("--web-status", {"type": int}, 9),
-    ("--trace-out", {}, 9),
-    ("--slo-config", {}, 9),
     ("--listen-address", {}, 10),
     ("--master-address", {}, 10),
     ("--slave-timeout", {"type": float}, 10),
@@ -145,6 +158,16 @@ def build_argparser():
     p.add_argument("--graphics-dir", default=None, metavar="DIR",
                    help="render the workflow's plots into DIR (links the "
                         "standard plotters when the workflow has none)")
+    p.add_argument("--web-status", type=int, default=None, metavar="PORT",
+                   help="serve the run's status dashboard on this port "
+                        "(0 = pick a free one)")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="record spans from initialize on and write them "
+                        "here as Chrome-trace/Perfetto JSON when the run "
+                        "ends")
+    p.add_argument("--slo-config", default=None, metavar="PATH",
+                   help="JSON list of SLO objectives for the health "
+                        "monitor (burn-rate alerts -> /readyz)")
     p.add_argument("--export-inference", default=None, metavar="DIR",
                    help="after the run, export the inference archive "
                         "(contents.json + .npy) to DIR")
@@ -177,6 +200,17 @@ def refuse_unported(args):
                 % (flag, item))
 
 
+def _log_to_stdout():
+    """The ``veles_torch`` logger's own stdout handler (once)."""
+    logger = logging.getLogger("veles_torch")
+    if not logger.handlers:
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter("%(message)s"))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+        logger.propagate = False
+
+
 def import_file(path, name=None):
     name = name or os.path.splitext(os.path.basename(path))[0]
     spec = importlib.util.spec_from_file_location(name, path)
@@ -195,7 +229,7 @@ def checkpoints_main(argv):
         prog="python -m veles_torch checkpoints",
         description="List checkpoints in a store with their manifest "
                     "verification status")
-    p.add_argument("store", help="snapshot directory")
+    p.add_argument("store", help="snapshot directory or http(s) base URL")
     p.add_argument("--json", action="store_true",
                    help="machine-readable output")
     args = p.parse_args(argv)
@@ -235,12 +269,86 @@ def checkpoints_main(argv):
     return 1 if any(r["status"] == "corrupt" for r in rows) else 0
 
 
+def debug_main(argv):
+    """``debug URL``: fetch the flight-recorder surfaces of a live
+    process, ``/debug/events`` as a table (or ``--json``) and
+    ``/debug/trace`` (saved with ``--trace-out``); -> 0, or 2 when the
+    endpoint is unreachable or answers another shape."""
+    import time
+    import urllib.request
+    p = argparse.ArgumentParser(
+        prog="python -m veles_torch debug",
+        description="Postmortem view of a live dashboard or serving "
+                    "process through its /debug endpoints")
+    p.add_argument("url", help="base URL of a --web-status dashboard or "
+                               "serving frontend (http://host:port)")
+    p.add_argument("--window", type=float, default=None, metavar="SECS",
+                   help="trace window to fetch (default: the recorder's "
+                        "whole retained window)")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="write the Perfetto JSON trace window here")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw events JSON instead of the table")
+    args = p.parse_args(argv)
+    base = args.url.rstrip("/")
+    if "://" not in base:
+        base = "http://" + base
+    trace_url = base + "/debug/trace"
+    if args.window is not None:
+        trace_url += "?window=%g" % args.window
+    try:
+        with urllib.request.urlopen(base + "/debug/events",
+                                    timeout=10) as resp:
+            events = json.load(resp)["events"]
+        with urllib.request.urlopen(trace_url, timeout=10) as resp:
+            trace = json.load(resp)
+        if not isinstance(events, list) \
+                or not all(isinstance(e, dict)
+                           and isinstance(e.get("wall", 0.0), (int, float))
+                           for e in events) \
+                or not isinstance(trace, dict) \
+                or not isinstance(trace.get("traceEvents", []), list) \
+                or not all(isinstance(e, dict)
+                           for e in trace.get("traceEvents", [])):
+            raise ValueError("endpoint answered 200 but not the /debug "
+                             "payload shape")
+    except (OSError, ValueError, KeyError, TypeError) as exc:
+        print("error: %s: %s" % (type(exc).__name__, exc), file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(events, indent=2))
+    else:
+        print("%-12s %-20s %s" % ("AGE(s)", "EVENT", "FIELDS"))
+        now = time.time()
+        for ev in events:
+            fields = " ".join("%s=%s" % (k, v) for k, v in sorted(ev.items())
+                              if k not in ("wall", "event"))
+            print("%-12s %-20s %s" % (round(now - ev.get("wall", now), 1),
+                                      ev.get("event", "?"), fields))
+        print("%d event(s)" % len(events))
+    spans = sum(1 for e in trace.get("traceEvents", ()) if e.get("ph") == "X")
+    if args.trace_out:
+        with open(args.trace_out, "w") as f:
+            json.dump(trace, f)
+        print("trace window (%d span(s)) -> %s" % (spans, args.trace_out))
+    else:
+        print("trace window holds %d span(s); re-run with --trace-out PATH "
+              "to save the Perfetto JSON" % spans)
+    return 0
+
+
 def main(argv=None):
     """Run the CLI; -> the trained workflow (the exit code for
-    ``checkpoints``)."""
+    ``checkpoints``, ``serve`` and ``debug``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "checkpoints":
         return checkpoints_main(argv[1:])
+    if argv and argv[0] == "serve":
+        from veles_torch.serving.frontend import serve_main
+        _log_to_stdout()
+        return serve_main(argv[1:])
+    if argv and argv[0] == "debug":
+        return debug_main(argv[1:])
     args = build_argparser().parse_intermixed_args(argv)
     refuse_unported(args)
     prompt = None
@@ -251,13 +359,7 @@ def main(argv=None):
         except ValueError:
             raise SystemExit("--generate: expected comma-separated integer "
                              "token ids, got %r" % args.generate)
-    logger = logging.getLogger("veles_torch")
-    if not logger.handlers:
-        handler = logging.StreamHandler(sys.stdout)
-        handler.setFormatter(logging.Formatter("%(message)s"))
-        logger.addHandler(handler)
-        logger.setLevel(logging.INFO)
-        logger.propagate = False
+    _log_to_stdout()
     module = import_file(args.workflow, "veles_torch_workflow_module")
     # a lone "a.b=c" positional is an override, not a config file
     if args.config and "=" in args.config \
@@ -289,7 +391,13 @@ def main(argv=None):
                         model_stats=args.model_stats != "off",
                         stats_interval=args.stats_interval,
                         rollback_on_divergence=args.rollback_on_divergence,
-                        graphics_dir=args.graphics_dir)
+                        graphics_dir=args.graphics_dir,
+                        web_status_port=args.web_status,
+                        slo_config=args.slo_config)
+    if args.trace_out:
+        # from before initialize on, dumped in the finally: a failed
+        # run's spans are the postmortem the trace is for
+        telemetry.tracer.start()
     try:
         launcher.initialize(wf)
         if args.generate_text:
@@ -300,6 +408,13 @@ def main(argv=None):
         launcher.run()
     finally:
         launcher.close()
+        if args.trace_out:
+            telemetry.tracer.stop()
+            try:
+                telemetry.tracer.dump(args.trace_out)
+                print("trace -> %s" % args.trace_out, flush=True)
+            except OSError as exc:
+                print("trace dump failed: %s" % exc, file=sys.stderr)
     if args.export_inference:
         wf.export_inference(args.export_inference)
         print("inference archive -> %s" % args.export_inference, flush=True)

@@ -5,7 +5,8 @@
                         checkpoint_every=600, profile_dir="prof",
                         model_stats=True, stats_interval=8,
                         rollback_on_divergence=False,
-                        graphics_dir="plots")
+                        graphics_dir="plots", web_status_port=0,
+                        slo_config="slos.json")
     launcher.initialize(workflow)
     launcher.run()
 
@@ -21,15 +22,21 @@ the whole plane off, so checkpoints are stamped ``unknown``;
 arms the workflow's rollback (a workflow without one gets a warning);
 ``graphics_dir`` starts a :class:`GraphicsServer` (``graphics.py``) whose
 renderer process writes the workflow's plots there, and attaches it as
-``workflow.graphics``.
+``workflow.graphics``; ``web_status_port`` starts a :class:`WebStatus`
+dashboard (``web_status.py``) with the run registered
+(``workflow_status``); ``slo_config`` loads SLO objectives into the
+health monitor (``health.py``). With the model-health plane on, the
+monitor's ``model:divergence`` check joins ``/readyz`` and the divergence
+SLOs (``model_health.MODEL_SLOS``) the health plane, as the reference's
+launcher wires them.
 :meth:`Launcher.run` trains: SIGINT stops the run; SIGTERM
 (preemption) stops it before the next minibatch, then, outside the
 signal handler, writes a final ``current`` checkpoint and exits with
 :data:`EXIT_PREEMPTED`. ``profile_dir`` wraps the run in
 ``torch.profiler`` (CPU, and CUDA on the card) and writes its Chrome
 trace into the directory, the twin of the reference's
-``jax.profiler.trace``. The graphics server is closed when
-:meth:`Launcher.run` ends, on every path out of it (a SIGTERM's exit
+``jax.profiler.trace``. The graphics server and the dashboard are closed
+when :meth:`Launcher.run` ends, on every path out of it (a SIGTERM's exit
 included), or by :meth:`Launcher.close`. The master and slave modes are not ported yet
 (ROADMAP Queue 1 item 10).
 """
@@ -40,7 +47,7 @@ import signal
 
 import torch
 
-from veles_torch import model_health
+from veles_torch import health, model_health
 from veles_torch.graphics import GraphicsServer
 from veles_torch.snapshotter import load_snapshot, resolve_auto
 
@@ -59,7 +66,8 @@ class Launcher:
 
     def __init__(self, device="cuda", snapshot=None, checkpoint_every=None,
                  profile_dir=None, model_stats=True, stats_interval=None,
-                 rollback_on_divergence=False, graphics_dir=None):
+                 rollback_on_divergence=False, graphics_dir=None,
+                 web_status_port=None, slo_config=None):
         self.device = device
         self.snapshot = snapshot
         self.checkpoint_every = checkpoint_every
@@ -68,8 +76,13 @@ class Launcher:
         self.stats_interval = stats_interval
         self.rollback_on_divergence = bool(rollback_on_divergence)
         self.graphics_dir = graphics_dir
+        self.web_status_port = web_status_port
+        self.slo_config = slo_config
         #: the GraphicsServer of ``graphics_dir`` while the run lasts
         self.graphics = None
+        #: the WebStatus dashboard of ``web_status_port`` while the run
+        #: lasts
+        self.web_status = None
         self.workflow = None
         self.interrupted = False
         #: SIGTERM asked for a preemption shutdown
@@ -88,18 +101,30 @@ class Launcher:
                 "will be written", self.checkpoint_every)
         if self.snapshot:
             self._restore_snapshot(workflow)
-        self._wire_model_health(workflow)
         if self.graphics_dir:
             self.graphics = GraphicsServer(self.graphics_dir)
             workflow.graphics = self.graphics
+        if self.web_status_port is not None:
+            from veles_torch.web_status import WebStatus, workflow_status
+            self.web_status = WebStatus(port=self.web_status_port)
+            self.web_status.register(workflow.name,
+                                     workflow_status(workflow))
+        if self.slo_config:
+            n = health.get_monitor().load_slo_file(self.slo_config)
+            logger.info("%d SLO objective(s) loaded from %s", n,
+                        self.slo_config)
+        self._wire_model_health(workflow)
         return workflow
 
     def close(self):
         """Stop the graphics server (its renderer draws what it received
-        and exits)."""
+        and exits) and the dashboard."""
         if self.graphics is not None:
             self.graphics.close()
             self.workflow.graphics = self.graphics = None
+        if self.web_status is not None:
+            self.web_status.close()
+            self.web_status = None
 
     def _wire_model_health(self, workflow):
         """The model-health plane's options on the monitor, the step and
@@ -112,7 +137,11 @@ class Launcher:
             step.set_stats_enabled(False)
         if self.stats_interval:
             step.stats_interval = max(1, int(self.stats_interval))
-        if not self.model_stats or not self.rollback_on_divergence:
+        if not self.model_stats:
+            return
+        model_health.get_model_monitor().register_health()
+        model_health.install_model_slos()
+        if not self.rollback_on_divergence:
             return
         if workflow.rollback is not None:
             workflow.rollback.rollback_on_divergence = True

@@ -27,23 +27,31 @@ ones; ``NNRollback(rollback_on_divergence=True)`` and
 :class:`WeightGuard` restore the last good weights when the verdict
 flips.
 
-The reference's ``veles_model_*`` / ``veles_serving_*`` instruments are
-plain attributes here, read by :meth:`ModelHealthMonitor.metrics` under
-the reference's names (Prometheus-style label keys, ``layer="fc"``), and
-its flight-recorder events are log lines. Not ported yet (ROADMAP Queue
-1 item 9): ``register_health``, the divergence SLOs and ``/debug/model``
-over HTTP. The monitor is this package's own process-global, never the
-reference's: both packages can run in one process.
+The reference's ``veles_model_*`` / ``veles_serving_*`` instruments live
+on the port's telemetry registry (``telemetry.py``) under the reference's
+family names and labels; :meth:`ModelHealthMonitor.metrics` is the
+monitor's own view of them (Prometheus-style label keys, ``layer="fc"``).
+A verdict change is a ``model_divergence`` flight-recorder event, a
+restore a ``model_rollback`` one. The HTTP half:
+:meth:`ModelHealthMonitor.register_health` adds the ``model:divergence``
+check to ``/readyz``, :func:`install_model_slos` the divergence SLOs
+(:data:`MODEL_SLOS`) to the health plane (``health.py``), and
+:func:`debug_model_doc` is ``GET /debug/model``. The monitor is this
+package's own process-global, never the reference's: both packages can
+run in one process.
 """
 
 import logging
 import math
+import re
 import threading
 import time
 from contextlib import contextmanager
 
 import numpy
 import torch
+
+from veles_torch import telemetry
 
 logger = logging.getLogger("veles_torch.model_health")
 
@@ -73,6 +81,48 @@ def take_stats(outputs):
 def _labels(*items):
     """Prometheus-style label key: ``layer="fc",slave="3"``."""
     return ",".join('%s="%s"' % kv for kv in items)
+
+
+_LABEL_RE = re.compile(r'(\w+)="([^"]*)"')
+
+#: the reference's instrument families: name -> (kind, help, labels)
+FAMILIES = {
+    "veles_model_grad_norm": (
+        "gauge", "Per-layer in-graph training stat (grad_norm)",
+        ("layer",)),
+    "veles_model_weight_norm": (
+        "gauge", "Per-layer in-graph training stat (weight_norm)",
+        ("layer",)),
+    "veles_model_update_ratio": (
+        "gauge", "Per-layer in-graph training stat (update_ratio)",
+        ("layer",)),
+    "veles_model_nonfinite_total": (
+        "counter", "Non-finite values observed in gradients, wire deltas "
+        "or weights, by layer", ("layer",)),
+    "veles_model_nonfinite_step": (
+        "gauge", "Non-finite count in the LAST published observation (0 "
+        "while training is clean — the ring series divergence SLOs fire "
+        "on)", ()),
+    "veles_model_loss": (
+        "gauge", "Last evaluation-tick loss fed by the decision", ()),
+    "veles_model_loss_zscore": (
+        "gauge", "EWMA z-score of the last loss (the loss-spike detector "
+        "input)", ()),
+    "veles_model_verdict": (
+        "gauge", "Model-health verdict: 0 healthy, 1 suspect, 2 diverged",
+        ()),
+    "veles_serving_logit_entropy": (
+        "gauge", "Mean output-distribution entropy of the last served "
+        "batch (drift gauge)", ("model",)),
+    "veles_serving_top1_margin": (
+        "gauge", "Mean top-1 minus top-2 probability of the last served "
+        "batch (drift gauge)", ("model",)),
+}
+
+
+def _family(name):
+    kind, help, labels = FAMILIES[name]
+    return getattr(telemetry, kind)(name, help, labels)
 
 
 class ModelHealthMonitor:
@@ -136,19 +186,16 @@ class ModelHealthMonitor:
         self._updated = None
         self._doc = self._build_doc()
         #: the reference's instruments: name -> {label key: value}
-        self._series = {name: {} for name in (
-            "veles_model_grad_norm", "veles_model_weight_norm",
-            "veles_model_update_ratio", "veles_model_nonfinite_total",
-            "veles_model_nonfinite_step", "veles_model_loss",
-            "veles_model_loss_zscore", "veles_model_verdict",
-            "veles_serving_logit_entropy", "veles_serving_top1_margin")}
+        self._series = {name: {} for name in FAMILIES}
 
     def _set(self, name, value, key=""):
         self._series[name][key] = float(value)
+        _family(name).child(_LABEL_RE.findall(key)).set(float(value))
 
     def _inc(self, name, value, key=""):
         series = self._series[name]
         series[key] = series.get(key, 0.0) + float(value)
+        _family(name).child(_LABEL_RE.findall(key)).inc(float(value))
 
     def metrics(self):
         """{instrument name: {label key: value}} — the reference's
@@ -385,6 +432,8 @@ class ModelHealthMonitor:
                 for key in [k for k in series
                             if match in k.split(",")]:
                     del series[key]
+            for name in FAMILIES:
+                _family(name).remove_children((("slave", sid),))
             self._doc = self._build_doc()
 
     def note_rollback(self):
@@ -429,6 +478,9 @@ class ModelHealthMonitor:
                 self._verdict = "healthy"
                 self._reasons = []
         if self._verdict != previous:
+            telemetry.record_event(
+                "model_divergence", verdict=self._verdict,
+                previous=previous, reasons=list(self._reasons)[:4])
             log = logger.warning if self._verdict != "healthy" \
                 else logger.info
             log("model_divergence: model verdict %s -> %s%s", previous,
@@ -513,6 +565,22 @@ class ModelHealthMonitor:
             "layers": doc["layers"],
         }
 
+    def register_health(self, monitor=None):
+        """Add the ``model:divergence`` readiness check to the health
+        plane (``health.py``): not ready while the verdict is diverged
+        (suspect keeps serving); -> the health monitor."""
+        from veles_torch import health
+        monitor = monitor or health.get_monitor()
+
+        def check():
+            verdict, reasons = self.verdict_state()
+            if verdict == "diverged":
+                return False, "model diverged: %s" % (
+                    "; ".join(reasons) or "?")
+            return True, None
+        monitor.add_check("model:divergence", check)
+        return monitor
+
 
 # -- active-monitor plumbing -------------------------------------------
 
@@ -551,9 +619,49 @@ def scoped(monitor=None):
 
 
 def debug_model_doc():
-    """The active monitor's cached snapshot (the reference's ``GET
-    /debug/model`` payload)."""
+    """The active monitor's cached snapshot, the ``GET /debug/model``
+    payload (one attribute read: a handler serves it inline on the
+    reactor loop)."""
     return get_model_monitor().snapshot()
+
+
+# -- SLO wiring ---------------------------------------------------------
+
+#: the divergence objectives for the health plane's burn-rate engine:
+#: short windows, so a divergence alerts within a couple of evaluation
+#: ticks and clears once clean samples age the bad one out
+MODEL_SLOS = (
+    {"name": "model_nonfinite", "kind": "threshold",
+     "series": "veles_model_nonfinite_step", "op": "<=",
+     "threshold": 0.0, "target": 0.99,
+     "fast_window": 30.0, "slow_window": 90.0,
+     "burn_threshold": 1.0},
+    {"name": "model_divergence", "kind": "threshold",
+     "series": "veles_model_verdict", "op": "<",
+     "threshold": 2.0, "target": 0.99,
+     "fast_window": 30.0, "slow_window": 90.0,
+     "burn_threshold": 1.0},
+    {"name": "model_loss_spike", "kind": "threshold",
+     "series": "veles_model_loss_zscore", "op": "<=",
+     "threshold": 8.0, "target": 0.99,
+     "fast_window": 30.0, "slow_window": 90.0,
+     "burn_threshold": 1.0},
+)
+
+
+def install_model_slos(health_monitor=None):
+    """Register :data:`MODEL_SLOS` on the health plane (objectives
+    already present are skipped); -> how many were added."""
+    from veles_torch import health
+    monitor = health_monitor or health.get_monitor()
+    have = {slo.name for slo in monitor.slos()}
+    added = 0
+    for spec in MODEL_SLOS:
+        if spec["name"] in have:
+            continue
+        monitor.add_slo(dict(spec))
+        added += 1
+    return added
 
 
 # -- master-side rollback actuator --------------------------------------
@@ -620,6 +728,9 @@ class WeightGuard:
         self.workflow.restore_stash(self._stash)
         self.rollback_count += 1
         self.monitor.note_rollback()
+        telemetry.record_event(
+            "model_rollback", source="weight_guard",
+            rollback=self.rollback_count, reasons=list(reasons)[:4])
         logger.warning(
             "model_rollback: model diverged (%s): restored last healthy "
             "weights (rollback #%d)", "; ".join(reasons) or "?",

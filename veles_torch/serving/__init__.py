@@ -13,11 +13,13 @@ and served on a device (``cuda`` unless ``cpu`` is asked for):
 * :mod:`veles_torch.serving.decode`  — the generative plane: KV pool,
   prefill per prompt bucket, one shared decode step, continuous
   batching (``GenerativeEngine``, ``ContinuousBatcher``);
-* :mod:`veles_torch.serving.quant`   — int8/fp8 weights at rest.
-
-Not ported yet (ROADMAP Queue 1 item 9): the model registry (versions,
-hot reload, checkpoint refresh), the HTTP frontend, tenants, the
-telemetry instruments and the readiness probes.
+* :mod:`veles_torch.serving.quant`   — int8/fp8 weights at rest;
+* :mod:`veles_torch.serving.tenants` — tenant identity, quotas and the
+  batchers' fair-share weights;
+* :mod:`veles_torch.serving.registry` — named models, versions, hot
+  reload, checkpoint refresh (``ModelRegistry``);
+* :mod:`veles_torch.serving.frontend` — the HTTP frontend and ``python -m
+  veles_torch serve`` (``ServingFrontend``, ``serve_main``).
 """
 
 from veles_torch.serving.batcher import (     # noqa: F401
@@ -26,3 +28,5 @@ from veles_torch.serving.decode import (      # noqa: F401
     ContinuousBatcher, DecodePlan, GenerativeEngine, KVPool)
 from veles_torch.serving.engine import InferenceEngine  # noqa: F401
 from veles_torch.serving.model import ArchiveModel      # noqa: F401
+from veles_torch.serving.registry import (    # noqa: F401
+    ModelRegistry, ServedModel)

@@ -32,10 +32,20 @@ Counterpart of ``veles/serving/decode.py``:
   queued never reach prefill. All device work happens on its one worker
   thread, under ``torch.no_grad()``; request threads only enqueue.
 
-The reference's tenant table and ``telemetry`` instruments wait for the
-port's frontend slice: it serves the single default tenant (first in
-first out), and its counts are plain attributes read by
-:meth:`ContinuousBatcher.metrics`.
+  KV slots are granted least virtual finish tag first (a sequence's
+  cost is prompt + token budget over its tenant's weight,
+  ``tenants.py``), so one tenant's burst cannot take the whole decode
+  batch; with one tenant, or no tenant table, grants are first in first
+  out. A :class:`GenRequest` streams through ``set_on_token`` /
+  ``set_on_done`` callbacks (the HTTP frontend's chunked ndjson).
+
+Instruments (labelled by model, on the port's telemetry registry):
+``veles_serving_decode_*``, ``veles_serving_kv_pool_slots`` /
+``veles_serving_kv_slots_in_use``, ``veles_serving_generated_tokens_total``,
+``veles_serving_first_token_seconds`` and
+``veles_serving_tenant_tokens_total{tenant}``; a ``serving.decode`` span
+per finished sequence in the caller's trace. :meth:`ContinuousBatcher.
+metrics` is the batcher's own JSON view (``counts``).
 """
 
 import collections
@@ -46,15 +56,23 @@ import time
 import numpy
 import torch
 
+from veles_torch import telemetry
 from veles_torch.backends import bind_thread, torch_device
 from veles_torch.serving.batcher import (
-    DeadlineExceeded, QueueFull, percentile, timeout_seconds)
+    DeadlineExceeded, QueueFull, timeout_seconds)
 from veles_torch.serving.engine import bucket_sizes
 from veles_torch.serving.model import (
     FORWARD_OPS, attention_kv, attn_decode, block_decode, stack_kv)
+from veles_torch.serving import tenants
 from veles_torch.serving.quant import dense_params, gather_rows
 
 log = logging.getLogger("veles_torch.serving")
+
+#: decoded tokens by resolved tenant (label values are resolver output)
+_T_TOKENS = telemetry.LazyChild(
+    lambda: telemetry.counter(
+        "veles_serving_tenant_tokens_total",
+        "Tokens decoded by resolved tenant", ("tenant",)))
 
 #: unit types that are sequence-free at decode time
 _TOKEN_TYPES = frozenset({
@@ -358,12 +376,17 @@ class GenRequest:
     """One generation: prompt in, tokens out (collected in :attr:`tokens`
     as they decode)."""
 
-    def __init__(self, prompt, max_tokens, temperature, eos, deadline):
+    def __init__(self, prompt, max_tokens, temperature, eos, deadline,
+                 trace=None, tenant=None):
         self.prompt = prompt
         self.max_tokens = max_tokens
         self.temperature = temperature
         self.eos = eos
         self.deadline = deadline
+        self.trace = trace
+        #: the resolved tenant and the virtual finish tag of its grant
+        self.tenant = tenant
+        self.vft = 0.0
         self.t_submit = time.perf_counter()
         self.t_first = None         # perf_counter of the first token
         self.tokens = []
@@ -373,6 +396,8 @@ class GenRequest:
         self.slot = None
         self.cancelled = None       # reason string once cancelled
         self._lock = threading.Lock()
+        self._on_token = None
+        self._on_done = None
         self._notify = None         # batcher wake hook
 
     # -- client side ---------------------------------------------------
@@ -387,6 +412,23 @@ class GenRequest:
             notify = self._notify
         if notify is not None:
             notify()
+
+    def set_on_token(self, fn):
+        """Attach the per-token callback; tokens already decoded are
+        replayed first, in order, under the emission lock."""
+        with self._lock:
+            for tok in self.tokens:
+                fn(tok)
+            self._on_token = fn
+
+    def set_on_done(self, fn):
+        """Attach the completion callback (called at once when the
+        request already finished)."""
+        with self._lock:
+            if not self.done.is_set():
+                self._on_done = fn
+                return
+        fn(self)
 
     def wait(self, timeout=None):
         """Block until done; -> the token list (raises the failure)."""
@@ -404,12 +446,26 @@ class GenRequest:
             if self.t_first is None:
                 self.t_first = time.perf_counter()
             self.tokens.append(tok)
+            cb = self._on_token
+            if cb is not None:
+                try:
+                    cb(tok)
+                except Exception:
+                    # a consumer's callback never kills the shared loop
+                    pass
 
     def _finish(self, reason=None, error=None):
         with self._lock:
             self.finish_reason = reason
             self.error = error
+            cb = self._on_done
+            self._on_done = None
             self.done.set()
+        if cb is not None:
+            try:
+                cb(self)
+            except Exception:
+                pass
 
 
 class ContinuousBatcher:
@@ -423,8 +479,10 @@ class ContinuousBatcher:
                 "generated_tokens_total", "steps_total")
 
     def __init__(self, engine, max_queue=64, default_timeout_ms=30000.0,
-                 name="decode"):
+                 name="decode", model=None):
         self.name = name
+        #: the ``model`` label of this batcher's series
+        self.model = model or name
         self.engine = engine
         self.max_queue = int(max_queue)
         self.default_timeout = float(default_timeout_ms) / 1000.0
@@ -432,6 +490,10 @@ class ContinuousBatcher:
         self._wake = threading.Condition(self._lock)
         self._queue = collections.deque()
         self._active = {}           # slot -> GenRequest
+        # weighted-fair slot grants: virtual time, last finish tag per
+        # tenant
+        self._vtime = 0.0
+        self._vfinish = {}
         self._running = True
         self.last_step = time.monotonic()
         n_slots = engine.pool.n_slots
@@ -441,22 +503,74 @@ class ContinuousBatcher:
         self._pos = numpy.zeros(n_slots, numpy.int32)
         self._temp = numpy.zeros(n_slots, numpy.float32)
         self.counts = dict.fromkeys(self.COUNTERS, 0)
+        label = (self.model,)
+
+        def counter(name, help):
+            return telemetry.LazyChild(lambda: telemetry.counter(
+                name, help, ("model",)).labels(*label))
+
+        def gauge(name, help):
+            return telemetry.LazyChild(lambda: telemetry.gauge(
+                name, help, ("model",)).labels(*label))
+
+        #: counts key -> its registry series
+        self._c = {
+            "requests_total": counter(
+                "veles_serving_decode_requests_total",
+                "Generation requests admitted to the decode queue"),
+            "shed_total": counter(
+                "veles_serving_decode_shed_total",
+                "Generation requests shed on a full decode queue (503)"),
+            "expired_total": counter(
+                "veles_serving_decode_expired_total",
+                "Generation requests expired before a KV slot grant "
+                "(504)"),
+            "generated_tokens_total": counter(
+                "veles_serving_generated_tokens_total",
+                "Tokens decoded across all sequences"),
+            "steps_total": counter(
+                "veles_serving_decode_steps_total",
+                "Shared decode steps executed (each advances every "
+                "active sequence one token)"),
+        }
+        self._c_finished = telemetry.LazyChild(
+            lambda: telemetry.counter(
+                "veles_serving_decode_finished_total",
+                "Finished generations by reason", ("model", "reason")))
+        self._g_queue = gauge("veles_serving_decode_queue_depth",
+                              "Generation requests waiting for a KV slot")
+        self._g_slots = gauge(
+            "veles_serving_kv_slots_in_use",
+            "KV pool slots occupied by in-flight sequences")
+        self._g_pool = gauge(
+            "veles_serving_kv_pool_slots",
+            "Preallocated KV pool slots (decode batch width)")
+        self._h_first = telemetry.LazyChild(
+            lambda: telemetry.histogram(
+                "veles_serving_first_token_seconds",
+                "Submit -> first streamed token",
+                ("model",)).labels(*label))
+        self._g_pool.get().set(n_slots)
         #: (monotonic time, sequences advanced) per completed step
         self._step_log = collections.deque(maxlen=4096)
-        #: seconds from submit to the first token, per admitted request
-        self._first = collections.deque(maxlen=4096)
         self._thread = threading.Thread(
             target=self._worker, daemon=True, name="%s-worker" % name)
         self._thread.start()
 
     # -- client side ---------------------------------------------------
 
+    def _count(self, key, n=1):
+        """One counter: the batcher's view and the registry series."""
+        self.counts[key] += n
+        self._c[key].get().inc(n)
+
     def submit(self, prompt, max_tokens=None, temperature=0.0, eos=None,
-               timeout_ms=None):
+               timeout_ms=None, trace=None, tenant=None):
         """Enqueue one generation; -> :class:`GenRequest`. Raises
         :class:`QueueFull` (admission backpressure) or ValueError (prompt
         or budget outside the pool's geometry). ``timeout_ms`` bounds the
-        wait for a KV slot, not the decode."""
+        wait for a KV slot, not the decode; ``tenant`` (resolver output)
+        keys the weighted-fair slot grants."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must have at least one token")
@@ -475,17 +589,25 @@ class ContinuousBatcher:
         timeout = timeout_seconds(timeout_ms, self.default_timeout)
         req = GenRequest(prompt, max_tokens, float(temperature),
                          None if eos is None else int(eos),
-                         time.monotonic() + timeout)
+                         time.monotonic() + timeout, trace=trace,
+                         tenant=tenant)
         with self._lock:
             if not self._running:
                 raise RuntimeError("decode batcher is closed")
             if len(self._queue) >= self.max_queue:
-                self.counts["shed_total"] += 1
+                self._count("shed_total")
                 raise QueueFull("decode queue full (%d waiting, max %d)"
                                 % (len(self._queue), self.max_queue))
-            self.counts["requests_total"] += 1
+            self._count("requests_total")
+            # the fair-share tag: a sequence's whole KV claim over its
+            # tenant's weight
+            start = max(self._vtime, self._vfinish.get(tenant, 0.0))
+            req.vft = start + (len(prompt) + max_tokens) \
+                / tenants.weight(tenant)
+            self._vfinish[tenant] = req.vft
             req._notify = self._notify
             self._queue.append(req)
+            self._g_queue.get().set(len(self._queue))
             self._wake.notify()
         return req
 
@@ -505,8 +627,9 @@ class ContinuousBatcher:
     def _admit_locked(self):
         """Sweep the queue: cancelled and expired requests finish without
         a prefill (even while the pool is full), live ones take free
-        slots in arrival order, the rest keep their places; -> the
-        requests to prefill. Lock held."""
+        slots least virtual finish tag first (arrival order with one
+        tenant), the rest keep their arrival order; -> the requests to
+        prefill. Lock held."""
         live = []
         now = time.monotonic()
         while self._queue:
@@ -514,19 +637,30 @@ class ContinuousBatcher:
             if req.cancelled is not None:
                 self._finish_locked(req, req.cancelled)
             elif req.deadline < now:
-                self.counts["expired_total"] += 1
+                self._count("expired_total")
                 req._finish(error=DeadlineExceeded(
                     "no KV slot before deadline"))
+                self._count_finish("expired")
             else:
                 live.append(req)
         admitted = []
-        while live and self.engine.pool.free_slots:
-            req = live.pop(0)
-            req.slot = self.engine.pool.grant()
-            self._active[req.slot] = req
-            admitted.append(req)
-        self._queue.extend(live)
+        if live and self.engine.pool.free_slots:
+            for req in sorted(live, key=lambda r: (r.vft, r.tenant or "")):
+                if not self.engine.pool.free_slots:
+                    break
+                req.slot = self.engine.pool.grant()
+                self._active[req.slot] = req
+                self._vtime = max(self._vtime, req.vft)
+                admitted.append(req)
+            granted = {id(r) for r in admitted}
+            live = [r for r in live if id(r) not in granted]
+        self._queue.extend(live)    # arrival order kept
+        self._g_queue.get().set(len(self._queue))
+        self._g_slots.get().set(self.engine.pool.in_use)
         return admitted
+
+    def _count_finish(self, reason):
+        self._c_finished.get().labels(self.model, reason).inc()
 
     def _finish_locked(self, req, reason, error=None):
         """Free the slot (if granted) and complete the request. Lock
@@ -538,13 +672,25 @@ class ContinuousBatcher:
             self._pos[req.slot] = 0
             self._tokens[req.slot] = 0
             req.slot = None
+            self._g_slots.get().set(self.engine.pool.in_use)
+        self._count_finish(reason if error is None else "error")
         req._finish(reason=reason, error=error)
+        if telemetry.tracer.active:
+            args = {"model": self.model, "tokens": len(req.tokens),
+                    "reason": reason or "error"}
+            if req.trace is not None:
+                args.update(req.trace.child().span_args())
+            telemetry.tracer.add_complete(
+                "serving.decode", req.t_submit,
+                time.perf_counter() - req.t_submit, **args)
 
     def _deliver(self, req, tok):
         """Emit one token; -> the finish reason, or None to go on."""
         req._emit(tok)
         with self._lock:
-            self.counts["generated_tokens_total"] += 1
+            self._count("generated_tokens_total")
+        if req.tenant is not None:
+            _T_TOKENS.get().labels(req.tenant).inc()
         if req.cancelled is not None:
             return req.cancelled
         if req.eos is not None and tok == req.eos:
@@ -578,8 +724,8 @@ class ContinuousBatcher:
                     with self._lock:
                         self._finish_locked(req, None, error=exc)
                     continue
-                with self._lock:
-                    self._first.append(time.perf_counter() - req.t_submit)
+                self._h_first.get().observe(
+                    time.perf_counter() - req.t_submit)
                 reason = self._deliver(req, tok)
                 if reason is not None:
                     with self._lock:
@@ -606,7 +752,7 @@ class ContinuousBatcher:
                 continue
             self.last_step = time.monotonic()
             with self._lock:
-                self.counts["steps_total"] += 1
+                self._count("steps_total")
                 self._step_log.append((self.last_step, len(active)))
             for slot, req in active.items():
                 tok = int(nxt[slot])
@@ -624,6 +770,7 @@ class ContinuousBatcher:
             self._finish_locked(self._queue.popleft(), None, error=closed)
         for req in list(self._active.values()):
             self._finish_locked(req, None, error=closed)
+        self._g_queue.get().set(0)
 
     # -- operational surface -------------------------------------------
 
@@ -643,15 +790,16 @@ class ContinuousBatcher:
 
     def metrics(self, rate_window=10.0):
         """Queue depth, KV occupancy, counters, tokens/s over the window
-        and the first-token latency percentiles."""
+        and the first-token latency percentiles (of the model's
+        histogram)."""
         now = time.monotonic()
+        first = self._h_first.get()
         with self._lock:
             c = dict(self.counts)
             queued = len(self._queue)
             in_use = self.engine.pool.in_use
             recent = sum(n for t, n in self._step_log
                          if t > now - rate_window)
-            first = list(self._first)
         out = {
             "queue_depth": queued,
             "kv_slots_in_use": in_use,
@@ -665,11 +813,11 @@ class ContinuousBatcher:
             "steps_total": c["steps_total"],
             "tokens_per_sec": round(recent / rate_window, 2),
         }
-        if first:
-            out["first_token_ms_p50"] = round(percentile(first, 0.5)
-                                              * 1000, 3)
-            out["first_token_ms_p99"] = round(percentile(first, 0.99)
-                                              * 1000, 3)
+        p50 = first.percentile(0.5)
+        if p50 is not None:
+            out["first_token_ms_p50"] = round(p50 * 1000, 3)
+            out["first_token_ms_p99"] = round(first.percentile(0.99) * 1000,
+                                              3)
         return out
 
     def close(self):

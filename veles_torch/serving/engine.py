@@ -8,8 +8,9 @@ real row and are sliced off after), so a few batch shapes serve every
 request size. The forward runs eagerly, one per bucket shape; a bucket's
 first run ("compile" in the reference, where it traces and compiles a
 program) is timed into ``compile_seconds`` and :meth:`warmup` makes it
-before traffic. A CUDA graph per bucket waits for ROADMAP Queue 1 item
-1.
+before traffic, and each first run is a ``serving.compile`` span of the
+tracer (``telemetry.py``). A CUDA graph per bucket waits for ROADMAP
+Queue 1 item 1.
 """
 
 import threading
@@ -18,6 +19,7 @@ import time
 import numpy
 import torch
 
+from veles_torch import telemetry
 from veles_torch.backends import bind_thread, torch_device
 from veles_torch.serving.quant import quantize_tree, tree_to, validate_mode
 
@@ -113,9 +115,13 @@ class InferenceEngine:
         if first:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            dt = time.perf_counter() - t0
+            if telemetry.tracer.active:
+                telemetry.tracer.add_complete(
+                    "serving.compile", t0, dt, bucket=shape[0])
             with self._lock:
                 self._warm.add(shape)
-                self.compile_seconds[shape[0]] = time.perf_counter() - t0
+                self.compile_seconds[shape[0]] = dt
         return y
 
     def predict(self, x):

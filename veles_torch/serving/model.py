@@ -337,6 +337,10 @@ class ArchiveModel:
         self.device = torch_device(device)
         #: {unit_name: {key: f32 tensor or QuantizedTensor}}
         self.params = tree_to(params, self.device)
+        #: the loaded checkpoint's manifest fields (wall_time,
+        #: ingest_wall, verdict); empty while serving the archive's own
+        #: params
+        self.checkpoint_meta = {}
 
     @classmethod
     def from_dir(cls, path, device="cuda"):
@@ -408,7 +412,7 @@ class ArchiveModel:
         number of tensors loaded."""
         state, manifest = load_snapshot_meta(target)
         if is_diverged(manifest):
-            COUNTERS.diverged_skips += 1
+            COUNTERS.count_diverged_skip()
             raise ValueError("checkpoint %s refused: MANIFEST model-health "
                              "verdict is 'diverged'" % (target,))
         fresh = {}
@@ -434,5 +438,6 @@ class ArchiveModel:
         manifest = manifest or {}
         self.checkpoint_meta = {
             "wall_time": manifest.get("wall_time"),
+            "ingest_wall": manifest.get("ingest_wall"),
             "verdict": (manifest.get("model_health") or {}).get("verdict")}
         return sum(len(tree) for tree in fresh.values())

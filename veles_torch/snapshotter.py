@@ -34,10 +34,15 @@ before any metric), rolling ``current`` ones on a wall-clock
 ``interval``, each slot with its own retention rebuilt from the store, a
 three-strike failure budget, and :meth:`Snapshotter.preempt_snapshot`.
 
-An ``http(s)://`` store is not ported yet (ROADMAP Queue 1 item 9) and
-raises ``NotImplementedError``. The reference's ``veles_checkpoint_*``
-telemetry series are plain counters here: :data:`COUNTERS`,
-``COUNTERS.metrics()``.
+An ``http(s)://`` location is an :class:`HTTPSnapshotStore` (``PUT/GET/
+DELETE <base>/<name>``, ``GET <base>/`` -> a JSON name list) with the
+reference's retries, backoff and circuit breaker, one per base URL
+(:func:`store_for`, :func:`store_for_base`), so ``--snapshot``,
+``--snapshots``, ``scan_checkpoints`` and the serving registry's refresh
+take an HTTP URI. The reference's ``veles_checkpoint_*`` series live on
+the port's telemetry registry (``telemetry.py``), each write is a
+``checkpoint_written`` flight-recorder event, and :data:`COUNTERS`
+keeps the process's plain view, ``COUNTERS.metrics()``.
 """
 
 import bz2
@@ -49,12 +54,13 @@ import logging
 import lzma
 import os
 import re
+import threading
 import time
 
 import numpy
 import torch
 
-from veles_torch import model_health
+from veles_torch import model_health, telemetry
 from veles_torch.config import root
 
 logger = logging.getLogger("veles_torch.snapshotter")
@@ -67,20 +73,20 @@ SCHEMA_VERSION = 1
 #: npz entry holding the integrity manifest (JSON as uint8 bytes)
 MANIFEST_KEY = "__manifest__"
 
-def _unported_http(target):
-    return NotImplementedError(
-        "%s: an http(s) snapshot store is not ported yet (ROADMAP Queue 1 "
-        "item 9)" % (target,))
-
-
 class CorruptCheckpointError(Exception):
     """The checkpoint failed verification (unreadable container, digest
     mismatch, missing or extra array), or it does not fit the workflow it
     is restored into (a shape or key it lacks). Never resume it."""
 
 
+_WRITE_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 15.0,
+                  60.0)
+
+
 class CheckpointCounters:
-    """The reference's checkpoint telemetry as plain counters."""
+    """The process's checkpoint counters: each record also lands on the
+    telemetry registry under the reference's ``veles_checkpoint_*``
+    families; the attributes are the plain view :meth:`metrics` reads."""
 
     def __init__(self):
         self.writes_by_slot = {}
@@ -95,12 +101,44 @@ class CheckpointCounters:
         self.bytes_total += int(nbytes)
         self.write_seconds.append(float(seconds))
         self.last_success = time.time()
+        telemetry.counter(
+            "veles_checkpoint_writes_total",
+            "Checkpoints committed to the store, by retention slot",
+            ("slot",)).labels(slot).inc()
+        telemetry.counter(
+            "veles_checkpoint_bytes_total",
+            "Bytes committed to the snapshot store").inc(nbytes)
+        telemetry.histogram(
+            "veles_checkpoint_write_seconds",
+            "Wall time of one checkpoint serialize+commit", ("slot",),
+            buckets=_WRITE_BUCKETS).labels(slot).observe(seconds)
+        telemetry.gauge(
+            "veles_checkpoint_last_success_age_seconds",
+            "Seconds since a checkpoint last committed (-1: never)"
+        ).set_function(self.last_success_age)
+
+    def count_verify_failure(self):
+        self.verify_failures += 1
+        telemetry.counter(
+            "veles_checkpoint_verify_failures_total",
+            "Corrupt checkpoints observed (once per blob per store "
+            "scan)").inc()
+
+    def count_diverged_skip(self):
+        self.diverged_skips += 1
+        telemetry.counter(
+            "veles_checkpoint_diverged_skips_total",
+            "Checkpoints skipped by auto-resume/refresh because their "
+            "MANIFEST carries model-health verdict 'diverged'").inc()
+
+    def last_success_age(self):
+        return -1.0 if self.last_success is None \
+            else max(0.0, time.time() - self.last_success)
 
     def metrics(self):
         """{writes_by_slot, bytes_total, write_seconds, verify_failures,
         diverged_skips, last_success_age_seconds (-1: never)}."""
-        age = -1.0 if self.last_success is None \
-            else max(0.0, time.time() - self.last_success)
+        age = self.last_success_age()
         return {"writes_by_slot": dict(self.writes_by_slot),
                 "bytes_total": self.bytes_total,
                 "write_seconds": list(self.write_seconds),
@@ -115,6 +153,25 @@ COUNTERS = CheckpointCounters()
 
 
 # -- stores ----------------------------------------------------------------
+
+
+class _BufferedStream:
+    """The default ``SnapshotStore.stream``: buffer, then one ``put`` on a
+    clean exit (a remote store takes whole blobs); ``.uri`` after."""
+
+    def __init__(self, store, name):
+        self.store = store
+        self.name = name
+        self.uri = None
+
+    def __enter__(self):
+        self.buf = io.BytesIO()
+        return self.buf
+
+    def __exit__(self, et, ev, tb):
+        if et is None:
+            self.uri = self.store.put(self.name, self.buf.getvalue())
+        return False
 
 
 class _FileStream:
@@ -175,8 +232,9 @@ class SnapshotStore:
 
     def stream(self, name):
         """A context manager yielding a writable binary file whose
-        contents commit to ``name`` on a clean exit (``.uri`` after)."""
-        raise NotImplementedError
+        contents commit to ``name`` on a clean exit (``.uri`` after);
+        by default buffered and ``put``."""
+        return _BufferedStream(self, name)
 
     def get(self, name):
         """-> the bytes under ``name`` (KeyError if absent)."""
@@ -227,21 +285,207 @@ class FileSnapshotStore(SnapshotStore):
             pass
 
 
+class CircuitOpenError(ConnectionError):
+    """The HTTP store's circuit breaker is open: recent requests all
+    failed, so callers fail fast instead of stacking timeouts against a
+    dead endpoint. Retry after the breaker's reset window."""
+
+
+class HTTPSnapshotStore(SnapshotStore):
+    """A REST-style remote store: ``PUT/GET/DELETE <base>/<name>``, ``GET
+    <base>/`` -> a JSON name list (an object store behind a signer, a
+    WebDAV location, or the stdlib server of the tests), over urllib.
+
+    Degradation policy: transport errors and 5xx answers retry
+    ``retries`` times with exponential backoff; ``breaker_threshold``
+    consecutive failed requests open a circuit breaker that fails every
+    call at once (:class:`CircuitOpenError`) for ``breaker_reset``
+    seconds, after which one probe request is let through (half-open):
+    success closes the breaker, failure opens it again. :meth:`metrics`
+    reports the counters."""
+
+    def __init__(self, base_url, timeout=60, retries=2,
+                 retry_backoff=0.1, breaker_threshold=4,
+                 breaker_reset=30.0):
+        self.base_url = base_url.rstrip("/")
+        self.timeout = float(timeout)
+        self.retries = int(retries)
+        self.retry_backoff = float(retry_backoff)
+        self.breaker_threshold = int(breaker_threshold)
+        self.breaker_reset = float(breaker_reset)
+        self._lock = threading.Lock()
+        self._consecutive_failures = 0
+        self._breaker_open_until = 0.0
+        self._probe_in_flight = False
+        self.stats = {"requests": 0, "retries": 0, "failures": 0,
+                      "breaker_trips": 0, "breaker_fast_fails": 0}
+
+    # -- breaker bookkeeping -------------------------------------------
+
+    def _gate(self):
+        with self._lock:
+            self.stats["requests"] += 1
+            if not self._breaker_open_until:
+                return
+            now = time.monotonic()
+            # half-open admits ONE probe; concurrent callers keep failing
+            # fast instead of stacking their retry ladders
+            if now < self._breaker_open_until or self._probe_in_flight:
+                self.stats["breaker_fast_fails"] += 1
+                raise CircuitOpenError(
+                    "snapshot store %s: circuit open after %d consecutive "
+                    "failures (retry in %.1fs)"
+                    % (self.base_url, self._consecutive_failures,
+                       max(0.0, self._breaker_open_until - now)))
+            self._probe_in_flight = True
+
+    def _record(self, ok):
+        with self._lock:
+            self._probe_in_flight = False
+            if ok:
+                self._consecutive_failures = 0
+                self._breaker_open_until = 0.0
+                return
+            self._consecutive_failures += 1
+            self.stats["failures"] += 1
+            if self._consecutive_failures >= self.breaker_threshold:
+                self._breaker_open_until = \
+                    time.monotonic() + self.breaker_reset
+                self.stats["breaker_trips"] += 1
+
+    def breaker_open(self):
+        with self._lock:
+            return time.monotonic() < self._breaker_open_until
+
+    def metrics(self):
+        with self._lock:
+            return dict(
+                self.stats, base_url=self.base_url,
+                consecutive_failures=self._consecutive_failures,
+                breaker_open=time.monotonic() < self._breaker_open_until)
+
+    def _request(self, method, name="", data=None):
+        """One logical request -> the whole response body. The body is
+        read inside the retry and breaker accounting: a connection that
+        dies mid-body retries and counts like any transport failure."""
+        import http.client
+        import urllib.error
+        import urllib.request
+        self._gate()
+        url = self.base_url + "/" + name
+        last = None
+        for attempt in range(self.retries + 1):
+            req = urllib.request.Request(url, data=data, method=method)
+            if data is not None:
+                req.add_header("Content-Type", "application/octet-stream")
+            try:
+                with urllib.request.urlopen(req,
+                                            timeout=self.timeout) as resp:
+                    body = resp.read()
+                self._record(ok=True)
+                return body
+            except urllib.error.HTTPError as exc:
+                if exc.code < 500:
+                    # the endpoint answered (404 etc.): not a store-health
+                    # event, the caller maps the code
+                    self._record(ok=True)
+                    raise
+                last = exc              # 5xx: a flapping backend
+            except (urllib.error.URLError, OSError,
+                    http.client.HTTPException) as exc:
+                last = exc
+            if attempt < self.retries:
+                with self._lock:
+                    self.stats["retries"] += 1
+                time.sleep(self.retry_backoff * (2 ** attempt))
+        self._record(ok=False)
+        raise last
+
+    def put(self, name, data):
+        self._request("PUT", name, data)
+        return self.base_url + "/" + name
+
+    def get(self, name):
+        import urllib.error
+        try:
+            return self._request("GET", name)
+        except urllib.error.HTTPError as exc:
+            if exc.code == 404:
+                raise KeyError(name) from None
+            raise
+
+    def list(self):
+        """``GET <base>/`` -> the JSON array, names relative to the base
+        or full object paths (both accepted), filtered to ``.ckpt.``
+        blobs as :meth:`FileSnapshotStore.list` does; names under
+        another prefix of the same bucket are never ours."""
+        from urllib.parse import urlsplit
+        names = json.loads(self._request("GET").decode())
+        prefix = urlsplit(self.base_url).path.lstrip("/")
+        out = []
+        for n in names:
+            if "://" in n:
+                n = urlsplit(n).path
+            n = n.lstrip("/")
+            if prefix and n.startswith(prefix + "/"):
+                n = n[len(prefix) + 1:]
+            if "/" in n:
+                continue
+            if ".ckpt." in n and not n.endswith(".tmp"):
+                out.append(n)
+        if names and not out:
+            logger.warning("%s/: all %d listed names filtered out (first: "
+                           "%r) — no checkpoints visible", self.base_url,
+                           len(names), names[0])
+        return sorted(out)
+
+    def delete(self, name):
+        import urllib.error
+        try:
+            self._request("DELETE", name)
+        except urllib.error.HTTPError as exc:
+            if exc.code != 404:
+                raise
+
+
+#: one HTTPSnapshotStore per base URL: every reader and writer of an
+#: endpoint shares its circuit breaker
+_STORE_CACHE = {}
+_STORE_CACHE_LOCK = threading.Lock()
+
+
+def _cached_http_store(base):
+    with _STORE_CACHE_LOCK:
+        store = _STORE_CACHE.get(base)
+        if store is None:
+            store = _STORE_CACHE[base] = HTTPSnapshotStore(base)
+    return store
+
+
+def is_http(target):
+    return str(target).startswith(("http://", "https://"))
+
+
 def store_for(target):
-    """(store, name) of one blob TARGET: a local path maps to (None,
-    path); an http(s) URI is not ported (ROADMAP Queue 1 item 9)."""
-    if target.startswith(("http://", "https://")):
-        raise _unported_http(target)
+    """(store, name) of one blob TARGET: an http(s) URI maps to (the
+    cached :class:`HTTPSnapshotStore` of its base, name), a local path to
+    (None, path)."""
+    if is_http(target):
+        base, _, name = target.rpartition("/")
+        return _cached_http_store(base), name
     return None, target
 
 
 def store_for_base(target, create=True):
-    """A :class:`SnapshotStore` over a checkpoint LOCATION (a
-    directory). ``create=False`` is the read side (auto-resume, audit): a
+    """A :class:`SnapshotStore` over a checkpoint LOCATION: an
+    ``http(s)://`` base URL (the cached store of :func:`store_for`) or a
+    directory. ``create=False`` is the read side (auto-resume, audit): a
     missing directory raises FileNotFoundError instead of being created
     and read as an empty store."""
-    if target.startswith(("http://", "https://")):
-        raise _unported_http(target)
+    if isinstance(target, SnapshotStore):
+        return target
+    if is_http(target):
+        return _cached_http_store(target.rstrip("/"))
     if not create and not os.path.isdir(target):
         raise FileNotFoundError(
             "snapshot store directory %r does not exist — resuming or "
@@ -432,21 +676,28 @@ def write_checkpoint(store, name, tree, compression="gz", slot="best",
         else:
             counting.write(data)
     COUNTERS.record_write(slot, counting.nbytes, time.perf_counter() - t0)
+    # the flight recorder's log: which checkpoint existed when
+    telemetry.record_event("checkpoint_written", name=name, slot=slot,
+                           bytes=counting.nbytes)
     return sp.uri, counting.nbytes
 
 
 def load_snapshot(path):
-    """A checkpoint file -> its state tree, verified (legacy blobs load
-    unverified); raises :class:`CorruptCheckpointError`."""
+    """A checkpoint file or ``http(s)://`` URI -> its state tree,
+    verified (legacy blobs load unverified); raises
+    :class:`CorruptCheckpointError`."""
     return load_snapshot_meta(path)[0]
 
 
 def load_snapshot_meta(path):
     """:func:`load_snapshot` that also returns the manifest (None for a
     legacy blob)."""
-    _, name = store_for(path)
-    with open(path, "rb") as f:
-        raw = f.read()
+    store, name = store_for(path)
+    if store is not None:
+        raw = store.get(name)
+    else:
+        with open(path, "rb") as f:
+            raw = f.read()
     flat, manifest = parse_checkpoint(raw, name)
     return _unflatten_tree(flat), manifest
 
@@ -618,13 +869,13 @@ def resolve_auto(target, prefixes=None):
             flat, manifest = parse_checkpoint(raw, name)
         except CorruptCheckpointError as exc:
             corrupt += 1
-            COUNTERS.verify_failures += 1
+            COUNTERS.count_verify_failure()
             logger.warning("checkpoint %s rejected: %s", name, exc)
             continue
         if manifest is None:
             continue                  # legacy: by explicit path only
         if is_diverged(manifest):
-            COUNTERS.diverged_skips += 1
+            COUNTERS.count_diverged_skip()
             logger.warning("checkpoint %s skipped: model-health verdict "
                            "'diverged'", name)
             continue
@@ -690,7 +941,7 @@ class Snapshotter:
     @property
     def store(self):
         if self._store is None:
-            self._store = FileSnapshotStore(self.directory)
+            self._store = store_for_base(self.directory)
         return self._store
 
     def initialize(self):

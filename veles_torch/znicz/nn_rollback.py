@@ -31,7 +31,7 @@ not taken.
 import logging
 import math
 
-from veles_torch import model_health
+from veles_torch import model_health, telemetry
 from veles_torch.loader.base import CLASS_TRAIN, CLASS_VALID
 
 logger = logging.getLogger("veles_torch.rollback")
@@ -70,6 +70,9 @@ class NNRollback:
         self.workflow.restore_stash(self._stash)
         self._cut_lr()
         self.rollback_count += 1
+        telemetry.record_event(
+            "model_rollback", source="nn_rollback",
+            rollback=self.rollback_count, lr_cut=self.lr_cut)
         logger.warning(
             "model_rollback: loss blow-up: rolled back to the last good "
             "weights, learning rates cut by %.3g (rollback #%d)",

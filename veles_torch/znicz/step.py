@@ -54,6 +54,15 @@ body gets no target. Only :class:`GradientDescentBase` units give stat
 rows, as only the reference's ``GradientDescentBase.update_weights``
 exports layer stats.
 
+Each class of an epoch is one dispatch, the counterpart of the
+reference's fused dispatch: its wall time up to the class's one metrics
+copy (the sync point, so device execution is in it) is one observation
+of ``veles_torch_dispatch_seconds{kind, warm}`` and, while the tracer is
+active, one ``torch.dispatch.<kind>`` span (``telemetry.py``); ``kind``
+is the class (``train``, ``valid``, ``test``), ``warm`` is 0 for the
+first dispatch of a class at its minibatch count in this process's
+step. No device synchronization is added for either.
+
 Eager PyTorch: each operation is its own launch (no CUDA graph yet).
 """
 
@@ -61,11 +70,29 @@ import time
 
 import torch
 
-from veles_torch import model_health
+from veles_torch import model_health, telemetry
 from veles_torch.loader.base import CLASS_TRAIN, CLASS_VALID
 from veles_torch.znicz.nn_units import (
     GradientDescentBase, RoutingGradientBase, layer_stats)
 from veles_torch.znicz.ops.evaluator import METRICS
+
+
+#: the dispatch kind of each loader class
+_KINDS = ("test", "valid", "train")
+
+
+def _record_dispatch(kind, warm, start, dt, **args):
+    """One class dispatch: its wall time up to the metrics copy (the
+    sync point) by kind and warmth, and its span while the tracer is
+    active."""
+    telemetry.histogram(
+        "veles_torch_dispatch_seconds",
+        "Wall time of one class dispatch incl. its metrics copy (warm=\"0\" "
+        "is the first at its minibatch count)",
+        ("kind", "warm")).labels(kind, "1" if warm else "0").observe(dt)
+    if telemetry.tracer.active:
+        telemetry.tracer.add_complete(
+            "torch.dispatch.%s" % kind, start, dt, warm=bool(warm), **args)
 
 
 class TorchStep:
@@ -86,6 +113,8 @@ class TorchStep:
         self.eval_steps = 0
         #: host seconds of each finished epoch (metric fetches included)
         self.epoch_seconds = []
+        #: (class, minibatches) dispatched before: the warm ones
+        self._seen_dispatch = set()
         #: read before every minibatch; True ends the epoch there
         self.stop_requested = False
         #: a callable -> the epoch-entry copy, or None to keep none
@@ -227,6 +256,7 @@ class TorchStep:
         has_valid = loader.class_lengths[CLASS_VALID] > 0
         for ci, (cls, idx_mat, valids) in enumerate(plan):
             train = cls == CLASS_TRAIN
+            t_class = time.perf_counter()
             if train:
                 self.entry = self.take_entry() if self.take_entry else None
                 self.in_train = True
@@ -257,6 +287,10 @@ class TorchStep:
                     self.last_stats = None
                     j += 1
             host = buf.cpu().numpy()
+            warm = (cls, n) in self._seen_dispatch
+            self._seen_dispatch.add((cls, n))
+            _record_dispatch(_KINDS[cls], warm, t_class,
+                             time.perf_counter() - t_class, minibatches=n)
             if due:
                 self._publish_stats(
                     host[n * width:].reshape(stats.shape),
