@@ -308,10 +308,34 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     serves on; ``/metrics`` exporting ``HTTP_FAMILIES``; the server
     stopped by SIGTERM and exiting 0 (its output in
     ``serve_http_server.log``);
-26. the ``kernels`` summary line (the bias gradient's launches summed
+26. ensemble — ``--ensemble 3`` of the full-width MNIST sample through the
+    CLI (``ENSEMBLE_RUN``: 3 epochs, members from seeds 1337–1339): the
+    report over the 1000 validation rows with 3 member errors, the
+    ensemble's error no worse than its weakest member's, exactly one
+    launch of each bias-gradient form a train step (3 × 180), no flash
+    launch;
+27. optimize — ``--optimize 2x4`` in this process (``OPTIMIZE_CONFIG``:
+    both learning rates ``Tune(0.02, 0.005, 0.1)``; ``OPTIMIZE_RUN``: 2
+    epochs, seed 1337): 8 evaluations, 960 launches of each form; then
+    ``2x4x2``, the CLI's worker branch (``ProcessPoolMap`` of 2 spawned
+    processes sharing the card, the kernels built once by this process
+    before they start): the same best fitness, best values and champion
+    history as in process, and each individual's seconds, launches and
+    peak device memory read in the worker that ran it (``TimedTrainer``;
+    ``optimize_workers.jsonl``), 960 launches of each form over the
+    workers and none in this process;
+28. shell_forge — the MNIST sample on the card through the launcher with
+    a headless shell (``link_shell``) whose ``stop()`` ends the run at the
+    first epoch's end: one epoch in the history, 60 launches of each form
+    (no minibatch of the second epoch runs); that run's checkpoint and
+    inference archive packaged and fetched back by the forge client, byte
+    for byte, and the fetched checkpoint resumed on the card to a second
+    epoch (60 more of each form, the first epoch's history kept);
+29. the ``kernels`` summary line (the bias gradient's launches summed
     over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume,
-    model-health, unsupervised, plots and serve_http runs, each path's
-    beside it, the serving paths' among them), the card line, and last
+    model-health, unsupervised, plots, serve_http, ensemble, optimize (in
+    process and in the workers) and shell_forge runs, each path's beside
+    it, the serving paths' among them), the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
@@ -4425,6 +4449,295 @@ def check_serve_http(torch):
     return counts
 
 
+# -- ensembles, the genetic search, the shell and the forge client -----------
+
+#: the device of phases ensemble, optimize and shell_forge (the CPU only to
+#: rehearse them)
+SEARCH_DEVICE = "cuda"
+#: phase ensemble: the full-width MNIST sample, 3 members of 3 epochs each
+ENSEMBLE_RUN = ("root.mnist.decision.max_epochs=3", "--seed", "1337",
+                "--ensemble", "3")
+#: phase optimize: the config file marking both layers' learning rates
+#: searchable (the reference test's), and the run of every individual
+OPTIMIZE_CONFIG = (
+    "from veles_torch.config import root, Tune\n"
+    "for layer in root.mnist.layers:\n"
+    "    if '<-' in layer:\n"
+    "        layer['<-']['learning_rate'] = Tune(0.02, 0.005, 0.1)\n")
+OPTIMIZE_RUN = ("root.mnist.decision.max_epochs=2", "--seed", "1337")
+#: GENSxPOP in process, then with WORKERS processes sharing the card
+OPTIMIZE_SEARCH = "2x4"
+OPTIMIZE_WORKERS = 2
+#: the search's evaluations: POP, then POP - elite (2) a generation
+OPTIMIZE_EVALUATIONS = 8
+#: what each worker records of its individuals (one JSON line each)
+WORKER_LOG = os.path.join(OUT_DIR, "optimize_workers.jsonl")
+#: phase shell_forge: the shell stops the run at the first epoch's end of
+#: these; the fetched checkpoint then resumes to the second
+SHELL_MAX_EPOCHS = 3
+MNIST_TRAIN_STEPS = 60
+
+
+class TimedTrainer:
+    """A genetic-search fitness (the port's ``SubprocessTrainer``) that
+    appends each individual's seconds, peak device memory and launches to
+    ``WORKER_LOG``, from the worker that ran it."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+
+    def __call__(self, values):
+        import torch
+        from veles_torch.znicz.ops.bias_grad import bias_grad
+        card = torch.cuda.is_available()
+        reset_counts()
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fitness = self.trainer(values)
+        if card:
+            torch.cuda.synchronize()
+        row = {"pid": os.getpid(), "values": values, "fitness": fitness,
+               "seconds": time.perf_counter() - t0,
+               "launches": dict(bias_grad.form_launches),
+               "peak_allocated_bytes":
+                   torch.cuda.max_memory_allocated() if card else 0,
+               "reserved_bytes": torch.cuda.memory_reserved() if card else 0}
+        with open(WORKER_LOG, "a") as f:
+            f.write(json.dumps(row) + "\n")
+        return fitness
+
+
+def search_sync(torch):
+    if SEARCH_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def expect_mnist_launches(counts, train_steps, where):
+    """Every flash count 0, one launch of each bias-gradient form a train
+    step (none on the CPU)."""
+    per_step = train_steps if SEARCH_DEVICE == "cuda" else 0
+    want = dict({name: 0 for name in counts},
+                **{"bias_grad[identity]": per_step,
+                   "bias_grad[masked]": per_step})
+    if counts != want:
+        fail("%s: launches %s, expected %s" % (where, counts, want))
+
+
+def check_ensemble(torch):
+    """Phase ensemble: ``--ensemble 3`` of the full-width MNIST; -> its
+    launches."""
+    reset_counts()
+    t0 = time.perf_counter()
+    ens = cli_run([MNIST_SAMPLE, *ENSEMBLE_RUN, "-d", SEARCH_DEVICE])
+    search_sync(torch)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    t1 = time.perf_counter()
+    report = ens.evaluate_classification()
+    eval_seconds = time.perf_counter() - t1
+    emit({"phase": "ensemble", "report": report, "seconds": seconds,
+          "evaluate_seconds": eval_seconds, "launches": counts,
+          "member_histories": [[h["validation"]["metric"]
+                                for h in wf.decision.history]
+                               for wf in ens.workflows]})
+    errors = report["member_errors"]
+    if report["n_valid"] != 1000 or len(errors) != 3:
+        fail("ensemble: report %s, expected 3 members over 1000 rows"
+             % report)
+    if not report["ensemble_error"] <= max(errors):
+        fail("ensemble: error %.4f above its weakest member's %.4f"
+             % (report["ensemble_error"], max(errors)))
+    expect_mnist_launches(counts, 3 * 3 * MNIST_TRAIN_STEPS, "ensemble")
+    return counts
+
+
+def check_optimize(torch, tmp):
+    """Phase optimize: the search in process, then in worker processes
+    sharing the card; -> (the in-process launches, the workers')."""
+    from veles_torch import genetics
+    cfg = os.path.join(tmp, "ga_config.py")
+    with open(cfg, "w") as f:
+        f.write(OPTIMIZE_CONFIG)
+    argv = [MNIST_SAMPLE, cfg, *OPTIMIZE_RUN, "-d", SEARCH_DEVICE,
+            "--optimize"]
+    reset_counts()
+    t0 = time.perf_counter()
+    seq = cli_run(argv + [OPTIMIZE_SEARCH])
+    search_sync(torch)
+    seq_seconds = time.perf_counter() - t0
+    counts = read_counts()
+    # the CLI's worker branch, each individual it sends to a worker timed
+    # there (TimedTrainer)
+    plain = genetics.ProcessPoolMap
+
+    class TimedPool(plain):
+        def __call__(self, f, xs):
+            return plain.__call__(
+                self, genetics._SafeEval(TimedTrainer(f.evaluate)), xs)
+
+    open(WORKER_LOG, "w").close()
+    genetics.ProcessPoolMap = TimedPool
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        par = cli_run(argv + ["%sx%d" % (OPTIMIZE_SEARCH, OPTIMIZE_WORKERS)])
+        par_seconds = time.perf_counter() - t0
+    finally:
+        genetics.ProcessPoolMap = plain
+    parent = read_counts()
+    with open(WORKER_LOG) as f:
+        rows = [json.loads(line) for line in f]
+    workers = {}
+    for row in rows:
+        w = workers.setdefault(row["pid"], {"individuals": 0,
+                                            "peak_allocated_bytes": 0,
+                                            "reserved_bytes": 0})
+        w["individuals"] += 1
+        for key in ("peak_allocated_bytes", "reserved_bytes"):
+            w[key] = max(w[key], row[key])
+    worker_counts = dict({name: 0 for name in counts}, **{
+        "bias_grad[%s]" % form: sum(r["launches"][form] for r in rows)
+        for form in ("identity", "masked")})
+    emit({"phase": "optimize", "search": OPTIMIZE_SEARCH,
+          "workers": OPTIMIZE_WORKERS,
+          "in_process": {"best_fitness": seq.best_fitness,
+                         "best_values": seq.best_values,
+                         "evaluations": seq.evaluations,
+                         "history": seq.history, "seconds": seq_seconds,
+                         "seconds_per_individual":
+                             seq_seconds / max(seq.evaluations, 1),
+                         "launches": counts},
+          "parallel": {"best_fitness": par.best_fitness,
+                       "best_values": par.best_values,
+                       "evaluations": par.evaluations,
+                       "history": par.history, "seconds": par_seconds,
+                       "parent_launches": parent,
+                       "worker_launches": worker_counts},
+          "individuals": [{k: r[k] for k in ("pid", "values", "fitness",
+                                             "seconds",
+                                             "peak_allocated_bytes")}
+                          for r in rows],
+          "per_worker": {str(pid): w for pid, w in workers.items()}})
+    if seq.evaluations != OPTIMIZE_EVALUATIONS \
+            or par.evaluations != OPTIMIZE_EVALUATIONS:
+        fail("optimize: %d and %d evaluations, expected %d"
+             % (seq.evaluations, par.evaluations, OPTIMIZE_EVALUATIONS))
+    expect_mnist_launches(counts, OPTIMIZE_EVALUATIONS * 2 * MNIST_TRAIN_STEPS,
+                          "optimize (in process)")
+    if len(rows) != OPTIMIZE_EVALUATIONS or len(workers) > OPTIMIZE_WORKERS:
+        fail("optimize: %d individuals in %d worker processes, expected %d "
+             "in at most %d" % (len(rows), len(workers),
+                                OPTIMIZE_EVALUATIONS, OPTIMIZE_WORKERS))
+    expect_mnist_launches(parent, 0, "optimize (parallel, parent)")
+    expect_mnist_launches(worker_counts,
+                          OPTIMIZE_EVALUATIONS * 2 * MNIST_TRAIN_STEPS,
+                          "optimize (parallel, workers)")
+    if (par.best_fitness, par.best_values, par.history) != \
+            (seq.best_fitness, seq.best_values, seq.history):
+        fail("optimize: the workers' search %s differs from the in-process "
+             "one %s" % ((par.best_fitness, par.best_values, par.history),
+                         (seq.best_fitness, seq.best_values, seq.history)))
+    return counts, worker_counts
+
+
+def mnist_defaults(max_epochs):
+    """The MNIST sample's module with its ``root.mnist`` defaults run
+    again (an earlier run's overrides and search values gone) and
+    ``max_epochs``."""
+    from veles_torch.__main__ import import_file
+    from veles_torch.config import root
+    module = import_file(MNIST_SAMPLE, "chip_smoke_mnist")
+    root.mnist.decision.max_epochs = max_epochs
+    return module
+
+
+def check_shell_forge(torch, tmp):
+    """Phase shell_forge: a card MNIST run stopped by its headless shell
+    at the first epoch's end, its checkpoint and inference archive through
+    the forge client, the fetched checkpoint resumed on the card; -> the
+    two runs' launches."""
+    from veles_torch import forge_client, model_health, prng
+    from veles_torch.launcher import Launcher
+    from veles_torch.snapshotter import load_snapshot
+
+    def launch(wf, restore=None):
+        with model_health.scoped():
+            launcher = Launcher(device=SEARCH_DEVICE)
+            launcher.initialize(wf)
+            if restore is not None:
+                wf.restore_state(restore)
+            launcher.run()
+        search_sync(torch)
+        return read_counts()
+
+    module = mnist_defaults(SHELL_MAX_EPOCHS)
+    prng.seed_all(1337)
+    wf = module.create_workflow(name="ShellForge")
+    shell = wf.link_shell(commands=["stop()"])
+    wf.link_snapshotter(directory=os.path.join(tmp, "snaps"))
+    reset_counts()
+    stopped = launch(wf)
+    history = wf.decision.history
+    if shell.activations != 1 or shell.results != [("stop()", None)] \
+            or len(history) != 1 or wf.step.train_steps != MNIST_TRAIN_STEPS:
+        fail("shell_forge: the shell ran %d time(s) (%s), the run kept %d "
+             "epoch(s) and %d train steps; expected one stop after epoch 1"
+             % (shell.activations, shell.results, len(history),
+                wf.step.train_steps))
+    expect_mnist_launches(stopped, MNIST_TRAIN_STEPS, "shell_forge (stop)")
+    ckpt = wf.snapshotter.export_snapshot(slot="current")
+    archive = os.path.join(tmp, "archive")
+    wf.export_inference(archive)
+    store = os.path.join(tmp, "forge")
+    t0 = time.perf_counter()
+    package = forge_client.upload("mnist_shell", [ckpt, ("archive", archive)],
+                                  store=store, version="1",
+                                  workflow=wf.name)
+    dest = os.path.join(tmp, "fetched")
+    meta = forge_client.fetch("mnist_shell", dest, store=store)
+    forge_seconds = time.perf_counter() - t0
+    fetched = os.path.join(dest, os.path.basename(ckpt))
+    for a, b in ((ckpt, fetched),) + tuple(
+            (os.path.join(archive, n), os.path.join(dest, "archive", n))
+            for n in sorted(os.listdir(archive))):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                fail("shell_forge: %s fetched unlike %s" % (b, a))
+    module = mnist_defaults(2)
+    prng.seed_all(1337)
+    resumed_wf = module.create_workflow(name="ShellForge")
+    reset_counts()
+    resumed = launch(resumed_wf, restore=load_snapshot(fetched))
+    if len(resumed_wf.decision.history) != 2 \
+            or resumed_wf.decision.history[0] != history[0]:
+        fail("shell_forge: the resumed history %s does not continue %s"
+             % (resumed_wf.decision.history, history))
+    expect_mnist_launches(resumed, MNIST_TRAIN_STEPS, "shell_forge (resume)")
+    emit({"phase": "shell_forge", "stopped_history": history,
+          "stopped_launches": stopped, "package_bytes":
+              os.path.getsize(package), "package_files": meta["files"],
+          "forge_seconds": forge_seconds,
+          "resumed_history": resumed_wf.decision.history,
+          "resumed_launches": resumed})
+    return {name: stopped[name] + resumed[name] for name in stopped}
+
+
+def check_search_slice(torch):
+    """Phases ensemble, optimize and shell_forge; -> launches by path."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_search_")
+    try:
+        ensemble = check_ensemble(torch)
+        optimize, workers = check_optimize(torch, tmp)
+        shell_forge = check_shell_forge(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"ensemble": ensemble, "optimize": optimize,
+            "optimize_workers": workers, "shell_forge": shell_forge}
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -4484,9 +4797,10 @@ def main(argv=None):
     unsupervised = check_unsupervised(torch)
     plots = check_plots(torch)
     serve_http = check_serve_http(torch)
+    search = check_search_slice(torch)
     paths = {**ae, **serving, **lm_slice, "resume": resume,
              "model_health": health, "unsupervised": unsupervised,
-             "plots": plots, "serve_http": serve_http}
+             "plots": plots, "serve_http": serve_http, **search}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

@@ -7,6 +7,7 @@ the same keys; the model-health plane's ``register_health`` and
 ``install_model_slos`` flip readiness on a diverged verdict in both."""
 
 import json
+import types
 
 import pytest
 
@@ -32,9 +33,39 @@ SCRIPT = [([0.01] * 5, 5, 0)] * 4 + [([0.5] * 5, 5, 3)] * 6 + \
     [([0.01] * 5, 5, 0)] * 30
 
 
-def _run(health, telemetry, tmp_path):
+class _Clock:
+    """The one clock of a run: every tick (the monitor's own at
+    construction, ``add_slo`` and ``add_check``, and the scripted ones)
+    and ``history_doc``'s read see ``now``, never the wall clock."""
+
+    def __init__(self, now):
+        self.now = float(now)
+
+    def time(self):
+        return self.now
+
+
+@pytest.fixture(autouse=True)
+def quiet_port_monitor():
+    """The port's process-global health monitor, when an earlier test's
+    training run in this process started it, samples on a thread of its
+    own and evaluates its SLOs into whatever registry is active: into
+    the scoped registry of a run below, at times the machine's load
+    decides. Close it (its sampler thread joined) for this test; the next
+    ``get_monitor()`` makes a fresh one. The reference's is closed after
+    every test by ``tests/conftest.py``."""
+    previous = TH.set_monitor(None)
+    if previous is not None:
+        previous.close()
+    yield
+
+
+def _run(health, telemetry, tmp_path, monkeypatch):
     path = tmp_path / "slos.json"
     path.write_text(json.dumps(SLOS))
+    clock = _Clock(999.0)
+    monkeypatch.setattr(health, "time", types.SimpleNamespace(
+        time=clock.time))
     with telemetry.scoped():
         mon = health.HealthMonitor(interval=3600.0)
         try:
@@ -55,6 +86,7 @@ def _run(health, telemetry, tmp_path):
                 req.inc(n)
                 err.inc(bad)
                 flag["ok"] = i != 12
+                clock.now = 1000.0 + i
                 mon.tick(now=1000.0 + i)
                 ready, reasons = mon.ready_state()
                 doc = mon.probe("/readyz")[1]
@@ -75,9 +107,9 @@ def _run(health, telemetry, tmp_path):
             mon.close()
 
 
-def test_same_series_same_alerts_reasons_and_history(tmp_path):
-    ref = _run(JH, JT, tmp_path)
-    port = _run(TH, TT, tmp_path)
+def test_same_series_same_alerts_reasons_and_history(tmp_path, monkeypatch):
+    ref = _run(JH, JT, tmp_path, monkeypatch)
+    port = _run(TH, TT, tmp_path, monkeypatch)
     assert ref[0] == port[0]
     assert ref[1] == port[1]
     assert ref[2][-4:] == port[2][-4:]

@@ -202,3 +202,58 @@ def test_http_serving_plane_modules_are_scanned(module):
     reference's telemetry, reactor, health, web status and tenants, and
     the registry and frontend) are among the files both checks read."""
     assert os.path.join(REPO, "veles_torch", module) in _port_files()
+
+
+@pytest.mark.parametrize("module", [
+    "config.py", "genetics.py", "ensemble.py", "interaction.py",
+    "forge_client.py"])
+def test_search_ensemble_shell_and_forge_modules_are_scanned(module):
+    """The Tune config, the genetic search, the ensemble, the shell and
+    the forge client are among the files both checks read."""
+    assert os.path.join(REPO, "veles_torch", module) in _port_files()
+
+
+def test_search_ensemble_shell_and_forge_load_no_jax_or_veles(tmp_path):
+    """In a fresh interpreter: a genetic search over a Tune leaf in two
+    spawned workers and an ensemble of two members, both through the CLI
+    on the CPU, a headless shell stopping a run, and a forge round trip
+    of a checkpoint; no jax or veles module is loaded (the workers import
+    what the parent's pickles name: the port only)."""
+    script = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import os, json\n"
+        "from veles_torch.__main__ import main\n"
+        "from veles_torch import forge_client\n"
+        "from veles_torch.config import root\n"
+        "from veles_torch.znicz.models import mnist\n"
+        "out = %r\n"
+        "cfg = os.path.join(out, 'cfg.py')\n"
+        "small = ['root.mnist.loader.n_train=80', 'root.mnist.loader.n_valid=40',\n"
+        "         'root.mnist.loader.minibatch_size=40',\n"
+        "         'root.mnist.decision.max_epochs=1', '-d', 'cpu']\n"
+        "path = mnist.__file__\n"
+        "if __name__ == '__main__':\n"
+        "    open(cfg, 'w').write('from veles_torch.config import root, Tune\\n'\n"
+        "        'root.mnist.layers[1][\"<-\"][\"learning_rate\"] = '\n"
+        "        'Tune(0.02, 0.005, 0.1)\\n')\n"
+        "    main([path, cfg, *small, '--optimize', '1x3x2'])\n"
+        "    main([path, *small, '--ensemble', '2'])\n"
+        "    wf = mnist.create_workflow()\n"
+        "    wf.link_shell(commands=['stop()'])\n"
+        "    wf.link_snapshotter(directory=os.path.join(out, 's'))\n"
+        "    wf.initialize(device='cpu').run()\n"
+        "    ckpt = wf.snapshotter.export_snapshot(slot='current')\n"
+        "    forge_client.upload('m', [ckpt], store=os.path.join(out, 'f'))\n"
+        "    forge_client.fetch('m', os.path.join(out, 'g'),\n"
+        "                       store=os.path.join(out, 'f'))\n"
+        "    new = set(sys.modules) - before\n"
+        "    print(sorted(m for m in new if m.split('.')[0] in %r))\n"
+        % (str(tmp_path), FORBIDDEN))
+    path = tmp_path / "drive.py"
+    path.write_text(script)
+    out = subprocess.run([sys.executable, str(path)], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout[-2000:]

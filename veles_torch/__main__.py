@@ -14,6 +14,7 @@
                           [--export-inference DIR]
                           [--generate IDS | --generate-text PROMPT
                            [--gen-tokens N] [--gen-temperature T]]
+                          [--ensemble N | --optimize GENSxPOP[xWORKERS]]
     python -m veles_torch checkpoints <DIR|URL> [--json]
     python -m veles_torch serve --model NAME=DIR [...] [-d cuda|cpu]
     python -m veles_torch debug URL [--window SECS] [--trace-out PATH]
@@ -64,6 +65,22 @@ text-corpus LM's character vocabulary (``root.lm.loader.text_file``) and
 prints the prompt with its continuation. These lines come before the
 final JSON line.
 
+``--ensemble N`` trains N members of the workflow, member ``i`` after
+``prng.seed_all(base + i)`` (base: ``--seed``, else 1000), and prints
+their validation errors and the error of their mean output
+(``ensemble.py``). ``--optimize GENSxPOP`` runs the genetic search over
+every ``Tune`` leaf of the config (``genetics.py``; POP defaults to 12),
+each individual one training run in this process through the launcher,
+after ``prng.seed_all(seed)`` (``--seed``, else 1); ``GENSxPOPxWORKERS``
+evaluates each generation in WORKERS spawned processes
+(``ProcessPoolMap``, ``SubprocessTrainer``), which share the card; the
+kernels are built once before they start. Both print the reference's
+report as the last line of standard output (``ensemble_error``,
+``member_errors``, ``n_valid``; ``best_fitness``, ``best_values``,
+``evaluations`` and, with workers, ``workers``) and write it to
+``--result-file``. The inner runs of ``--optimize`` write no result
+file, export, plots or dashboard.
+
 ``checkpoints DIR`` audits a snapshot store (a directory or an
 ``http(s)://`` base): every checkpoint with its manifest verdict (valid,
 legacy, corrupt), slot, schema, health verdict and age, or ``--json``
@@ -73,10 +90,13 @@ rows; exit 1 when one is corrupt, 2 when the store cannot be read.
 ``debug URL`` reads the ``/debug/events`` and ``/debug/trace`` surfaces
 of a live dashboard or serving frontend (exit 2 when unreachable). The
 reference CLI's options the port has not ported raise
-``NotImplementedError`` naming their ROADMAP item.
+``NotImplementedError`` naming their ROADMAP item (``UNPORTED``; also
+``--optimize slave``, the genetic search over registered slaves, item
+10).
 """
 
 import argparse
+import gc
 import importlib.util
 import json
 import logging
@@ -85,7 +105,7 @@ import sys
 
 import numpy
 
-from veles_torch import prng, telemetry
+from veles_torch import model_health, prng, telemetry
 from veles_torch.config import root
 from veles_torch.launcher import Launcher
 from veles_torch.snapshotter import scan_checkpoints
@@ -102,8 +122,6 @@ UNPORTED = (
     ("--grad-topk-percent", {"type": float}, 10),
     ("--stash-interval", {"type": int}, 10),
     ("--continual", {"type": int, "nargs": "?", "const": 0}, 6),
-    ("--ensemble", {"type": int}, 13),
-    ("--optimize", {}, 13),
     ("--workflow-graph", {}, 11),
     ("--dump-unit-sizes", {"action": "store_true"}, 11),
     ("--no-stats", {"action": "store_true"}, 11),
@@ -184,6 +202,14 @@ def build_argparser():
     p.add_argument("--gen-temperature", type=float, default=0.0,
                    help="sampling temperature for --generate "
                         "(0 = greedy)")
+    p.add_argument("--ensemble", type=int, default=None, metavar="N",
+                   help="train N members under consecutive seeds and "
+                        "report the ensemble's and each member's "
+                        "validation error")
+    p.add_argument("--optimize", default=None, metavar="GENSxPOP[xWORKERS]",
+                   help="genetic search over the config's Tune leaves: "
+                        "GENS generations of POP individuals (default "
+                        "12), in WORKERS spawned processes when given")
     for flag, kwargs, item in UNPORTED:
         p.add_argument(flag, default=None,
                        help="not ported yet (ROADMAP Queue 1 item %d)" % item,
@@ -198,6 +224,9 @@ def refuse_unported(args):
             raise NotImplementedError(
                 "%s is not ported yet (ROADMAP Queue 1 item %d)"
                 % (flag, item))
+    if args.optimize == "slave":
+        raise NotImplementedError(
+            "--optimize slave is not ported yet (ROADMAP Queue 1 item 10)")
 
 
 def _log_to_stdout():
@@ -338,8 +367,9 @@ def debug_main(argv):
 
 
 def main(argv=None):
-    """Run the CLI; -> the trained workflow (the exit code for
-    ``checkpoints``, ``serve`` and ``debug``)."""
+    """Run the CLI; -> the trained workflow (the :class:`Ensemble` for
+    ``--ensemble``, the :class:`GeneticOptimizer` for ``--optimize``, the
+    exit code for ``checkpoints``, ``serve`` and ``debug``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "checkpoints":
         return checkpoints_main(argv[1:])
@@ -376,6 +406,57 @@ def main(argv=None):
         json.dump(root.to_dict(), sys.stderr, indent=2, sort_keys=True,
                   default=str)
         print(file=sys.stderr)
+    if args.optimize or args.ensemble:
+        result_file = args.result_file
+        if args.optimize:
+            # the inner runs write no result file, export, plots or
+            # dashboard
+            args.result_file = args.export_inference = None
+            args.graphics_dir = args.web_status = None
+            outcome, report = optimize(args, module)
+        else:
+            outcome, report = ensemble(args, module)
+        if result_file:
+            with open(result_file, "w") as f:
+                json.dump(report, f, indent=2)
+        print(json.dumps(report), flush=True)
+        return outcome
+
+    def encode_prompt(wf):
+        nonlocal prompt
+        if args.generate_text:
+            try:
+                prompt = wf.loader.encode(args.generate_text)
+            except ValueError as exc:
+                raise SystemExit("--generate-text: %s" % exc)
+
+    wf = run_workflow(args, module, before_run=encode_prompt)
+    if args.export_inference:
+        wf.export_inference(args.export_inference)
+        print("inference archive -> %s" % args.export_inference, flush=True)
+    if prompt is not None:
+        out = generate(wf, prompt, args.gen_tokens,
+                       temperature=args.gen_temperature)
+        if args.generate_text:
+            text = args.generate_text + wf.loader.decode(out[0])
+            print("generated: %s" % text, flush=True)
+        else:
+            print("generated: %s" % ",".join(str(t) for t in
+                                             out[0].tolist()), flush=True)
+    result = {"workflow": wf.name, "device": str(wf.device.device),
+              "history": wf.decision.history,
+              "best_metric": float(wf.decision.best_metric)}
+    if args.result_file:
+        with open(args.result_file, "w") as f:
+            json.dump(result, f, indent=2)
+    print(json.dumps(result), flush=True)
+    return wf
+
+
+def run_workflow(args, module, before_run=None):
+    """One training run of ``module.create_workflow()`` under the CLI's
+    options, through the launcher; ``before_run(wf)`` is called once the
+    workflow is initialized. -> the trained workflow."""
     wf = module.create_workflow()
     if args.generate_text and not hasattr(wf.loader, "encode"):
         raise SystemExit("--generate-text needs a text-corpus loader "
@@ -400,11 +481,8 @@ def main(argv=None):
         telemetry.tracer.start()
     try:
         launcher.initialize(wf)
-        if args.generate_text:
-            try:
-                prompt = wf.loader.encode(args.generate_text)
-            except ValueError as exc:
-                raise SystemExit("--generate-text: %s" % exc)
+        if before_run is not None:
+            before_run(wf)
         launcher.run()
     finally:
         launcher.close()
@@ -415,26 +493,62 @@ def main(argv=None):
                 print("trace -> %s" % args.trace_out, flush=True)
             except OSError as exc:
                 print("trace dump failed: %s" % exc, file=sys.stderr)
-    if args.export_inference:
-        wf.export_inference(args.export_inference)
-        print("inference archive -> %s" % args.export_inference, flush=True)
-    if prompt is not None:
-        out = generate(wf, prompt, args.gen_tokens,
-                       temperature=args.gen_temperature)
-        if args.generate_text:
-            text = args.generate_text + wf.loader.decode(out[0])
-            print("generated: %s" % text, flush=True)
-        else:
-            print("generated: %s" % ",".join(str(t) for t in
-                                             out[0].tolist()), flush=True)
-    result = {"workflow": wf.name, "device": str(wf.device.device),
-              "history": wf.decision.history,
-              "best_metric": float(wf.decision.best_metric)}
-    if args.result_file:
-        with open(args.result_file, "w") as f:
-            json.dump(result, f, indent=2)
-    print(json.dumps(result), flush=True)
     return wf
+
+
+def optimize(args, module):
+    """``--optimize GENSxPOP[xWORKERS]``: the genetic search over every
+    Tune leaf of ``root``; -> (the optimizer, the report)."""
+    from veles_torch.genetics import (
+        GeneticOptimizer, ProcessPoolMap, SubprocessTrainer, apply_values,
+        find_tunables, optimize_config)
+    seed = args.seed if args.seed is not None else 1
+    parts = args.optimize.split("x")
+    gens = int(parts[0])
+    pop = int(parts[1]) if len(parts) > 1 and parts[1] else 12
+    workers = int(parts[2]) if len(parts) > 2 else 1
+    if workers > 1:
+        evaluate = SubprocessTrainer(args.workflow, args.config,
+                                     overrides=args.overrides, seed=seed,
+                                     device=args.device)
+        if args.device != "cpu":
+            # the workers load these libraries; none of them builds
+            from veles_torch import kernels
+            kernels.build()
+        with ProcessPoolMap(workers) as pool:
+            opt = GeneticOptimizer(evaluate, find_tunables(root),
+                                   generations=gens, population_size=pop,
+                                   seed=seed, map_fn=pool)
+            best_values, _ = opt.run()
+        if best_values is not None:
+            apply_values(root, best_values)
+    else:
+        def run_one():
+            prng.seed_all(seed)   # the same universe for every individual
+            with model_health.scoped():
+                metric = float(run_workflow(args, module).decision.best_metric)
+            gc.collect()   # the run's cycles, as SubprocessTrainer does
+            return metric
+
+        opt = optimize_config(root, run_one, generations=gens,
+                              population_size=pop, seed=seed)
+    report = {"best_fitness": opt.best_fitness,
+              "best_values": opt.best_values,
+              "evaluations": opt.evaluations}
+    if workers > 1:
+        report["workers"] = workers
+    return opt, report
+
+
+def ensemble(args, module):
+    """``--ensemble N``: N members from consecutive seeds; -> (the
+    Ensemble, its report)."""
+    from veles_torch.ensemble import Ensemble
+    ens = Ensemble(lambda name: module.create_workflow(),
+                   n_models=args.ensemble, base_seed=args.seed or 1000,
+                   device=args.device)
+    ens.train()
+    return ens, ens.evaluate_classification()
 
 
 if __name__ == "__main__":

@@ -6,7 +6,11 @@ Counterpart of ``veles/config.py``, kept to what the samples read:
 * sub-trees auto-vivify on attribute access, so config code can write
   ``root.mnist.decision.max_epochs = 3`` directly;
 * ``Config.update(dict)`` deep-merges nested dicts;
-* CLI dot-path overrides (``root.a.b=3`` with python-literal values).
+* CLI dot-path overrides (``root.a.b=3`` with python-literal values);
+* ``Tune(default, min, max)`` leaves marking a value searchable by the
+  genetic optimizer (``genetics.py``): a read resolves one to its
+  ``default``, :meth:`Config.raw` returns the leaf itself, and
+  :meth:`Config.tunables` lists them by dotted path.
 """
 
 import ast
@@ -14,8 +18,45 @@ import os
 from typing import Any, Dict, Iterator, Tuple
 
 
+class Tune:
+    """A config leaf marked as tunable by the genetic optimizer: reads
+    through :class:`Config` give its ``default``; ``min_value`` and
+    ``max_value`` bound the search. It is discrete when the default and
+    both ends are ints (not bools), unless ``discrete`` says otherwise."""
+
+    __slots__ = ("default", "min_value", "max_value", "discrete")
+
+    def __init__(self, default, min_value, max_value, discrete=None):
+        self.default = default
+        self.min_value = min_value
+        self.max_value = max_value
+        if discrete is None:
+            discrete = all(
+                isinstance(v, int) and not isinstance(v, bool)
+                for v in (default, min_value, max_value))
+        self.discrete = discrete
+
+    def clip(self, value):
+        """``value`` clipped into [min_value, max_value], rounded to an
+        int when discrete."""
+        value = max(self.min_value, min(self.max_value, value))
+        if self.discrete:
+            value = int(round(value))
+        return value
+
+    def __repr__(self):
+        return ("Tune(%r, %r, %r)"
+                % (self.default, self.min_value, self.max_value))
+
+
+def _resolve(value):
+    return value.default if isinstance(value, Tune) else value
+
+
 class Config:
-    """A node in the global config tree."""
+    """A node in the global config tree. Attribute reads of missing names
+    make child nodes; writes store leaves as given (a :class:`Tune`
+    included), and reads resolve a :class:`Tune` to its default."""
 
     def __init__(self, path: str):
         object.__setattr__(self, "_path", path)
@@ -27,7 +68,7 @@ class Config:
         items = object.__getattribute__(self, "_items")
         if name not in items:
             items[name] = Config("%s.%s" % (self._path, name))
-        return items[name]
+        return _resolve(items[name])
 
     def __setattr__(self, name: str, value: Any) -> None:
         if name.startswith("_"):
@@ -43,7 +84,12 @@ class Config:
         return name in object.__getattribute__(self, "_items")
 
     def get(self, name: str, default: Any = None) -> Any:
-        return object.__getattribute__(self, "_items").get(name, default)
+        items = object.__getattribute__(self, "_items")
+        return _resolve(items[name]) if name in items else default
+
+    def raw(self, name: str) -> Any:
+        """The stored leaf, a :class:`Tune` unresolved."""
+        return object.__getattribute__(self, "_items")[name]
 
     def update(self, tree: Dict[str, Any]) -> "Config":
         """Deep-merge a nested dict into this node."""
@@ -87,9 +133,25 @@ class Config:
     def items(self) -> Iterator[Tuple[str, Any]]:
         return iter(object.__getattribute__(self, "_items").items())
 
+    def flatten(self, prefix: str = "") -> Dict[str, Any]:
+        """{dotted path: stored leaf} of every leaf under this node."""
+        out = {}
+        for key, value in self.items():
+            full = "%s.%s" % (prefix, key) if prefix else key
+            if isinstance(value, Config):
+                out.update(value.flatten(full))
+            else:
+                out[full] = value
+        return out
+
+    def tunables(self, prefix: str = "") -> Dict[str, Tune]:
+        """All Tune leaves under this node, keyed by dotted path."""
+        return {k: v for k, v in self.flatten(prefix).items()
+                if isinstance(v, Tune)}
+
     def to_dict(self) -> Dict[str, Any]:
-        return {key: value.to_dict() if isinstance(value, Config) else value
-                for key, value in self.items()}
+        return {key: value.to_dict() if isinstance(value, Config)
+                else _resolve(value) for key, value in self.items()}
 
     def __repr__(self):
         return "<Config %s: %d item(s)>" % (
@@ -110,6 +172,10 @@ root.common.update({
         "snapshots": os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
             "snapshots"),
+        # the forge client's package store when none is given
+        "forge": os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "forge"),
     },
     # dtype policy overrides read by backends.TorchDevice:
     # compute_dtype (matmul inputs) and amp (tensors between units)

@@ -50,8 +50,9 @@ into an initialized workflow; :meth:`NNWorkflow.stash_state` /
 :meth:`NNWorkflow.restore_stash` are NNRollback's copies on the
 device. After each class of an epoch reaches the decision the workflow
 runs, in the reference's order, the end of the epoch's bookkeeping (the
-loader moves to the next epoch), at an epoch's end the plotters, then
-the snapshotter (:meth:`NNWorkflow.link_snapshotter`, or
+loader moves to the next epoch), at an epoch's end the plotters and the
+shell (:meth:`NNWorkflow.link_shell`, ``interaction.py``), then the
+snapshotter (:meth:`NNWorkflow.link_snapshotter`, or
 ``snapshotter_config``) and the rollback (:meth:`NNWorkflow.link_rollback`).
 
 A checkpoint holds the state at the last class boundary the run passed:
@@ -70,7 +71,9 @@ import numpy
 import torch
 
 from veles_torch.backends import get_device
+from veles_torch.config import _resolve
 from veles_torch.export_inference import export_inference
+from veles_torch.interaction import Shell
 from veles_torch.snapshotter import (
     CorruptCheckpointError, Snapshotter, host_copy)
 from veles_torch.znicz.decision import DecisionGD, DecisionMSE
@@ -99,6 +102,14 @@ def normalize_layers(layers):
     return out
 
 
+def _resolved(spec):
+    """A layer spec's kwargs with Tune leaves collapsed to their defaults:
+    the layer dicts are plain python, so Config's read-time resolution
+    does not reach them (the genetic optimizer writes concrete values
+    into the same leaves)."""
+    return {k: _resolve(v) for k, v in spec.items()}
+
+
 class NNWorkflow:
     """The slots, run loop and state of a workflow of the port."""
 
@@ -119,6 +130,8 @@ class NNWorkflow:
         self.snapshotter = None
         self.rollback = None
         self.image_saver = None
+        #: the interactive shell run at each epoch's end (link_shell)
+        self.shell = None
         #: plot units run once an epoch after the decision
         self.plotters = []
         #: the GraphicsServer plots publish to (set by the launcher)
@@ -186,6 +199,14 @@ class NNWorkflow:
         self._keep_entry()
         return self.rollback
 
+    def link_shell(self, commands=None):
+        """A :class:`Shell` (``interaction.py``) run at each epoch's end,
+        after the decision and the plotters: an interactive console on a
+        TTY, else ``commands`` if given. Its ``stop()`` is :meth:`stop`.
+        -> it."""
+        self.shell = Shell(self, commands=commands)
+        return self.shell
+
     def run(self):
         """Train until the decision completes or :meth:`stop` is
         called."""
@@ -201,6 +222,8 @@ class NNWorkflow:
             self.loader.next_epoch()
             for plotter in self.plotters:
                 plotter.run()
+            if self.shell is not None:
+                self.shell.run()
         if self.snapshotter is not None:
             self.snapshotter.run()
         if self.rollback is not None:
@@ -401,7 +424,7 @@ class StandardWorkflow(NNWorkflow):
         self.loader = loader_factory(self)
         for spec in self.layers_config:
             cls = forward_by_name(spec["type"])
-            kwargs = dict(spec.get("->", {}))
+            kwargs = _resolved(spec.get("->", {}))
             src = kwargs.get("output_shape_source")
             if isinstance(src, int) and not isinstance(src, bool):
                 kwargs["output_shape_source"] = self.forwards[src]
@@ -423,7 +446,7 @@ class StandardWorkflow(NNWorkflow):
             fwd = self.forwards[i]
             gd = gradient_unit_for(type(fwd))(
                 need_err_input=i > 0,
-                **dict(self.layers_config[i].get("<-", {})))
+                **_resolved(self.layers_config[i].get("<-", {})))
             gd.name = self._unique(gd.name)
             self.gds[i] = gd.setup_forward(fwd)
         self.zero_fillers = []
