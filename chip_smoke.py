@@ -331,12 +331,30 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     inference archive packaged and fetched back by the forge client, byte
     for byte, and the fetched checkpoint resumed on the card to a second
     epoch (60 more of each form, the first epoch's history kept);
-29. the ``kernels`` summary line (the bias gradient's launches summed
+29. profiling — the 110M LM as phase 8 runs it (16 train steps) under a
+    fresh registry: ``veles_step_flops_total{kind="train"}`` equal to the
+    step's counted signature costs (``perf.py``; a stats-due step and a
+    plain one apart) over its train steps, the flash kernels' reported
+    work a train step equal to ``FLASH_WORK``'s at ``FLASH_MAIN``,
+    ``veles_step_mfu_ratio{kind="train"}`` in (0, 1] (printed with the
+    FLOP/s, tokens/s and each train step's flops, bytes and precision),
+    ``veles_device_memory_bytes{kind="peak_bytes_in_use"}`` equal to
+    ``torch.cuda.max_memory_allocated()``, and the counting's price: a
+    train minibatch timed plainly and counted in turns; then the
+    full-width MNIST sample through the CLI with ``--web-status 0``, 3
+    epochs, while it trains ``/debug/profile?seconds=2`` (speedscope, the
+    main thread and the reactor named), ``/debug/critical_path`` (200)
+    and ``python -m veles_torch top --once --json`` in a child process
+    (the target ready, its RSS and device memory read); launches 240
+    forward, 192 fused backward and 1168 identity for the LM, 180 of each
+    bias-gradient form for MNIST (the counted minibatch is one of the
+    run's own: no extra launch);
+30. the ``kernels`` summary line (the bias gradient's launches summed
     over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume,
     model-health, unsupervised, plots, serve_http, ensemble, optimize (in
-    process and in the workers) and shell_forge runs, each path's beside
-    it, the serving paths' among them), the card line, and last
-    ``{"ok": true, "device": {...}}``.
+    process and in the workers), shell_forge and profiling runs, each
+    path's beside it, the serving paths' among them), the card line, and
+    last ``{"ok": true, "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
@@ -387,10 +405,6 @@ AE_SHAPES = ((57600, 9), (20000, 8))
 #: the bias-gradient kernel in a profiler trace (``bias_grad_kernel<T,
 #: ACT, VEC>`` in csrc/bias_grad.cu)
 BIAS_GRAD_KERNEL = "bias_grad_kernel"
-#: f32 operations per element of the masked sum, by activation
-#: (derivative, multiply by err, add); the identity form only adds
-OPS_PER_ELEMENT = {"linear": 1, "softmax": 1, "tanh": 5, "relu": 4,
-                   "strict_relu": 3, "sigmoid": 4}
 #: (form, activation timed, main-path shape, TPU kernel replaced)
 FORMS = (("identity", "linear", (100, 10),
           "veles/znicz_tpu/ops/pallas_grads.py:95"),
@@ -628,6 +642,7 @@ def bound_ms(n, k, itemsize, activation):
     """Least time for the function on an H100: inputs read once, the
     (K,) f32 output written once, against the f32 operation count."""
     from veles_torch.znicz.ops import activations as A
+    from veles_torch.znicz.ops.bias_grad import OPS_PER_ELEMENT
     inputs = 1 if A.is_identity(activation) else 2
     nbytes = inputs * n * k * itemsize + 4 * k
     ops = OPS_PER_ELEMENT[activation] * n * k
@@ -3387,6 +3402,29 @@ def health_blowup(torch, tmp):
     return [counts, off_counts]
 
 
+#: seconds a counted profile window leaves the card idle at each end.
+#: The profiler drops the device events it timestamps outside its window,
+#: and its device-to-host clock conversion has been seen to jump by a few
+#: milliseconds on an H100: without the margin, a plotted MNIST epoch once
+#: counted 12 operations fewer than the next one (phase plots)
+COUNT_PAD_S = 0.05
+
+
+@contextlib.contextmanager
+def counted_window(activities, sync):
+    """torch.profiler over the block, for counting its device operations
+    (:func:`count_device_ops`): ``sync()`` and COUNT_PAD_S idle seconds
+    after the window opens and after the block, so that no operation of
+    the block lies near an edge of the window; -> the profile."""
+    from torch.profiler import profile
+    with profile(activities=activities) as prof:
+        sync()
+        time.sleep(COUNT_PAD_S)
+        yield prof
+        sync()
+        time.sleep(COUNT_PAD_S)
+
+
 def count_device_ops(prof):
     """Device operations (kernels, copies, memsets) in a profile; the
     trace is read from a temporary file, not kept."""
@@ -3416,7 +3454,7 @@ def health_110m(torch):
     whatever the stats), the vectors finite with update ratios below 1;
     then on one workflow, in turns, the step's host ms, and its device
     operations from the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     runs, wf = [], None
     for stride in (None, 8, 1):
         flags = ("--model-stats", "off") if stride is None \
@@ -3462,10 +3500,10 @@ def health_110m(torch):
         wf.step.train_minibatch(*batch)
         health_sync(torch)
         # STATS_PROFILED is a multiple of 8: one due step at stride 8
-        with profile(activities=activities) as prof:
+        with counted_window(activities,
+                            functools.partial(health_sync, torch)) as prof:
             for _ in range(STATS_PROFILED):
                 wf.step.train_minibatch(*batch)
-            health_sync(torch)
         ops[stride or "off"] = count_device_ops(prof) / STATS_PROFILED
     set_stats(wf, 8)
     ms = {key: [t for s, t in turns if (s or "off") == key]
@@ -3863,17 +3901,17 @@ def plotted_epoch_ops(torch, wf):
     """Device operations of a MNIST epoch without and with the plotters,
     in turns (without, with, with, without), with the layer stats off: at
     stride 8 the 60 train steps of an epoch hold 7 or 8 due steps."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from veles_torch import model_health
     plotters, ops = wf.plotters, []
     wf.step.set_stats_enabled(False)
+    sync = functools.partial(unsupervised_sync, torch)
     for plotted in (False, True, True, False):
         wf.plotters = plotters if plotted else []
-        unsupervised_sync(torch)
-        with model_health.scoped(), profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sync()
+        with model_health.scoped(), counted_window(
+                [ProfilerActivity.CPU, ProfilerActivity.CUDA], sync) as prof:
             wf.step.run_epoch(wf._after_decision)
-            unsupervised_sync(torch)
         ops.append(count_device_ops(prof))
     wf.plotters = plotters
     wf.step.set_stats_enabled(True)
@@ -4738,6 +4776,239 @@ def check_search_slice(torch):
             "optimize_workers": workers, "shell_forge": shell_forge}
 
 
+# -- the profiling plane: the step's cost ledger, /debug/profile, top -------
+
+PROFILING_DEVICE = "cuda"
+#: the watched run: the full-width MNIST sample, 3 epochs, its dashboard
+#: on a free port
+WATCHED_RUN = ("root.mnist.decision.max_epochs=3", "--seed", "1337",
+               "--web-status", "0")
+#: the capture fetched from the watched run's dashboard while it trains
+PROFILE_SECONDS = 2.0
+#: train minibatches of the 110M timed plainly and under the cost counter,
+#: in turns (plain, counted, counted, plain) of this many each
+COUNT_REPS = 3
+
+
+def profiling_sync(torch):
+    if PROFILING_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def minibatch_ms(torch, wf, batch, counted):
+    """Host ms of one train minibatch of ``wf`` to its sync, under a
+    CostCounter when ``counted``."""
+    from veles_torch import perf
+    profiling_sync(torch)
+    t0 = time.perf_counter()
+    with perf.CostCounter() if counted else contextlib.nullcontext():
+        wf.step.train_minibatch(*batch)
+    profiling_sync(torch)
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def costed_110m(torch):
+    """The 110M LM as ``run_lm`` runs it (16 train steps) under a fresh
+    registry: ``veles_step_flops_total{kind="train"}`` equal to the
+    step's counted signature costs over its train steps, the flash
+    kernels' share of each train step equal to FLASH_WORK's at
+    FLASH_MAIN, ``veles_step_mfu_ratio{kind="train"}`` in (0, 1], and the
+    device memory gauge's peak equal to ``max_memory_allocated``; then
+    the counting's price, a train minibatch plainly and counted in turns.
+    -> (launches, summary)."""
+    from veles_torch import profiling, telemetry
+    from veles_torch.config import root
+    from veles_torch.fleet import metric_total, parse_prometheus
+    from veles_torch.loader.base import CLASS_TRAIN
+    cuda = PROFILING_DEVICE == "cuda"
+    with telemetry.scoped() as registry:
+        wf, counts, summary = run_lm(torch, "110M_costed", PROFILING_DEVICE,
+                                     *LM_110M, valid_must_fall=False,
+                                     phase="profiling")
+        profiling.register_memory_gauges(registry)
+        metrics = parse_prometheus(registry.render_prometheus())
+    step = wf.step
+    costs = {due: c for (cls, _, due), c in step.costs.items()
+             if cls == CLASS_TRAIN}
+    want = sum(costs[step.stats_due(t)].flops
+               for t in range(step.train_steps))
+    got = metric_total(metrics, "veles_step_flops_total", kind="train")
+    if got is None or abs(got - want) > 1e-9 * want:
+        fail("profiling: veles_step_flops_total{kind=\"train\"} %s, the "
+             "step's costs over %d train steps %s"
+             % (got, step.train_steps, want))
+    b, h, s, dh = FLASH_MAIN
+    layers = root.lm.model.layers
+    flash_want = layers * (FLASH_WORK["fwd"][0] + FLASH_WORK["bwd"][0]) \
+        * b * h * s * s * dh / 2 if cuda else 0
+    flash = {due: c.kernel_flops.get("flash_fwd", 0.0)
+             + c.kernel_flops.get("flash_bwd_fused", 0.0)
+             for due, c in costs.items()}
+    if any(f != flash_want for f in flash.values()):
+        fail("profiling: flash work a train step %s, FLASH_WORK at %s: %s"
+             % (flash, FLASH_MAIN, flash_want))
+    mfu = metric_total(metrics, "veles_step_mfu_ratio", kind="train")
+    if cuda and not (mfu is not None and 0 < mfu <= 1):
+        fail("profiling: veles_step_mfu_ratio{kind=\"train\"} %s" % mfu)
+    gauge_peak = metric_total(metrics, "veles_device_memory_bytes",
+                              kind="peak_bytes_in_use")
+    max_alloc = torch.cuda.max_memory_allocated() if cuda else None
+    if gauge_peak != max_alloc:
+        fail("profiling: device memory gauge peak %s, max_memory_allocated"
+             " %s" % (gauge_peak, max_alloc))
+    steps = step.train_steps
+    batch = first_train_batch(torch, wf)
+    minibatch_ms(torch, wf, batch, False)
+    turns = {False: [], True: []}
+    for counted in (False, True, True, False):
+        turns[counted] += [minibatch_ms(torch, wf, batch, counted)
+                           for _ in range(COUNT_REPS)]
+    plain, counted = (sorted(turns[k])[len(turns[k]) // 2]
+                      for k in (False, True))
+    plain_cost = costs[False]
+    summary = {
+        "phase": "profiling", "run": "110M_costed", "card": card_line(),
+        "train_steps": steps,
+        "mfu_ratio": mfu,
+        "flops_per_second": metric_total(
+            metrics, "veles_step_flops_per_second", kind="train"),
+        "tokens_per_second": metric_total(
+            metrics, "veles_step_tokens_per_second", kind="train"),
+        "train_step_flops": {str(due): c.flops for due, c in costs.items()},
+        "train_step_bytes": plain_cost.bytes,
+        "train_step_dot_share": plain_cost.dot_flops / plain_cost.flops,
+        "precision": plain_cost.precision,
+        "kernel_flops_per_train_step": plain_cost.kernel_flops,
+        "flash_flops_per_train_step": flash_want,
+        "flops_total_train": got,
+        "counted_minibatch_ms": counted, "plain_minibatch_ms": plain,
+        "counting_extra_ms": counted - plain, "turn_ms": turns,
+        "device_memory_peak_gauge": gauge_peak,
+        "max_memory_allocated": max_alloc,
+        "device_memory_in_use_gauge": metric_total(
+            metrics, "veles_device_memory_bytes", kind="bytes_in_use"),
+        "launches": counts}
+    emit(summary)
+    return counts, summary
+
+
+def fetch_while_training(url, seen):
+    """The watched run's surfaces, fetched from a thread while it trains:
+    ``top --once --json`` in a child process (started first: its imports
+    take seconds), ``/debug/profile`` and ``/debug/critical_path``."""
+    import subprocess
+    import urllib.request
+    top = subprocess.Popen(
+        [sys.executable, "-m", "veles_torch", "top", url, "--once",
+         "--json", "--timeout", "30"], cwd=HERE, env=child_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        for key, path in (("profile", "/debug/profile?seconds=%g"
+                           % PROFILE_SECONDS),
+                          ("critical_path", "/debug/critical_path")):
+            with urllib.request.urlopen(url + path, timeout=60) as resp:
+                seen[key] = (resp.status, json.load(resp))
+        out, err = top.communicate(timeout=120)
+        seen["top"] = (top.returncode, out, err)
+    except Exception as exc:
+        seen["error"] = "%s: %s" % (type(exc).__name__, exc)
+    finally:
+        if top.poll() is None:
+            top.kill()
+            top.wait()
+
+
+def watched_mnist(torch):
+    """The full-width MNIST sample through the CLI with ``--web-status 0``,
+    3 epochs, its surfaces fetched while it trains (the run waits for the
+    fetches before it closes its dashboard): a speedscope capture naming
+    the main thread and the reactor, ``/debug/critical_path`` 200, and
+    ``top --once --json`` reading the target ready with its RSS and device
+    memory; 180 launches of each bias-gradient form. -> (launches,
+    summary)."""
+    import threading
+    from veles_torch import health, launcher, telemetry
+    seen = {}
+    run = launcher.Launcher.run
+
+    def watched_run(self):
+        url = "http://127.0.0.1:%d" % self.web_status.port
+        health.get_monitor().tick()      # the memory gauges, /readyz
+        fetcher = threading.Thread(target=fetch_while_training,
+                                   args=(url, seen), daemon=True,
+                                   name="profiling-fetch")
+        fetcher.start()
+        train = self._train
+
+        def train_then_wait():
+            train()
+            fetcher.join(timeout=240)
+
+        self._train = train_then_wait
+        return run(self)
+
+    launcher.Launcher.run = watched_run
+    try:
+        with telemetry.scoped(), health.scoped(health.HealthMonitor()):
+            reset_counts()
+            wf = cli_run([MNIST_SAMPLE, "-d", PROFILING_DEVICE,
+                          *WATCHED_RUN])
+            profiling_sync(torch)
+            counts = read_counts()
+    finally:
+        launcher.Launcher.run = run
+    if "error" in seen or set(seen) != {"profile", "critical_path", "top"}:
+        fail("profiling: the watched run's fetches: %s"
+             % seen.get("error", sorted(seen)))
+    cuda = PROFILING_DEVICE == "cuda"
+    steps = wf.step.train_steps
+    want = dict.fromkeys(counts, 0)
+    if cuda:
+        want.update({"bias_grad[identity]": steps,
+                     "bias_grad[masked]": steps})
+    if steps != MNIST_TRAIN_STEPS * 3 or counts != want:
+        fail("profiling: the watched MNIST run's launches %s in %d train "
+             "steps, expected %s" % (counts, steps, want))
+    code, doc = seen["profile"]
+    names = [p["name"] for p in doc.get("profiles", ())]
+    if code != 200 or not doc.get("$schema", "").startswith(
+            "https://www.speedscope.app/") \
+            or not {"MainThread", "reactor"} <= set(names):
+        fail("profiling: /debug/profile answered %s with threads %s"
+             % (code, names))
+    if seen["critical_path"][0] != 200:
+        fail("profiling: /debug/critical_path answered %s"
+             % seen["critical_path"][0])
+    rc, out, err = seen["top"]
+    try:
+        snap = json.loads(out)
+        row = snap["targets"][0]
+    except (ValueError, KeyError, IndexError):
+        fail("profiling: top exited %s: %s %s" % (rc, out[-500:],
+                                                 err[-2000:]))
+    metrics = row.get("metrics", {})
+    if rc != 0 or not row.get("ready") \
+            or not metrics.get("host_rss_bytes", 0) > 0 \
+            or (cuda and not metrics.get("device_memory_bytes", 0) > 0):
+        fail("profiling: top exited %s, row %s" % (rc, row))
+    summary = {"phase": "profiling", "run": "mnist_watched",
+               "train_steps": steps, "launches": counts,
+               "profile_threads": names, "profile_meta": doc.get("veles"),
+               "critical_path_traces": seen["critical_path"][1].get(
+                   "traces"),
+               "top_ready": row.get("ready"), "top_metrics": metrics}
+    emit(summary)
+    return counts, summary
+
+
+def check_profiling(torch):
+    """Phase profiling: the costed 110M run and the watched MNIST run; ->
+    the launches of the two runs together."""
+    lm, _ = costed_110m(torch)
+    mnist, _ = watched_mnist(torch)
+    return add_counts(lm, mnist)
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -4798,9 +5069,11 @@ def main(argv=None):
     plots = check_plots(torch)
     serve_http = check_serve_http(torch)
     search = check_search_slice(torch)
+    profiling = check_profiling(torch)
     paths = {**ae, **serving, **lm_slice, "resume": resume,
              "model_health": health, "unsupervised": unsupervised,
-             "plots": plots, "serve_http": serve_http, **search}
+             "plots": plots, "serve_http": serve_http, **search,
+             "profiling": profiling}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

@@ -13,9 +13,11 @@ import pytest
 
 from veles import health as JH
 from veles import model_health as JMH
+from veles import reactor as JR
 from veles import telemetry as JT
 from veles_torch import health as TH
 from veles_torch import model_health as TMH
+from veles_torch import reactor as TR
 from veles_torch import telemetry as TT
 
 SLOS = [
@@ -46,18 +48,43 @@ class _Clock:
 
 
 @pytest.fixture(autouse=True)
-def quiet_port_monitor():
-    """The port's process-global health monitor, when an earlier test's
-    training run in this process started it, samples on a thread of its
-    own and evaluates its SLOs into whatever registry is active: into
-    the scoped registry of a run below, at times the machine's load
-    decides. Close it (its sampler thread joined) for this test; the next
-    ``get_monitor()`` makes a fresh one. The reference's is closed after
-    every test by ``tests/conftest.py``."""
+def quiet_process_threads():
+    """Threads that outlive a test write into whatever registry is active:
+    the port's process-global health monitor, when an earlier test's
+    training run in this process started it, samples and evaluates its
+    SLOs on a thread of its own, and each package's process-global
+    reactor (started by an earlier frontend or web status) sets its loop
+    lag gauge every 0.25 s. Either lands in the scoped registry of a run
+    below, at times the machine's load decides. Close the port's monitor
+    and stop both reactors (their threads joined) for this test; the next
+    ``get_monitor()`` / ``get_reactor()`` makes fresh ones. The port's
+    process-global tracer is cleared too: its event log holds earlier
+    tests' ``slo_alert`` events (the frontend tests' ``always_bad``),
+    which the comparison of the runs' last events would read. The
+    reference's monitor is closed and its tracer cleared after every
+    test by ``tests/conftest.py``."""
     previous = TH.set_monitor(None)
     if previous is not None:
         previous.close()
+    for reactor in (TR, JR):
+        previous = reactor.set_reactor(None)
+        if previous is not None:
+            previous.stop()
+    TT.tracer.clear()
     yield
+
+
+@pytest.fixture(scope="module")
+def lagging_port_reactor():
+    """The port's process-global reactor started with a 1 ms lag probe,
+    as an earlier test in this process would leave it; module-scoped, so
+    it is started before the function-scoped isolation fixture runs."""
+    reactor = TR.Reactor()
+    reactor.LAG_PROBE_INTERVAL = 0.001
+    TR.set_reactor(reactor)
+    reactor.ensure_started()
+    yield reactor
+    reactor.stop()
 
 
 def _run(health, telemetry, tmp_path, monkeypatch):
@@ -94,11 +121,7 @@ def _run(health, telemetry, tmp_path, monkeypatch):
                     k: (v["firing"], round(v["burn_fast"], 9),
                         round(v["burn_slow"], 9))
                     for k, v in doc["slos"].items()}))
-            # the reference's memory gauges come with the port's
-            # profiling module (ROADMAP Queue 1 item 11)
-            history = {k for k in mon.history_doc()["series"]
-                       if not k.startswith(("veles_host_", "veles_device_",
-                                            "veles_perf_"))}
+            history = set(mon.history_doc()["series"])
             events = [(e["event"], e.get("objective"), e.get("state"))
                       for e in telemetry.tracer.recent_events()
                       if e["event"] == "slo_alert"]
@@ -110,6 +133,10 @@ def _run(health, telemetry, tmp_path, monkeypatch):
 def test_same_series_same_alerts_reasons_and_history(tmp_path, monkeypatch):
     ref = _run(JH, JT, tmp_path, monkeypatch)
     port = _run(TH, TT, tmp_path, monkeypatch)
+    # the memory gauges (veles_host_*, veles_perf_ledger_*) are in both
+    # histories; neither package has device memory to report here
+    assert {"veles_host_rss_bytes", "veles_host_open_fds",
+            "veles_perf_ledger_programs"} <= set(port[1])
     assert ref[0] == port[0]
     assert ref[1] == port[1]
     assert ref[2][-4:] == port[2][-4:]
@@ -148,3 +175,15 @@ def test_divergence_check_and_model_slos(health, mh, telemetry):
                 e["event"] for e in telemetry.tracer.recent_events()]
         finally:
             mon.close()
+
+
+def test_a_running_reactor_writes_into_neither_history(
+        lagging_port_reactor, tmp_path, monkeypatch):
+    """A port reactor left running by an earlier test (here with a 1 ms lag
+    probe) is stopped before the run: the two histories stay equal, with
+    no ``veles_reactor_loop_lag_seconds`` on the port's side."""
+    assert not lagging_port_reactor.alive
+    ref = _run(JH, JT, tmp_path, monkeypatch)
+    port = _run(TH, TT, tmp_path, monkeypatch)
+    assert ref[1] == port[1]
+    assert "veles_reactor_loop_lag_seconds" not in port[1]

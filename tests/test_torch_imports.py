@@ -257,3 +257,10 @@ def test_search_ensemble_shell_and_forge_load_no_jax_or_veles(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout[-2000:]
+
+
+@pytest.mark.parametrize("module", ["perf.py", "profiling.py", "fleet.py"])
+def test_profiling_plane_modules_are_scanned(module):
+    """The per-step cost ledger, the profiling plane and the fleet view
+    are among the files both checks read."""
+    assert os.path.join(REPO, "veles_torch", module) in _port_files()

@@ -3,8 +3,9 @@ package's (veles/telemetry.py): the same observations into both
 registries render the same Prometheus text, family for family; a
 ``traceparent`` minted by either package parses in the other; both
 tracers' dumps and flight windows have the same Perfetto shape; the
-debug routes answer the same, and the profiling surfaces answer 501 in
-the port."""
+debug routes answer the same, ``/debug/critical_path`` included, and
+``/debug/profile`` is left to the frontends in both (its capture blocks,
+so they defer it)."""
 
 import json
 
@@ -133,7 +134,7 @@ def test_debug_routes_answer_as_the_reference():
         assert sorted(J.debug_endpoint(path)) == \
             sorted(T.debug_endpoint(path))
     assert T.debug_endpoint("/debug/nope") is None
-    for path in ("/debug/critical_path?window=3", "/debug/profile"):
-        assert T.debug_endpoint(path) is None
-        assert "item 11" in T.unported_debug_doc(path)["error"]
-    assert T.unported_debug_doc("/debug/trace") is None
+    path = "/debug/critical_path?window=3"
+    assert sorted(J.debug_endpoint(path)) == sorted(T.debug_endpoint(path))
+    assert J.debug_endpoint("/debug/profile") is None
+    assert T.debug_endpoint("/debug/profile") is None

@@ -15,9 +15,13 @@
                           [--generate IDS | --generate-text PROMPT
                            [--gen-tokens N] [--gen-temperature T]]
                           [--ensemble N | --optimize GENSxPOP[xWORKERS]]
+                          [--workflow-graph PATH] [--dump-unit-sizes]
+                          [--no-stats] [--background [--log-file PATH]]
     python -m veles_torch checkpoints <DIR|URL> [--json]
     python -m veles_torch serve --model NAME=DIR [...] [-d cuda|cpu]
     python -m veles_torch debug URL [--window SECS] [--trace-out PATH]
+    python -m veles_torch top URL [URL...] [--interval S|--once|--json]
+    python -m veles_torch profile URL [--seconds N] [--hz H] [--out PATH]
 
 Counterpart of ``python -m veles`` for the samples ported so far: the
 workflow module is imported first (its ``root`` defaults land), then the
@@ -44,14 +48,24 @@ their frames to a renderer process that writes ``DIR/<name>.png`` and
 ``DIR/plots.json`` (``graphics.py``, ``graphics_client.py``; no
 plotting library needed).
 ``--web-status PORT`` serves the run's status dashboard (``web_status.py``:
-``/``, ``/status.json``, the health probes, ``/metrics``, ``/debug/*``)
+``/``, ``/status.json``, the health probes, ``/metrics`` with the
+``veles_step_*`` families of ``perf.py``, ``/debug/*`` with
+``/debug/profile`` and ``/debug/critical_path`` of ``profiling.py``)
 while it trains; ``--slo-config PATH`` loads SLO objectives into the
 health monitor (``health.py``); ``--trace-out PATH`` starts the span
 tracer before the workflow is initialized and dumps it (Chrome trace /
 Perfetto JSON, ``telemetry.py``) when the run ends, also when it fails:
 every class of an epoch is a ``torch.dispatch.<kind>`` span there.
 Each finished epoch prints its summary line; the last line of standard
-output is one JSON object with the decision history. The device is
+output is one JSON object with the decision history. The run's per-unit
+timing table (``print_stats``) goes to standard error at its end unless
+``--no-stats`` is given; ``--dump-unit-sizes`` prints the tensor bytes
+each unit holds after initialize (``print_unit_sizes``, to standard
+error); ``--workflow-graph PATH`` writes the workflow's unit graph as
+graphviz dot (``generate_graph``) and exits without running it;
+``--background`` detaches (a double fork), prints ``{"daemon_pid": N}``
+and returns at once, the daemon appending its output to ``--log-file``
+(default /dev/null). The device is
 ``cuda`` unless ``-d cpu`` is given; asking for ``cuda`` on a host
 without a card fails.
 
@@ -88,8 +102,13 @@ rows; exit 1 when one is corrupt, 2 when the store cannot be read.
 ``serve`` is the reference's ``velescli serve`` on the port
 (``serving/frontend.py``), on ``cuda`` unless ``-d cpu`` is given.
 ``debug URL`` reads the ``/debug/events`` and ``/debug/trace`` surfaces
-of a live dashboard or serving frontend (exit 2 when unreachable). The
-reference CLI's options the port has not ported raise
+of a live dashboard or serving frontend (exit 2 when unreachable).
+``top URL...`` renders a live dashboard of N such targets, or one frame
+(``--once``) or snapshot document (``--json``) of them (``fleet.py``;
+exit 2 when none is reachable); ``profile URL`` captures a sampling
+profile off one (``/debug/profile``) and prints its per-thread summary,
+or saves the speedscope JSON (``--out``; exit 2 when unreachable or
+garbled). The reference CLI's options the port has not ported raise
 ``NotImplementedError`` naming their ROADMAP item (``UNPORTED``; also
 ``--optimize slave``, the genetic search over registered slaves, item
 10).
@@ -122,11 +141,6 @@ UNPORTED = (
     ("--grad-topk-percent", {"type": float}, 10),
     ("--stash-interval", {"type": int}, 10),
     ("--continual", {"type": int, "nargs": "?", "const": 0}, 6),
-    ("--workflow-graph", {}, 11),
-    ("--dump-unit-sizes", {"action": "store_true"}, 11),
-    ("--no-stats", {"action": "store_true"}, 11),
-    ("--background", {"action": "store_true"}, 11),
-    ("--log-file", {}, 11),
 )
 
 
@@ -210,6 +224,20 @@ def build_argparser():
                    help="genetic search over the config's Tune leaves: "
                         "GENS generations of POP individuals (default "
                         "12), in WORKERS spawned processes when given")
+    p.add_argument("--workflow-graph", default=None, metavar="PATH",
+                   help="write the unit DAG as graphviz dot and exit")
+    p.add_argument("--dump-unit-sizes", action="store_true",
+                   help="print per-unit tensor footprints after "
+                        "initialize")
+    p.add_argument("--no-stats", action="store_true",
+                   help="skip the per-unit timing report")
+    p.add_argument("--background", action="store_true",
+                   help="daemonize before running: fork, detach from "
+                        "the terminal (setsid), redirect stdio to "
+                        "--log-file (default /dev/null), print the "
+                        "daemon pid and return immediately")
+    p.add_argument("--log-file", default=None, metavar="PATH",
+                   help="with --background: append stdout/stderr here")
     for flag, kwargs, item in UNPORTED:
         p.add_argument(flag, default=None,
                        help="not ported yet (ROADMAP Queue 1 item %d)" % item,
@@ -298,6 +326,133 @@ def checkpoints_main(argv):
     return 1 if any(r["status"] == "corrupt" for r in rows) else 0
 
 
+def daemonize(log_file=None):
+    """Classic double-fork detach (``--background``): the caller's
+    process prints the daemon pid and returns False; the grandchild
+    returns True and runs the workflow with stdin from /dev/null and
+    stdout/stderr appended to ``log_file`` (default /dev/null). Called
+    before CUDA or any thread starts."""
+    pid = os.fork()
+    if pid > 0:
+        # wait for the intermediate child so it never zombifies, then
+        # report the daemon from the original foreground process
+        os.waitpid(pid, 0)
+        return False
+    os.setsid()
+    pid2 = os.fork()
+    if pid2 > 0:
+        print(json.dumps({"daemon_pid": pid2}), flush=True)
+        os._exit(0)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    devnull = os.open(os.devnull, os.O_RDONLY)
+    os.dup2(devnull, 0)
+    os.close(devnull)
+    out = os.open(log_file, os.O_WRONLY | os.O_CREAT | os.O_APPEND,
+                  0o644) if log_file else os.open(os.devnull,
+                                                  os.O_WRONLY)
+    os.dup2(out, 1)
+    os.dup2(out, 2)
+    os.close(out)
+    return True
+
+
+def profile_main(argv):
+    """``profile URL``: capture a sampling-profiler window off a LIVE
+    process through ``GET /debug/profile`` and either save the speedscope
+    JSON (``--out``) or print a per-thread summary of the hottest
+    functions; -> 0, or 2 when the endpoint is unreachable or answers
+    something that is not a speedscope document (as ``debug``)."""
+    import urllib.request
+    p = argparse.ArgumentParser(
+        prog="python -m veles_torch profile",
+        description="Sampling CPU profile of a live master/serving "
+                    "process via its /debug/profile endpoint "
+                    "(profiling.py)")
+    p.add_argument("url",
+                   help="base URL of a --web-status dashboard or "
+                        "serving frontend (http://host:port)")
+    p.add_argument("--seconds", type=float, default=2.0,
+                   help="capture window (server clamps to its own "
+                        "bounds; default 2)")
+    p.add_argument("--hz", type=float, default=None,
+                   help="sampling rate (default: the server's 97)")
+    p.add_argument("--out", default=None, metavar="PATH",
+                   help="write the speedscope JSON here (load at "
+                        "https://www.speedscope.app)")
+    p.add_argument("--top", type=int, default=5,
+                   help="hot functions listed per thread in the "
+                        "summary (default 5)")
+    args = p.parse_args(argv)
+    base = args.url.rstrip("/")
+    if "://" not in base:
+        base = "http://" + base
+    url = base + "/debug/profile?seconds=%g" % args.seconds
+    if args.hz is not None:
+        url += "&hz=%g" % args.hz
+    try:
+        with urllib.request.urlopen(
+                url, timeout=args.seconds + 30) as resp:
+            doc = json.load(resp)
+        # shape validation INSIDE the guard (as checkpoints and debug):
+        # a 200 from a non-profiling server must exit 2, never a
+        # traceback or a garbage artifact written to --out
+        frames = doc["shared"]["frames"]
+        profiles = doc["profiles"]
+        if not isinstance(frames, list) \
+                or not all(isinstance(f, dict) for f in frames) \
+                or not isinstance(profiles, list) \
+                or not all(isinstance(pr, dict)
+                           and isinstance(pr.get("samples"), list)
+                           and isinstance(pr.get("weights"), list)
+                           and len(pr["samples"]) == len(pr["weights"])
+                           and all(isinstance(w, (int, float))
+                                   for w in pr["weights"])
+                           and isinstance(pr.get("endValue", 0.0),
+                                          (int, float))
+                           for pr in profiles) \
+                or not all(isinstance(i, int) and 0 <= i < len(frames)
+                           for pr in profiles
+                           for sample in pr["samples"]
+                           for i in (sample if isinstance(sample, list)
+                                     else [None])):
+            # frame-index bounds checked HERE too: the summary loop
+            # below indexes frames[sample[-1]], and a shape-valid doc
+            # with garbage indices must exit 2, not traceback
+            raise ValueError("endpoint answered 200 but not a "
+                             "speedscope profile document")
+    except (OSError, ValueError, KeyError, TypeError) as exc:
+        print("error: %s: %s" % (type(exc).__name__, exc),
+              file=sys.stderr)
+        return 2
+    meta = doc.get("veles") or {}
+    print("profile: %d thread(s), %s tick(s) @ %sHz over %ss "
+          "(sampler overhead %.2f%%)"
+          % (len(profiles), meta.get("ticks", "?"),
+             meta.get("hz", "?"), meta.get("seconds", "?"),
+             float(meta.get("overhead_fraction", 0.0)) * 100.0))
+    for pr in profiles:
+        # leaf-frame self time: the "where is this thread" view
+        leaf = {}
+        for sample, weight in zip(pr["samples"], pr["weights"]):
+            if not sample:
+                continue
+            frame = frames[sample[-1]]
+            leaf[frame.get("name", "?")] = \
+                leaf.get(frame.get("name", "?"), 0.0) + float(weight)
+        hot = sorted(leaf.items(), key=lambda kv: -kv[1])[:args.top]
+        total = max(float(pr.get("endValue", 0.0)), 1e-9)
+        print("  %-24s %8.3fs  %s"
+              % (pr.get("name", "?"), float(pr.get("endValue", 0.0)),
+                 ", ".join("%s %.0f%%" % (name, 100.0 * w / total)
+                           for name, w in hot) or "-"))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(doc, f)
+        print("speedscope profile -> %s" % args.out)
+    return 0
+
+
 def debug_main(argv):
     """``debug URL``: fetch the flight-recorder surfaces of a live
     process, ``/debug/events`` as a table (or ``--json``) and
@@ -369,7 +524,9 @@ def debug_main(argv):
 def main(argv=None):
     """Run the CLI; -> the trained workflow (the :class:`Ensemble` for
     ``--ensemble``, the :class:`GeneticOptimizer` for ``--optimize``, the
-    exit code for ``checkpoints``, ``serve`` and ``debug``)."""
+    unrun workflow for ``--workflow-graph``, the exit code for
+    ``checkpoints``, ``serve``, ``debug``, ``top``, ``profile`` and the
+    foreground process of ``--background``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "checkpoints":
         return checkpoints_main(argv[1:])
@@ -379,8 +536,15 @@ def main(argv=None):
         return serve_main(argv[1:])
     if argv and argv[0] == "debug":
         return debug_main(argv[1:])
+    if argv and argv[0] == "top":
+        from veles_torch.fleet import top_main
+        return top_main(argv[1:])
+    if argv and argv[0] == "profile":
+        return profile_main(argv[1:])
     args = build_argparser().parse_intermixed_args(argv)
     refuse_unported(args)
+    if args.background and not daemonize(args.log_file):
+        return 0        # the foreground process: the daemon pid printed
     prompt = None
     if args.generate:
         try:
@@ -421,6 +585,13 @@ def main(argv=None):
                 json.dump(report, f, indent=2)
         print(json.dumps(report), flush=True)
         return outcome
+
+    if args.workflow_graph:
+        wf = module.create_workflow()
+        with open(args.workflow_graph, "w") as f:
+            f.write(wf.generate_graph())
+        print("workflow graph -> %s" % args.workflow_graph, flush=True)
+        return wf
 
     def encode_prompt(wf):
         nonlocal prompt
@@ -474,13 +645,16 @@ def run_workflow(args, module, before_run=None):
                         rollback_on_divergence=args.rollback_on_divergence,
                         graphics_dir=args.graphics_dir,
                         web_status_port=args.web_status,
-                        slo_config=args.slo_config)
+                        slo_config=args.slo_config,
+                        stats=not args.no_stats)
     if args.trace_out:
         # from before initialize on, dumped in the finally: a failed
         # run's spans are the postmortem the trace is for
         telemetry.tracer.start()
     try:
         launcher.initialize(wf)
+        if args.dump_unit_sizes:
+            wf.print_unit_sizes(sys.stderr)
         if before_run is not None:
             before_run(wf)
         launcher.run()

@@ -38,9 +38,10 @@ SLO config format (``--slo-config objectives.json``, a JSON list)::
 
 Series keys are ``family`` or ``family{label="v"}`` exactly as the ring
 stores them; histograms add ``:p50``/``:p99``/``:count`` suffixes. A bare
-family name matches the sum over its children. The reference's memory
-gauges (``veles_host_*``, ``veles_device_*``) come with the port's
-profiling module (ROADMAP Queue 1 item 11).
+family name matches the sum over its children. Every tick registers
+the memory gauges of ``profiling.py`` (``veles_host_*``,
+``veles_device_*`` once CUDA is initialized, ``veles_perf_*``) in the
+active registry, so the ring samples them.
 """
 
 import collections
@@ -358,9 +359,16 @@ class HealthMonitor(Logger):
     def _sample(self):
         """One flat ``{series_key: value}`` snapshot of the selected
         registry families (+ custom series fns)."""
-        # the reference registers its memory gauges here
-        # (profiling.register_memory_gauges); they come with the port's
-        # profiling module, ROADMAP Queue 1 item 11
+        # memory accounting rides the tick: the set_function gauges are
+        # (re-)registered against the ACTIVE registry, so registry swaps
+        # (test isolation) re-acquire them, and the device kinds show up
+        # once CUDA is initialized
+        try:
+            from veles_torch import profiling
+            profiling.register_memory_gauges()
+        except Exception as exc:
+            self.warning("memory gauges unavailable: %s: %s",
+                         type(exc).__name__, exc)
         flat = {}
         prefixes = self.prefixes
         for fam in telemetry.get_registry().families():

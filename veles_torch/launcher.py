@@ -6,7 +6,7 @@
                         model_stats=True, stats_interval=8,
                         rollback_on_divergence=False,
                         graphics_dir="plots", web_status_port=0,
-                        slo_config="slos.json")
+                        slo_config="slos.json", stats=True)
     launcher.initialize(workflow)
     launcher.run()
 
@@ -25,7 +25,9 @@ renderer process writes the workflow's plots there, and attaches it as
 ``workflow.graphics``; ``web_status_port`` starts a :class:`WebStatus`
 dashboard (``web_status.py``) with the run registered
 (``workflow_status``); ``slo_config`` loads SLO objectives into the
-health monitor (``health.py``). With the model-health plane on, the
+health monitor (``health.py``); ``stats`` prints the workflow's per-unit
+timing table (``print_stats``) to standard error when a run ends. With
+the model-health plane on, the
 monitor's ``model:divergence`` check joins ``/readyz`` and the divergence
 SLOs (``model_health.MODEL_SLOS``) the health plane, as the reference's
 launcher wires them.
@@ -44,6 +46,7 @@ included), or by :meth:`Launcher.close`. The master and slave modes are not port
 import logging
 import os
 import signal
+import sys
 
 import torch
 
@@ -67,7 +70,7 @@ class Launcher:
     def __init__(self, device="cuda", snapshot=None, checkpoint_every=None,
                  profile_dir=None, model_stats=True, stats_interval=None,
                  rollback_on_divergence=False, graphics_dir=None,
-                 web_status_port=None, slo_config=None):
+                 web_status_port=None, slo_config=None, stats=True):
         self.device = device
         self.snapshot = snapshot
         self.checkpoint_every = checkpoint_every
@@ -78,6 +81,7 @@ class Launcher:
         self.graphics_dir = graphics_dir
         self.web_status_port = web_status_port
         self.slo_config = slo_config
+        self.stats = bool(stats)
         #: the GraphicsServer of ``graphics_dir`` while the run lasts
         self.graphics = None
         #: the WebStatus dashboard of ``web_status_port`` while the run
@@ -227,6 +231,8 @@ class Launcher:
                 self._preemption_exit()
         finally:
             self.close()
+        if self.stats:
+            wf.print_stats(sys.stderr)
         return wf
 
     def _train(self):

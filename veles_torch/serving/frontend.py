@@ -33,8 +33,11 @@ Endpoints:
   ``GET /metrics.json`` — the per-model JSON view;
 * ``GET  /debug/trace``, ``/debug/events`` (flight recorder),
   ``/debug/model`` (model-health snapshot), ``/debug/tenants`` (the
-  tenant table); ``/debug/critical_path`` and ``/debug/profile`` answer
-  501 until the profiling module is ported (ROADMAP Queue 1 item 11).
+  tenant table); ``GET /debug/critical_path`` — the flight-recorder
+  window as a per-leg breakdown (``?window=SECS``); ``GET
+  /debug/profile?seconds=N&hz=H`` — a live sampling-profiler capture
+  (speedscope JSON; captured on a worker thread via ``request.defer``,
+  ``python -m veles_torch profile``). Both from ``profiling.py``.
 
 The registry, and so every forward and decode step, runs on ``cuda``
 unless ``-d cpu`` (or ``--backend numpy``) is given.
@@ -164,9 +167,12 @@ class ServingFrontend(Logger):
             reg = telemetry.get_registry()
             request.reply(200, reg.render_prometheus().encode(),
                           reg.CONTENT_TYPE)
-        elif telemetry.unported_debug_doc(path) is not None:
-            # the profiling surfaces (ROADMAP Queue 1 item 11)
-            request.reply_json(501, telemetry.unported_debug_doc(path))
+        elif path.startswith("/debug/profile"):
+            # the sampling profiler BLOCKS for the requested capture
+            # window — the one /debug surface that must never answer
+            # on the loop: a worker thread captures and replies via
+            # call_soon
+            request.defer(self._serve_profile, request)
         elif path.startswith("/debug/model"):
             # model-health plane (model_health.py): the cached snapshot
             # incl. per-model serving drift gauges — one attribute
@@ -192,6 +198,11 @@ class ServingFrontend(Logger):
                                {"models": self.registry.describe()})
         else:
             request.reply_json(404, {"error": "not found"})
+
+    def _serve_profile(self, request):
+        from veles_torch import profiling
+        code, body, ctype = profiling.profile_endpoint(request.path)
+        request.reply(code, body, ctype)
 
     def _serve_refresh(self, request, name):
         """Worker-thread half of ``POST /v1/models/<name>/refresh``:

@@ -23,7 +23,8 @@ full-run buffer (``start``/``stop``/``dump``: ``--trace-out``, Chrome
 trace / Perfetto JSON) and the always-on flight ring (``flight_doc``,
 ``GET /debug/trace``), plus a short log of structured operational events
 (:func:`record_event`, ``GET /debug/events``). :func:`debug_endpoint`
-routes both ``/debug/*`` paths for web status and the serving frontend.
+routes both, and ``/debug/critical_path`` (``profiling.py``), for web
+status and the serving frontend.
 """
 
 import bisect
@@ -939,11 +940,15 @@ def debug_endpoint(path):
 
     * ``/debug/trace[?window=SECS]`` — Perfetto JSON of the flight-
       recorder window;
-    * ``/debug/events[?limit=N]``    — recent structured events.
+    * ``/debug/events[?limit=N]``    — recent structured events;
+    * ``/debug/critical_path[?window=SECS]`` — the flight-recorder
+      window aggregated into the per-leg "where the step time goes"
+      document (``profiling.py``).
 
-    ``/debug/critical_path`` and ``/debug/profile`` are not here: they
-    need the profiling module, and both frontends answer them 501
-    (:func:`unported_debug_doc`).
+    ``/debug/profile`` is deliberately NOT here: its capture blocks for
+    the requested window, so both frontends route it through
+    ``request.defer`` to ``profiling.profile_endpoint`` instead of an
+    inline reply.
     """
     from urllib.parse import parse_qs, urlparse
     parsed = urlparse(path)
@@ -959,21 +964,7 @@ def debug_endpoint(path):
         return tracer.flight_doc(_num("window"))
     if parsed.path == "/debug/events":
         return {"events": tracer.recent_events(_num("limit"))}
+    if parsed.path == "/debug/critical_path":
+        from veles_torch import profiling
+        return profiling.critical_path_doc(_num("window"))
     return None
-
-
-#: the reference's ``/debug/*`` surfaces of ``veles/profiling.py``, which
-#: the port has not ported yet (ROADMAP Queue 1 item 11): both HTTP
-#: frontends answer them 501 with :func:`unported_debug_doc`
-UNPORTED_DEBUG = ("/debug/critical_path", "/debug/profile")
-
-
-def unported_debug_doc(path):
-    """-> the 501 JSON body for an unported ``/debug/*`` path, or None
-    when ``path`` is not one."""
-    from urllib.parse import urlparse
-    route = urlparse(path).path
-    if route not in UNPORTED_DEBUG:
-        return None
-    return {"error": "%s is not ported yet: it needs veles/profiling.py "
-                     "(ROADMAP Queue 1 item 11)" % route}

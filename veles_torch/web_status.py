@@ -12,8 +12,11 @@ JAX package), on the process's shared selector reactor
 * ``GET /metrics``       — Prometheus text of the telemetry registry;
 * ``GET /debug/trace``, ``/debug/events`` — the flight recorder;
   ``GET /debug/model`` — the model-health snapshot;
-  ``/debug/critical_path`` and ``/debug/profile`` answer 501 until the
-  profiling module is ported (ROADMAP Queue 1 item 11).
+  ``GET /debug/critical_path`` — the flight-recorder window as a per-leg
+  step-time breakdown; ``GET /debug/profile?seconds=N&hz=H`` — a live
+  sampling-profiler capture (speedscope JSON, or ``format=collapsed``),
+  captured on a worker thread (``request.defer``). Both from
+  ``profiling.py``.
 
 ``python -m veles_torch <workflow> --web-status PORT`` registers the run
 with :func:`workflow_status`; ``python -m veles_torch serve --web-status
@@ -107,9 +110,12 @@ class WebStatus(Logger):
             reg = telemetry.get_registry()
             request.reply(200, reg.render_prometheus().encode(),
                           reg.CONTENT_TYPE)
-        elif telemetry.unported_debug_doc(path) is not None:
-            # the profiling surfaces (ROADMAP Queue 1 item 11)
-            request.reply_json(501, telemetry.unported_debug_doc(path))
+        elif path.startswith("/debug/profile"):
+            # the sampling profiler BLOCKS for the requested capture
+            # window — the one /debug surface that must never answer
+            # on the loop: a worker thread captures and replies via
+            # call_soon
+            request.defer(self._serve_profile, request)
         elif path.startswith("/debug/model"):
             # model-health plane (model_health.py): the cached
             # verdict + per-layer training-dynamics snapshot — one
@@ -117,8 +123,9 @@ class WebStatus(Logger):
             request.reply_json(200, model_health.debug_model_doc())
         elif path.startswith("/debug/"):
             # flight-recorder surfaces: /debug/trace (Perfetto JSON
-            # of the retained span window) and /debug/events (recent
-            # structured events), the serving frontend's protocol
+            # of the retained span window), /debug/events (recent
+            # structured events) and /debug/critical_path (per-leg
+            # step-time breakdown), the serving frontend's protocol
             payload = telemetry.debug_endpoint(path)
             if payload is None:
                 request.reply(404, b"not found")
@@ -130,6 +137,13 @@ class WebStatus(Logger):
             request.defer(self._serve_status, request)
         else:
             request.reply(404, b"not found")
+
+    def _serve_profile(self, request):
+        # worker thread (request.defer): the capture sleeps out the
+        # requested window while the loop keeps serving probes
+        from veles_torch import profiling
+        code, body, ctype = profiling.profile_endpoint(request.path)
+        request.reply(code, body, ctype)
 
     def _serve_status(self, request):
         if request.path == "/":

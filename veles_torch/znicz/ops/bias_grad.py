@@ -26,12 +26,17 @@ import functools
 
 import torch
 
-from veles_torch import kernels
+from veles_torch import kernels, perf
 from veles_torch.znicz.ops import activations as A
 
 #: activation name -> code of ``enum Act`` in csrc/bias_grad.cu
 _ACT_CODES = {"linear": 0, "softmax": 0, "tanh": 1, "relu": 2,
               "strict_relu": 3, "sigmoid": 4}
+#: f32 operations per element of the masked sum, by activation
+#: (derivative, multiply by err, add); the identity form only adds. The
+#: launch's work reported to the cost counter (``perf.py``)
+OPS_PER_ELEMENT = {"linear": 1, "softmax": 1, "tanh": 5, "relu": 4,
+                   "strict_relu": 3, "sigmoid": 4}
 #: dtype -> code of ``enum DType`` in csrc/bias_grad.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SIGNATURES = {
@@ -171,8 +176,11 @@ def bias_grad(err, y, activation):
     if rc:
         raise RuntimeError("bias_grad kernel launch failed: %s (%d)" % (
             lib.veles_cuda_error_string(rc).decode(), rc))
+    form = "identity" if identity else "masked"
     bias_grad.launches += 1
-    bias_grad.form_launches["identity" if identity else "masked"] += 1
+    bias_grad.form_launches[form] += 1
+    perf.add_kernel_cost("bias_grad[%s]" % form,
+                         OPS_PER_ELEMENT[activation] * n * k, 4 * k)
     return out
 
 

@@ -35,7 +35,7 @@ import ctypes
 import numpy
 import torch
 
-from veles_torch import kernels
+from veles_torch import kernels, perf
 
 #: head dims the kernels are built for; a smaller one runs zero-padded to
 #: the next of them (:func:`kernel_head_dim`)
@@ -55,6 +55,12 @@ MASK_VALUE = -1e9
 DQ_PARTIAL_CAP = 1 << 30
 #: score-matrix elements a plain-version chunk of b*h rows may hold
 PLAIN_CHUNK_ELEMS = 1 << 28
+#: the work of each kernel, reported to the cost counter (``perf.py``):
+#: block products as multiples of B·H·S²·dh (each 2·S²·dh operations;
+#: causal: half of them), (B, H, S, dh) tensors and f32 (B, H, S) rows
+#: written
+WORK = {"fwd": (4, 1, 1), "bwd": (10, 3, 0), "dq": (6, 1, 0),
+        "dkv": (8, 2, 0)}
 #: dtype -> code of ``enum DType`` in csrc/flash_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
@@ -440,6 +446,27 @@ def _check(name, tensors):
     return True
 
 
+def kernel_cost(form, shape, causal, dtype):
+    """-> (flops, bytes written) of one launch of ``form``'s kernel (a key
+    of :data:`WORK`) on (B, H, S, dh) inputs of ``dtype``: its block
+    products, only the causal half of them when ``causal``."""
+    b, h, s, dh = shape
+    products, tensors, rows = WORK[form]
+    flops = products * b * h * s * s * dh / (2 if causal else 1)
+    nbytes = (tensors * b * h * s * dh * dtype.itemsize
+              + rows * b * h * s * 4)
+    return flops, nbytes
+
+
+def _report(name, form, shape, causal, dtype):
+    """The launch's work to the active cost counter (``perf.py``): the
+    bf16 kernels' products run at the bf16 rate, the f32 ones' as scalar
+    f32."""
+    flops, nbytes = kernel_cost(form, shape, causal, dtype)
+    perf.add_kernel_cost(name, flops, nbytes,
+                         "bf16" if dtype == torch.bfloat16 else "f32")
+
+
 def _raise_on(lib, rc, name):
     if rc:
         raise RuntimeError("%s kernel launch failed: %s (%d)" % (
@@ -480,9 +507,10 @@ def flash_attention_fwd(q, k, v, causal=True, pipeline=False,
             lse.data_ptr(), b * h, s, kdh, _DTYPE_CODES[q.dtype],
             int(causal), int(pipeline), acc_bf16, scale_for(dh), stream)
     _raise_on(lib, rc, "flash_attention_fwd")
+    variant = "fwd_pipe" if pipeline else "fwd"
     flash_attention_fwd.launches += 1
-    flash_attention_fwd.variant_launches[
-        "fwd_pipe" if pipeline else "fwd"] += 1
+    flash_attention_fwd.variant_launches[variant] += 1
+    _report("flash_" + variant, "fwd", (b, h, s, dh), causal, q.dtype)
     return _narrow(out, dh), lse
 
 
@@ -504,9 +532,11 @@ def _bwd_args(name, q, k, v, out, lse, dout, delta):
     return True, delta
 
 
-def _launched(variant):
+def _launched(variant, shape, causal, dtype):
     flash_attention_bwd.launches += 1
     flash_attention_bwd.variant_launches[variant] += 1
+    _report("flash_bwd_" + variant, "bwd" if variant == "fused" else variant,
+            shape, causal, dtype)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
@@ -550,7 +580,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
             dv.data_ptr(), dq_acc.data_ptr(), sync.data_ptr(), b * h, s, kdh,
             int(causal), scale_for(dh), stream)
         _raise_on(lib, rc, "flash_attention_bwd")
-        _launched("fused")
+        _launched("fused", (b, h, s, dh), causal, q.dtype)
         return tuple(_narrow(t, dh) for t in (dq, dk, dv))
     n_chunks = bwd_chunks(b * h, s, kdh)
     partial = torch.empty((n_chunks, b * h, s, kdh), dtype=torch.float32,
@@ -562,7 +592,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, delta=None,
         dv.data_ptr(), partial.data_ptr(), b * h, s, kdh,
         _DTYPE_CODES[q.dtype], int(causal), n_chunks, scale_for(dh), stream)
     _raise_on(lib, rc, "flash_attention_bwd")
-    _launched("fused")
+    _launched("fused", (b, h, s, dh), causal, q.dtype)
     return tuple(_narrow(t, dh) for t in (dq, dk, dv))
 
 
@@ -592,7 +622,7 @@ def flash_attention_dq(q, k, v, out, lse, dout, causal=True, delta=None):
         rc = lib.veles_flash_bwd_dq(*args, _DTYPE_CODES[q.dtype],
                                     int(causal), scale_for(dh), stream)
     _raise_on(lib, rc, "flash_attention_dq")
-    _launched("dq")
+    _launched("dq", (b, h, s, dh), causal, q.dtype)
     return _narrow(dq, dh)
 
 
@@ -624,7 +654,7 @@ def flash_attention_dkv(q, k, v, out, lse, dout, causal=True, delta=None):
         rc = lib.veles_flash_bwd_dkv(*args, _DTYPE_CODES[q.dtype],
                                      int(causal), scale_for(dh), stream)
     _raise_on(lib, rc, "flash_attention_dkv")
-    _launched("dkv")
+    _launched("dkv", (b, h, s, dh), causal, q.dtype)
     return _narrow(dk, dh), _narrow(dv, dh)
 
 

@@ -66,6 +66,7 @@ equals the uninterrupted one.
 """
 
 import logging
+import sys
 
 import numpy
 import torch
@@ -108,6 +109,18 @@ def _resolved(spec):
     does not reach them (the genetic optimizer writes concrete values
     into the same leaves)."""
     return {k: _resolve(v) for k, v in spec.items()}
+
+
+def _held_arrays(values, depth=2):
+    """The torch tensors and numpy arrays among ``values`` and inside
+    their dicts, lists and tuples, ``depth`` levels down."""
+    for v in values:
+        if isinstance(v, (torch.Tensor, numpy.ndarray)):
+            yield v
+        elif depth and isinstance(v, dict):
+            yield from _held_arrays(v.values(), depth - 1)
+        elif depth and isinstance(v, (list, tuple)):
+            yield from _held_arrays(v, depth - 1)
 
 
 class NNWorkflow:
@@ -240,6 +253,90 @@ class NNWorkflow:
         """Write the inference archive (contents.json + .npy weights) of
         this workflow's forward chain; -> the path of its contents.json."""
         return export_inference(self, path)
+
+    # -- introspection (the reference's Workflow) -------------------------
+
+    def _units_after_decision(self):
+        return [u for u in (*self.plotters, self.shell, self.snapshotter,
+                            self.rollback) if u is not None]
+
+    def generate_graph(self):
+        """Graphviz dot of the unit graph (``--workflow-graph``), in the
+        reference's form: the run loop's control points as its trivial
+        units (``start_point``, ``repeater``, ``end_point``; ovals), then
+        the loader, the forwards, the evaluator and the decision, the GD
+        chain back to the repeater (the decision straight back when the
+        workflow has no GD chain), and the units run after the decision.
+        The step (``TorchStep``) runs the loader-to-GD cycle fused."""
+        control = [("start_point", "StartPoint"), ("end_point", "EndPoint"),
+                   ("repeater", "Repeater")]
+        chain = [self.loader, *self.forwards, self.evaluator, self.decision]
+        chain = [u for u in chain if u is not None]
+        gds = list(reversed(self.gds))
+        units = chain + gds + self._units_after_decision()
+        lines = ["digraph %s {" % self.name.replace(" ", "_"),
+                 "  rankdir=TB;"]
+        nodes = control + [(u.name, type(u).__name__) for u in units]
+        order = {name: i for i, (name, _) in enumerate(nodes)}
+        for i, (name, kind) in enumerate(nodes):
+            lines.append('  u%d [label="%s\\n%s" shape=%s];' % (
+                i, name, kind, "oval" if i < len(control) else "box"))
+        cycle = ["start_point", "repeater"] + [u.name for u in chain]
+        edges = list(zip(cycle, cycle[1:]))
+        back = [self.decision.name] + [u.name for u in gds] + ["repeater"]
+        edges += list(zip(back, back[1:]))
+        edges += [(self.decision.name, "end_point")]
+        edges += [(self.decision.name, u.name)
+                  for u in self._units_after_decision()]
+        # by source node, as the reference walks each unit's links
+        for a, b in sorted(edges, key=lambda e: order[e[0]]):
+            lines.append("  u%d -> u%d;" % (order[a], order[b]))
+        lines.append("}")
+        return "\n".join(lines)
+
+    def print_stats(self, stream=sys.stderr):
+        """Wall-time table of the run (the reference's per-unit table):
+        one row per dispatch kind of the step, the loader-to-GD cycle run
+        fused (``TorchStep``), slowest first."""
+        rows = sorted(((t, calls, "step.%s" % kind) for kind, (t, calls)
+                       in self.step.dispatch_seconds.items()), reverse=True)
+        total = sum(r[0] for r in rows) or 1e-12
+        stream.write("%-32s %10s %8s %7s\n"
+                     % ("unit", "time(s)", "calls", "share"))
+        for t, calls, name in rows:
+            stream.write("%-32s %10.4f %8d %6.1f%%\n"
+                         % (name, t, calls, 100.0 * t / total))
+
+    def print_unit_sizes(self, stream=sys.stderr):
+        """Bytes of the tensors and host arrays each unit holds
+        (``--dump-unit-sizes``), a storage shared by several tensors or
+        units counted once, largest first."""
+        rows = []
+        seen = set()
+        units = [self.loader, *self.forwards, self.evaluator, self.decision,
+                 *self.gds, *self._units_after_decision()]
+        for u in units:
+            if u is None:
+                continue
+            total = 0
+            for a in _held_arrays(vars(u).values()):
+                if isinstance(a, torch.Tensor):
+                    storage = a.untyped_storage()
+                    key, nbytes = (a.device, storage.data_ptr()), \
+                        storage.nbytes()
+                else:
+                    key, nbytes = ("host", a.__array_interface__["data"][0],
+                                   a.nbytes), a.nbytes
+                if nbytes and key not in seen:
+                    seen.add(key)
+                    total += nbytes
+            if total:
+                rows.append((total, u.name))
+        rows.sort(reverse=True)
+        stream.write("%-32s %12s\n" % ("unit", "bytes"))
+        for nbytes, name in rows:
+            stream.write("%-32s %12d\n" % (name, nbytes))
+        stream.write("%-32s %12d\n" % ("TOTAL", sum(r[0] for r in rows)))
 
     # -- state exchange with the reference (see veles_torch/convert.py) --
 

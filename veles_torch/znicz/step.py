@@ -63,6 +63,16 @@ is the class (``train``, ``valid``, ``test``), ``warm`` is 0 for the
 first dispatch of a class at its minibatch count in this process's
 step. No device synchronization is added for either.
 
+Each class dispatch is also accounted in the perf ledger (``perf.py``):
+the first minibatch of each (class, minibatch count, stats-due)
+signature runs under the ledger's cost counter (a due train step and a
+plain one cost differently), computing exactly what an uncounted one
+does, and the class's cost (each minibatch's signature cost, summed) goes
+to ``perf.ledger.record_dispatch`` with the class's wall time, its valid
+samples and, for a token loader (2-D integer data), samples × S tokens:
+the ``veles_step_*{kind}`` families. :attr:`TorchStep.costs` keeps the
+signatures' costs.
+
 Eager PyTorch: each operation is its own launch (no CUDA graph yet).
 """
 
@@ -70,7 +80,7 @@ import time
 
 import torch
 
-from veles_torch import model_health, telemetry
+from veles_torch import model_health, perf, telemetry
 from veles_torch.loader.base import CLASS_TRAIN, CLASS_VALID
 from veles_torch.znicz.nn_units import (
     GradientDescentBase, RoutingGradientBase, layer_stats)
@@ -140,6 +150,10 @@ class TorchStep:
         #: called with (cls, indices, valid, metrics row) after the
         #: decision accounted each minibatch
         self.after_minibatch = None
+        #: {(class, minibatches, stats due): StepCost of one minibatch}
+        self.costs = {}
+        #: {kind: [wall seconds, dispatches]} of the classes run so far
+        self.dispatch_seconds = {}
 
     def set_stats_enabled(self, enabled):
         """Turn the layer stats on or off (off: no stat work at all)."""
@@ -236,6 +250,18 @@ class TorchStep:
             self.last_stats = layer_stats(sink)
         return metrics
 
+    def _minibatch(self, step, full, idx, train, valid, metrics, i, stats,
+                   j):
+        """One minibatch into row ``i`` of the class's metrics and, when
+        it took layer stats, row ``j`` of its stats; -> the next stats
+        row."""
+        metrics[i] = step(*self.gather(full, idx, train), valid)
+        if train and self.last_stats is not None:
+            stats[j] = self.last_stats
+            self.last_stats = None
+            return j + 1
+        return j
+
     def _publish_stats(self, rows, step_index):
         """Hand each due step's host (units, 4) stat rows to the
         model-health monitor, in step order."""
@@ -277,20 +303,32 @@ class TorchStep:
             stats = buf[n * width:].view(due, len(self.stat_units),
                                          stat_width)
             j = 0
+            cost = perf.StepCost()
             for i in range(n):
                 if self.stop_requested:
                     return False
-                metrics[i] = step(*self.gather(full, idx[i], train),
-                                  valid_dev[i])
-                if train and self.last_stats is not None:
-                    stats[j] = self.last_stats
-                    self.last_stats = None
-                    j += 1
+                sig = (cls, n, train and self.stats_due())
+                j, one = perf.ledger.cost(
+                    (id(self),) + sig, self._minibatch,
+                    (step, full, idx[i], train, valid_dev[i], metrics, i,
+                     stats, j), owner=self)
+                self.costs[sig] = one
+                cost = cost + one
             host = buf.cpu().numpy()
+            dt = time.perf_counter() - t_class
             warm = (cls, n) in self._seen_dispatch
             self._seen_dispatch.add((cls, n))
-            _record_dispatch(_KINDS[cls], warm, t_class,
-                             time.perf_counter() - t_class, minibatches=n)
+            _record_dispatch(_KINDS[cls], warm, t_class, dt, minibatches=n)
+            total = self.dispatch_seconds.setdefault(_KINDS[cls], [0.0, 0])
+            total[0] += dt
+            total[1] += 1
+            samples = int(valids.sum())
+            data = full["data"]
+            tokens = samples * data.shape[1] if data.dim() == 2 \
+                and not data.dtype.is_floating_point else None
+            perf.ledger.record_dispatch(_KINDS[cls], cost, dt,
+                                        samples=samples, tokens=tokens,
+                                        device=dev)
             if due:
                 self._publish_stats(
                     host[n * width:].reshape(stats.shape),
