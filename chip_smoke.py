@@ -349,12 +349,35 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     forward, 192 fused backward and 1168 identity for the LM, 180 of each
     bias-gradient form for MNIST (the counted minibatch is one of the
     run's own: no extra launch);
-30. the ``kernels`` summary line (the bias gradient's launches summed
+30. image_stream — a PNG tree written with the port's ``write_png`` under
+    the output directory (``TREE_CLASSES`` × ``TREE_PER_CLASS``, every
+    other image ``TREE_OTHER_SIZE`` so the resize runs; removed after
+    the phase), the decode rate of one thread on it and on a Paeth-filtered
+    copy of ``DECODE_TIMED`` images, then the AlexNet sample through the
+    CLI at full width on that tree (``IMAGE_STREAM_RUN``: 2 epochs,
+    1024/128 images, mb 128, 227 crop, bf16) in stream mode: the file
+    loader and its split, 7 masked and 1 identity bias-gradient launches
+    a train step, finite losses with the last below 1.5 × the first; the
+    warm epoch's images/s, ``stream_wait_seconds``, the window size and
+    the bytes uploaded; three windows uploaded back to back holding their
+    own bytes (``uploads_in_flight``); and one f32 epoch through an
+    ``ArrayStreamLoader`` against a ``FullBatchLoader`` and again (the
+    resident bank's path) on the same uint8 images and weights, cuDNN
+    deterministic, within ``STREAM_PARITY_RTOL`` (``stream_vs_resident``);
+31. continual — ``CONTINUAL_ROUNDS`` continual rounds of the full-width
+    MNIST through the launcher's ``continual`` branch (``--continual``)
+    over a ``ContinualStreamLoader`` fed by ``HttpStreamSource`` from
+    the port's ``stream_handler`` in this process: the rounds, cursor and
+    launches (one of each form a train step), every checkpoint stamped
+    with ``ingest_wall``, the trainer's staleness after each round, and a
+    serving registry on the newest checkpoint publishing
+    ``veles_staleness_seconds{point="serving:mnist"}``;
+32. the ``kernels`` summary line (the bias gradient's launches summed
     over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume,
     model-health, unsupervised, plots, serve_http, ensemble, optimize (in
-    process and in the workers), shell_forge and profiling runs, each
-    path's beside it, the serving paths' among them), the card line, and
-    last ``{"ok": true, "device": {...}}``.
+    process and in the workers), shell_forge, profiling, image_stream and
+    continual runs, each path's beside it, the serving paths' among
+    them), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
@@ -5009,6 +5032,417 @@ def check_profiling(torch):
     return add_counts(lm, mnist)
 
 
+# -- the streaming image loader and continual training ----------------------
+
+STREAM_DEVICE = "cuda"
+#: the PNG tree of phase image_stream: CLASSES class directories of PER_CLASS
+#: images, every other one TREE_OTHER_SIZE (resized to 256×256 on decode),
+#: the rest 256×256; the stride split holds 8 of 72 out a class: 1024 train
+#: and 128 validation images, AlexNet's minibatch 128 at its 227 crop
+TREE_CLASSES = 16
+TREE_PER_CLASS = 72
+TREE_SIZE = (256, 256)
+TREE_OTHER_SIZE = (320, 288)
+IMAGE_STREAM_RUN = ("root.imagenet.decision.max_epochs=2", "--seed", "1337")
+#: images decoded one by one, per tree kind, for the decode rate
+DECODE_TIMED = 64
+#: the stream path against the resident bank on the card: one f32 AlexNet
+#: epoch each from the same uint8 images (STREAM_PARITY_IMAGES: valid,
+#: train) and weights, with cuDNN held to its deterministic algorithms
+#: (with its free choice the two runs read 1.13e-3 of a tensor's largest
+#: element apart on an H100, with equal losses: reductions in another
+#: order); every parameter and velocity within STREAM_PARITY_RTOL of its
+#: largest element of the resident run's, and a second resident run
+#: beside them
+STREAM_PARITY_IMAGES = (128, 256)
+STREAM_PARITY_CROP = (227, 227)
+STREAM_PARITY_MB = 128
+STREAM_PARITY_RTOL = 1e-6
+#: phase continual: the full-width MNIST (784-100-10, minibatch 100) over a
+#: ContinualStreamLoader fed over HTTP: rounds of CONTINUAL_ROUND_SAMPLES
+#: after a pinned validation head of CONTINUAL_VALID
+CONTINUAL_ROUNDS = 3
+CONTINUAL_ROUND_SAMPLES = 6000
+CONTINUAL_VALID = 1000
+
+
+def stream_sync(torch):
+    if STREAM_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def write_png_paeth(path, rgb):
+    """An (H, W, 3) uint8 array as an 8-bit RGB PNG with the Paeth filter
+    on every row: the slowest rows for the port's decoder (libpng and
+    Pillow pick filters per row; this is their worst case)."""
+    import struct
+    import zlib
+    import numpy
+    from veles_torch.graphics_client import _chunk
+    x = numpy.ascontiguousarray(rgb, numpy.uint8).astype(numpy.int16)
+    h, w, _ = x.shape
+    a = numpy.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = numpy.zeros_like(x)
+    b[1:] = x[:-1]
+    c = numpy.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    pred = numpy.where((pa <= pb) & (pa <= pc), a,
+                       numpy.where(pb <= pc, b, c))
+    raw = numpy.empty((h, 1 + 3 * w), numpy.uint8)
+    raw[:, 0] = 4
+    raw[:, 1:] = ((x - pred) % 256).reshape(h, 3 * w)
+    png = b"\x89PNG\r\n\x1a\n" \
+        + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)) \
+        + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) \
+        + _chunk(b"IEND", b"")
+    with open(path, "wb") as f:
+        f.write(png)
+
+
+def write_image_tree(base):
+    """Phase image_stream's tree: a low-frequency prototype per class plus
+    per-image noise, written with the port's ``write_png`` (filter 0) by 8
+    threads (zlib runs outside the interpreter lock); -> the paths
+    written."""
+    import concurrent.futures
+    import numpy
+    from veles_torch.graphics_client import write_png
+    gen = numpy.random.Generator(numpy.random.PCG64(0x1AA6E))
+    protos = gen.uniform(0, 255, (TREE_CLASSES, 8, 8, 3))
+    jobs = []
+    for k in range(TREE_CLASSES):
+        d = os.path.join(base, "c%02d" % k)
+        os.makedirs(d)
+        for j in range(TREE_PER_CLASS):
+            h, w = TREE_SIZE if j % 2 == 0 else TREE_OTHER_SIZE
+            proto = numpy.kron(protos[k], numpy.ones(
+                ((h + 7) // 8, (w + 7) // 8, 1)))[:h, :w]
+            noise = gen.integers(-40, 40, ((h + 3) // 4, (w + 3) // 4, 3))
+            noise = numpy.kron(noise, numpy.ones((4, 4, 1)))[:h, :w]
+            img = numpy.clip(proto + noise, 0, 255).astype(numpy.uint8)
+            jobs.append((os.path.join(d, "i%03d.png" % j), img))
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for future in [pool.submit(write_png, *job) for job in jobs]:
+            future.result()
+    return [path for path, _ in jobs]
+
+
+def decode_ms(paths):
+    """Host ms to decode, convert and resize one image of ``paths`` (one
+    thread)."""
+    from veles_torch.loader import codecs
+    t0 = time.perf_counter()
+    for path in paths:
+        codecs.load(path, "RGB", TREE_SIZE)
+    return 1e3 * (time.perf_counter() - t0) / len(paths)
+
+
+def decode_rates(paths, tmp):
+    """The decode rate of the filter-0 tree and of a Paeth copy of its
+    first DECODE_TIMED images."""
+    from veles_torch.loader import codecs
+    paeth = []
+    for i, path in enumerate(paths[:DECODE_TIMED]):
+        out = os.path.join(tmp, "paeth_%03d.png" % i)
+        write_png_paeth(out, codecs.read_png(path))
+        paeth.append(out)
+    return {"filter0_ms_per_image": decode_ms(paths[:DECODE_TIMED]),
+            "paeth_ms_per_image": decode_ms(paeth)}
+
+
+def uploads_in_flight(torch):
+    """Three windows uploaded back to back with no synchronization (the
+    third reuses the first's pinned buffer): each device window holds its
+    own host window's bytes. -> the check's row."""
+    import numpy
+    from veles_torch.znicz.step import WindowUploader
+    gen = numpy.random.Generator(numpy.random.PCG64(3))
+    wins = [{"data": gen.integers(0, 256, (2, 128, 227, 227, 3),
+                                  dtype=numpy.uint8),
+             "labels": gen.integers(0, 16, (2, 128), dtype=numpy.int32)}
+            for _ in range(3)]
+    up = WindowUploader(STREAM_DEVICE)
+    t0 = time.perf_counter()
+    outs = [up.upload(w) for w in wins]
+    stream_sync(torch)
+    seconds = time.perf_counter() - t0
+    equal = [bool(numpy.array_equal(o["data"].cpu().numpy(), w["data"]))
+             and bool(numpy.array_equal(o["labels"].cpu().numpy(),
+                                        w["labels"]))
+             for o, w in zip(outs, wins)]
+    return {"windows_equal": equal, "bytes": up.bytes,
+            "gb_per_s": up.bytes / seconds / 1e9}
+
+
+def stream_vs_resident(torch):
+    """One f32 AlexNet epoch at full geometry from the same uint8 images
+    and weights through an ArrayStreamLoader and a FullBatchLoader (the
+    resident bank's path); -> the comparison's row."""
+    import numpy
+    from veles_torch import prng
+    from veles_torch.loader.fullbatch import FullBatchLoader
+    from veles_torch.loader.stream import ArrayStreamLoader
+    from veles_torch.znicz.models import imagenet
+    from veles_torch.znicz.standard_workflow import StandardWorkflow
+
+    def normalized(data, train):
+        return (data.to(torch.float32) / 255.0 - 0.5) / 0.5
+
+    class Streamed(ArrayStreamLoader):
+        batch_transform = staticmethod(normalized)
+
+    class Resident(FullBatchLoader):
+        batch_transform = staticmethod(normalized)
+
+    n_valid, n_train = STREAM_PARITY_IMAGES
+    gen = numpy.random.Generator(numpy.random.PCG64(4242))
+    images = gen.integers(0, 256, (n_valid + n_train,) + STREAM_PARITY_CROP
+                          + (3,), dtype=numpy.uint8)
+    labels = (numpy.arange(n_valid + n_train) % TREE_CLASSES).astype(
+        numpy.int32)
+    lengths = [0, n_valid, n_train]
+
+    def streamed(wf):
+        return Streamed(wf, name="loader", minibatch_size=STREAM_PARITY_MB,
+                        data=images, labels=labels, class_lengths=lengths)
+
+    def resident(wf):
+        ld = Resident(wf, name="loader", minibatch_size=STREAM_PARITY_MB)
+        ld.original_data, ld.original_labels = images, labels
+        ld.class_lengths = list(lengths)
+        ld.serve_dtype = numpy.uint8
+        return ld
+
+    layers = imagenet.alexnet_layers(TREE_CLASSES)
+    for layer in layers:
+        if layer["type"] == "dropout":
+            layer["->"]["dropout_ratio"] = 0.0
+    trees, losses = {}, {}
+    restore = f32_policy()
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for kind, factory in (("resident", resident), ("stream", streamed),
+                              ("resident_again", resident)):
+            prng.seed_all(1337)
+            wf = StandardWorkflow(name="AlexNet_" + kind, layers=layers,
+                                  loader_factory=factory,
+                                  decision_config={"max_epochs": 1})
+            wf.initialize(device=STREAM_DEVICE)
+            wf.run()
+            stream_sync(torch)
+            wf.close()
+            trees[kind] = {u: {k: t.detach().double().cpu()
+                               for k, t in sub.items()}
+                           for u, sub in wf.export_tree().items()}
+            losses[kind] = wf.decision.history[-1]["train"]["loss"]
+            if wf.loader.supports_streaming != (kind == "stream"):
+                fail("image_stream: the parity's %s run took the wrong "
+                     "path" % kind)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        restore()
+    worst = rel_errors(trees["stream"], trees["resident"])
+    spread = rel_errors(trees["resident_again"], trees["resident"])
+    bitwise = all(torch.equal(trees["stream"][u][k], trees["resident"][u][k])
+                  for u in trees["stream"] for k in trees["stream"][u])
+    return {"images": [n_valid, n_train], "rtol": STREAM_PARITY_RTOL,
+            "bitwise": bitwise, "max_rel_err": max(worst.values()),
+            "worst_tensors": sorted(worst.items(), key=lambda kv: -kv[1])[:3],
+            "resident_vs_resident": max(spread.values()),
+            "train_loss": losses}
+
+
+def check_image_stream(torch):
+    """Phase image_stream: AlexNet at full width through the CLI from a
+    PNG tree on disk, in stream mode; -> its launch counts."""
+    import shutil
+    import tempfile
+    from veles_torch.config import root
+    tmp = tempfile.mkdtemp(prefix="image_tree_", dir=OUT_DIR)
+    saved = root.imagenet.loader.to_dict()
+    try:
+        t0 = time.perf_counter()
+        paths = write_image_tree(os.path.join(tmp, "tree"))
+        write_seconds = time.perf_counter() - t0
+        rates = decode_rates(paths, tmp)
+        reset_counts()
+        wf = cli_run([IMAGENET_SAMPLE, "root.imagenet.loader.base_dir=%s"
+                      % os.path.join(tmp, "tree"), *IMAGE_STREAM_RUN,
+                      "-d", STREAM_DEVICE])
+        stream_sync(torch)
+        counts = read_counts()
+    finally:
+        root.imagenet.loader.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    loader, step = wf.loader, wf.step
+    train = step.train_steps
+    losses = [h["train"]["loss"] for h in wf.decision.history]
+    images = sum(loader.class_lengths)
+    warm = step.epoch_seconds[1]
+    waits = {kind: w for kind, w in step.stream_wait_seconds.items()}
+    ok, want = conv_launches_ok(counts, train, 7)
+    in_flight = uploads_in_flight(torch)
+    parity = stream_vs_resident(torch)
+    emit({"phase": "image_stream", "images": images,
+          "class_lengths": loader.class_lengths,
+          "n_classes": loader.n_classes, "train_steps": train,
+          "eval_steps": step.eval_steps, "launches": counts,
+          "train_loss": losses,
+          "validation_error": [h["validation"]["metric"]
+                               for h in wf.decision.history],
+          "epoch_seconds": step.epoch_seconds,
+          "images_per_sec_warm_epoch": images / warm,
+          "stream_wait_seconds": waits,
+          "stream_wait_share_warm_epoch": sum(
+              w[1] for w in waits.values()) / warm,
+          "window_minibatches": step.last_window_minibatches,
+          "uploaded_bytes": step.uploader.bytes,
+          "uploads": step.uploader.uploads,
+          "tree_write_seconds": write_seconds, "decode": rates,
+          "uploads_in_flight": in_flight, "stream_vs_resident": parity})
+    if not loader.supports_streaming \
+            or type(loader).__name__ != "AutoLabelFileImageLoader":
+        fail("image_stream: the run used %s, not the streaming file "
+             "loader" % type(loader).__name__)
+    if loader.class_lengths != [0, 128, 1024] \
+            or loader.n_classes != TREE_CLASSES:
+        fail("image_stream: split %s over %s classes"
+             % (loader.class_lengths, loader.n_classes))
+    if not ok:
+        fail("image_stream: launches %s, expected %s" % (counts, want))
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 1.5 * losses[0]:
+        fail("image_stream: train losses %s" % (losses,))
+    if not all(in_flight["windows_equal"]):
+        fail("image_stream: windows in flight hold %s"
+             % in_flight["windows_equal"])
+    if not parity["max_rel_err"] <= STREAM_PARITY_RTOL:
+        fail("image_stream: stream vs resident %.3g of the largest element"
+             % parity["max_rel_err"])
+    return counts
+
+
+def check_continual(torch):
+    """Phase continual: ``--continual 3`` of the full-width MNIST (the
+    launcher's continual branch) over a ContinualStreamLoader fed by
+    HttpStreamSource from the port's stream_handler in this process, the
+    checkpoints stamped with ``ingest_wall``, then a serving registry on
+    the newest one publishing its staleness; -> the run's launch
+    counts."""
+    import shutil
+    import tempfile
+    import numpy
+    from veles_torch import continual, model_health, prng, snapshotter
+    from veles_torch import telemetry
+    from veles_torch.config import root
+    from veles_torch.launcher import Launcher
+    from veles_torch.loader.stream import ArraySource, ContinualStreamLoader
+    from veles_torch.reactor import HttpServer
+    from veles_torch.serving.registry import ModelRegistry
+    from veles_torch.znicz.models import datasets, mnist  # noqa: F401
+    from veles_torch.znicz.standard_workflow import StandardWorkflow
+    prng.seed_all(1337)
+    tx, ty, vx, vy = datasets.load_mnist(n_train=CONTINUAL_ROUND_SAMPLES,
+                                         n_valid=CONTINUAL_VALID)
+    data = numpy.concatenate([vx, tx]).reshape(-1, 784).astype(
+        numpy.float32)
+    server = HttpServer("127.0.0.1", 0, continual.stream_handler(
+        ArraySource(data, numpy.concatenate([vy, ty]))), name="ingest")
+    url = "http://127.0.0.1:%d" % server.port
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_continual_")
+    store = os.path.join(tmp, "store")
+    reg = None
+    try:
+        wf = StandardWorkflow(
+            name="mnist", layers=root.mnist.layers,
+            loader_factory=lambda w: ContinualStreamLoader(
+                w, name="loader", minibatch_size=100,
+                source=continual.HttpStreamSource(url),
+                round_samples=CONTINUAL_ROUND_SAMPLES,
+                valid_samples=CONTINUAL_VALID),
+            decision_config={"max_epochs": 1, "fail_iterations": 50},
+            snapshotter_config={"directory": store})
+        reset_counts()
+        t0 = time.perf_counter()
+        with model_health.scoped():
+            launcher = Launcher(device=STREAM_DEVICE,
+                                continual=CONTINUAL_ROUNDS, stats=False)
+            launcher.initialize(wf)
+            launcher.run()
+            stream_sync(torch)
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            trainer = telemetry.get_registry().gauge(
+                continual.STALENESS_FAMILY, labels=("point",)).labels(
+                    "trainer").value
+            wf.snapshotter.export_snapshot(slot="current")
+        rounds = [e for e in telemetry.tracer.recent_events()
+                  if e["event"] == "continual_round"
+                  and e.get("workflow") == "mnist"][-CONTINUAL_ROUNDS:]
+        infos = [i for i in snapshotter.scan_checkpoints(store)
+                 if i.status == "valid"]
+        archive = os.path.dirname(wf.export_inference(
+            os.path.join(tmp, "archive")))
+        reg = ModelRegistry(device=STREAM_DEVICE)
+        reg.load("mnist", archive, refresh_store=store)
+        loaded = reg.refresh_newest("mnist")
+        served_wall = reg.get("mnist").model.checkpoint_meta.get(
+            "ingest_wall")
+        serving = telemetry.get_registry().gauge(
+            continual.STALENESS_FAMILY, labels=("point",)).labels(
+                "serving:mnist").value
+        expected_serving = time.time() - (served_wall or 0.0)
+    finally:
+        if reg is not None:
+            reg.close()
+        server.close()
+        continual.register_ingest_clock(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    train = wf.step.train_steps
+    emit({"phase": "continual", "rounds": len(rounds),
+          "seconds": seconds, "train_steps": train, "launches": counts,
+          "cursor_base": wf.loader.cursor_base,
+          "staleness_after_round": [
+              e["wall"] - e["ingest_wall"] if e.get("ingest_wall") else None
+              for e in rounds],
+          "trainer_staleness": trainer,
+          "checkpoints": [[i.name, i.ingest_wall] for i in infos],
+          "served": loaded, "served_ingest_wall": served_wall,
+          "serving_staleness": serving,
+          "validation_error": [h["validation"]["metric"]
+                               for h in wf.decision.history]})
+    per_round = CONTINUAL_ROUND_SAMPLES // 100
+    if len(rounds) != CONTINUAL_ROUNDS \
+            or len(wf.decision.history) != CONTINUAL_ROUNDS \
+            or train != CONTINUAL_ROUNDS * per_round:
+        fail("continual: %d rounds, %d epochs, %d train steps"
+             % (len(rounds), len(wf.decision.history), train))
+    if wf.loader.cursor_base != CONTINUAL_VALID \
+            + CONTINUAL_ROUNDS * CONTINUAL_ROUND_SAMPLES:
+        fail("continual: cursor at %d" % wf.loader.cursor_base)
+    per_step = train if STREAM_DEVICE == "cuda" else 0
+    want = dict({name: 0 for name in counts},
+                **{"bias_grad[identity]": per_step,
+                   "bias_grad[masked]": per_step})
+    if counts != want:
+        fail("continual: launches %s, expected %s" % (counts, want))
+    if not infos or any(i.ingest_wall is None for i in infos):
+        fail("continual: checkpoints without ingest_wall: %s"
+             % [(i.name, i.ingest_wall) for i in infos])
+    if loaded is None or not served_wall \
+            or not abs(serving - expected_serving) < 5.0 or serving <= 0:
+        fail("continual: serving staleness %r for ingest wall %r (%s)"
+             % (serving, served_wall, loaded))
+    if not 0.0 <= trainer < 60.0:
+        fail("continual: trainer staleness %r" % trainer)
+    return counts
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -5070,10 +5504,13 @@ def main(argv=None):
     serve_http = check_serve_http(torch)
     search = check_search_slice(torch)
     profiling = check_profiling(torch)
+    image_stream = check_image_stream(torch)
+    continual = check_continual(torch)
     paths = {**ae, **serving, **lm_slice, "resume": resume,
              "model_health": health, "unsupervised": unsupervised,
              "plots": plots, "serve_http": serve_http, **search,
-             "profiling": profiling}
+             "profiling": profiling, "image_stream": image_stream,
+             "continual": continual}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

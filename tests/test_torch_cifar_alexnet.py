@@ -355,12 +355,60 @@ def test_entry_point(configs, capsys, sample, overrides):
         torch_main([path, *overrides])
 
 
+def _image_tree(base, n_classes, per_class, fmt, shape=(80, 90, 3)):
+    """``base/c<k>/i<j>.<fmt>``: noisy solid colours, one per class."""
+    from PIL import Image
+    gen = numpy.random.Generator(numpy.random.PCG64(41))
+    for k in range(n_classes):
+        d = base / ("c%d" % k)
+        d.mkdir()
+        colour = gen.integers(0, 256, 3)
+        for j in range(per_class):
+            arr = numpy.clip(colour + gen.normal(0, 20, shape), 0,
+                             255).astype(numpy.uint8)
+            Image.fromarray(arr).save(d / ("i%02d.%s" % (j, fmt)))
+
+
+TREE_OVERRIDES = ["root.imagenet.loader.minibatch_size=8",
+                  "root.imagenet.loader.scale=(75, 75)",
+                  "root.imagenet.loader.crop=(67, 67)",
+                  "root.imagenet.decision.max_epochs=2"]
+
+
 def test_real_imagenet_tree_is_refused(configs, tmp_path):
-    """A real image tree needs the streaming loader, which is not ported:
-    it raises naming its ROADMAP item, and never falls back to the
-    synthetic bank."""
-    (tmp_path / "n01").mkdir()
-    (tmp_path / "n01" / "a.jpg").write_bytes(b"")
+    """A tree of JPEG files (not decoded yet) streams through the file
+    loader and raises naming the file and ROADMAP Queue 1 #6b at the
+    first window; it never falls back to the synthetic bank."""
+    _image_tree(tmp_path, 2, 4, "jpg")
+    with pytest.raises(NotImplementedError, match=r"\.jpg.*Queue 1 #6b"):
+        torch_main([os.path.join(MODELS, "imagenet.py"),
+                    "root.imagenet.loader.base_dir=%s" % tmp_path,
+                    *TREE_OVERRIDES, "-d", "cpu", "--seed", "5"])
     troot.imagenet.loader.base_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        timagenet.create_workflow()
+    troot.imagenet.loader.update({"scale": (75, 75), "crop": (67, 67)})
+    wf = timagenet.create_workflow()
+    assert type(wf.loader).__name__ == "AutoLabelFileImageLoader"
+    assert wf.forwards[-1].output_sample_shape in (2, (2,))
+
+
+def test_png_imagenet_tree_trains_in_stream_mode(configs, tmp_path,
+                                                 capsys):
+    """A PNG tree (4 classes × 10 images of 80×90, resized to 75×75 and
+    cropped to 67) trains AlexNet through AutoLabelFileImageLoader in
+    stream mode on ``-d cpu``: the stride split (1 in 10 held out), the
+    softmax width from the tree, finite losses, uint8 windows uploaded."""
+    _image_tree(tmp_path, 4, 10, "png")
+    wf = torch_main([os.path.join(MODELS, "imagenet.py"),
+                     "root.imagenet.loader.base_dir=%s" % tmp_path,
+                     *TREE_OVERRIDES, "-d", "cpu", "--seed", "5"])
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert wf.loader.supports_streaming
+    assert wf.loader.class_lengths == [0, 4, 36]
+    assert wf.loader.n_classes == 4
+    assert len(last["history"]) == 2
+    assert all(numpy.isfinite(h["train"]["loss"]) for h in last["history"])
+    assert wf.step.train_steps == 2 * 5 and wf.step.eval_steps == 2
+    # every window is uint8 at the crop, labels int32: one padded
+    # validation minibatch and 5 train minibatches of 8 rows an epoch
+    assert wf.step.uploader.bytes == 2 * (8 + 40) * (67 * 67 * 3 + 4)
+    assert len(wf.step.stream_wait_seconds["train"]) == 2

@@ -788,3 +788,27 @@ def test_decode_step_card_matches_cpu(card):
         assert batcher.engine.pool.in_use == 0
     finally:
         batcher.close()
+
+
+@pytest.mark.cuda
+def test_window_uploads_in_flight_hold_their_own_data(card):
+    """The stream path's uploader: three windows uploaded back to back
+    without a synchronization (the third refills the first's pinned
+    buffer once its copy has finished) each hold their own bytes, labels
+    as int64; the compute stream reads them after their copies."""
+    from veles_torch.znicz.step import WindowUploader
+    rng = numpy.random.default_rng(5)
+    wins = [{"data": rng.integers(0, 256, (2, 64, 67, 67, 3),
+                                  dtype=numpy.uint8),
+             "labels": rng.integers(0, 9, (2, 64), dtype=numpy.int32)}
+            for _ in range(3)]
+    up = WindowUploader(card)
+    outs = [up.upload(w) for w in wins]
+    sums = [o["data"].sum(dtype=torch.int64) for o in outs]
+    torch.cuda.synchronize()
+    for out, win, total in zip(outs, wins, sums):
+        assert out["labels"].dtype == torch.int64
+        assert numpy.array_equal(out["data"].cpu().numpy(), win["data"])
+        assert numpy.array_equal(out["labels"].cpu().numpy(), win["labels"])
+        assert int(total) == int(win["data"].sum(dtype=numpy.int64))
+    assert up.bytes == sum(a.nbytes for w in wins for a in w.values())

@@ -264,3 +264,70 @@ def test_profiling_plane_modules_are_scanned(module):
     """The per-step cost ledger, the profiling plane and the fleet view
     are among the files both checks read."""
     assert os.path.join(REPO, "veles_torch", module) in _port_files()
+
+
+@pytest.mark.parametrize("module", [
+    "loader/codecs.py", "loader/stream.py", "loader/image.py",
+    "continual.py", "znicz/models/imagenet_prep.py", "znicz/step.py"])
+def test_streaming_modules_are_scanned(module):
+    """The streaming loader's, the continual loop's and the staging
+    tool's modules are among the files both checks read."""
+    assert os.path.join(REPO, "veles_torch", module) in _port_files()
+
+
+def test_image_stream_and_continual_runs_load_no_jax_or_veles(tmp_path):
+    """In a fresh interpreter: a PNG tree written by ``write_png``
+    streamed through AutoLabelFileImageLoader for one conv epoch, then a
+    continual round over HTTP (``stream_handler`` and HttpStreamSource);
+    no jax or veles module is loaded."""
+    script = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import os, numpy\n"
+        "from veles_torch import continual\n"
+        "from veles_torch.graphics_client import write_png\n"
+        "from veles_torch.loader.image import AutoLabelFileImageLoader\n"
+        "from veles_torch.loader.stream import (ArraySource,\n"
+        "                                       ContinualStreamLoader)\n"
+        "from veles_torch.reactor import HttpServer\n"
+        "from veles_torch.znicz.standard_workflow import StandardWorkflow\n"
+        "base = %r\n"
+        "for k in range(2):\n"
+        "    os.makedirs(os.path.join(base, 'c%%d' %% k))\n"
+        "    for j in range(6):\n"
+        "        write_png(os.path.join(base, 'c%%d' %% k, '%%d.png' %% j),\n"
+        "                  numpy.full((12, 14, 3), 90 * k + j, numpy.uint8))\n"
+        "conv = [{'type': 'conv_relu', '->': {'n_kernels': 2, 'kx': 3,\n"
+        "         'ky': 3}, '<-': {'learning_rate': 0.01}},\n"
+        "        {'type': 'softmax', '->': {'output_sample_shape': 2},\n"
+        "         '<-': {'learning_rate': 0.01}}]\n"
+        "wf = StandardWorkflow(name='w', layers=conv,\n"
+        "    loader_factory=lambda w: AutoLabelFileImageLoader(\n"
+        "        w, base_dir=base, scale=(10, 10), crop=(8, 8),\n"
+        "        mirror='random', minibatch_size=4),\n"
+        "    decision_config={'max_epochs': 1})\n"
+        "wf.initialize(device='cpu').run()\n"
+        "wf.close()\n"
+        "rng = numpy.random.RandomState(1)\n"
+        "src = ArraySource(rng.uniform(-1, 1, (64, 5)).astype('float32'),\n"
+        "                  rng.randint(0, 3, 64).astype('int32'))\n"
+        "srv = HttpServer('127.0.0.1', 0, continual.stream_handler(src))\n"
+        "url = 'http://127.0.0.1:%%d' %% srv.port\n"
+        "fc = [{'type': 'softmax', '->': {'output_sample_shape': 3},\n"
+        "       '<-': {'learning_rate': 0.01}}]\n"
+        "wf = StandardWorkflow(name='c', layers=fc,\n"
+        "    loader_factory=lambda w: ContinualStreamLoader(\n"
+        "        w, source=continual.HttpStreamSource(url),\n"
+        "        minibatch_size=8, round_samples=16, valid_samples=8),\n"
+        "    decision_config={'max_epochs': 1})\n"
+        "wf.initialize(device='cpu')\n"
+        "assert continual.continual_loop(wf, rounds=1) == 1\n"
+        "wf.close()\n"
+        "srv.close()\n"
+        "new = set(sys.modules) - before\n"
+        "print(sorted(m for m in new if m.split('.')[0] in %r))\n"
+        % (str(tmp_path), FORBIDDEN))
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout

@@ -202,6 +202,29 @@ def test_unported_options_name_their_roadmap_item(flag, kwargs, item):
         torch_main([TORCH_MNIST, "-d", "cpu", *_argv(flag, kwargs)])
 
 
+def test_continual_runs_rounds_on_cpu(tmp_path, capsys):
+    """``--continual 2`` of MNIST on ``-d cpu``: two rounds of one epoch
+    each (the decision reopened between them, patience disarmed), the
+    same --result-file history as the reference CLI's ``--continual 2``
+    (error rates equal, losses within LOSS_RTOL)."""
+    tail = [*SMALL, "root.mnist.decision.max_epochs=1", "-d", "cpu",
+            "--seed", "11", "--continual", "2", "--result-file"]
+    want = str(tmp_path / "want.json")
+    jax_main([JAX_MNIST, *tail, want, "--no-stats"])
+    got = str(tmp_path / "got.json")
+    wf = torch_main([TORCH_MNIST, *tail, got])
+    capsys.readouterr()
+    assert wf.decision.epoch_number == 2 and wf.decision.complete
+    assert wf.decision.fail_iterations == float("inf")
+    jh, th = _history(want), _history(got)
+    assert len(jh) == len(th) == 2
+    for j, t in zip(jh, th):
+        for cls in ("validation", "train"):
+            assert j[cls]["metric"] == t[cls]["metric"]
+            assert abs(j[cls]["loss"] - t[cls]["loss"]) <= \
+                LOSS_RTOL * j[cls]["loss"]
+
+
 # -- the model-health plane's options ------------------------------------
 
 

@@ -140,7 +140,6 @@ UNPORTED = (
     ("--grad-codec", {}, 10),
     ("--grad-topk-percent", {"type": float}, 10),
     ("--stash-interval", {"type": int}, 10),
-    ("--continual", {"type": int, "nargs": "?", "const": 0}, 6),
 )
 
 
@@ -224,6 +223,14 @@ def build_argparser():
                    help="genetic search over the config's Tune leaves: "
                         "GENS generations of POP individuals (default "
                         "12), in WORKERS spawned processes when given")
+    p.add_argument("--continual", type=int, nargs="?", const=0,
+                   default=None, metavar="ROUNDS",
+                   help="continual training: run the workflow over its "
+                        "(streaming) loader in rounds of max_epochs, "
+                        "reopening the decision between rounds, until "
+                        "interrupted, or for ROUNDS rounds; checkpoints "
+                        "carry the ingest wall time, so serving "
+                        "staleness is measurable end to end")
     p.add_argument("--workflow-graph", default=None, metavar="PATH",
                    help="write the unit DAG as graphviz dot and exit")
     p.add_argument("--dump-unit-sizes", action="store_true",
@@ -646,7 +653,8 @@ def run_workflow(args, module, before_run=None):
                         graphics_dir=args.graphics_dir,
                         web_status_port=args.web_status,
                         slo_config=args.slo_config,
-                        stats=not args.no_stats)
+                        stats=not args.no_stats,
+                        continual=args.continual)
     if args.trace_out:
         # from before initialize on, dumped in the finally: a failed
         # run's spans are the postmortem the trace is for

@@ -20,8 +20,8 @@ approximation) with a colour bar, tiles each scaled to its own range,
 the matrix's counts as digits, the curves as lines with markers on a
 grid with their y range and last x as numbers. Titles and axis names
 stay in ``plots.json`` and the frame's meta: the renderer has a digit
-font only. :func:`read_png` decodes an 8-bit PNG (any filter) back into
-an array.
+font only. :func:`read_png` (``veles_torch/loader/codecs.py``) decodes
+an 8-bit PNG (any filter) back into an array.
 """
 
 import argparse
@@ -33,6 +33,8 @@ import sys
 import zlib
 
 import numpy
+
+from veles_torch.loader.codecs import read_png  # noqa: F401 (re-exported)
 
 #: colormap -> evenly spaced RGB stops
 COLORMAPS = {
@@ -88,62 +90,6 @@ def write_png(path, rgb):
         + _chunk(b"IEND", b"")
     with open(path, "wb") as f:
         f.write(png)
-
-
-def read_png(path):
-    """An 8-bit, non-interlaced grey, RGB, grey+alpha or RGBA PNG -> an
-    (H, W, channels) uint8 array."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError("%s: not a PNG" % path)
-    pos, idat, header = 8, [], None
-    while pos < len(data):
-        n, = struct.unpack(">I", data[pos:pos + 4])
-        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-    w, h, depth, color, _, _, interlace = header
-    channels = {0: 1, 2: 3, 4: 2, 6: 4}.get(color)
-    if depth != 8 or channels is None or interlace:
-        raise ValueError("%s: unsupported PNG (depth %d, colour type %d, "
-                         "interlace %d)" % (path, depth, color, interlace))
-    rows = numpy.frombuffer(zlib.decompress(b"".join(idat)), numpy.uint8) \
-        .reshape(h, 1 + w * channels)
-    out = numpy.zeros((h, w * channels), numpy.int64)
-    prev = numpy.zeros(w * channels, numpy.int64)
-    for y in range(h):
-        kind, line = rows[y, 0], rows[y, 1:].astype(numpy.int64)
-        if kind == 0:
-            cur = line
-        elif kind == 1:         # sub: a running sum per channel
-            cur = numpy.cumsum(line.reshape(w, channels), axis=0) \
-                .reshape(-1) % 256
-        elif kind == 2:         # up
-            cur = (line + prev) % 256
-        elif kind in (3, 4):    # average, Paeth: pixel by pixel
-            cur = numpy.zeros_like(line)
-            for x in range(0, w * channels, channels):
-                a = cur[x - channels:x] if x else numpy.zeros(
-                    channels, numpy.int64)
-                b = prev[x:x + channels]
-                if kind == 3:
-                    pred = (a + b) // 2
-                else:
-                    c = prev[x - channels:x] if x else numpy.zeros(
-                        channels, numpy.int64)
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = numpy.where((pa <= pb) & (pa <= pc), a,
-                                       numpy.where(pb <= pc, b, c))
-                cur[x:x + channels] = (line[x:x + channels] + pred) % 256
-        else:
-            raise ValueError("%s: bad PNG filter %d" % (path, kind))
-        out[y], prev = cur, cur
-    return out.astype(numpy.uint8).reshape(h, w, channels)
 
 
 # -- drawing -------------------------------------------------------------

@@ -6,7 +6,8 @@
                         model_stats=True, stats_interval=8,
                         rollback_on_divergence=False,
                         graphics_dir="plots", web_status_port=0,
-                        slo_config="slos.json", stats=True)
+                        slo_config="slos.json", stats=True,
+                        continual=None)
     launcher.initialize(workflow)
     launcher.run()
 
@@ -70,7 +71,8 @@ class Launcher:
     def __init__(self, device="cuda", snapshot=None, checkpoint_every=None,
                  profile_dir=None, model_stats=True, stats_interval=None,
                  rollback_on_divergence=False, graphics_dir=None,
-                 web_status_port=None, slo_config=None, stats=True):
+                 web_status_port=None, slo_config=None, stats=True,
+                 continual=None):
         self.device = device
         self.snapshot = snapshot
         self.checkpoint_every = checkpoint_every
@@ -82,6 +84,8 @@ class Launcher:
         self.web_status_port = web_status_port
         self.slo_config = slo_config
         self.stats = bool(stats)
+        #: None: one run; else continual rounds (0: until interrupted)
+        self.continual = continual
         #: the GraphicsServer of ``graphics_dir`` while the run lasts
         self.graphics = None
         #: the WebStatus dashboard of ``web_status_port`` while the run
@@ -122,7 +126,10 @@ class Launcher:
 
     def close(self):
         """Stop the graphics server (its renderer draws what it received
-        and exits) and the dashboard."""
+        and exits), the dashboard and the workflow's threads
+        (``NNWorkflow.close``)."""
+        if self.workflow is not None:
+            self.workflow.close()
         if self.graphics is not None:
             self.graphics.close()
             self.workflow.graphics = self.graphics = None
@@ -240,14 +247,22 @@ class Launcher:
         if self.profile_dir:
             os.makedirs(self.profile_dir, exist_ok=True)
             with self._profiler() as prof:
-                wf.run()
+                self._run_workflow()
                 if wf.device.device.type == "cuda":
                     torch.cuda.synchronize()
             path = os.path.join(self.profile_dir, TRACE_NAME)
             prof.export_chrome_trace(path)
             logger.info("profiler trace -> %s", path)
         else:
-            wf.run()
+            self._run_workflow()
+
+    def _run_workflow(self):
+        if self.continual is None:
+            self.workflow.run()
+            return
+        from veles_torch.continual import continual_loop
+        continual_loop(self.workflow, rounds=self.continual or None,
+                       launcher=self)
 
     def _preemption_exit(self):
         snap = self.workflow.snapshotter

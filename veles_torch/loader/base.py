@@ -33,7 +33,13 @@ TRIAGE = ("test", "validation", "train")
 class Loader:
     """Base minibatch scheduler. Subclasses implement :meth:`load_data`
     (set ``class_lengths`` and the dataset) and
-    :meth:`device_full_arrays`."""
+    :meth:`device_full_arrays`; a streaming loader
+    (``veles_torch/loader/stream.py``) sets ``supports_streaming`` and
+    materializes windows instead."""
+
+    #: the step uploads windows of this loader's minibatches in place of
+    #: gathering from device-resident arrays
+    supports_streaming = False
 
     def __init__(self, workflow=None, name="loader", minibatch_size=100,
                  shuffle=True, prng_key="loader", normalization_type=None,
@@ -65,6 +71,10 @@ class Loader:
         dataset on ``device``; minibatches are gathered from it by
         index."""
         raise NotImplementedError
+
+    def stop(self):
+        """Stop the loader's threads (a streaming loader's pools); the
+        base has none."""
 
     def apply_normalization(self):
         """Fit and apply ``normalizer`` (a subclass's hook). The base

@@ -329,9 +329,11 @@ class ModelRegistry(Logger):
         return None
 
     def _checkpoint_gauges(self, name):
-        """Scrape-time gauges over the served checkpoint's manifest (the
-        reference's staleness point gauge comes with the continual loop,
-        ROADMAP Queue 1 item 6)."""
+        """Scrape-time gauges over the served checkpoint's manifest: its
+        wall times and the model's staleness point
+        (``veles_staleness_seconds{point="serving:<model>"}``,
+        ``continual.py``)."""
+        from veles_torch.continual import install_point_gauge
         telemetry.gauge(
             "veles_serving_checkpoint_wall_seconds",
             "MANIFEST wall time of the served checkpoint (0 = serving "
@@ -343,6 +345,9 @@ class ModelRegistry(Logger):
             "MANIFEST ingest_wall of the served checkpoint (0 = no "
             "continual stamp)", ("model",)).labels(name).set_function(
                 lambda n=name: self._ckpt_meta(n, "ingest_wall"))
+        install_point_gauge(
+            "serving:%s" % name,
+            lambda n=name: self._ckpt_meta(n, "ingest_wall") or None)
 
     def _ckpt_meta(self, name, key):
         with self._lock:

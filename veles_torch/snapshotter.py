@@ -13,7 +13,8 @@ state) written as one npz whose layout is the reference's:
   time, slot, config hash and a sha256 per array over dtype + shape +
   bytes, plus the ``model_health`` stamp: the model-health monitor's
   verdict and the stats it was judged on (``unknown`` while the plane is
-  off, ``--model-stats off``).
+  off, ``--model-stats off``), and in a continual run ``ingest_wall``
+  (``continual.py``; :func:`health_stamp_meta`).
 
 So a blob written by either package verifies and loads in the other.
 Compression is ``""``, ``gz``, ``bz2`` or ``xz``, read from the name's
@@ -789,6 +790,21 @@ def _delete(store, name):
         logger.warning("retention delete of %s failed: %s", name, exc)
 
 
+def health_stamp_meta():
+    """The ``extra_meta`` of every checkpoint the snapshotter writes: the
+    model monitor's verdict under ``model_health`` and, when a continual
+    run registered an ingest clock (``continual.py``), ``ingest_wall``:
+    the wall time of the newest sample behind these weights, what a
+    serving replica's staleness is measured from."""
+    from veles_torch import continual
+    meta = {"model_health": model_health.get_model_monitor()
+            .manifest_stamp()}
+    wall = continual.ingest_wall()
+    if wall:
+        meta["ingest_wall"] = float(wall)
+    return meta
+
+
 class CheckpointInfo:
     """One store entry as :func:`scan_checkpoints` sees it."""
 
@@ -815,6 +831,17 @@ class CheckpointInfo:
             doc = self.manifest.get("model_health")
             if isinstance(doc, dict):
                 return doc.get("verdict")
+        return None
+
+    @property
+    def ingest_wall(self):
+        """Wall time of the newest sample behind these weights (a
+        continual run's), or None."""
+        if self.manifest:
+            try:
+                return float(self.manifest.get("ingest_wall"))
+            except (TypeError, ValueError):
+                pass
         return None
 
     def __repr__(self):
@@ -1019,8 +1046,7 @@ class Snapshotter:
             path, _ = write_checkpoint(
                 self.store, name, self.workflow.checkpoint_state(),
                 compression=self.compression, slot=slot,
-                extra_meta={"model_health": model_health.get_model_monitor()
-                            .manifest_stamp()})
+                extra_meta=health_stamp_meta())
         except Exception as exc:
             self._store_failures += 1
             if self._store_failures >= self.max_store_failures:

@@ -6,14 +6,20 @@ after the first two, overlapping 3×3/s2 max pools), two dropout +
 FC(4096) blocks and a softmax classifier — with the same
 ``root.imagenet`` defaults (minibatch 128, 256×256 bank, 227×227 crop).
 
-Data: the reference's deterministic synthetic stand-in, a uint8 bank of
-per-class low-frequency prototypes plus per-index noise made with numpy
-bit for bit as the reference makes it, resident on the device; each
-gathered minibatch is center-cropped, mirrored (every other row, train
-only) and normalized on the device (``batch_transform``). A real
-ImageNet tree under ``root.imagenet.loader.base_dir`` needs the
-streaming file loader, which is not ported (ROADMAP Queue 1 #6): that
-path raises, it does not fall back to the bank.
+Data: an image tree under ``root.imagenet.loader.base_dir`` (default
+``<datasets>/ImageNet``; ``<base>/<class>/*.<ext>``, as
+``imagenet_prep.py`` stages it) streams through
+``AutoLabelFileImageLoader`` (``veles_torch/loader/image.py``): decoded
+on the host, scaled to ``scale``, randomly cropped to ``crop`` and
+mirrored for training (centre crop for validation), shipped as uint8 and
+normalized on the device; the softmax width is the tree's class count.
+A file the port does not decode (JPEG, GIF: ROADMAP Queue 1 #6b) raises
+with its path; nothing falls back to the bank. Without a tree: the
+reference's deterministic synthetic stand-in, a uint8 bank of per-class
+low-frequency prototypes plus per-index noise made with numpy bit for
+bit as the reference makes it, resident on the device; each gathered
+minibatch is center-cropped, mirrored (every other row, train only) and
+normalized on the device (``batch_transform``).
 
     python -m veles_torch veles_torch/znicz/models/imagenet.py -d cuda
 """
@@ -26,13 +32,10 @@ import torch
 
 from veles_torch.config import root
 from veles_torch.loader.fullbatch import FullBatchLoader
+from veles_torch.loader.image import IMAGE_EXTS, AutoLabelFileImageLoader
 from veles_torch.znicz.standard_workflow import StandardWorkflow
 
 logger = logging.getLogger("veles_torch.imagenet")
-
-#: image file extensions of a class directory (the reference's
-#: ``veles.loader.image.IMAGE_EXTS``)
-IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".gif")
 
 
 def alexnet_layers(n_classes, lr=0.01, wd=0.0005, moment=0.9):
@@ -172,10 +175,12 @@ def make_loader(wf):
     cfg = root.imagenet.loader
     base, n = _real_tree()
     if base:
-        raise NotImplementedError(
-            "ImageNet tree %s (%d classes): the streaming file loader "
-            "(veles/loader/image.py, stream.py) is not ported yet "
-            "(ROADMAP Queue 1 #6)" % (base, n))
+        logger.warning("dataset imagenet: real tree %s (%d classes)",
+                       base, n)
+        return AutoLabelFileImageLoader(
+            wf, name="loader", base_dir=base, scale=tuple(cfg.scale),
+            crop=tuple(cfg.crop), mirror="random",
+            minibatch_size=cfg.minibatch_size)
     logger.warning("dataset imagenet: SYNTHETIC")
     return SyntheticImageLoader(
         wf, name="loader", minibatch_size=cfg.minibatch_size,

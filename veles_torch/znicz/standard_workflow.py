@@ -249,6 +249,15 @@ class NNWorkflow:
         if self.step is not None:
             self.step.stop_requested = True
 
+    def close(self):
+        """Stop the threads the run started: the stream path's staging
+        pool and the loader's (a streaming loader's decode pool and
+        ingest producer). A later :meth:`run` starts them again."""
+        if self.step is not None:
+            self.step.close()
+        if self.loader is not None:
+            self.loader.stop()
+
     def export_inference(self, path):
         """Write the inference archive (contents.json + .npy weights) of
         this workflow's forward chain; -> the path of its contents.json."""

@@ -73,11 +73,29 @@ samples and, for a token loader (2-D integer data), samples × S tokens:
 the ``veles_step_*{kind}`` families. :attr:`TorchStep.costs` keeps the
 signatures' costs.
 
+A loader that ``supports_streaming`` (``veles_torch/loader/stream.py``,
+the reference's ``XLAStep`` stream mode) holds no device-resident data:
+each class of the epoch plan is split into windows of
+:meth:`TorchStep.window_minibatches` minibatches, a two-thread staging
+pool materializes them on the host (``loader.materialize_window``) two
+windows ahead, :class:`WindowUploader` ships each one up (pinned memory,
+its own copy stream, the compute stream waiting on the copy's event) and
+every minibatch is a slice of the device window, through
+``batch_transform`` and the same train and eval steps; the class keeps
+its one metrics copy. The time the compute loop waits on staged windows
+goes to :attr:`TorchStep.stream_wait_seconds`. The cost counter sees
+what the resident path's does past the gather: the slice (a free view),
+``batch_transform`` and the step; the staging and the upload are not
+counted as the step's work. A stopped epoch cancels the staged windows.
+
 Eager PyTorch: each operation is its own launch (no CUDA graph yet).
 """
 
+import collections
+import concurrent.futures
 import time
 
+import numpy
 import torch
 
 from veles_torch import model_health, perf, telemetry
@@ -154,6 +172,20 @@ class TorchStep:
         self.costs = {}
         #: {kind: [wall seconds, dispatches]} of the classes run so far
         self.dispatch_seconds = {}
+        #: the stream path (a loader that ``supports_streaming``): bytes
+        #: of sample data in one window and its minibatch cap
+        self.max_window_bytes = 96 << 20
+        self.max_window_minibatches = 64
+        #: {kind: [seconds the class waited on staged windows, one per
+        #: class dispatch]}: near 0 when the card sets the pace, the
+        #: class's time when the host's decode does
+        self.stream_wait_seconds = {}
+        #: minibatches per window of the last streamed epoch
+        self.last_window_minibatches = None
+        #: the stream path's uploader (its ``bytes`` went up) and
+        #: staging pool, made on the first streamed epoch
+        self.uploader = None
+        self._stage_pool = None
 
     def set_stats_enabled(self, enabled):
         """Turn the layer stats on or off (off: no stat work at all)."""
@@ -250,12 +282,11 @@ class TorchStep:
             self.last_stats = layer_stats(sink)
         return metrics
 
-    def _minibatch(self, step, full, idx, train, valid, metrics, i, stats,
-                   j):
-        """One minibatch into row ``i`` of the class's metrics and, when
-        it took layer stats, row ``j`` of its stats; -> the next stats
-        row."""
-        metrics[i] = step(*self.gather(full, idx, train), valid)
+    def _minibatch(self, step, fetch, train, valid, metrics, i, stats, j):
+        """One minibatch (``fetch()`` -> its data and target) into row
+        ``i`` of the class's metrics and, when it took layer stats, row
+        ``j`` of its stats; -> the next stats row."""
+        metrics[i] = step(*fetch(), valid)
         if train and self.last_stats is not None:
             stats[j] = self.last_stats
             self.last_stats = None
@@ -270,6 +301,38 @@ class TorchStep:
             monitor.observe_stats(dict(zip(self.stat_names, row)),
                                   step_index=step_index)
 
+    def window_minibatches(self):
+        """Minibatches per streamed window: bounded by
+        ``max_window_bytes`` over the bytes of one minibatch of the
+        loader's ``sample_spec`` (what the host ships) and by
+        ``max_window_minibatches``."""
+        loader = self.loader
+        per_mb = loader.max_minibatch_size * sum(
+            int(numpy.prod(shape, dtype=numpy.int64)) * numpy.dtype(dt).itemsize
+            for shape, dt in loader.sample_spec().values())
+        w = max(1, int(self.max_window_bytes // max(per_mb, 1)))
+        return min(w, int(self.max_window_minibatches))
+
+    def window_batch(self, window, k, train):
+        """(data as the forwards take it, the evaluator's target) of
+        minibatch ``k`` of the uploaded ``window``."""
+        rows = window["data"][k]
+        key = getattr(self.evaluator, "TARGET", None)
+        if key is None:
+            target = None
+        elif key == "targets" and self.loader.targets_are_data:
+            target = rows
+        else:
+            target = window[key][k]
+        return self.loader.batch_transform(rows, train), target
+
+    def close(self):
+        """Shut the stream path's staging pool down (a later streamed
+        epoch makes a new one)."""
+        pool, self._stage_pool = self._stage_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+
     def run_epoch(self, after_class=None):
         """Serve every class of the loader's current epoch and feed the
         decision, calling ``after_class(cls)`` after each; -> False when
@@ -277,8 +340,20 @@ class TorchStep:
         t0 = time.perf_counter()
         loader = self.loader
         dev = self.device.device
-        full = loader.device_full_arrays(dev)
         plan = loader.epoch_plan()
+        feed = _StreamFeed(self, plan) if loader.supports_streaming \
+            else _ResidentFeed(self, loader.device_full_arrays(dev))
+        try:
+            if not self._run_classes(plan, feed, after_class):
+                return False
+        finally:
+            feed.close()
+        self.epoch_seconds.append(time.perf_counter() - t0)
+        return True
+
+    def _run_classes(self, plan, feed, after_class):
+        loader = self.loader
+        dev = self.device.device
         has_valid = loader.class_lengths[CLASS_VALID] > 0
         for ci, (cls, idx_mat, valids) in enumerate(plan):
             train = cls == CLASS_TRAIN
@@ -287,7 +362,7 @@ class TorchStep:
                 self.entry = self.take_entry() if self.take_entry else None
                 self.in_train = True
             step = self.train_minibatch if train else self.eval_minibatch
-            idx = torch.as_tensor(idx_mat, dtype=torch.int64).to(dev)
+            feed.start_class(ci, idx_mat)
             valid_dev = torch.as_tensor(valids).to(dev)
             n = len(idx_mat)
             # the class's one device buffer: its metrics, then the stat
@@ -310,24 +385,24 @@ class TorchStep:
                 sig = (cls, n, train and self.stats_due())
                 j, one = perf.ledger.cost(
                     (id(self),) + sig, self._minibatch,
-                    (step, full, idx[i], train, valid_dev[i], metrics, i,
-                     stats, j), owner=self)
+                    (step, feed.minibatch(i, train), train, valid_dev[i],
+                     metrics, i, stats, j), owner=self)
                 self.costs[sig] = one
                 cost = cost + one
             host = buf.cpu().numpy()
             dt = time.perf_counter() - t_class
             warm = (cls, n) in self._seen_dispatch
             self._seen_dispatch.add((cls, n))
-            _record_dispatch(_KINDS[cls], warm, t_class, dt, minibatches=n)
-            total = self.dispatch_seconds.setdefault(_KINDS[cls], [0.0, 0])
+            kind = _KINDS[cls]
+            _record_dispatch(kind, warm, t_class, dt, minibatches=n,
+                             **feed.dispatch_args())
+            total = self.dispatch_seconds.setdefault(kind, [0.0, 0])
             total[0] += dt
             total[1] += 1
+            feed.end_class(kind)
             samples = int(valids.sum())
-            data = full["data"]
-            tokens = samples * data.shape[1] if data.dim() == 2 \
-                and not data.dtype.is_floating_point else None
-            perf.ledger.record_dispatch(_KINDS[cls], cost, dt,
-                                        samples=samples, tokens=tokens,
+            perf.ledger.record_dispatch(kind, cost, dt, samples=samples,
+                                        tokens=feed.tokens(samples),
                                         device=dev)
             if due:
                 self._publish_stats(
@@ -346,5 +421,189 @@ class TorchStep:
             self.in_train = False
             if after_class is not None:
                 after_class(cls)
-        self.epoch_seconds.append(time.perf_counter() - t0)
         return True
+
+
+def _tokens(samples, shape, floating):
+    """Tokens of ``samples`` samples of a token loader (1-D integer
+    samples: S tokens each), else None."""
+    if len(shape) == 1 and not floating:
+        return samples * int(shape[0])
+    return None
+
+
+class _ResidentFeed:
+    """The minibatches of a device-resident dataset: each a gather by
+    index from ``loader.device_full_arrays``."""
+
+    def __init__(self, step, full):
+        self.step = step
+        self.full = full
+        self.idx = None
+
+    def start_class(self, ci, idx_mat):
+        self.idx = torch.as_tensor(idx_mat, dtype=torch.int64).to(
+            self.step.device.device)
+
+    def minibatch(self, i, train):
+        """-> the costed fetch of minibatch ``i``."""
+        full, idx = self.full, self.idx[i]
+        return lambda: self.step.gather(full, idx, train)
+
+    def dispatch_args(self):
+        return {}
+
+    def end_class(self, kind):
+        pass
+
+    def tokens(self, samples):
+        data = self.full["data"]
+        return _tokens(samples, data.shape[1:],
+                       data.dtype.is_floating_point)
+
+    def close(self):
+        pass
+
+
+class _StreamFeed:
+    """The minibatches of a streaming loader: the epoch's classes split
+    into windows of ``step.window_minibatches()``; a two-thread staging
+    pool runs ``loader.materialize_window`` two windows ahead (no more:
+    staged windows never pile up in host memory), each window is uploaded
+    by the step's :class:`WindowUploader` when its first minibatch comes,
+    and a minibatch is a slice of it. The wait for a staged window is
+    timed into ``step.stream_wait_seconds``; the staging and the upload
+    run outside the minibatch's costed call."""
+
+    DEPTH = 2
+
+    def __init__(self, step, plan):
+        self.step = step
+        self.loader = step.loader
+        self.w = step.window_minibatches()
+        step.last_window_minibatches = self.w
+        if step._stage_pool is None:
+            step._stage_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=2, thread_name_prefix="stream-stage")
+        if step.uploader is None:
+            step.uploader = WindowUploader(step.device.device)
+        self.spans = [(cls, idx_mat[lo:lo + self.w])
+                      for cls, idx_mat, _ in plan
+                      for lo in range(0, len(idx_mat), self.w)]
+        self.staged = collections.deque()
+        self.next_span = 0
+        for _ in range(self.DEPTH):
+            self._stage()
+        self.window = None
+        self.windows = 0
+        self.wait = 0.0
+        shape, dtype = self.loader.sample_spec()["data"]
+        self.data_spec = (tuple(shape), numpy.dtype(dtype).kind == "f")
+
+    def _stage(self):
+        if self.next_span < len(self.spans):
+            cls, rows = self.spans[self.next_span]
+            self.staged.append(self.step._stage_pool.submit(
+                self.loader.materialize_window, cls, rows))
+            self.next_span += 1
+
+    def start_class(self, ci, idx_mat):
+        self.windows = 0
+        self.wait = 0.0
+
+    def minibatch(self, i, train):
+        k = i % self.w
+        if k == 0:
+            t = time.perf_counter()
+            host = self.staged.popleft().result()
+            self.wait += time.perf_counter() - t
+            self._stage()
+            self.window = self.step.uploader.upload(host)
+            self.windows += 1
+        window = self.window
+        return lambda: self.step.window_batch(window, k, train)
+
+    def dispatch_args(self):
+        return {"windows": self.windows}
+
+    def end_class(self, kind):
+        self.step.stream_wait_seconds.setdefault(kind, []).append(self.wait)
+
+    def tokens(self, samples):
+        return _tokens(samples, *self.data_spec)
+
+    def close(self):
+        self.window = None
+        for future in self.staged:
+            future.cancel()
+        self.staged.clear()
+
+
+class WindowUploader:
+    """Host windows (dict name -> numpy array) -> tensors on ``device``;
+    integer ``labels`` become int64 there.
+
+    On a card each array is copied into a pinned host buffer, one of
+    ``DEPTH`` per name used in turn, and uploaded with ``non_blocking`` on
+    the uploader's own copy stream; the compute stream waits on the
+    copy's event, and a pinned buffer is refilled only after the event of
+    its previous copy has completed. The device tensors are allocated on
+    the copy stream and recorded on the compute stream
+    (``record_stream``), so their memory is not handed out again while
+    the compute stream still reads it. On the CPU the host arrays are
+    used as they are. ``bytes`` counts what went up."""
+
+    #: pinned buffers per name, used in turn
+    DEPTH = 2
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.bytes = 0
+        self.uploads = 0
+        self._cuda = self.device.type == "cuda"
+        self._stream = None
+        #: per slot: ({name: pinned uint8 buffer}, the event of its copy)
+        self._slots = [({}, None) for _ in range(self.DEPTH)]
+
+    def upload(self, window):
+        out = {}
+        if not self._cuda:
+            for name, arr in window.items():
+                out[name] = torch.from_numpy(numpy.ascontiguousarray(arr))
+        else:
+            out = self._upload_cuda(window)
+        self.uploads += 1
+        self.bytes += sum(int(arr.nbytes) for arr in window.values())
+        if "labels" in out and not out["labels"].dtype.is_floating_point:
+            out["labels"] = out["labels"].to(torch.int64)
+        return out
+
+    def _upload_cuda(self, window):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        compute = torch.cuda.current_stream(self.device)
+        slot = self.uploads % self.DEPTH
+        buffers, event = self._slots[slot]
+        if event is not None:
+            event.synchronize()      # this slot's last copy has finished
+        out = {}
+        with torch.cuda.stream(self._stream):
+            for name, arr in window.items():
+                src = torch.from_numpy(numpy.ascontiguousarray(arr))
+                nbytes = src.numel() * src.element_size()
+                buf = buffers.get(name)
+                if buf is None or buf.numel() < nbytes:
+                    buf = buffers[name] = torch.empty(
+                        nbytes, dtype=torch.uint8, pin_memory=True)
+                pinned = buf[:nbytes].view(src.dtype).view(src.shape)
+                pinned.copy_(src)
+                dev = torch.empty(src.shape, dtype=src.dtype,
+                                  device=self.device)
+                dev.copy_(pinned, non_blocking=True)
+                dev.record_stream(compute)
+                out[name] = dev
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        self._slots[slot] = (buffers, event)
+        compute.wait_event(event)
+        return out
