@@ -372,12 +372,39 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     with ``ingest_wall``, the trainer's staleness after each round, and a
     serving registry on the newest checkpoint publishing
     ``veles_staleness_seconds{point="serving:mnist"}``;
-32. the ``kernels`` summary line (the bias gradient's launches summed
+32. distributed — the elastic master/slave wire: (a) the full-width
+    MNIST sample through the CLI, a master process (host weights, no
+    CUDA: its result line says so) and two slave processes on the card,
+    2 epochs under ``--grad-codec none`` and again under ``int8``: every
+    job served and acknowledged, the slaves' summed masked and identity
+    launches equal to the train jobs, the master's persisted weights
+    finite and moved, int8's received bytes a job at most
+    ``DIST_INT8_SHARE`` of none's; the two slaves of the first run build
+    the bias-gradient library at once (its file removed first) and both
+    load it; the per-job round trip p50, the slave's compute and the
+    wire's share from the master's trace (``job.wire`` and the absorbed
+    ``slave.*`` spans); one unshuffled slave in process against the
+    standalone card run over the same order, within ``DIST_SEQ_RTOL`` of
+    the largest weight; the update bytes a job of bf16 and top-k (one
+    slave in process); and a run of ``DIST_KILL_EPOCHS`` where one slave
+    is SIGKILLed (frozen first, and killed only while the master holds a
+    job of it out) once the master served ``DIST_KILL_AFTER_JOBS`` jobs:
+    it is dropped within ``--slave-timeout``, its job requeued, the run
+    completes and ``faults`` shows the drop; (b) the
+    110M LM's widths at 2 layers, one slave on the card, 4 jobs under
+    bf16: the flash forward and fused backward launches the jobs imply,
+    every ``PARAMS`` name of every GD unit in the job and the update, the
+    master's weights finite; (c) ``--optimize 2x4 --listen-address`` with
+    two ``--optimize slave`` processes on the card: 8 individuals, finite
+    fitness, one launch of each form a train step in the slaves;
+33. the ``kernels`` summary line (the bias gradient's launches summed
     over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume,
     model-health, unsupervised, plots, serve_http, ensemble, optimize (in
-    process and in the workers), shell_forge, profiling, image_stream and
-    continual runs, each path's beside it, the serving paths' among
-    them), the card line, and last ``{"ok": true, "device": {...}}``.
+    process and in the workers), shell_forge, profiling, image_stream,
+    continual and distributed runs (the slaves' counts from their result
+    lines; a SIGKILLed slave's are lost), each path's beside it, the
+    serving paths' among them), the card line, and last ``{"ok": true,
+    "device": {...}}``.
 
 Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
 """
@@ -5443,6 +5470,588 @@ def check_continual(torch):
     return counts
 
 
+
+# -- the master/slave wire: MNIST and the 110M LM over it, the GA over slaves
+
+DIST_DEVICE = "cuda"
+#: the full-width MNIST sample (root.mnist: 784 -> 100 -> 10, minibatch
+#: 100, 6000/1000 samples): jobs an epoch, train and valid minibatches
+DIST_SEED = ("--seed", "1337")
+DIST_TRAIN_JOBS, DIST_VALID_JOBS = 60, 10
+DIST_EPOCHS = 2
+#: the kill run: more epochs, so the SIGKILL lands mid-run, once the
+#: master has merged this many jobs
+DIST_KILL_EPOCHS = 8
+DIST_KILL_AFTER_JOBS = 40
+DIST_SLAVE_TIMEOUT = 10.0
+#: one unshuffled slave against the standalone card run over the same
+#: order, as a share of the largest weight (the master adds each delta
+#: w_new - w_basis to w_basis: one rounding a train job)
+DIST_SEQ_RTOL = 1e-5
+#: the master's received bytes a job under int8 against none's (the
+#: reference's acceptance share)
+DIST_INT8_SHARE = 0.3
+#: codecs whose wire bytes a job the in-process runs read (none and int8
+#: come from the processes' runs)
+DIST_INPROC_CODECS = ("bf16", "topk")
+#: the 110M LM's widths at 2 layers: 3 train and 1 valid minibatch of 8
+#: sequences of 512 tokens, one epoch: 4 jobs
+DIST_LM = LM_110M + ("root.lm.model.layers=2", "root.lm.loader.n_train=24",
+                     "root.lm.loader.n_valid=8",
+                     "root.lm.decision.max_epochs=1",
+                     "root.lm.model.attn_impl=pallas")
+DIST_LM_JOBS = 4
+#: seconds any process of the phase may take
+DIST_BOUND = 240
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_cli(*args):
+    """``python -m veles_torch`` on the MNIST sample in a child process on
+    DIST_DEVICE; -> the process."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "veles_torch", MNIST_SAMPLE, "-d",
+         DIST_DEVICE, "--no-stats", *DIST_SEED, *args], cwd=HERE,
+        env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def dist_finish(procs, where, allow_killed=()):
+    """Wait for every process within DIST_BOUND; a nonzero exit (but for
+    the ``allow_killed`` ones) fails the phase; kills what is left."""
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=DIST_BOUND)
+            if p.returncode and p not in allow_killed:
+                fail("distributed %s: a process exited %s:\n%s"
+                     % (where, p.returncode, err[-3000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def job_timing(trace_path):
+    """Per merged job, from the master's trace: the wire seconds
+    (``job.wire``), the slave's own seconds (its absorbed ``slave.*``
+    spans) and their sum, the round trip; -> a dict of lists."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    wire, own, compute = {}, {}, {}
+    for e in events:
+        args = e.get("args") or {}
+        key = (args.get("slave"), args.get("job_id"))
+        if e.get("ph") != "X" or key[1] is None:
+            continue
+        if e["name"] == "job.wire":
+            wire[key] = e["dur"] / 1e6
+        elif e["name"].startswith("slave."):
+            own[key] = own.get(key, 0.0) + e["dur"] / 1e6
+            if e["name"] == "slave.compute":
+                compute[key] = e["dur"] / 1e6
+    keys = sorted(k for k in wire if k in own)
+    return {"wire_s": [wire[k] for k in keys],
+            "compute_s": [compute.get(k, 0.0) for k in keys],
+            "rtt_s": [wire[k] + own[k] for k in keys]}
+
+
+def median(values):
+    values = sorted(values)
+    return values[len(values) // 2] if values else None
+
+
+def dist_cluster(tmp, tag, codec, epochs, kill_after=None):
+    """A master and two slaves of the MNIST sample as processes, the
+    master with its snapshot store (its final tree), its trace and its
+    dashboard; with ``kill_after``, one slave is SIGKILLed once the
+    master has merged that many jobs. -> (the master's result, the
+    slaves' results, the timing of the master's trace, the master's
+    final tree, the seconds the run took)."""
+    from veles_torch.snapshotter import load_snapshot
+    import signal
+    import urllib.request
+    addr = "127.0.0.1:%d" % free_port()
+    web = free_port()
+    out = {name: os.path.join(tmp, "%s_%s.json" % (tag, name))
+           for name in ("master", "slave0", "slave1", "trace")}
+    snaps = os.path.join(tmp, "%s_snapshots" % tag)
+    t0 = time.perf_counter()
+    master = dist_cli("--listen-address", addr, "--grad-codec", codec,
+                      "--slave-timeout", str(DIST_SLAVE_TIMEOUT),
+                      "--snapshots", snaps, "--trace-out", out["trace"],
+                      "--web-status", str(web), "--result-file",
+                      out["master"],
+                      "root.mnist.decision.max_epochs=%d" % epochs)
+    slaves = [dist_cli("--master-address", addr, "--grad-codec", codec,
+                       "--slave-retries", "40", "--result-file",
+                       out["slave%d" % i]) for i in range(2)]
+    killed = ()
+    drop_seconds = None
+
+    def cluster_status():
+        try:
+            with urllib.request.urlopen(
+                    "http://127.0.0.1:%d/status.json" % web,
+                    timeout=5) as resp:
+                return json.load(resp).get("cluster", {})
+        except OSError:
+            return {}
+
+    try:
+        if kill_after is not None:
+            deadline = time.monotonic() + DIST_BOUND
+            victim = slaves[0]
+            while True:
+                if time.monotonic() > deadline or master.poll() is not None:
+                    fail("distributed %s: no slave was caught holding a "
+                         "job after %d jobs" % (tag, kill_after))
+                rows = cluster_status().get("slaves") or {}
+                if len(rows) < 2 or sum(r["jobs"] for r in rows.values()) \
+                        < kill_after:
+                    time.sleep(0.01)
+                    continue
+                # freeze the victim, let the frames in transit land, and
+                # kill it only while the master holds a job of it out
+                os.kill(victim.pid, signal.SIGSTOP)
+                time.sleep(0.1)
+                rows = cluster_status().get("slaves") or {}
+                if len(rows) == 2 and all(r["outstanding"]
+                                          for r in rows.values()):
+                    break
+                os.kill(victim.pid, signal.SIGCONT)
+                time.sleep(0.05)
+            t_kill = time.monotonic()
+            os.kill(victim.pid, signal.SIGKILL)
+            killed = (victim,)
+            while time.monotonic() < t_kill + DIST_SLAVE_TIMEOUT + 5:
+                if cluster_status().get("faults", {}).get("drops", 0):
+                    drop_seconds = time.monotonic() - t_kill
+                    break
+                time.sleep(0.01)
+            if drop_seconds is None or drop_seconds > DIST_SLAVE_TIMEOUT:
+                fail("distributed %s: the killed slave was dropped after "
+                     "%s s (slave timeout %s s)"
+                     % (tag, drop_seconds, DIST_SLAVE_TIMEOUT))
+        dist_finish([master] + slaves, tag, allow_killed=killed)
+    finally:
+        for p in [master] + slaves:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    with open(out["master"]) as f:
+        mres = json.load(f)
+    sres = []
+    for i in range(2):
+        if slaves[i] in killed:
+            continue
+        with open(out["slave%d" % i]) as f:
+            sres.append(json.load(f))
+    trees = sorted(n for n in os.listdir(snaps) if "_master-" in n)
+    if not trees:
+        fail("distributed %s: the master persisted no tree" % tag)
+    tree = load_snapshot(os.path.join(snaps, trees[-1]))
+    mres["drop_seconds"] = drop_seconds
+    return mres, sres, job_timing(out["trace"]), tree, seconds
+
+
+def dist_counts(results):
+    """The kernels' launches summed over slave result lines, in
+    read_counts' keys."""
+    counts = dict.fromkeys(read_counts(), 0)
+    for r in results:
+        launches = r["launches"]
+        counts["flash_fwd"] += launches["flash_fwd"]["fwd"]
+        counts["flash_fwd_pipe"] += launches["flash_fwd"]["fwd_pipe"]
+        counts["flash_bwd_fused"] += launches["flash_bwd"]["fused"]
+        counts["flash_bwd_dq"] += launches["flash_bwd"]["dq"]
+        counts["flash_bwd_dkv"] += launches["flash_bwd"]["dkv"]
+        for form in ("identity", "masked"):
+            counts["bias_grad[%s]" % form] += launches["bias_grad"][form]
+    return counts
+
+
+def tree_weights(tree):
+    """{unit/param: ndarray} of a master tree's forward parameters."""
+    return {"%s/%s" % (u, k): v
+            for u, sub in tree["workflow"]["params"].items()
+            for k, v in sub.items()}
+
+
+#: the sample's own sizes, set again in this process (earlier phases
+#: override root.mnist here)
+DIST_MNIST_SIZES = ("root.mnist.loader.minibatch_size=100",
+                    "root.mnist.loader.n_train=6000",
+                    "root.mnist.loader.n_valid=1000")
+
+
+def dist_mnist_workflow(shuffle):
+    """The MNIST sample's workflow at its own sizes (seed 1337), its
+    loader's shuffle as given, not initialized."""
+    from veles_torch import prng
+    from veles_torch.config import root
+    from veles_torch.znicz.models import mnist
+    for override in DIST_MNIST_SIZES:
+        root.apply_override(override)
+    prng.seed_all(1337)
+    wf = mnist.create_workflow()
+    wf.loader.shuffle_enabled = shuffle
+    return wf
+
+
+class WireMeter:
+    """Wraps a MasterServer's ``handle``: the bytes of each received
+    update frame (its payload as the wire carries it, plus the frame
+    overhead), and the first train update's unit payload keys."""
+
+    def __init__(self, server):
+        from veles_torch import server as wire
+        self.wire = wire
+        self.update_bytes = []
+        self.job_keys = None
+        self.update_keys = None
+        self._handle = server.handle
+        server.handle = self
+
+    def __call__(self, request):
+        if request[0] == "update" and len(request) > 5:
+            self.update_bytes.append(
+                sum(len(p) for p in self.wire._frame_parts(request))
+                + self.wire._FRAME_OVERHEAD)
+            data = request[5]
+            if self.update_keys is None and isinstance(data, dict) and any(
+                    isinstance(v, dict) and v for v in data.values()):
+                self.update_keys = {u: sorted(v) for u, v in data.items()
+                                    if isinstance(v, dict) and v
+                                    and u != "__telemetry__"}
+        resp = self._handle(request)
+        if resp[0] == "job" and self.job_keys is None:
+            self.job_keys = {u: sorted(v) for u, v in resp[1].items()
+                             if isinstance(v, dict)}
+        return resp
+
+
+def dist_inprocess(torch, workflow, codec, epochs, **server_kwargs):
+    """A port master (host weights, no step) in this process's threads
+    and one slave on DIST_DEVICE through the launcher; -> (the master's
+    workflow, the slave's workflow, the master, its WireMeter, the
+    slave's launches)."""
+    from veles_torch import model_health
+    from veles_torch.launcher import Launcher
+    from veles_torch.server import MasterServer
+    master_wf = workflow()
+    master_wf.initialize(device="cpu", with_step=False)
+    server = MasterServer(master_wf, "127.0.0.1:0", max_epochs=epochs,
+                          grad_codec=codec, drain_timeout=0.1,
+                          **server_kwargs)
+    meter = WireMeter(server)
+    thread = server.start_background()
+    slave_wf = workflow()
+    reset_counts()
+    try:
+        with model_health.scoped():
+            launcher = Launcher(
+                device=DIST_DEVICE, stats=False, grad_codec=codec,
+                master_address="127.0.0.1:%d" % server.bound_address[1])
+            launcher.initialize(slave_wf)
+            launcher.run()
+        if DIST_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        server.done.set()
+        thread.join(timeout=DIST_BOUND)
+    if not server.done.is_set() or server.epoch != epochs:
+        fail("distributed in process (%s): the master ended at epoch %d"
+             % (codec, server.epoch))
+    return master_wf, slave_wf, server, meter, counts
+
+
+def expect_dist_launches(counts, train_jobs, where):
+    per = train_jobs if DIST_DEVICE == "cuda" else 0
+    want = dict(dict.fromkeys(counts, 0), **{"bias_grad[identity]": per,
+                                             "bias_grad[masked]": per})
+    if counts != want:
+        fail("distributed %s: launches %s, expected %s"
+             % (where, counts, want))
+
+
+def check_dist_mnist(torch, tmp):
+    """Phase distributed (a); -> (launches, the summary)."""
+    import numpy
+    from veles_torch import kernels, model_health
+    jobs = DIST_EPOCHS * (DIST_TRAIN_JOBS + DIST_VALID_JOBS)
+    train_jobs = DIST_EPOCHS * DIST_TRAIN_JOBS
+    if DIST_DEVICE == "cuda":
+        # the two slaves build the bias-gradient library at once, each
+        # into a file of its own renamed into place: both must load a
+        # whole library
+        os.unlink(kernels.library_path("bias_grad"))
+    runs = {}
+    for codec in ("none", "int8"):
+        mres, sres, timing, tree, seconds = dist_cluster(
+            tmp, codec, codec, DIST_EPOCHS)
+        cluster = mres["cluster"]
+        served = sum(r["slave"]["jobs"] for r in sres)
+        if not cluster["complete"] or cluster["epoch"] != DIST_EPOCHS \
+                or served != jobs or cluster["faults"]["drops"] \
+                or cluster["faults"]["fenced_updates"] \
+                or cluster["faults"]["codec_fallbacks"] \
+                or cluster["grad_codec"] != codec:
+            fail("distributed (%s): served %d of %d jobs: %s"
+                 % (codec, served, jobs, cluster))
+        if mres["cuda_initialized"]:
+            fail("distributed (%s): the master initialized CUDA" % codec)
+        counts = dist_counts(sres)
+        expect_dist_launches(counts, train_jobs, "slaves (%s)" % codec)
+        for r in sres:
+            if r["slave"]["codec"] != codec:
+                fail("distributed: a slave synced %r, not %r"
+                     % (r["slave"]["codec"], codec))
+        runs[codec] = {"master": mres, "slaves": sres, "timing": timing,
+                       "tree": tree, "seconds": seconds, "counts": counts}
+    # the weights moved from the initial ones and stayed finite
+    init = dist_mnist_workflow(True)
+    init.initialize(device="cpu", with_step=False)
+    w0 = {"%s/%s" % (f.name, k): t.numpy()
+          for f in init.forwards for k, t in f.export_params().items()}
+    for codec, run in runs.items():
+        w = tree_weights(run["tree"])
+        if not all(numpy.isfinite(v).all() for v in w.values()):
+            fail("distributed (%s): non-finite master weights" % codec)
+        moved = max(float(numpy.abs(w[k] - w0[k]).max()) for k in w0)
+        if not moved > 1e-3:
+            fail("distributed (%s): the master's weights moved %g"
+                 % (codec, moved))
+        run["moved"] = moved
+    per_job = {codec: run["master"]["wire_bytes"]["rx"] / jobs
+               for codec, run in runs.items()}
+    if not per_job["int8"] <= DIST_INT8_SHARE * per_job["none"]:
+        fail("distributed: int8 received %.0f bytes a job, none %.0f"
+             % (per_job["int8"], per_job["none"]))
+    # one unshuffled slave against the standalone card run
+    ref = dist_mnist_workflow(False)
+    ref.initialize(device=DIST_DEVICE)
+    with model_health.scoped():
+        ref.decision.max_epochs = DIST_EPOCHS
+        ref.run()
+    if ref.decision.epoch_number != DIST_EPOCHS:
+        fail("distributed: the standalone run ended at epoch %d"
+             % ref.decision.epoch_number)
+    master_wf, slave_wf, server, meter, seq_counts = dist_inprocess(
+        torch, lambda: dist_mnist_workflow(False), "none", DIST_EPOCHS)
+    if len(meter.update_bytes) != jobs \
+            or slave_wf.step.train_steps != train_jobs:
+        fail("distributed: one unshuffled slave ran %d jobs, %d train"
+             % (len(meter.update_bytes), slave_wf.step.train_steps))
+    expect_dist_launches(seq_counts, train_jobs, "one unshuffled slave")
+    scale = max(float(f.weights.abs().max()) for f in ref.forwards)
+    seq_err = max(float((mf.export_params()[k]
+                         - rf.export_params()[k].cpu()).abs().max())
+                  for mf, rf in zip(master_wf.forwards, ref.forwards)
+                  for k in rf.export_params()) / scale
+    if not seq_err <= DIST_SEQ_RTOL:
+        fail("distributed: one unshuffled slave's weights lie %.3g of the "
+             "largest weight from the standalone run's" % seq_err)
+    per_job["none_inprocess"] = sum(meter.update_bytes) / jobs
+    # the other codecs' update bytes, one slave, one epoch each
+    inproc_counts = dict(seq_counts)
+    for codec in DIST_INPROC_CODECS:
+        _, _, _, m, c = dist_inprocess(
+            torch, lambda: dist_mnist_workflow(True), codec, 1)
+        expect_dist_launches(c, DIST_TRAIN_JOBS, "one slave (%s)" % codec)
+        inproc_counts = add_counts(inproc_counts, c)
+        per_job[codec + "_inprocess"] = sum(m.update_bytes) \
+            / len(m.update_bytes)
+    # a slave killed mid-run: dropped, its jobs requeued, the run done
+    kres, ksres, _, ktree, kseconds = dist_cluster(
+        tmp, "kill", "none", DIST_KILL_EPOCHS, DIST_KILL_AFTER_JOBS)
+    kc = kres["cluster"]
+    if not kc["complete"] or kc["epoch"] != DIST_KILL_EPOCHS \
+            or kc["faults"]["drops"] != 1 \
+            or kc["faults"]["requeued_jobs"] < 1:
+        fail("distributed kill: %s" % kc)
+    timing = runs["none"]["timing"]
+    summary = {
+        "phase": "distributed", "part": "mnist", "card": card_line(),
+        "jobs": jobs, "train_jobs": train_jobs,
+        "rtt_p50_ms": 1e3 * median(timing["rtt_s"]),
+        "compute_p50_ms": 1e3 * median(timing["compute_s"]),
+        "wire_p50_ms": 1e3 * median(timing["wire_s"]),
+        "wire_share_p50": median([w / r for w, r in zip(
+            timing["wire_s"], timing["rtt_s"])]),
+        "rtt_max_ms": 1e3 * max(timing["rtt_s"]),
+        "timed_jobs": len(timing["rtt_s"]),
+        "rx_bytes_per_job": per_job,
+        "int8_share_of_none": per_job["int8"] / per_job["none"],
+        "run_seconds": {c: r["seconds"] for c, r in runs.items()},
+        "weights_moved": {c: r["moved"] for c, r in runs.items()},
+        "sequential_err_share": seq_err,
+        "kill": {"faults": kc["faults"], "seconds": kseconds,
+                 "drop_seconds": kres["drop_seconds"],
+                 "epochs": kc["epoch"],
+                 "survivor_jobs": [r["slave"]["jobs"] for r in ksres]},
+        "launches": {c: r["counts"] for c, r in runs.items()},
+        "inprocess_launches": inproc_counts,
+        "kill_survivor_launches": dist_counts(ksres)}
+    emit(summary)
+    counts = add_counts(runs["none"]["counts"], runs["int8"]["counts"])
+    counts = add_counts(counts, inproc_counts)
+    return add_counts(counts, dist_counts(ksres)), summary
+
+
+def check_dist_lm(torch):
+    """Phase distributed (b): the 110M LM's widths at 2 layers, one slave
+    on the card, 4 jobs under bf16; -> its launches."""
+    import numpy
+    from veles_torch.config import root
+    from veles_torch.znicz.models import transformer_lm
+    from veles_torch import prng
+    root.lm.train = {}
+    for override in DIST_LM:
+        root.apply_override(override)
+
+    def workflow():
+        prng.seed_all(1337)
+        return transformer_lm.create_workflow()
+
+    t0 = time.perf_counter()
+    master_wf, slave_wf, server, meter, counts = dist_inprocess(
+        torch, workflow, "bf16", 1)
+    seconds = time.perf_counter() - t0
+    want, mode = lm_expected_counts(slave_wf, DIST_DEVICE)
+    if counts != want:
+        fail("distributed lm: launches %s, expected %s" % (counts, want))
+    jobs = slave_wf.step.train_steps + slave_wf.step.eval_steps
+    if jobs != DIST_LM_JOBS:
+        fail("distributed lm: %d jobs, expected %d" % (jobs, DIST_LM_JOBS))
+    for gd in master_wf.gds:
+        params = [name for name, _ in gd._wire_params()]
+        if not params:
+            continue
+        if meter.job_keys.get(gd.name) != sorted(params) \
+                or meter.update_keys.get(gd.name) != sorted(
+                    "d" + p for p in params):
+            fail("distributed lm: %s shipped %s / %s, its PARAMS %s"
+                 % (gd.name, meter.job_keys.get(gd.name),
+                    meter.update_keys.get(gd.name), params))
+    bad = [f.name for f in master_wf.forwards
+           for t in f.export_params().values()
+           if not bool(numpy.isfinite(t.numpy()).all())]
+    if bad:
+        fail("distributed lm: non-finite master weights in %s" % bad)
+    emit({"phase": "distributed", "part": "lm", "card": card_line(),
+          "jobs": jobs, "attention_mode": mode, "seconds": seconds,
+          "params": sum(t.numel() for f in master_wf.forwards
+                        for t in f.export_params().values()),
+          "update_bytes": meter.update_bytes,
+          "faults": server.faults, "launches": counts})
+    return counts
+
+
+def start_dist_ga(tmp):
+    """Phase distributed (c)'s GA master process, started ahead (its
+    start overlaps part (b)); -> (its argv base, the process, the
+    start time)."""
+    cfg = os.path.join(tmp, "ga_config.py")
+    with open(cfg, "w") as f:
+        f.write(OPTIMIZE_CONFIG)
+    base = [sys.executable, "-m", "veles_torch", MNIST_SAMPLE, cfg,
+            *OPTIMIZE_RUN, "-d", DIST_DEVICE]
+    master = subprocess.Popen(
+        base + ["--optimize", OPTIMIZE_SEARCH, "--listen-address",
+                "127.0.0.1:0"], cwd=HERE, env=child_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return base, master, time.perf_counter()
+
+
+def check_dist_ga(torch, started):
+    """Phase distributed (c): ``--optimize 2x4 --listen-address`` (the
+    master of :func:`start_dist_ga`) with two ``--optimize slave``
+    processes on the card; -> the slaves' launches."""
+    base, master, t0 = started
+    slaves = []
+    try:
+        line = master.stdout.readline()
+        try:
+            addr = json.loads(line)["ga_master_listen"]
+        except (ValueError, KeyError):
+            fail("distributed ga: the master printed %r" % line)
+        slaves = [subprocess.Popen(
+            base + ["--optimize", "slave", "--master-address", addr],
+            cwd=HERE, env=child_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for _ in range(2)]
+        out, err = master.communicate(timeout=DIST_BOUND)
+        if master.returncode:
+            fail("distributed ga: the master exited %s:\n%s"
+                 % (master.returncode, err[-3000:]))
+        reports = []
+        for s in slaves:
+            s_out, s_err = s.communicate(timeout=DIST_BOUND)
+            if s.returncode:
+                fail("distributed ga: a slave exited %s:\n%s"
+                     % (s.returncode, s_err[-3000:]))
+            reports.append(json.loads(s_out.strip().splitlines()[-1]))
+    finally:
+        for p in [master] + slaves:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    report = json.loads(out.strip().splitlines()[-1])
+    served = sum(r["ga_slave_tasks"] for r in reports)
+    if report["evaluations"] != OPTIMIZE_EVALUATIONS \
+            or served != OPTIMIZE_EVALUATIONS \
+            or not math.isfinite(report["best_fitness"]):
+        fail("distributed ga: %s, %d tasks served" % (report, served))
+    counts = dist_counts(reports)
+    per = OPTIMIZE_EVALUATIONS * 2 * MNIST_TRAIN_STEPS \
+        if DIST_DEVICE == "cuda" else 0
+    want = dict(dict.fromkeys(counts, 0), **{"bias_grad[identity]": per,
+                                             "bias_grad[masked]": per})
+    if counts != want:
+        fail("distributed ga: launches %s, expected %s" % (counts, want))
+    emit({"phase": "distributed", "part": "ga", "card": card_line(),
+          "search": OPTIMIZE_SEARCH, "seconds": seconds,
+          "best_fitness": report["best_fitness"],
+          "best_values": report["best_values"],
+          "evaluations": report["evaluations"],
+          "tasks_by_slave": [r["ga_slave_tasks"] for r in reports],
+          "launches": counts})
+    return counts
+
+
+def check_distributed(torch):
+    """Phase distributed: (a) the MNIST sample over the wire, (b) the
+    110M LM's widths at 2 layers, (c) the GA over slaves; -> the
+    launches of every slave of the phase."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    t0 = time.perf_counter()
+    try:
+        counts, _ = check_dist_mnist(torch, tmp)
+        started = start_dist_ga(tmp)
+        try:
+            counts = add_counts(counts, check_dist_lm(torch))
+        except BaseException:
+            started[1].kill()
+            started[1].wait()
+            raise
+        counts = add_counts(counts, check_dist_ga(torch, started))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "distributed", "part": "total", "card": card_line(),
+          "seconds": time.perf_counter() - t0, "launches": counts})
+    return counts
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -5506,11 +6115,12 @@ def main(argv=None):
     profiling = check_profiling(torch)
     image_stream = check_image_stream(torch)
     continual = check_continual(torch)
+    distributed = check_distributed(torch)
     paths = {**ae, **serving, **lm_slice, "resume": resume,
              "model_health": health, "unsupervised": unsupervised,
              "plots": plots, "serve_http": serve_http, **search,
              "profiling": profiling, "image_stream": image_stream,
-             "continual": continual}
+             "continual": continual, "distributed": distributed}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

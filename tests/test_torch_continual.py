@@ -189,6 +189,70 @@ def test_either_package_resumes_the_others_cursor():
     numpy.testing.assert_array_equal(got_port[1], want_ref_next[1])
 
 
+def test_shard_assignment_is_sticky_and_steals_orphans():
+    """The master's shards (the reference's ``test_continual.py``
+    counterpart): each slave pulls only its own shard while both live;
+    a dead slave's shard is stolen, so the round drains; the queue
+    filled claims the round."""
+    ld = _loader(shards=2, valid_samples=0, round_samples=128)
+    try:
+        ld.master_start_epoch()
+        assert ld.cursor_base == 128
+        mb = ld.max_minibatch_size
+
+        def shard_of(job):
+            return (int(job[1][0]) // mb) % 2
+
+        j1 = ld.generate_data_for_slave("s1")
+        j2 = ld.generate_data_for_slave("s2")
+        assert shard_of(j1) == ld._slave_shards["s1"]
+        assert shard_of(j2) == ld._slave_shards["s2"]
+        assert shard_of(j1) != shard_of(j2)
+        j1b = ld.generate_data_for_slave("s1")
+        assert shard_of(j1b) == shard_of(j1)
+        ld.drop_slave("s2")
+        served = {tuple(j[1]) for j in (j1, j1b)}
+        while True:
+            job = ld.generate_data_for_slave("s1")
+            if job is None:
+                break
+            assert tuple(job[1]) not in served
+            served.add(tuple(job[1]))
+        assert not ld._pending_jobs
+        assert len(served) == 128 // mb
+    finally:
+        ld.stop()
+
+
+def test_sharded_jobs_equal_the_references():
+    """The same calls on both packages' loaders (3 slaves on 2 shards, a
+    wait, a drop, 2 rounds) hand out the same jobs in the same order."""
+    port = _loader(name="p", shards=2, valid_samples=32)
+    ref = _jax_loader(name="r", shards=2, valid_samples=32)
+    calls = ["a", "b", "c", "a", "b", "c", "drop:b", "a", "c", "a", "c",
+             "a", "c", "a", "c", "a", "c"]
+    try:
+        got = {"p": [], "r": []}
+        for key, ld in (("p", port), ("r", ref)):
+            for _ in range(2):
+                ld.master_start_epoch()
+                for call in calls:
+                    if call.startswith("drop:"):
+                        got[key].append(("drop", ld.drop_slave(call[5:])))
+                        continue
+                    job = ld.generate_data_for_slave(call)
+                    got[key].append(None if job is None else
+                                    (int(job[0]), list(job[1])))
+                    if job is not None:
+                        ld.apply_data_from_slave({}, call)
+            got[key].append(("cursor", int(ld.cursor_base)))
+    finally:
+        port.stop()
+        ref.stop()
+    assert got["p"] == got["r"]
+    assert None in got["p"]               # a slave was told to wait
+
+
 def test_fetch_failures_counted_and_retried():
     class Flaky(ArraySource):
         def __init__(self, *args):

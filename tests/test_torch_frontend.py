@@ -655,13 +655,18 @@ def test_reference_router_fronts_port_replicas(archives, tmp_path,
                                                capsys):
     """Two port replicas in their own processes (each has its own health
     plane) behind the reference's router; replica A's SLO fires once it
-    has served a request, so its /readyz flips and the router ejects
-    it."""
+    has served the test's own request, so its /readyz flips and the
+    router ejects it. That request is a predict of a model only A serves
+    and the router never asks for (``probe``, the MNIST archive again):
+    the flip objective counts its requests alone, so the router's
+    traffic, which may land on A, cannot flip A before the test's
+    request, and the monitor's next tick after it does."""
     from veles.loadgen import loadgen_main
     from veles.router import FleetController, RouterFrontend
     flip = tmp_path / "flip.json"
     flip.write_text(json.dumps([{
-        "name": "flip", "series": "veles_serving_requests_total",
+        "name": "flip",
+        "series": 'veles_serving_requests_total{model="probe"}',
         "op": "<=", "threshold": 0.0, "target": 0.5,
         "fast_window": 30, "slow_window": 30}]))
     models = ["--model", "mnist=" + archives["mnist"],
@@ -672,8 +677,9 @@ def test_reference_router_fronts_port_replicas(archives, tmp_path,
         return doc["ticks"] >= 1 and doc["admitted"] == n
 
     rows = archives["rows"][:2].tolist()
-    with planes(), serve_proc(*models, "--slo-config", str(flip)) as \
-            (_, a), serve_proc(*models) as (_, b):
+    with planes(), serve_proc(*models, "--model", "probe=" + archives[
+            "mnist"], "--slo-config", str(flip)) as (_, a), \
+            serve_proc(*models) as (_, b):
         controller = FleetController([url(a, ""), url(b, "")],
                                      interval=0.1, scrape_timeout=2.0)
         router = RouterFrontend(controller, port=0)
@@ -687,7 +693,7 @@ def test_reference_router_fronts_port_replicas(archives, tmp_path,
                                 {"model": "lm", "prompt": [1, 2],
                                  "max_tokens": 4, "stream": False})
             assert code == 200 and doc["n"] == 4
-            assert post(a, "/v1/predict", {"model": "mnist",
+            assert post(a, "/v1/predict", {"model": "probe",
                                            "inputs": rows})[0] == 200
             wait_until(lambda: get(a, "/readyz")[0] == 503,
                        what="replica A's /readyz to flip")

@@ -487,12 +487,150 @@ def test_a_dead_worker_ends_the_search_in_the_open():
 
 @pytest.mark.parametrize("argv", [
     ["--optimize", "slave"],
-    ["--optimize", "2x4", "--listen-address", "127.0.0.1:0"],
+    ["--optimize", "2x4x2", "--listen-address", "127.0.0.1:0"],
     ["--optimize", "2x4", "--master-address", "127.0.0.1:1"],
 ], ids=["slave", "listen-address", "master-address"])
 def test_distributed_search_names_item_10(argv):
-    """The search over registered slaves rides the master/slave wire:
-    refused, naming ROADMAP Queue 1 item 10, before anything trains."""
-    with pytest.raises(NotImplementedError, match=r"item 10\)"):
+    """The search over registered slaves runs in the port (item 10's
+    wire); its misuses are refused before anything trains or listens,
+    as the reference refuses them: a slave with no master to join, local
+    workers beside registered slaves, a search told to join a master."""
+    with pytest.raises(SystemExit, match="--optimize"):
         torch_main([TORCH_MNIST, "-d", "cpu", *argv])
     assert TG.find_tunables(troot) == {}
+
+
+def test_ga_over_slaves_matches_sequential():
+    """One search over two in-process slaves through the port's task
+    server equals the sequential search bit for bit; both slaves
+    registered."""
+    import threading
+    from tests.torch_workers import quad_fitness
+    tun = {"a/lr": TTune(0.1, 0.01, 1.0)}
+    seq = TG.GeneticOptimizer(quad_fitness, dict(tun), generations=3,
+                              population_size=6, seed=11)
+    seq.run()
+    with TG.GATaskServer("127.0.0.1:0") as server:
+        addr = "127.0.0.1:%d" % server.bound_address[1]
+        threads = [threading.Thread(
+            target=TG.ga_slave_loop, args=(addr,),
+            kwargs={"name": "slave%d" % i}, daemon=True) for i in range(2)]
+        for t in threads:
+            t.start()
+        par = TG.GeneticOptimizer(quad_fitness, dict(tun), generations=3,
+                                  population_size=6, seed=11,
+                                  map_fn=server)
+        _bounded(par.run)
+        status = server.status()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert par.best_fitness == seq.best_fitness
+    assert par.best_values == seq.best_values
+    assert [f for f, _ in par.history] == [f for f, _ in seq.history]
+    assert status["mode"] == "ga-master" and status["n_slaves"] >= 1
+
+
+def test_ga_slave_survives_timeout_drop():
+    """A slave whose evaluation outlives the master's ``slave_timeout``
+    is dropped (its task requeued); it re-dials, re-registers, re-reports
+    the finished result and keeps serving, so the search completes only
+    through the reconnect path."""
+    import threading
+    from tests.torch_workers import slow_quad_fitness
+    with TG.GATaskServer("127.0.0.1:0", slave_timeout=0.25) as server:
+        addr = "127.0.0.1:%d" % server.bound_address[1]
+        t_slave = threading.Thread(
+            target=TG.ga_slave_loop, args=(addr,),
+            kwargs={"name": "slow", "reconnect_delay": 0.05}, daemon=True)
+        t_slave.start()
+        out = _bounded(lambda: server.map(
+            TG._SafeEval(slow_quad_fitness),
+            [{"a/lr": v} for v in (0.1, 0.3)]))
+        assert [r[0] for r in out] == [
+            pytest.approx((v - 0.37) ** 2) for v in (0.1, 0.3)]
+        assert server._next_slave > 2
+    t_slave.join(timeout=30)
+    assert not t_slave.is_alive()
+
+
+def test_ga_requeue_and_late_join():
+    """A slave that dies holding a task gets it requeued at the head of
+    the pool; a slave joining mid-generation drains the rest; a stale
+    generation's re-report is acknowledged and discarded."""
+    import threading
+    from tests.torch_workers import quad_fitness
+    with TG.GATaskServer("127.0.0.1:0") as server:
+        sid_a = server._handle(("hello", "a"))[1]
+        fn = TG._SafeEval(quad_fitness)
+        queued = threading.Event()
+        orig = server.map
+
+        def mapping(f, values):
+            queued.set()
+            return orig(f, values)
+
+        done = {}
+        t = threading.Thread(target=lambda: done.update(out=mapping(
+            fn, [{"a/lr": v} for v in (0.1, 0.2, 0.3)])), daemon=True)
+        t.start()
+        assert queued.wait(30)
+        while True:
+            resp = server._handle(("task", sid_a))
+            if resp[0] == "task":
+                break
+        _, idx_a, _, _, epoch = resp
+        server.drop_slave(sid_a)
+        assert server.queue[0] == idx_a and sid_a not in server.inflight
+        addr = "127.0.0.1:%d" % server.bound_address[1]
+        late = threading.Thread(target=TG.ga_slave_loop, args=(addr,),
+                                kwargs={"name": "late"}, daemon=True)
+        late.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+        assert [r[0] for r in done["out"]] == [
+            pytest.approx((v - 0.37) ** 2) for v in (0.1, 0.2, 0.3)]
+        before = dict(server.results)
+        assert server._handle(("result", 99, 0, -1.0, epoch - 1)) == ("ok",)
+        assert server.results == before
+    late.join(timeout=30)
+    assert not late.is_alive()
+
+
+def test_cli_search_over_slave_processes_equals_in_process(tmp_path):
+    """``--optimize 1x3 --listen-address`` with two ``--optimize slave``
+    processes on ``-d cpu``: the same report as the in-process search,
+    every individual evaluated by a slave."""
+    seq = _cli("veles_torch", tmp_path, "-d", "cpu", "--optimize", "1x3")
+    cfg = tmp_path / "ga_config_veles_torch.py"
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    base = [sys.executable, "-m", "veles_torch", TORCH_MNIST, str(cfg),
+            *CLI_SMALL, "--seed", "5", "-d", "cpu"]
+    master = subprocess.Popen(
+        base + ["--optimize", "1x3", "--listen-address", "127.0.0.1:0"],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    slaves = []
+    try:
+        first = json.loads(master.stdout.readline())
+        addr = first["ga_master_listen"]
+        slaves = [subprocess.Popen(
+            base + ["--optimize", "slave", "--master-address", addr],
+            env=env, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for _ in range(2)]
+        out, err = master.communicate(timeout=300)
+        assert master.returncode == 0, err[-3000:]
+        served = 0
+        for s in slaves:
+            s_out, s_err = s.communicate(timeout=120)
+            assert s.returncode == 0, s_err[-3000:]
+            served += json.loads(s_out.strip().splitlines()[-1])[
+                "ga_slave_tasks"]
+    finally:
+        for proc in [master] + slaves:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    report = json.loads(out.strip().splitlines()[-1])
+    assert report == seq
+    assert served == seq["evaluations"] == 4

@@ -3,8 +3,9 @@ veles_torch/__main__.py) on the CPU: SIGTERM preemption and ``--snapshot
 auto`` in process (a hook sends the signal after an epoch; nothing polls
 the file system against a clock), SIGINT, the config-file positional
 against the reference CLI's ``--result-file``, ``--dump-config``,
-``--profile-dir``'s trace, and the reference CLI's options the port does
-not have yet, each refused naming its ROADMAP item."""
+``--profile-dir``'s trace, and the master/slave options of the reference
+CLI, each accepted (none is refused any longer), while the LM's
+multi-device axes stay refused naming ROADMAP item 10b."""
 
 import json
 import logging
@@ -17,9 +18,9 @@ from veles.__main__ import main as jax_main
 from veles.config import root as jroot
 import veles_torch.model_health as TMH
 import veles_torch.snapshotter as TS
-from veles_torch.__main__ import UNPORTED, main as torch_main
+from veles_torch.__main__ import build_argparser, main as torch_main
 from veles_torch.config import root as troot
-from veles_torch.launcher import EXIT_PREEMPTED, TRACE_NAME
+from veles_torch.launcher import EXIT_PREEMPTED, TRACE_NAME, Launcher
 from veles_torch.znicz.standard_workflow import StandardWorkflow
 
 from tests.torch_monitor import port_model_health_isolation  # noqa: F401
@@ -186,20 +187,71 @@ def test_profile_dir_writes_a_trace_of_the_run(tmp_path, capsys):
     assert {"aten::mm", "aten::index_select"} <= names, sorted(names)[:20]
 
 
-def _argv(flag, kwargs):
-    if kwargs.get("action") == "store_true" or kwargs.get("nargs") == "?":
-        return [flag]
-    if "choices" in kwargs:
-        return [flag, kwargs["choices"][0]]
-    return [flag, "1"]
+#: the reference CLI's master/slave options: (flag, a value, the
+#: launcher attribute it sets)
+WIRE_FLAGS = (
+    ("--listen-address", "127.0.0.1:0", "listen_address"),
+    ("--master-address", "127.0.0.1:1", "master_address"),
+    ("--slave-timeout", "7.5", "slave_timeout"),
+    ("--slave-retries", "3", "slave_options"),
+    ("--grad-codec", "int8", "grad_codec"),
+    ("--grad-topk-percent", "2.5", "grad_topk_percent"),
+    ("--stash-interval", "4", "stash_interval"),
+)
 
 
-@pytest.mark.parametrize("flag,kwargs,item", UNPORTED,
-                         ids=[u[0] for u in UNPORTED])
-def test_unported_options_name_their_roadmap_item(flag, kwargs, item):
-    with pytest.raises(NotImplementedError,
-                       match=r"%s .*item %d\)" % (flag, item)):
-        torch_main([TORCH_MNIST, "-d", "cpu", *_argv(flag, kwargs)])
+@pytest.mark.parametrize("flag,value,attr", WIRE_FLAGS,
+                         ids=[u[0] for u in WIRE_FLAGS])
+def test_unported_options_name_their_roadmap_item(flag, value, attr,
+                                                  monkeypatch):
+    """The options the port once refused (naming ROADMAP item 10) are
+    ported: each parses and reaches the launcher as the CLI builds it;
+    the two that pick a role pick it, the others leave a standalone run
+    training."""
+    import veles_torch.__main__ as cli
+    made = {}
+
+    class Probe(Launcher):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            made["launcher"] = self
+
+        def initialize(self, workflow):
+            made["mode"] = self.mode
+            if self.mode != "standalone":
+                raise SystemExit(0)      # no master or slave to serve
+            return super().initialize(workflow)
+
+    monkeypatch.setattr(cli, "Launcher", Probe)
+    argv = [TORCH_MNIST, "-d", "cpu", "--no-stats", *SMALL,
+            "root.mnist.decision.max_epochs=1", flag, value]
+    args = build_argparser().parse_intermixed_args(argv)
+    assert getattr(args, flag[2:].replace("-", "_")) is not None
+    try:
+        wf = torch_main(argv)
+    except SystemExit as exc:
+        assert exc.code == 0
+        wf = None
+    launcher = made["launcher"]
+    expect = {"--listen-address": "master",
+              "--master-address": "slave"}.get(flag, "standalone")
+    assert made["mode"] == expect
+    got = getattr(launcher, attr)
+    if attr == "slave_options":
+        assert got == {"max_retries": 3}
+    else:
+        assert got == type(got)(value)
+    if expect == "standalone":
+        assert wf.decision.epoch_number == 1
+
+
+def test_lm_parallel_axes_stay_refused_naming_item_10b():
+    """``root.lm.parallel.data=2`` (a data-parallel mesh) still raises,
+    naming the item the parallel modules moved to."""
+    lm = os.path.join(REPO, "veles_torch", "znicz", "models",
+                      "transformer_lm.py")
+    with pytest.raises(NotImplementedError, match=r"item 10b\)"):
+        torch_main([lm, "-d", "cpu", "root.lm.parallel.data=2"])
 
 
 def test_continual_runs_rounds_on_cpu(tmp_path, capsys):

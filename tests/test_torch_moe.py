@@ -215,5 +215,5 @@ def test_moe_refusals():
     with pytest.raises(ValueError, match="experts >= 2"):
         TM.MoEFFN(experts=1)
     with lm_config(model=MOE_MODEL, parallel={"expert": 2}):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 10b"):
             tlm.create_workflow()

@@ -22,6 +22,7 @@ import numpy
 import pytest
 import torch
 
+import veles.model_health as JMH
 import veles.prng as jprng
 import veles.snapshotter as JS
 from veles.config import root as jroot
@@ -183,11 +184,16 @@ def test_fresh_state_same_keys_dtypes_digests():
 @pytest.fixture(scope="module")
 def mnist_checkpoints(tmp_path_factory):
     """Each package trains MNIST 3 epochs with a snapshotter at the same
-    seed; -> {package: path of its best checkpoint taken in epoch 1}."""
+    seed; -> {package: path of its best checkpoint taken in epoch 1}.
+    Module-scoped, so it runs before the per-test model-health isolation:
+    each run gets fresh monitors of both packages here, or the losses an
+    earlier test of the process left in a process-global monitor judge
+    this run's (a stamped ``diverged`` checkpoint is refused on load)."""
     out = {}
     for package, build in (("reference", jax_mnist), ("port", torch_mnist)):
         d = str(tmp_path_factory.mktemp(package))
-        build(3, snapdir=d).run()
+        with JMH.scoped(), TMH.scoped():
+            build(3, snapdir=d).run()
         out[package] = best_checkpoint(d, 1)
     return out
 

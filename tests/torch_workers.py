@@ -14,3 +14,16 @@ def die(_):
     killer would."""
     import os
     os._exit(3)
+
+
+def quad_fitness(values):
+    """A deterministic fitness of the GA-over-slaves tests."""
+    return (values["a/lr"] - 0.37) ** 2
+
+
+def slow_quad_fitness(values):
+    """The same, evaluated slower than the timeout-drop test's
+    ``slave_timeout`` (the master drops the slave mid-evaluation)."""
+    import time
+    time.sleep(0.6)
+    return quad_fitness(values)

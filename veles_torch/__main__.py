@@ -15,6 +15,11 @@
                           [--generate IDS | --generate-text PROMPT
                            [--gen-tokens N] [--gen-temperature T]]
                           [--ensemble N | --optimize GENSxPOP[xWORKERS]]
+                          [--listen-address HOST:PORT |
+                           --master-address HOST:PORT]
+                          [--slave-timeout SECS] [--slave-retries N]
+                          [--grad-codec none|bf16|int8|topk]
+                          [--grad-topk-percent P] [--stash-interval N]
                           [--workflow-graph PATH] [--dump-unit-sizes]
                           [--no-stats] [--background [--log-file PATH]]
     python -m veles_torch checkpoints <DIR|URL> [--json]
@@ -95,6 +100,27 @@ report as the last line of standard output (``ensemble_error``,
 ``--result-file``. The inner runs of ``--optimize`` write no result
 file, export, plots or dashboard.
 
+The master/slave mode (``launcher.py``, ``server.py``, ``client.py``):
+``--listen-address HOST:PORT`` runs a master that owns the canonical
+weights on the host and the job queue and never computes (no CUDA);
+``--master-address HOST:PORT`` runs a slave that pulls minibatch jobs,
+trains them on the device and pushes deltas. The wire is the
+reference's, so either package's slaves work under either package's
+master. A non-loopback address needs ``$VELES_CLUSTER_SECRET`` set to
+the same value on every node. ``--slave-timeout`` bounds a silent slave
+(master), ``--slave-retries N`` the consecutive reconnects of a slave (0:
+forever), ``--grad-codec`` / ``--grad-topk-percent`` pick the gradient
+wire codec (the master's wins), ``--stash-interval N`` the merges between
+the master's rollback stashes (``--rollback-on-divergence``). The master's
+result line adds ``cluster`` (its status: slaves, faults) and
+``wire_bytes``; a slave's adds ``slave`` (jobs, reconnects, the codec)
+and ``launches``, the hand-written kernels' launch counts in that
+process. ``--optimize GENSxPOP --listen-address HOST:PORT`` farms the
+genetic search's individuals out to registered slaves, which run
+``--optimize slave --master-address HOST:PORT`` (``genetics.py``'s
+``GATaskServer`` and ``ga_slave_loop``); a GA slave's last line holds
+``ga_slave_tasks`` and its ``launches``.
+
 ``checkpoints DIR`` audits a snapshot store (a directory or an
 ``http(s)://`` base): every checkpoint with its manifest verdict (valid,
 legacy, corrupt), slot, schema, health verdict and age, or ``--json``
@@ -108,10 +134,7 @@ of a live dashboard or serving frontend (exit 2 when unreachable).
 exit 2 when none is reachable); ``profile URL`` captures a sampling
 profile off one (``/debug/profile``) and prints its per-thread summary,
 or saves the speedscope JSON (``--out``; exit 2 when unreachable or
-garbled). The reference CLI's options the port has not ported raise
-``NotImplementedError`` naming their ROADMAP item (``UNPORTED``; also
-``--optimize slave``, the genetic search over registered slaves, item
-10).
+garbled).
 """
 
 import argparse
@@ -129,18 +152,6 @@ from veles_torch.config import root
 from veles_torch.launcher import Launcher
 from veles_torch.snapshotter import scan_checkpoints
 from veles_torch.znicz.generate import generate
-
-#: the reference CLI's options not ported yet: (flag, argparse kwargs,
-#: ROADMAP Queue 1 item)
-UNPORTED = (
-    ("--listen-address", {}, 10),
-    ("--master-address", {}, 10),
-    ("--slave-timeout", {"type": float}, 10),
-    ("--slave-retries", {"type": int}, 10),
-    ("--grad-codec", {}, 10),
-    ("--grad-topk-percent", {"type": float}, 10),
-    ("--stash-interval", {"type": int}, 10),
-)
 
 
 def build_argparser():
@@ -245,23 +256,33 @@ def build_argparser():
                         "daemon pid and return immediately")
     p.add_argument("--log-file", default=None, metavar="PATH",
                    help="with --background: append stdout/stderr here")
-    for flag, kwargs, item in UNPORTED:
-        p.add_argument(flag, default=None,
-                       help="not ported yet (ROADMAP Queue 1 item %d)" % item,
-                       **kwargs)
+    p.add_argument("--listen-address", default=None, metavar="HOST:PORT",
+                   help="run as the master of the master/slave mode "
+                        "(weights and job queue on the host, no compute)")
+    p.add_argument("--master-address", default=None, metavar="HOST:PORT",
+                   help="run as a slave of the master at HOST:PORT")
+    p.add_argument("--slave-timeout", type=float, default=None,
+                   metavar="SECS",
+                   help="master modes: drop a silent slave and requeue its "
+                        "work after SECS (default 60 for training, 3600 "
+                        "for the genetic search)")
+    p.add_argument("--slave-retries", type=int, default=None, metavar="N",
+                   help="slave mode: give up after N consecutive failed "
+                        "reconnects (0 = retry forever; default 8)")
+    p.add_argument("--grad-codec", default=None,
+                   choices=("none", "bf16", "int8", "topk"),
+                   help="gradient wire codec of the master/slave sync "
+                        "(negotiated at hello; the master's wins)")
+    p.add_argument("--grad-topk-percent", type=float, default=None,
+                   metavar="P",
+                   help="--grad-codec topk: the percent of delta entries "
+                        "shipped (default 1.0)")
+    p.add_argument("--stash-interval", type=int, default=None,
+                   metavar="N",
+                   help="master mode, with --rollback-on-divergence: "
+                        "refresh the rollback stash every Nth merge "
+                        "(default 1)")
     return p
-
-
-def refuse_unported(args):
-    for flag, kwargs, item in UNPORTED:
-        value = getattr(args, flag[2:].replace("-", "_"))
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                "%s is not ported yet (ROADMAP Queue 1 item %d)"
-                % (flag, item))
-    if args.optimize == "slave":
-        raise NotImplementedError(
-            "--optimize slave is not ported yet (ROADMAP Queue 1 item 10)")
 
 
 def _log_to_stdout():
@@ -549,7 +570,9 @@ def main(argv=None):
     if argv and argv[0] == "profile":
         return profile_main(argv[1:])
     args = build_argparser().parse_intermixed_args(argv)
-    refuse_unported(args)
+    if args.optimize == "slave" and not args.master_address:
+        raise SystemExit("--optimize slave requires --master-address "
+                         "HOST:PORT (the GA master to join)")
     if args.background and not daemonize(args.log_file):
         return 0        # the foreground process: the daemon pid printed
     prompt = None
@@ -608,7 +631,8 @@ def main(argv=None):
             except ValueError as exc:
                 raise SystemExit("--generate-text: %s" % exc)
 
-    wf = run_workflow(args, module, before_run=encode_prompt)
+    role = {}
+    wf = run_workflow(args, module, before_run=encode_prompt, report=role)
     if args.export_inference:
         wf.export_inference(args.export_inference)
         print("inference archive -> %s" % args.export_inference, flush=True)
@@ -624,6 +648,7 @@ def main(argv=None):
     result = {"workflow": wf.name, "device": str(wf.device.device),
               "history": wf.decision.history,
               "best_metric": float(wf.decision.best_metric)}
+    result.update(role)
     if args.result_file:
         with open(args.result_file, "w") as f:
             json.dump(result, f, indent=2)
@@ -631,10 +656,12 @@ def main(argv=None):
     return wf
 
 
-def run_workflow(args, module, before_run=None):
+def run_workflow(args, module, before_run=None, report=None):
     """One training run of ``module.create_workflow()`` under the CLI's
     options, through the launcher; ``before_run(wf)`` is called once the
-    workflow is initialized. -> the trained workflow."""
+    workflow is initialized; ``report`` (a dict) receives the master's or
+    the slave's keys of the result line (:func:`role_report`). -> the
+    trained workflow."""
     wf = module.create_workflow()
     if args.generate_text and not hasattr(wf.loader, "encode"):
         raise SystemExit("--generate-text needs a text-corpus loader "
@@ -654,7 +681,14 @@ def run_workflow(args, module, before_run=None):
                         web_status_port=args.web_status,
                         slo_config=args.slo_config,
                         stats=not args.no_stats,
-                        continual=args.continual)
+                        continual=args.continual,
+                        listen_address=args.listen_address,
+                        master_address=args.master_address,
+                        slave_timeout=args.slave_timeout,
+                        slave_options=slave_options(args),
+                        grad_codec=args.grad_codec,
+                        grad_topk_percent=args.grad_topk_percent,
+                        stash_interval=args.stash_interval)
     if args.trace_out:
         # from before initialize on, dumped in the finally: a failed
         # run's spans are the postmortem the trace is for
@@ -666,6 +700,8 @@ def run_workflow(args, module, before_run=None):
         if before_run is not None:
             before_run(wf)
         launcher.run()
+        if report is not None:
+            report.update(role_report(launcher))
     finally:
         launcher.close()
         if args.trace_out:
@@ -678,26 +714,120 @@ def run_workflow(args, module, before_run=None):
     return wf
 
 
+def slave_options(args):
+    """The SlaveClient options of the CLI: ``--slave-retries`` (0 retries
+    forever)."""
+    if args.slave_retries is None:
+        return {}
+    return {"max_retries": None if args.slave_retries == 0
+            else args.slave_retries}
+
+
+def role_report(launcher):
+    """The master's or the slave's keys of the result line: the master's
+    ``cluster`` status, its own ``wire_bytes`` by direction and whether CUDA
+    was initialized in its process (never); a slave's
+    ``slave`` counters and the hand-written kernels' ``launches`` in
+    this process ({} for a standalone run)."""
+    if launcher.master_server is not None:
+        import torch
+        return {"mode": "master",
+                # the master never computes: CUDA stays uninitialized
+                "cuda_initialized": torch.cuda.is_initialized(),
+                "cluster": launcher.master_server.status(),
+                "wire_bytes": own_wire_bytes()}
+    client = launcher.slave_client
+    if client is None:
+        return {}
+    step = launcher.workflow.step
+    return {"mode": "slave",
+            "slave": {"jobs": client.jobs_done,
+                      "reconnects": client.reconnects,
+                      "stale_resyncs": client.stale_resyncs,
+                      "codec": (client._codec_active or ("none",))[0],
+                      "job_seconds": {k: v for k, v in
+                                      step.dispatch_seconds.items()
+                                      if k.startswith("job.")}},
+            "launches": kernel_launches()}
+
+
+def own_wire_bytes():
+    """{"rx", "tx"}: the bytes this process moved over the wire, by
+    direction (the slaves' pushed counters, absorbed with a ``slave``
+    label, left out)."""
+    out = {"rx": 0.0, "tx": 0.0}
+    for fam in telemetry.get_registry().families():
+        if fam.name != "veles_wire_bytes_total":
+            continue
+        for items, child in fam.children():
+            labels = dict(items)
+            if "slave" not in labels and labels.get("direction") in out:
+                out[labels["direction"]] += child.value
+    return out
+
+
+def kernel_launches():
+    """The hand-written kernels' launches in this process, by form and
+    variant."""
+    from veles_torch.znicz.ops.bias_grad import bias_grad
+    from veles_torch.znicz.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    return {"bias_grad": dict(bias_grad.form_launches),
+            "flash_fwd": dict(flash_attention_fwd.variant_launches),
+            "flash_bwd": dict(flash_attention_bwd.variant_launches)}
+
+
 def optimize(args, module):
     """``--optimize GENSxPOP[xWORKERS]``: the genetic search over every
-    Tune leaf of ``root``; -> (the optimizer, the report)."""
+    Tune leaf of ``root``, in process, in WORKERS spawned processes, or
+    over the slaves registered at ``--listen-address``; -> (the
+    optimizer, the report). ``--optimize slave``: evaluate a GA master's
+    tasks until it says bye; -> (None, {"ga_slave_tasks": N, "launches":
+    ...})."""
     from veles_torch.genetics import (
-        GeneticOptimizer, ProcessPoolMap, SubprocessTrainer, apply_values,
-        find_tunables, optimize_config)
+        GATaskServer, GeneticOptimizer, ProcessPoolMap, SubprocessTrainer,
+        apply_values, find_tunables, ga_slave_loop, optimize_config)
     seed = args.seed if args.seed is not None else 1
+    if args.optimize == "slave":
+        # the fitness callables ride inside the task frames
+        served = ga_slave_loop(args.master_address,
+                               name="ga-%s" % os.getpid())
+        return None, {"ga_slave_tasks": served,
+                      "launches": kernel_launches()}
+    if args.master_address:
+        raise SystemExit(
+            "--optimize %r conflicts with --master-address: a GA master "
+            "uses --listen-address; to JOIN a master, use --optimize "
+            "slave" % args.optimize)
     parts = args.optimize.split("x")
     gens = int(parts[0])
     pop = int(parts[1]) if len(parts) > 1 and parts[1] else 12
     workers = int(parts[2]) if len(parts) > 2 else 1
-    if workers > 1:
+    if args.listen_address and workers > 1:
+        raise SystemExit(
+            "--optimize %r combines a workers count with --listen-address: "
+            "registered slaves evaluate the individuals, so local workers "
+            "would be ignored — drop the x%d or the --listen-address"
+            % (args.optimize, workers))
+    if workers > 1 or args.listen_address:
         evaluate = SubprocessTrainer(args.workflow, args.config,
                                      overrides=args.overrides, seed=seed,
                                      device=args.device)
-        if args.device != "cpu":
-            # the workers load these libraries; none of them builds
-            from veles_torch import kernels
-            kernels.build()
-        with ProcessPoolMap(workers) as pool:
+        if args.listen_address:
+            pool_cm = GATaskServer(
+                args.listen_address,
+                slave_timeout=3600.0 if args.slave_timeout is None
+                else args.slave_timeout)
+            print(json.dumps({"ga_master_listen":
+                              "%s:%d" % pool_cm.bound_address[:2]}),
+                  flush=True)
+        else:
+            if args.device != "cpu":
+                # the workers load these libraries; none of them builds
+                from veles_torch import kernels
+                kernels.build()
+            pool_cm = ProcessPoolMap(workers)
+        with pool_cm as pool:
             opt = GeneticOptimizer(evaluate, find_tunables(root),
                                    generations=gens, population_size=pop,
                                    seed=seed, map_fn=pool)

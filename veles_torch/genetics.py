@@ -24,9 +24,14 @@ run's best validation metric (lower is better).
   individual in the open: :class:`_SafeEval` scores it ``inf`` with the
   error's text, the search logs it, and nothing falls back to the CPU.
 
-The reference's ``GATaskServer`` and ``ga_slave_loop`` (individuals over
-registered slaves) ride the master/slave wire and are not ported yet
-(ROADMAP Queue 1 item 10).
+* :class:`GATaskServer` and :func:`ga_slave_loop` farm a generation out
+  to REGISTERED SLAVES over the HMAC-framed wire of the master/slave mode
+  (``server.py``'s frames), with its elastic contract: a slave joining
+  mid-generation starts pulling tasks, a slave dying mid-task gets its
+  task requeued. The fitness callable rides inside the authenticated
+  task frame, so slaves are generic (CLI: ``--optimize GENSxPOP
+  --listen-address HOST:PORT`` / ``--optimize slave --master-address
+  HOST:PORT``); a slave trains each individual on its own device.
 """
 
 import gc
@@ -331,3 +336,267 @@ def optimize_config(config_root, run_one, **kwargs):
     if best_values is not None:
         apply_values(config_root, best_values)
     return opt
+
+
+class GATaskServer(Logger):
+    """Master side: a per-generation queue of (idx, fn, values) tasks
+    served to registered slaves; results collected by index. ``fn``
+    rides inside the (HMAC-authenticated) frame, so slaves are
+    generic — they need no pre-shared evaluate callable."""
+
+    def __init__(self, address="127.0.0.1:0", slave_timeout=3600.0):
+        import threading
+        from veles_torch.server import framed_server, require_secret_for
+        self.name = "GATaskServer"
+        host, _, port = str(address).rpartition(":")
+        self.address = (host or "127.0.0.1", int(port))
+        require_secret_for(self.address[0], "GA master listen")
+        self.lock = threading.RLock()
+        self.done_event = threading.Event()
+        self.results_ready = threading.Condition(self.lock)
+        self.slaves = {}
+        self._next_slave = 1
+        self.queue = []              # pending task pool (idx order)
+        self.tasks = {}              # idx -> (fn, values)
+        self.inflight = {}           # slave_id -> idx
+        self.results = {}            # idx -> result
+        #: generation guard: task frames carry the epoch of the map()
+        #: call that queued them and result frames echo it, so a
+        #: timeout-dropped slave re-reporting AFTER the generation
+        #: completed (the reconnect path) cannot poison a later
+        #: generation's fitness under the same index
+        self.map_epoch = 0
+        # slave_timeout bounds a SILENT death (host power loss — no
+        # FIN ever arrives): past it the handler drops the slave and
+        # its task requeues. It must exceed the longest single
+        # evaluation — a slave is legitimately mute while training.
+        self._server = framed_server(
+            self.address, self._handle, self.done_event,
+            self.drop_slave, timeout=float(slave_timeout))
+        # accepting starts inside framed_server() on the shared
+        # reactor: no accept thread to spawn
+        self.bound_address = self._server.server_address
+
+    def _handle(self, request):
+        kind = request[0]
+        with self.lock:
+            if kind == "hello":
+                slave_id = self._next_slave
+                self._next_slave += 1
+                self.slaves[slave_id] = {"name": request[1],
+                                         "tasks": 0}
+                self.info("GA slave %d (%s) joined", slave_id,
+                          request[1])
+                return ("welcome", slave_id)
+            if kind == "task":
+                if self.done_event.is_set():
+                    return ("bye",)
+                if not self.queue:
+                    return ("wait",)
+                idx = self.queue.pop(0)
+                self.inflight[request[1]] = idx
+                fn, values = self.tasks[idx]
+                return ("task", idx, fn, values, self.map_epoch)
+            if kind == "result":
+                try:
+                    _, slave_id, idx, result, epoch = request
+                except ValueError:
+                    # arity skew (a slave from another build): refuse
+                    # the frame cleanly instead of killing the handler
+                    return ("error",
+                            "malformed result frame (want 5 fields, "
+                            "got %d) — mixed master/slave versions?"
+                            % len(request))
+                if epoch != self.map_epoch:
+                    # stale re-report from a generation that already
+                    # completed while the slave was dropped: discard
+                    # (and release any stale in-flight claim so a
+                    # later drop cannot requeue an old index)
+                    self.warning(
+                        "discarding result for task %d from map "
+                        "epoch %d (current %d)", idx, epoch,
+                        self.map_epoch)
+                    if self.inflight.get(slave_id) == idx:
+                        del self.inflight[slave_id]
+                    return ("ok",)
+                if self.inflight.get(slave_id) == idx:
+                    del self.inflight[slave_id]
+                self.results[idx] = result
+                if slave_id in self.slaves:
+                    self.slaves[slave_id]["tasks"] += 1
+                self.results_ready.notify_all()
+                return ("ok",)
+        return ("error", "unknown request %r" % (kind,))
+
+    def drop_slave(self, slave_id, clean=False):
+        """Death mid-task -> the task goes back to the pending pool
+        (same requeue contract as the training master; ``clean`` is
+        the framed_server polite-bye flag — inflight is empty then,
+        so the requeue below is a no-op)."""
+        with self.lock:
+            idx = self.inflight.pop(slave_id, None)
+            if idx is not None and idx not in self.results:
+                self.warning("GA slave %s died; requeueing task %d",
+                             slave_id, idx)
+                self.queue.insert(0, idx)
+            self.slaves.pop(slave_id, None)
+
+    def map(self, fn, values_list):
+        """Distribute one generation; blocks until every result is in
+        (tasks of dropped slaves are requeued for the survivors).
+        Results come back in population order."""
+        with self.lock:
+            self.map_epoch += 1
+            self.tasks = {i: (fn, v) for i, v in enumerate(values_list)}
+            self.results = {}
+            self.queue = list(range(len(values_list)))
+            # stale in-flight entries are PREVIOUS-generation indices;
+            # a later drop_slave must not requeue them into this one
+            self.inflight.clear()
+        with self.results_ready:
+            while len(self.results) < len(self.tasks):
+                self.results_ready.wait(timeout=0.5)
+        return [self.results[i] for i in range(len(self.tasks))]
+
+    # GeneticOptimizer map_fn surface
+    def __call__(self, fn, xs):
+        xs = list(xs)
+        return self.map(fn, xs) if xs else []
+
+    def status(self):
+        with self.lock:
+            return {"mode": "ga-master",
+                    "n_slaves": len(self.slaves),
+                    "pending": len(self.queue),
+                    "inflight": dict(self.inflight)}
+
+    def close(self):
+        self.done_event.set()
+        self._server.shutdown()
+        self._server.server_close()   # release the listening socket
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def ga_slave_loop(address, name="ga-slave", max_tasks=None,
+                  poll=0.02, eval_lock=None, reconnect_attempts=3,
+                  reconnect_delay=1.0):
+    """Slave side: join the GA master at ``address``, pull tasks,
+    evaluate, report — until the master says bye (or ``max_tasks``
+    served, for tests). ``eval_lock`` serializes evaluation when
+    several in-process slaves share mutable globals (root config).
+
+    A MID-RUN connection loss is not treated as "master finished":
+    the master drops (and requeues the task of) any slave whose
+    evaluation outlives its ``slave_timeout``; a dropped-but-healthy
+    slave that took the closed socket for a clean shutdown would exit
+    for good, and with every evaluation longer than the timeout the
+    whole pool would drain one task at a time into a silent livelock.
+    So the slave re-dials
+    and re-registers (fresh slave id) up to ``reconnect_attempts``
+    times; only when the master no longer answers does it exit. A
+    finished evaluation is re-reported over the new connection, so
+    the work survives the drop even when the master already requeued
+    it (the result handler accepts results for any known index)."""
+    import contextlib
+    import socket
+    import time as _time
+    from veles_torch.server import (
+        require_secret_for, send_frame, recv_frame)
+    host, _, port = str(address).rpartition(":")
+    addr = (host or "127.0.0.1", int(port))
+    require_secret_for(addr[0], "GA slave master")
+    state = {"sock": None, "slave_id": None}
+
+    def connect(first=False):
+        sock = socket.create_connection(addr, timeout=30)
+        try:
+            send_frame(sock, ("hello", name))
+            welcome = recv_frame(sock)
+        except (ConnectionError, OSError):
+            # a handshake that dies mid-frame must not leak the fd
+            # into the retry loop's next attempt
+            sock.close()
+            raise
+        if welcome is None or welcome[0] != "welcome":
+            sock.close()
+            if first:
+                raise RuntimeError(
+                    "GA master at %s:%d closed the connection during "
+                    "the handshake (search already finished?)" % addr)
+            return False
+        state["sock"], state["slave_id"] = sock, welcome[1]
+        return True
+
+    def drop_sock():
+        if state["sock"] is not None:
+            state["sock"].close()
+            state["sock"] = None
+
+    def rpc(build_msg):
+        """send+recv with one reconnect round: ``build_msg(slave_id)``
+        so a re-registered identity is used on the retry. None =>
+        the master is genuinely gone."""
+        for _attempt in range(2):
+            if state["sock"] is None:
+                ok = False
+                for _ in range(max(1, int(reconnect_attempts))):
+                    try:
+                        ok = connect()
+                    except (ConnectionError, OSError):
+                        ok = False
+                    if ok:
+                        break
+                    _time.sleep(reconnect_delay)
+                if not ok:
+                    return None
+            try:
+                send_frame(state["sock"], build_msg(state["slave_id"]))
+                resp = recv_frame(state["sock"])
+            except (ConnectionError, OSError):
+                resp = None
+            if resp is not None:
+                return resp
+            drop_sock()
+        return None
+
+    connect(first=True)
+    served = 0
+    try:
+        while max_tasks is None or served < max_tasks:
+            resp = rpc(lambda sid: ("task", sid))
+            if resp is None or resp[0] == "bye":
+                break
+            if resp[0] == "wait":
+                _time.sleep(poll)
+                continue
+            if resp[0] != "task" or len(resp) != 5:
+                # unknown frame (the server's ('error', msg) reply) or
+                # arity skew (a master from another build): exit
+                # cleanly instead of dying on unpack
+                break
+            _, idx, fn, values, epoch = resp
+            with (eval_lock or contextlib.nullcontext()):
+                result = fn(values)
+            ack = rpc(lambda sid: ("result", sid, idx, result,
+                                   epoch))
+            if ack is None:
+                break
+            if ack[0] != "ok":
+                # the server's ('error', msg) refusal (mixed
+                # master/slave builds): the result was NOT accepted —
+                # surface the server's message and stop instead of
+                # counting the task as served
+                import logging
+                logging.getLogger(name).error(
+                    "GA master refused result for task %s: %s", idx,
+                    ack[1] if len(ack) > 1 else ack)
+                break
+            served += 1
+    finally:
+        drop_sock()
+    return served

@@ -16,10 +16,10 @@ the renderer stays ``send_timeout`` seconds behind, and training never
 stalls on a plot. :meth:`GraphicsServer.close` ends the stream and waits
 for the renderer to draw what it has and exit.
 
-The framing is this package's own copy of the reference's hardened raw
-framing (``veles/server.py``: the length cap checked before anything is
-allocated, exact receives); ROADMAP Queue 1 #10 takes it over with the
-master/slave wire.
+The framing is the wire's raw framing (``server.py``'s
+``send_raw_frame`` / ``recv_raw_frame``: the length cap checked before
+anything is allocated, exact receives), exported here as
+:func:`send_frame` / :func:`recv_frame`.
 """
 
 import io
@@ -27,7 +27,6 @@ import json
 import logging
 import os
 import socket
-import struct
 import subprocess
 import sys
 import threading
@@ -35,11 +34,11 @@ import time
 
 import numpy
 
-logger = logging.getLogger("veles_torch.graphics")
+from veles_torch.server import (  # noqa: F401 (read by the renderer)
+    MAX_FRAME_BYTES, recv_raw_frame as recv_frame,
+    send_raw_frame as send_frame)
 
-#: the largest frame a receiver accepts: the length header arrives
-#: before anything else, so it must not command a huge allocation
-MAX_FRAME_BYTES = 1 << 30
+logger = logging.getLogger("veles_torch.graphics")
 
 
 def pack_payload(meta, arrays):
@@ -57,36 +56,6 @@ def unpack_payload(blob):
         meta = json.loads(bytes(z["__meta__"]).decode())
         arrays = {k: z[k] for k in z.files if k != "__meta__"}
     return meta, arrays
-
-
-def send_frame(sock, blob):
-    """Length prefix, then the payload (not copied into one buffer)."""
-    sock.sendall(struct.pack(">I", len(blob)))
-    sock.sendall(memoryview(blob))
-
-
-def _recv_exact(sock, n):
-    buf = bytearray()
-    while len(buf) < n:
-        chunk = sock.recv(n - len(buf))
-        if not chunk:
-            return None
-        buf += chunk
-    return bytes(buf)
-
-
-def recv_frame(sock, max_bytes=MAX_FRAME_BYTES):
-    """One frame of :func:`send_frame`; None at EOF. A header over
-    ``max_bytes`` raises ``ConnectionError`` before any allocation."""
-    header = _recv_exact(sock, 4)
-    if header is None:
-        return None
-    size, = struct.unpack(">I", header)
-    if size > max_bytes:
-        raise ConnectionError(
-            "frame header claims %d bytes (cap %d) — dropping peer"
-            % (size, max_bytes))
-    return _recv_exact(sock, size)
 
 
 class GraphicsServer:

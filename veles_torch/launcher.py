@@ -1,5 +1,5 @@
 """Run orchestration of the PyTorch port: the reference's ``Launcher``
-(``veles/launcher.py``) in its standalone mode.
+(``veles/launcher.py``) in its three modes.
 
     launcher = Launcher(device="cuda", snapshot="auto",
                         checkpoint_every=600, profile_dir="prof",
@@ -40,8 +40,31 @@ signal handler, writes a final ``current`` checkpoint and exits with
 trace into the directory, the twin of the reference's
 ``jax.profiler.trace``. The graphics server and the dashboard are closed
 when :meth:`Launcher.run` ends, on every path out of it (a SIGTERM's exit
-included), or by :meth:`Launcher.close`. The master and slave modes are not ported yet
-(ROADMAP Queue 1 item 10).
+included), or by :meth:`Launcher.close`.
+
+The distributed role, as the reference's:
+
+* **standalone** — everything in process (the default);
+* **master** (``listen_address="HOST:PORT"``) — a
+  :class:`~veles_torch.server.MasterServer` owns the canonical weights
+  and the job queue and serves slaves over the wire. It never computes:
+  the workflow is initialized on the host (``cpu``) without a step, so
+  the master does not initialize CUDA. ``slave_timeout`` bounds a silent
+  slave, ``grad_codec`` / ``grad_topk_percent`` pick the wire codec the
+  master wants, ``rollback_on_divergence`` arms a
+  :class:`~veles_torch.model_health.WeightGuard` ticked after every
+  merge (a stash every ``stash_interval`` merges), and
+  ``checkpoint_every`` persists the master tree (the ``"master"`` and
+  ``"workflow"`` keys) into the snapshotter's store (or
+  ``snapshot="auto:DIR"``'s), which ``snapshot`` resumes; either
+  package reads the other's master tree. The dashboard gets the
+  master's ``cluster`` row;
+* **slave** (``master_address="HOST:PORT"``) — a
+  :class:`~veles_torch.client.SlaveClient` pulls minibatch jobs, runs
+  each on the launcher's device (``cuda`` unless told otherwise) through
+  ``TorchStep.run_job`` and pushes deltas; ``slave_options`` are its
+  fault-tolerance knobs (``max_retries``, ``io_timeout``...). A slave
+  writes no checkpoint.
 """
 
 import logging
@@ -51,7 +74,7 @@ import sys
 
 import torch
 
-from veles_torch import health, model_health
+from veles_torch import health, model_health, telemetry
 from veles_torch.graphics import GraphicsServer
 from veles_torch.snapshotter import load_snapshot, resolve_auto
 
@@ -72,7 +95,9 @@ class Launcher:
                  profile_dir=None, model_stats=True, stats_interval=None,
                  rollback_on_divergence=False, graphics_dir=None,
                  web_status_port=None, slo_config=None, stats=True,
-                 continual=None):
+                 continual=None, listen_address=None, master_address=None,
+                 slave_timeout=None, slave_options=None, grad_codec=None,
+                 grad_topk_percent=None, stash_interval=None):
         self.device = device
         self.snapshot = snapshot
         self.checkpoint_every = checkpoint_every
@@ -95,28 +120,62 @@ class Launcher:
         self.interrupted = False
         #: SIGTERM asked for a preemption shutdown
         self.preempted = False
+        #: the distributed role's settings (see the module docstring)
+        self.listen_address = listen_address
+        self.master_address = master_address
+        self.slave_timeout = slave_timeout
+        self.slave_options = dict(slave_options or {})
+        self.grad_codec = grad_codec or "none"
+        self.grad_topk_percent = 1.0 if grad_topk_percent is None \
+            else float(grad_topk_percent)
+        self.stash_interval = stash_interval
+        #: the MasterServer / SlaveClient of the run's role
+        self.master_server = None
+        self.slave_client = None
+        #: the ``"master"`` section of a resumed master tree
+        self._master_resume = None
+
+    @property
+    def mode(self):
+        if self.listen_address:
+            return "master"
+        if self.master_address:
+            return "slave"
+        return "standalone"
 
     def initialize(self, workflow):
         self.workflow = workflow
-        workflow.initialize(device=self.device)
+        # a merged cluster trace reads as roles, not pids
+        telemetry.tracer.set_process_name(
+            self.mode if self.mode != "standalone" else workflow.name)
+        if self.mode == "master":
+            # the master holds the weights and never computes: host
+            # tensors, no step, no CUDA (the reference's numpy master)
+            workflow.initialize(device="cpu", with_step=False)
+            logger.info("master: canonical weights on the host; no step "
+                        "is built and CUDA is not initialized (the "
+                        "master never computes)")
+        else:
+            workflow.initialize(device=self.device)
         snap = workflow.snapshotter
         if snap is not None and self.checkpoint_every and not snap.interval:
             snap.interval = float(self.checkpoint_every)
-        elif snap is None and self.checkpoint_every:
+        elif snap is None and self.checkpoint_every \
+                and self.mode == "standalone":
             logger.warning(
                 "--checkpoint-every %.6g has no snapshotter to drive (pass "
                 "--snapshots DIR or link one) — NO interval checkpoints "
                 "will be written", self.checkpoint_every)
         if self.snapshot:
             self._restore_snapshot(workflow)
-        if self.graphics_dir:
+        if self.graphics_dir and self.mode != "slave":
             self.graphics = GraphicsServer(self.graphics_dir)
             workflow.graphics = self.graphics
         if self.web_status_port is not None:
             from veles_torch.web_status import WebStatus, workflow_status
             self.web_status = WebStatus(port=self.web_status_port)
             self.web_status.register(workflow.name,
-                                     workflow_status(workflow))
+                                     workflow_status(workflow, self.mode))
         if self.slo_config:
             n = health.get_monitor().load_slo_file(self.slo_config)
             logger.info("%d SLO objective(s) loaded from %s", n,
@@ -145,14 +204,16 @@ class Launcher:
             # the whole plane stands down, not only the stats: the loss
             # feed must not stamp checkpoints diverged either
             model_health.get_model_monitor().enabled = False
-            step.set_stats_enabled(False)
-        if self.stats_interval:
+            if step is not None:
+                step.set_stats_enabled(False)
+        if self.stats_interval and step is not None:
             step.stats_interval = max(1, int(self.stats_interval))
         if not self.model_stats:
             return
         model_health.get_model_monitor().register_health()
         model_health.install_model_slos()
-        if not self.rollback_on_divergence:
+        if not self.rollback_on_divergence or self.mode != "standalone":
+            # the master's actuator is its WeightGuard (_run_master)
             return
         if workflow.rollback is not None:
             workflow.rollback.rollback_on_divergence = True
@@ -165,8 +226,7 @@ class Launcher:
     def _restore_snapshot(self, workflow):
         target = self.snapshot
         if target != "auto" and not target.startswith("auto:"):
-            workflow.restore_state(load_snapshot(target))
-            logger.info("resumed from %s", target)
+            self._apply_state(workflow, load_snapshot(target), target)
             return
         snap = workflow.snapshotter
         if target.startswith("auto:"):
@@ -191,8 +251,28 @@ class Launcher:
         if corrupt:
             logger.warning("--snapshot auto: the store holds %d corrupt "
                            "checkpoint(s); resuming %s", corrupt, name)
-        workflow.restore_state(state)
-        logger.info("resumed from %s", name)
+        self._apply_state(workflow, state, name)
+
+    def _apply_state(self, workflow, state, origin):
+        """A master tree (``"master"`` + ``"workflow"``, either
+        package's) restores its workflow part here; its job queue and
+        journal wait for the master server."""
+        if "master" in state and "workflow" in state:
+            self._master_resume = state["master"]
+            workflow.restore_state(state["workflow"])
+        else:
+            workflow.restore_state(state)
+        logger.info("resumed from %s", origin)
+
+    def _checkpoint_store(self):
+        """The master's persist store: ``auto:DIR``'s, else the
+        workflow snapshotter's, else None."""
+        from veles_torch.snapshotter import store_for_base
+        if self.snapshot and self.snapshot.startswith("auto:"):
+            return store_for_base(self.snapshot[len("auto:"):],
+                                  create=False)
+        snap = self.workflow.snapshotter
+        return snap.store if snap is not None else None
 
     def _profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -220,6 +300,11 @@ class Launcher:
             logger.warning("SIGTERM: preemption shutdown — stopping before "
                            "the next minibatch")
             wf.stop()
+            if self.master_server is not None:
+                # signal-safe: the serving thread persists on its way out
+                self.master_server.request_stop()
+            if self.slave_client is not None:
+                self.slave_client.request_stop()
 
         try:
             signal.signal(signal.SIGINT, on_sigint)
@@ -244,6 +329,15 @@ class Launcher:
 
     def _train(self):
         wf = self.workflow
+        if self.continual is not None and self.mode != "standalone":
+            logger.warning("--continual is standalone-only: running one "
+                           "ordinary %s session", self.mode)
+        if self.mode == "master":
+            if self.profile_dir:
+                logger.warning("--profile-dir ignored in master mode (the "
+                               "master never computes)")
+            self._run_master()
+            return
         if self.profile_dir:
             os.makedirs(self.profile_dir, exist_ok=True)
             with self._profiler() as prof:
@@ -257,6 +351,9 @@ class Launcher:
             self._run_workflow()
 
     def _run_workflow(self):
+        if self.mode == "slave":
+            self._run_slave()
+            return
         if self.continual is None:
             self.workflow.run()
             return
@@ -264,9 +361,47 @@ class Launcher:
         continual_loop(self.workflow, rounds=self.continual or None,
                        launcher=self)
 
+    def _run_master(self):
+        from veles_torch.server import MasterServer
+        kwargs = {} if self.slave_timeout is None \
+            else {"slave_timeout": self.slave_timeout}
+        store = self._checkpoint_store()
+        if store is None and self.checkpoint_every:
+            logger.warning(
+                "--checkpoint-every %.6g: no checkpoint store resolves (pass "
+                "--snapshots DIR) — the master state will NOT be persisted",
+                self.checkpoint_every)
+        server = MasterServer(
+            self.workflow, self.listen_address, checkpoint_store=store,
+            checkpoint_every=self.checkpoint_every,
+            resume_state=self._master_resume, grad_codec=self.grad_codec,
+            grad_topk_percent=self.grad_topk_percent,
+            rollback_on_divergence=(self.rollback_on_divergence
+                                    and self.model_stats),
+            stash_interval=self.stash_interval or 1, **kwargs)
+        self.master_server = server
+        if self.preempted:
+            # SIGTERM landed before the server existed
+            server.request_stop()
+        if self.web_status is not None:
+            self.web_status.register("cluster", server.status)
+        server.register_health()
+        server.serve_forever()
+
+    def _run_slave(self):
+        from veles_torch.client import SlaveClient
+        client = SlaveClient(self.workflow, self.master_address,
+                             grad_codec=self.grad_codec,
+                             grad_topk_percent=self.grad_topk_percent,
+                             **self.slave_options)
+        self.slave_client = client
+        if self.preempted:
+            client.request_stop()
+        client.run_forever()
+
     def _preemption_exit(self):
         snap = self.workflow.snapshotter
-        if snap is not None:
+        if self.mode == "standalone" and snap is not None:
             path = snap.preempt_snapshot()
             if path:
                 logger.info("preemption checkpoint -> %s", path)

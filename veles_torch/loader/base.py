@@ -16,6 +16,20 @@ gives the epoch number, that entry state (the PCG64 ``bit_generator``
 state, the reference's key ``prng_state``) and the fitted normalizer;
 :meth:`Loader.set_state` restores them and restarts the epoch, drawing
 its order again from the restored state, as the reference's does.
+
+The wire of the master/slave mode (``distributable.py``, ``server.py``):
+on the master, :meth:`Loader.master_start_epoch` fills the job queue of
+one epoch, one ``(cls, [indices])`` job per minibatch, the train class
+shuffled by a generator of its own (``"<name>.dist"``, seeded
+``state_seed + 0x9E3779B9``, the reference's derivation, so a port
+master and a reference master hand out the same jobs in the same
+order); :meth:`Loader.generate_data_for_slave` pops the next job into
+the slave's in-flight list, :meth:`Loader.apply_data_from_slave` retires
+it and :meth:`Loader.drop_slave` requeues a dead slave's jobs at the
+front. On a slave, :meth:`Loader.apply_data_from_master` takes the job's
+index list: ``job`` then holds ``(cls, padded indices, valid rows)``,
+padded as the class schedule pads, for the step's one-job entry
+(``TorchStep.run_job``).
 """
 
 import logging
@@ -23,6 +37,7 @@ import logging
 import numpy
 
 from veles_torch import normalization, prng
+from veles_torch.distributable import IDistributable
 
 logger = logging.getLogger("veles_torch.loader")
 
@@ -30,7 +45,7 @@ CLASS_TEST, CLASS_VALID, CLASS_TRAIN = 0, 1, 2
 TRIAGE = ("test", "validation", "train")
 
 
-class Loader:
+class Loader(IDistributable):
     """Base minibatch scheduler. Subclasses implement :meth:`load_data`
     (set ``class_lengths`` and the dataset) and
     :meth:`device_full_arrays`; a streaming loader
@@ -61,6 +76,13 @@ class Loader:
         self._order = None
         #: the generator's state before the current order was drawn
         self._entry_state = None
+        #: master side: the epoch's queued ``(cls, [indices])`` jobs and
+        #: each slave's in-flight ones
+        self._pending_jobs = []
+        self._inflight = {}
+        #: slave side: the job served by the master, ``(cls, padded
+        #: int32 indices, valid rows)``, or None
+        self.job = None
 
     def load_data(self):
         """Discover the dataset: set ``class_lengths`` and the data."""
@@ -208,3 +230,66 @@ class Loader:
         order."""
         return [(cls, *self.class_schedule(cls))
                 for cls, _ in self._current_order()]
+
+    # -- IDistributable: minibatch index lists over the wire ----------
+
+    def generate_data_for_slave(self, slave=None):
+        """Pop the next job; ``None`` when the epoch's queue is empty
+        (the master then starts the next epoch)."""
+        if not self._pending_jobs:
+            return None
+        job = self._pending_jobs.pop(0)
+        self._inflight.setdefault(slave, []).append(job)
+        return job
+
+    def _ensure_dist_prng(self):
+        """The master-side shuffle generator, made on first use: the one
+        place that derives it, for the epoch start and a restarted
+        master's restore alike."""
+        if not hasattr(self, "_dist_prng"):
+            self._dist_prng = prng.RandomGenerator(
+                "%s.dist" % self.name, self.prng.state_seed + 0x9E3779B9)
+        return self._dist_prng
+
+    def master_start_epoch(self):
+        """Master side: fill the job queue of one epoch from the
+        master's own shuffle generator (the serving generator is left
+        as it is)."""
+        self._ensure_dist_prng()
+        mb = self.max_minibatch_size
+        for cls in (CLASS_TEST, CLASS_VALID, CLASS_TRAIN):
+            if self.class_lengths[cls] == 0:
+                continue
+            off = self.class_offset(cls)
+            indices = numpy.arange(off, off + self.class_lengths[cls],
+                                   dtype=numpy.int32)
+            if cls == CLASS_TRAIN and self.shuffle_enabled:
+                indices = indices[
+                    self._dist_prng.permutation(len(indices))]
+            for lo in range(0, len(indices), mb):
+                self._pending_jobs.append(
+                    (cls, indices[lo:lo + mb].tolist()))
+
+    def apply_data_from_master(self, data):
+        if data is None:
+            return
+        cls, idx_list = data
+        chunk = numpy.asarray(idx_list, dtype=numpy.int32)
+        self.job = (int(cls), self.pad_indices(chunk,
+                                               self.max_minibatch_size),
+                    len(chunk))
+
+    def generate_data_for_master(self):
+        return None
+
+    def apply_data_from_slave(self, data, slave=None):
+        if self._inflight.get(slave):
+            self._inflight[slave].pop(0)
+
+    def drop_slave(self, slave=None):
+        """Requeue a dead slave's in-flight jobs at the front; -> how
+        many."""
+        jobs = self._inflight.pop(slave, [])
+        for job in jobs:
+            self._pending_jobs.insert(0, job)
+        return len(jobs)

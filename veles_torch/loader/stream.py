@@ -14,10 +14,14 @@ through the step.
 (``veles_torch/continual.py``): an endless :class:`StreamSource` served
 as rounds of ``round_samples``, with a bounded prefetch plane (a daemon
 producer thread, a block buffer keyed by stream position, retry forever)
-and the stream cursor in the checkpoint, in the reference's format. The
-reference's shard and lease methods (``master_start_epoch``,
-``generate_data_for_slave``, ``drop_slave``) ride the master/slave wire,
-which is not ported (ROADMAP Queue 1 #10).
+and the stream cursor in the checkpoint, in the reference's format. On a
+master of the master/slave mode (``server.py``) it hands out its rounds
+as jobs by shard: with ``shards`` > 1 each train job belongs to shard
+``(first index // minibatch) % shards``, each slave is assigned a shard
+of its own when it first asks (sticky while it lives), and a shard with
+no live owner is stolen so a dead slave never wedges a round;
+``master_start_epoch`` claims the round (the cursor moves on as the
+queue fills, as the reference's does).
 """
 
 import concurrent.futures
@@ -225,13 +229,16 @@ class ContinualStreamLoader(StreamLoader):
     STOP_TIMEOUT = 30.0
 
     def __init__(self, workflow=None, source=None, round_samples=1024,
-                 valid_samples=0, prefetch_blocks=16, fetch_retry_s=0.5,
-                 **kwargs):
+                 valid_samples=0, shards=1, prefetch_blocks=16,
+                 fetch_retry_s=0.5, **kwargs):
         kwargs.setdefault("shuffle", False)   # stream order is the order
         super().__init__(workflow, **kwargs)
         self.source = source
         self.round_samples = int(round_samples)
         self.valid_samples = int(valid_samples)
+        #: master side: train jobs are dealt by shard, one per slave
+        self.shards = max(1, int(shards))
+        self._slave_shards = {}
         self.prefetch_blocks = max(2, int(prefetch_blocks))
         self.fetch_retry_s = float(fetch_retry_s)
         #: stream position where the current round starts
@@ -456,3 +463,81 @@ class ContinualStreamLoader(StreamLoader):
                 self._grabbed = {}
                 self._cond.notify_all()
         super().set_state(state)
+
+    # -- the master's shards and leases ----------------------------------
+
+    def _job_shard(self, job):
+        """The shard of a pending job, from its content (the first
+        index), so a persisted and restored queue of plain ``(cls,
+        [indices])`` pairs keeps its shards."""
+        cls, idx = job
+        if cls != CLASS_TRAIN or self.shards <= 1 or not idx:
+            return None
+        return (int(idx[0]) // self.max_minibatch_size) % self.shards
+
+    def _shard_for(self, slave):
+        shard = self._slave_shards.get(slave)
+        if shard is None:
+            used = set(self._slave_shards.values())
+            free = [s for s in range(self.shards) if s not in used]
+            shard = free[0] if free \
+                else len(self._slave_shards) % self.shards
+            self._slave_shards[slave] = shard
+            logger.info("%s: stream shard %d/%d -> slave %s", self.name,
+                        shard, self.shards, slave)
+            telemetry.record_event("stream_shard_assigned",
+                                   loader=self.name, slave=str(slave),
+                                   shard=shard, shards=self.shards)
+        return shard
+
+    def master_start_epoch(self):
+        """Queue one round: the pinned validation jobs, then the train
+        jobs of the next ``round_samples`` stream positions; the cursor
+        moves past them (the queue filled is the round claimed)."""
+        mb = self.max_minibatch_size
+        for cls in (CLASS_TEST, CLASS_VALID):
+            if self.class_lengths[cls] == 0:
+                continue
+            off = self.class_offset(cls)
+            indices = numpy.arange(off, off + self.class_lengths[cls],
+                                   dtype=numpy.int32)
+            for lo in range(0, len(indices), mb):
+                self._pending_jobs.append(
+                    (cls, indices[lo:lo + mb].tolist()))
+        off = self.class_offset(CLASS_TRAIN)
+        start = int(self.cursor_base)
+        for lo in range(0, self.round_samples, mb):
+            hi = min(lo + mb, self.round_samples)
+            self._pending_jobs.append(
+                (CLASS_TRAIN, [off + start + j for j in range(lo, hi)]))
+        self.cursor_base = start + self.round_samples
+
+    def generate_data_for_slave(self, slave=None):
+        """The next job of the slave's shard (an unsharded job of any
+        class first), else one of a shard no live slave owns; None when
+        only other live slaves' shards are left (the master answers
+        ``wait``)."""
+        if not self._pending_jobs:
+            return None
+        shard = self._shard_for(slave)
+        assigned = set(self._slave_shards.values())
+        pick = steal = None
+        for i, job in enumerate(self._pending_jobs):
+            s = self._job_shard(job)
+            if s is None or s == shard:
+                pick = i
+                break
+            if steal is None and s not in assigned:
+                steal = i
+        if pick is None:
+            pick = steal
+        if pick is None:
+            return None
+        job = self._pending_jobs.pop(pick)
+        self._inflight.setdefault(slave, []).append(job)
+        return job
+
+    def drop_slave(self, slave=None):
+        """Release the slave's shard and requeue its jobs."""
+        self._slave_shards.pop(slave, None)
+        return super().drop_slave(slave)

@@ -13,7 +13,8 @@ the JAX package). A per-process :class:`ModelHealthMonitor` consumes
 * **evaluation-tick losses** — the decision feeds each epoch's judged
   loss; an EWMA mean/variance pair turns it into a z-score;
 * **wire-side non-finite counts**, **slave summaries** — the master's
-  inputs (the master is not ported yet: ROADMAP Queue 1 item 10);
+  inputs (``server.py``: every merged delta's non-finite entries, each
+  slave's pushed summary, evicted when the slave leaves);
 * **serving drift** — per-batch output entropy and top-1 margin of a
   served model (``serving/batcher.py``).
 
@@ -673,8 +674,7 @@ class WeightGuard:
     the workflow's params and solver state (every ``stash_interval``
     merges, checked finite so a diverged state never becomes the stash);
     the tick after the verdict flips to ``diverged`` it restores the
-    stash. The master that ticks it is not ported yet (ROADMAP Queue 1
-    item 10)."""
+    stash. ``server.MasterServer`` ticks it (``--stash-interval``)."""
 
     def __init__(self, workflow, monitor=None, stash_interval=1):
         self.workflow = workflow

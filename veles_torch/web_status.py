@@ -4,7 +4,9 @@ The port's own copy of ``veles/web_status.py`` (it imports nothing of the
 JAX package), on the process's shared selector reactor
 (``reactor.py``):
 
-* ``GET /``              — an HTML table of every registered run;
+* ``GET /``              — an HTML table of every registered run (a
+  master's ``cluster`` row with its slaves, faults and each slave's
+  last-job timing);
 * ``GET /status.json``   — the same as JSON;
 * ``POST /update``       — a remote launcher pushes its status;
 * ``GET /healthz``, ``/readyz``, ``/metrics/history`` — the health
@@ -55,6 +57,16 @@ def _row(cells, tag="td"):
     return "<tr>" + "".join("<%s>%s</%s>" % (tag, html.escape(str(c)),
                                              tag)
                             for c in cells) + "</tr>"
+
+
+def _slave_cells(slaves):
+    """A master's per-slave rows as one cell: name, jobs, and the last
+    job's round trip, compute and wire seconds."""
+    return "; ".join(
+        "%s %s: %s jobs, rtt %s s, job %s s, wire %s s" % (
+            sid, row.get("name"), row.get("jobs"), row.get("last_rtt_s"),
+            row.get("last_job_s"), row.get("last_wire_s"))
+        for sid, row in sorted(slaves.items()))
 
 
 class WebStatus(Logger):
@@ -178,14 +190,18 @@ class WebStatus(Logger):
         snap = self.snapshot()
         if not snap:
             return _PAGE % "<p>no runs registered</p>"
-        # n_slaves/faults are the reference master's cluster row;
-        # the port's standalone rows leave them empty
+        # n_slaves/faults/slaves render a master's cluster row: its
+        # topology, the fault counters and each slave's last job;
+        # standalone rows leave them empty
         keys = ["mode", "workflow", "epoch", "best_metric",
-                "last_metrics", "complete", "n_slaves", "faults"]
+                "last_metrics", "complete", "n_slaves", "faults",
+                "slaves"]
         rows = [_row(["run"] + keys, "th")]
         for name, st in sorted(snap.items()):
-            rows.append(_row(
-                [name] + [st.get(k, "") for k in keys]))
+            cells = [st.get(k, "") for k in keys]
+            if isinstance(cells[-1], dict):
+                cells[-1] = _slave_cells(cells[-1])
+            rows.append(_row([name] + cells))
         return _PAGE % ("<table>%s</table>" % "".join(rows))
 
     def close(self):

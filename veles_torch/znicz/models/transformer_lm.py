@@ -20,7 +20,7 @@ root.lm.loader.text_file=corpus.txt root.lm.train.solver=adam -d cuda
 --generate-text "The "``.
 
 Refused until they are ported: any ``root.lm.parallel`` axis above 1
-(ROADMAP Queue 1 item 10).
+(ROADMAP Queue 1 item 10b).
 """
 
 import numpy
@@ -160,7 +160,7 @@ def _refuse_unported():
         raise NotImplementedError(
             "root.lm.parallel %s: multi-device parallelism (the mesh "
             "axes, the pipeline schedules, expert parallelism) is not "
-            "ported yet (ROADMAP Queue 1 item 10)" % wide)
+            "ported yet (ROADMAP Queue 1 item 10b)" % wide)
 
 
 def build_layers():

@@ -15,6 +15,16 @@ Counterpart of ``veles/znicz_tpu/nn_units.py``:
   card, its plain version on the CPU. A forward's ``zero_mask`` (set by
   ``ops/cutter.ZeroFiller``) multiplies its weights inside each update,
   once per step, as the reference's traced update does;
+* the wire of the master/slave mode (``distributable.py``): every
+  parameter the forward declares in ``PARAMS`` rides the wire as a host
+  ``numpy.float32`` array under the reference's payload keys. The master
+  ships its canonical weights (through the slave's negotiated codec,
+  ``compression.py``); a slave writes them in place into its device
+  tensors, remembers the decoded basis, trains, and ships ``d<name>``
+  deltas against it; the master adds each delta times
+  ``slave_merge_scale`` (an absolute payload is averaged halfway) and
+  reports the non-finite entries it merged to the model-health monitor.
+  Momentum and Adam moments stay on the slave;
 * the registry mapping config names to forward classes and forward
   classes to their GD classes. It is the port's own, separate from the
   reference's, so a process can hold both packages.
@@ -26,7 +36,8 @@ import numpy
 import torch
 from torch import nn
 
-from veles_torch import prng
+from veles_torch import compression, model_health, prng
+from veles_torch.distributable import IDistributable
 from veles_torch.znicz.lr_adjust import make_policy
 
 _FORWARD_BY_NAME = {}
@@ -132,7 +143,7 @@ class Forward(nn.Module):
                 if getattr(self, n) is not None}
 
 
-class GradientDescentBase:
+class GradientDescentBase(IDistributable):
     """Base backward unit: err_output -> err_input + parameter update.
 
     Update rules (the reference's traced ones,
@@ -213,6 +224,15 @@ class GradientDescentBase:
         #: appends ``(name, tensors)`` for :func:`layer_stats`
         self.stats_sink = None
         self.forward = None
+        #: the workflow (its negotiated wire codecs), set by it
+        self.workflow = None
+        #: master side: the factor on each merged slave delta
+        self.slave_merge_scale = 1.0
+        #: slave side: the decoded weights of the last master payload,
+        #: and the host copy of the trained parameters the step left
+        #: after the job (``TorchStep.run_job``)
+        self._master_basis = None
+        self.wire_host = None
         for key in dict.fromkeys(GradientDescentBase.STATE + self.STATE):
             setattr(self, key, None)
 
@@ -402,6 +422,120 @@ class GradientDescentBase:
             if grad is not None:
                 self._step_param(pname, grad, apply_now, t, h, bias_like)
 
+
+    # -- IDistributable: parameters over the wire ------------------------
+
+    def _wire_params(self):
+        """(name, tensor) of EVERY parameter the forward declares in
+        ``PARAMS`` (attention and FFN units have more than
+        weights/bias)."""
+        f = self.forward
+        out = []
+        for name in getattr(f, "PARAMS", ("weights", "bias")):
+            t = getattr(f, name, None)
+            if t is not None and t.numel():
+                out.append((name, t))
+        return out
+
+    def _param_values(self):
+        """{name: float32 ndarray} of every wire parameter: the host copy
+        the step left after a job when there is one (taken once), else a
+        copy of the tensors."""
+        host, self.wire_host = self.wire_host, None
+        if host is not None:
+            return host
+        return {name: t.detach().to("cpu", torch.float32).numpy().copy()
+                for name, t in self._wire_params()}
+
+    def _codec_for(self, slave=None):
+        """The wire codec of one payload: on the master the encoder
+        minted for ``slave`` at its hello (``grad_codec_by_slave``), on a
+        slave the negotiated one (``grad_codec``); None passes through."""
+        wf = self.workflow
+        if slave is not None:
+            table = getattr(wf, "grad_codec_by_slave", None)
+            if table is not None:
+                return table.get(slave)
+        return getattr(wf, "grad_codec", None)
+
+    def generate_data_for_slave(self, slave=None):
+        values = self._param_values()
+        codec = self._codec_for(slave)
+        if codec is None:
+            return values
+        # dense broadcast, stateless: the canonical fp32 weights live
+        # here, so broadcast error never accumulates
+        return {name: codec.encode_broadcast(
+            "%s/%s" % (self.name, name), value)
+            for name, value in values.items()}
+
+    def apply_data_from_master(self, data):
+        """Write the master's weights in place into the device tensors
+        (the step holds them) and keep the decoded basis the deltas are
+        taken against."""
+        if not data:
+            return
+        decoded = {k: numpy.asarray(compression.decode(v), numpy.float32)
+                   for k, v in data.items()}
+        for name, t in self._wire_params():
+            if name not in decoded:
+                # a declared parameter left out would drift apart
+                # across slaves without a word
+                raise KeyError("%s: master payload missing %r (version "
+                               "skew?)" % (self.name, name))
+            value = decoded[name]
+            if tuple(value.shape) != tuple(t.shape):
+                raise ValueError("%s: master payload %r has shape %s, the "
+                                 "unit's is %s" % (self.name, name,
+                                                   value.shape,
+                                                   tuple(t.shape)))
+            with torch.no_grad():
+                t.copy_(torch.from_numpy(value))
+        self._master_basis = {k: numpy.array(v) for k, v in decoded.items()}
+        self.wire_host = None
+
+    def generate_data_for_master(self):
+        current = self._param_values()
+        basis = self._master_basis
+        if basis is None:
+            return current
+        deltas = {k: current[k] - basis[k] for k in current}
+        codec = self._codec_for(None)
+        if codec is None:
+            return {"d" + k: v for k, v in deltas.items()}
+        # lossy is fine for deltas: the codec's error-feedback residual
+        # folds this sync's quantization error into the next delta
+        return {"d" + k: codec.encode_update("%s/%s" % (self.name, k), v)
+                for k, v in deltas.items()}
+
+    def apply_data_from_slave(self, data, slave=None):
+        """Merge one slave's training into the canonical weights, in
+        numpy on the host as the reference merges: ``d<name>`` deltas
+        add times ``slave_merge_scale``; an absolute payload is averaged
+        halfway. The non-finite entries merged go to the model-health
+        monitor (0 for a clean merge)."""
+        if not data:
+            return
+        scale = float(self.slave_merge_scale)
+        nonfinite = 0
+        for key, t in self._wire_params():
+            if "d" + key in data:
+                delta = compression.decode(data["d" + key])
+                nonfinite += int((~numpy.isfinite(delta)).sum())
+                value = t.detach().cpu().numpy()
+                value[...] += scale * delta
+            elif key in data:
+                other = compression.decode(data[key])
+                nonfinite += int((~numpy.isfinite(other)).sum())
+                value = t.detach().cpu().numpy()
+                value[...] = 0.5 * (value + other)
+            else:
+                continue
+            if t.device.type != "cpu":
+                with torch.no_grad():
+                    t.copy_(torch.from_numpy(value))
+        model_health.get_model_monitor().note_wire_nonfinite(
+            self.name, nonfinite, slave=slave)
 
 #: (device, owners) -> the device index tensor of layer_stats
 _STATS_INDEX = {}

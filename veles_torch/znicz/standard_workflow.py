@@ -151,6 +151,11 @@ class NNWorkflow:
         self.graphics = None
         #: runs started (the reference's ``meta.run_number``)
         self.run_number = 0
+        #: the master/slave mode's wire codecs (``compression.py``): a
+        #: slave's negotiated encoder (set by ``SlaveClient``), a
+        #: master's encoder per slave (set by ``MasterServer``)
+        self.grad_codec = None
+        self.grad_codec_by_slave = None
 
     def _unique(self, name):
         base, i = name, 2
@@ -160,13 +165,26 @@ class NNWorkflow:
         self._names.add(name)
         return name
 
-    def initialize(self, device="cuda"):
+    def __iter__(self):
+        """The units in the reference's order: loader, forwards,
+        evaluator, decision, GD chain (what the wire's
+        ``DistributionRegistry`` walks)."""
+        units = [self.loader, *self.forwards, self.evaluator,
+                 self.decision, *self.gds]
+        return iter([u for u in units if u is not None])
+
+    def initialize(self, device="cuda", with_step=True):
         """Load the data, draw the first epoch's shuffle, create the
         parameters on ``device`` (``"cuda"``, ``"cpu"`` or a
-        TorchDevice)."""
+        TorchDevice). ``with_step=False`` (a master of the master/slave
+        mode, which never computes) builds no step."""
         self.device = get_device(device)
         self.loader.initialize()
         self.initialize_units()
+        for gd in self.gds:
+            gd.workflow = self
+        if not with_step:
+            return self
         self.step = TorchStep(self.loader, self.forwards, self.evaluator,
                               self.gds, self.decision, self.device,
                               body=self.step_body)
@@ -307,8 +325,10 @@ class NNWorkflow:
         """Wall-time table of the run (the reference's per-unit table):
         one row per dispatch kind of the step, the loader-to-GD cycle run
         fused (``TorchStep``), slowest first."""
+        seconds = self.step.dispatch_seconds if self.step is not None \
+            else {}
         rows = sorted(((t, calls, "step.%s" % kind) for kind, (t, calls)
-                       in self.step.dispatch_seconds.items()), reverse=True)
+                       in seconds.items()), reverse=True)
         total = sum(r[0] for r in rows) or 1e-12
         stream.write("%-32s %10s %8s %7s\n"
                      % ("unit", "time(s)", "calls", "share"))
@@ -387,7 +407,8 @@ class NNWorkflow:
                 "state": {g.name: g.export_state() for g in self.gds},
                 "units": {u.name: u.get_state()
                           for u in self._generator_units()},
-                "step_index": self.step.train_steps}
+                "step_index": self.step.train_steps
+                if self.step is not None else 0}
 
     def _copy_view(self):
         """A clone of :meth:`_live_view` on the device (the step's
@@ -399,7 +420,7 @@ class NNWorkflow:
         return view
 
     def _checkpoint_view(self):
-        if not self.step.in_train:
+        if self.step is None or not self.step.in_train:
             return self._live_view()
         if self.step.entry is None:
             raise RuntimeError(
@@ -460,6 +481,8 @@ class NNWorkflow:
                                "skipped", name)
                 continue
             others[name].set_state(state)
+        if self.step is None:
+            return
         self.step.train_steps = int(tree.get("meta", {}).get("step_index",
                                                              0))
         self.step.sync_iteration()
@@ -483,7 +506,8 @@ class NNWorkflow:
         would restore diverged values."""
         for section in ("params", "state"):
             self.import_tree(stash[section])
-        self.step.sync_iteration()
+        if self.step is not None:
+            self.step.sync_iteration()
 
     def import_tree(self, tree, skip_unknown=False):
         """Load a tree shaped like :meth:`export_tree` (a checkpoint's

@@ -88,6 +88,20 @@ what the resident path's does past the gather: the slice (a free view),
 ``batch_transform`` and the step; the staging and the upload are not
 counted as the step's work. A stopped epoch cancels the staged windows.
 
+A slave of the master/slave mode (``client.py``) runs one minibatch
+job at a time through :meth:`TorchStep.run_job`, the counterpart of the
+reference's per-step mode: the job the master served
+(``loader.job``: the class, the index list padded and masked as the
+class schedule pads it, the valid rows) is gathered on the device (a
+streaming loader materializes and uploads the one minibatch), run as a
+train or eval step, and its metrics row, the due step's layer stats and
+every wire parameter of the GD units come to the host in ONE packed
+copy; each GD unit keeps its slice as ``wire_host`` for
+``generate_data_for_master``. The master's weights reach the device
+tensors in place (``GradientDescentBase.apply_data_from_master``), so no
+re-upload step is needed. The bias gradient runs as on the standalone
+path: one launch per GD unit with a bias in a train job.
+
 Eager PyTorch: each operation is its own launch (no CUDA graph yet).
 """
 
@@ -423,6 +437,64 @@ class TorchStep:
                 after_class(cls)
         return True
 
+
+    def run_job(self):
+        """Run the loader's served job (``loader.job``) once: a train
+        step with its updates, or an eval step; -> its host (4,)
+        metrics row. The metrics, the layer stats of a due train step
+        and the GD units' wire parameters come to the host in one
+        packed copy; each GD unit gets its parameters as
+        ``wire_host``, and due stats go to the model-health monitor."""
+        loader = self.loader
+        if loader.job is None:
+            raise RuntimeError("%s: no job served (apply_data_from_master "
+                               "first)" % loader.name)
+        cls, idx, valid = loader.job
+        loader.job = None
+        train = cls == CLASS_TRAIN
+        dev = self.device.device
+        t0 = time.perf_counter()
+        # the indices and the valid count go up in one copy
+        up = torch.as_tensor(numpy.append(idx, numpy.int32(valid))).to(dev)
+        valid_dev = up[-1]
+        if loader.supports_streaming:
+            if self.uploader is None:
+                self.uploader = WindowUploader(dev)
+            window = self.uploader.upload(
+                loader.materialize_window(cls, idx[None]))
+            data, target = self.window_batch(window, 0, train)
+        else:
+            data, target = self.gather(loader.device_full_arrays(dev),
+                                       up[:-1].to(torch.int64), train)
+        step = self.train_minibatch if train else self.eval_minibatch
+        metrics = step(data, target, valid_dev)
+        stats, self.last_stats = self.last_stats if train else None, None
+        parts = [metrics.reshape(-1).to(torch.float32)]
+        if stats is not None:
+            parts.append(stats.reshape(-1))
+        wire = [(gd, gd._wire_params()) for gd in self.gds
+                if hasattr(gd, "_wire_params")]
+        parts += [t.detach().reshape(-1).to(torch.float32)
+                  for _, params in wire for _, t in params]
+        host = torch.cat(parts).cpu().numpy()
+        row, pos = host[:len(METRICS)], len(METRICS)
+        if stats is not None:
+            n = stats.numel()
+            self._publish_stats([host[pos:pos + n].reshape(stats.shape)],
+                                self.train_steps)
+            pos += n
+        for gd, params in wire:
+            values = {}
+            for name, t in params:
+                n = t.numel()
+                values[name] = host[pos:pos + n].reshape(tuple(t.shape))
+                pos += n
+            gd.wire_host = values
+        kind = "job." + _KINDS[cls]
+        total = self.dispatch_seconds.setdefault(kind, [0.0, 0])
+        total[0] += time.perf_counter() - t0
+        total[1] += 1
+        return row
 
 def _tokens(samples, shape, floating):
     """Tokens of ``samples`` samples of a token loader (1-D integer
