@@ -397,16 +397,45 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     master's weights finite; (c) ``--optimize 2x4 --listen-address`` with
     two ``--optimize slave`` processes on the card: 8 individuals, finite
     fitness, one launch of each form a train step in the slaves;
-33. the ``kernels`` summary line (the bias gradient's launches summed
+33. parallel — data, tensor and ring-sequence parallelism, 2 ranks on
+    this one card spawned by the CLI over ``--transport gloo-host`` (NCCL
+    refuses two ranks on one GPU: the collectives copy through the host,
+    every kernel stays on the card; these are gloo-host times, not
+    NCCL's, which one card cannot show; ``tools/parallel_nccl.py`` runs
+    the same checks over NCCL, one rank per card). Each parallel run of
+    the 110M row (``PARALLEL_110M``: 4 train and 1 valid minibatch of 8)
+    is held against a one-process run of the same global minibatches on
+    the card (``parallel_held``): every tensor's movement over the run
+    (its inference archive, TP's shards gathered, less the seed's initial
+    weights), the losses within ``PARALLEL_LOSS_RTOL``, each rank's flash
+    and bias-gradient launches equal to that run's, and the collectives a
+    train step. (a) ``root.lm.parallel.data=2`` in f32
+    (``PARALLEL_F32``), movement within ``PARALLEL_DP_RTOL``, one gradient
+    all-reduce a step of exactly the parameters' f32 bytes
+    (``grad_sync_bytes``); (a') ``data=2`` under the default bf16 policy,
+    movement within ``PARALLEL_BF16_RTOL``; (b) the 110M_s8k row
+    (``PARALLEL_S8K``: B 4, S 8192, 6 of its 12 layers, 1 train and 1
+    valid minibatch) with ``seq=2``: the per-shard S 4096 takes the
+    kernels in the ring, rank 0 launching one causal forward and one
+    causal fused backward a layer a step and rank 1 one causal and one
+    non-causal of each; one MHA layer's ring (out, lse, dq, dk, dv at (4,
+    12, 8192, 64), bf16) on 2 ranks against the single-card flash path
+    (``FLASH_VS_PLAIN_TOL``) and the float64 math (``FLASH_TOL``, lse
+    ``LSE_ATOL``) by ``scaled_err``; (c) ``model=2`` (6 heads a rank)
+    under the bf16 policy, movement within ``PARALLEL_BF16_RTOL``, 48
+    all-reduces a step; (d) ``graft_entry.dryrun_multichip(2)`` on the
+    card. Each rank's step time, collective bytes and host seconds;
+34. the ``kernels`` summary line (the bias gradient's launches summed
     over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume,
     model-health, unsupervised, plots, serve_http, ensemble, optimize (in
     process and in the workers), shell_forge, profiling, image_stream,
-    continual and distributed runs (the slaves' counts from their result
-    lines; a SIGKILLed slave's are lost), each path's beside it, the
-    serving paths' among them), the card line, and last ``{"ok": true,
-    "device": {...}}``.
+    continual, distributed and parallel runs (the slaves' and the ranks'
+    counts from their result lines; a SIGKILLed slave's are lost), each
+    path's beside it, the serving paths' among them), the card line, and
+    last ``{"ok": true, "device": {...}}``.
 
-Every JSON line also goes to ``chip_smoke.jsonl`` in that directory.
+Every JSON line also goes to ``chip_smoke.jsonl`` in that directory, with
+``at_s``: the seconds since the script started.
 """
 
 import contextlib
@@ -605,14 +634,20 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 LOG_PATH = os.path.join(OUT_DIR, "chip_smoke.jsonl")
 #: the workflows the training phases leave for the serving phases
 TRAINED = {}
+#: the script's start on the host's monotonic clock (the log's ``at_s``)
+STARTED = time.monotonic()
 
 
 def emit(obj):
+    """Print ``obj`` as one JSON line; the log's copy also holds
+    ``at_s``, the seconds since the script started (where a run's time
+    goes, phase by phase)."""
     line = json.dumps(obj)
     print(line, flush=True)
     os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
     with open(LOG_PATH, "a") as f:
-        f.write(line + "\n")
+        f.write(json.dumps(dict(obj, at_s=time.monotonic() - STARTED))
+                + "\n")
 
 
 def fail(msg):
@@ -6052,6 +6087,406 @@ def check_distributed(torch):
           "seconds": time.perf_counter() - t0, "launches": counts})
     return counts
 
+#: phase parallel: the ranks' device and their declared transport (two
+#: ranks on one card: NCCL refuses that, so gloo over host copies)
+PARALLEL_DEVICE = "cuda"
+PARALLEL_TRANSPORT = "gloo-host"
+#: (a) and (c): the 110M row, 4 train and 1 valid minibatch of 8, 1 epoch
+PARALLEL_110M = LM_110M + ("root.lm.loader.n_train=32",
+                           "root.lm.loader.n_valid=8",
+                           "root.lm.decision.max_epochs=1")
+#: (b): the 110M_s8k row (bench.py LM_ROWS: B 4, S 8192), its depth cut
+#: from 12 to 6 layers, 1 train and 1 valid minibatch: the ring's host
+#: copies cost ~10 s a 12-layer step over gloo-host (the first full call:
+#: 7.85 GB of hops in 19.6 s over 2 train and 1 valid step)
+PARALLEL_S8K_LAYERS = 6
+PARALLEL_S8K = PARALLEL_110M + ("root.lm.loader.minibatch_size=4",
+                                "root.lm.loader.n_train=4",
+                                "root.lm.loader.n_valid=4",
+                                "root.lm.loader.seq_len=8192",
+                                "root.lm.model.layers=%d"
+                                % PARALLEL_S8K_LAYERS)
+PARALLEL_S8K_SHAPE = (4, 12, 8192, 64)
+#: (a) holds DP in f32 (both runs) by each tensor's movement: under the
+#: bf16 policy the ranks' half batches take other cuBLAS tilings than the
+#: whole batch, whose f32 sums round to other bf16 activations, and the
+#: bias sums over 4096 rows cancel: the first call read the biases up to
+#: 1.6e-2 of their largest element off the one-process bf16 run (weights
+#: 1.0e-3), while on the CPU (f32) DP equals one process to 3e-7. In f32
+#: the only difference is the order of the gradient sums (two halves, then
+#: the all-reduce)
+PARALLEL_F32 = ("root.common.engine.amp=float32",
+                "root.common.engine.compute_dtype=float32")
+#: (a): every tensor's movement over the run in the f32 DP run's archive
+#: against the f32 one-process run's: max|Δ_dp − Δ_1| / max|Δ_1|, Δ the
+#: weights less the seed's initial ones. Predicted ~1e-5 before the second
+#: call, which read up to 7.3e-3 of the largest element on the FFNs'
+#: first-layer biases (5.2e-4 on their weights): the ReLU gate is a step,
+#: and a pre-activation within an f32 rounding of 0 flips its row's whole
+#: gradient there, so the two sum orders part by more than rounding over
+#: 4 steps. A rank whose gradients skipped the all-reduce moves half as
+#: far: about 0.5
+PARALLEL_DP_RTOL = 5e-2
+#: (a') and (c), the default bf16 policy: the same movement comparison
+#: against the bf16 one-process run. bf16 rounds the activations where
+#: the two runs' f32 sums part (1 ulp = 3.9e-3), and more ReLU gates flip
+#: than in f32. A fault moves a tensor by another amount of the order of
+#: its movement: a rank that skips the gradient all-reduce moves half as
+#: far (0.5); a skipped partial-sum all-reduce under TP drops the other
+#: rank's half of every attention output and FFN product, and a skipped
+#: input-gradient all-reduce half of every lower layer's gradient
+#: (test_torch_lm_parallel.py's planted faults read 0.70 and 1.61 on the
+#: CPU, the sound runs 1.4e-6). Read on the card: DP 2.27e-2, TP 5.98e-2
+PARALLEL_BF16_RTOL = 0.25
+#: the validation and train losses of a parallel run against the
+#: one-process run's, relative. Predicted: the row-sharded products sum
+#: 384 of the 768 (3072) terms per rank in f32, then add: the losses agree
+#: to a few f32 ulps of the activations' bf16 rounding, below 1e-3. The
+#: losses barely move over 4 steps from random weights (validation runs
+#: before them), so this bar alone would not show a fault: the movement
+#: bars do
+PARALLEL_LOSS_RTOL = 1e-3
+
+
+def parallel_cli(torch, tmp, tag, overrides, *args):
+    """One parallel LM run through the CLI in this process: the CLI builds
+    the kernels (done) and spawns the ranks on this card over
+    ``PARALLEL_TRANSPORT``; -> rank 0's result line (with ``seconds``)."""
+    from veles_torch.config import root
+    out = os.path.join(tmp, tag + ".json")
+    t0 = time.perf_counter()
+    transport = () if PARALLEL_TRANSPORT == "gloo" \
+        else ("--transport", PARALLEL_TRANSPORT)
+    try:
+        code = cli_run([LM_SAMPLE, *overrides, *args, "--seed", "1337",
+                        "-d", PARALLEL_DEVICE, *transport, "--no-stats",
+                        "--result-file", out])
+    finally:
+        # the overrides also landed in this process's root
+        root.common.engine.amp = root.common.engine.compute_dtype = None
+    if code != 0:
+        fail("parallel %s: the CLI exited %s" % (tag, code))
+    with open(out) as f:
+        res = json.load(f)
+    res["seconds"] = time.perf_counter() - t0
+    par = res["parallel"]
+    if par["transport"] != PARALLEL_TRANSPORT:
+        fail("parallel %s: transport %s" % (tag, par["transport"]))
+    return res
+
+
+def parallel_single(torch, tmp, tag, *overrides):
+    """The one-process run of ``PARALLEL_110M`` (+ ``overrides``) on the
+    card, its launches counted from 0 and held to what it implies; ->
+    (workflow, counts, archive directory). The engine's dtype policy is
+    cleared after."""
+    from veles_torch.config import root
+    archive = os.path.join(tmp, tag + "_archive")
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(sys.stdout):
+            wf = cli_run([LM_SAMPLE, *PARALLEL_110M, *overrides, "--seed",
+                          "1337", "-d", PARALLEL_DEVICE, "--no-stats",
+                          "--export-inference", archive])
+    finally:
+        root.common.engine.amp = root.common.engine.compute_dtype = None
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want, _ = lm_expected_counts(wf, PARALLEL_DEVICE)
+    if counts != want:
+        fail("parallel single %s: launches %s, expected %s"
+             % (tag, counts, want))
+    return wf, counts, archive
+
+
+def rank_counts(launches):
+    """A rank's ``launches_by_rank`` entry in ``read_counts``' keys."""
+    return {"flash_fwd": launches["flash_fwd[fwd]"],
+            "flash_fwd_pipe": launches["flash_fwd[fwd_pipe]"],
+            "flash_bwd_fused": launches["flash_bwd[fused]"],
+            "flash_bwd_dq": launches["flash_bwd[dq]"],
+            "flash_bwd_dkv": launches["flash_bwd[dkv]"],
+            "bias_grad[identity]": launches["bias_grad[identity]"],
+            "bias_grad[masked]": launches["bias_grad[masked]"]}
+
+
+def parallel_rows(res):
+    """The per-rank timing lines of one parallel run."""
+    par = res["parallel"]
+    return [{"rank": r,
+             "step_ms": 1e3 * st["train_seconds"] / max(1, st["train_steps"]),
+             "collective_mb": st["collective_bytes"] / 1e6,
+             "collective_host_s": st["collective_seconds"]}
+            for r, st in enumerate(par["stats_by_rank"])]
+
+
+def archive_errors(numpy, got_dir, want_dir, start_dir):
+    """{file: max|Δgot − Δwant| / max|Δwant|} of every .npy of two
+    inference archives, Δ each less the ``start_dir`` archive's (the
+    tensor's movement over the run)."""
+    out = {}
+    for name in sorted(os.listdir(want_dir)):
+        if not name.endswith(".npy"):
+            continue
+        start, want, got = (
+            numpy.load(os.path.join(d, name)).astype(numpy.float64)
+            for d in (start_dir, want_dir, got_dir))
+        moved = numpy.abs(want - start).max()
+        out[name] = float(numpy.abs(got - want).max() / max(moved, 1e-30))
+    return out
+
+
+def initial_archive(tmp):
+    """The inference archive of ``PARALLEL_110M``'s weights as the seed
+    draws them (f32, built on the host) -> its directory."""
+    from veles_torch.config import root
+    path = os.path.join(tmp, "initial_archive")
+    try:
+        wf = build_lm(*PARALLEL_110M, *PARALLEL_F32, device="cpu")
+        wf.export_inference(path)
+    finally:
+        root.common.engine.amp = root.common.engine.compute_dtype = None
+    return path
+
+
+def parallel_axes_args(axes):
+    return tuple("root.lm.parallel.%s=%d" % kv for kv in axes.items())
+
+
+def parallel_held(torch, tmp, tag, axes, single, single_counts,
+                  single_archive, start, rtol, overrides=()):
+    """One run of ``PARALLEL_110M`` (+ ``overrides``) under ``axes``
+    through the CLI, held against the one-process run ``single`` of the
+    same global minibatches (its launches ``single_counts``, its archive
+    ``single_archive``): every tensor's movement from ``start`` (the
+    seed's weights) within ``rtol``, the losses within
+    ``PARALLEL_LOSS_RTOL``, each rank's launches equal to the one-process
+    run's, and the collectives of a train step: 4 all-reduces a layer
+    under ``model`` (12 heads and 3072 FFN units split), one gradient
+    bucket of the parameters' f32 bytes under ``data`` (once a step in
+    all when ``data`` is the only axis); -> the result line."""
+    import numpy
+    archive = os.path.join(tmp, tag + "_archive")
+    res = parallel_cli(torch, tmp, tag, PARALLEL_110M + tuple(overrides),
+                       *parallel_axes_args(axes), "--export-inference",
+                       archive)
+    par = res["parallel"]
+    errs = archive_errors(numpy, archive, single_archive, start)
+    worst = max(errs.values()) if errs else float("inf")
+    if worst > rtol:
+        fail("parallel %s: weights moved off the one-process run's by %s "
+             "(bar %g)" % (tag, {k: v for k, v in errs.items() if v > rtol},
+                           rtol))
+    want_h, got_h = single.decision.history, res["history"]
+    losses = {p: abs(got_h[0][p]["loss"] - want_h[0][p]["loss"])
+              / abs(want_h[0][p]["loss"]) for p in ("validation", "train")}
+    if max(losses.values()) > PARALLEL_LOSS_RTOL:
+        fail("parallel %s: losses %s against the one-process run's %s"
+             % (tag, [got_h[0][p]["loss"] for p in ("validation", "train")],
+                [want_h[0][p]["loss"] for p in ("validation", "train")]))
+    steps = par["train_steps"]
+    if steps != single.step.train_steps:
+        fail("parallel %s: %d train steps, the one-process run %d"
+             % (tag, steps, single.step.train_steps))
+    for r, launches in enumerate(par["launches_by_rank"]):
+        got = rank_counts(launches)
+        if got != single_counts:
+            fail("parallel %s rank %d: launches %s, the one-process run's "
+                 "%s" % (tag, r, got, single_counts))
+    reduces = (4 * 12 if axes.get("model", 1) > 1 else 0) \
+        + (1 if axes.get("data", 1) > 1 else 0)
+    if par["collective_counts"] != {"all-reduce": reduces}:
+        fail("parallel %s: collectives a step %s, expected %d all-reduces"
+             % (tag, par["collective_counts"], reduces))
+    row = {"phase": "parallel", "part": tag, "card": card_line(),
+           "transport": par["transport"], "mesh": par["mesh"],
+           "dtype": "float32" if overrides else "bfloat16",
+           "seconds": res["seconds"], "train_steps": steps,
+           "movement_max_rel_err": worst, "movement_bar": rtol,
+           "loss_rel_err": losses,
+           "worst_tensors": sorted(errs.items(), key=lambda kv: -kv[1])[:5],
+           "ranks": parallel_rows(res),
+           "single_step_ms": 1e3 * single.step.dispatch_seconds["train"][0]
+           / single.step.train_steps,
+           "collective_counts": par["collective_counts"],
+           "collective_bytes": par["collective_bytes"],
+           "collective_seconds": par["collective_seconds"],
+           "launches_by_rank": par["launches_by_rank"]}
+    if set(axes) == {"data"}:
+        per_step = par["collective_bytes"]["all-reduce"] / steps
+        if par["collective_calls"].get("all-reduce") != steps \
+                or per_step != par["grad_sync_bytes"]:
+            fail("parallel %s: %s all-reduces for %d steps, %.0f bytes a "
+                 "step, the parameters %d" % (
+                     tag, par["collective_calls"], steps, per_step,
+                     par["grad_sync_bytes"]))
+        row["grad_allreduce_bytes_per_step"] = per_step
+    emit(dict(row, **transport_note()))
+    return res
+
+
+def transport_note():
+    """The note that the phase's times are gloo-host's, where they are."""
+    if PARALLEL_TRANSPORT != "gloo-host":
+        return {}
+    return {"note": "gloo-host times: host copies and gloo on one card, "
+                    "not NCCL"}
+
+
+def ring_layer_rank(seed):
+    """One rank of phase parallel (b)'s layer check: the ring forward and
+    backward of one MHA layer's attention at ``PARALLEL_S8K_SHAPE`` on
+    this rank's shard of the sequence, against the single-card flash path
+    and the float64 math on the same rows; -> (errors, this rank's flash
+    launches by mask in the ring)."""
+    import torch
+    from veles_torch.znicz import parallel
+    from veles_torch.znicz.ops import flash_attention as FA
+    from veles_torch.znicz.parallel import ring as R
+    rank, world = parallel.init_multihost(transport=PARALLEL_TRANSPORT)
+    if PARALLEL_TRANSPORT == "nccl":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
+    try:
+        mesh = parallel.make_mesh({"seq": world})
+        q, k, v, dout = flash_inputs(torch, PARALLEL_S8K_SHAPE,
+                                     torch.bfloat16, seed=seed)
+        s = q.shape[2] // world
+        lo = mesh.index("seq") * s
+
+        def mine(t):
+            return t[:, :, lo:lo + s].contiguous()
+        FA.reset_launches()
+        out, lse = R.ring_self_attention(mine(q), mine(k), mine(v), mesh,
+                                         causal=True, inner="pallas")
+        grads = R.ring_self_attention_bwd(
+            mine(q), mine(k), mine(v), out, lse, mine(dout), mesh,
+            causal=True, inner="pallas")
+        torch.cuda.synchronize()
+        launches = {"fwd": dict(FA.flash_attention_fwd.mask_launches),
+                    "bwd": dict(FA.flash_attention_bwd.mask_launches)}
+        ro, rl = FA.flash_attention_fwd(q, k, v, causal=True)
+        rgrads = FA.flash_attention_bwd(q, k, v, ro, rl, dout, causal=True)
+        exact = flash_reference(torch, q, k, v, dout, True, out_in=ro)
+        names = ("out", "dq", "dk", "dv")
+        got = (out,) + tuple(grads)
+        vs_single = {n: scaled_err(g, mine(w)) for n, g, w in
+                     zip(names, got, (ro,) + tuple(rgrads))}
+        vs_exact = {n: scaled_err(g, mine(w)) for n, g, w in
+                    zip(names, got, exact[:1] + exact[2:])}
+        vs_single["lse"] = (lse - mine(rl)).abs().max().item()
+        vs_exact["lse"] = (lse.double() - mine(exact[1])).abs().max().item()
+        return {"vs_single": vs_single, "vs_exact": vs_exact}, launches
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+def parallel_sp(torch, tmp, ranks=2):
+    """Phase parallel (b) on ``ranks`` ranks: rank r's ring launches one
+    causal forward and backward a layer a step and r non-causal ones (its
+    past shards), and hops 2(n−1) + 4(n−1) + 2 times a layer a step."""
+    from veles_torch.znicz import parallel
+    t0 = time.perf_counter()
+    layer = parallel.spawn(ring_layer_rank, ranks, args=(2718,),
+                           timeout_s=300.0)
+    layer_s = time.perf_counter() - t0
+    for r, (errs, launches) in enumerate(layer):
+        tol, etol = FLASH_VS_PLAIN_TOL["bfloat16"], FLASH_TOL["bfloat16"]
+        bad = {n: e for n, e in errs["vs_single"].items()
+               if e > (LSE_ATOL if n == "lse" else tol)}
+        bad.update({"exact_" + n: e for n, e in errs["vs_exact"].items()
+                    if e > (LSE_ATOL if n == "lse" else etol)})
+        if bad:
+            fail("parallel sp: ring rank %d off the single-card flash path "
+                 "or the float64 math: %s" % (r, bad))
+        want = {"causal": 1, "full": r}
+        if launches != {"fwd": want, "bwd": want}:
+            fail("parallel sp: ring rank %d launched %s, expected %s each"
+                 % (r, launches, want))
+    res = parallel_cli(torch, tmp, "sp", PARALLEL_S8K,
+                       "root.lm.parallel.seq=%d" % ranks)
+    par = res["parallel"]
+    layers = PARALLEL_S8K_LAYERS
+    train, evals = par["train_steps"], par["eval_steps"]
+    for r, launches in enumerate(par["launches_by_rank"]):
+        steps_fwd, steps_bwd = layers * (train + evals), layers * train
+        want = {"flash_fwd[causal]": steps_fwd,
+                "flash_fwd[full]": steps_fwd * r,
+                "flash_bwd[causal]": steps_bwd,
+                "flash_bwd[full]": steps_bwd * r,
+                "flash_fwd[fwd_pipe]": 0, "flash_bwd[dq]": 0,
+                "flash_bwd[dkv]": 0}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            fail("parallel sp rank %d: launches %s, expected %s"
+                 % (r, got, want))
+    hops = layers * (2 * (ranks - 1) + 4 * (ranks - 1) + 2)
+    if par["collective_counts"] != {"collective-permute": hops,
+                                    "all-reduce": 1}:
+        fail("parallel sp: collectives a step %s"
+             % par["collective_counts"])
+    emit({"phase": "parallel", "part": "sp", "card": card_line(),
+          "transport": par["transport"], "mesh": par["mesh"],
+          **transport_note(),
+          "layer_check": [e for e, _ in layer], "layer_check_seconds":
+          layer_s, "seconds": res["seconds"], "train_steps": train,
+          "eval_steps": evals, "ranks": parallel_rows(res),
+          "collective_counts": par["collective_counts"],
+          "collective_bytes": par["collective_bytes"],
+          "collective_seconds": par["collective_seconds"],
+          "launches_by_rank": par["launches_by_rank"],
+          "history": res["history"]})
+    return res
+
+
+def check_parallel(torch, ranks=2):
+    """Phase parallel on ``ranks`` ranks over ``PARALLEL_TRANSPORT``: (a)
+    DP in f32, (a') DP and (c) TP under the bf16 policy, (b) the ring,
+    (d) the dry run; -> the ranks' launches of the phase's runs,
+    summed."""
+    import shutil
+    import tempfile
+    from veles_torch.graft_entry import dryrun_multichip
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    t0 = time.perf_counter()
+    try:
+        start = initial_archive(tmp)
+        single, counts32, archive = parallel_single(torch, tmp, "f32",
+                                                    *PARALLEL_F32)
+        runs = [parallel_held(torch, tmp, "dp", {"data": ranks}, single,
+                              counts32, archive, start, PARALLEL_DP_RTOL,
+                              PARALLEL_F32)]
+        del single
+        single, counts16, archive = parallel_single(torch, tmp, "bf16")
+        runs.append(parallel_held(torch, tmp, "dp_bf16", {"data": ranks},
+                                  single, counts16, archive, start,
+                                  PARALLEL_BF16_RTOL))
+        runs.append(parallel_held(torch, tmp, "tp", {"model": ranks},
+                                  single, counts16, archive, start,
+                                  PARALLEL_BF16_RTOL))
+        if ranks >= 4:
+            runs.append(parallel_held(
+                torch, tmp, "dp_tp", {"data": 2, "model": ranks // 2},
+                single, counts16, archive, start, PARALLEL_BF16_RTOL))
+        del single
+        torch.cuda.empty_cache()
+        runs.append(parallel_sp(torch, tmp, ranks))
+        t1 = time.perf_counter()
+        dry = dryrun_multichip(ranks, device=PARALLEL_DEVICE,
+                               transport=PARALLEL_TRANSPORT)
+        emit({"phase": "parallel", "part": "dryrun", "card": card_line(),
+              "seconds": time.perf_counter() - t1, **dry})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = add_counts(*[rank_counts(l) for res in runs
+                          for l in res["parallel"]["launches_by_rank"]])
+    emit({"phase": "parallel", "part": "total", "card": card_line(),
+          "ranks": ranks, "transport": PARALLEL_TRANSPORT,
+          "seconds": time.perf_counter() - t0, "launches": counts})
+    return counts
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -6116,11 +6551,13 @@ def main(argv=None):
     image_stream = check_image_stream(torch)
     continual = check_continual(torch)
     distributed = check_distributed(torch)
+    parallel = check_parallel(torch)
     paths = {**ae, **serving, **lm_slice, "resume": resume,
              "model_health": health, "unsupervised": unsupervised,
              "plots": plots, "serve_http": serve_http, **search,
              "profiling": profiling, "image_stream": image_stream,
-             "continual": continual, "distributed": distributed}
+             "continual": continual, "distributed": distributed,
+             "parallel": parallel}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

@@ -88,6 +88,15 @@ def test_lm_slice_modules_are_scanned(module):
     assert os.path.join(REPO, "veles_torch", module) in _port_files()
 
 
+@pytest.mark.parametrize("module", [
+    "znicz/parallel/collectives.py", "znicz/parallel/ring.py",
+    "graft_entry.py"])
+def test_parallel_slice_modules_are_scanned(module):
+    """The distribution layer's modules (the collectives, the ring) and
+    the dry run's entry point are among the files both checks read."""
+    assert os.path.join(REPO, "veles_torch", module) in _port_files()
+
+
 def test_serving_stack_and_moe_archives_loads_no_jax_or_veles(tmp_path):
     """Train a tiny stacked LM and a tiny MoE LM for one epoch in a fresh
     interpreter, export both, load them with ArchiveModel and decode a

@@ -4,8 +4,9 @@ auto`` in process (a hook sends the signal after an epoch; nothing polls
 the file system against a clock), SIGINT, the config-file positional
 against the reference CLI's ``--result-file``, ``--dump-config``,
 ``--profile-dir``'s trace, and the master/slave options of the reference
-CLI, each accepted (none is refused any longer), while the LM's
-multi-device axes stay refused naming ROADMAP item 10b."""
+CLI, each accepted (none is refused any longer); the LM's ``data``,
+``seq`` and ``model`` axes spawn their ranks, while ``expert`` and
+``pipe`` stay refused naming ROADMAP item 10c."""
 
 import json
 import logging
@@ -38,10 +39,11 @@ LOSS_RTOL = 1e-6
 
 @pytest.fixture(autouse=True)
 def restore_roots():
-    saved = [(r, r.mnist.to_dict()) for r in (jroot, troot)]
+    saved = [(getattr(r, k), getattr(r, k).to_dict())
+             for r in (jroot, troot) for k in ("mnist", "lm")]
     yield
-    for r, tree in saved:
-        r.mnist.update(tree)
+    for node, tree in saved:
+        node.update(tree)
 
 
 @pytest.fixture
@@ -246,12 +248,86 @@ def test_unported_options_name_their_roadmap_item(flag, value, attr,
 
 
 def test_lm_parallel_axes_stay_refused_naming_item_10b():
-    """``root.lm.parallel.data=2`` (a data-parallel mesh) still raises,
-    naming the item the parallel modules moved to."""
+    """Of the LM's multi-device axes, ``data``, ``seq`` and ``model`` are
+    ported (the CLI spawns their ranks, below); ``expert`` and ``pipe``
+    stay refused before any rank is spawned, naming the item the rest of
+    the parallel modules moved to (10c)."""
     lm = os.path.join(REPO, "veles_torch", "znicz", "models",
                       "transformer_lm.py")
-    with pytest.raises(NotImplementedError, match=r"item 10b\)"):
-        torch_main([lm, "-d", "cpu", "root.lm.parallel.data=2"])
+    for axis in ("expert", "pipe"):
+        with pytest.raises(NotImplementedError, match=r"item 10c\)"):
+            torch_main([lm, "-d", "cpu", "root.lm.parallel.%s=2" % axis])
+
+
+LM_SMALL = ["root.lm.loader.n_train=64", "root.lm.loader.n_valid=32",
+            "root.lm.loader.minibatch_size=16", "root.lm.model.dim=32",
+            "root.lm.model.ffn_hidden=64", "root.lm.model.layers=1",
+            "root.lm.decision.max_epochs=2", "--seed", "1337", "--no-stats"]
+
+
+def test_lm_parallel_cli_spawns_ranks(tmp_path):
+    """``root.lm.parallel.seq=2`` on ``-d cpu``: the CLI spawns 2 ranks
+    over gloo; rank 0 writes the result file, whose ``parallel`` names
+    the mesh, the transport and the last train step's collectives, and
+    whose history is the one-process run's within 1e-5; the process
+    returns 0. The card's transports are refused on the CPU."""
+    lm = os.path.join(REPO, "veles_torch", "znicz", "models",
+                      "transformer_lm.py")
+    out = str(tmp_path / "par.json")
+    assert torch_main([lm, "-d", "cpu", "root.lm.parallel.seq=2",
+                       "--result-file", out] + LM_SMALL) == 0
+    with open(out) as f:
+        par = json.load(f)
+    single = str(tmp_path / "one.json")
+    torch_main([lm, "-d", "cpu", "--result-file", single] + LM_SMALL)
+    with open(single) as f:
+        one = json.load(f)
+    assert par["parallel"]["mesh"] == {"seq": 2}
+    assert par["parallel"]["transport"] == "gloo"
+    assert par["parallel"]["collective_counts"] == {
+        "collective-permute": 8, "all-reduce": 1}
+    assert par["parallel"]["grad_sync_bytes"] > 0
+    got = [h["validation"]["loss"] for h in par["history"]]
+    want = [h["validation"]["loss"] for h in one["history"]]
+    assert len(got) == 2
+    assert max(abs(a - b) for a, b in zip(got, want)) <= 1e-5, (got, want)
+    with pytest.raises(SystemExit, match="-d cpu ranks take gloo"):
+        torch_main([lm, "-d", "cpu", "root.lm.parallel.data=2",
+                    "--transport", "nccl"])
+
+
+def test_lm_parallel_cli_seq_by_model_exports_full_archive(tmp_path):
+    """``seq=2`` × ``model=2`` on ``-d cpu`` (4 ranks): the ring owns the
+    attention and TP splits the FFN alone (2 all-reduces a layer + the
+    gradient bucket); ``--export-inference`` takes every rank into the
+    gathers of the FFN's shards and rank 0 writes the archive, which
+    holds the full tensors: the one-process run's archive within 1e-5."""
+    import numpy
+    lm = os.path.join(REPO, "veles_torch", "znicz", "models",
+                      "transformer_lm.py")
+    out, got_dir = str(tmp_path / "par.json"), str(tmp_path / "par")
+    assert torch_main([lm, "-d", "cpu", "root.lm.parallel.seq=2",
+                       "root.lm.parallel.model=2", "--result-file", out,
+                       "--export-inference", got_dir] + LM_SMALL) == 0
+    with open(out) as f:
+        par = json.load(f)["parallel"]
+    assert par["mesh"] == {"seq": 2, "model": 2}
+    assert par["collective_counts"] == {"collective-permute": 8,
+                                        "all-reduce": 3}
+    want_dir = str(tmp_path / "one")
+    torch_main([lm, "-d", "cpu", "--export-inference", want_dir] + LM_SMALL)
+    with open(os.path.join(got_dir, "contents.json")) as f:
+        doc = json.load(f)
+    with open(os.path.join(want_dir, "contents.json")) as f:
+        assert doc == json.load(f)
+    names = sorted(n for n in os.listdir(want_dir) if n.endswith(".npy"))
+    assert names == sorted(n for n in os.listdir(got_dir)
+                           if n.endswith(".npy"))
+    for name in names:
+        got, want = (numpy.load(os.path.join(d, name))
+                     for d in (got_dir, want_dir))
+        assert got.shape == want.shape, name
+        assert numpy.abs(got - want).max() <= 1e-5, name
 
 
 def test_continual_runs_rounds_on_cpu(tmp_path, capsys):

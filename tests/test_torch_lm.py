@@ -285,8 +285,16 @@ def test_unported_attention_modes_raise(kwargs):
     {"parallel": {"pipe": 2}},
     {"parallel": {"expert": 2}}], ids=str)
 def test_unported_lm_options_raise(override):
+    """``pipe`` and ``expert`` raise naming ROADMAP Queue 1 item 10c;
+    ``seq`` is ported and builds, and needs its ranks: initialized in one
+    process (no process group of 2) it raises naming the mesh."""
     with lm_config(**override):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if override["parallel"].get("seq"):
+            wf = tlm.create_workflow()
+            with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+                wf.initialize(device="cpu")
+            return
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10c"):
             tlm.create_workflow()
 
 

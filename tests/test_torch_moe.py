@@ -36,7 +36,11 @@ GRAD_RTOL = 1e-5
 CASES = [dict(experts=4, hidden=16), dict(experts=2, hidden=8,
                                           residual=False),
          dict(experts=4, hidden=16, capacity_factor=0.5)]
-MOE_MODEL = {"moe_experts": 4, "attn_impl": None, "attn_block": None,
+#: the MoE LM of both packages, its capacity and aux weight set (the
+#: samples' defaults): tests/test_moe.py leaves the reference's root at
+#: other values, and a worker that ran it first built two MoE LMs apart
+MOE_MODEL = {"moe_experts": 4, "moe_capacity_factor": 2.0,
+             "moe_aux_weight": 0.01, "attn_impl": None, "attn_block": None,
              "stacked": False}
 
 
@@ -215,5 +219,5 @@ def test_moe_refusals():
     with pytest.raises(ValueError, match="experts >= 2"):
         TM.MoEFFN(experts=1)
     with lm_config(model=MOE_MODEL, parallel={"expert": 2}):
-        with pytest.raises(NotImplementedError, match="item 10b"):
+        with pytest.raises(NotImplementedError, match="item 10c"):
             tlm.create_workflow()

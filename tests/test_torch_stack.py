@@ -273,10 +273,10 @@ def test_block_decode_greedy_equals_reference(tmp_path):
 
 def test_parallel_axes_still_refused():
     """root.lm.parallel.pipe > 1 (the pipeline schedules) and expert > 1
-    stay refused, naming ROADMAP item 10b."""
+    stay refused, naming ROADMAP item 10c."""
     for axis in ("pipe", "expert"):
         with lm_config(model=STACKED_MODEL, parallel={axis: 2}):
-            with pytest.raises(NotImplementedError, match="item 10b"):
+            with pytest.raises(NotImplementedError, match="item 10c"):
                 tlm.create_workflow()
 
 

@@ -20,6 +20,7 @@
                           [--slave-timeout SECS] [--slave-retries N]
                           [--grad-codec none|bf16|int8|topk]
                           [--grad-topk-percent P] [--stash-interval N]
+                          [--transport nccl|gloo-host]
                           [--workflow-graph PATH] [--dump-unit-sizes]
                           [--no-stats] [--background [--log-file PATH]]
     python -m veles_torch checkpoints <DIR|URL> [--json]
@@ -121,6 +122,25 @@ genetic search's individuals out to registered slaves, which run
 ``GATaskServer`` and ``ga_slave_loop``); a GA slave's last line holds
 ``ga_slave_tasks`` and its ``launches``.
 
+A workflow module with ``parallel_ranks()`` (the LM: ``root.lm.parallel``
+with ``data``, ``seq`` or ``model`` above 1) runs as that many ranks,
+one process each (``veles_torch/znicz/parallel``). Without ``RANK`` and
+``WORLD_SIZE`` in the environment the CLI builds the kernels once (on
+the card) and spawns the ranks itself on a free localhost port; under a
+``torchrun``-style environment it joins as one rank. The transport is
+declared, never swapped: ``-d cpu`` takes gloo; on the card
+``--transport nccl`` (the default) needs one card per rank, and
+``--transport gloo-host`` lets the ranks share a card, the collectives
+copying through the host. Rank 0 prints the epoch lines and the result
+line, which gains ``parallel`` (the mesh, the transport, the last train
+step's ``collective_counts``, ``grad_sync_bytes`` and the collectives'
+bytes and host seconds), and writes the snapshots and the inference
+archive (TP's shards gathered into the full tensors); the other ranks
+print nothing and exit 0. A rank
+that fails fails the run with its error text; the others are torn down
+within seconds. ``--generate``, ``--ensemble``, ``--optimize`` and the
+master/slave roles do not combine with the parallel axes.
+
 ``checkpoints DIR`` audits a snapshot store (a directory or an
 ``http(s)://`` base): every checkpoint with its manifest verdict (valid,
 legacy, corrupt), slot, schema, health verdict and age, or ``--json``
@@ -149,7 +169,7 @@ import numpy
 
 from veles_torch import model_health, prng, telemetry
 from veles_torch.config import root
-from veles_torch.launcher import Launcher
+from veles_torch.launcher import Launcher, rank_main
 from veles_torch.snapshotter import scan_checkpoints
 from veles_torch.znicz.generate import generate
 
@@ -277,6 +297,10 @@ def build_argparser():
                    metavar="P",
                    help="--grad-codec topk: the percent of delta entries "
                         "shipped (default 1.0)")
+    p.add_argument("--transport", default=None, choices=("nccl", "gloo-host"),
+                   help="the collectives of a parallel run on the card: "
+                        "nccl (default; one card per rank) or gloo-host "
+                        "(ranks sharing a card; copies through the host)")
     p.add_argument("--stash-interval", type=int, default=None,
                    metavar="N",
                    help="master mode, with --rollback-on-divergence: "
@@ -600,6 +624,21 @@ def main(argv=None):
         json.dump(root.to_dict(), sys.stderr, indent=2, sort_keys=True,
                   default=str)
         print(file=sys.stderr)
+    ranks = module.parallel_ranks() \
+        if hasattr(module, "parallel_ranks") and not args.workflow_graph \
+        else 1
+    rank = 0
+    if ranks > 1:
+        if args.optimize or args.ensemble or args.listen_address \
+                or args.master_address or args.generate \
+                or args.generate_text:
+            raise SystemExit(
+                "%d parallel ranks: --generate, --ensemble, --optimize and "
+                "the master/slave roles do not combine with the parallel "
+                "axes" % ranks)
+        if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            return spawn_ranks(args, argv, ranks)
+        rank = join_ranks(args, ranks)
     if args.optimize or args.ensemble:
         result_file = args.result_file
         if args.optimize:
@@ -633,6 +672,13 @@ def main(argv=None):
 
     role = {}
     wf = run_workflow(args, module, before_run=encode_prompt, report=role)
+    if ranks > 1:
+        role["parallel"] = parallel_report(wf)
+        if rank != 0:
+            if args.export_inference:
+                # its part of the gathers of TP's shards; rank 0 writes
+                wf.export_inference(args.export_inference)
+            return 0
     if args.export_inference:
         wf.export_inference(args.export_inference)
         print("inference archive -> %s" % args.export_inference, flush=True)
@@ -712,6 +758,126 @@ def run_workflow(args, module, before_run=None, report=None):
             except OSError as exc:
                 print("trace dump failed: %s" % exc, file=sys.stderr)
     return wf
+
+
+def transport_for(args, local_ranks):
+    """The declared transport of a parallel run
+    (``parallel.declared_transport``); a refusal exits with its text."""
+    from veles_torch.znicz import parallel
+    try:
+        return parallel.declared_transport(args.device, args.transport,
+                                           local_ranks)
+    except ValueError as exc:
+        raise SystemExit(str(exc))
+
+
+def spawn_ranks(args, argv, ranks):
+    """Spawn the ranks of a parallel run on this host (the kernels built
+    once first, on the card); -> the exit code (1 with the failing rank's
+    error text on standard error)."""
+    from veles_torch.znicz import parallel
+    transport_for(args, ranks)
+    if not str(args.device).startswith("cpu"):
+        from veles_torch import kernels
+        kernels.build()
+    try:
+        parallel.spawn(rank_main, ranks, args=(list(argv),))
+    except RuntimeError as exc:
+        print("parallel run failed: %s" % exc, file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+def join_ranks(args, ranks):
+    """Join the process group of the ``torchrun``-style environment as one
+    rank; -> this rank. The other ranks than 0 print nothing and write no
+    file; they take their part in the gathers of the snapshots and the
+    inference archive."""
+    import torch
+    from veles_torch.znicz import parallel
+    world = int(os.environ["WORLD_SIZE"])
+    if world != ranks:
+        raise SystemExit("root.lm.parallel asks for %d ranks; WORLD_SIZE "
+                         "is %d" % (ranks, world))
+    local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    transport = transport_for(args, local_ranks)
+    rank, _ = parallel.init_multihost(transport=transport)
+    if transport == "gloo":
+        # the host's cores shared out: ranks that each spin every core
+        # wait on each other's threads
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_ranks))
+    if transport == "nccl":
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        torch.cuda.set_device(local)
+        args.device = "cuda:%d" % local
+    if rank != 0:
+        logging.getLogger("veles_torch").setLevel(logging.WARNING)
+        args.result_file = args.trace_out = None
+        args.graphics_dir = args.web_status = args.profile_dir = None
+        args.no_stats = True
+    return rank
+
+
+def parallel_report(wf):
+    """The ``parallel`` key of a parallel run's result line."""
+    from veles_torch.znicz import parallel
+    from veles_torch.znicz.parallel import collectives
+    mesh, step = wf.mesh, wf.step
+    full = {}
+    for f in wf.forwards:
+        for key, t in f.export_params().items():
+            n = mesh.axis_size(step.model_axis) \
+                if (f.name, key) in wf.shard_specs else 1
+            full["%s/%s" % (f.name, key)] = t.numel() * n * t.element_size()
+    # every rank's kernel launches, gathered (one all-gather over the
+    # mesh, after the run's own collectives were read)
+    mine = rank_launches()
+    report = {"mesh": dict(mesh.shape), "rank": mesh.rank,
+              "transport": collectives.transport(),
+              "collective_counts": parallel.collective_counts(step),
+              "grad_sync_bytes": int(sum(full.values())),
+              "collective_calls": dict(collectives.counts),
+              "collective_bytes": dict(collectives.nbytes),
+              "collective_seconds": dict(collectives.seconds),
+              "train_steps": step.train_steps,
+              "eval_steps": step.eval_steps,
+              "step_seconds": step.dispatch_seconds}
+    import torch
+    row = torch.tensor([mine[k] for k in sorted(mine)], dtype=torch.int64,
+                       device=wf.device.device)
+    every = collectives.all_gather(row, mesh, mesh.axis_names)
+    report["launches_by_rank"] = [
+        dict(zip(sorted(mine), (int(v) for v in r.cpu().tolist())))
+        for r in every]
+    train = step.dispatch_seconds.get("train", [0.0, 0])
+    times = torch.tensor([train[0], float(step.train_steps),
+                          sum(collectives.seconds.values()),
+                          float(sum(collectives.nbytes.values()))],
+                         dtype=torch.float64, device=wf.device.device)
+    keys = ("train_seconds", "train_steps", "collective_seconds",
+            "collective_bytes")
+    report["stats_by_rank"] = [
+        dict(zip(keys, r.cpu().tolist()))
+        for r in collectives.all_gather(times, mesh, mesh.axis_names)]
+    return report
+
+
+def rank_launches():
+    """This process's hand-written kernel launches as one flat dict: the
+    flash kernels by variant and by mask, the bias gradient by form."""
+    from veles_torch.znicz.ops.bias_grad import bias_grad
+    from veles_torch.znicz.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    out = {}
+    for name, fn in (("flash_fwd", flash_attention_fwd),
+                     ("flash_bwd", flash_attention_bwd)):
+        for key, n in fn.variant_launches.items():
+            out["%s[%s]" % (name, key)] = n
+        for key, n in fn.mask_launches.items():
+            out["%s[%s]" % (name, key)] = n
+    for key, n in bias_grad.form_launches.items():
+        out["bias_grad[%s]" % key] = n
+    return out
 
 
 def slave_options(args):

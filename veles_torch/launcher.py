@@ -401,9 +401,26 @@ class Launcher:
 
     def _preemption_exit(self):
         snap = self.workflow.snapshotter
-        if self.mode == "standalone" and snap is not None:
+        if getattr(self.workflow, "mesh", None) is not None:
+            # each rank stops at its own minibatch: a checkpoint's
+            # gathers would wait on ranks that already stopped
+            logger.warning("preempted: a parallel run writes no "
+                           "preemption checkpoint")
+        elif self.mode == "standalone" and snap is not None:
             path = snap.preempt_snapshot()
             if path:
                 logger.info("preemption checkpoint -> %s", path)
         logger.warning("preempted: exiting with code %d", EXIT_PREEMPTED)
         raise SystemExit(EXIT_PREEMPTED)
+
+
+def rank_main(argv):
+    """One spawned rank of a parallel run: the CLI (``python -m
+    veles_torch``) with ``argv`` under its rank's environment."""
+    import torch.distributed as dist
+    from veles_torch.__main__ import main
+    try:
+        main(argv)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -60,6 +60,7 @@ import time
 
 import numpy
 import torch
+import torch.distributed as dist
 
 from veles_torch import model_health, telemetry
 from veles_torch.config import root
@@ -971,8 +972,18 @@ class Snapshotter:
             self._store = store_for_base(self.directory)
         return self._store
 
+    @property
+    def writer(self):
+        """Whether this process writes: one process, or rank 0 of a
+        parallel run's group (the other ranks only take their part in a
+        tensor-parallel checkpoint's gathers)."""
+        return not dist.is_initialized() or dist.get_rank() == 0
+
     def initialize(self):
-        """Materialize the store and rebuild both slots' retention."""
+        """Materialize the store and rebuild both slots' retention (on
+        the writer only)."""
+        if not self.writer:
+            return
         self._current_slot = RollingSlot(self.store, self.prefix,
                                          keep=self.keep_interval)
         try:
@@ -1015,21 +1026,44 @@ class Snapshotter:
 
     def run(self):
         """One boundary: an improved decision writes ``best``; past the
-        interval, a ``current`` checkpoint."""
-        improved = self.decision is not None and self.decision.improved
-        if improved:
-            self.export_snapshot()
+        interval, a ``current`` checkpoint. On a mesh rank 0's choice is
+        broadcast (the interval is its clock's); the other ranks then
+        only take their part in the checkpoint's gathers."""
+        slot = None
+        if self.decision is not None and self.decision.improved:
+            slot = "best"
         elif self.interval is not None \
                 and time.monotonic() - self._last_write >= self.interval:
             # re-arm BEFORE the attempt: a failed write waits a full
             # interval, so one store outage cannot burn the whole
             # failure budget at consecutive boundaries
             self._last_write = time.monotonic()
-            self.export_snapshot(slot="current")
+            slot = "current"
+        mesh = getattr(self.workflow, "mesh", None)
+        if mesh is not None:
+            slot = self._agree(mesh, slot)
+            if not self.writer:
+                if slot is not None and self.workflow.shard_specs:
+                    self.workflow.checkpoint_state()
+                return
+        if slot is not None:
+            self.export_snapshot(slot=slot)
+
+    def _agree(self, mesh, slot):
+        """Rank 0's slot choice on every rank of the mesh."""
+        from veles_torch.znicz.parallel import collectives
+        slots = (None, "best", "current")
+        flag = torch.tensor([slots.index(slot)], dtype=torch.int32,
+                            device=self.workflow.device.device)
+        return slots[int(collectives.broadcast(
+            flag, mesh, mesh.axis_names).item())]
 
     def export_snapshot(self, slot="best"):
         """Write one checkpoint into ``slot``; -> its path, or None when
-        the write failed within the failure budget."""
+        the write failed within the failure budget (or this process is
+        not the writer of a parallel run)."""
+        if not self.writer:
+            return None
         if slot == "best":
             name = "%s_%s.ckpt.npz%s" % (
                 self.prefix, self.suffix(),

@@ -19,8 +19,13 @@ swaps the dense FFN for the top-1 routed MoE FFN. E.g.
 root.lm.loader.text_file=corpus.txt root.lm.train.solver=adam -d cuda
 --generate-text "The "``.
 
-Refused until they are ported: any ``root.lm.parallel`` axis above 1
-(ROADMAP Queue 1 item 10b).
+``root.lm.parallel`` shards the run over ranks, one process each
+(:class:`TransformerLMWorkflow`, the reference's ``_setup_parallel``):
+``seq`` the ring attention, ``data`` the batch, ``model`` Megatron TP,
+on one mesh over every axis above 1; the CLI spawns the ranks
+(:func:`parallel_ranks`). Refused until ROADMAP Queue 1 item 10c:
+``expert`` and ``pipe`` above 1, and an MoE FFN under any axis (its
+capacity is a global quota that per-rank routing would change).
 """
 
 import numpy
@@ -28,6 +33,7 @@ import numpy
 from veles_torch import prng
 from veles_torch.config import root
 from veles_torch.loader.fullbatch import FullBatchLoader
+from veles_torch.znicz import parallel
 from veles_torch.znicz.ops.evaluator import EvaluatorLM
 from veles_torch.znicz.standard_workflow import StandardWorkflow
 
@@ -150,23 +156,37 @@ class TextLMLoader(FullBatchLoader):
         return "".join(self.itos[int(i)] for i in numpy.ravel(ids))
 
 
-def _refuse_unported():
+def parallel_axes():
+    """{axis: size} of every ``root.lm.parallel`` axis above 1, in the
+    order the mesh lays them (data, seq, model); raises
+    NotImplementedError for the axes and models of ROADMAP Queue 1 item
+    10c."""
     par = root.lm.get("parallel")
     spec = par.to_dict() if hasattr(par, "to_dict") else dict(par or {})
-    wide = {k: v for k, v in spec.items()
-            if k in ("seq", "model", "data", "expert", "pipe")
-            and int(v) > 1}
-    if wide:
+    sizes = {k: int(spec.get(k, 1)) for k in parallel.AXES}
+    later = {k: sizes[k] for k in ("expert", "pipe") if sizes[k] > 1}
+    if later:
         raise NotImplementedError(
-            "root.lm.parallel %s: multi-device parallelism (the mesh "
-            "axes, the pipeline schedules, expert parallelism) is not "
-            "ported yet (ROADMAP Queue 1 item 10b)" % wide)
+            "root.lm.parallel %s: %s parallelism is not ported yet (%s)"
+            % (later, " and ".join(later), parallel.LATER))
+    axes = {k: sizes[k] for k in ("data", "seq", "model") if sizes[k] > 1}
+    if axes and root.lm.model.get("moe_experts"):
+        raise NotImplementedError(
+            "root.lm.parallel %s with moe_experts=%r: the MoE capacity is "
+            "a global quota that per-rank routing would change; not ported "
+            "yet (%s)" % (axes, root.lm.model.moe_experts, parallel.LATER))
+    return axes
+
+
+def parallel_ranks():
+    """The ranks ``root.lm.parallel`` asks for (1: one process)."""
+    return int(numpy.prod(list(parallel_axes().values()) or [1]))
 
 
 def build_layers():
     """The LM layer list of ``root.lm`` (the reference's): per-layer
     units, or one ``transformer_stack`` with ``stacked``."""
-    _refuse_unported()
+    parallel_axes()
     m = root.lm.model
     t = root.lm.train.to_dict()
     layers = [{"type": "embedding",
@@ -248,10 +268,39 @@ def _loader_factory():
                           minibatch_size=cfg.minibatch_size)
 
 
+class TransformerLMWorkflow(StandardWorkflow):
+    """StandardWorkflow + config-driven sharding: after initialize,
+    ``root.lm.parallel`` picks ring attention (seq), Megatron TP (model)
+    and/or batch DP (data) on ONE mesh over every requested axis, set up
+    in the reference's order. Every rank of the process group builds the
+    same workflow from the same seed."""
+
+    def initialize(self, device="cuda", with_step=True):
+        out = super().initialize(device=device, with_step=with_step)
+        if with_step:
+            self._setup_parallel()
+        return out
+
+    def _setup_parallel(self):
+        axes = parallel_axes()
+        if not axes:
+            return
+        mesh = parallel.make_mesh(axes)
+        data = axes.get("data", 1)
+        if "seq" in axes:
+            parallel.setup_sequence_parallel(
+                self, mesh, batch_axis="data" if data > 1 else None)
+        if data > 1:
+            parallel.setup_data_parallel(self, mesh, refresh=False)
+        if "model" in axes:
+            # skips attention units already owned by the ring path
+            parallel.setup_tensor_parallel(self, mesh, refresh=False)
+
+
 def create_workflow(name="TransformerLM"):
     cfg = root.lm
     factory = _loader_factory()
-    return StandardWorkflow(
+    return TransformerLMWorkflow(
         name=name, layers=build_layers(), loader_factory=factory,
         evaluator_factory=lm_evaluator_factory,
         decision_config=cfg.decision.to_dict())

@@ -25,6 +25,11 @@ Counterpart of ``veles/znicz_tpu/nn_units.py``:
   ``slave_merge_scale`` (an absolute payload is averaged halfway) and
   reports the non-finite entries it merged to the model-health monitor.
   Momentum and Adam moments stay on the slave;
+* on a mesh (``veles_torch/znicz/parallel``) the step sets ``deferred``
+  to a list: :meth:`GradientDescentBase.update_weights` and
+  :meth:`GradientDescentBase.update_extra` then only record their
+  gradients, and :func:`flush_deferred` runs the recorded updates, in
+  order, on the gradients summed over the ranks;
 * the registry mapping config names to forward classes and forward
   classes to their GD classes. It is the port's own, separate from the
   reference's, so a process can hold both packages.
@@ -233,6 +238,8 @@ class GradientDescentBase(IDistributable):
         #: after the job (``TorchStep.run_job``)
         self._master_basis = None
         self.wire_host = None
+        #: a list while a mesh step defers the updates (flush_deferred)
+        self.deferred = None
         for key in dict.fromkeys(GradientDescentBase.STATE + self.STATE):
             setattr(self, key, None)
 
@@ -381,7 +388,14 @@ class GradientDescentBase(IDistributable):
 
     def update_weights(self, grad_w, grad_b):
         """One step of the paired forward's weights and bias; advances
-        ``iteration`` (and the accumulation count)."""
+        ``iteration`` (and the accumulation count). While ``deferred`` is
+        a list, the step is recorded there instead."""
+        if self.deferred is not None:
+            self.deferred.append((self._update_weights, [grad_w, grad_b]))
+            return
+        self._update_weights(grad_w, grad_b)
+
+    def _update_weights(self, grad_w, grad_b):
         f = self.forward
         h = self.hyperparams()
         t = self.iteration
@@ -413,7 +427,17 @@ class GradientDescentBase(IDistributable):
         ``grads`` ({name: grad or None}), under the weight or bias
         hyper-parameters, in lockstep with :meth:`update_weights` (which
         must run first: ``t = iteration − 1``, applied when ``acc_count``
-        is back at 0; the step's scalars are those it computed)."""
+        is back at 0; the step's scalars are those it computed). While
+        ``deferred`` is a list, the step is recorded there instead."""
+        if self.deferred is not None:
+            names = [p for p, _ in self.EXTRA_PARAMS]
+            self.deferred.append((
+                lambda *g: self._update_extra(dict(zip(names, g))),
+                [grads.get(p) for p in names]))
+            return
+        self._update_extra(grads)
+
+    def _update_extra(self, grads):
         h = self.hyperparams()
         t = self.iteration - 1
         apply_now = self.acc_count == 0 if self.accumulating else None
@@ -537,11 +561,30 @@ class GradientDescentBase(IDistributable):
         model_health.get_model_monitor().note_wire_nonfinite(
             self.name, nonfinite, slave=slave)
 
+def flush_deferred(entries, reduce):
+    """Run the updates the GD units recorded in ``deferred`` (``[(update,
+    [grad or None, ...]), ...]``), in order, after ``reduce`` (a flat f32
+    tensor -> the same summed over the ranks) ran ONCE over every
+    gradient of them, packed one after another."""
+    grads = [g for _, gs in entries for g in gs if g is not None]
+    summed = iter(())
+    if grads:
+        flat = reduce(torch.cat([g.reshape(-1).to(torch.float32)
+                                 for g in grads]))
+        parts, pos = [], 0
+        for g in grads:
+            parts.append(flat[pos:pos + g.numel()].view(g.shape))
+            pos += g.numel()
+        summed = iter(parts)
+    for update, gs in entries:
+        update(*[None if g is None else next(summed) for g in gs])
+
+
 #: (device, owners) -> the device index tensor of layer_stats
 _STATS_INDEX = {}
 
 
-def layer_stats(entries):
+def layer_stats(entries, reduce=None):
     """The model-health stat vectors of one train step: ``entries`` is
     ``[(name, [(grad, old, new), ...]), ...]`` (a GD unit's weights, then
     its bias when the step updated one; the extra parameters are left
@@ -551,7 +594,9 @@ def layer_stats(entries):
     unit's weights and bias together, in f32. The reductions of all
     units run grouped (``torch._foreach_*``); the non-finite count is the
     count of non-zeros of ``grad − grad``, 0 where an entry is finite and
-    NaN where it is not."""
+    NaN where it is not. ``reduce`` (TP: the sharded units' sums over the
+    model axis) maps the (4, units) squared norms and counts before the
+    square roots."""
     f32 = torch.float32
 
     def as_f32(t):
@@ -578,6 +623,8 @@ def layer_stats(entries):
     rows = torch.cat([norms[:3] * norms[:3], norms[3:]])
     per = torch.zeros((4, len(entries)), dtype=f32, device=dev).index_add_(
         1, _STATS_INDEX[key], rows)
+    if reduce is not None:
+        per = reduce(per)
     gnorm, wnorm, unorm = torch.sqrt(per[:3])
     return torch.stack([gnorm, wnorm, unorm / (wnorm + 1e-12), per[3]], 1)
 

@@ -18,7 +18,20 @@ the reference's explicit forward/backward math (no autograd):
   (``ops/flash_attention.py``: the sm_90a kernels on the card, the plain
   version on the CPU). ``attn_block_size`` without ``attn_impl`` takes
   the kernels on the card from ``PALLAS_AUTO_MIN_S`` on, the scan
-  otherwise.
+  otherwise. With ``seq_mesh`` set (``parallel.setup_sequence_parallel``)
+  the unit works on its rank's ``S/n`` positions and the fourth mode,
+  ``"ring"``, runs attention round the ``seq`` axis
+  (``parallel/ring.py``; its inner block by the reference's
+  ``_ring_inner`` policy, on the PER-SHARD length).
+
+Megatron tensor parallelism (``parallel.setup_tensor_parallel``: a unit's
+``tp_mesh`` set): an attention unit keeps ``heads/n`` heads (its q, k and
+v columns of ``weights``/``bias``, its rows of ``weights_out``), an FFN
+``hidden/n`` units (columns of ``weights``/``bias``, rows of
+``weights2``); the partial sums of the row-sharded product are
+all-reduced over the ``model`` axis before the replicated ``bias_out`` /
+``bias2`` and the residual are added once, and the backward all-reduces
+the partial input gradient the same way.
 
 The projections around the kernels are ``torch.matmul`` through
 ``TorchDevice.dot``, as the reference leaves them to XLA. Every bias
@@ -34,6 +47,8 @@ from veles_torch.znicz.ops import activations as A
 from veles_torch.znicz.ops import flash_attention as FA
 from veles_torch.znicz.ops import scan_attention as SA
 from veles_torch.znicz.ops.bias_grad import bias_grad
+from veles_torch.znicz.parallel import collectives as C
+from veles_torch.znicz.parallel import ring as R
 
 
 def rows(t):
@@ -46,6 +61,22 @@ def column_sum(t):
     bias-gradient kernel)."""
     t2 = rows(t)
     return bias_grad(t2, t2, "linear")
+
+
+def tp_sum(unit, t):
+    """``t`` summed over the unit's ``model`` axis under TP (a row-sharded
+    product's partial sums), else ``t``."""
+    if getattr(unit, "tp_mesh", None) is None:
+        return t
+    return C.all_reduce(t, unit.tp_mesh, unit.tp_axis)
+
+
+def _pow2_divisor(s, cap):
+    """Largest power-of-two divisor of ``s``, at most ``cap``."""
+    b = 1
+    while b * 2 <= cap and s % (b * 2) == 0:
+        b *= 2
+    return b
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +162,9 @@ class TransformerFFN(Forward):
         self.residual = residual
         #: f32 hidden activation of the last forward (the GD's input)
         self.cache_h = None
+        #: the mesh and axis of Megatron TP, or None
+        self.tp_mesh = None
+        self.tp_axis = "model"
 
     def initialize(self, input_shape, device):
         self.device = device
@@ -150,7 +184,7 @@ class TransformerFFN(Forward):
         dot = self.device.dot
         hcur = A.ACTIVATIONS[self.ACTIVATION][0](
             dot(x, self.weights) + self.bias)
-        y = dot(hcur, self.weights2) + self.bias2
+        y = tp_sum(self, dot(hcur, self.weights2)) + self.bias2
         if self.residual:
             y = y + x
         self.cache_h = hcur
@@ -175,7 +209,7 @@ class GDTransformerFFN(GradientDescentBase):
         gb1 = column_sum(dh)
         dx = None
         if self.need_err_input:
-            dx = dot(dh, f.weights.t())
+            dx = tp_sum(f, dot(dh, f.weights.t()))
             if f.residual:
                 dx = dx + err
             dx = dx.to(dev.act_dtype)
@@ -243,9 +277,19 @@ class MultiHeadAttention(Forward):
             raise ValueError("attn_acc must be None, 'f32' or 'bf16', "
                              "got %r" % (attn_acc,))
         #: the forward's cache for the GD unit: (q, k, v, out_heads, lse,
-        #: merged) in the "pallas" and "scan" modes, (q, k, v, probs,
-        #: merged) dense
+        #: merged) in the "ring", "pallas" and "scan" modes, (q, k, v,
+        #: probs, merged) dense
         self.cache = None
+        #: sequence parallelism: the mesh whose ``seq_axis`` the ring runs
+        #: round (``parallel.setup_sequence_parallel``), or None
+        self.seq_mesh = None
+        self.seq_axis = "seq"
+        self.seq_batch_axis = None
+        #: the mesh and axis of Megatron TP, or None
+        self.tp_mesh = None
+        self.tp_axis = "model"
+        #: the head width, set by initialize
+        self.head_dim = None
 
     #: the auto policy: with ``attn_block_size`` set and ``attn_impl``
     #: None, the flash kernels take over on the card once S reaches this
@@ -265,7 +309,9 @@ class MultiHeadAttention(Forward):
         knobs are refused off the pallas mode, and ``pallas_tile`` (a TPU
         tile override) on it."""
         on_card = self.device is not None and self.device.platform == "cuda"
-        if self.attn_impl == "pallas":
+        if self.seq_mesh is not None:
+            mode = "ring"
+        elif self.attn_impl == "pallas":
             mode = "pallas"
         elif not self.attn_block_size:
             mode = "dense"
@@ -281,12 +327,39 @@ class MultiHeadAttention(Forward):
                 "single-shard pallas forward, but this dispatch resolves "
                 "to %r (S=%d) — force attn_impl='pallas' or clear the "
                 "knob" % (self.attn_pipeline, self.attn_acc, mode, s))
-        if mode == "pallas" and self.pallas_tile is not None:
+        if mode in ("pallas", "ring") and self.pallas_tile is not None:
             raise NotImplementedError(
                 "%s: pallas_tile=%r is a TPU tile override; the port's "
                 "kernels choose their own tiles (ROADMAP Queue 1 item 8)"
                 % (self.name, self.pallas_tile))
         return mode
+
+    def ring_inner(self):
+        """(inner, block) of the ring's local blocks, the reference's
+        ``_ring_inner`` policy on the PER-SHARD length: an explicit
+        ``attn_impl`` wins; with none, the kernels on the card once the
+        shard reaches ``PALLAS_AUTO_MIN_S``; a set ``attn_block_size``
+        routes the block through the scan (its tile when it divides the
+        shard, else the largest power-of-two divisor up to 128);
+        otherwise the fused dense block, (None, None)."""
+        s_loc = self.input_shape[1] // self.seq_mesh.shape[self.seq_axis]
+        on_card = self.device is not None and self.device.platform == "cuda"
+        if self.attn_impl == "pallas":
+            inner = "pallas"
+        elif self.attn_impl == "scan":
+            inner = "scan"
+        elif self.attn_impl is None and s_loc >= self.PALLAS_AUTO_MIN_S \
+                and on_card:
+            inner = "pallas"
+        elif self.attn_block_size:
+            inner = "scan"
+        else:
+            return None, None
+        if inner == "pallas":
+            return inner, None     # the kernels choose their own tiles
+        if self.attn_block_size and s_loc % self.attn_block_size == 0:
+            return inner, self.attn_block_size
+        return inner, _pow2_divisor(s_loc, 128)
 
     def initialize(self, input_shape, device):
         self.device = device
@@ -295,6 +368,7 @@ class MultiHeadAttention(Forward):
             raise ValueError("dim %d not divisible by %d heads"
                              % (d, self.heads))
         self.mode(s)
+        self.head_dim = d // self.heads
         self.init_weights((d, 3 * d), d, 3 * d)
         wo = numpy.zeros((d, d), numpy.float32)
         self.fill_array(wo, self.weights_filling,
@@ -307,8 +381,10 @@ class MultiHeadAttention(Forward):
         return tuple(input_shape)
 
     def split(self, t):
-        b, s, d = t.shape
-        return t.reshape(b, s, self.heads, d // self.heads).transpose(1, 2)
+        """(B, S, h·dh) -> (B, h, S, dh): every head of the unit, or its
+        rank's heads under TP."""
+        b, s, _ = t.shape
+        return t.reshape(b, s, -1, self.head_dim).transpose(1, 2)
 
     def merge(self, t):
         b, h, s, dh = t.shape
@@ -318,15 +394,15 @@ class MultiHeadAttention(Forward):
         return FA.scale_for(d // self.heads)
 
     def project_qkv(self, x):
-        d = x.shape[-1]
         qkv = self.device.dot(x, self.weights)
         if self.include_bias:
             qkv = qkv + self.bias
-        return (self.split(qkv[..., :d]), self.split(qkv[..., d:2 * d]),
-                self.split(qkv[..., 2 * d:]))
+        w = qkv.shape[-1] // 3     # D, or D/n under TP
+        return (self.split(qkv[..., :w]), self.split(qkv[..., w:2 * w]),
+                self.split(qkv[..., 2 * w:]))
 
     def finish(self, x, merged):
-        y = self.device.dot(merged, self.weights_out)
+        y = tp_sum(self, self.device.dot(merged, self.weights_out))
         if self.include_bias:
             y = y + self.bias_out
         if self.residual:
@@ -336,7 +412,18 @@ class MultiHeadAttention(Forward):
     def forward(self, x):
         q, k, v = self.project_qkv(x)
         mode = self.mode(x.shape[1])
-        if mode in ("pallas", "scan"):
+        if mode == "ring":
+            inner, block = self.ring_inner()
+            if inner is not None:
+                cd = self.device.compute_dtype
+                q, k, v = (t.to(cd).contiguous() for t in (q, k, v))
+            out_heads, lse = R.ring_self_attention(
+                q, k, v, self.seq_mesh, axis=self.seq_axis,
+                causal=self.causal, batch_axis=self.seq_batch_axis,
+                inner=inner, block=block, dot=self.device.dot)
+            merged = self.merge(out_heads)
+            self.cache = (q, k, v, out_heads, lse, merged)
+        elif mode in ("pallas", "scan"):
             # q/k/v in the compute dtype (bf16 on the card): matched
             # kernel inputs and half the cache
             cd = self.device.compute_dtype
@@ -381,7 +468,17 @@ class GDMultiHeadAttention(GradientDescentBase):
         gbo = column_sum(err) if f.include_bias else None
         dctx = f.split(dot(err, f.weights_out.t()))
         mode = f.mode(x.shape[1])
-        if mode == "pallas":
+        if mode == "ring":
+            q, k, v, out_heads, lse = qkv
+            inner, block = f.ring_inner()
+            if inner is not None:
+                dctx = dctx.to(dev.compute_dtype).contiguous()
+            dq, dk, dv = R.ring_self_attention_bwd(
+                q, k, v, out_heads, lse, dctx, f.seq_mesh,
+                axis=f.seq_axis, causal=f.causal,
+                batch_axis=f.seq_batch_axis, inner=inner, block=block,
+                dot=dot)
+        elif mode == "pallas":
             q, k, v, out_heads, lse = qkv
             dq, dk, dv = FA.flash_attention_bwd(
                 q, k, v, out_heads, lse,
@@ -400,7 +497,7 @@ class GDMultiHeadAttention(GradientDescentBase):
         gb = column_sum(dqkv) if f.include_bias else None
         dx = None
         if self.need_err_input:
-            dx = dot(dqkv, f.weights.t())
+            dx = tp_sum(f, dot(dqkv, f.weights.t()))
             if f.residual:
                 dx = dx + err
             dx = dx.to(dev.act_dtype)

@@ -5,7 +5,9 @@ lookup table with the fixed sinusoidal positional encoding added; the
 backward sums the error rows of each id into an f32 table gradient
 (:func:`embedding_grad`) in a fixed order, so two runs on the card give
 the same bits (``index_add_`` would add repeated ids with atomics, in no
-fixed order).
+fixed order). Under sequence parallelism a rank embeds its ``S/n``
+positions of each sample, and its positions start at its global offset
+(:meth:`EmbeddingForward.shard_positions`), not at 0.
 """
 
 import numpy
@@ -66,6 +68,12 @@ class EmbeddingForward(Forward):
             self.positions = torch.as_tensor(sinusoidal_positions(
                 input_shape[1], self.dim)).to(device.device)
         return tuple(input_shape) + (self.dim,)
+
+    def shard_positions(self, offset, length):
+        """Keep rows ``offset`` … ``offset + length`` of the positional
+        table: this rank's positions under sequence parallelism."""
+        if self.positions is not None:
+            self.positions = self.positions[offset:offset + length]
 
     def forward(self, ids):
         y = self.weights[ids.long()]

@@ -24,6 +24,14 @@ minibatch) are masked out of the gradient and the metrics. Each returns
 the metrics vector in the :data:`METRICS` layout, and names the loader
 array it compares against in ``TARGET`` (``"labels"`` or
 ``"targets"``).
+
+On a mesh (``veles_torch/znicz/parallel``) a rank sees its rows (and,
+under sequence parallelism, its ``S/n`` positions) of the minibatch:
+``valid`` is its own valid row count and ``total`` the minibatch's, by
+which every mean and gradient is normalized (the LM's by ``total · S ·
+seq_shards``), so the ranks' sums add up to the one-device values. The
+step reduces the metrics over the ranks (``TorchStep``): sums summed,
+the worst row's loss maxed and its index made global.
 """
 
 import torch
@@ -49,14 +57,16 @@ class EvaluatorSoftmax:
         self.confusion_matrix = None
 
     @staticmethod
-    def compute(probs, labels, valid):
+    def compute(probs, labels, valid, total=None):
         """-> (err, loss, n_err, max_err, max_err_idx); ``valid`` is the
-        true row count (a 0-d tensor or int)."""
+        true row count (a 0-d tensor or int), ``total`` the minibatch's
+        on a mesh (default ``valid``)."""
         b, n_classes = probs.shape
         valid = torch.as_tensor(valid, device=probs.device)
         mask = torch.arange(b, device=probs.device) < valid
         fmask = mask.to(probs.dtype)
-        denom = valid.to(probs.dtype)
+        denom = torch.as_tensor(valid if total is None else total,
+                                device=probs.device).to(probs.dtype)
         onehot = (labels[:, None] == torch.arange(
             n_classes, device=probs.device)[None, :]).to(probs.dtype)
         err = (probs - onehot) * fmask[:, None] / denom
@@ -80,12 +90,12 @@ class EvaluatorSoftmax:
             .to(torch.int32)
         self.confusion_matrix.view(-1).scatter_add_(0, cell, ones)
 
-    def run(self, probs, labels, valid, act_dtype):
+    def run(self, probs, labels, valid, act_dtype, total=None):
         """-> (err_output in ``act_dtype``, metrics (4,) f32 tensor of
         loss, n_err, max_err, max_err_idx)."""
         probs = probs.to(torch.float32)
         err, loss, n_err, max_err, max_err_idx = self.compute(
-            probs, labels, valid)
+            probs, labels, valid, total)
         if self.compute_confusion:
             self.accumulate_confusion(probs, labels, valid)
         metrics = torch.stack([loss, n_err.to(torch.float32), max_err,
@@ -105,24 +115,27 @@ class EvaluatorMSE:
         self.root_metric = root_metric
 
     @staticmethod
-    def compute(y, t, valid):
+    def compute(y, t, valid, total=None):
         """-> (err (B, D), mse, max_err, max_err_idx) of f32 ``y`` and
-        ``t`` viewed as (B, D) rows; ``valid`` is the true row count."""
+        ``t`` viewed as (B, D) rows; ``valid`` is the true row count,
+        ``total`` the minibatch's on a mesh (default ``valid``)."""
         b = y.shape[0]
         y2, t2 = y.reshape(b, -1), t.reshape(b, -1)
         valid = torch.as_tensor(valid, device=y.device).to(y2.dtype)
+        denom = valid if total is None else torch.as_tensor(
+            total, device=y.device).to(y2.dtype)
         fmask = (torch.arange(b, device=y.device) < valid).to(y2.dtype)
         diff = (y2 - t2) * fmask[:, None]
-        err = 2.0 * diff / valid
+        err = 2.0 * diff / denom
         per_sample = torch.mean(diff * diff, dim=1)
-        mse = torch.sum(per_sample) / valid
+        mse = torch.sum(per_sample) / denom
         return (err, mse) + worst_row(per_sample, fmask)
 
-    def run(self, y, targets, valid, act_dtype):
+    def run(self, y, targets, valid, act_dtype, total=None):
         """-> (err_output shaped as ``y`` in ``act_dtype``, metrics (4,)
         f32 tensor of mse, 0, max_err, max_err_idx)."""
         err, mse, max_err, max_err_idx = self.compute(
-            y.to(torch.float32), targets.to(torch.float32), valid)
+            y.to(torch.float32), targets.to(torch.float32), valid, total)
         metrics = torch.stack([mse, torch.zeros_like(mse), max_err,
                                max_err_idx.to(torch.float32)])
         return err.reshape(y.shape).to(act_dtype), metrics
@@ -135,11 +148,15 @@ class EvaluatorLM:
 
     def __init__(self, name="evaluator"):
         self.name = name
+        #: the ranks the sequence is sharded over (each holds S/n of it)
+        self.seq_shards = 1
 
     @staticmethod
-    def compute(logits, labels, valid):
+    def compute(logits, labels, valid, total=None, seq_shards=1):
         """-> (err, loss, n_err) from f32 ``logits`` (B, S, V) and integer
-        ``labels`` (B, S); ``valid`` is the true row count."""
+        ``labels`` (B, S); ``valid`` is the true row count, ``total`` the
+        minibatch's on a mesh (default ``valid``), ``seq_shards`` the
+        ranks the sequence is split over."""
         b, s, _ = logits.shape
         z = logits - logits.amax(dim=-1, keepdim=True)
         logp = z - torch.log(torch.exp(z).sum(dim=-1, keepdim=True))
@@ -147,7 +164,9 @@ class EvaluatorLM:
         valid = torch.as_tensor(valid, device=logits.device)
         rowmask = (torch.arange(b, device=logits.device) < valid) \
             .to(logits.dtype)
-        denom = valid.to(logits.dtype) * float(s)
+        denom = torch.as_tensor(valid if total is None else total,
+                                device=logits.device).to(logits.dtype) \
+            * float(s * seq_shards)
         # probs − onehot without a (B, S, V) one-hot: subtract 1 at the
         # label (the same f32 operation)
         err = torch.exp(logp).scatter_add_(
@@ -161,11 +180,11 @@ class EvaluatorLM:
                  & (rowmask[:, None] > 0)).sum()
         return err, loss, wrong
 
-    def run(self, logits, labels, valid, act_dtype):
+    def run(self, logits, labels, valid, act_dtype, total=None):
         """-> (err_output in ``act_dtype``, metrics (4,) f32 tensor of
         loss, n_err, 0, 0: the LM has no max-error row)."""
         err, loss, wrong = self.compute(logits.to(torch.float32), labels,
-                                        valid)
+                                        valid, total, self.seq_shards)
         zero = torch.zeros((), dtype=torch.float32, device=logits.device)
         metrics = torch.stack([loss, wrong.to(torch.float32), zero, zero])
         return err.to(act_dtype), metrics

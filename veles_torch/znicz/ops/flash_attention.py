@@ -510,6 +510,7 @@ def flash_attention_fwd(q, k, v, causal=True, pipeline=False,
     variant = "fwd_pipe" if pipeline else "fwd"
     flash_attention_fwd.launches += 1
     flash_attention_fwd.variant_launches[variant] += 1
+    flash_attention_fwd.mask_launches["causal" if causal else "full"] += 1
     _report("flash_" + variant, "fwd", (b, h, s, dh), causal, q.dtype)
     return _narrow(out, dh), lse
 
@@ -535,6 +536,7 @@ def _bwd_args(name, q, k, v, out, lse, dout, delta):
 def _launched(variant, shape, causal, dtype):
     flash_attention_bwd.launches += 1
     flash_attention_bwd.variant_launches[variant] += 1
+    flash_attention_bwd.mask_launches["causal" if causal else "full"] += 1
     _report("flash_bwd_" + variant, "bwd" if variant == "fused" else variant,
             shape, causal, dtype)
 
@@ -662,9 +664,12 @@ def reset_launches():
     """Set every launch count of this module to 0."""
     flash_attention_fwd.launches = 0
     flash_attention_fwd.variant_launches = {"fwd": 0, "fwd_pipe": 0}
+    flash_attention_fwd.mask_launches = {"causal": 0, "full": 0}
     flash_attention_bwd.launches = 0
     flash_attention_bwd.variant_launches = {"fused": 0, "dq": 0, "dkv": 0}
+    flash_attention_bwd.mask_launches = {"causal": 0, "full": 0}
 
 
-#: kernel launches: forward and backward, each in all and by variant
+#: kernel launches: forward and backward, each in all, by variant and by
+#: mask (causal or full: the ring runs both)
 reset_launches()

@@ -19,7 +19,7 @@ sums), as the reference's ``ctx.einsum``; the router's products are plain
 f32 matmuls, as the reference's ``@``. The experts' bias sums are plain
 f32 sums over each expert's slots (E sums of (C, K) per launch; the
 bias-gradient kernel takes one (N, K) sum). Expert parallelism is
-ROADMAP Queue 1 item 10b.
+ROADMAP Queue 1 item 10c.
 """
 
 import numpy

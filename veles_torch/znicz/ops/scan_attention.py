@@ -71,12 +71,15 @@ def blocked_attention_fwd(q, k, v, causal=True, block=128,
 
 
 def blocked_attention_bwd(q, k, v, out, lse, dout, causal=True, block=128,
-                          dot=torch.matmul):
+                          dot=torch.matmul, delta=None):
     """Backward of :func:`blocked_attention_fwd` by block recomputation
-    from ``lse`` -> (dq, dk, dv) in q's dtype."""
+    from ``lse`` -> (dq, dk, dv) in q's dtype. ``delta``: an optional
+    precomputed f32 ``rowsum(dout·out)`` (B, H, S), as the ring hands
+    its one copy to every step."""
     b, h, s, dh = q.shape
     scale = scale_for(dh)
-    delta = (dout.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
+    if delta is None:
+        delta = (dout.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
     dq = torch.zeros((b, h, s, dh), dtype=torch.float32, device=q.device)
     dks, dvs = [], []
     for i, (k_blk, v_blk) in enumerate(zip(_blocks(k, block),

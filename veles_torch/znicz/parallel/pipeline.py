@@ -19,7 +19,7 @@ Counterpart of the single-program half of
 ``dot`` is the matmul (the device's ``dot``: compute-dtype inputs, f32
 sums). The bias sums go through ``ops/bias_grad.bias_grad``, as the
 per-layer units' do (its identity form: the kernel on the card). The GPipe
-and 1F1B schedules across devices are ROADMAP Queue 1 item 10b.
+and 1F1B schedules across devices are ROADMAP Queue 1 item 10c.
 """
 
 import torch

@@ -55,6 +55,13 @@ shell (:meth:`NNWorkflow.link_shell`, ``interaction.py``), then the
 snapshotter (:meth:`NNWorkflow.link_snapshotter`, or
 ``snapshotter_config``) and the rollback (:meth:`NNWorkflow.link_rollback`).
 
+On a mesh under tensor parallelism (``shard_specs`` set by
+``parallel.setup_tensor_parallel``) :meth:`NNWorkflow.checkpoint_state`
+gathers every sharded parameter and solver tensor over the ``model`` axis
+into the full one (a collective: every rank calls it, rank 0 writes), so
+a checkpoint holds the reference's full tensors, and
+:meth:`NNWorkflow.import_tree` cuts a full tensor into this rank's shard.
+
 A checkpoint holds the state at the last class boundary the run passed:
 before the train class and while it runs, the epoch's entry (the copy
 the step keeps once a snapshotter or rollback is linked; the state the
@@ -65,6 +72,7 @@ loader's epoch and redraws its shuffle from that state, so a resumed run
 equals the uninterrupted one.
 """
 
+import contextlib
 import logging
 import sys
 
@@ -156,6 +164,10 @@ class NNWorkflow:
         #: master's encoder per slave (set by ``MasterServer``)
         self.grad_codec = None
         self.grad_codec_by_slave = None
+        #: the mesh of a parallel run (``veles_torch/znicz/parallel``), and
+        #: {(unit, key): ShardSpec} of the tensors TP cut into shards
+        self.mesh = None
+        self.shard_specs = {}
 
     def _unique(self, name):
         base, i = name, 2
@@ -278,8 +290,34 @@ class NNWorkflow:
 
     def export_inference(self, path):
         """Write the inference archive (contents.json + .npy weights) of
-        this workflow's forward chain; -> the path of its contents.json."""
-        return export_inference(self, path)
+        this workflow's forward chain; -> the path of its contents.json.
+        On a mesh every rank calls it and rank 0 alone writes (-> None on
+        the others); under TP the archive holds the full tensors, gathered
+        over the model axis (a collective)."""
+        with self._full_forward_params():
+            if self.mesh is not None and self.mesh.rank != 0:
+                return None
+            return export_inference(self, path)
+
+    @contextlib.contextmanager
+    def _full_forward_params(self):
+        """The forwards' TP shards swapped for their full tensors for the
+        block's duration (the gathers run in ``shard_specs``' order, the
+        same on every rank)."""
+        units = {f.name: f for f in self.forwards}
+        swapped = []
+        try:
+            for name, key in self.shard_specs:
+                unit = units.get(name)
+                if unit is None:
+                    continue            # a GD unit's solver state
+                shard = getattr(unit, key)
+                setattr(unit, key, self._full_tensor(name, key, shard))
+                swapped.append((unit, key, shard))
+            yield
+        finally:
+            for unit, key, shard in swapped:
+                setattr(unit, key, shard)
 
     # -- introspection (the reference's Workflow) -------------------------
 
@@ -440,8 +478,9 @@ class NNWorkflow:
         for section in ("params", "state"):
             for name, sub in view[section].items():
                 if sub:
-                    tree[section][name] = {k: host_copy(t)
-                                           for k, t in sub.items()}
+                    tree[section][name] = {
+                        k: host_copy(self._full_tensor(name, k, t))
+                        for k, t in sub.items()}
         tree["decision"] = self.decision.get_state()
         tree["loader"] = self.loader.get_state()
         if self.rollback is not None:
@@ -456,6 +495,27 @@ class NNWorkflow:
         if units:
             tree["units"] = units
         return tree
+
+    def _full_tensor(self, name, key, t):
+        """The full tensor of a TP shard (gathered over the model axis: a
+        collective), else ``t``."""
+        spec = self.shard_specs.get((name, key))
+        if spec is None:
+            return t
+        from veles_torch.znicz.parallel import collectives, unshard
+        return unshard(collectives.all_gather(
+            t.contiguous(), self.mesh, self.step.model_axis), spec)
+
+    def _own_part(self, name, key, value):
+        """This rank's shard of a full checkpoint value under TP, else
+        the value."""
+        spec = self.shard_specs.get((name, key))
+        if spec is None:
+            return value
+        from veles_torch.znicz.parallel import shard_of
+        axis = self.step.model_axis
+        return shard_of(torch.as_tensor(numpy.asarray(value)), spec,
+                        self.mesh.axis_size(axis), self.mesh.index(axis))
 
     def restore_state(self, tree):
         """Load a checkpoint tree (this package's or the reference's) into
@@ -515,7 +575,8 @@ class NNWorkflow:
         device and dtype of the unit's tensor. A key the unit lacks or
         another shape raises :class:`CorruptCheckpointError`, and so does
         a unit name this workflow lacks, unless ``skip_unknown``: then it
-        is warned and skipped (the reference's rule for a resume)."""
+        is warned and skipped (the reference's rule for a resume). Under
+        TP a full value of a sharded tensor loads as this rank's shard."""
         units = self.units()
         for name, sub in tree.items():
             unit = units.get(name)
@@ -528,6 +589,9 @@ class NNWorkflow:
                 continue
             for key, value in sub.items():
                 old = getattr(unit, key, None)
+                if isinstance(old, torch.Tensor) \
+                        and tuple(old.shape) != tuple(numpy.shape(value)):
+                    value = self._own_part(name, key, value)
                 if not isinstance(old, torch.Tensor):
                     raise CorruptCheckpointError(
                         "checkpoint entry %s/%s: the unit has no such "

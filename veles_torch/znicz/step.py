@@ -102,6 +102,34 @@ tensors in place (``GradientDescentBase.apply_data_from_master``), so no
 re-upload step is needed. The bias gradient runs as on the standalone
 path: one launch per GD unit with a bias in a train job.
 
+On a mesh (``veles_torch/znicz/parallel``: ``setup_data_parallel``,
+``setup_sequence_parallel``, ``setup_tensor_parallel``) every rank runs
+this step on its share, the same seed on every rank:
+
+* each rank takes its rows of the one global index matrix: the
+  minibatch's columns padded (repeating the last index) to a multiple of
+  the batch axes' size, rank ``r`` taking the ``r``-th run of them, its
+  valid count clipped; the evaluator normalizes by the minibatch's
+  global valid count. Under sequence parallelism each rank also takes
+  its ``S/n`` columns of the token data and labels;
+* the GD units' updates are deferred while the chain runs, then every
+  gradient of the step goes into ONE flat f32 bucket, all-reduced (sum)
+  over the data and seq axes, and the updates run on the sums in the
+  chain's order. One all-reduce a train step, however many GD units:
+  the choice of one bucket over one call per unit, whose calls would be
+  as many as the units with parameters. Replicated parameters under TP
+  take the same sum; their gradients are equal on the ``model`` axis;
+* the layer stats read the summed gradients, so every rank's stats are
+  equal; under TP the sharded units' squared norms are summed over the
+  ``model`` axis (one small all-reduce a due step);
+* the class's metrics are gathered over the batch and seq axes at the
+  class's end (one all-gather): losses and error counts summed, the
+  worst row's loss maxed and its index made global (the first rank's on
+  a tie); a confusion matrix's counts of the class are summed.
+
+:attr:`TorchStep.collective_counts` holds the collectives the last train
+step issued (``parallel.collective_counts``).
+
 Eager PyTorch: each operation is its own launch (no CUDA graph yet).
 """
 
@@ -115,8 +143,9 @@ import torch
 from veles_torch import model_health, perf, telemetry
 from veles_torch.loader.base import CLASS_TRAIN, CLASS_VALID
 from veles_torch.znicz.nn_units import (
-    GradientDescentBase, RoutingGradientBase, layer_stats)
+    GradientDescentBase, RoutingGradientBase, flush_deferred, layer_stats)
 from veles_torch.znicz.ops.evaluator import METRICS
+from veles_torch.znicz.parallel import collectives
 
 
 #: the dispatch kind of each loader class
@@ -200,6 +229,18 @@ class TorchStep:
         #: staging pool, made on the first streamed epoch
         self.uploader = None
         self._stage_pool = None
+        #: the mesh (``veles_torch/znicz/parallel``) and the axes this step
+        #: shards: the batch, the sequence, the gradient sums, TP
+        self.mesh = None
+        self.batch_axes = ()
+        self.seq_axis = None
+        self.grad_axes = ()
+        self.model_axis = None
+        #: the GD units whose parameters TP shards (their stats sum over
+        #: the model axis)
+        self.sharded_stats = set()
+        #: {opcode: calls} of the last train step's collectives
+        self.collective_counts = {}
 
     def set_stats_enabled(self, enabled):
         """Turn the layer stats on or off (off: no stat work at all)."""
@@ -233,6 +274,16 @@ class TorchStep:
             x = f(x)
         return inputs, x
 
+    def seq_shard(self, t):
+        """This rank's ``S/n`` columns of a (B, S, ...) minibatch tensor
+        under sequence parallelism, else ``t``."""
+        if self.seq_axis is None or t is None:
+            return t
+        n = self.mesh.shape[self.seq_axis]
+        s = t.shape[1] // n
+        lo = self.mesh.index(self.seq_axis) * s
+        return t[:, lo:lo + s]
+
     def gather(self, full, idx, train):
         """(data as the forwards take it, the evaluator's target) of the
         rows ``idx`` (a device index vector) of the loader's
@@ -244,7 +295,17 @@ class TorchStep:
             target = rows
         elif target is not None:
             target = torch.index_select(target, 0, idx)
+        rows, target = self.seq_shard(rows), self.seq_shard(target)
         return self.loader.batch_transform(rows, train), target
+
+    def _evaluate(self, last, target, valid):
+        """The evaluator on ``valid``: a row count, or on a mesh (this
+        rank's count, the minibatch's)."""
+        total = None
+        if isinstance(valid, tuple):
+            valid, total = valid
+        return self.evaluator.run(last, target, valid,
+                                  self.device.act_dtype, total=total)
 
     def eval_minibatch(self, data, target, valid):
         """Forward + evaluator (or the body); -> the (4,) metrics
@@ -253,8 +314,7 @@ class TorchStep:
             metrics = self.body(data, target, valid, False)
         else:
             _, last = self._forward(data, False)
-            _, metrics = self.evaluator.run(last, target, valid,
-                                            self.device.act_dtype)
+            _, metrics = self._evaluate(last, target, valid)
         self.eval_steps += 1
         return metrics
 
@@ -264,26 +324,38 @@ class TorchStep:
             metrics = self.body(data, target, valid, True)
             self.train_steps += 1
             return metrics
-        return self.train_backward(*self._forward(data, True), target,
-                                   valid)
+        if self.mesh is None:
+            return self.train_backward(*self._forward(data, True), target,
+                                       valid)
+        with collectives.step_window(self.collective_counts):
+            return self.train_backward(*self._forward(data, True), target,
+                                       valid)
 
     def train_backward(self, inputs, last, target, valid):
         """The evaluator and the reversed GD chain with its updates, after
         a train-mode :meth:`_forward` that gave ``inputs`` and ``last``;
-        -> the (4,) metrics tensor."""
+        -> the (4,) metrics tensor. On a mesh with gradient axes the
+        updates wait for the step's one flat gradient all-reduce."""
         sink = [] if self.stats_due() else None
         self.last_stats = None
+        deferred = [] if self.mesh is not None and self.grad_axes else None
         for gd in self.stat_units:
             gd.stats_sink = sink
-        err, metrics = self.evaluator.run(last, target, valid,
-                                          self.device.act_dtype)
+        for gd in self.gds:
+            gd.deferred = deferred
+        err, metrics = self._evaluate(last, target, valid)
         outputs = inputs[1:] + [last]
         try:
             for i in reversed(range(len(self.gds))):
                 err = self.gds[i].run(inputs[i], outputs[i], err)
+            if deferred is not None:
+                flush_deferred(deferred, lambda flat: collectives.all_reduce(
+                    flat, self.mesh, self.grad_axes))
         finally:
             for gd in self.stat_units:
                 gd.stats_sink = None
+            for gd in self.gds:
+                gd.deferred = None
         self.iteration += 1
         self.train_steps += 1
         if sink is not None:
@@ -293,8 +365,84 @@ class TorchStep:
                 raise RuntimeError("layer stats of %s, expected %s"
                                    % (names, self.stat_names))
             self.stat_names = names
-            self.last_stats = layer_stats(sink)
+            self.last_stats = layer_stats(sink, self._shard_sum(names))
         return metrics
+
+    def _shard_sum(self, names):
+        """Under TP, the layer stats' reduction of the sharded units'
+        (4, units) squared norms and counts over the model axis; else
+        None."""
+        if self.model_axis is None:
+            return None
+        cols = [n in self.sharded_stats for n in names]
+        if not any(cols):
+            return None
+        mesh, axis = self.mesh, self.model_axis
+
+        def reduce(per):
+            mask = torch.tensor(cols, dtype=per.dtype, device=per.device)
+            return per * (1.0 - mask) + collectives.all_reduce(
+                per * mask, mesh, axis)
+        return reduce
+
+    def shard_plan(self, plan):
+        """The epoch plan as this rank serves it: [(cls, its idx_mat, its
+        valids, the minibatches' idx_mat padded to the ranks, their
+        valids, rows a rank), ...]; the plan as it is off a batch-sharded
+        mesh."""
+        nb = self.mesh.axis_size(self.batch_axes) if self.mesh else 1
+        if nb == 1:
+            return [(cls, idx_mat, valids, idx_mat, valids,
+                     idx_mat.shape[1]) for cls, idx_mat, valids in plan]
+        r = self.mesh.index(self.batch_axes)
+        out = []
+        for cls, idx_mat, valids in plan:
+            mb = idx_mat.shape[1]
+            per = -(-mb // nb)
+            if per * nb > mb:
+                idx_mat = numpy.concatenate(
+                    [idx_mat, numpy.repeat(idx_mat[:, -1:], per * nb - mb,
+                                           axis=1)], axis=1)
+            local = numpy.ascontiguousarray(idx_mat[:, r * per:(r + 1) * per])
+            mine = numpy.clip(valids - r * per, 0, per).astype(valids.dtype)
+            out.append((cls, local, mine, idx_mat, valids, per))
+        return out
+
+    def _metric_axes(self):
+        axes = self.batch_axes + ((self.seq_axis,) if self.seq_axis else ())
+        if self.mesh is None or self.mesh.axis_size(axes) == 1:
+            return None
+        return axes
+
+    def reduce_metrics(self, metrics, per):
+        """The class's (n, 4) device metrics of every rank of this rank's
+        batch and seq line -> the minibatches' (n, 4) host metrics:
+        ``loss`` and ``n_err`` summed, ``max_err`` maxed with the global
+        index of its row (the first rank's on a tie)."""
+        axes = self._metric_axes()
+        parts = collectives.all_gather(metrics.contiguous(), self.mesh, axes)
+        every = torch.stack(parts).cpu().numpy()       # (ranks, n, 4)
+        offsets = numpy.array(
+            [self.mesh.index(self.batch_axes, rank=r) * per
+             for r in self.mesh.line(axes)], numpy.float32)
+        n = every.shape[1]
+        best = numpy.argmax(every[:, :, 2], axis=0)
+        out = numpy.empty((n, every.shape[2]), numpy.float32)
+        out[:, 0] = every[:, :, 0].sum(axis=0)
+        out[:, 1] = every[:, :, 1].sum(axis=0)
+        out[:, 2] = every[best, numpy.arange(n), 2]
+        out[:, 3] = every[best, numpy.arange(n), 3] + offsets[best]
+        return out
+
+    def _confusion_sum(self, before):
+        """Sum the class's confusion counts over the batch line."""
+        ev = self.evaluator
+        cm = getattr(ev, "confusion_matrix", None)
+        if cm is None or self._metric_axes() is None:
+            return
+        base = before if before is not None else torch.zeros_like(cm)
+        ev.confusion_matrix = base + collectives.all_reduce(
+            cm - base, self.mesh, self._metric_axes())
 
     def _minibatch(self, step, fetch, train, valid, metrics, i, stats, j):
         """One minibatch (``fetch()`` -> its data and target) into row
@@ -338,6 +486,7 @@ class TorchStep:
             target = rows
         else:
             target = window[key][k]
+        rows, target = self.seq_shard(rows), self.seq_shard(target)
         return self.loader.batch_transform(rows, train), target
 
     def close(self):
@@ -354,8 +503,9 @@ class TorchStep:
         t0 = time.perf_counter()
         loader = self.loader
         dev = self.device.device
-        plan = loader.epoch_plan()
-        feed = _StreamFeed(self, plan) if loader.supports_streaming \
+        plan = self.shard_plan(loader.epoch_plan())
+        feed = _StreamFeed(self, [p[:3] for p in plan]) \
+            if loader.supports_streaming \
             else _ResidentFeed(self, loader.device_full_arrays(dev))
         try:
             if not self._run_classes(plan, feed, after_class):
@@ -369,7 +519,7 @@ class TorchStep:
         loader = self.loader
         dev = self.device.device
         has_valid = loader.class_lengths[CLASS_VALID] > 0
-        for ci, (cls, idx_mat, valids) in enumerate(plan):
+        for ci, (cls, idx_mat, mine, whole, valids, per) in enumerate(plan):
             train = cls == CLASS_TRAIN
             t_class = time.perf_counter()
             if train:
@@ -377,7 +527,14 @@ class TorchStep:
                 self.in_train = True
             step = self.train_minibatch if train else self.eval_minibatch
             feed.start_class(ci, idx_mat)
-            valid_dev = torch.as_tensor(valids).to(dev)
+            sharded = self._metric_axes() is not None
+            if sharded:
+                pairs = torch.as_tensor(numpy.stack([mine, valids], 1)).to(dev)
+                valid_dev = [(v[0], v[1]) for v in pairs]
+                cm = getattr(self.evaluator, "confusion_matrix", None)
+                cm_before = None if cm is None else cm.clone()
+            else:
+                valid_dev = torch.as_tensor(valids).to(dev)
             n = len(idx_mat)
             # the class's one device buffer: its metrics, then the stat
             # rows of its due train steps
@@ -403,7 +560,13 @@ class TorchStep:
                      metrics, i, stats, j), owner=self)
                 self.costs[sig] = one
                 cost = cost + one
-            host = buf.cpu().numpy()
+            if sharded:
+                host = numpy.concatenate([
+                    self.reduce_metrics(metrics, per).reshape(-1),
+                    buf[n * width:].cpu().numpy()])
+                self._confusion_sum(cm_before)
+            else:
+                host = buf.cpu().numpy()
             dt = time.perf_counter() - t_class
             warm = (cls, n) in self._seen_dispatch
             self._seen_dispatch.add((cls, n))
@@ -430,7 +593,7 @@ class TorchStep:
                     cls, int(valids[i]), row, last_minibatch=last,
                     epoch_ended=last and last_cls, has_valid=has_valid)
                 if self.after_minibatch is not None:
-                    self.after_minibatch(cls, idx_mat[i], int(valids[i]),
+                    self.after_minibatch(cls, whole[i], int(valids[i]),
                                          row)
             self.in_train = False
             if after_class is not None:
