@@ -204,8 +204,9 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     each layer drops in a step; a small MoE LM's drops equal on the card
     and the CPU (f32); the archive served within ``SERVE_RTOL`` of the
     f32 training forward;
-21. resume — (a) the 110M row as phase lm_adam runs it (``RESUME_RUN``:
-    ``LM_110M`` + ``ADAM_RUN``, 64/16 sequences, 2 epochs) through the CLI:
+21. resume — (a) the 110M row as phase lm_adam runs it, at 2 of its 12
+    layers (``RESUME_RUN``: ``LM_110M`` + ``ADAM_RUN``, 64/16 sequences, 2
+    epochs) through the CLI:
     run A, 2 epochs in one go; run B with ``--snapshots DIR`` as a user
     runs it (the improvement-gated ``gz`` checkpoint at epoch 0's
     valid/train boundary, the epoch-entry clone at each train class,
@@ -425,12 +426,31 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     under the bf16 policy, movement within ``PARALLEL_BF16_RTOL``, 48
     all-reduces a step; (d) ``graft_entry.dryrun_multichip(2)`` on the
     card. Each rank's step time, collective bytes and host seconds;
-34. the ``kernels`` summary line (the bias gradient's launches summed
+34. parallel_ep_pp — expert and pipeline parallelism, 2 ranks on this
+    card over gloo-host as phase parallel (``check_parallel_ep_pp``;
+    ``tools/parallel_nccl.py`` runs it over NCCL, one rank per card). Each
+    run is held as phase parallel's, in f32 (movement within
+    ``PARALLEL_DP_RTOL``), against the one-process run of its config. (e)
+    the 110M MoE as phase moe runs it (``PARALLEL_MOE``: 4 layers, 8
+    experts, cf 2.0) under ``expert=2`` with gather routing: the tokens
+    each layer dropped equal the one-process run's; with the all-to-all
+    exchange at cf 8.0 (``PARALLEL_MOE_A2A``: no shard overflows its
+    quota, so it must equal one process); each rank's flash and identity
+    launches exact, the collectives a step (``ep_expected``). (f) the
+    stacked 110M (``PARALLEL_STACK``: 12 blocks) under ``pipe=2`` over
+    ``PARALLEL_MICRO`` microbatches, GPipe and 1F1B: each stage's identity
+    launches (6 a block a microbatch of its 6 blocks, and the token
+    dense's, a train step), its chunk forwards (one a microbatch a step:
+    1F1B folds the loss in), ``PARALLEL_MICRO`` hops and 2 all-reduces a
+    step, and each stage's ``torch.cuda.max_memory_allocated`` under each
+    schedule (1F1B's at most GPipe's);
+35. the ``kernels`` summary line (the bias gradient's launches summed
     over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume,
     model-health, unsupervised, plots, serve_http, ensemble, optimize (in
     process and in the workers), shell_forge, profiling, image_stream,
-    continual, distributed and parallel runs (the slaves' and the ranks'
-    counts from their result lines; a SIGKILLed slave's are lost), each
+    continual, distributed, parallel and parallel_ep_pp runs (the slaves'
+    and the ranks' counts from their result lines; a SIGKILLed slave's
+    are lost), each
     path's beside it, the serving paths' among them), the card line, and
     last ``{"ok": true, "device": {...}}``.
 
@@ -2872,9 +2892,11 @@ def check_lm_slice(torch):
 
 # -- state and launcher -----------------------------------------------------
 
-#: the 110M row as phase lm_adam runs it: AdamW, warmup-cosine, 64/16
-#: sequences of 512, minibatch 8, 2 epochs
-RESUME_RUN = LM_110M + ADAM_RUN
+#: the 110M row as phase lm_adam runs it (AdamW, warmup-cosine, 64/16
+#: sequences of 512, minibatch 8, 2 epochs), its depth cut from 12 to 2
+#: layers: the phase's time goes to its checkpoints' bytes (190 of its
+#: 226 s at 12 layers on an NVIDIA H100), and the script's limit needs room
+RESUME_RUN = LM_110M + ADAM_RUN + ("root.lm.model.layers=2",)
 MNIST_SAMPLE = os.path.join(MODELS, "mnist.py")
 #: the device of the phase's runs (a rehearsal on a host without a card
 #: sets "cpu" and shrinks RESUME_RUN)
@@ -6236,13 +6258,15 @@ def archive_errors(numpy, got_dir, want_dir, start_dir):
     return out
 
 
-def initial_archive(tmp):
-    """The inference archive of ``PARALLEL_110M``'s weights as the seed
-    draws them (f32, built on the host) -> its directory."""
+def initial_archive(tmp, *overrides, tag="initial"):
+    """The inference archive of ``PARALLEL_110M``'s (+ ``overrides``)
+    weights as the seed draws them (f32, built on the host) -> its
+    directory."""
     from veles_torch.config import root
-    path = os.path.join(tmp, "initial_archive")
+    path = os.path.join(tmp, tag + "_archive")
     try:
-        wf = build_lm(*PARALLEL_110M, *PARALLEL_F32, device="cpu")
+        wf = build_lm(*PARALLEL_110M, *overrides, *PARALLEL_F32,
+                      device="cpu")
         wf.export_inference(path)
     finally:
         root.common.engine.amp = root.common.engine.compute_dtype = None
@@ -6254,7 +6278,8 @@ def parallel_axes_args(axes):
 
 
 def parallel_held(torch, tmp, tag, axes, single, single_counts,
-                  single_archive, start, rtol, overrides=()):
+                  single_archive, start, rtol, overrides=(),
+                  collectives=None, rank_want=None, phase="parallel"):
     """One run of ``PARALLEL_110M`` (+ ``overrides``) under ``axes``
     through the CLI, held against the one-process run ``single`` of the
     same global minibatches (its launches ``single_counts``, its archive
@@ -6264,7 +6289,9 @@ def parallel_held(torch, tmp, tag, axes, single, single_counts,
     run's, and the collectives of a train step: 4 all-reduces a layer
     under ``model`` (12 heads and 3072 FFN units split), one gradient
     bucket of the parameters' f32 bytes under ``data`` (once a step in
-    all when ``data`` is the only axis); -> the result line."""
+    all when ``data`` is the only axis); or, given, the ``collectives``
+    of a train step (rank 0's) and ``rank_want(rank)``, each rank's
+    launches; -> the result line."""
     import numpy
     archive = os.path.join(tmp, tag + "_archive")
     res = parallel_cli(torch, tmp, tag, PARALLEL_110M + tuple(overrides),
@@ -6290,17 +6317,21 @@ def parallel_held(torch, tmp, tag, axes, single, single_counts,
              % (tag, steps, single.step.train_steps))
     for r, launches in enumerate(par["launches_by_rank"]):
         got = rank_counts(launches)
-        if got != single_counts:
-            fail("parallel %s rank %d: launches %s, the one-process run's "
-                 "%s" % (tag, r, got, single_counts))
-    reduces = (4 * 12 if axes.get("model", 1) > 1 else 0) \
-        + (1 if axes.get("data", 1) > 1 else 0)
-    if par["collective_counts"] != {"all-reduce": reduces}:
-        fail("parallel %s: collectives a step %s, expected %d all-reduces"
-             % (tag, par["collective_counts"], reduces))
-    row = {"phase": "parallel", "part": tag, "card": card_line(),
+        want = single_counts if rank_want is None else rank_want(r)
+        if got != want:
+            fail("parallel %s rank %d: launches %s, expected %s"
+                 % (tag, r, got, want))
+    if collectives is None:
+        collectives = {"all-reduce": (4 * 12 if axes.get("model", 1) > 1
+                                      else 0)
+                       + (1 if axes.get("data", 1) > 1 else 0)}
+    if par["collective_counts"] != collectives:
+        fail("parallel %s: collectives a step %s, expected %s"
+             % (tag, par["collective_counts"], collectives))
+    row = {"phase": phase, "part": tag, "card": card_line(),
            "transport": par["transport"], "mesh": par["mesh"],
-           "dtype": "float32" if overrides else "bfloat16",
+           "dtype": "float32" if set(PARALLEL_F32) <= set(overrides)
+           else "bfloat16",
            "seconds": res["seconds"], "train_steps": steps,
            "movement_max_rel_err": worst, "movement_bar": rtol,
            "loss_rel_err": losses,
@@ -6309,6 +6340,7 @@ def parallel_held(torch, tmp, tag, axes, single, single_counts,
            "single_step_ms": 1e3 * single.step.dispatch_seconds["train"][0]
            / single.step.train_steps,
            "collective_counts": par["collective_counts"],
+           "collective_step_bytes": par["collective_step_bytes"],
            "collective_bytes": par["collective_bytes"],
            "collective_seconds": par["collective_seconds"],
            "launches_by_rank": par["launches_by_rank"]}
@@ -6487,6 +6519,176 @@ def check_parallel(torch, ranks=2):
     return counts
 
 
+#: phase parallel_ep_pp (e): the MoE FFN at the 110M width as phase moe
+#: runs it (LM_110M_MOE: 4 layers, 8 experts, cf 2.0, aux 0.01) on
+#: PARALLEL_110M's minibatches, in f32 (a skipped combine must read above
+#: PARALLEL_DP_RTOL, which holds the f32 runs)
+PARALLEL_MOE = ("root.lm.model.layers=4", "root.lm.model.moe_experts=8",
+                "root.lm.model.moe_capacity_factor=2.0",
+                "root.lm.model.moe_aux_weight=0.01") + PARALLEL_F32
+#: the all-to-all run's capacity factor: at 8 experts a factor of 8 gives
+#: every expert a whole source shard's tokens, so no shard overflows its
+#: quota and the exchange must equal one process (the reference's
+#: condition)
+PARALLEL_MOE_A2A = PARALLEL_MOE + ("root.lm.model.moe_capacity_factor=8.0",)
+#: (f): the stacked 110M (12 blocks, dense attention inside) on
+#: PARALLEL_110M's minibatches in f32, pipe 2 over PARALLEL_MICRO
+#: microbatches of 2
+PARALLEL_STACK = ("root.lm.model.stacked=True",
+                  "root.lm.model.attn_block=None") + PARALLEL_F32
+PARALLEL_MICRO = 4
+#: (e): the tokens a gather run's MoE layer dropped in its last step equal
+#: the one-process run's under ``expert`` alone; with ``data`` too, within
+#: this many a layer: the attention then runs on 2 rows a rank, not 8, its
+#: f32 products round otherwise, and after 3 updates a router near-tie can
+#: flip (1 of 4096 tokens at layer 2, 4 NVIDIA H100s over NCCL)
+PARALLEL_DROPS_ATOL = 4
+
+
+def ep_expected(layers, routing, axes):
+    """Rank 0's collectives of an EP train step (the last step: no layer
+    stats): gather routing gathers a MoE layer's tokens and errors over
+    the expert line (and its token counts over data) and all-reduces its
+    combine and its input and gate gradients; the exchange all-to-alls
+    its slots there and back, forward and backward, and all-reduces the
+    routing frequency; one gradient bucket over every axis, and under
+    data the experts' own over data."""
+    data = axes.get("data", 1) > 1
+    if routing == "gather":
+        return {"all-gather": (3 if data else 2) * layers,
+                "all-reduce": 2 * layers + 1 + data}
+    return {"all-to-all": 4 * layers, "all-reduce": layers + 1 + data}
+
+
+def pp_rank_want(single_counts, wf, stages):
+    """A stage's launches under PP: no flash kernel (the stack's attention
+    is dense), and per train step the block's 6 column sums per microbatch
+    of its L/P blocks plus the token dense's one."""
+    from veles_torch.znicz.ops.transformer_stack import TransformerBlockStack
+    layers = next(f.layers for f in wf.forwards
+                  if isinstance(f, TransformerBlockStack))
+    train = wf.step.train_steps
+    want = dict(single_counts, **{
+        "bias_grad[identity]": train * (6 * layers // stages
+                                        * PARALLEL_MICRO + 1)})
+    if PARALLEL_DEVICE == "cpu":
+        want = dict.fromkeys(want, 0)
+    return lambda rank: want
+
+
+def ep_pp_modes(ranks):
+    """(EP modes [(tag, axes, routing)], PP modes [(tag, axes,
+    schedule)]) of phase parallel_ep_pp on ``ranks`` ranks: every axis
+    over all of them, and on 4 ranks also 2 × data 2."""
+    ep = [("ep_gather", {"expert": ranks}, "gather")]
+    pp = [("pp_gpipe", {"pipe": ranks}, "gpipe"),
+          ("pp_1f1b", {"pipe": ranks}, "1f1b")]
+    if ranks >= 4:
+        ep.append(("ep_gather_dp", {"data": ranks // 2, "expert": 2},
+                   "gather"))
+        pp.append(("pp_gpipe_dp", {"data": ranks // 2, "pipe": 2},
+                   "gpipe"))
+    ep.append(("ep_alltoall", {"expert": ranks}, "alltoall"))
+    return ep, pp
+
+
+def check_parallel_ep_pp(torch, ranks=2):
+    """Phase parallel_ep_pp on ``ranks`` ranks over ``PARALLEL_TRANSPORT``
+    as phase parallel (``ep_pp_modes``): (e) the 110M MoE under
+    ``expert``, gather routing and the all-to-all exchange, and (f) the
+    stacked 110M under ``pipe``, GPipe and 1F1B, each held against the
+    one-process run of its config by every tensor's movement
+    (``PARALLEL_DP_RTOL``, f32), the losses, each rank's exact launches
+    and the collectives a step; the gather runs' drops a layer equal to
+    the one-process run's; the stages' chunk forwards (one a microbatch a
+    step) and peak device memory under each schedule; -> the ranks'
+    launches, summed."""
+    import shutil
+    import tempfile
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eppp_")
+    t0 = time.perf_counter()
+    runs = []
+    ep_modes, pp_modes = ep_pp_modes(ranks)
+    try:
+        start = initial_archive(tmp, *PARALLEL_MOE, tag="moe_initial")
+        singles = {}
+        for tag, axes, routing in ep_modes:
+            overrides = PARALLEL_MOE if routing == "gather" \
+                else PARALLEL_MOE_A2A
+            if routing not in singles:     # the modes come routing by
+                singles.clear()            # routing: one single each
+                singles[routing] = parallel_single(
+                    torch, tmp, "ep_single_" + routing, *overrides)
+            single, counts, archive = singles[routing]
+            res = parallel_held(
+                torch, tmp, tag, axes, single, counts, archive, start,
+                PARALLEL_DP_RTOL,
+                overrides + ("root.lm.parallel.ep_routing=%s" % routing,),
+                collectives=ep_expected(4, routing, axes),
+                phase="parallel_ep_pp")
+            want = {f.name: float(f.dropped) for f in single.forwards
+                    if getattr(f, "dropped", None) is not None}
+            got = res["parallel"]["dropped"]
+            tol = 0 if set(axes) == {"expert"} else PARALLEL_DROPS_ATOL
+            if routing == "gather" and (set(got) != set(want) or any(
+                    abs(got[k] - want[k]) > tol for k in want)):
+                fail("parallel_ep_pp %s: dropped %s a layer, the one-process "
+                     "run %s (within %d)" % (tag, got, want, tol))
+            if routing == "alltoall" and any(got.values()):
+                fail("parallel_ep_pp %s: rank 0's shard dropped %s at a "
+                     "capacity no shard overflows" % (tag, got))
+            emit({"phase": "parallel_ep_pp", "part": tag + "_drops",
+                  "card": card_line(), "dropped": got,
+                  "single_dropped": want})
+            runs.append(res)
+        singles.clear()
+        start = initial_archive(tmp, *PARALLEL_STACK, tag="stack_initial")
+        single, counts, archive = parallel_single(torch, tmp, "pp_single",
+                                                  *PARALLEL_STACK)
+        peaks = {}
+        for tag, axes, schedule in pp_modes:
+            data = axes.get("data", 1)
+            res = parallel_held(
+                torch, tmp, tag, axes, single, counts, archive, start,
+                PARALLEL_DP_RTOL, PARALLEL_STACK + (
+                    "root.lm.parallel.schedule=%s" % schedule,
+                    "root.lm.parallel.microbatches=%d" % PARALLEL_MICRO),
+                collectives={"collective-permute": PARALLEL_MICRO,
+                             "all-reduce": 2 + (data > 1)},
+                rank_want=pp_rank_want(counts, single, axes["pipe"]),
+                phase="parallel_ep_pp")
+            par = res["parallel"]
+            steps = par["train_steps"] + par["eval_steps"]
+            for r, st in enumerate(par["stats_by_rank"]):
+                if st["chunk_forwards"] != PARALLEL_MICRO * steps:
+                    fail("parallel_ep_pp %s rank %d: %d chunk forwards for "
+                         "%d steps of %d microbatches" % (
+                             tag, r, st["chunk_forwards"], steps,
+                             PARALLEL_MICRO))
+            if data == 1:
+                peaks[schedule] = [st["max_memory_allocated"]
+                                   for st in par["stats_by_rank"]]
+            runs.append(res)
+        del single
+        emit({"phase": "parallel_ep_pp", "part": "pp_memory",
+              "card": card_line(), "microbatches": PARALLEL_MICRO,
+              "max_memory_allocated_by_stage": peaks,
+              "gpipe_less_1f1b_by_stage": [
+                  g - o for g, o in zip(peaks["gpipe"], peaks["1f1b"])]})
+        if any(o > g for g, o in zip(peaks["gpipe"], peaks["1f1b"])):
+            fail("parallel_ep_pp: 1F1B's peak memory %s above GPipe's %s"
+                 % (peaks["1f1b"], peaks["gpipe"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = add_counts(*[rank_counts(l) for res in runs
+                          for l in res["parallel"]["launches_by_rank"]])
+    emit({"phase": "parallel_ep_pp", "part": "total", "card": card_line(),
+          "ranks": ranks, "transport": PARALLEL_TRANSPORT,
+          "seconds": time.perf_counter() - t0, "launches": counts})
+    return counts
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -6552,12 +6754,13 @@ def main(argv=None):
     continual = check_continual(torch)
     distributed = check_distributed(torch)
     parallel = check_parallel(torch)
+    parallel_ep_pp = check_parallel_ep_pp(torch)
     paths = {**ae, **serving, **lm_slice, "resume": resume,
              "model_health": health, "unsupervised": unsupervised,
              "plots": plots, "serve_http": serve_http, **search,
              "profiling": profiling, "image_stream": image_stream,
              "continual": continual, "distributed": distributed,
-             "parallel": parallel}
+             "parallel": parallel, "parallel_ep_pp": parallel_ep_pp}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

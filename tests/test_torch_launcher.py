@@ -5,8 +5,9 @@ the file system against a clock), SIGINT, the config-file positional
 against the reference CLI's ``--result-file``, ``--dump-config``,
 ``--profile-dir``'s trace, and the master/slave options of the reference
 CLI, each accepted (none is refused any longer); the LM's ``data``,
-``seq`` and ``model`` axes spawn their ranks, while ``expert`` and
-``pipe`` stay refused naming ROADMAP item 10c."""
+``seq``, ``model``, ``expert`` and ``pipe`` axes spawn their ranks, while
+the CLI modes that do not combine with ranks exit naming ROADMAP item
+10d."""
 
 import json
 import logging
@@ -247,18 +248,6 @@ def test_unported_options_name_their_roadmap_item(flag, value, attr,
         assert wf.decision.epoch_number == 1
 
 
-def test_lm_parallel_axes_stay_refused_naming_item_10b():
-    """Of the LM's multi-device axes, ``data``, ``seq`` and ``model`` are
-    ported (the CLI spawns their ranks, below); ``expert`` and ``pipe``
-    stay refused before any rank is spawned, naming the item the rest of
-    the parallel modules moved to (10c)."""
-    lm = os.path.join(REPO, "veles_torch", "znicz", "models",
-                      "transformer_lm.py")
-    for axis in ("expert", "pipe"):
-        with pytest.raises(NotImplementedError, match=r"item 10c\)"):
-            torch_main([lm, "-d", "cpu", "root.lm.parallel.%s=2" % axis])
-
-
 LM_SMALL = ["root.lm.loader.n_train=64", "root.lm.loader.n_valid=32",
             "root.lm.loader.minibatch_size=16", "root.lm.model.dim=32",
             "root.lm.model.ffn_hidden=64", "root.lm.model.layers=1",
@@ -294,6 +283,63 @@ def test_lm_parallel_cli_spawns_ranks(tmp_path):
     with pytest.raises(SystemExit, match="-d cpu ranks take gloo"):
         torch_main([lm, "-d", "cpu", "root.lm.parallel.data=2",
                     "--transport", "nccl"])
+
+
+#: the CLI lines of the expert and pipeline modes (2 ranks each)
+EP_PP_LINES = [
+    ["root.lm.model.moe_experts=4", "root.lm.parallel.expert=2"],
+    ["root.lm.model.moe_experts=4", "root.lm.model.moe_capacity_factor=8.0",
+     "root.lm.parallel.expert=2", "root.lm.parallel.ep_routing=alltoall"],
+    ["root.lm.model.stacked=True", "root.lm.model.layers=2",
+     "root.lm.parallel.pipe=2"],
+    ["root.lm.model.stacked=True", "root.lm.model.layers=2",
+     "root.lm.parallel.pipe=2", "root.lm.parallel.schedule=1f1b",
+     "root.lm.parallel.microbatches=2"]]
+
+
+@pytest.mark.parametrize("line", EP_PP_LINES,
+                         ids=["ep_gather", "ep_alltoall", "pp_gpipe",
+                              "pp_1f1b"])
+def test_lm_expert_and_pipe_cli_match_one_process(tmp_path, line):
+    """``root.lm.parallel.expert=2`` (gather, and all-to-all at a capacity
+    no shard overflows) and ``pipe=2`` of the stacked LM (GPipe, 1F1B) on
+    ``-d cpu``: the CLI spawns 2 gloo ranks, rank 0's result line names
+    the mesh and the mode's collectives, and its history is the
+    one-process run's within 1e-5."""
+    lm = os.path.join(REPO, "veles_torch", "znicz", "models",
+                      "transformer_lm.py")
+    out, single = str(tmp_path / "par.json"), str(tmp_path / "one.json")
+    assert torch_main([lm, "-d", "cpu", "--result-file", out] + LM_SMALL
+                      + line) == 0
+    model = [a for a in line if a.startswith("root.lm.model.")]
+    torch_main([lm, "-d", "cpu", "--result-file", single] + LM_SMALL + model
+               + ["root.lm.parallel.expert=1", "root.lm.parallel.pipe=1"])
+    with open(out) as f:
+        par = json.load(f)
+    with open(single) as f:
+        one = json.load(f)
+    axis = "expert" if "expert=2" in " ".join(line) else "pipe"
+    assert par["parallel"]["mesh"] == {axis: 2}
+    counts = par["parallel"]["collective_counts"]
+    want = {"expert": ("all-to-all" if "alltoall" in " ".join(line)
+                       else "all-gather"),
+            "pipe": "collective-permute"}[axis]
+    assert counts.get(want) and counts.get("all-reduce"), counts
+    got = [h["validation"]["loss"] for h in par["history"]]
+    ref = [h["validation"]["loss"] for h in one["history"]]
+    assert len(got) == 2
+    assert max(abs(a - b) for a, b in zip(got, ref)) <= 1e-5, (got, ref)
+
+
+def test_lm_parallel_cli_roles_refused_naming_item_10d():
+    """The CLI modes that do not combine with parallel ranks (generation,
+    the ensemble, the search, the master/slave roles) exit before any
+    rank is spawned, naming ROADMAP item 10d."""
+    lm = os.path.join(REPO, "veles_torch", "znicz", "models",
+                      "transformer_lm.py")
+    with pytest.raises(SystemExit, match=r"item 10d\)"):
+        torch_main([lm, "-d", "cpu", "root.lm.parallel.expert=2",
+                    "root.lm.model.moe_experts=4", "--generate", "1,2"])
 
 
 def test_lm_parallel_cli_seq_by_model_exports_full_archive(tmp_path):

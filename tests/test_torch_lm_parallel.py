@@ -8,8 +8,9 @@ owns the attention), each within 1e-5 of the reference after one epoch
 (validation history and every parameter and momentum); DP and TP
 checkpoints that hold the full tensors, restore into the reference and
 onto one device, and re-shard onto the mesh; the collectives of each
-mode; a TP run's inference archive with the full tensors; the axes of
-ROADMAP Queue 1 item 10c refused. The ranks are two
+mode; a TP run's inference archive with the full tensors (the expert and
+pipe axes: tests/test_torch_expert.py, tests/test_torch_pipeline.py).
+The ranks are two
 groups of gloo processes (2 and 4) spawned once for the module
 (tests/torch_parallel_workers.py); the CLI line of each mode is in
 tests/test_torch_launcher.py."""
@@ -283,22 +284,3 @@ def test_movement_bar_sees_a_skipped_all_reduce(groups, fault, parallel):
     bar = chip_smoke.PARALLEL_BF16_RTOL
     assert sound < 1e-3 * bar, (sound, broken)
     assert broken > 2 * bar, (sound, broken)
-
-
-@pytest.mark.parametrize("parallel,model", [
-    ({"expert": 2}, {}), ({"pipe": 2}, {"stacked": True}),
-    ({"data": 2}, {"moe_experts": 4}), ({"seq": 2}, {"moe_experts": 4}),
-    ({"model": 2}, {"moe_experts": 4})], ids=str)
-def test_item_10c_refused(parallel, model):
-    """Expert and pipeline parallelism, and an MoE under any axis, raise
-    naming ROADMAP Queue 1 item 10c before any rank is spawned."""
-    saved = troot.lm.to_dict()
-    try:
-        troot.lm.parallel.update(dict(NO_AXES, **parallel))
-        troot.lm.model.update(dict(MODEL, **model))
-        with pytest.raises(NotImplementedError, match=r"item 10c\)"):
-            tlm.parallel_ranks()
-        with pytest.raises(NotImplementedError, match=r"item 10c\)"):
-            tlm.create_workflow()
-    finally:
-        troot.lm.update(saved)

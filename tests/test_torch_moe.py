@@ -218,6 +218,3 @@ def test_moe_archive_and_decode_equal_reference(tmp_path):
 def test_moe_refusals():
     with pytest.raises(ValueError, match="experts >= 2"):
         TM.MoEFFN(experts=1)
-    with lm_config(model=MOE_MODEL, parallel={"expert": 2}):
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            tlm.create_workflow()

@@ -103,36 +103,70 @@ def test_init_multihost_arg_plumbing(monkeypatch):
         tpar.init_multihost(transport="mpi")
 
 
-def test_unported_setups_name_item_10c():
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        tpar.setup_expert_parallel(None, None)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        tpar.setup_pipeline_parallel(None, None)
+def test_setups_check_their_arguments():
+    """The EP and PP setups refuse an unknown routing or schedule before
+    they touch the workflow (the reference's messages), and a workflow
+    whose step is its own body is refused under any axis, naming ROADMAP
+    item 10d."""
+    with pytest.raises(ValueError, match="routing must be 'gather' or "
+                                         "'alltoall', got 'ring'"):
+        tpar.setup_expert_parallel(None, None, routing="ring")
+    with pytest.raises(ValueError, match="schedule must be 'gpipe' or "
+                                         "'1f1b', got 'zb'"):
+        tpar.setup_pipeline_parallel(None, None, schedule="zb")
+
+    class Body:
+        name = "SOM"
+        step = type("S", (), {"body": staticmethod(lambda *a: None)})()
+    with pytest.raises(NotImplementedError, match=r"own body.*item 10d\)"):
+        tpar.setup_data_parallel(Body(), tpar.Mesh({"data": 2}, rank=0))
 
 
-@pytest.mark.parametrize("axis", ["data", "seq"])
-def test_dropout_under_a_sharded_axis_is_refused(axis):
-    """Each rank would draw the same dropout mask for its own rows (or
-    positions), not one mask over the minibatch: refused, naming item
-    10c, before the mesh is attached."""
-    from veles_torch.znicz.models.mnist import MnistLoader
-    from veles_torch.znicz.standard_workflow import StandardWorkflow
-    layers = [{"type": "all2all_tanh", "->": {"output_sample_shape": 8}},
-              {"type": "dropout", "->": {"dropout_ratio": 0.5}},
-              {"type": "softmax", "->": {"output_sample_shape": 10}}]
-    wf = StandardWorkflow(
-        name="DropoutDP", layers=layers,
-        loader_factory=lambda w: MnistLoader(
-            w, name="loader", minibatch_size=8, n_train=16, n_valid=8),
-        decision_config={"max_epochs": 1})
-    wf.initialize(device="cpu")
-    mesh = tpar.Mesh({axis: 2}, rank=0)
-    setup = {"data": tpar.setup_data_parallel,
-             "seq": tpar.setup_sequence_parallel}[axis]
-    with pytest.raises(NotImplementedError,
-                       match=r"dropout unit .* %r axis.*item 10c" % axis):
-        setup(wf, mesh)
-    assert wf.mesh is None
+@pytest.mark.parametrize("axes", [(("data", 2),), (("seq", 2),),
+                                  (("data", 2), ("seq", 2))], ids=str)
+def test_dropout_masks_put_together_are_one_mask(group4, axes):
+    """Under ``data``, ``seq`` or both every rank draws the minibatch's
+    one mask and keeps its rows or positions: the ranks' masks put
+    together equal the one-process mask bit for bit."""
+    import torch
+    import veles_torch.prng as tprng
+    from veles_torch.backends import TorchDevice
+    from veles_torch.znicz.ops.dropout import DropoutForward
+    shape = (8, 6, 5)
+    n = int(numpy.prod([v for _, v in axes]))
+    if n == 2:
+        axes_run = axes + (("model", 2),)   # the group's 4 ranks
+    else:
+        axes_run = axes
+    got = group4.run("dropout_mask", axes_run, shape, 0.4, 91)
+    tprng.seed_all(91)
+    unit = DropoutForward(dropout_ratio=0.4, name="drop")
+    unit.initialize(shape, TorchDevice("cpu"))
+    want = unit.draw_mask(torch.zeros(shape)).numpy()
+    sizes = dict(axes)
+    nd, ns = sizes.get("data", 1), sizes.get("seq", 1)
+    rows, pos = shape[0] // nd, shape[1] // ns
+    for rank, mask in enumerate(got):
+        m = tpar.Mesh(dict(axes_run), rank=rank)
+        d = m.coords.get("data", 0)
+        q = m.coords.get("seq", 0)
+        assert numpy.array_equal(
+            mask, want[d * rows:(d + 1) * rows, q * pos:(q + 1) * pos])
+
+
+def test_dropout_under_data_parallel_matches_one_process(group4):
+    """A small MNIST MLP with a dropout unit, 2 epochs under ``data`` 4:
+    the one-process run's parameters and validation history within
+    1e-5."""
+    got = group4.run("dropout_dp", (("data", 4),), 31)
+    one = group4.run("dropout_dp", (), 31)[0]
+    for unit, sub in one["params"].items():
+        for key, value in sub.items():
+            assert numpy.abs(got[0]["params"][unit][key] - value).max() \
+                <= MNIST_ATOL, (unit, key)
+    assert numpy.allclose(
+        [h["validation"]["metric"] for h in got[0]["history"]],
+        [h["validation"]["metric"] for h in one["history"]], atol=1e-5)
 
 
 def _ring_inputs(seed=4242, shape=(1, 2, 16, 8)):
@@ -260,22 +294,33 @@ def test_failing_rank_fails_the_run_and_tears_down():
 
 def test_dryrun_multichip_two_ranks():
     """``graft_entry.dryrun_multichip(2)``: MNIST under DP, the LM under
-    DP × TP and the ring (dense and scan inner blocks), one train step
-    each, every leg with the collectives it must issue; the reference's
-    EP and PP legs listed as item 10c. The CPU is asked for: the card is
-    the default."""
+    DP × TP and the ring (dense and scan inner blocks), the MoE LM under
+    EP with gather and all-to-all routing, the stacked LM under GPipe and
+    1F1B, one train step each, every leg with the collectives it must
+    issue; no leg of the reference left out. The CPU is asked for: the
+    card is the default."""
     from veles_torch.graft_entry import dryrun_multichip
     report = dryrun_multichip(2, device="cpu")
     legs = report["legs"]
-    assert sorted(legs) == ["DryrunDP", "DryrunRing", "DryrunRingFlash",
-                            "DryrunTP"]
+    assert sorted(legs) == ["DryrunDP", "DryrunEPAllToAll",
+                            "DryrunEPGather", "DryrunPP", "DryrunPP1F1B",
+                            "DryrunRing", "DryrunRingFlash", "DryrunTP"]
     assert legs["DryrunDP"]["collectives"] == {"all-reduce": 1}
     assert legs["DryrunTP"]["mesh"] == {"model": 2}
     assert legs["DryrunTP"]["collectives"]["all-reduce"] >= 4
     for ring in ("DryrunRing", "DryrunRingFlash"):
         assert legs[ring]["collectives"]["collective-permute"] == 8
+    gather = legs["DryrunEPGather"]["collectives"]
+    assert gather.get("all-gather") and gather.get("all-reduce")
+    a2a = legs["DryrunEPAllToAll"]["collectives"]
+    assert a2a.get("all-to-all") and a2a.get("all-reduce") \
+        and not a2a.get("all-gather")
+    for pp in ("DryrunPP", "DryrunPP1F1B"):
+        assert legs[pp]["mesh"] == {"pipe": 2}
+        assert legs[pp]["collectives"]["collective-permute"] == 4
+        assert legs[pp]["collectives"]["all-reduce"] >= 2
     assert report["transport"] == "gloo"
-    assert all("item 10c" in v for v in report["not_run"].values())
+    assert report["not_run"] == {}
 
 
 def test_dryrun_multichip_defaults_to_the_card(monkeypatch):

@@ -271,15 +271,6 @@ def test_block_decode_greedy_equals_reference(tmp_path):
     numpy.testing.assert_array_equal(numpy.array(toks), want[:, :8])
 
 
-def test_parallel_axes_still_refused():
-    """root.lm.parallel.pipe > 1 (the pipeline schedules) and expert > 1
-    stay refused, naming ROADMAP item 10c."""
-    for axis in ("pipe", "expert"):
-        with lm_config(model=STACKED_MODEL, parallel={axis: 2}):
-            with pytest.raises(NotImplementedError, match="item 10c"):
-                tlm.create_workflow()
-
-
 @pytest.mark.parametrize("model", [STACKED_MODEL, {
     "moe_experts": 4, "attn_impl": None, "attn_block": None}],
     ids=["stacked", "moe"])

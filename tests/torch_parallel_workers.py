@@ -7,6 +7,7 @@ imports the JAX package). Each rank runs one torch thread; every wait is
 bounded.
 """
 
+import contextlib
 import multiprocessing
 import os
 import queue
@@ -150,10 +151,12 @@ def lm_run(config, seed, snapshots=None, restore=None, archive=None):
     from veles_torch.snapshotter import load_snapshot
     from veles_torch.znicz import parallel
     from veles_torch.znicz.models import transformer_lm as tlm
+    from veles_torch.znicz.parallel import pipeline
     saved = root.lm.to_dict()
     try:
         for section, values in config.items():
             getattr(root.lm, section).update(values)
+        pipeline.counts.clear()
         prng.seed_all(seed)
         wf = tlm.create_workflow(name="TorchLMParallel")
         if snapshots:
@@ -167,6 +170,11 @@ def lm_run(config, seed, snapshots=None, restore=None, archive=None):
         return {"history": wf.decision.history, "archive": written,
                 "params": tree["params"], "state": tree["state"],
                 "counts": parallel.collective_counts(wf.step),
+                "step_bytes": dict(wf.step.collective_bytes),
+                "dropped": {f.name: float(f.dropped) for f in wf.forwards
+                            if getattr(f, "dropped", None) is not None},
+                "chunks": dict(pipeline.counts),
+                "steps": (wf.step.train_steps, wf.step.eval_steps),
                 "mesh": None if wf.mesh is None else dict(wf.mesh.shape),
                 "coords": None if wf.mesh is None else wf.mesh.coords,
                 "destination": wf.snapshotter.destination
@@ -175,24 +183,156 @@ def lm_run(config, seed, snapshots=None, restore=None, archive=None):
         root.lm.update(saved)
 
 
-def lm_run_fault(config, seed, fault):
-    """:func:`lm_run` with a planted fault, undone after: ``"grad"`` skips
-    the gradient bucket's all-reduce, ``"tp"`` the all-reduces of TP's
-    partial sums and input gradients."""
+@contextlib.contextmanager
+def planted(fault):
+    """A fault planted in the port for the block's duration: ``"grad"``
+    skips the gradient buckets' all-reduces, ``"tp"`` the all-reduces of
+    TP's partial sums and input gradients, ``"combine"`` the gather-mode
+    MoE's combine all-reduce (each rank keeps its experts' partial
+    outputs), ``"hop"`` the pipeline's backward hop of microbatch 0 (both
+    sides skip it: the receiving stage takes zeros)."""
+    import torch
     from veles_torch.znicz import step as S
     from veles_torch.znicz.ops import attention as A
-    saved = S.flush_deferred, A.tp_sum
+    from veles_torch.znicz.ops import moe as M
+    from veles_torch.znicz.parallel import pipeline as PL
+    saved = S.flush_deferred, A.tp_sum, M.combine_sum, PL.stage_hop
     if fault == "grad":
         S.flush_deferred = lambda entries, reduce: saved[0](
-            entries, lambda flat: flat)
+            entries, lambda flat, axes: flat)
     elif fault == "tp":
         A.tp_sum = lambda unit, t: t
+    elif fault == "combine":
+        M.combine_sum = lambda unit, t: t
+    elif fault == "hop":
+        def hop(mesh, axis, sends, recvs):
+            sends = [x for x in sends if not (x[0] < 0 and x[2] == 0)]
+            skip = [r[0] > 0 and r[4] == 0 for r in recvs]
+            got = iter(saved[3](mesh, axis, sends,
+                                [r for r, k in zip(recvs, skip) if not k]))
+            return [torch.zeros(r[1], dtype=r[2], device=r[3]) if k
+                    else next(got) for r, k in zip(recvs, skip)]
+        PL.stage_hop = hop
     else:
         raise ValueError(fault)
     try:
-        return lm_run(config, seed)
+        yield
     finally:
-        S.flush_deferred, A.tp_sum = saved
+        S.flush_deferred, A.tp_sum, M.combine_sum, PL.stage_hop = saved
+
+
+def lm_run_fault(config, seed, fault):
+    """:func:`lm_run` with the fault :func:`planted`."""
+    with planted(fault):
+        return lm_run(config, seed)
+
+
+def a2a_shard(axes, x, params, cf):
+    """The all-to-all MoE forward (``parallel/expert.py``) of this rank's
+    rows of the global numpy tokens ``x`` (B, S, D) over the mesh of
+    ``axes``, an unbiased 4-expert unit with ``params`` and no residual
+    -> (its output rows, which of its tokens it kept)."""
+    import torch
+    from veles_torch.backends import TorchDevice
+    from veles_torch.znicz.ops.moe import MoEFFN
+    m = mesh(axes)
+    n, r = m.shape["expert"], m.index("expert")
+    per = x.shape[0] // n
+    unit = MoEFFN(experts=params["router"].shape[1],
+                  hidden=params["weights"].shape[2], residual=False,
+                  capacity_factor=cf)
+    unit.initialize(x.shape, TorchDevice("cpu"))
+    e = unit.experts // n
+    for key, value in params.items():
+        if key != "router":
+            value = value[r * e:(r + 1) * e]
+        setattr(unit, key, torch.from_numpy(value.copy()))
+    unit.mesh, unit.expert_axis, unit.routing = m, "expert", "alltoall"
+    y = unit(torch.from_numpy(x[r * per:(r + 1) * per].copy()))
+    kept = unit.cache["dispatch"].sum(dim=(-1, -2)) > 0.5
+    return y.numpy(), kept.reshape(per, x.shape[1]).numpy()
+
+
+def pipeline_math(axes, params, x, target, n_micro, heads):
+    """The GPipe forward and backward and the 1F1B step of the port
+    (``parallel/pipeline.py``) on this rank's stage of the stacked numpy
+    ``params`` and its ``data`` rows of ``x``, the error ``y − target``
+    (1F1B's ``err_fn``, with the loss ½Σ(y − target)²) -> {"gpipe": (y,
+    dx, stage grads), "1f1b": (y, dx, stage grads, loss)}, as numpy."""
+    import torch
+    from veles_torch.znicz.parallel import pipeline as PL
+    m = mesh(axes)
+    p, s = m.shape["pipe"], m.index("pipe")
+    nd = m.shape.get("data", 1)
+    d = m.index("data") if nd > 1 else 0
+    per = x.shape[0] // nd
+    layers = params["weights"].shape[0] // p
+    mine = {k: torch.from_numpy(v[s * layers:(s + 1) * layers].copy())
+            for k, v in params.items()}
+    xs = torch.from_numpy(x[d * per:(d + 1) * per].copy())
+    ts = torch.from_numpy(target[d * per:(d + 1) * per].copy())
+    y, caches = PL.pipeline_fwd(mine, xs, m, "pipe", n_micro, heads)
+    dx, grads = PL.pipeline_bwd(mine, caches, y - ts, m, "pipe", n_micro,
+                                heads)
+
+    def err_fn(y_mb, t_mb):
+        return y_mb - t_mb, 0.5 * ((y_mb - t_mb) ** 2).sum()
+    y2, dx2, grads2, loss = PL.pipeline_1f1b_step(
+        mine, xs, ts, err_fn, m, "pipe", n_micro, heads)
+
+    def host(g):
+        return {k: v.numpy() for k, v in g.items()}
+    return {"gpipe": (y.numpy(), dx.numpy(), host(grads)),
+            "1f1b": (y2.numpy(), dx2.numpy(), host(grads2), float(loss))}
+
+
+def dropout_mask(axes, shape, ratio, seed):
+    """This rank's part of the dropout mask of a ``shape`` minibatch on the
+    mesh of ``axes`` (``data`` rows, ``seq`` positions), drawn by a unit
+    seeded with ``seed``."""
+    import torch
+    import veles_torch.prng as prng
+    from veles_torch.backends import TorchDevice
+    from veles_torch.znicz.ops.dropout import DropoutForward
+    m = mesh(axes)
+    local = list(shape)
+    if "data" in m.shape:
+        local[0] //= m.shape["data"]
+    if "seq" in m.shape:
+        local[1] //= m.shape["seq"]
+    prng.seed_all(seed)
+    unit = DropoutForward(dropout_ratio=ratio, name="drop")
+    unit.initialize(tuple(local), TorchDevice("cpu"))
+    unit.mesh = m
+    unit.batch_axes = ("data",) if "data" in m.shape else ()
+    unit.seq_axis = "seq" if "seq" in m.shape else None
+    return unit.draw_mask(torch.zeros(local)).numpy()
+
+
+def dropout_dp(axes, seed):
+    """A small MNIST MLP with a dropout unit trained 2 epochs under DP
+    over ``axes`` (``axes`` empty: one process) -> (history, params)."""
+    import veles_torch.prng as prng
+    from veles_torch.znicz import parallel
+    from veles_torch.znicz.models.mnist import MnistLoader
+    from veles_torch.znicz.standard_workflow import StandardWorkflow
+    layers = [{"type": "all2all_tanh", "->": {"output_sample_shape": 16},
+               "<-": {"learning_rate": 0.1}},
+              {"type": "dropout", "->": {"dropout_ratio": 0.3}},
+              {"type": "softmax", "->": {"output_sample_shape": 10},
+               "<-": {"learning_rate": 0.1}}]
+    prng.seed_all(seed)
+    wf = StandardWorkflow(
+        name="DropoutDP", layers=layers,
+        loader_factory=lambda w: MnistLoader(
+            w, name="loader", minibatch_size=16, n_train=64, n_valid=32),
+        decision_config={"max_epochs": 2})
+    wf.initialize(device="cpu")
+    if axes:
+        parallel.setup_data_parallel(wf, mesh(axes))
+    wf.run()
+    return {"history": wf.decision.history,
+            "params": wf.checkpoint_state()["params"]}
 
 
 def sample_dp(sample, loader, epochs, seed, axes):

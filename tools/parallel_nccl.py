@@ -13,7 +13,13 @@ the bf16 policy, (c) ``model=N`` and, with N ≥ 4, ``data=2`` ×
 tensor's movement, the losses, each rank's launches, the collectives a
 step); (b) the 110M_s8k row at 6 layers under ``seq=N`` with exact launch
 and hop counts, and one MHA layer's ring against the single-card flash
-path; (d) ``graft_entry.dryrun_multichip(N)``.
+path; (d) ``graft_entry.dryrun_multichip(N)`` (every leg, EP and PP
+among them); then phase ``parallel_ep_pp`` (``chip_smoke.
+check_parallel_ep_pp``): the 110M MoE under ``expert=N`` with gather
+routing and the all-to-all exchange and, with N ≥ 4, ``expert=2`` ×
+``data=N/2``; the stacked 110M under ``pipe=N`` with GPipe and 1F1B and,
+with N ≥ 4, ``pipe=2`` × ``data=N/2`` (N divides the 12 layers and the 8
+experts), each held against its one-process run on card 0.
 
 Prints one JSON line per part (each rank's step ms, collective bytes and
 host seconds beside the cards' names and power limits), also written to
@@ -55,6 +61,7 @@ def main(argv):
     print(cards, flush=True)
     kernels.build()
     C.check_parallel(torch, n)
+    C.check_parallel_ep_pp(torch, n)
     C.emit({"ok": True, "device": {"platform": "gpu",
                                    "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}})

@@ -133,9 +133,11 @@ declared, never swapped: ``-d cpu`` takes gloo; on the card
 ``--transport gloo-host`` lets the ranks share a card, the collectives
 copying through the host. Rank 0 prints the epoch lines and the result
 line, which gains ``parallel`` (the mesh, the transport, the last train
-step's ``collective_counts``, ``grad_sync_bytes`` and the collectives'
-bytes and host seconds), and writes the snapshots and the inference
-archive (TP's shards gathered into the full tensors); the other ranks
+step's ``collective_counts`` and ``collective_step_bytes``,
+``grad_sync_bytes``, the collectives' bytes and host seconds, each MoE
+layer's ``dropped``, each rank's launches, step seconds and peak device
+memory), and writes the snapshots and the inference archive (the shards
+gathered into the full tensors); the other ranks
 print nothing and exit 0. A rank
 that fails fails the run with its error text; the others are torn down
 within seconds. ``--generate``, ``--ensemble``, ``--optimize`` and the
@@ -635,7 +637,7 @@ def main(argv=None):
             raise SystemExit(
                 "%d parallel ranks: --generate, --ensemble, --optimize and "
                 "the master/slave roles do not combine with the parallel "
-                "axes" % ranks)
+                "axes (ROADMAP Queue 1 item 10d)" % ranks)
         if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
             return spawn_ranks(args, argv, ranks)
         rank = join_ranks(args, ranks)
@@ -826,8 +828,8 @@ def parallel_report(wf):
     full = {}
     for f in wf.forwards:
         for key, t in f.export_params().items():
-            n = mesh.axis_size(step.model_axis) \
-                if (f.name, key) in wf.shard_specs else 1
+            spec = wf.shard_specs.get((f.name, key))
+            n = 1 if spec is None else mesh.axis_size(spec.axis)
             full["%s/%s" % (f.name, key)] = t.numel() * n * t.element_size()
     # every rank's kernel launches, gathered (one all-gather over the
     # mesh, after the run's own collectives were read)
@@ -835,6 +837,7 @@ def parallel_report(wf):
     report = {"mesh": dict(mesh.shape), "rank": mesh.rank,
               "transport": collectives.transport(),
               "collective_counts": parallel.collective_counts(step),
+              "collective_step_bytes": dict(step.collective_bytes),
               "grad_sync_bytes": int(sum(full.values())),
               "collective_calls": dict(collectives.counts),
               "collective_bytes": dict(collectives.nbytes),
@@ -849,13 +852,23 @@ def parallel_report(wf):
     report["launches_by_rank"] = [
         dict(zip(sorted(mine), (int(v) for v in r.cpu().tolist())))
         for r in every]
+    from veles_torch.znicz.parallel import pipeline
     train = step.dispatch_seconds.get("train", [0.0, 0])
+    dev = wf.device.device
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     times = torch.tensor([train[0], float(step.train_steps),
                           sum(collectives.seconds.values()),
-                          float(sum(collectives.nbytes.values()))],
-                         dtype=torch.float64, device=wf.device.device)
+                          float(sum(collectives.nbytes.values())),
+                          float(peak), float(pipeline.counts["forward"]),
+                          float(pipeline.counts["backward"])],
+                         dtype=torch.float64, device=dev)
     keys = ("train_seconds", "train_steps", "collective_seconds",
-            "collective_bytes")
+            "collective_bytes", "max_memory_allocated", "chunk_forwards",
+            "chunk_backwards")
+    # the tokens each MoE layer's last forward dropped (on a mesh the
+    # minibatch's, under all-to-all routing rank 0's source shard's)
+    report["dropped"] = {f.name: float(f.dropped) for f in wf.forwards
+                         if getattr(f, "dropped", None) is not None}
     report["stats_by_rank"] = [
         dict(zip(keys, r.cpu().tolist()))
         for r in collectives.all_gather(times, mesh, mesh.axis_names)]

@@ -13,15 +13,20 @@ that step issued, as the reference asserts its HLO opcodes:
 * the LM under the ring (``seq`` = gcd(n, 16), data over the rest), with
   the dense inner block and with the scan (``attn_impl="scan"``):
   ``collective-permute``;
+* the MoE LM under data × expert (``expert`` as ``model`` above, one
+  expert a rank), gather routing: ``all-gather`` and ``all-reduce``; the
+  all-to-all routing: ``all-to-all`` and ``all-reduce``, no
+  ``all-gather``;
+* the stacked LM under data × pipe (one block a stage, 4 microbatches),
+  GPipe and 1F1B: ``collective-permute`` and ``all-reduce``;
 * the LM under data × model 2 × seq 2 when ``n % 8 == 0``: both.
 
-The reference's expert-parallel (gather and all-to-all) and pipeline
-(GPipe and 1F1B) legs are ROADMAP Queue 1 item 10c; they are listed in
-the report under ``not_run``. The ranks run on the card unless the
-caller asks for the host: there ``transport`` is ``"nccl"`` (the default,
-one card per rank, refused when there are fewer cards than ranks) or
-``"gloo-host"`` (ranks sharing one card, the collectives copied through
-the host); ``device="cpu"`` runs the legs on gloo ranks of the host.
+Every leg of the reference runs (``NOT_RUN`` is empty). The ranks run on
+the card unless the caller asks for the host: there ``transport`` is
+``"nccl"`` (the default, one card per rank, refused when there are fewer
+cards than ranks) or ``"gloo-host"`` (ranks sharing one card, the
+collectives copied through the host); ``device="cpu"`` runs the legs on
+gloo ranks of the host.
 
     python -c "from veles_torch.graft_entry import dryrun_multichip; \\
 print(dryrun_multichip(4))"                  # 4 cards, NCCL
@@ -31,9 +36,8 @@ print(dryrun_multichip(4, device='cpu'))"    # 4 gloo ranks of the host
 
 import math
 
-#: the reference's legs that wait for ROADMAP Queue 1 item 10c
-NOT_RUN = ("DryrunEPGather", "DryrunEPAllToAll", "DryrunPP",
-           "DryrunPP1F1B")
+#: the reference's legs the port does not run
+NOT_RUN = ()
 
 
 def _one_train_step(wf):
@@ -86,7 +90,8 @@ def _tiny_lm(device, name, spec, model_extra=None):
     root.lm.model.update(model_extra or {})
     root.lm.decision.max_epochs = 1
     root.lm.parallel.update({"seq": 1, "model": 1, "data": 1,
-                             "expert": 1, "pipe": 1})
+                             "expert": 1, "pipe": 1, "microbatches": 4,
+                             "ep_routing": "gather", "schedule": "gpipe"})
     root.lm.parallel.update(spec)
     wf = transformer_lm.create_workflow(name=name)
     wf.initialize(device=device)
@@ -106,6 +111,18 @@ def legs(n):
         out += [("DryrunRing", "lm", ring, None, ("collective-permute",)),
                 ("DryrunRingFlash", "lm", ring, {"attn_impl": "scan"},
                  ("collective-permute",))]
+    if tp > 1:
+        ep = {"data": n // tp, "expert": tp}
+        pp = {"data": n // tp, "pipe": tp, "microbatches": 4}
+        out += [("DryrunEPGather", "lm", ep, {"moe_experts": tp},
+                 ("all-gather", "all-reduce")),
+                ("DryrunEPAllToAll", "lm", dict(ep, ep_routing="alltoall"),
+                 {"moe_experts": tp}, ("all-to-all", "all-reduce")),
+                ("DryrunPP", "lm", pp, {"layers": tp, "stacked": True},
+                 ("collective-permute", "all-reduce")),
+                ("DryrunPP1F1B", "lm", dict(pp, schedule="1f1b"),
+                 {"layers": tp, "stacked": True},
+                 ("collective-permute", "all-reduce"))]
     if n % 8 == 0:
         out.append(("DryrunCombo", "lm",
                     {"data": n // 4, "model": 2, "seq": 2}, None,
@@ -131,9 +148,13 @@ def _dryrun_rank(n, device, transport):
             wf = _tiny_mnist(device, n) if kind == "mnist" \
                 else _tiny_lm(device, name, spec, extra)
             _one_train_step(wf)
+            counts = parallel.assert_collectives(wf.step, expect)
+            if name == "DryrunEPAllToAll" and counts.get("all-gather"):
+                raise AssertionError(
+                    "%s gathered tokens (%s): the exchange must move each "
+                    "token once" % (name, counts))
             report[name] = {"mesh": dict(wf.mesh.shape),
-                            "collectives": parallel.assert_collectives(
-                                wf.step, expect)}
+                            "collectives": counts}
     finally:
         for k, tree in saved.items():
             getattr(root, k).update(tree)
@@ -143,8 +164,8 @@ def _dryrun_rank(n, device, transport):
 
 def dryrun_multichip(n_devices, device="cuda", transport=None,
                      timeout_s=600.0):
-    """One full train step under every ported mode on ``n_devices`` ranks
-    (module docstring); -> {"legs": rank 0's {leg: mesh, collectives},
+    """One full train step under every mode on ``n_devices`` ranks (module
+    docstring); -> {"legs": rank 0's {leg: mesh, collectives},
     "transport", "not_run"}. Raises when a rank fails or a leg lacks a
     collective it must issue."""
     from veles_torch.znicz import parallel

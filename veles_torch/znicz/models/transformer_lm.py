@@ -22,10 +22,13 @@ root.lm.loader.text_file=corpus.txt root.lm.train.solver=adam -d cuda
 ``root.lm.parallel`` shards the run over ranks, one process each
 (:class:`TransformerLMWorkflow`, the reference's ``_setup_parallel``):
 ``seq`` the ring attention, ``data`` the batch, ``model`` Megatron TP,
-on one mesh over every axis above 1; the CLI spawns the ranks
-(:func:`parallel_ranks`). Refused until ROADMAP Queue 1 item 10c:
-``expert`` and ``pipe`` above 1, and an MoE FFN under any axis (its
-capacity is a global quota that per-rank routing would change).
+``expert`` the MoE experts (``ep_routing`` ``"gather"`` or
+``"alltoall"``), ``pipe`` the stacked blocks (``schedule`` ``"gpipe"`` or
+``"1f1b"`` over ``microbatches``), on one mesh over every axis above 1;
+an MoE FFN under any axis routes under the global quota. The CLI spawns
+the ranks (:func:`parallel_ranks`), e.g. ``root.lm.parallel.expert=2
+root.lm.parallel.ep_routing=alltoall`` or ``root.lm.model.stacked=True
+root.lm.parallel.pipe=2 root.lm.parallel.schedule=1f1b``.
 """
 
 import numpy
@@ -158,24 +161,11 @@ class TextLMLoader(FullBatchLoader):
 
 def parallel_axes():
     """{axis: size} of every ``root.lm.parallel`` axis above 1, in the
-    order the mesh lays them (data, seq, model); raises
-    NotImplementedError for the axes and models of ROADMAP Queue 1 item
-    10c."""
+    order the mesh lays them (data, seq, model, expert, pipe)."""
     par = root.lm.get("parallel")
     spec = par.to_dict() if hasattr(par, "to_dict") else dict(par or {})
-    sizes = {k: int(spec.get(k, 1)) for k in parallel.AXES}
-    later = {k: sizes[k] for k in ("expert", "pipe") if sizes[k] > 1}
-    if later:
-        raise NotImplementedError(
-            "root.lm.parallel %s: %s parallelism is not ported yet (%s)"
-            % (later, " and ".join(later), parallel.LATER))
-    axes = {k: sizes[k] for k in ("data", "seq", "model") if sizes[k] > 1}
-    if axes and root.lm.model.get("moe_experts"):
-        raise NotImplementedError(
-            "root.lm.parallel %s with moe_experts=%r: the MoE capacity is "
-            "a global quota that per-rank routing would change; not ported "
-            "yet (%s)" % (axes, root.lm.model.moe_experts, parallel.LATER))
-    return axes
+    return {k: int(spec.get(k, 1)) for k in parallel.AXES
+            if int(spec.get(k, 1)) > 1}
 
 
 def parallel_ranks():
@@ -270,10 +260,10 @@ def _loader_factory():
 
 class TransformerLMWorkflow(StandardWorkflow):
     """StandardWorkflow + config-driven sharding: after initialize,
-    ``root.lm.parallel`` picks ring attention (seq), Megatron TP (model)
-    and/or batch DP (data) on ONE mesh over every requested axis, set up
-    in the reference's order. Every rank of the process group builds the
-    same workflow from the same seed."""
+    ``root.lm.parallel`` picks ring attention (seq), batch DP (data),
+    Megatron TP (model), EP (expert) and/or PP (pipe) on ONE mesh over
+    every requested axis, set up in the reference's order. Every rank of
+    the process group builds the same workflow from the same seed."""
 
     def initialize(self, device="cuda", with_step=True):
         out = super().initialize(device=device, with_step=with_step)
@@ -285,16 +275,27 @@ class TransformerLMWorkflow(StandardWorkflow):
         axes = parallel_axes()
         if not axes:
             return
+        spec = root.lm.parallel
         mesh = parallel.make_mesh(axes)
         data = axes.get("data", 1)
+        batch_axis = "data" if data > 1 else None
         if "seq" in axes:
-            parallel.setup_sequence_parallel(
-                self, mesh, batch_axis="data" if data > 1 else None)
+            parallel.setup_sequence_parallel(self, mesh,
+                                             batch_axis=batch_axis)
         if data > 1:
             parallel.setup_data_parallel(self, mesh, refresh=False)
         if "model" in axes:
             # skips attention units already owned by the ring path
             parallel.setup_tensor_parallel(self, mesh, refresh=False)
+        if "expert" in axes:
+            parallel.setup_expert_parallel(
+                self, mesh, refresh=False,
+                routing=str(spec.get("ep_routing", "gather")))
+        if "pipe" in axes:
+            parallel.setup_pipeline_parallel(
+                self, mesh, microbatches=int(spec.get("microbatches", 4)),
+                batch_axis=batch_axis, refresh=False,
+                schedule=str(spec.get("schedule", "gpipe")))
 
 
 def create_workflow(name="TransformerLM"):

@@ -28,8 +28,10 @@ Counterpart of ``veles/znicz_tpu/nn_units.py``:
 * on a mesh (``veles_torch/znicz/parallel``) the step sets ``deferred``
   to a list: :meth:`GradientDescentBase.update_weights` and
   :meth:`GradientDescentBase.update_extra` then only record their
-  gradients, and :func:`flush_deferred` runs the recorded updates, in
-  order, on the gradients summed over the ranks;
+  gradients, each with the mesh axes it is summed over
+  (``reduce_axes``: a parameter's own, or None for the step's), and
+  :func:`flush_deferred` runs the recorded updates, in order, on the
+  gradients summed over the ranks;
 * the registry mapping config names to forward classes and forward
   classes to their GD classes. It is the port's own, separate from the
   reference's, so a process can hold both packages.
@@ -240,6 +242,10 @@ class GradientDescentBase(IDistributable):
         self.wire_host = None
         #: a list while a mesh step defers the updates (flush_deferred)
         self.deferred = None
+        #: {parameter: mesh axes its gradient is summed over} where they
+        #: are not the step's (an expert shard's, set by the parallel
+        #: setups)
+        self.reduce_axes = {}
         for key in dict.fromkeys(GradientDescentBase.STATE + self.STATE):
             setattr(self, key, None)
 
@@ -391,7 +397,9 @@ class GradientDescentBase(IDistributable):
         ``iteration`` (and the accumulation count). While ``deferred`` is
         a list, the step is recorded there instead."""
         if self.deferred is not None:
-            self.deferred.append((self._update_weights, [grad_w, grad_b]))
+            self.deferred.append((
+                self._update_weights, [grad_w, grad_b],
+                [self.reduce_axes.get(p) for p in ("weights", "bias")]))
             return
         self._update_weights(grad_w, grad_b)
 
@@ -433,7 +441,8 @@ class GradientDescentBase(IDistributable):
             names = [p for p, _ in self.EXTRA_PARAMS]
             self.deferred.append((
                 lambda *g: self._update_extra(dict(zip(names, g))),
-                [grads.get(p) for p in names]))
+                [grads.get(p) for p in names],
+                [self.reduce_axes.get(p) for p in names]))
             return
         self._update_extra(grads)
 
@@ -563,21 +572,27 @@ class GradientDescentBase(IDistributable):
 
 def flush_deferred(entries, reduce):
     """Run the updates the GD units recorded in ``deferred`` (``[(update,
-    [grad or None, ...]), ...]``), in order, after ``reduce`` (a flat f32
-    tensor -> the same summed over the ranks) ran ONCE over every
-    gradient of them, packed one after another."""
-    grads = [g for _, gs in entries for g in gs if g is not None]
-    summed = iter(())
-    if grads:
+    [grad or None, ...], [axes or None, ...]), ...]``), in order, after
+    ``reduce`` (a flat f32 tensor and its axes -> the same summed over the
+    ranks) ran ONCE per distinct axes over every gradient of them, packed
+    one after another (in the order the axes first appear, the same on
+    every rank)."""
+    groups = {}
+    for e, (_, grads, axes) in enumerate(entries):
+        for i, g in enumerate(grads):
+            if g is not None:
+                groups.setdefault(axes[i], []).append((e, i, g))
+    summed = {}
+    for axes, items in groups.items():
         flat = reduce(torch.cat([g.reshape(-1).to(torch.float32)
-                                 for g in grads]))
-        parts, pos = [], 0
-        for g in grads:
-            parts.append(flat[pos:pos + g.numel()].view(g.shape))
+                                 for _, _, g in items]), axes)
+        pos = 0
+        for e, i, g in items:
+            summed[e, i] = flat[pos:pos + g.numel()].view(g.shape)
             pos += g.numel()
-        summed = iter(parts)
-    for update, gs in entries:
-        update(*[None if g is None else next(summed) for g in gs])
+    for e, (update, grads, _) in enumerate(entries):
+        update(*[None if g is None else summed[e, i]
+                 for i, g in enumerate(grads)])
 
 
 #: (device, owners) -> the device index tensor of layer_stats

@@ -108,6 +108,23 @@ class TokenDenseBase(Forward):
         return A.ACTIVATIONS[self.ACTIVATION][0](v).to(
             self.device.act_dtype)
 
+    # the loss-tail protocol (the 1F1B fold, ops/transformer_stack.py):
+    # the forward and the input gradient as functions the schedule replays
+    # per microbatch; the weight gradients stay with the GD unit, once,
+    # over the whole minibatch
+
+    def tail_fwd(self, x):
+        """The forward of a microbatch (the unit's math)."""
+        return self.forward(x)
+
+    def tail_bwd(self, y, err):
+        """The input gradient from this unit's output ``y`` (the GD unit's
+        dx)."""
+        d = A.ACTIVATIONS[self.ACTIVATION][1](y)
+        dz = err if isinstance(d, float) else err * d
+        return self.device.dot(dz, self.weights.t()).to(
+            self.device.act_dtype)
+
 
 @forward_unit("token_dense")
 class TokenDense(TokenDenseBase):

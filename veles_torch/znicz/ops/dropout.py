@@ -9,6 +9,12 @@ The uniforms come from an explicit ``torch.Generator`` per unit
 (``prng.torch_generator``), which cannot reproduce the reference's
 ``jax.random`` bits: parity is tested with the mask injected
 (:meth:`DropoutForward.draw_mask`) and statistically.
+
+On a mesh (``mesh`` set by ``parallel.setup_data_parallel`` /
+``setup_sequence_parallel``) every rank draws the mask of the WHOLE
+minibatch from its generator (seeded alike on every rank, so the
+generators stay in step) and keeps its rows (the ``data`` axes) and its
+positions (``seq``): the ranks' masks put together are the one device's.
 """
 
 import torch
@@ -30,6 +36,10 @@ class DropoutForward(Forward):
         self.generator = None
         #: the mask of the last train forward
         self.mask = None
+        #: the mesh, its batch axes and ``seq`` axis (parallel setups)
+        self.mesh = None
+        self.batch_axes = ()
+        self.seq_axis = None
 
     def initialize(self, input_shape, device):
         self.device = device
@@ -46,9 +56,23 @@ class DropoutForward(Forward):
         prng.set_generator_state(self.generator, state["generator"])
 
     def draw_mask(self, x):
-        """``(u < keep) / keep`` in the activation dtype, x's shape."""
+        """``(u < keep) / keep`` in the activation dtype, x's shape; on a
+        mesh this rank's part of the minibatch's mask."""
         keep = 1.0 - self.dropout_ratio
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        shape = list(x.shape)
+        mesh = self.mesh
+        nb = mesh.axis_size(self.batch_axes) if mesh is not None else 1
+        ns = mesh.shape[self.seq_axis] if self.seq_axis else 1
+        shape[0] *= nb
+        if ns > 1:
+            shape[1] *= ns
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        if nb > 1:
+            lo = mesh.index(self.batch_axes) * x.shape[0]
+            u = u[lo:lo + x.shape[0]]
+        if ns > 1:
+            lo = mesh.index(self.seq_axis) * x.shape[1]
+            u = u[:, lo:lo + x.shape[1]]
         return (u < keep).to(self.device.act_dtype) / keep
 
     def forward(self, x):

@@ -180,6 +180,26 @@ class EvaluatorLM:
                  & (rowmask[:, None] > 0)).sum()
         return err, loss, wrong
 
+    @staticmethod
+    def mb_loss_grad(logits, labels, inv_denom):
+        """The softmax-CE gradient and loss of a MICROBATCH of f32
+        ``logits`` with the minibatch's normalization ``inv_denom`` (1 /
+        (valid rows · S)) in them: summed over the microbatches they are
+        :meth:`compute`'s. Rows whose labels carry the ``-1`` pad sentinel
+        give nothing (the 1F1B fold marks the pad rows so: a microbatch
+        no longer knows its rows' place in the minibatch)."""
+        z = logits - logits.amax(dim=-1, keepdim=True)
+        logp = z - torch.log(torch.exp(z).sum(dim=-1, keepdim=True))
+        mask = (labels >= 0).to(logits.dtype)
+        labels = labels.clamp(min=0).long()[..., None]
+        err = torch.exp(logp).scatter_add_(
+            -1, labels, torch.full(labels.shape, -1.0, dtype=logits.dtype,
+                                   device=logits.device))
+        err = err * mask[..., None] * inv_denom
+        loss = -(logp.gather(-1, labels).squeeze(-1) * mask).sum() \
+            * inv_denom
+        return err, loss
+
     def run(self, logits, labels, valid, act_dtype, total=None):
         """-> (err_output in ``act_dtype``, metrics (4,) f32 tensor of
         loss, n_err, 0, 0: the LM has no max-error row)."""

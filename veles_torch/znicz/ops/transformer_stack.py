@@ -13,6 +13,25 @@ carry is. ``remat=True`` keeps only each layer's input through the
 forward and recomputes a layer's cache in the backward (one more block
 forward per layer) instead of holding every layer's (B, H, S, S)
 probabilities; the step is bit for bit the same.
+
+Pipeline parallelism (``parallel.setup_pipeline_parallel``: ``pipe_mesh``
+set): the rank holds its stage's ``L/P`` blocks and runs the schedule
+``pipe_schedule`` over ``pipe_microbatches`` microbatches
+(``parallel/pipeline.py``):
+
+* ``"gpipe"``: the train forward stashes every microbatch's caches, the
+  GD unit replays them backward;
+* ``"1f1b"`` with a foldable loss tail (``pipe_tail``: every unit between
+  the stack and the evaluator has ``tail_fwd``/``tail_bwd`` and the
+  evaluator ``mb_loss_grad``, as the stacked LM's token_dense and
+  EvaluatorLM): the train forward runs the whole interleaved schedule,
+  the tail and the loss gradient as the last stage's ``err_fn`` on the
+  minibatch's labels (``pipe_tail["step"].fold_target``, pad rows marked
+  by the ``-1`` label), so a train step runs ONE pipelined forward; the GD
+  unit takes its dx and gradients;
+* ``"1f1b"`` unfoldable: the forward runs un-stashed and the GD unit
+  reruns the schedule with the error it is handed (two forwards);
+* eval runs the un-stashed forward under either schedule.
 """
 
 import numpy
@@ -41,8 +60,14 @@ class TransformerBlockStack(Forward):
         self.eps = float(eps)
         self.remat = bool(remat)
         #: the forward's stash for the GD unit: a cache per layer, or
-        #: with ``remat`` each layer's input
+        #: with ``remat`` each layer's input; under PP the schedule's
         self.cache = None
+        #: set by parallel.setup_pipeline_parallel (module docstring)
+        self.pipe_mesh = None
+        self.pipe_axis = "pipe"
+        self.pipe_microbatches = 4
+        self.pipe_schedule = "gpipe"
+        self.pipe_tail = None
 
     def initialize(self, input_shape, device):
         self.device = device
@@ -81,12 +106,55 @@ class TransformerBlockStack(Forward):
     def params(self):
         return {name: getattr(self, name) for name in self.PARAMS}
 
+    def pipe_kwargs(self):
+        return {"mesh": self.pipe_mesh, "axis": self.pipe_axis,
+                "n_micro": self.pipe_microbatches, "heads": self.heads,
+                "eps": self.eps, "dot": self.device.dot}
+
     def forward(self, x):
         x = x.to(torch.float32)
-        run = PL.stack_fwd_remat if self.remat else PL.stack_fwd
-        y, self.cache = run(self.params(), x, self.heads, self.causal,
-                            self.eps, self.device.dot)
+        if self.pipe_mesh is None:
+            run = PL.stack_fwd_remat if self.remat else PL.stack_fwd
+            y, self.cache = run(self.params(), x, self.heads, self.causal,
+                                self.eps, self.device.dot)
+        elif self.training and self.pipe_schedule == "1f1b" \
+                and self.pipe_tail is not None:
+            y, dx, grads, _ = PL.pipeline_1f1b_step(
+                self.params(), x, *self._fold(x), causal=self.causal,
+                **self.pipe_kwargs())
+            self.cache = (dx, grads)
+        else:
+            stash = self.training and self.pipe_schedule == "gpipe"
+            y, self.cache = PL.pipeline_fwd(
+                self.params(), x, causal=self.causal, stash=stash,
+                **self.pipe_kwargs())
         return y.to(self.device.act_dtype)
+
+    def _fold(self, x):
+        """(targets, err_fn) of the folded 1F1B step: the labels with pad
+        rows at -1, and the tail and the loss gradient of a microbatch
+        with the minibatch's denominator (valid rows · S) in it."""
+        tail, ev = self.pipe_tail["units"], self.pipe_tail["evaluator"]
+        labels, valid = self.pipe_tail["step"].fold_target
+        mine, total = valid if isinstance(valid, tuple) else (valid, valid)
+        rows = torch.arange(labels.shape[0], device=labels.device)
+        targets = torch.where((rows < mine)[:, None], labels.long(), -1)
+        inv_denom = 1.0 / (torch.as_tensor(total, device=x.device).to(
+            torch.float32) * float(labels.shape[1]))
+        act = self.device.act_dtype
+
+        def err_fn(y_mb, labels_mb):
+            h, ys = y_mb.to(act), []
+            for u in tail:
+                h = u.tail_fwd(h)
+                ys.append(h)
+            err, loss = ev.mb_loss_grad(h.to(torch.float32), labels_mb,
+                                        inv_denom)
+            e = err.to(act)
+            for u, y in zip(reversed(tail), reversed(ys)):
+                e = u.tail_bwd(y, e)
+            return e.to(torch.float32), loss
+        return targets, err_fn
 
 
 @gradient_for(TransformerBlockStack)
@@ -106,7 +174,9 @@ class GDTransformerBlockStack(GradientDescentBase):
         dev = f.device
         x = x.to(torch.float32)
         err = err.reshape(x.shape).to(torch.float32)
-        if f.remat:
+        if f.pipe_mesh is not None:
+            dx, grads = self._pipe_backward(x, err)
+        elif f.remat:
             dx, grads = PL.stack_bwd_remat(f.params(), f.cache, err,
                                            f.heads, f.causal, f.eps,
                                            dev.dot)
@@ -117,3 +187,15 @@ class GDTransformerBlockStack(GradientDescentBase):
         self.update_weights(grads["weights"], grads["bias"])
         self.update_extra(grads)
         return dx.to(dev.act_dtype) if self.need_err_input else None
+
+    def _pipe_backward(self, x, err):
+        f = self.forward
+        if f.pipe_schedule == "gpipe":
+            return PL.pipeline_bwd(f.params(), f.cache, err,
+                                   **f.pipe_kwargs())
+        if f.cache is not None:             # the folded step's
+            return f.cache
+        _, dx, grads, _ = PL.pipeline_1f1b_step(
+            f.params(), x, err, lambda y_mb, e_mb: (e_mb, 0.0),
+            causal=f.causal, **f.pipe_kwargs())
+        return dx, grads

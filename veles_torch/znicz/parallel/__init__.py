@@ -22,8 +22,21 @@ per line of every set of axes) and writes each collective out
 * ``seq``    — sequence parallelism (SP): each rank holds ``S/n``
   positions of every sample and attention runs the ring
   (``parallel/ring.py``); the gradients are summed over the axis;
-* ``expert``, ``pipe`` — expert and pipeline parallelism: ROADMAP Queue
-  1 item 10c, refused until then.
+* ``expert`` — expert parallelism (EP) of the MoE units: each rank keeps
+  E/n experts (and their solver state), the router stays whole, and the
+  batch shards over the axis as over ``data``; the tokens reach their
+  experts by ``"gather"`` (the ``expert`` line's token block gathered,
+  the partial outputs all-reduced: ``ops/moe.py``) or ``"alltoall"`` (the
+  GShard exchange: ``parallel/expert.py``);
+* ``pipe``   — pipeline parallelism (PP) of the block-stack unit: each
+  rank keeps L/P consecutive blocks (a stage) and runs the GPipe or 1F1B
+  schedule over microbatches (``parallel/pipeline.py``); the batch is
+  replicated over the axis, as the units around the stack are.
+
+An MoE unit under any axis routes every token of the minibatch under the
+global quota (``ops/moe.py``), and a dropout unit under ``data`` or
+``seq`` draws the minibatch's one mask and keeps its rows or positions
+(``ops/dropout.py``).
 
 :func:`init_multihost` joins the process group and declares its
 transport (``collectives.py``: ``nccl``, ``gloo-host``, ``gloo``);
@@ -31,12 +44,15 @@ transport (``collectives.py``: ``nccl``, ``gloo-host``, ``gloo``);
 the group, and tears every rank down within a bounded time when one
 fails. :func:`collective_counts` is the collectives the last train step
 issued, the port's counterpart of counting opcodes in the partitioned
-HLO. ``pipeline.py`` holds the stacked block's single-program math.
+HLO. ``pipeline.py`` holds the stacked block's math and schedules.
+Still to port (ROADMAP Queue 1 item 10d, raising until then): DP of a
+workflow whose step is its own body (the SOM, the RBM).
 """
 
 import collections
 import datetime
 import itertools
+import logging
 import multiprocessing
 import os
 import queue as queue_mod
@@ -52,11 +68,13 @@ import torch.distributed as dist
 
 from veles_torch.znicz.parallel import collectives
 
+logger = logging.getLogger(__name__)
+
 #: the axes the reference names, in the order _setup_parallel lays them
 AXES = ("data", "seq", "model", "expert", "pipe")
 
-#: the ROADMAP item the unported axes wait for
-LATER = "ROADMAP Queue 1 item 10c"
+#: the ROADMAP item the unported parts of the layer wait for
+LATER = "ROADMAP Queue 1 item 10d"
 
 #: seconds a collective may wait on a peer before the group fails it
 DEFAULT_TIMEOUT_S = 600.0
@@ -280,10 +298,12 @@ def assert_collectives(step, expected):
 # shards of a parameter
 
 
-#: how a parameter is cut over the model axis: along ``dim``, each of its
-#: ``parts`` equal sections (3 for the fused q|k|v projection) cut into
-#: n chunks, rank r keeping chunk r of every section
-ShardSpec = collections.namedtuple("ShardSpec", ("dim", "parts"))
+#: how a parameter is cut over the mesh axis ``axis``: along ``dim``, each
+#: of its ``parts`` equal sections (3 for the fused q|k|v projection) cut
+#: into n chunks, rank r keeping chunk r of every section. TP cuts over
+#: ``model``, EP the experts over ``expert``, PP the layers over ``pipe``
+ShardSpec = collections.namedtuple("ShardSpec", ("dim", "parts", "axis"),
+                                   defaults=("model",))
 
 
 def shard_of(full, spec, n, r):
@@ -313,30 +333,59 @@ def _step_of(workflow):
     if step.body is not None:
         raise NotImplementedError(
             "%s: its step is its own body (no GD chain whose gradients "
-            "the mesh could sum); the parallel axes drive GD workflows"
-            % workflow.name)
+            "the mesh could sum); the parallel axes drive GD workflows "
+            "(%s)" % (workflow.name, LATER))
     return step
-
-
-def _refuse_dropout(workflow, axis):
-    """A dropout unit would draw the same mask on every rank of ``axis``
-    (one generator, seeded alike) for that rank's own rows or positions:
-    correlated masks, not the one mask over the whole minibatch that one
-    device draws."""
-    from veles_torch.znicz.ops.dropout import DropoutForward
-    for fwd in workflow.forwards:
-        if isinstance(fwd, DropoutForward):
-            raise NotImplementedError(
-                "%s: dropout unit %s under the %r axis: every rank would "
-                "draw the same mask for its own shard, not one mask over "
-                "the whole minibatch (%s)" % (workflow.name, fwd.name, axis,
-                                              LATER))
 
 
 def _attach(workflow, mesh):
     workflow.mesh = mesh
     workflow.device.mesh = mesh
     workflow.step.mesh = mesh
+
+
+def _lay_out(workflow):
+    """Tell the units that see the whole minibatch where this rank's
+    share lies, after every setup: a dropout unit its batch and seq axes;
+    an MoE unit its token axes, with the gradient axes of its experts and
+    router. An MoE unit under a batch axis needs the minibatch to divide
+    (a padded row would take a slot the one device never routes)."""
+    from veles_torch.znicz.ops.dropout import DropoutForward
+    from veles_torch.znicz.ops.moe import MoEFFN
+    step, mesh = workflow.step, workflow.mesh
+    for i, fwd in enumerate(workflow.forwards):
+        if isinstance(fwd, DropoutForward):
+            fwd.mesh = mesh
+            fwd.batch_axes = step.batch_axes
+            fwd.seq_axis = step.seq_axis
+        if not isinstance(fwd, MoEFFN):
+            continue
+        fwd.data_axes = tuple(a for a in step.batch_axes
+                              if a != fwd.expert_axis)
+        fwd.seq_axis = step.seq_axis
+        fwd.model_axis = step.model_axis
+        sharded = fwd.data_axes or fwd.seq_axis or fwd.expert_axis
+        fwd.mesh = mesh if sharded else None
+        mb = workflow.loader.max_minibatch_size
+        shards = mesh.axis_size(step.batch_axes)
+        if fwd.routing == "alltoall":
+            shards *= mesh.axis_size(tuple(a for a in (fwd.seq_axis,
+                                                       fwd.model_axis) if a))
+        if mb % shards:
+            raise ValueError(
+                "%s: the minibatch %d does not divide into the %d token "
+                "shards of the mesh %s" % (fwd.name, mb, shards,
+                                           dict(mesh.shape)))
+        gd = workflow.gds[i] if i < len(workflow.gds) else None
+        if gd is None or fwd.expert_axis is None:
+            continue
+        others = tuple(a for a in mesh.axis_names if a != fwd.expert_axis)
+        experts = others if fwd.routing == "alltoall" else tuple(
+            a for a in step.grad_axes if a != fwd.expert_axis)
+        gd.reduce_axes = {k: experts for k in EP_KEYS}
+        if fwd.routing == "alltoall" \
+                and set(mesh.axis_names) != set(step.grad_axes):
+            gd.reduce_axes["router"] = tuple(mesh.axis_names)
 
 
 def setup_data_parallel(workflow, mesh=None, axis="data", refresh=True):
@@ -346,7 +395,6 @@ def setup_data_parallel(workflow, mesh=None, axis="data", refresh=True):
     the axis and the gradients summed over it before every update.
     ``refresh`` is the reference's; the port has nothing to re-place."""
     step = _step_of(workflow)
-    _refuse_dropout(workflow, axis)
     if mesh is None:
         mesh = make_mesh()
     if step.model_axis is not None:
@@ -358,6 +406,7 @@ def setup_data_parallel(workflow, mesh=None, axis="data", refresh=True):
         step.batch_axes = step.batch_axes + (axis,)
     if axis not in step.grad_axes:
         step.grad_axes = step.grad_axes + (axis,)
+    _lay_out(workflow)
     return mesh
 
 
@@ -373,7 +422,6 @@ def setup_sequence_parallel(workflow, mesh, axis="seq", batch_axis=None):
     from veles_torch.znicz.ops.attention import MultiHeadAttention
     from veles_torch.znicz.ops.embedding import EmbeddingForward
     step = _step_of(workflow)
-    _refuse_dropout(workflow, axis)
     n = mesh.shape[axis]
     touched = 0
     s = None
@@ -399,6 +447,7 @@ def setup_sequence_parallel(workflow, mesh, axis="seq", batch_axis=None):
     step.seq_axis = axis
     if axis not in step.grad_axes:
         step.grad_axes = step.grad_axes + (axis,)
+    _lay_out(workflow)
     return mesh
 
 
@@ -433,7 +482,6 @@ def setup_tensor_parallel(workflow, mesh, axis="model", refresh=True):
     specs = {}
     touched = 0
     for i, fwd in enumerate(workflow.forwards):
-        gd = workflow.gds[i] if i < len(workflow.gds) else None
         if isinstance(fwd, MultiHeadAttention):
             if (fwd.heads % n) or fwd.seq_mesh is not None:
                 continue   # head split impossible / ring owns attention
@@ -444,46 +492,161 @@ def setup_tensor_parallel(workflow, mesh, axis="model", refresh=True):
             kind = "ffn"
         else:
             continue
-        for key, spec in TP_SPECS[kind].items():
-            if getattr(fwd, key) is None:
-                continue
-            specs[(fwd.name, key)] = spec
-            setattr(fwd, key, shard_of(getattr(fwd, key), spec, n, r))
-            if gd is None:
-                continue
-            for prefix in ("vel_", "acc_", "sq_"):
-                state = getattr(gd, prefix + key, None)
-                if state is not None:
-                    specs[(gd.name, prefix + key)] = spec
-                    setattr(gd, prefix + key, shard_of(state, spec, n, r))
+        _shard_unit(workflow, i, TP_SPECS[kind], n, r, specs)
         fwd.tp_mesh = mesh
         fwd.tp_axis = axis
-        if gd is not None:
-            step.sharded_stats.add(gd.name)
         touched += 1
     if not touched:
         raise ValueError("no TP-shardable units found")
     _attach(workflow, mesh)
     workflow.shard_specs.update(specs)
     step.model_axis = axis
+    _lay_out(workflow)
     return mesh
+
+
+def _shard_unit(workflow, i, key_specs, n, r, specs):
+    """Cut each parameter of forward ``i`` that ``key_specs`` ({key:
+    ShardSpec}) names, and its GD unit's ``vel_``/``acc_``/``sq_`` state,
+    into rank ``r``'s shard of ``n``, recording the specs in ``specs``;
+    the GD unit's stats then sum over the specs' axis."""
+    fwd = workflow.forwards[i]
+    gd = workflow.gds[i] if i < len(workflow.gds) else None
+    for key, spec in key_specs.items():
+        if getattr(fwd, key) is None:
+            continue
+        specs[(fwd.name, key)] = spec
+        setattr(fwd, key, shard_of(getattr(fwd, key), spec, n, r))
+        if gd is None:
+            continue
+        for prefix in ("vel_", "acc_", "sq_"):
+            state = getattr(gd, prefix + key, None)
+            if state is not None:
+                specs[(gd.name, prefix + key)] = spec
+                setattr(gd, prefix + key, shard_of(state, spec, n, r))
+    if gd is not None:
+        workflow.step.sharded_stats[gd.name] = spec.axis
+
+
+#: the expert parameters EP shards (the router stays whole)
+EP_KEYS = ("weights", "bias", "weights2", "bias2")
 
 
 def setup_expert_parallel(workflow, mesh, axis="expert", refresh=True,
                           routing="gather"):
-    """Expert parallelism for MoE units: not ported yet."""
-    raise NotImplementedError(
-        "expert parallelism (parallel/expert.py, routing %r) is not ported "
-        "yet (%s)" % (routing, LATER))
+    """EP of the MoE units over ``axis``: the leading (expert) dim of every
+    expert parameter and of its ``vel_``/``acc_``/``sq_`` state is cut
+    into n shards (E/n experts a rank); the router stays whole. The batch
+    shards over the axis as over ``data`` (the gradients of every other
+    parameter are summed over it). ``routing``: ``"gather"`` or
+    ``"alltoall"`` (module docstring); expert gradients sum over the
+    token axes but ``expert``, router gradients over all of them.
+    ``refresh`` is the reference's; the port has nothing to re-place."""
+    from veles_torch.znicz.ops.moe import MoEFFN
+    if routing not in ("gather", "alltoall"):
+        raise ValueError("routing must be 'gather' or 'alltoall', "
+                         "got %r" % (routing,))
+    step = _step_of(workflow)
+    n = mesh.shape[axis]
+    r = mesh.index(axis)
+    specs = {}
+    touched = 0
+    for i, fwd in enumerate(workflow.forwards):
+        if not isinstance(fwd, MoEFFN):
+            continue
+        if fwd.experts % n:
+            raise ValueError(
+                "%s: %s axis size %d does not divide expert count %d"
+                % (fwd.name, axis, n, fwd.experts))
+        _shard_unit(workflow, i,
+                    dict.fromkeys(EP_KEYS, ShardSpec(0, 1, axis)), n, r,
+                    specs)
+        fwd.expert_axis = axis
+        fwd.routing = routing
+        touched += 1
+    if not touched:
+        raise ValueError("no MoE units to expert-parallelize")
+    _attach(workflow, mesh)
+    workflow.shard_specs.update(specs)
+    if axis not in step.batch_axes:
+        step.batch_axes = step.batch_axes + (axis,)
+    if axis not in step.grad_axes:
+        step.grad_axes = step.grad_axes + (axis,)
+    _lay_out(workflow)
+    return mesh
 
 
 def setup_pipeline_parallel(workflow, mesh, axis="pipe", microbatches=4,
                             batch_axis=None, refresh=True,
                             schedule="gpipe"):
-    """Pipeline parallelism for the block-stack unit: not ported yet."""
-    raise NotImplementedError(
-        "pipeline parallelism (parallel/pipeline.py, schedule %r) is not "
-        "ported yet (%s)" % (schedule, LATER))
+    """PP of the block-stack units over ``axis``: the stacked layer dim of
+    every parameter and of its solver state is cut into n stages of L/n
+    consecutive blocks, and the unit runs ``schedule`` over
+    ``microbatches`` microbatches (``parallel/pipeline.py``):
+    ``"gpipe"`` or ``"1f1b"``, whose train step folds the loss in (one
+    pipelined forward) when every unit between the stack and the
+    evaluator speaks the loss-tail protocol and the evaluator has
+    ``mb_loss_grad``, and else forwards twice. ``batch_axis`` names the
+    axis the batch shards over when PP composes with DP; the
+    microbatches must divide the per-shard minibatch. The stage
+    gradients are summed over the batch axis alone."""
+    from veles_torch.znicz.ops.transformer_stack import (
+        TransformerBlockStack)
+    if schedule not in ("gpipe", "1f1b"):
+        raise ValueError("schedule must be 'gpipe' or '1f1b', got %r"
+                         % (schedule,))
+    step = _step_of(workflow)
+    n = mesh.shape[axis]
+    r = mesh.index(axis)
+    dp = mesh.shape[batch_axis] if batch_axis else 1
+    specs = {}
+    touched = 0
+    for i, fwd in enumerate(workflow.forwards):
+        if not isinstance(fwd, TransformerBlockStack):
+            continue
+        if fwd.layers % n:
+            raise ValueError(
+                "%s: %s axis size %d does not divide layer count %d"
+                % (fwd.name, axis, n, fwd.layers))
+        per = -(-workflow.loader.max_minibatch_size // dp)
+        if per % microbatches:
+            raise ValueError(
+                "%s: %d microbatches do not divide the per-shard "
+                "minibatch %d" % (fwd.name, microbatches, per))
+        fwd.pipe_mesh = mesh
+        fwd.pipe_axis = axis
+        fwd.pipe_microbatches = int(microbatches)
+        fwd.pipe_schedule = schedule
+        fwd.pipe_tail = None
+        if schedule == "1f1b":
+            tail = list(workflow.forwards[i + 1:])
+            ev = workflow.evaluator
+            if callable(getattr(ev, "mb_loss_grad", None)) and all(
+                    callable(getattr(u, "tail_fwd", None))
+                    and callable(getattr(u, "tail_bwd", None))
+                    for u in tail):
+                fwd.pipe_tail = {"units": tail, "evaluator": ev,
+                                 "step": step}
+            else:
+                logger.warning(
+                    "%s: 1F1B loss tail %s -> %s is not foldable; the "
+                    "train step will pay a second (un-stashed) forward "
+                    "pass", fwd.name, [type(u).__name__ for u in tail],
+                    type(ev).__name__)
+        _shard_unit(workflow, i,
+                    dict.fromkeys(fwd.PARAMS, ShardSpec(0, 1, axis)), n, r,
+                    specs)
+        touched += 1
+    if not touched:
+        raise ValueError("no block-stack units to pipeline")
+    _attach(workflow, mesh)
+    workflow.shard_specs.update(specs)
+    # a collective of the whole pipe line first: NCCL leaves undefined a
+    # group whose first call is a batch of point-to-point ops that some
+    # of its ranks do not join (a tick where a stage has no hop)
+    collectives.all_reduce(torch.zeros(1, device=workflow.device.device),
+                           mesh, axis)
+    return mesh
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,14 @@ call over the process group of a mesh line (``Mesh.group``):
 * :func:`all_reduce` (sum or max), :func:`all_gather`, :func:`broadcast`;
 * :func:`ppermute` — the ring hop: each rank sends its tensors to the
   next rank of the axis and receives the previous rank's, as one batch
-  of paired ``isend``/``irecv`` (``batch_isend_irecv``).
+  of paired ``isend``/``irecv`` (``batch_isend_irecv``);
+* :func:`all_to_all` — the expert exchange: chunk ``j`` of dim 0 goes to
+  rank ``j`` of the axis, and the chunks received come back in rank
+  order (``all_to_all_single``);
+* :func:`hop` — the pipeline's tick: this rank's sends to and receives
+  from its neighbours on the axis, only the ones the static schedule
+  gives it, as one ``batch_isend_irecv`` (the peer posts the other side
+  of each hop in the same tick).
 
 The transport is declared when the process group is made
 (:func:`set_transport`), never chosen here:
@@ -25,10 +32,12 @@ The transport is declared when the process group is made
 A tensor on another device than the transport takes raises.
 
 Each call is counted under the reference's HLO opcode names
-(``all-reduce``, ``all-gather``, ``collective-permute`` — one per tensor
-moved, as one ``lax.ppermute`` is one HLO op — and ``broadcast``), with
+(``all-reduce``, ``all-gather``, ``all-to-all``, ``collective-permute`` —
+one per tensor moved, as one ``lax.ppermute`` is one HLO op; a pipeline
+hop counts its sends — and ``broadcast``), with
 its bytes and its host seconds. :func:`step_window` brackets one train
-step: the step's counts are what ``parallel.collective_counts`` reports,
+step: the step's counts are what ``parallel.collective_counts`` reports
+(and its bytes ``TorchStep.collective_bytes``),
 the port's hardware-free proof that a mode distributes work.
 """
 
@@ -68,16 +77,23 @@ def transport():
 
 
 @contextlib.contextmanager
-def step_window(into):
+def step_window(into, bytes_into=None):
     """Count the collectives issued inside the block into the dict
-    ``into`` (cleared first): {opcode: calls}."""
+    ``into`` (cleared first): {opcode: calls}; and, given, their bytes
+    into ``bytes_into``: {opcode: bytes}."""
     before = collections.Counter(counts)
+    before_bytes = collections.Counter(nbytes)
     try:
         yield into
     finally:
         into.clear()
         into.update({op: n - before[op] for op, n in counts.items()
                      if n - before[op]})
+        if bytes_into is not None:
+            bytes_into.clear()
+            bytes_into.update({op: n - before_bytes[op]
+                               for op, n in nbytes.items()
+                               if n - before_bytes[op]})
 
 
 def _account(op, tensors, t0, calls=1):
@@ -201,3 +217,62 @@ def ppermute(tensors, mesh, axis, shift=1):
     out = [t.to(tensors[0].device) for t in _unpack(recv, tensors)]
     _account("collective-permute", tensors, t0, calls=len(tensors))
     return out
+
+
+def all_to_all(tensor, mesh, axis):
+    """The all-to-all over ``axis``: dim 0 of ``tensor`` (a multiple of the
+    axis size n) is cut into n equal chunks, chunk ``j`` goes to rank
+    ``j`` of the axis, and the result holds, in the same place, the
+    chunks this rank received, in the axis' rank order (a new tensor).
+    One call, counted as ``all-to-all``."""
+    group, size = mesh.group((axis,))
+    if size == 1:
+        return tensor
+    if tensor.shape[0] % size:
+        raise ValueError("all_to_all over %s (%d ranks): dim 0 is %d"
+                         % (axis, size, tensor.shape[0]))
+    mode = _check([tensor])
+    t0 = time.perf_counter()
+    (buf,) = _host([tensor], mode)
+    buf = buf.contiguous()
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    out = out.to(tensor.device)
+    _account("all-to-all", [tensor], t0)
+    return out
+
+
+def hop(mesh, axis, sends=(), recvs=()):
+    """One tick of the pipeline over ``axis``: ``sends`` is [(shift,
+    tensor)], each tensor going to the rank ``shift`` (±1) places on;
+    ``recvs`` is [(shift, shape, dtype, device)], each tensor received
+    from the rank ``shift`` places on -> the received tensors, on
+    ``device``. Every op of the tick goes in ONE ``batch_isend_irecv``
+    (under ``gloo-host`` through host buffers); the peer of each op
+    posts the other side in the same tick. Counted as one
+    ``collective-permute`` per tensor sent, with its bytes."""
+    if not sends and not recvs:
+        return []
+    group, _ = mesh.group((axis,))
+    mode = transport()
+    t0 = time.perf_counter()
+    line = mesh.line((axis,))
+    me = mesh.index(axis)
+    ops, out = [], []
+    for shift, t in sends:
+        _check([t])
+        (buf,) = _host([t], mode)
+        ops.append(dist.P2POp(dist.isend, buf.contiguous(),
+                              line[me + shift], group))
+    for shift, shape, dtype, dev in recvs:
+        where = "cpu" if mode != "nccl" else dev
+        buf = torch.empty(shape, dtype=dtype, device=where)
+        ops.append(dist.P2POp(dist.irecv, buf, line[me + shift], group))
+        out.append((buf, dev))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    got = [buf.to(dev) for buf, dev in out]
+    if sends:
+        _account("collective-permute", [t for _, t in sends], t0,
+                 calls=len(sends))
+    return got

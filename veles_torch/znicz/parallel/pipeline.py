@@ -1,7 +1,7 @@
-"""The stacked transformer block's math, single-program part.
+"""The stacked transformer block's math and the pipeline schedules.
 
-Counterpart of the single-program half of
-``veles/znicz_tpu/parallel/pipeline.py`` (the port's own copy):
+Counterpart of ``veles/znicz_tpu/parallel/pipeline.py`` (the port's own
+copy):
 
 * :func:`block_fwd` / :func:`block_bwd` — one post-LN transformer block
   (MHA + residual -> LN -> FFN + residual -> LN) and its hand-written
@@ -16,13 +16,41 @@ Counterpart of the single-program half of
   operations on the same values, so the result is bit for bit the
   non-remat one.
 
+* :func:`pipeline_fwd` / :func:`pipeline_bwd` — GPipe over a ``pipe``
+  axis: the rank of stage ``s`` owns ``L/P`` consecutive blocks (its
+  shard of the stacked parameters); microbatch ``m`` runs on stage ``s``
+  at tick ``m + s`` forward and at tick ``m + P − 1 − s`` backward, its
+  activations (and error) hopping to the next (previous) stage between
+  ticks; the forward stashes every microbatch's caches;
+* :func:`build_1f1b_schedule` — the static 1F1B (PipeDream-flush)
+  schedule, host-side numpy, the reference's as it is;
+* :func:`pipeline_1f1b_step` — the forwards and backwards interleaved by
+  that schedule, the last stage turning each finished forward into its
+  error at once (``err_fn``); a stage stashes at most ``min(M, P − s)``
+  microbatches' caches where GPipe stashes ``M``.
+
+The reference runs every stage every tick under ``shard_map`` and
+permutes zeros where nothing is due; here each rank runs only its due
+work, and each tick posts exactly the hops the static schedule gives it,
+both sides of each hop in the same tick (:func:`stage_hop`, one
+``batch_isend_irecv``): no hop that nobody reads. The reference's
+``psum`` of the last stage's outputs and of stage 0's input gradient is
+an all-reduce over ``pipe`` (zeros on the other stages); the parameter
+gradients stay on their stage (the step sums them over ``data``), and the
+weights never move. :data:`counts` counts each stage's chunk forwards
+and backwards (one microbatch through its blocks).
+
 ``dot`` is the matmul (the device's ``dot``: compute-dtype inputs, f32
 sums). The bias sums go through ``ops/bias_grad.bias_grad``, as the
-per-layer units' do (its identity form: the kernel on the card). The GPipe
-and 1F1B schedules across devices are ROADMAP Queue 1 item 10c.
+per-layer units' do (its identity form: the kernel on the card).
 """
 
+import collections
+
+import numpy
 import torch
+
+from veles_torch.znicz.parallel import collectives as C
 
 from veles_torch.znicz.ops import activations as A
 from veles_torch.znicz.ops.attention import (
@@ -155,3 +183,230 @@ def stack_bwd_remat(params, xs, err, heads, causal, eps, dot=torch.matmul):
         _, cache = block_fwd(xs[i], lp, heads, causal, eps, dot)
         err, grads[i] = block_bwd(lp, cache, err, heads, eps, dot)
     return err, _stacked(grads)
+
+
+# ---------------------------------------------------------------------------
+# the schedules over a pipe axis
+
+#: {"forward": chunk forwards, "backward": chunk backwards} run by this
+#: process's schedules (one microbatch through a stage's blocks)
+counts = collections.Counter()
+
+
+def stage_hop(mesh, axis, sends, recvs):
+    """One tick's hops of this stage: ``sends`` [(shift, tensor,
+    microbatch)], ``recvs`` [(shift, shape, dtype, device, microbatch)]
+    -> the received tensors (``collectives.hop``)."""
+    return C.hop(mesh, axis, [(sh, t) for sh, t, _ in sends],
+                 [r[:4] for r in recvs])
+
+
+def _stage(mesh, axis):
+    return mesh.shape[axis], mesh.index(axis)
+
+
+def _gsum(acc, grads):
+    if acc is None:
+        return grads
+    return {key: acc[key] + grads[key] for key in acc}
+
+
+def _psum_stage(t, keep, mesh, axis):
+    """The reference's ``psum`` over the axis of a value only one stage
+    holds (``keep``): -> every stage's copy of it."""
+    return C.all_reduce(t if keep else torch.zeros_like(t), mesh, axis)
+
+
+def pipeline_fwd(params, x, mesh, axis="pipe", n_micro=4, heads=4,
+                 causal=True, eps=1e-5, dot=torch.matmul, stash=True):
+    """GPipe forward of this rank's f32 rows ``x`` (b, S, D) over the
+    stage's blocks ``params`` (leaves (L/P, ...)) -> (y on every stage,
+    the stage's caches by microbatch, or None with ``stash=False``)."""
+    n_stage, me = _stage(mesh, axis)
+    b = x.shape[0]
+    bm = b // n_micro
+    shape = (bm,) + tuple(x.shape[1:])
+    xs = x.reshape((n_micro,) + shape)
+    last = me == n_stage - 1
+    outs = torch.zeros((n_micro,) + shape, dtype=torch.float32,
+                       device=x.device)
+    caches = [None] * n_micro if stash else None
+    recv = None
+    for t in range(n_micro + n_stage - 1):
+        m = t - me
+        sends = []
+        if 0 <= m < n_micro:
+            y, cache = stack_fwd(params, xs[m] if me == 0 else recv, heads,
+                                 causal, eps, dot)
+            counts["forward"] += 1
+            if stash:
+                caches[m] = cache
+            if last:
+                outs[m] = y
+            else:
+                sends.append((1, y, m))
+        prev = t - (me - 1)
+        recvs = [(-1, shape, torch.float32, x.device, prev)] \
+            if me > 0 and 0 <= prev < n_micro else []
+        got = stage_hop(mesh, axis, sends, recvs)
+        recv = got[0] if recvs else None
+    y = _psum_stage(outs, last, mesh, axis).reshape(x.shape)
+    return y, caches
+
+
+def pipeline_bwd(params, caches, err, mesh, axis="pipe", n_micro=4,
+                 heads=4, eps=1e-5, dot=torch.matmul):
+    """GPipe backward: the error microbatches flow from the last stage to
+    the first, each stage consuming its stashed caches -> (dx on every
+    stage, the stage's parameter gradients summed over the
+    microbatches)."""
+    n_stage, me = _stage(mesh, axis)
+    b = err.shape[0]
+    bm = b // n_micro
+    shape = (bm,) + tuple(err.shape[1:])
+    es = err.reshape((n_micro,) + shape)
+    dxs = torch.zeros((n_micro,) + shape, dtype=torch.float32,
+                      device=err.device)
+    grads, recv = None, None
+    for t in range(n_micro + n_stage - 1):
+        m = t - (n_stage - 1 - me)
+        sends = []
+        if 0 <= m < n_micro:
+            din = es[m] if me == n_stage - 1 else recv
+            dx, g = stack_bwd(params, caches[m], din, heads, eps, dot)
+            caches[m] = None
+            counts["backward"] += 1
+            grads = _gsum(grads, g)
+            if me == 0:
+                dxs[m] = dx
+            else:
+                sends.append((-1, dx, m))
+        nxt = t - (n_stage - 2 - me)
+        recvs = [(1, shape, torch.float32, err.device, nxt)] \
+            if me < n_stage - 1 and 0 <= nxt < n_micro else []
+        got = stage_hop(mesh, axis, sends, recvs)
+        recv = got[0] if recvs else None
+    dx = _psum_stage(dxs, me == 0, mesh, axis).reshape(err.shape)
+    return dx, grads
+
+
+def build_1f1b_schedule(n_stage, n_micro):
+    """Host-side static schedule: (actions, fidx, bidx) as (T, P) int32
+    arrays — at tick t stage s performs actions[t, s] (0 idle, 1 forward,
+    2 backward) on microbatch fidx/bidx[t, s]. Classic non-interleaved
+    1F1B: stage s runs ``P − s`` warm-up forwards, then alternates
+    backward and forward, then drains backwards; the peak stash of stage
+    s is ``min(M, P − s)`` microbatches. Built by simulation with explicit
+    causality (an F/B consumes its neighbour's output from a strictly
+    earlier tick). The reference's, as it is."""
+    P, M = int(n_stage), int(n_micro)
+    f_done = [[-1] * M for _ in range(P)]
+    b_done = [[-1] * M for _ in range(P)]
+    f_cnt = [0] * P
+    b_cnt = [0] * P
+    actions, fidx, bidx = [], [], []
+    t = 0
+    while any(b < M for b in b_cnt):
+        act_t, f_t, b_t = [], [], []
+        for s in range(P):
+            f, b = f_cnt[s], b_cnt[s]
+            can_f = f < M and (s == 0 or f_done[s - 1][f] >= 0) \
+                and (f - b) < max(P - s, 1)
+            can_b = b < M and (
+                (s == P - 1 and f_done[s][b] >= 0)
+                or (s < P - 1 and b_done[s + 1][b] >= 0))
+            warm = (f - b) >= max(P - s, 1) or f == M
+            if can_b and (warm or not can_f):
+                act_t.append(2)
+                f_t.append(0)
+                b_t.append(b)
+            elif can_f:
+                act_t.append(1)
+                f_t.append(f)
+                b_t.append(0)
+            else:
+                act_t.append(0)
+                f_t.append(0)
+                b_t.append(0)
+        for s in range(P):
+            if act_t[s] == 1:
+                f_done[s][f_t[s]] = t
+                f_cnt[s] += 1
+            elif act_t[s] == 2:
+                b_done[s][b_t[s]] = t
+                b_cnt[s] += 1
+        actions.append(act_t)
+        fidx.append(f_t)
+        bidx.append(b_t)
+        t += 1
+        if t > 4 * (M + P):
+            raise RuntimeError("1F1B schedule did not converge")
+    return (numpy.asarray(actions, numpy.int32),
+            numpy.asarray(fidx, numpy.int32),
+            numpy.asarray(bidx, numpy.int32))
+
+
+def pipeline_1f1b_step(params, x, targets, err_fn, mesh, axis="pipe",
+                       n_micro=4, heads=4, causal=True, eps=1e-5,
+                       dot=torch.matmul):
+    """One 1F1B segment of this rank's f32 rows ``x`` (b, S, D): the
+    forwards and backwards of :func:`build_1f1b_schedule`, the last stage
+    turning each finished forward into its error by ``err_fn(y_mb,
+    targets_mb) -> (err_mb, loss)`` -> (y, dx, the stage's gradients,
+    the loss summed over the microbatches), y, dx and the loss on every
+    stage. Sums over the microbatches, never means: an ``err_fn`` with the
+    minibatch's denominator in it needs no rescale."""
+    n_stage, me = _stage(mesh, axis)
+    actions, fidx, bidx = build_1f1b_schedule(n_stage, n_micro)
+    b = x.shape[0]
+    bm = b // n_micro
+    shape = (bm,) + tuple(x.shape[1:])
+    xs = x.reshape((n_micro,) + shape)
+    ts = targets.reshape((n_micro, bm) + tuple(targets.shape[1:]))
+    last = me == n_stage - 1
+    outs = torch.zeros((n_micro,) + shape, dtype=torch.float32,
+                       device=x.device)
+    dxs = torch.zeros_like(outs)
+    loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches, errs, got_f, got_b = {}, {}, {}, {}
+    grads = None
+    for t in range(len(actions)):
+        act = actions[t, me]
+        sends = []
+        if act == 1:
+            m = int(fidx[t, me])
+            y, caches[m] = stack_fwd(
+                params, xs[m] if me == 0 else got_f.pop(m), heads, causal,
+                eps, dot)
+            counts["forward"] += 1
+            if last:
+                errs[m], mb_loss = err_fn(y, ts[m])
+                loss = loss + mb_loss
+                outs[m] = y
+            else:
+                sends.append((1, y, m))
+        elif act == 2:
+            m = int(bidx[t, me])
+            din = errs.pop(m) if last else got_b.pop(m)
+            dx, g = stack_bwd(params, caches.pop(m), din, heads, eps, dot)
+            counts["backward"] += 1
+            grads = _gsum(grads, g)
+            if me == 0:
+                dxs[m] = dx
+            else:
+                sends.append((-1, dx, m))
+        recvs = []
+        if me > 0 and actions[t, me - 1] == 1:
+            recvs.append((-1, shape, torch.float32, x.device,
+                          int(fidx[t, me - 1])))
+        if not last and actions[t, me + 1] == 2:
+            recvs.append((1, shape, torch.float32, x.device,
+                          int(bidx[t, me + 1])))
+        for (shift, _, _, _, m), tensor in zip(
+                recvs, stage_hop(mesh, axis, sends, recvs)):
+            (got_f if shift < 0 else got_b)[m] = tensor
+    n = outs.numel()
+    yl = _psum_stage(torch.cat([outs.reshape(-1), loss.reshape(1)]), last,
+                     mesh, axis)
+    dx = _psum_stage(dxs, me == 0, mesh, axis).reshape(x.shape)
+    return yl[:n].reshape(x.shape), dx, grads, yl[n]

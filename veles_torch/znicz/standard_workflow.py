@@ -55,10 +55,12 @@ shell (:meth:`NNWorkflow.link_shell`, ``interaction.py``), then the
 snapshotter (:meth:`NNWorkflow.link_snapshotter`, or
 ``snapshotter_config``) and the rollback (:meth:`NNWorkflow.link_rollback`).
 
-On a mesh under tensor parallelism (``shard_specs`` set by
-``parallel.setup_tensor_parallel``) :meth:`NNWorkflow.checkpoint_state`
-gathers every sharded parameter and solver tensor over the ``model`` axis
-into the full one (a collective: every rank calls it, rank 0 writes), so
+On a mesh under tensor, expert or pipeline parallelism (``shard_specs``
+set by ``parallel.setup_tensor_parallel``, ``setup_expert_parallel`` and
+``setup_pipeline_parallel``) :meth:`NNWorkflow.checkpoint_state` gathers
+every sharded parameter and solver tensor over its spec's axis (``model``,
+``expert`` or ``pipe``) into the full one (a collective: every rank calls
+it, rank 0 writes), so
 a checkpoint holds the reference's full tensors, and
 :meth:`NNWorkflow.import_tree` cuts a full tensor into this rank's shard.
 
@@ -292,8 +294,8 @@ class NNWorkflow:
         """Write the inference archive (contents.json + .npy weights) of
         this workflow's forward chain; -> the path of its contents.json.
         On a mesh every rank calls it and rank 0 alone writes (-> None on
-        the others); under TP the archive holds the full tensors, gathered
-        over the model axis (a collective)."""
+        the others); on a sharded mesh the archive holds the full tensors,
+        gathered over each shard's axis (a collective)."""
         with self._full_forward_params():
             if self.mesh is not None and self.mesh.rank != 0:
                 return None
@@ -301,7 +303,7 @@ class NNWorkflow:
 
     @contextlib.contextmanager
     def _full_forward_params(self):
-        """The forwards' TP shards swapped for their full tensors for the
+        """The forwards' shards swapped for their full tensors for the
         block's duration (the gathers run in ``shard_specs``' order, the
         same on every rank)."""
         units = {f.name: f for f in self.forwards}
@@ -497,25 +499,25 @@ class NNWorkflow:
         return tree
 
     def _full_tensor(self, name, key, t):
-        """The full tensor of a TP shard (gathered over the model axis: a
+        """The full tensor of a shard (gathered over its spec's axis: a
         collective), else ``t``."""
         spec = self.shard_specs.get((name, key))
         if spec is None:
             return t
         from veles_torch.znicz.parallel import collectives, unshard
         return unshard(collectives.all_gather(
-            t.contiguous(), self.mesh, self.step.model_axis), spec)
+            t.contiguous(), self.mesh, spec.axis), spec)
 
     def _own_part(self, name, key, value):
-        """This rank's shard of a full checkpoint value under TP, else
-        the value."""
+        """This rank's shard of a full checkpoint value of a sharded
+        tensor, else the value."""
         spec = self.shard_specs.get((name, key))
         if spec is None:
             return value
         from veles_torch.znicz.parallel import shard_of
-        axis = self.step.model_axis
         return shard_of(torch.as_tensor(numpy.asarray(value)), spec,
-                        self.mesh.axis_size(axis), self.mesh.index(axis))
+                        self.mesh.axis_size(spec.axis),
+                        self.mesh.index(spec.axis))
 
     def restore_state(self, tree):
         """Load a checkpoint tree (this package's or the reference's) into

@@ -103,7 +103,8 @@ re-upload step is needed. The bias gradient runs as on the standalone
 path: one launch per GD unit with a bias in a train job.
 
 On a mesh (``veles_torch/znicz/parallel``: ``setup_data_parallel``,
-``setup_sequence_parallel``, ``setup_tensor_parallel``) every rank runs
+``setup_sequence_parallel``, ``setup_tensor_parallel``,
+``setup_expert_parallel``, ``setup_pipeline_parallel``) every rank runs
 this step on its share, the same seed on every rank:
 
 * each rank takes its rows of the one global index matrix: the
@@ -113,22 +114,29 @@ this step on its share, the same seed on every rank:
   global valid count. Under sequence parallelism each rank also takes
   its ``S/n`` columns of the token data and labels;
 * the GD units' updates are deferred while the chain runs, then every
-  gradient of the step goes into ONE flat f32 bucket, all-reduced (sum)
-  over the data and seq axes, and the updates run on the sums in the
-  chain's order. One all-reduce a train step, however many GD units:
-  the choice of one bucket over one call per unit, whose calls would be
-  as many as the units with parameters. Replicated parameters under TP
-  take the same sum; their gradients are equal on the ``model`` axis;
+  gradient of the step goes into ONE flat f32 bucket per set of axes it
+  sums over, all-reduced (sum), and the updates run on the sums in the
+  chain's order. Most gradients sum over the step's ``grad_axes`` (the
+  data, seq and expert axes); an expert shard's sum over the token axes
+  but ``expert``, the all-to-all router's over every axis (a GD unit's
+  ``reduce_axes``). One all-reduce a train step per set, however many
+  GD units: the choice of one bucket over one call per unit, whose calls
+  would be as many as the units with parameters. Replicated parameters
+  under TP take the same sum; their gradients are equal on the ``model``
+  axis, as a pipeline stage's are on ``pipe`` (the units around the
+  stack run on every stage; the stack's stage gradients are its own);
 * the layer stats read the summed gradients, so every rank's stats are
-  equal; under TP the sharded units' squared norms are summed over the
-  ``model`` axis (one small all-reduce a due step);
+  equal; the sharded units' squared norms are summed over their shard
+  axis (``model``, ``expert``, ``pipe``: one small all-reduce an axis a
+  due step);
 * the class's metrics are gathered over the batch and seq axes at the
   class's end (one all-gather): losses and error counts summed, the
   worst row's loss maxed and its index made global (the first rank's on
   a tie); a confusion matrix's counts of the class are summed.
 
 :attr:`TorchStep.collective_counts` holds the collectives the last train
-step issued (``parallel.collective_counts``).
+step issued (``parallel.collective_counts``),
+:attr:`TorchStep.collective_bytes` their bytes.
 
 Eager PyTorch: each operation is its own launch (no CUDA graph yet).
 """
@@ -230,17 +238,24 @@ class TorchStep:
         self.uploader = None
         self._stage_pool = None
         #: the mesh (``veles_torch/znicz/parallel``) and the axes this step
-        #: shards: the batch, the sequence, the gradient sums, TP
+        #: shards: the batch (data, expert), the sequence, the gradient
+        #: sums, TP
         self.mesh = None
         self.batch_axes = ()
         self.seq_axis = None
         self.grad_axes = ()
         self.model_axis = None
-        #: the GD units whose parameters TP shards (their stats sum over
-        #: the model axis)
-        self.sharded_stats = set()
-        #: {opcode: calls} of the last train step's collectives
+        #: {GD unit: the mesh axis its weights and bias are sharded over}
+        #: (TP's ``model``, EP's ``expert``, PP's ``pipe``): their stats
+        #: sum over it
+        self.sharded_stats = {}
+        #: {opcode: calls} and {opcode: bytes} of the last train step's
+        #: collectives
         self.collective_counts = {}
+        self.collective_bytes = {}
+        #: (target, valid) of the train step in flight: the folded 1F1B
+        #: schedule's loss tail reads it in the forward
+        self.fold_target = None
 
     def set_stats_enabled(self, enabled):
         """Turn the layer stats on or off (off: no stat work at all)."""
@@ -327,9 +342,14 @@ class TorchStep:
         if self.mesh is None:
             return self.train_backward(*self._forward(data, True), target,
                                        valid)
-        with collectives.step_window(self.collective_counts):
-            return self.train_backward(*self._forward(data, True), target,
-                                       valid)
+        self.fold_target = (target, valid)
+        try:
+            with collectives.step_window(self.collective_counts,
+                                         self.collective_bytes):
+                return self.train_backward(*self._forward(data, True),
+                                           target, valid)
+        finally:
+            self.fold_target = None
 
     def train_backward(self, inputs, last, target, valid):
         """The evaluator and the reversed GD chain with its updates, after
@@ -349,8 +369,10 @@ class TorchStep:
             for i in reversed(range(len(self.gds))):
                 err = self.gds[i].run(inputs[i], outputs[i], err)
             if deferred is not None:
-                flush_deferred(deferred, lambda flat: collectives.all_reduce(
-                    flat, self.mesh, self.grad_axes))
+                flush_deferred(deferred, lambda flat, axes: (
+                    collectives.all_reduce(
+                        flat, self.mesh,
+                        self.grad_axes if axes is None else axes)))
         finally:
             for gd in self.stat_units:
                 gd.stats_sink = None
@@ -369,20 +391,26 @@ class TorchStep:
         return metrics
 
     def _shard_sum(self, names):
-        """Under TP, the layer stats' reduction of the sharded units'
-        (4, units) squared norms and counts over the model axis; else
-        None."""
-        if self.model_axis is None:
+        """On a sharded mesh, the layer stats' reduction of the sharded
+        units' (4, units) squared norms and counts over each unit's shard
+        axis (one small all-reduce per axis a due step); else None."""
+        axes = {}
+        for i, n in enumerate(names):
+            if n in self.sharded_stats:
+                axes.setdefault(self.sharded_stats[n], []).append(i)
+        if not axes:
             return None
-        cols = [n in self.sharded_stats for n in names]
-        if not any(cols):
-            return None
-        mesh, axis = self.mesh, self.model_axis
+        mesh = self.mesh
 
         def reduce(per):
-            mask = torch.tensor(cols, dtype=per.dtype, device=per.device)
-            return per * (1.0 - mask) + collectives.all_reduce(
-                per * mask, mesh, axis)
+            out = per
+            for axis, cols in axes.items():
+                mask = torch.zeros(per.shape[1], dtype=per.dtype,
+                                   device=per.device)
+                mask[cols] = 1.0
+                out = out * (1.0 - mask) + collectives.all_reduce(
+                    per * mask, mesh, axis)
+            return out
         return reduce
 
     def shard_plan(self, plan):
