@@ -160,8 +160,9 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     ``LOGIT_RTOL`` of a full forward over prompt + token, greedy tokens
     equal to ``generate()``'s except where the top-two gap is within
     ``LOGIT_RTOL`` (a near tie; the positions reported), tokens/s with
-    ``DECODE_REQUESTS`` requests of 64–256 prompt tokens and 64 new
-    tokens submitted at once and one at a time, first-token latency,
+    ``DECODE_REQUESTS`` requests of 64–256 prompt tokens and
+    ``DECODE_NEW`` new tokens submitted at once and one at a time,
+    first-token latency,
     the step's ms (and three steps under ``torch.profiler``: device busy
     and idle share, operations per step; traces
     ``decode_step_trace_<mode>.json``), a warm prefill's ms at 64 and 256
@@ -404,7 +405,7 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     every kernel stays on the card; these are gloo-host times, not
     NCCL's, which one card cannot show; ``tools/parallel_nccl.py`` runs
     the same checks over NCCL, one rank per card). Each parallel run of
-    the 110M row (``PARALLEL_110M``: 4 train and 1 valid minibatch of 8)
+    the 110M row (``PARALLEL_110M``: 2 train and 1 valid minibatch of 8)
     is held against a one-process run of the same global minibatches on
     the card (``parallel_held``): every tensor's movement over the run
     (its inference archive, TP's shards gathered, less the seed's initial
@@ -444,13 +445,50 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     1F1B folds the loss in), ``PARALLEL_MICRO`` hops and 2 all-reduces a
     step, and each stage's ``torch.cuda.max_memory_allocated`` under each
     schedule (1F1B's at most GPipe's);
-35. the ``kernels`` summary line (the bias gradient's launches summed
+35. parallel_unsupervised — the SOM and the MnistRBM at phase
+    unsupervised's configs in f32 under ``data=2`` (2 ranks of this
+    process's ``parallel.spawn`` over ``PARALLEL_TRANSPORT``, while the
+    one-process runs go here): the SOM's weights within
+    ``UNSUP_DP_ATOL`` of its largest, the RBM's binarize uniforms bit for
+    bit and its errors within ``UNSUP_DP_RTOL``, 1 and 2 all-reduces a
+    train step, each epoch's ms;
+36. parallel_preempt — ``PREEMPT_PAR_RUN`` (the 110M widths at 2 layers,
+    f32, momentum, ``data=2``) through the CLI: run A uninterrupted (a
+    child process, beside B), run B signalled by its rank 0
+    ``PREEMPT_B_AFTER`` train steps into epoch 1 (``PREEMPT_HOOK``): the
+    spawner (this process) forwards the SIGTERM, every rank exits 75 and
+    the CLI returns 75, one ``current`` checkpoint (uncompressed:
+    ``PREEMPT_RAW``); B resumed by ``--snapshot auto`` in a fresh spawn:
+    every tensor of the gathered archive and the history bit for bit;
+    the seconds from the signal to exit 75;
+37. parallel_cli — (1) the 110M at full width under ``data=2``, 2 train
+    steps, then ``--generate`` (``PAR_GEN_RUN``) sampled at
+    ``PAR_GEN_TEMPERATURE``: the tokens equal one process's decode of the
+    gathered archive, and vary (``PAR_GEN_DISTINCT``); (2) ``--ensemble 2``
+    and ``--optimize 1x2`` of the LM sample (``PAR_LM_SAMPLE``) under
+    ``data=2`` against one process, within ``PAR_CLI_ERROR_ATOL`` and
+    ``PARALLEL_LOSS_RTOL``; (3) a host master (``--listen-address``, no
+    ranks, no CUDA) with a slave of 2 ranks, against one with a
+    one-process slave: the masters' archives within ``PAR_SLAVE_ATOL``.
+    The runs under ``data=2`` go in child processes side by side (their
+    ranks wait on host copies), the one-process runs here;
+38. image_jpeg — every fixture of ``tests/data/jpeg`` decoded by the
+    native routines (``csrc/image_decode.cu``) and by their Python twins:
+    the JPEG coefficients equal, the pixels (RGB, L, their 256×256
+    resizes) hashing to Pillow's digests (``digests.json``); the decode
+    ms of a baseline 4:2:0, a progressive JPEG and a Paeth PNG, native
+    and twin; AlexNet at full width streamed 2 epochs from a tree of 16
+    classes of ``JPEG_COPIES`` copies of the tree fixtures: 7 masked and
+    1 identity bias-gradient launches a train step, every scan decoded
+    natively, at ``JPEG_LR`` the train loss falling and the validation
+    loss after one epoch below the untrained model's, the warm images/s;
+39. the ``kernels`` summary line (the bias gradient's launches summed
     over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume,
     model-health, unsupervised, plots, serve_http, ensemble, optimize (in
     process and in the workers), shell_forge, profiling, image_stream,
-    continual, distributed, parallel and parallel_ep_pp runs (the slaves'
-    and the ranks' counts from their result lines; a SIGKILLed slave's
-    are lost), each
+    continual, distributed, parallel, parallel_ep_pp, the four phases
+    above (the slaves' and the ranks' counts from their result lines; a
+    SIGKILLed slave's are lost), each
     path's beside it, the serving paths' among them), the card line, and
     last ``{"ok": true, "device": {...}}``.
 
@@ -464,6 +502,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -617,10 +656,12 @@ LM_110M = ("root.lm.loader.minibatch_size=8", "root.lm.loader.n_train=64",
 SERVE_RTOL = 1e-5
 #: concurrent clients of the MicroBatcher and the requests each sends
 SERVE_CLIENTS, SERVE_REQUESTS = 32, 4
-#: the 110M decode: KV slots and positions, requests, new tokens each,
-#: and the prompt lengths drawn between these bounds
+#: the 110M decode: KV slots and positions, requests, new tokens each
+#: (64 until PR 22, which cut them to 32 to make room for its four phases:
+#: the sequential baseline of 3 × 16 requests took 46 of phase
+#: serve_decode's 61 s), and the prompt lengths drawn between these bounds
 DECODE_SLOTS, DECODE_MAX_LEN = 8, 512
-DECODE_REQUESTS, DECODE_NEW = 16, 64
+DECODE_REQUESTS, DECODE_NEW = 16, 32
 DECODE_PROMPT = (64, 256)
 #: the first decode step's logits against a full forward over prompt +
 #: token, as a share of the largest logit (f32 through 12 layers, the
@@ -6113,8 +6154,10 @@ def check_distributed(torch):
 #: ranks on one card: NCCL refuses that, so gloo over host copies)
 PARALLEL_DEVICE = "cuda"
 PARALLEL_TRANSPORT = "gloo-host"
-#: (a) and (c): the 110M row, 4 train and 1 valid minibatch of 8, 1 epoch
-PARALLEL_110M = LM_110M + ("root.lm.loader.n_train=32",
+#: (a) and (c): the 110M row, 2 train and 1 valid minibatch of 8, 1 epoch
+#: (4 train minibatches until PR 22, which cut them to make room for its
+#: four phases; phase parallel_ep_pp runs the same minibatches)
+PARALLEL_110M = LM_110M + ("root.lm.loader.n_train=16",
                            "root.lm.loader.n_valid=8",
                            "root.lm.decision.max_epochs=1")
 #: (b): the 110M_s8k row (bench.py LM_ROWS: B 4, S 8192), its depth cut
@@ -6345,14 +6388,20 @@ def parallel_held(torch, tmp, tag, axes, single, single_counts,
            "collective_seconds": par["collective_seconds"],
            "launches_by_rank": par["launches_by_rank"]}
     if set(axes) == {"data"}:
-        per_step = par["collective_bytes"]["all-reduce"] / steps
-        if par["collective_calls"].get("all-reduce") != steps \
+        # a train step's one gradient bucket, and before every minibatch
+        # the 2 stop flags' host all-reduce (8 bytes; TorchStep.stop_agreed)
+        flags = par["stop_flag_all_reduces"]
+        per_step = (par["collective_bytes"]["all-reduce"] - 8 * flags) \
+            / steps
+        if par["collective_calls"].get("all-reduce") != steps + flags \
                 or per_step != par["grad_sync_bytes"]:
-            fail("parallel %s: %s all-reduces for %d steps, %.0f bytes a "
-                 "step, the parameters %d" % (
-                     tag, par["collective_calls"], steps, per_step,
+            fail("parallel %s: %s all-reduces for %d steps and %d stop "
+                 "flags, %.0f bytes a step, the parameters %d" % (
+                     tag, par["collective_calls"], steps, flags, per_step,
                      par["grad_sync_bytes"]))
         row["grad_allreduce_bytes_per_step"] = per_step
+        row["stop_flag_all_reduces"] = flags
+        row["stop_flag_seconds"] = par["stop_flag_seconds"]
     emit(dict(row, **transport_note()))
     return res
 
@@ -6689,6 +6738,771 @@ def check_parallel_ep_pp(torch, ranks=2):
     return counts
 
 
+# -- the rest of the parallelism, and the image formats ---------------------
+
+#: phase parallel_unsupervised: the SOM and MnistRBM at the reference's
+#: configs (phase unsupervised's) under data=2, two ranks sharing the card
+#: over PARALLEL_TRANSPORT, against one process on the card. The SOM's
+#: weights within UNSUP_DP_ATOL of their largest element (f32 pulls summed
+#: over two shards, then all-reduced); the RBM's binarize uniforms bit for
+#: bit (each rank draws the minibatch's array and keeps its rows), its
+#: errors within UNSUP_DP_RTOL relative; both in f32 (the RBM's tied
+#: products otherwise round to bf16 on the card)
+UNSUP_DP_ATOL = 1e-5
+UNSUP_DP_RTOL = 1e-5
+#: phase parallel_preempt: the 110M widths at 2 of 12 layers, momentum,
+#: f32, 4 train and 1 valid minibatch of 8 an epoch, 2 epochs, under
+#: data=2; run B signalled PREEMPT_B_AFTER train steps into epoch 1
+PREEMPT_PAR_RUN = LM_110M + (
+    "root.lm.model.layers=2", "root.lm.loader.n_train=32",
+    "root.lm.loader.n_valid=8", "root.lm.decision.max_epochs=2",
+    "root.lm.parallel.data=2") + PARALLEL_F32
+#: the config file of runs B and B resumed: their snapshotter writes
+#: uncompressed checkpoints (the default gzip at level 9 on one core takes
+#: ~15 s for this run's 243 MB, PR 22 call 1; phase resume times both
+#: forms)
+PREEMPT_RAW = """
+from veles_torch.znicz.standard_workflow import StandardWorkflow
+_link = StandardWorkflow.link_snapshotter
+StandardWorkflow.link_snapshotter = \\
+    lambda self, **cfg: _link(self, **dict({"compression": ""}, **cfg))
+"""
+#: run B's config file besides: rank 0 signals the spawner (its parent)
+#: after the train step PREEMPT_B_AFTER into epoch 1, notes the wall time,
+#: and waits for its own forwarded signal, so every rank stops before the
+#: next minibatch
+PREEMPT_HOOK = PREEMPT_RAW + """
+import os, signal, time
+from veles_torch.znicz.step import TorchStep
+if os.environ.get("RANK") == "0":
+    _train = TorchStep.train_minibatch
+
+    def _preempting(step, *args):
+        out = _train(step, *args)
+        if step.decision.epoch_number == 1 and step.entry is not None \\
+                and step.train_steps == step.entry["step_index"] + %d:
+            with open(%r, "w") as f:
+                f.write(repr(time.time()))
+            os.kill(os.getppid(), signal.SIGTERM)
+            deadline = time.monotonic() + 120
+            while not step.stop_requested and time.monotonic() < deadline:
+                time.sleep(0.005)
+        return out
+    TorchStep.train_minibatch = _preempting
+"""
+#: phase parallel_cli: the 110M at full width (12 layers), 2 train and 1
+#: valid minibatch of 8, under data=2, then --generate sampled at
+#: PAR_GEN_TEMPERATURE (the sampler seeded as one process seeds it; f32
+#: either way): greedy, the 2-step model repeats one token, which weights
+#: far from the gathered ones could give as well
+PAR_GEN_RUN = LM_110M + ("root.lm.loader.n_train=16",
+                         "root.lm.loader.n_valid=8",
+                         "root.lm.decision.max_epochs=1",
+                         "root.lm.parallel.data=2")
+PAR_GEN_PROMPT, PAR_GEN_TOKENS = "1,2,3,4", 16
+PAR_GEN_TEMPERATURE = 1.0
+#: the sampled tokens must hold at least this many distinct ones
+PAR_GEN_DISTINCT = 4
+#: --ensemble 2 and --optimize 1x2 of the LM sample (dim 64, 2 layers) cut
+#: from 8 epochs to 2 (with 512 of its 2048 train sequences the members
+#: barely learn, and the ensemble read worse than its weakest member: PR
+#: 22 call 2), in f32, under data=2 against one process: the
+#: existing bars (phase ensemble: the ensemble no worse than its weakest
+#: member; phase optimize: the same values and evaluations), each
+#: member's error within PAR_CLI_ERROR_ATOL of one process's (phase
+#: mnist's card-against-cpu bar on an error rate) and the fitness (the
+#: best validation loss) within PARALLEL_LOSS_RTOL. Not bit for bit: on
+#: the card the ranks' half batches take other cuBLAS tilings than the
+#: whole batch (PR 20: DP f32 moves a tensor up to 9.3e-3 of its
+#: movement off over 4 steps), and over 2 epochs the members part: the
+#: first call read one member's error 2.8e-3 off (23 of 8192 tokens)
+PAR_LM_SAMPLE = ("root.lm.decision.max_epochs=2",) + PARALLEL_F32
+PAR_CLI_ERROR_ATOL = 0.02
+#: the LM sample's learning rate searched by --optimize 1x2
+PAR_TUNE = ("from veles_torch.config import Tune, root\n"
+            "root.lm.train.learning_rate = Tune(0.02, 0.005, 0.1)\n")
+#: a host master of the LM sample (1 epoch) with a slave of 2 ranks, and
+#: with a one-process slave: the masters' archives within PAR_SLAVE_ATOL
+#: of the largest element
+PAR_SLAVE_RUN = ("root.lm.decision.max_epochs=1",) + PARALLEL_F32
+PAR_SLAVE_ATOL = 1e-5
+#: phase image_jpeg: the committed fixtures and their Pillow digests
+JPEG_FIXTURES = os.path.join(HERE, "tests", "data", "jpeg")
+#: the streamed tree: each of the 16 tree_NN.jpg fixtures (320x240, even
+#: ones baseline 4:2:0, odd ones progressive) copied JPEG_COPIES times
+#: into its class's directory: phase image_stream's geometry (the stride
+#: split holds 8 of 72 out a class: 1024 train and 128 validation images,
+#: 8 train steps an epoch), so the two trees' images/s compare
+JPEG_COPIES = 72
+#: 2 epochs at a learning rate of JPEG_LR. At the sample's 0.01 AlexNet's
+#: train loss on this tree spikes from 4.6 to 24 within the first epoch
+#: and its validation loss ends 5.6 times the untrained model's (an H100,
+#: tools/alexnet_tree_losses.py; phase image_stream's PNG tree alike), so
+#: the check below could not tell a run that learns from one that
+#: diverged
+JPEG_LR = 0.001
+JPEG_RUN = ("root.imagenet.decision.max_epochs=2",
+            "root.imagenet.lr=%g" % JPEG_LR, "--seed", "1337")
+#: decodes timed per file kind, one thread, and the files timed
+JPEG_TIMED = 16
+JPEG_TIMED_FILES = {"baseline_420": "tree_00.jpg",
+                    "progressive": "tree_01.jpg", "paeth_png": "paeth.png"}
+
+
+def par_device_args():
+    """The CLI's device and declared transport of the parallel runs."""
+    return ("-d", PARALLEL_DEVICE) + (
+        () if PARALLEL_TRANSPORT == "gloo"
+        else ("--transport", PARALLEL_TRANSPORT))
+
+
+def par_sync(torch):
+    if PARALLEL_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def unsup_run(sample, device, record=None):
+    """The SOM or MnistRBM sample at its reference config in f32 on
+    ``device`` (on a mesh: set up by the caller after it returns the
+    initialized workflow); with ``record`` (a list) the RBM's binarize
+    uniforms are appended to it. -> the initialized workflow."""
+    from veles_torch import prng
+    from veles_torch.config import root
+    from veles_torch.__main__ import import_file
+    module = import_file(sample, "chip_smoke_unsup_%s"
+                         % os.path.basename(sample)[:-3])
+    restore = f32_policy()
+    try:
+        prng.seed_all(UNSUPERVISED_SEED)
+        wf = module.create_workflow().initialize(device=device)
+    finally:
+        restore()
+    if record is not None and hasattr(wf, "binarize"):
+        plain = wf.binarize.uniforms
+
+        def recording(p):
+            u = plain(p)
+            record.append(u.cpu().numpy())
+            return u
+        wf.binarize.uniforms = recording
+    return wf
+
+
+def unsup_result(torch, wf, record):
+    import numpy
+    par_sync(torch)
+    from veles_torch.znicz import parallel
+    params = {"%s.%s" % (u, k): t.detach().cpu().numpy()
+              for u, sub in wf.export_tree().items()
+              for k, t in sub.items()}
+    return {"history": wf.decision.history, "params": params,
+            "uniforms": numpy.concatenate(record) if record else None,
+            "counts": parallel.collective_counts(wf.step),
+            "epoch_ms": [1e3 * t for t in wf.step.epoch_seconds],
+            "train_steps": wf.step.train_steps,
+            "stop_flag_all_reduces": wf.step.stop_flag_reduces,
+            "stop_flag_seconds": wf.step.stop_flag_seconds}
+
+
+def unsup_rank(samples, transport):
+    """One rank of phase parallel_unsupervised (``parallel.spawn``): each
+    sample under data=2 on the card. -> {sample: its result
+    (unsup_result) and the seconds of its run}."""
+    import torch
+    import torch.distributed as dist
+    from veles_torch.znicz import parallel
+    parallel.init_multihost(transport=transport)
+    out = {}
+    try:
+        for sample in samples:
+            t0 = time.perf_counter()
+            record = []
+            wf = unsup_run(sample, PARALLEL_DEVICE, record)
+            parallel.setup_data_parallel(wf,
+                                         parallel.make_mesh({"data": 2}))
+            wf.run()
+            out[sample] = dict(unsup_result(torch, wf, record),
+                               seconds=time.perf_counter() - t0)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def check_parallel_unsupervised(torch):
+    """Phase parallel_unsupervised; -> its launches (none: neither path
+    runs a kernel of the port)."""
+    import numpy
+    from veles_torch.znicz import parallel
+    t0 = time.perf_counter()
+    import threading
+    samples = (KOHONEN_SAMPLE, RBM_SAMPLE)
+    reset_counts()
+    # the ranks' run in a thread while the one-process runs go here
+    spawned = {}
+
+    def ranks_run():
+        t1 = time.perf_counter()
+        try:
+            spawned["dp"] = parallel.spawn(unsup_rank, 2, args=(
+                samples, PARALLEL_TRANSPORT))
+        except BaseException as exc:
+            spawned["error"] = exc
+        spawned["seconds"] = time.perf_counter() - t1
+    thread = threading.Thread(target=ranks_run)
+    thread.start()
+    ones = {}
+    for sample in samples:
+        record = []
+        wf = unsup_run(sample, PARALLEL_DEVICE, record)
+        wf.run()
+        ones[sample] = unsup_result(torch, wf, record)
+        del wf
+    counts = read_counts()
+    thread.join()
+    if "error" in spawned:
+        raise spawned["error"]
+    dp, spawn_seconds = spawned["dp"], spawned["seconds"]
+    for sample in samples:
+        name = os.path.basename(sample)[:-3]
+        one = ones[sample]
+        ranks = [r[sample] for r in dp]
+        dp_seconds = ranks[0]["seconds"]
+        worst = max(float(numpy.abs(ranks[0]["params"][k] - w).max()
+                          / max(float(numpy.abs(w).max()), 1e-30))
+                    for k, w in one["params"].items())
+        ranks_equal = all(numpy.array_equal(ranks[0]["params"][k],
+                                            ranks[1]["params"][k])
+                          for k in one["params"])
+        errors = [(h1["train"]["metric"], h2["train"]["metric"])
+                  for h1, h2 in zip(one["history"], ranks[0]["history"])]
+        errors += [(h1["validation"]["metric"], h2["validation"]["metric"])
+                   for h1, h2 in zip(one["history"], ranks[0]["history"])
+                   if "validation" in h1]
+        err_rel = max(abs(a - b) / max(abs(a), 1e-30) for a, b in errors)
+        bits = None
+        if one["uniforms"] is not None:
+            per = [numpy.split(r["uniforms"], len(r["uniforms"]) // 50)
+                   for r in ranks]
+            whole = numpy.concatenate([numpy.concatenate([a, b])
+                                       for a, b in zip(*per)])
+            bits = bool(numpy.array_equal(whole, one["uniforms"]))
+        row = {"phase": "parallel_unsupervised", "sample": name,
+               "card": card_line(), "transport": PARALLEL_TRANSPORT,
+               "epochs": [len(one["history"]), len(ranks[0]["history"])],
+               "train_steps": ranks[0]["train_steps"],
+               "weights_max_rel_err": worst, "ranks_equal": ranks_equal,
+               "metric_max_rel_err": err_rel, "uniform_bits_equal": bits,
+               "collective_counts": ranks[0]["counts"],
+               "stop_flag_all_reduces": ranks[0]["stop_flag_all_reduces"],
+               "stop_flag_seconds": ranks[0]["stop_flag_seconds"],
+               "epoch_ms_one": one["epoch_ms"],
+               "epoch_ms_rank0": ranks[0]["epoch_ms"],
+               "dp_seconds": dp_seconds, "spawn_seconds": spawn_seconds,
+               "launches": counts}
+        emit(row)
+        want_counts = {"all-reduce": 1 if name == "kohonen" else 2}
+        if len(one["history"]) != len(ranks[0]["history"]) \
+                or not ranks_equal:
+            fail("parallel_unsupervised %s: %s" % (name, row))
+        if name == "kohonen" and not worst <= UNSUP_DP_ATOL:
+            fail("parallel_unsupervised: SOM weights %.3g of the largest "
+                 "from one process's" % worst)
+        if name != "kohonen" and (not bits or not err_rel <= UNSUP_DP_RTOL):
+            fail("parallel_unsupervised: RBM uniforms equal %s, errors "
+                 "%.3g relative" % (bits, err_rel))
+        if ranks[0]["counts"] != want_counts:
+            fail("parallel_unsupervised %s: collectives a step %s, "
+                 "expected %s" % (name, ranks[0]["counts"], want_counts))
+    emit({"phase": "parallel_unsupervised", "part": "total",
+          "seconds": time.perf_counter() - t0})
+    return dict.fromkeys(read_counts(), 0)
+
+
+def archive_arrays(path):
+    import numpy
+    return {f: numpy.load(os.path.join(path, f))
+            for f in sorted(os.listdir(path)) if f.endswith(".npy")}
+
+
+def start_cli(tmp, tag, args):
+    """``python -m veles_torch`` with ``args`` started in a child process
+    on this card, its output to ``tmp/<tag>.out``; -> (the process, that
+    path, its start). The independent parallel runs of phases
+    parallel_preempt and parallel_cli run side by side: their ranks spend
+    their time in host copies and leave the card mostly idle."""
+    path = os.path.join(tmp, tag + ".out")
+    with open(path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "veles_torch",
+                                 *args], cwd=HERE, env=child_env(),
+                                stdout=out, stderr=subprocess.STDOUT)
+    return proc, path, time.perf_counter()
+
+
+def finish_cli(started, what, timeout=900):
+    """Wait for a child of :func:`start_cli`; -> (its output, its
+    seconds). A failed child fails the phase with its output."""
+    proc, path, t0 = started
+    try:
+        code = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(path) as f:
+        out = f.read()
+    if code != 0:
+        fail("%s: exit %d: %s" % (what, code, out[-3000:]))
+    return out, time.perf_counter() - t0
+
+
+def check_parallel_preempt(torch):
+    """Phase parallel_preempt: run A uninterrupted under data=2 (a child
+    process, beside B); run B signalled PREEMPT_B_AFTER train steps into
+    epoch 1 (every rank and the spawner exit 75, one checkpoint), resumed
+    by --snapshot auto in a fresh spawn; every parameter and the decision
+    bit for bit. -> the ranks' launches of the three runs."""
+    import shutil
+    import tempfile
+    import numpy
+    from veles_torch import snapshotter as S
+    from veles_torch.launcher import EXIT_PREEMPTED
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
+    t0 = time.perf_counter()
+    runs = []
+    try:
+        # run A in a child process while run B and its resume run here
+        a_json = os.path.join(tmp, "a.json")
+        run_a = start_cli(tmp, "preempt_a", [
+            LM_SAMPLE, *PREEMPT_PAR_RUN, "--seed", "1337",
+            *par_device_args(), "--no-stats", "--result-file", a_json,
+            "--export-inference", os.path.join(tmp, "a_archive")])
+        hook = os.path.join(tmp, "hook.py")
+        raw = os.path.join(tmp, "raw.py")
+        mark = os.path.join(tmp, "mark")
+        with open(hook, "w") as f:
+            f.write(PREEMPT_HOOK % (PREEMPT_B_AFTER, mark))
+        with open(raw, "w") as f:
+            f.write(PREEMPT_RAW)
+        snaps = os.path.join(tmp, "b_snaps")
+        from veles_torch.config import root
+        try:
+            code = cli_run([LM_SAMPLE, hook, *PREEMPT_PAR_RUN, "--seed",
+                            "1337", *par_device_args(), "--no-stats",
+                            "--snapshots", snaps])
+        finally:
+            root.common.engine.amp = root.common.engine.compute_dtype = None
+        exited = time.time()
+        if code != EXIT_PREEMPTED or not os.path.exists(mark):
+            fail("parallel_preempt: run B exited %s (signal sent: %s)"
+                 % (code, os.path.exists(mark)))
+        with open(mark) as f:
+            signal_to_exit = exited - float(f.read())
+        current = [n for n in os.listdir(snaps) if "_current-" in n]
+        tree, name, _ = S.resolve_auto(snaps)
+        res_b = parallel_cli(torch, tmp, "preempt_b", (raw,)
+                             + PREEMPT_PAR_RUN, "--snapshots", snaps,
+                             "--snapshot", "auto:" + snaps,
+                             "--export-inference",
+                             os.path.join(tmp, "b_archive"))
+        runs.append(res_b)
+        finish_cli(run_a, "parallel_preempt run A")
+        with open(a_json) as f:
+            res_a = json.load(f)
+        runs.append(res_a)
+        a = archive_arrays(os.path.join(tmp, "a_archive"))
+        b = archive_arrays(os.path.join(tmp, "b_archive"))
+        unequal = sorted(k for k in a if not numpy.array_equal(a[k], b[k]))
+        ckpt_bytes = os.path.getsize(os.path.join(snaps, name))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"phase": "parallel_preempt", "card": card_line(),
+           "transport": PARALLEL_TRANSPORT,
+           "preempted_at_step": 4 + PREEMPT_B_AFTER,
+           "seconds_sigterm_to_exit_75": signal_to_exit,
+           "current_checkpoints": len(current),
+           "checkpoint": name, "checkpoint_bytes": ckpt_bytes,
+           "checkpoint_epoch": int(tree["decision"]["epoch_number"]),
+           "tensors": len(a), "unequal_tensors": unequal,
+           "history_equal": res_a["history"] == res_b["history"],
+           "stop_flag_all_reduces": res_a["parallel"].get(
+               "stop_flag_all_reduces"),
+           "stop_flag_seconds": res_a["parallel"].get("stop_flag_seconds"),
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    if len(current) != 1 or name != current[0] or unequal \
+            or not row["history_equal"] or not a:
+        fail("parallel_preempt: %s" % row)
+    return add_counts(*[rank_counts(l) for res in runs
+                        for l in res["parallel"]["launches_by_rank"]])
+
+
+def one_process_decode(torch, archive, overrides, prompt, n,
+                       temperature=0.0):
+    """The decode of ``n`` tokens after ``prompt`` (greedy, or sampled at
+    ``temperature`` as the CLI samples) by one process on the card from
+    the inference archive ``archive`` of the LM of ``overrides``. -> the
+    tokens."""
+    import numpy
+    from veles_torch.config import root
+    from veles_torch.znicz.generate import generate
+    wf = build_lm(*[o for o in overrides
+                    if not o.startswith("root.lm.parallel.")],
+                  device=PARALLEL_DEVICE)
+    root.common.engine.amp = root.common.engine.compute_dtype = None
+    dev = wf.device.device
+    for unit in wf.forwards:
+        for key in unit.export_params():
+            path = os.path.join(archive, "%s_%s.npy" % (
+                unit.name.replace("/", "_"), key))
+            setattr(unit, key, torch.as_tensor(numpy.load(path)).to(dev))
+    ids = numpy.array([[int(t) for t in prompt.split(",")]], numpy.int32)
+    return [int(t) for t in generate(wf, ids, n,
+                                     temperature=temperature)[0].tolist()]
+
+
+@contextlib.contextmanager
+def stdout_to(path):
+    """File descriptor 1 of this process, and so of the ranks it spawns,
+    sent to ``path`` for the block."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield path
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def par_cli(tmp, tag, args):
+    """``python -m veles_torch`` with ``args`` in this process (the CLI
+    spawns its ranks), its standard output, its ranks' included, kept;
+    -> (exit code, that output). The engine's dtype policy is cleared
+    after."""
+    from veles_torch.config import root
+    path = os.path.join(tmp, tag + ".out")
+    try:
+        with stdout_to(path):
+            code = cli_run(list(args))
+    finally:
+        root.common.engine.amp = root.common.engine.compute_dtype = None
+    with open(path) as f:
+        out = f.read()
+    if code not in (0, None) and not hasattr(code, "step") \
+            and not hasattr(code, "best_fitness") \
+            and not hasattr(code, "workflows"):
+        fail("parallel_cli %s: exit %s: %s" % (tag, code, out[-2000:]))
+    return code, out
+
+
+def last_json(out):
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def par_generate_start(tmp):
+    """(1) the 110M under data=2 with --generate, started in a child. ->
+    (the child, its archive, its result file)."""
+    archive = os.path.join(tmp, "gen_archive")
+    out_file = os.path.join(tmp, "gen.json")
+    return start_cli(tmp, "generate", [
+        LM_SAMPLE, *PAR_GEN_RUN, "--seed", "1337", *par_device_args(),
+        "--no-stats", "--export-inference", archive, "--generate",
+        PAR_GEN_PROMPT, "--gen-tokens", str(PAR_GEN_TOKENS),
+        "--gen-temperature", str(PAR_GEN_TEMPERATURE),
+        "--result-file", out_file]), archive, out_file
+
+
+def par_generate_finish(torch, started):
+    """(1)'s tokens against one process's decode of the gathered archive.
+    -> (row, the ranks' launches)."""
+    child, archive, out_file = started
+    out, seconds = finish_cli(child, "parallel_cli generate")
+    lines = [l for l in out.splitlines() if l.startswith("generated: ")]
+    got = [int(t) for t in lines[0][len("generated: "):].split(",")] \
+        if len(lines) == 1 else None
+    with open(out_file) as f:
+        res = json.load(f)
+    want = one_process_decode(torch, archive, PAR_GEN_RUN, PAR_GEN_PROMPT,
+                              PAR_GEN_TOKENS, PAR_GEN_TEMPERATURE)
+    row = {"part": "generate", "temperature": PAR_GEN_TEMPERATURE,
+           "tokens": got, "one_process": want,
+           "seconds": seconds, "train_steps": res["parallel"]["train_steps"],
+           "step_ms": parallel_rows(res)}
+    if got != want or res["parallel"]["mesh"] != {"data": 2} \
+            or len(set(want)) < PAR_GEN_DISTINCT:
+        fail("parallel_cli generate: %s" % row)
+    return row, add_counts(*[rank_counts(l) for l in
+                             res["parallel"]["launches_by_rank"]])
+
+
+#: (2)'s two modes: (name, the CLI's arguments past the sample)
+PAR_SEARCH_MODES = (("ensemble", ("--ensemble", "2")),
+                    ("optimize", ("TUNE", "--optimize", "1x2")))
+
+
+def par_search(torch, tmp):
+    """(2) --ensemble 2 and --optimize 1x2 of the LM sample under data=2
+    (children, side by side) and in one process (here, meanwhile). ->
+    the row."""
+    tune = os.path.join(tmp, "tune.py")
+    with open(tune, "w") as f:
+        f.write(PAR_TUNE)
+    modes = [(mode, tuple(tune if a == "TUNE" else a for a in args))
+             for mode, args in PAR_SEARCH_MODES]
+
+    def line(args, result, axes=()):
+        return [LM_SAMPLE, *args, *PAR_LM_SAMPLE, *axes, "--seed", "1337",
+                *par_device_args(), "--no-stats", "--result-file", result]
+    children = {mode: start_cli(tmp, mode + "_data2", line(
+        args, os.path.join(tmp, mode + "_data2.json"),
+        ("root.lm.parallel.data=2",))) for mode, args in modes}
+    reports = {}
+    for mode, args in modes:
+        t0 = time.perf_counter()
+        result = os.path.join(tmp, mode + "_one.json")
+        par_cli(tmp, mode + "_one", line(args, result))
+        with open(result) as f:
+            reports[mode] = {"one": dict(json.load(f),
+                                         seconds=time.perf_counter() - t0)}
+    row = {"part": "search"}
+    for mode, _ in modes:
+        _, seconds = finish_cli(children[mode], "parallel_cli " + mode)
+        with open(os.path.join(tmp, mode + "_data2.json")) as f:
+            reports[mode]["data2"] = dict(json.load(f), seconds=seconds)
+        row[mode] = reports[mode]
+        got, want = reports[mode]["data2"], reports[mode]["one"]
+        if mode == "ensemble":
+            diff = max(abs(a - b) for a, b in zip(
+                got["member_errors"] + [got["ensemble_error"]],
+                want["member_errors"] + [want["ensemble_error"]]))
+            ok = got["ensemble_error"] <= max(got["member_errors"]) \
+                and got["n_valid"] == want["n_valid"]
+        else:
+            diff = abs(got["best_fitness"] - want["best_fitness"])
+            ok = got["best_values"] == want["best_values"] \
+                and got["evaluations"] == want["evaluations"]
+        row[mode + "_max_abs_diff"] = diff
+        bar = PAR_CLI_ERROR_ATOL if mode == "ensemble" \
+            else PARALLEL_LOSS_RTOL * abs(want["best_fitness"])
+        if not ok or not diff <= bar:
+            fail("parallel_cli %s: %s" % (mode, reports[mode]))
+    return row
+
+
+def start_master(tmp, tag):
+    """A host master of the LM sample (its own process: no ranks, no
+    CUDA) on a free port. -> (the child, its address, its archive)."""
+    from veles_torch.znicz import parallel
+    archive = os.path.join(tmp, "master_%s" % tag)
+    port = parallel.free_port()
+    child = start_cli(tmp, "master_" + tag, [
+        LM_SAMPLE, *PAR_SLAVE_RUN, "root.lm.parallel.data=2", "--seed",
+        "1337", "--listen-address", "127.0.0.1:%d" % port,
+        "--export-inference", archive, "--no-stats"])
+    return child, "127.0.0.1:%d" % port, archive
+
+
+def par_slave(torch, tmp):
+    """(3) a host master with a slave of 2 ranks (children, side by side)
+    and a master with a one-process slave (the slave here, meanwhile):
+    the masters' archives. -> the row."""
+    import numpy
+    row = {"part": "slave"}
+    masters = {tag: start_master(tmp, tag) for tag in ("data2", "one")}
+
+    def slave_line(tag, axes=()):
+        return [LM_SAMPLE, *PAR_SLAVE_RUN, *axes, "--seed", "1337",
+                *par_device_args(), "--master-address", masters[tag][1],
+                "--slave-retries", "60", "--no-stats"]
+    slave_dp = start_cli(tmp, "slave_data2", slave_line(
+        "data2", ("root.lm.parallel.data=2",)))
+    t0 = time.perf_counter()
+    _, out = par_cli(tmp, "slave_one", slave_line("one"))
+    slaves = {"one": (last_json(out), time.perf_counter() - t0)}
+    out, seconds = finish_cli(slave_dp, "parallel_cli slave of 2 ranks")
+    slaves["data2"] = (last_json(out), seconds)
+    archives = {}
+    for tag, (child, _, archive) in masters.items():
+        text, _ = finish_cli(child, "parallel_cli master " + tag, 300)
+        slave, seconds = slaves[tag]
+        row[tag] = {"jobs": slave["slave"]["jobs"], "seconds": seconds,
+                    "master_cuda_initialized":
+                        last_json(text)["cuda_initialized"],
+                    "slave_parallel": "parallel" in slave}
+        archives[tag] = archive_arrays(archive)
+    got, want = archives["data2"], archives["one"]
+    worst = max(float(numpy.abs(got[k] - w).max()
+                      / max(float(numpy.abs(w).max()), 1e-30))
+                for k, w in want.items())
+    row["weights_max_rel_err"] = worst
+    if sorted(got) != sorted(want) or not worst <= PAR_SLAVE_ATOL \
+            or row["data2"]["jobs"] != row["one"]["jobs"] \
+            or row["data2"]["master_cuda_initialized"] \
+            or not row["data2"]["slave_parallel"]:
+        fail("parallel_cli slave: %s" % row)
+    return row
+
+
+def check_parallel_cli(torch):
+    """Phase parallel_cli: (1) --generate under data=2, (2) --ensemble and
+    --optimize under data=2, (3) a host master with a 2-rank slave; the
+    runs under data=2 in child processes side by side with (1), and the
+    one-process runs here. -> the launches of (1)'s ranks (from its
+    result line) and of this process (the one-process decode, searches
+    and slave); the other children print no launch counts."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_par_cli_")
+    t0 = time.perf_counter()
+    reset_counts()
+    try:
+        generate = par_generate_start(tmp)
+        search = par_search(torch, tmp)
+        row, counts = par_generate_finish(torch, generate)
+        emit(dict(row, phase="parallel_cli", card=card_line()))
+        emit(dict(search, phase="parallel_cli", card=card_line()))
+        emit(dict(par_slave(torch, tmp), phase="parallel_cli",
+                  card=card_line()))
+        par_sync(torch)
+        counts = add_counts(counts, read_counts())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "parallel_cli", "part": "total",
+          "seconds": time.perf_counter() - t0, "launches": counts})
+    return counts
+
+
+def fixture_digests():
+    with open(os.path.join(JPEG_FIXTURES, "digests.json")) as f:
+        return json.load(f)["files"]
+
+
+def check_fixtures():
+    """Every committed fixture decoded by the native routines and by their
+    twins: the JPEG coefficients and the PNG rows equal, the pixels (RGB
+    and L, and their 256x256 bilinear resizes) hashing to Pillow's
+    digests. -> (files checked, mismatches)."""
+    import hashlib
+    import numpy
+    from veles_torch.loader import codecs, jpeg
+    bad = []
+    digests = fixture_digests()
+    for name, want in sorted(digests.items()):
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            data = f.read()
+        if name.endswith(".jpg"):
+            frame = jpeg.parse(data, name)
+            native = jpeg.coefficients(frame, True)[0]
+            twin = jpeg.coefficients(frame, False)[0]
+            if not numpy.array_equal(native, twin):
+                bad.append((name, "coefficients"))
+        for native in (True, False):
+            pixels, mode = codecs.decode(data, name, native)
+            for space, key in (("RGB", "RGB"), ("GRAY", "L")):
+                col = codecs.to_color(pixels, mode, space)
+                for tag, arr in ((key, col), (key + "_256", codecs.resize(
+                        col, (256, 256)))):
+                    got = hashlib.sha256(numpy.ascontiguousarray(
+                        arr).tobytes()).hexdigest()
+                    if got != want[tag]:
+                        bad.append((name, native, tag))
+    return len(digests), bad
+
+
+def jpeg_decode_ms():
+    """Host ms to decode, convert and resize (256x256) one image of each
+    timed kind, by the native routines and by the twins (one thread)."""
+    from veles_torch.loader import codecs
+    out = {}
+    for kind, name in JPEG_TIMED_FILES.items():
+        path = os.path.join(JPEG_FIXTURES, name)
+        for native in (True, False):
+            n = JPEG_TIMED if native else 2
+            codecs.load(path, "RGB", (256, 256), native)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                codecs.load(path, "RGB", (256, 256), native)
+            out["%s_%s_ms" % (kind, "native" if native else "twin")] = \
+                1e3 * (time.perf_counter() - t0) / n
+    return out
+
+
+def write_jpeg_tree(base):
+    """16 class directories, each JPEG_COPIES copies of its fixture named
+    as an ImageNet staging names them (``<class>_<n>.JPEG``)."""
+    for k in range(TREE_CLASSES):
+        d = os.path.join(base, "n%08d" % k)
+        os.makedirs(d)
+        src = os.path.join(JPEG_FIXTURES, "tree_%02d.jpg" % k)
+        for j in range(JPEG_COPIES):
+            shutil.copyfile(src, os.path.join(d, "n%08d_%d.JPEG" % (k, j)))
+
+
+def check_image_jpeg(torch):
+    """Phase image_jpeg: the fixtures, the decode rates, then AlexNet at
+    full width streamed 2 epochs from the JPEG tree; -> its launches."""
+    import tempfile
+    from veles_torch.config import root
+    from veles_torch.loader import codecs, jpeg
+    t0 = time.perf_counter()
+    files, bad = check_fixtures()
+    rates = jpeg_decode_ms()
+    tmp = tempfile.mkdtemp(prefix="jpeg_tree_", dir=OUT_DIR)
+    saved = root.imagenet.loader.to_dict()
+    try:
+        write_jpeg_tree(os.path.join(tmp, "tree"))
+        before = dict(jpeg.scans), dict(codecs.unfilters)
+        reset_counts()
+        wf = cli_run([IMAGENET_SAMPLE, "root.imagenet.loader.base_dir=%s"
+                      % os.path.join(tmp, "tree"), *JPEG_RUN,
+                      "-d", STREAM_DEVICE])
+        stream_sync(torch)
+        counts = read_counts()
+        scans = {k: jpeg.scans[k] - before[0][k] for k in jpeg.scans}
+    finally:
+        root.imagenet.loader.update(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    loader, step = wf.loader, wf.step
+    train = step.train_steps
+    losses = [h["train"]["loss"] for h in wf.decision.history]
+    # an epoch validates before it trains: the first is the untrained
+    # model's loss, the second the loss after one epoch's training
+    valid_losses = [h["validation"]["loss"] for h in wf.decision.history]
+    images = sum(loader.class_lengths)
+    warm = step.epoch_seconds[1]
+    ok, want = conv_launches_ok(counts, train, 7)
+    row = {"phase": "image_jpeg", "card": card_line(), "fixtures": files,
+           "fixture_mismatches": bad, "decode": rates,
+           "class_lengths": loader.class_lengths,
+           "n_classes": loader.n_classes, "train_steps": train,
+           "launches": counts, "learning_rate": JPEG_LR,
+           "train_loss": losses, "validation_loss": valid_losses,
+           "validation_error": [h["validation"]["metric"]
+                                for h in wf.decision.history],
+           "native_decode": loader.native_decode, "scans": scans,
+           "epoch_seconds": step.epoch_seconds,
+           "images_per_sec_warm_epoch": images / warm,
+           "stream_wait_seconds": dict(step.stream_wait_seconds),
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    if bad:
+        fail("image_jpeg: fixtures differ from their twins or Pillow: %s"
+             % bad[:10])
+    if not loader.native_decode or scans["python"] or not scans["native"]:
+        fail("image_jpeg: the run's scans %s (native decode %s)"
+             % (scans, loader.native_decode))
+    if loader.n_classes != TREE_CLASSES or not ok:
+        fail("image_jpeg: %d classes, launches %s, expected %s"
+             % (loader.n_classes, counts, want))
+    if not all(math.isfinite(v) for v in losses + valid_losses) \
+            or not losses[-1] < losses[0] \
+            or not valid_losses[-1] < valid_losses[0]:
+        fail("image_jpeg: train losses %s, validation losses %s"
+             % (losses, valid_losses))
+    return counts
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -6755,12 +7569,19 @@ def main(argv=None):
     distributed = check_distributed(torch)
     parallel = check_parallel(torch)
     parallel_ep_pp = check_parallel_ep_pp(torch)
+    parallel_unsupervised = check_parallel_unsupervised(torch)
+    parallel_preempt = check_parallel_preempt(torch)
+    parallel_cli_counts = check_parallel_cli(torch)
+    image_jpeg = check_image_jpeg(torch)
     paths = {**ae, **serving, **lm_slice, "resume": resume,
              "model_health": health, "unsupervised": unsupervised,
              "plots": plots, "serve_http": serve_http, **search,
              "profiling": profiling, "image_stream": image_stream,
              "continual": continual, "distributed": distributed,
-             "parallel": parallel, "parallel_ep_pp": parallel_ep_pp}
+             "parallel": parallel, "parallel_ep_pp": parallel_ep_pp,
+             "parallel_unsupervised": parallel_unsupervised,
+             "parallel_preempt": parallel_preempt,
+             "parallel_cli": parallel_cli_counts, "image_jpeg": image_jpeg}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

@@ -376,11 +376,16 @@ TREE_OVERRIDES = ["root.imagenet.loader.minibatch_size=8",
 
 
 def test_real_imagenet_tree_is_refused(configs, tmp_path):
-    """A tree of JPEG files (not decoded yet) streams through the file
-    loader and raises naming the file and ROADMAP Queue 1 #6b at the
-    first window; it never falls back to the synthetic bank."""
+    """A tree of arithmetic-coded JPEG files (a process not decoded yet)
+    streams through the file loader and raises naming the file and
+    ROADMAP Queue 1 #6c at the first window; it never falls back to the
+    synthetic bank."""
     _image_tree(tmp_path, 2, 4, "jpg")
-    with pytest.raises(NotImplementedError, match=r"\.jpg.*Queue 1 #6b"):
+    for path in tmp_path.glob("*/*.jpg"):
+        data = bytearray(path.read_bytes())
+        data[data.index(b"\xff\xc0") + 1] = 0xC9       # SOF9: arithmetic
+        path.write_bytes(bytes(data))
+    with pytest.raises(NotImplementedError, match=r"\.jpg.*Queue 1 #6c"):
         torch_main([os.path.join(MODELS, "imagenet.py"),
                     "root.imagenet.loader.base_dir=%s" % tmp_path,
                     *TREE_OVERRIDES, "-d", "cpu", "--seed", "5"])
@@ -389,6 +394,24 @@ def test_real_imagenet_tree_is_refused(configs, tmp_path):
     wf = timagenet.create_workflow()
     assert type(wf.loader).__name__ == "AutoLabelFileImageLoader"
     assert wf.forwards[-1].output_sample_shape in (2, (2,))
+
+
+def test_jpeg_imagenet_tree_trains_in_stream_mode(configs, tmp_path,
+                                                  capsys):
+    """A staged tree of ``*.JPEG`` files (4 classes × 10 images of 80×90)
+    trains AlexNet through AutoLabelFileImageLoader in stream mode on
+    ``-d cpu``, as a PNG tree does: the split, finite losses, uint8
+    windows."""
+    _image_tree(tmp_path, 4, 10, "JPEG")
+    wf = torch_main([os.path.join(MODELS, "imagenet.py"),
+                     "root.imagenet.loader.base_dir=%s" % tmp_path,
+                     *TREE_OVERRIDES, "-d", "cpu", "--seed", "5"])
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert not wf.loader.native_decode      # the twins on -d cpu
+    assert wf.loader.class_lengths == [0, 4, 36]
+    assert all(numpy.isfinite(h["train"]["loss"]) for h in last["history"])
+    assert wf.step.train_steps == 2 * 5 and wf.step.eval_steps == 2
+    assert wf.step.uploader.bytes == 2 * (8 + 40) * (67 * 67 * 3 + 4)
 
 
 def test_png_imagenet_tree_trains_in_stream_mode(configs, tmp_path,

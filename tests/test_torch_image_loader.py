@@ -190,24 +190,70 @@ def test_file_image_loader_explicit_labels(image_tree):
 
 
 def test_undecodable_file_raises_with_its_path(tmp_path):
-    """A JPEG in the tree raises naming the file and #6b when its window
-    is built; nothing is skipped."""
+    """A JPEG of a process the port does not decode (arithmetic-coded)
+    raises naming the file and #6c when its window is built; nothing is
+    skipped."""
+    import io
     from PIL import Image
     d = tmp_path / "cls"
     d.mkdir()
     for i in range(3):
         Image.fromarray(numpy.full((8, 8, 3), 40 * i, numpy.uint8)).save(
             d / ("a%d.png" % i))
-    Image.fromarray(numpy.zeros((8, 8, 3), numpy.uint8)).save(d / "b.jpg")
+    buf = io.BytesIO()
+    Image.fromarray(numpy.zeros((8, 8, 3), numpy.uint8)).save(buf, "JPEG")
+    data = bytearray(buf.getvalue())
+    data[data.index(b"\xff\xc0") + 1] = 0xC9       # SOF9: arithmetic
+    (d / "b.jpg").write_bytes(bytes(data))
     tprng.seed_all(1)
     port = AutoLabelFileImageLoader(base_dir=str(tmp_path), scale=(8, 8),
                                     minibatch_size=2, valid_ratio=0)
     port.initialize()
     try:
-        with pytest.raises(NotImplementedError, match="b.jpg.*#6b"):
+        with pytest.raises(NotImplementedError, match="b.jpg.*#6c"):
             port.materialize_window(CLASS_TRAIN, numpy.arange(4)[None])
     finally:
         port.stop()
+
+
+@pytest.fixture(scope="module")
+def jpeg_tree(tmp_path_factory):
+    """An ImageNet-style staged tree: 3 ``<wnid>/*.JPEG`` class dirs × 8
+    images (baseline 4:2:0 and progressive)."""
+    from PIL import Image
+    base = tmp_path_factory.mktemp("jpegs")
+    gen = numpy.random.Generator(numpy.random.PCG64(11))
+    for k, wnid in enumerate(("n01440764", "n01443537", "n01484850")):
+        d = base / wnid
+        d.mkdir()
+        for i in range(8):
+            arr = numpy.clip(numpy.asarray((60 * k + 40, 120, 200 - 50 * k))
+                             [None, None] + gen.normal(0, 20, (37, 45, 3)),
+                             0, 255).astype(numpy.uint8)
+            Image.fromarray(arr).save(d / ("%s_%d.JPEG" % (wnid, i)),
+                                      "JPEG", progressive=bool(i % 2))
+    return str(base)
+
+
+def test_jpeg_tree_windows_equal_the_reference(jpeg_tree):
+    """A staged ``*.JPEG`` tree through AutoLabelFileImageLoader: the same
+    split, labels and uint8 windows (decode, resize, crop, mirror) as the
+    reference's Pillow loader, two epochs."""
+    ref, port = _pair(jpeg_tree)
+    try:
+        assert port._paths == ref._paths
+        assert all(p.endswith(".JPEG") for p in port._paths)
+        rows = numpy.arange(0, 8).reshape(2, 4)
+        for epoch in (0, 1):
+            ref.epoch_number = port.epoch_number = epoch
+            for cls in (CLASS_TRAIN, CLASS_VALID):
+                want = ref.materialize_window(cls, rows)
+                got = port.materialize_window(cls, rows)
+                for key in want:
+                    numpy.testing.assert_array_equal(got[key], want[key])
+    finally:
+        port.stop()
+        ref.stop()
 
 
 def _jax_conv(image_tree):

@@ -5,9 +5,8 @@ the file system against a clock), SIGINT, the config-file positional
 against the reference CLI's ``--result-file``, ``--dump-config``,
 ``--profile-dir``'s trace, and the master/slave options of the reference
 CLI, each accepted (none is refused any longer); the LM's ``data``,
-``seq``, ``model``, ``expert`` and ``pipe`` axes spawn their ranks, while
-the CLI modes that do not combine with ranks exit naming ROADMAP item
-10d."""
+``seq``, ``model``, ``expert`` and ``pipe`` axes spawn their ranks (the
+CLI modes under the axes: tests/test_torch_parallel_cli.py)."""
 
 import json
 import logging
@@ -329,17 +328,6 @@ def test_lm_expert_and_pipe_cli_match_one_process(tmp_path, line):
     ref = [h["validation"]["loss"] for h in one["history"]]
     assert len(got) == 2
     assert max(abs(a - b) for a, b in zip(got, ref)) <= 1e-5, (got, ref)
-
-
-def test_lm_parallel_cli_roles_refused_naming_item_10d():
-    """The CLI modes that do not combine with parallel ranks (generation,
-    the ensemble, the search, the master/slave roles) exit before any
-    rank is spawned, naming ROADMAP item 10d."""
-    lm = os.path.join(REPO, "veles_torch", "znicz", "models",
-                      "transformer_lm.py")
-    with pytest.raises(SystemExit, match=r"item 10d\)"):
-        torch_main([lm, "-d", "cpu", "root.lm.parallel.expert=2",
-                    "root.lm.model.moe_experts=4", "--generate", "1,2"])
 
 
 def test_lm_parallel_cli_seq_by_model_exports_full_archive(tmp_path):

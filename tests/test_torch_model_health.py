@@ -17,6 +17,7 @@ import torch
 
 import veles.model_health as JMH
 import veles.prng as jprng
+from veles.config import root as jroot
 import veles_torch.model_health as TMH
 import veles_torch.prng as tprng
 import veles_torch.snapshotter as TS
@@ -235,7 +236,13 @@ def test_monitor_matches_reference(scenario):
     document in both monitors."""
     jwf = twf = None
     if scenario is weight_guard_not_stashing_while_suspect:
-        jwf = jax_make_wf("MHGuardRef", max_epochs=2)
+        # the reference's helper sets root.mnist's sizes for its own
+        # tests; a later test in this process reads the defaults
+        saved = jroot.mnist.to_dict()
+        try:
+            jwf = jax_make_wf("MHGuardRef", max_epochs=2)
+        finally:
+            jroot.mnist.update(saved)
         twf = torch_mnist(2)
     jmon, jseq = scenario(JMH, jwf)
     tmon, tseq = scenario(TMH, twf)

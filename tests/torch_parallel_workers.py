@@ -371,3 +371,174 @@ def fail_on_rank_one(port_unused=None):
         raise RuntimeError("rank one gives up")
     dist.all_reduce(torch.zeros(1))
     return "unreachable"
+
+
+def som_run(axes, epochs, loader, seed):
+    """The port's SOM sample trained ``epochs`` under DP over ``axes``
+    (empty: one process) -> (history, final weights, time step, the last
+    train step's collectives)."""
+    import veles_torch.prng as prng
+    from veles_torch.config import root
+    from veles_torch.znicz import parallel
+    from veles_torch.znicz.models import kohonen
+    saved = root.kohonen.to_dict()
+    try:
+        root.kohonen.update({"decision": {"max_epochs": epochs},
+                             "loader": dict(loader)})
+        prng.seed_all(seed)
+        wf = kohonen.create_workflow().initialize(device="cpu")
+        if axes:
+            parallel.setup_data_parallel(wf, mesh(axes))
+        wf.run()
+        return {"history": wf.decision.history,
+                "weights": wf.forwards[0].weights.numpy(),
+                "time_step": float(wf.trainer.time_step),
+                "counts": parallel.collective_counts(wf.step)}
+    finally:
+        root.kohonen.update(saved)
+
+
+def rbm_run(axes, epochs, loader, seed):
+    """The port's MnistRBM sample trained ``epochs`` under DP over
+    ``axes`` (empty: one process) -> (history, params, every uniform
+    array this rank's binarization drew, the first train step's samples,
+    the last train step's collectives)."""
+    import veles_torch.prng as prng
+    from veles_torch.config import root
+    from veles_torch.znicz import parallel
+    from veles_torch.znicz.models import mnist_rbm
+    saved = root.mnist_rbm.to_dict()
+    try:
+        root.mnist_rbm.update({"decision": {"max_epochs": epochs},
+                               "loader": dict(loader)})
+        prng.seed_all(seed)
+        wf = mnist_rbm.create_workflow().initialize(device="cpu")
+        if axes:
+            parallel.setup_data_parallel(wf, mesh(axes))
+        drawn, first = [], []
+        unit = wf.binarize
+        plain = unit.uniforms
+
+        def recording(p):
+            u = plain(p)
+            drawn.append(u.numpy().copy())
+            if not first and wf.step.in_train:
+                first.append(unit.sample(p, u).numpy())
+            return u
+        unit.uniforms = recording
+        wf.run()
+        return {"history": wf.decision.history,
+                "params": wf.checkpoint_state()["params"],
+                "uniforms": drawn, "first_samples": first[0],
+                "counts": parallel.collective_counts(wf.step)}
+    finally:
+        root.mnist_rbm.update(saved)
+
+
+def rbm_steps(axes, params, batches, uniforms, valids, n_hidden, lr):
+    """CD-1 steps of the port's RBM units under DP over ``axes`` with the
+    minibatch's uniforms injected: this rank takes its rows of each
+    (mb, visible) batch and of its (mb, hidden) uniforms -> (each step's
+    metrics row of this rank, the final params)."""
+    import numpy
+    import torch
+    from veles_torch.backends import TorchDevice
+    from veles_torch.znicz import parallel
+    from veles_torch.znicz.ops.all2all import All2AllSigmoid
+    from veles_torch.znicz.ops.rbm import (
+        BatchWeights, Binarization, EvaluatorRBM, GradientRBM,
+        TiedAll2AllSigmoid)
+    m = mesh(axes)
+    n = m.axis_size("data")
+    r = m.index("data")
+    mb, visible = batches[0].shape
+    per = -(-mb // n)
+    dev = TorchDevice("cpu")
+    h_pos = All2AllSigmoid(name="h_pos", output_sample_shape=n_hidden)
+    h_pos.initialize((per, visible), dev)
+    h_pos.weights = torch.as_tensor(params["w"])
+    h_pos.bias = torch.as_tensor(params["hb"])
+    binarize = Binarization(name="binarize")
+    binarize.initialize((per, n_hidden), dev)
+    v_neg = TiedAll2AllSigmoid(name="v_neg", weights_source=h_pos,
+                               transposed=True, output_sample_shape=visible)
+    v_neg.initialize((per, n_hidden), dev)
+    v_neg.bias = torch.as_tensor(params["vb"])
+    h_neg = TiedAll2AllSigmoid(name="h_neg", weights_source=h_pos,
+                               bias_source=h_pos, output_sample_shape=n_hidden)
+    h_neg.initialize((per, visible), dev)
+    stats = [BatchWeights(name="pos"), BatchWeights(name="neg")]
+    for unit in stats + [binarize]:
+        unit.mesh, unit.batch_axes = m, ("data",)
+    grad = GradientRBM(learning_rate=lr)
+    grad.hidden_layer, grad.visible_layer = h_pos, v_neg
+    rows = []
+    for batch, u, valid in zip(batches, uniforms, valids):
+        full = numpy.zeros((per * n, visible), numpy.float32)
+        full[:mb] = batch
+        whole_u = numpy.zeros((per * n, n_hidden))
+        whole_u[:mb] = u
+        binarize.uniforms = lambda p, whole_u=whole_u: torch.as_tensor(
+            whole_u[r * per:(r + 1) * per])
+        v = torch.as_tensor(full[r * per:(r + 1) * per])
+        mine = int(min(max(valid - r * per, 0), per))
+        count = (torch.tensor(mine), torch.tensor(int(valid)))
+        h = h_pos(v)
+        vn = v_neg(binarize(h))
+        hn = h_neg(vn)
+        rows.append(EvaluatorRBM().run(v, vn, count).numpy())
+        grad.run(stats[0](v, h, count), stats[1](vn, hn, count))
+    return {"rows": rows, "w": h_pos.weights.numpy(),
+            "hb": h_pos.bias.numpy(), "vb": v_neg.bias.numpy()}
+
+
+def stream_dp(axes, minibatch, seed):
+    """A small MNIST MLP over ``ArrayStreamLoader`` (the stream path)
+    trained 2 epochs under DP over ``axes`` (empty: one process) ->
+    (history, params, the stream path's windows)."""
+    import numpy
+    import veles_torch.prng as prng
+    from veles_torch.loader.stream import ArrayStreamLoader
+    from veles_torch.znicz import parallel
+    from veles_torch.znicz.standard_workflow import StandardWorkflow
+    gen = numpy.random.Generator(numpy.random.PCG64(seed))
+    data = gen.normal(0, 1, (150, 28, 28)).astype(numpy.float32)
+    labels = gen.integers(0, 10, 150).astype(numpy.int32)
+    layers = [{"type": "all2all_tanh", "->": {"output_sample_shape": 24},
+               "<-": {"learning_rate": 0.05}},
+              {"type": "softmax", "->": {"output_sample_shape": 10},
+               "<-": {"learning_rate": 0.05}}]
+    prng.seed_all(seed)
+    wf = StandardWorkflow(
+        name="StreamDP", layers=layers,
+        loader_factory=lambda w: ArrayStreamLoader(
+            w, name="loader", minibatch_size=minibatch, data=data,
+            labels=labels, class_lengths=[0, 41, 109]),
+        decision_config={"max_epochs": 2, "fail_iterations": 50})
+    wf.initialize(device="cpu")
+    if axes:
+        parallel.setup_data_parallel(wf, mesh(axes))
+    assert wf.loader.supports_streaming
+    wf.run()
+    return {"history": wf.decision.history,
+            "params": wf.checkpoint_state()["params"],
+            "windows": wf.step.last_window_minibatches}
+
+
+def slave_dp(axes, address, max_epochs):
+    """The MNIST chain of tests/torch_cluster.py as ONE slave of the
+    mesh's ranks (unshuffled) under the master at ``address``, through the
+    launcher's slave path: rank 0 holds the wire and relays each job,
+    every rank runs it on its share -> the jobs this rank ran (rank 0:
+    the client's count)."""
+    from tests.torch_cluster import port_wf
+    from veles_torch.launcher import Launcher
+    from veles_torch.znicz import parallel
+    wf = port_wf("DPSlave", role="slave", shuffle=False,
+                 max_epochs=max_epochs)
+    parallel.setup_data_parallel(wf, mesh(axes))
+    launcher = Launcher(device="cpu", master_address=address)
+    launcher.workflow = wf
+    launcher._run_slave()
+    client = launcher.slave_client
+    return None if client is None else client.jobs_done

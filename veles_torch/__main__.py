@@ -140,8 +140,19 @@ memory), and writes the snapshots and the inference archive (the shards
 gathered into the full tensors); the other ranks
 print nothing and exit 0. A rank
 that fails fails the run with its error text; the others are torn down
-within seconds. ``--generate``, ``--ensemble``, ``--optimize`` and the
-master/slave roles do not combine with the parallel axes.
+within seconds. A SIGTERM to the spawner reaches every rank: they stop
+before the same minibatch, write one preemption checkpoint (with
+``--snapshots``) and exit 75, as the spawner does; ``--snapshot auto``
+under the same axes resumes it. Under the axes ``--generate`` and
+``--generate-text`` decode on rank 0 from the full weights every rank
+gathers; ``--ensemble`` and an in-process ``--optimize`` run their loop
+on every rank from the same seeds (each member or individual trains on
+the mesh, rank 0 reports); ``--optimize GENSxPOPxWORKERS`` spawns no
+ranks here, each worker's individual spawns its own group; a slave
+(``--master-address``) spawns its ranks, rank 0 holds the wire and
+relays each job, every rank runs it on its share and the update goes
+out as the full arrays; a master (``--listen-address``) runs here on
+the host without ranks, its weights full.
 
 ``checkpoints DIR`` audits a snapshot store (a directory or an
 ``http(s)://`` base): every checkpoint with its manifest verdict (valid,
@@ -630,14 +641,7 @@ def main(argv=None):
         if hasattr(module, "parallel_ranks") and not args.workflow_graph \
         else 1
     rank = 0
-    if ranks > 1:
-        if args.optimize or args.ensemble or args.listen_address \
-                or args.master_address or args.generate \
-                or args.generate_text:
-            raise SystemExit(
-                "%d parallel ranks: --generate, --ensemble, --optimize and "
-                "the master/slave roles do not combine with the parallel "
-                "axes (ROADMAP Queue 1 item 10d)" % ranks)
+    if ranks > 1 and not _trains_elsewhere(args):
         if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
             return spawn_ranks(args, argv, ranks)
         rank = join_ranks(args, ranks)
@@ -651,6 +655,8 @@ def main(argv=None):
             outcome, report = optimize(args, module)
         else:
             outcome, report = ensemble(args, module)
+        if rank != 0:
+            return 0
         if result_file:
             with open(result_file, "w") as f:
                 json.dump(report, f, indent=2)
@@ -674,19 +680,24 @@ def main(argv=None):
 
     role = {}
     wf = run_workflow(args, module, before_run=encode_prompt, report=role)
-    if ranks > 1:
+    if ranks > 1 and wf.mesh is not None:
         role["parallel"] = parallel_report(wf)
         if rank != 0:
             if args.export_inference:
                 # its part of the gathers of TP's shards; rank 0 writes
                 wf.export_inference(args.export_inference)
+            if prompt is not None:
+                with wf._full_forward_params():
+                    pass        # its part of the gathers rank 0 decodes
             return 0
     if args.export_inference:
         wf.export_inference(args.export_inference)
         print("inference archive -> %s" % args.export_inference, flush=True)
     if prompt is not None:
-        out = generate(wf, prompt, args.gen_tokens,
-                       temperature=args.gen_temperature)
+        # on a mesh every rank gathers the full weights; rank 0 decodes
+        with wf._full_forward_params():
+            out = generate(wf, prompt, args.gen_tokens,
+                           temperature=args.gen_temperature)
         if args.generate_text:
             text = args.generate_text + wf.loader.decode(out[0])
             print("generated: %s" % text, flush=True)
@@ -702,6 +713,20 @@ def main(argv=None):
             json.dump(result, f, indent=2)
     print(json.dumps(result), flush=True)
     return wf
+
+
+def _trains_elsewhere(args):
+    """Whether this process trains nothing on the mesh itself, so a
+    parallel configuration spawns no ranks here: a master (the host's
+    full weights, no step), a genetic search's master or slave, or a
+    search over worker processes (each individual's process spawns its
+    own ranks)."""
+    if args.listen_address or args.optimize == "slave":
+        return True
+    if args.optimize:
+        parts = args.optimize.split("x")
+        return len(parts) > 2 and int(parts[2]) > 1
+    return False
 
 
 def run_workflow(args, module, before_run=None, report=None):
@@ -784,6 +809,10 @@ def spawn_ranks(args, argv, ranks):
         kernels.build()
     try:
         parallel.spawn(rank_main, ranks, args=(list(argv),))
+    except parallel.Preempted as exc:
+        print("parallel run preempted: %s" % exc, file=sys.stderr,
+              flush=True)
+        return parallel.EXIT_PREEMPTED
     except RuntimeError as exc:
         print("parallel run failed: %s" % exc, file=sys.stderr, flush=True)
         return 1
@@ -844,6 +873,10 @@ def parallel_report(wf):
               "collective_seconds": dict(collectives.seconds),
               "train_steps": step.train_steps,
               "eval_steps": step.eval_steps,
+              # the 2-element (stop, preempt) host all-reduces, one a
+              # minibatch, and their host seconds
+              "stop_flag_all_reduces": step.stop_flag_reduces,
+              "stop_flag_seconds": step.stop_flag_seconds,
               "step_seconds": step.dispatch_seconds}
     import torch
     row = torch.tensor([mine[k] for k in sorted(mine)], dtype=torch.int64,
@@ -991,7 +1024,8 @@ def optimize(args, module):
     if workers > 1 or args.listen_address:
         evaluate = SubprocessTrainer(args.workflow, args.config,
                                      overrides=args.overrides, seed=seed,
-                                     device=args.device)
+                                     device=args.device,
+                                     transport=args.transport)
         if args.listen_address:
             pool_cm = GATaskServer(
                 args.listen_address,

@@ -96,6 +96,10 @@ class SlaveClient(Logger):
         self.address = (host or "127.0.0.1", int(port))
         require_secret_for(self.address[0], "slave master")
         self.registry = DistributionRegistry(workflow)
+        #: called with each job's payload before it is applied, and with
+        #: None when the loop ends (a slave of several ranks: rank 0
+        #: relays every job to the others, ``parallel.relay_jobs``)
+        self.relay = None
         self.sock = None
         self.slave_id = None
         self.lease_id = None
@@ -327,6 +331,8 @@ class SlaveClient(Logger):
         # and join /debug/trace spans
         with telemetry.context(ctx):
             t0 = time.perf_counter()
+            if self.relay is not None:
+                self.relay(payload)
             self.registry.apply_job(payload)
             t1 = time.perf_counter()
             self._job_span(spans, ctx, "slave.apply", t0, t1 - t0,

@@ -26,6 +26,31 @@ from veles_torch.loader.base import CLASS_VALID
 from veles_torch.logger import Logger
 
 
+def _mesh_forward(wf, data):
+    """The eval forward of a whole minibatch ``data`` on a mesh whose
+    units shard its rows (``expert``) or positions (``seq``): this rank
+    runs its share as a training step serves it, and the outputs are
+    all-gathered over those axes (collectives every rank runs)."""
+    from veles_torch.znicz.parallel import collectives
+    step, mesh = wf.step, wf.mesh
+    n = mesh.axis_size(step.batch_axes)
+    rows = data.shape[0]
+    per = -(-rows // n)
+    if per * n > rows:
+        data = torch.cat([data, data[-1:].expand(
+            (per * n - rows,) + tuple(data.shape[1:]))])
+    r = mesh.index(step.batch_axes)
+    _, last = step._forward(step.seq_shard(data[r * per:(r + 1) * per]),
+                            False)
+    if step.seq_axis is not None:
+        last = torch.cat(collectives.all_gather(
+            last.contiguous(), mesh, step.seq_axis), dim=1)
+    if n > 1:
+        last = torch.cat(collectives.all_gather(
+            last.contiguous(), mesh, step.batch_axes))
+    return last[:rows]
+
+
 class Ensemble(Logger):
     """Trains and evaluates a bag of workflow instances."""
 
@@ -54,7 +79,10 @@ class Ensemble(Logger):
 
     def _member_outputs(self, x):
         """``x`` (rows as the loader holds them) through every member's
-        eval forward; -> a list of float32 host arrays."""
+        eval forward; -> a list of float32 host arrays. A member whose
+        units shard the rows or positions of a minibatch over its mesh
+        (``expert``, ``seq``) runs each rank's share and gathers the
+        outputs (:func:`_mesh_forward`), the same on every rank."""
         outs = []
         with torch.no_grad():
             for wf in self.workflows:
@@ -62,7 +90,12 @@ class Ensemble(Logger):
                     numpy.asarray(x, wf.loader.serve_dtype)).to(
                         wf.device.device)
                 data = wf.loader.batch_transform(rows, False)
-                _, last = wf.step._forward(data, False)
+                step = wf.step
+                if step.seq_axis is not None \
+                        or set(step.batch_axes) - {"data"}:
+                    last = _mesh_forward(wf, data)
+                else:
+                    _, last = wf.step._forward(data, False)
                 outs.append(last.float().cpu().numpy())
         return outs
 

@@ -148,12 +148,15 @@ class SubprocessTrainer:
     individual's values were written into."""
 
     def __init__(self, workflow_path, config_path=None, overrides=(),
-                 seed=1, device="cuda"):
+                 seed=1, device="cuda", transport=None):
         self.workflow_path = workflow_path
         self.config_path = config_path
         self.overrides = tuple(overrides)
         self.seed = int(seed)
         self.device = device
+        #: the declared transport of an individual's ranks (a workflow
+        #: whose ``parallel_ranks()`` is above 1)
+        self.transport = transport
 
     def __call__(self, values):
         metric = self._train(values)
@@ -165,10 +168,26 @@ class SubprocessTrainer:
         return metric
 
     def _train(self, values):
-        from veles_torch import model_health, prng
+        """One individual's run; a workflow whose ``parallel_ranks()`` is
+        above 1 trains in a rank group of its own, spawned here on a
+        free port (rank 0's metric)."""
+        import torch.distributed as dist
+        module = self._configure(values)
+        ranks = module.parallel_ranks() \
+            if hasattr(module, "parallel_ranks") else 1
+        if ranks > 1 and not dist.is_initialized():
+            from veles_torch.znicz import parallel
+            transport = parallel.declared_transport(
+                self.device, self.transport, ranks)
+            return parallel.spawn(_train_rank, ranks,
+                                  args=(self, values, transport))[0]
+        return self._run(module, self.device)
+
+    def _configure(self, values):
+        """The workflow module, the config file, the overrides and the
+        individual's values, in the CLI's order; -> the module."""
         from veles_torch.__main__ import import_file
         from veles_torch.config import root
-        from veles_torch.launcher import Launcher
         module = import_file(self.workflow_path,
                              "veles_torch_workflow_module")
         if self.config_path:
@@ -176,13 +195,37 @@ class SubprocessTrainer:
         for override in self.overrides:
             root.apply_override(override)
         apply_values(root, values)
+        return module
+
+    def _run(self, module, device):
+        from veles_torch import model_health, prng
+        from veles_torch.launcher import Launcher
         prng.seed_all(self.seed)
         wf = module.create_workflow()
         with model_health.scoped():
-            launcher = Launcher(device=self.device)
+            launcher = Launcher(device=device)
             launcher.initialize(wf)
             launcher.run()
         return float(wf.decision.best_metric)
+
+
+def _train_rank(trainer, values, transport):
+    """One rank of an individual's group (:func:`parallel.spawn`): join
+    the group, train, leave it; -> the decision's best metric."""
+    import torch
+    import torch.distributed as dist
+    from veles_torch.znicz import parallel
+    rank, world = parallel.init_multihost(transport=transport)
+    try:
+        device = trainer.device
+        if transport == "gloo":
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        elif transport == "nccl":
+            torch.cuda.set_device(rank)
+            device = "cuda:%d" % rank
+        return trainer._run(trainer._configure(values), device)
+    finally:
+        dist.destroy_process_group()
 
 
 class GeneticOptimizer(Logger):

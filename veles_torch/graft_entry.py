@@ -21,7 +21,7 @@ that step issued, as the reference asserts its HLO opcodes:
   GPipe and 1F1B: ``collective-permute`` and ``all-reduce``;
 * the LM under data × model 2 × seq 2 when ``n % 8 == 0``: both.
 
-Every leg of the reference runs (``NOT_RUN`` is empty). The ranks run on
+Every leg of the reference runs. The ranks run on
 the card unless the caller asks for the host: there ``transport`` is
 ``"nccl"`` (the default, one card per rank, refused when there are fewer
 cards than ranks) or ``"gloo-host"`` (ranks sharing one card, the
@@ -35,10 +35,6 @@ print(dryrun_multichip(4, device='cpu'))"    # 4 gloo ranks of the host
 """
 
 import math
-
-#: the reference's legs the port does not run
-NOT_RUN = ()
-
 
 def _one_train_step(wf):
     """One train step of the workflow's first train minibatch, as its
@@ -166,12 +162,11 @@ def dryrun_multichip(n_devices, device="cuda", transport=None,
                      timeout_s=600.0):
     """One full train step under every mode on ``n_devices`` ranks (module
     docstring); -> {"legs": rank 0's {leg: mesh, collectives},
-    "transport", "not_run"}. Raises when a rank fails or a leg lacks a
+    "transport"}. Raises when a rank fails or a leg lacks a
     collective it must issue."""
     from veles_torch.znicz import parallel
     n = int(n_devices)
     transport = parallel.declared_transport(device, transport, n)
     reports = parallel.spawn(_dryrun_rank, n, args=(n, device, transport),
                              timeout_s=timeout_s)
-    return {"legs": reports[0], "transport": transport,
-            "not_run": {name: parallel.LATER for name in NOT_RUN}}
+    return {"legs": reports[0], "transport": transport}

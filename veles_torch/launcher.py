@@ -35,7 +35,11 @@ launcher wires them.
 :meth:`Launcher.run` trains: SIGINT stops the run; SIGTERM
 (preemption) stops it before the next minibatch, then, outside the
 signal handler, writes a final ``current`` checkpoint and exits with
-:data:`EXIT_PREEMPTED`. ``profile_dir`` wraps the run in
+:data:`EXIT_PREEMPTED`. A parallel run's spawner forwards its SIGTERM to
+every rank; the ranks agree on the minibatch they stop before
+(``TorchStep.stop_agreed``), write the one checkpoint together (rank 0
+writes, the sharded tensors gathered) and each exits with
+:data:`EXIT_PREEMPTED`, as does the spawner. ``profile_dir`` wraps the run in
 ``torch.profiler`` (CPU, and CUDA on the card) and writes its Chrome
 trace into the directory, the twin of the reference's
 ``jax.profiler.trace``. The graphics server and the dashboard are closed
@@ -299,7 +303,7 @@ class Launcher:
             self.preempted = True
             logger.warning("SIGTERM: preemption shutdown — stopping before "
                            "the next minibatch")
-            wf.stop()
+            wf.stop(preempt=True)
             if self.master_server is not None:
                 # signal-safe: the serving thread persists on its way out
                 self.master_server.request_stop()
@@ -319,6 +323,9 @@ class Launcher:
                     signal.signal(signal.SIGINT, previous)
                 if previous_term is not None:
                     signal.signal(signal.SIGTERM, previous_term)
+            if getattr(wf.step, "preempt_requested", False):
+                # on a mesh: another rank's SIGTERM, agreed on
+                self.preempted = True
             if self.preempted:
                 self._preemption_exit()
         finally:
@@ -390,23 +397,34 @@ class Launcher:
 
     def _run_slave(self):
         from veles_torch.client import SlaveClient
+        from veles_torch.znicz import parallel
+        mesh = getattr(self.workflow, "mesh", None)
+        if mesh is not None and mesh.rank != 0:
+            # the other ranks of a slave: each job rank 0 relays
+            parallel.follow_jobs(self.workflow)
+            return
         client = SlaveClient(self.workflow, self.master_address,
                              grad_codec=self.grad_codec,
                              grad_topk_percent=self.grad_topk_percent,
                              **self.slave_options)
         self.slave_client = client
+        if mesh is not None:
+            client.relay = lambda payload: parallel.relay_job(
+                self.workflow, payload)
         if self.preempted:
             client.request_stop()
-        client.run_forever()
+        try:
+            client.run_forever()
+        finally:
+            if mesh is not None:
+                parallel.relay_job(self.workflow, None)
 
     def _preemption_exit(self):
         snap = self.workflow.snapshotter
-        if getattr(self.workflow, "mesh", None) is not None:
-            # each rank stops at its own minibatch: a checkpoint's
-            # gathers would wait on ranks that already stopped
-            logger.warning("preempted: a parallel run writes no "
-                           "preemption checkpoint")
-        elif self.mode == "standalone" and snap is not None:
+        if self.mode == "standalone" and snap is not None:
+            # on a mesh every rank is here, stopped before the same
+            # minibatch: each takes its part in the checkpoint's gathers,
+            # rank 0 writes it
             path = snap.preempt_snapshot()
             if path:
                 logger.info("preemption checkpoint -> %s", path)

@@ -5,7 +5,8 @@ Counterpart of ``veles/loader/image.py``: scale to a target size, a
 random crop and a p = 0.5 horizontal mirror for a train sample (a centre
 crop and no mirror for an evaluation one), RGB or grey, the label from
 the class directory. Decoding is ``codecs.py`` (Pillow's pixels, without
-Pillow). Each minibatch of a window is one future of the loader's decode
+Pillow: PNG, JPEG, GIF, BMP and PNM), with its native routines on the
+card and their Python twins on the CPU. Each minibatch of a window is one future of the loader's decode
 pool (``StreamLoader.materialize_window``); the images travel to the
 device as uint8 and :meth:`ImageLoaderBase.batch_transform` maps them to
 ``(x / 255 − mean) / std`` in float32 there.
@@ -87,8 +88,18 @@ class ImageLoaderBase(StreamLoader):
 
     # -- decode and augment ----------------------------------------------
 
+    @property
+    def native_decode(self):
+        """The run's decode routines: the native ones
+        (``csrc/image_decode.cu``) when its workflow computes on the card,
+        their Python twins on the CPU or with no workflow device."""
+        device = getattr(getattr(self.workflow, "device", None), "device",
+                         None)
+        return device is not None and device.type == "cuda"
+
     def _decode_file(self, path):
-        return codecs.load(path, self.color_space, self.scale)
+        return codecs.load(path, self.color_space, self.scale,
+                           native=self.native_decode)
 
     def _aug_draws(self, index):
         """3 uniforms in [0, 1) (crop y, crop x, mirror), pure in

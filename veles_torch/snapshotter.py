@@ -1114,8 +1114,15 @@ class Snapshotter:
 
     def preempt_snapshot(self):
         """The SIGTERM path: one forced ``current`` checkpoint; a failure
-        is warned (the process is exiting anyway); -> path or None."""
+        is warned (the process is exiting anyway); -> path or None. On a
+        mesh every rank calls it: rank 0 writes, the others take their
+        part in a sharded checkpoint's gathers."""
         try:
+            if getattr(self.workflow, "mesh", None) is not None \
+                    and not self.writer:
+                if self.workflow.shard_specs:
+                    self.workflow.checkpoint_state()
+                return None
             return self.export_snapshot(slot="current")
         except Exception as exc:
             logger.warning("preemption checkpoint failed: %s", exc)

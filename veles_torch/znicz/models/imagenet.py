@@ -13,8 +13,9 @@ Data: an image tree under ``root.imagenet.loader.base_dir`` (default
 on the host, scaled to ``scale``, randomly cropped to ``crop`` and
 mirrored for training (centre crop for validation), shipped as uint8 and
 normalized on the device; the softmax width is the tree's class count.
-A file the port does not decode (JPEG, GIF: ROADMAP Queue 1 #6b) raises
-with its path; nothing falls back to the bank. Without a tree: the
+A staged ``*.JPEG`` tree reads as any other (``loader/jpeg.py``); a file
+that does not decode raises with its path, and nothing falls back to the
+bank. Without a tree: the
 reference's deterministic synthetic stand-in, a uint8 bank of per-class
 low-frequency prototypes plus per-index noise made with numpy bit for
 bit as the reference makes it, resident on the device; each gathered

@@ -30,8 +30,8 @@ N); ``stage_val`` refuses alphabetically-sorted synset lists unless
 
 Runs incrementally (already-extracted classes are skipped), so an
 interrupted staging resumes. Extraction uses streaming tarfile reads —
-no tar is ever fully loaded into memory. Staged JPEG files are not
-decoded by the port yet (ROADMAP Queue 1 #6b)."""
+no tar is ever fully loaded into memory. The port decodes the staged
+JPEG files itself (``veles_torch/loader/jpeg.py``)."""
 
 import argparse
 import os

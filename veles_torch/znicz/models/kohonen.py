@@ -93,9 +93,14 @@ class KohonenWorkflow(NNWorkflow):
 
     def step_body(self, data, target, valid, train):
         """A train step runs the trainer: the row (weight_delta, 0, 0, 0);
-        an evaluation step classifies and moves nothing."""
+        an evaluation step classifies and moves nothing. On a mesh every
+        rank holds the minibatch's delta and the first rank of the batch
+        line reports it (the step's metric gather sums the rows)."""
         if train:
             delta = self.trainer.run(data, valid)
+            mesh = self.trainer.mesh
+            if mesh is not None and mesh.index(self.trainer.batch_axes):
+                delta = torch.zeros_like(delta)
         else:
             self.forwards[0](data)
             delta = torch.zeros((), dtype=torch.float32, device=data.device)

@@ -17,12 +17,20 @@ reference's expanded form (|x|² dropped): another rounding of it flips
 near-tied winners, and one flipped winner moves a whole neighbourhood.
 Everything is f32 on every device (the reference's products here are
 plain f32 matmuls, not the compute-dtype ``dot``).
+
+Under data parallelism (``parallel.setup_data_parallel`` sets the
+trainer's ``mesh`` and ``batch_axes``) each rank finds the winners of its
+own rows; the numerator ``Σ_b h(i,b) x_b`` and the denominator
+``Σ_b h(i,b)`` are sums over the batch, all-reduced over the batch axes
+in one call, so every rank computes the same new weights and the same
+``weight_delta`` as the one device.
 """
 
 import numpy
 import torch
 
 from veles_torch.znicz.nn_units import Forward, forward_unit
+from veles_torch.znicz.parallel import collectives
 
 
 def grid_coords(sy, sx):
@@ -84,6 +92,10 @@ class KohonenTrainer:
         self.decay_steps = float(decay_steps)
         self.time_step = None
         self.coords = None
+        #: the mesh and the batch axes the sums of :meth:`update` are
+        #: all-reduced over (``parallel.setup_data_parallel``)
+        self.mesh = None
+        self.batch_axes = ()
 
     def setup_forward(self, forward):
         self.forward = forward
@@ -111,7 +123,10 @@ class KohonenTrainer:
 
     def update(self, x2, w, t, valid):
         """-> (new weights, weight_delta) of one step on (B, F) f32 rows
-        ``x2`` of which the first ``valid`` count."""
+        ``x2`` of which the first ``valid`` count (on a mesh ``valid`` is
+        (this rank's count, the minibatch's))."""
+        if isinstance(valid, tuple):
+            valid = valid[0]
         bmu = torch.argmin(dist2(x2, w), dim=1)
         alpha, sigma = self.schedules(t)
         diff = self.coords[None, :, :] - self.coords[bmu][:, None, :]
@@ -121,6 +136,11 @@ class KohonenTrainer:
         h = h * mask[:, None].to(h.dtype)
         num = h.t() @ x2
         den = h.sum(dim=0)[:, None]
+        if self.mesh is not None \
+                and self.mesh.axis_size(self.batch_axes) > 1:
+            both = collectives.all_reduce(torch.cat([num, den], dim=1),
+                                          self.mesh, self.batch_axes)
+            num, den = both[:, :-1], both[:, -1:]
         target = num / torch.clamp(den, min=1e-12)
         pull = torch.where(den > 1e-12, target - w, torch.zeros_like(w))
         new_w = w + alpha * pull

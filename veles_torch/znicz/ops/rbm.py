@@ -21,6 +21,15 @@ keyed ``"rbm_binarize"`` whose state rides in checkpoints; its numbers
 are not ``jax.random``'s, so whole runs match the reference only
 statistically, and unit tests inject the uniforms (:meth:`Binarization.
 sample`).
+
+Under data parallelism (``parallel.setup_data_parallel`` sets each
+unit's ``mesh`` and ``batch_axes``; ``valid`` is then (this rank's rows,
+the minibatch's)) the statistics are the sums over the batch axes
+(one all-reduce per :class:`BatchWeights`) divided by the minibatch's
+valid count, the evaluator's row is this rank's share of the minibatch's
+mean (the step's metric gather sums the shares), and
+:class:`Binarization` draws the whole minibatch's uniforms and keeps its
+rows, so every rank draws what the one device draws.
 """
 
 import torch
@@ -28,10 +37,20 @@ import torch
 from veles_torch import prng
 from veles_torch.znicz.nn_units import Forward
 from veles_torch.znicz.ops import activations as A
+from veles_torch.znicz.parallel import collectives
 
 
 def _row_mask(b, valid, device, dtype):
     return (torch.arange(b, device=device) < valid).to(dtype)
+
+
+def _counts(valid, device):
+    """(this rank's valid rows, the minibatch's count as a f32 divisor of
+    at least 1) of ``valid``: a count, or on a mesh (mine, total)."""
+    mine, total = valid if isinstance(valid, tuple) else (valid, valid)
+    n = torch.clamp(torch.as_tensor(total, device=device)
+                    .to(torch.float32), min=1.0)
+    return mine, n
 
 
 class Binarization(Forward):
@@ -44,6 +63,9 @@ class Binarization(Forward):
         super().__init__(**kwargs)
         self.prng_key = prng_key
         self.generator = None
+        #: the mesh and its batch axes (``parallel.setup_data_parallel``)
+        self.mesh = None
+        self.batch_axes = ()
 
     def initialize(self, input_shape, device):
         self.device = device
@@ -62,9 +84,21 @@ class Binarization(Forward):
         """``u < p`` as f32 of the same shape."""
         return (u < p).to(torch.float32)
 
+    def uniforms(self, p):
+        """The uniforms of ``p``'s rows: on a mesh this rank's rows of the
+        whole minibatch's array (the generators, seeded alike, stay in
+        step on every rank)."""
+        nb = self.mesh.axis_size(self.batch_axes) \
+            if self.mesh is not None else 1
+        shape = (p.shape[0] * nb,) + tuple(p.shape[1:])
+        u = torch.rand(shape, generator=self.generator, device=p.device)
+        if nb > 1:
+            lo = self.mesh.index(self.batch_axes) * p.shape[0]
+            u = u[lo:lo + p.shape[0]]
+        return u
+
     def forward(self, p):
-        u = torch.rand(p.shape, generator=self.generator, device=p.device)
-        return self.sample(p, u)
+        return self.sample(p, self.uniforms(p))
 
 
 class TiedAll2AllSigmoid(Forward):
@@ -109,6 +143,9 @@ class BatchWeights(Forward):
     def __init__(self, **kwargs):
         kwargs["include_bias"] = False
         super().__init__(**kwargs)
+        #: the mesh and its batch axes (``parallel.setup_data_parallel``)
+        self.mesh = None
+        self.batch_axes = ()
 
     def initialize(self, input_shape, device):
         self.device = device
@@ -116,12 +153,20 @@ class BatchWeights(Forward):
 
     def forward(self, v, h, valid):
         b = v.shape[0]
-        mask = _row_mask(b, valid, v.device, torch.float32)[:, None]
+        mine, n = _counts(valid, v.device)
+        mask = _row_mask(b, mine, v.device, torch.float32)[:, None]
         v = v.reshape(b, -1).to(torch.float32) * mask
         h = h.reshape(b, -1).to(torch.float32) * mask
-        n = torch.clamp(torch.as_tensor(valid, device=v.device)
-                        .to(torch.float32), min=1.0)
-        return v.t() @ h / n, v.sum(dim=0) / n, h.sum(dim=0) / n
+        vh, vs, hs = v.t() @ h, v.sum(dim=0), h.sum(dim=0)
+        if self.mesh is not None \
+                and self.mesh.axis_size(self.batch_axes) > 1:
+            flat = collectives.all_reduce(
+                torch.cat([vh.reshape(-1), vs, hs]), self.mesh,
+                self.batch_axes)
+            vh = flat[:vh.numel()].view(vh.shape)
+            vs = flat[vh.numel():vh.numel() + vs.numel()]
+            hs = flat[vh.numel() + vs.numel():]
+        return vh / n, vs / n, hs / n
 
 
 class GradientRBM:
@@ -163,12 +208,13 @@ class EvaluatorRBM:
 
     @staticmethod
     def compute(v, r, valid):
+        """Σ over this rank's valid rows of the squared difference, over
+        the minibatch's valid count (on one device: the mean)."""
         b = v.shape[0]
-        mask = _row_mask(b, valid, v.device, torch.float32)[:, None]
+        mine, n = _counts(valid, v.device)
+        mask = _row_mask(b, mine, v.device, torch.float32)[:, None]
         diff = (v.reshape(b, -1).to(torch.float32)
                 - r.reshape(b, -1).to(torch.float32)) * mask
-        n = torch.clamp(torch.as_tensor(valid, device=v.device)
-                        .to(torch.float32), min=1.0)
         return (diff * diff).sum() / n
 
     def run(self, v, r, valid):

@@ -45,8 +45,12 @@ the group, and tears every rank down within a bounded time when one
 fails. :func:`collective_counts` is the collectives the last train step
 issued, the port's counterpart of counting opcodes in the partitioned
 HLO. ``pipeline.py`` holds the stacked block's math and schedules.
-Still to port (ROADMAP Queue 1 item 10d, raising until then): DP of a
-workflow whose step is its own body (the SOM, the RBM).
+
+A workflow whose step is its own body (the SOM, the RBM) takes DP as any
+other: the step serves each rank its rows, padded and masked, and the
+body's units that sum over the batch (they carry ``batch_axes``: the
+Kohonen trainer, the RBM's statistics and binarization) are told the
+mesh and reduce over those axes.
 """
 
 import collections
@@ -73,11 +77,16 @@ logger = logging.getLogger(__name__)
 #: the axes the reference names, in the order _setup_parallel lays them
 AXES = ("data", "seq", "model", "expert", "pipe")
 
-#: the ROADMAP item the unported parts of the layer wait for
-LATER = "ROADMAP Queue 1 item 10d"
-
 #: seconds a collective may wait on a peer before the group fails it
 DEFAULT_TIMEOUT_S = 600.0
+
+#: a rank's exit code after a preemption (``launcher.EXIT_PREEMPTED``)
+EXIT_PREEMPTED = 75
+
+
+class Preempted(RuntimeError):
+    """Every rank of :func:`spawn` stopped on a SIGTERM (each checkpointed
+    and exited with :data:`EXIT_PREEMPTED`)."""
 
 
 def init_multihost(coordinator_address=None, num_processes=None,
@@ -130,6 +139,9 @@ class Mesh:
         self.coords = self.coords_of(self.rank)
         #: {axes tuple: (process group, size)} of this rank's lines
         self._groups = {}
+        #: a gloo group over every rank of the mesh for host tensors,
+        #: whatever the transport (made by :meth:`make_groups`)
+        self.host_group = None
 
     def _axes(self, axes):
         """``axes`` (a name or names) in the mesh's order, absent names
@@ -198,8 +210,9 @@ class Mesh:
                                % (dict(self.shape), axes))
 
     def make_groups(self):
-        """One process group per line of every set of axes, made in the
-        same order on every rank (``new_group`` is collective)."""
+        """One process group per line of every set of axes, and the host
+        group, made in the same order on every rank (``new_group`` is
+        collective)."""
         for k in range(1, len(self.axis_names) + 1):
             for axes in itertools.combinations(self.axis_names, k):
                 if self.axis_size(axes) == 1:
@@ -208,6 +221,9 @@ class Mesh:
                     g = dist.new_group(ranks)
                     if self.rank in ranks:
                         self._groups[axes] = g
+        if self.grid.size > 1:
+            self.host_group = dist.new_group(
+                [int(r) for r in self.grid.reshape(-1)], backend="gloo")
         return self
 
     def __repr__(self):
@@ -330,11 +346,6 @@ def _step_of(workflow):
     if step is None:
         raise ValueError("workflow has no step (a master that never "
                          "computes?)")
-    if step.body is not None:
-        raise NotImplementedError(
-            "%s: its step is its own body (no GD chain whose gradients "
-            "the mesh could sum); the parallel axes drive GD workflows "
-            "(%s)" % (workflow.name, LATER))
     return step
 
 
@@ -346,17 +357,22 @@ def _attach(workflow, mesh):
 
 def _lay_out(workflow):
     """Tell the units that see the whole minibatch where this rank's
-    share lies, after every setup: a dropout unit its batch and seq axes;
+    share lies, after every setup: a unit that sums or draws over the
+    batch (it has ``batch_axes``: dropout, the SOM trainer, the RBM's
+    statistics and binarization) the mesh and batch axes, a dropout unit
+    its seq axis too;
     an MoE unit its token axes, with the gradient axes of its experts and
     router. An MoE unit under a batch axis needs the minibatch to divide
     (a padded row would take a slot the one device never routes)."""
     from veles_torch.znicz.ops.dropout import DropoutForward
     from veles_torch.znicz.ops.moe import MoEFFN
     step, mesh = workflow.step, workflow.mesh
+    for unit in list(workflow.forwards) + list(workflow.gds):
+        if hasattr(unit, "batch_axes") and not isinstance(unit, MoEFFN):
+            unit.mesh = mesh
+            unit.batch_axes = step.batch_axes
     for i, fwd in enumerate(workflow.forwards):
         if isinstance(fwd, DropoutForward):
-            fwd.mesh = mesh
-            fwd.batch_axes = step.batch_axes
             fwd.seq_axis = step.seq_axis
         if not isinstance(fwd, MoEFFN):
             continue
@@ -650,6 +666,51 @@ def setup_pipeline_parallel(workflow, mesh, axis="pipe", microbatches=4,
 
 
 # ---------------------------------------------------------------------------
+# a slave of several ranks
+
+
+def _broadcast_object(obj, mesh, device):
+    """``obj`` (rank 0's; pickled) on every rank of the mesh: two counted
+    broadcasts, its length and its bytes."""
+    import pickle
+    data = pickle.dumps(obj) if mesh.rank == 0 else b""
+    size = collectives.broadcast(torch.tensor(
+        [len(data)], dtype=torch.int64, device=device), mesh,
+        mesh.axis_names)
+    buf = torch.zeros(int(size.item()), dtype=torch.uint8, device=device)
+    if mesh.rank == 0:
+        buf = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(device)
+    out = collectives.broadcast(buf, mesh, mesh.axis_names)
+    return pickle.loads(out.cpu().numpy().tobytes())
+
+
+def relay_job(workflow, payload):
+    """Rank 0 of a slave of several ranks hands the job ``payload`` it
+    pulled from the master (None: the loop ended) to the other ranks."""
+    _broadcast_object(payload, workflow.mesh, workflow.device.device)
+
+
+def follow_jobs(workflow):
+    """The loop of a slave's rank other than 0: apply each job rank 0
+    relays (the loader's minibatch, the master's weights, each rank
+    keeping its shard) and run it on this rank's share
+    (``TorchStep.run_job``: the gradients summed and the update's shards
+    gathered with rank 0's), until rank 0 relays None. -> the jobs
+    run."""
+    from veles_torch.distributable import DistributionRegistry
+    registry = DistributionRegistry(workflow)
+    jobs = 0
+    while True:
+        payload = _broadcast_object(None, workflow.mesh,
+                                    workflow.device.device)
+        if payload is None:
+            return jobs
+        registry.apply_job(payload)
+        workflow.step.run_job()
+        jobs += 1
+
+
+# ---------------------------------------------------------------------------
 # rank processes on this host
 
 
@@ -699,6 +760,11 @@ def _rank_entry(fn, rank, world, port, args, results):
     try:
         out = fn(*args)
     except SystemExit as exc:
+        if exc.code == EXIT_PREEMPTED:
+            results.put((rank, "preempted", None))
+            results.close()
+            results.join_thread()
+            os._exit(EXIT_PREEMPTED)
         if exc.code in (0, None):
             out = None
         else:
@@ -716,10 +782,6 @@ def _report_and_exit(results, rank, code):
     os._exit(code if isinstance(code, int) and code else 1)
 
 
-def _exit_on_sigterm(signum, frame):
-    raise SystemExit(128 + signum)
-
-
 def spawn(fn, world, args=(), timeout_s=None, grace_s=10.0):
     """Run ``fn(*args)`` in ``world`` processes of the ``spawn`` context,
     each with a ``torchrun``-style environment on a free localhost port
@@ -727,8 +789,9 @@ def spawn(fn, world, args=(), timeout_s=None, grace_s=10.0):
     return values by rank. When a rank fails (or ``timeout_s`` passes)
     the others are terminated, then killed after ``grace_s``, and this
     raises RuntimeError with the failing rank's error text. A SIGTERM to
-    this process (on the main thread) tears the ranks down the same way
-    before it exits."""
+    this process (on the main thread) is forwarded to every rank, which
+    stops, checkpoints and exits with :data:`EXIT_PREEMPTED`; when every
+    rank has, this raises :class:`Preempted`."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
@@ -738,10 +801,16 @@ def spawn(fn, world, args=(), timeout_s=None, grace_s=10.0):
     for p in procs:
         p.start()
     done, error = {}, None
+    preempted = set()
     deadline = None if timeout_s is None else time.monotonic() + timeout_s
     previous = None
+
+    def forward_sigterm(signum, frame):
+        for p in procs:
+            if p.is_alive():
+                os.kill(p.pid, signal.SIGTERM)
     if threading.current_thread() is threading.main_thread():
-        previous = signal.signal(signal.SIGTERM, _exit_on_sigterm)
+        previous = signal.signal(signal.SIGTERM, forward_sigterm)
     try:
         while len(done) < world and error is None:
             try:
@@ -761,6 +830,9 @@ def spawn(fn, world, args=(), timeout_s=None, grace_s=10.0):
                     break
             if status == "ok":
                 done[rank] = payload
+            elif status == "preempted":
+                done[rank] = None
+                preempted.add(rank)
             else:
                 error = payload
     finally:
@@ -785,4 +857,6 @@ def spawn(fn, world, args=(), timeout_s=None, grace_s=10.0):
         results.close()
     if error is not None:
         raise RuntimeError(error)
+    if preempted:
+        raise Preempted("ranks %s preempted" % sorted(preempted))
     return [done[r] for r in range(world)]

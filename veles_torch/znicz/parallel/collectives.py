@@ -17,6 +17,8 @@ call over the process group of a mesh line (``Mesh.group``):
   from its neighbours on the axis, only the ones the static schedule
   gives it, as one ``batch_isend_irecv`` (the peer posts the other side
   of each hop in the same tick).
+* :func:`all_reduce_host` — a host tensor over every rank of the mesh on
+  its gloo group, whatever the transport (the train loop's stop flags).
 
 The transport is declared when the process group is made
 (:func:`set_transport`), never chosen here:
@@ -29,7 +31,8 @@ The transport is declared when the process group is made
 * ``"gloo"`` — CPU ranks (the tests, ``-d cpu``): the tensors are host
   tensors already.
 
-A tensor on another device than the transport takes raises.
+A tensor on another device than the transport takes raises
+(:func:`all_reduce_host` takes host tensors only).
 
 Each call is counted under the reference's HLO opcode names
 (``all-reduce``, ``all-gather``, ``all-to-all``, ``collective-permute`` —
@@ -155,6 +158,24 @@ def all_reduce(tensor, mesh, axes, op="sum"):
     out = buf.to(tensor.device)
     _account("all-reduce", [tensor], t0)
     return out
+
+
+def all_reduce_host(tensor, mesh):
+    """-> the host tensor ``tensor`` summed over every rank of the mesh on
+    its gloo group (``mesh.host_group``), whatever the transport: no card
+    work, so nothing waits for the card's queue. One call, counted as
+    ``all-reduce``."""
+    if tensor.device.type != "cpu":
+        raise ValueError("all_reduce_host moves host tensors; got one on "
+                         "%s" % tensor.device)
+    if mesh.host_group is None:
+        raise RuntimeError("mesh %s has no host group (made by make_mesh)"
+                           % dict(mesh.shape))
+    t0 = time.perf_counter()
+    buf = tensor.detach().clone()
+    dist.all_reduce(buf, group=mesh.host_group)
+    _account("all-reduce", [tensor], t0)
+    return buf
 
 
 def all_gather(tensor, mesh, axes):

@@ -274,12 +274,15 @@ class NNWorkflow:
         if self.rollback is not None:
             self.rollback.run()
 
-    def stop(self):
+    def stop(self, preempt=False):
         """End :meth:`run` before its next minibatch (the minibatches of
         the class in flight are not accounted); a later :meth:`run` ends
-        at once."""
+        at once. ``preempt``: the stop is a preemption (on a mesh every
+        rank learns it at the agreed minibatch)."""
         if self.step is not None:
             self.step.stop_requested = True
+            if preempt:
+                self.step.preempt_requested = True
 
     def close(self):
         """Stop the threads the run started: the stream path's staging

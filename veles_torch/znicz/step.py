@@ -37,11 +37,19 @@ after the decision accounted each minibatch (the ImageSaver).
 After each class reaches the decision, ``run_epoch`` calls its
 ``after_class`` hook (the workflow's snapshotter and rollback). Before
 every minibatch it reads ``stop_requested``: a stopped epoch ends there,
-and the class in flight never reaches the decision. With ``take_entry``
-set (a snapshotter or rollback is linked) the train class starts by
-keeping ``entry``, the workflow's clone of params, solver state and
-generator states: the state the epoch's validation metric was measured
-on, and what a checkpoint holds while the train class is in flight.
+and the class in flight never reaches the decision. On a mesh of more
+than one rank the ranks agree first (:meth:`TorchStep.stop_agreed`), so
+every rank stops before the same minibatch: each rank's flags
+(``stop_requested``, and ``preempt_requested`` for a SIGTERM) are host
+state, summed by one 2-element all-reduce of host tensors over the
+mesh's gloo group before the minibatch (outside the train step's
+collective count), so reading them waits for no work on the card; a
+rank that learns of a preemption from the others takes it as its own.
+With ``take_entry`` set (a snapshotter or rollback is linked) the train
+class starts by keeping ``entry``, the workflow's clone of params,
+solver state and generator states: the state the epoch's validation
+metric was measured on, and what a checkpoint holds while the train
+class is in flight.
 
 A workflow whose updates are not a GD chain (the Kohonen map, the RBM's
 contrastive divergence) hands the step its own ``body(data, target,
@@ -100,7 +108,11 @@ copy; each GD unit keeps its slice as ``wire_host`` for
 ``generate_data_for_master``. The master's weights reach the device
 tensors in place (``GradientDescentBase.apply_data_from_master``), so no
 re-upload step is needed. The bias gradient runs as on the standalone
-path: one launch per GD unit with a bias in a train job.
+path: one launch per GD unit with a bias in a train job. A slave of
+several ranks (``parallel.relay_job``) runs each job on every rank: each
+takes its rows of the job, padded and masked as a class minibatch is,
+and a sharded parameter reaches the host as its full tensor, gathered
+over its shard axis.
 
 On a mesh (``veles_torch/znicz/parallel``: ``setup_data_parallel``,
 ``setup_sequence_parallel``, ``setup_tensor_parallel``,
@@ -196,6 +208,13 @@ class TorchStep:
         self._seen_dispatch = set()
         #: read before every minibatch; True ends the epoch there
         self.stop_requested = False
+        #: the stop is a preemption (SIGTERM): the launcher checkpoints
+        #: and exits with its preemption code
+        self.preempt_requested = False
+        #: on a mesh, the (stop, preempt) flag all-reduces taken (one a
+        #: minibatch) and their host seconds
+        self.stop_flag_reduces = 0
+        self.stop_flag_seconds = 0.0
         #: a callable -> the epoch-entry copy, or None to keep none
         self.take_entry = None
         #: the copy ``take_entry`` made as the current train class began
@@ -336,7 +355,12 @@ class TorchStep:
     def train_minibatch(self, data, target, valid):
         """One train step with its updates; -> the (4,) metrics tensor."""
         if self.body is not None:
-            metrics = self.body(data, target, valid, True)
+            if self.mesh is None:
+                metrics = self.body(data, target, valid, True)
+            else:
+                with collectives.step_window(self.collective_counts,
+                                             self.collective_bytes):
+                    metrics = self.body(data, target, valid, True)
             self.train_steps += 1
             return metrics
         if self.mesh is None:
@@ -389,6 +413,27 @@ class TorchStep:
             self.stat_names = names
             self.last_stats = layer_stats(sink, self._shard_sum(names))
         return metrics
+
+    def stop_agreed(self):
+        """Whether the epoch stops before the next minibatch: this
+        process's ``stop_requested``, or on a mesh whether any rank's is
+        set (every rank gets the same answer). A preemption on any rank
+        sets ``preempt_requested`` on every rank."""
+        mesh = self.mesh
+        if mesh is None or mesh.axis_size(mesh.axis_names) == 1:
+            return self.stop_requested
+        t0 = time.perf_counter()
+        flags = collectives.all_reduce_host(torch.tensor(
+            [float(self.stop_requested), float(self.preempt_requested)]),
+            mesh)
+        self.stop_flag_reduces += 1
+        self.stop_flag_seconds += time.perf_counter() - t0
+        stop, preempt = (bool(v > 0) for v in flags.tolist())
+        if preempt:
+            self.preempt_requested = True
+        if stop:
+            self.stop_requested = True
+        return stop
 
     def _shard_sum(self, names):
         """On a sharded mesh, the layer stats' reduction of the sharded
@@ -579,7 +624,7 @@ class TorchStep:
             j = 0
             cost = perf.StepCost()
             for i in range(n):
-                if self.stop_requested:
+                if self.stop_agreed():
                     return False
                 sig = (cls, n, train and self.stats_due())
                 j, one = perf.ledger.cost(
@@ -645,26 +690,42 @@ class TorchStep:
         train = cls == CLASS_TRAIN
         dev = self.device.device
         t0 = time.perf_counter()
-        # the indices and the valid count go up in one copy
-        up = torch.as_tensor(numpy.append(idx, numpy.int32(valid))).to(dev)
-        valid_dev = up[-1]
+        nb = self.mesh.axis_size(self.batch_axes) if self.mesh else 1
+        if nb > 1:
+            # this rank's rows of the job, padded and masked as a class
+            # minibatch is (``shard_plan``)
+            idx = numpy.asarray(idx)
+            per = -(-len(idx) // nb)
+            idx = numpy.concatenate([idx, numpy.repeat(
+                idx[-1:], per * nb - len(idx))])
+            r = self.mesh.index(self.batch_axes)
+            idx = idx[r * per:(r + 1) * per]
+            counts = [int(numpy.clip(valid - r * per, 0, per)), int(valid)]
+        else:
+            counts = [int(valid)]
+        # the indices and the valid counts go up in one copy
+        up = torch.as_tensor(numpy.append(
+            idx, numpy.asarray(counts, numpy.int32))).to(dev)
+        valid_dev = (up[-2], up[-1]) if nb > 1 else up[-1]
+        rows = up[:-len(counts)]
         if loader.supports_streaming:
             if self.uploader is None:
                 self.uploader = WindowUploader(dev)
             window = self.uploader.upload(
-                loader.materialize_window(cls, idx[None]))
+                loader.materialize_window(cls, numpy.asarray(idx)[None]))
             data, target = self.window_batch(window, 0, train)
         else:
             data, target = self.gather(loader.device_full_arrays(dev),
-                                       up[:-1].to(torch.int64), train)
+                                       rows.to(torch.int64), train)
         step = self.train_minibatch if train else self.eval_minibatch
         metrics = step(data, target, valid_dev)
         stats, self.last_stats = self.last_stats if train else None, None
         parts = [metrics.reshape(-1).to(torch.float32)]
         if stats is not None:
             parts.append(stats.reshape(-1))
-        wire = [(gd, gd._wire_params()) for gd in self.gds
-                if hasattr(gd, "_wire_params")]
+        wire = [(gd, [(name, _full_wire(gd, name, t))
+                      for name, t in gd._wire_params()])
+                for gd in self.gds if hasattr(gd, "_wire_params")]
         parts += [t.detach().reshape(-1).to(torch.float32)
                   for _, params in wire for _, t in params]
         host = torch.cat(parts).cpu().numpy()
@@ -686,6 +747,17 @@ class TorchStep:
         total[0] += time.perf_counter() - t0
         total[1] += 1
         return row
+
+
+def _full_wire(gd, name, t):
+    """A GD unit's wire parameter as the master takes it: on a sharded
+    mesh the full tensor, gathered over its shard axis (a collective every
+    rank of a slave runs), else ``t``."""
+    wf = getattr(gd, "workflow", None)
+    if wf is None or not getattr(wf, "shard_specs", None):
+        return t
+    return wf._full_tensor(gd.forward.name, name, t)
+
 
 def _tokens(samples, shape, floating):
     """Tokens of ``samples`` samples of a token loader (1-D integer
