@@ -184,8 +184,9 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     the momentum 110M's (``lm_adam_step_trace.json``,
     ``lm_momentum_step_trace.json``);
 17. attn_policy — the scan against the kernels on one bf16 input
-    (FLASH_MAIN) within the bf16 bound of phase 4; the 110M train step by
-    the host clock with the scan and with the kernels, in turns, at each
+    (FLASH_MAIN) within the bf16 bound of phase 4; the train step of the
+    110M widths at ``POLICY_LAYERS`` layers by the host clock with the
+    scan and with the kernels, in turns, at each
     ``POLICY_SHAPES`` entry; the threshold the table implies beside
     ``MultiHeadAttention.PALLAS_AUTO_MIN_S``;
 18. lm_stack — the stacked 110M (one ``transformer_stack`` unit of 12
@@ -246,7 +247,8 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     ``NAN_REASONS`` (the CPU's too), one rollback, the rates cut, healthy
     at the end; a checkpoint written meanwhile stamped diverged and
     passed over by ``resolve_auto``; ``--model-stats off`` stamps
-    ``unknown``. (c) the 110M row (``LM_110M``, momentum, the kernels)
+    ``unknown``. (c) the 110M row at 4 of its layers (``HEALTH_LM``,
+    momentum, the kernels)
     through the CLI with the stats off, at stride 8 and 1: the launches
     each run implies (the stats change none), the vectors finite; then in
     turns (``STATS_TURNS``) the step's host ms, and its device
@@ -405,7 +407,8 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     every kernel stays on the card; these are gloo-host times, not
     NCCL's, which one card cannot show; ``tools/parallel_nccl.py`` runs
     the same checks over NCCL, one rank per card). Each parallel run of
-    the 110M row (``PARALLEL_110M``: 2 train and 1 valid minibatch of 8)
+    the 110M row (``PARALLEL_110M``: ``PARALLEL_LAYERS`` (4) of its 12
+    layers, 2 train and 1 valid minibatch of 8)
     is held against a one-process run of the same global minibatches on
     the card (``parallel_held``): every tensor's movement over the run
     (its inference archive, TP's shards gathered, less the seed's initial
@@ -424,8 +427,8 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     12, 8192, 64), bf16) on 2 ranks against the single-card flash path
     (``FLASH_VS_PLAIN_TOL``) and the float64 math (``FLASH_TOL``, lse
     ``LSE_ATOL``) by ``scaled_err``; (c) ``model=2`` (6 heads a rank)
-    under the bf16 policy, movement within ``PARALLEL_BF16_RTOL``, 48
-    all-reduces a step; (d) ``graft_entry.dryrun_multichip(2)`` on the
+    under the bf16 policy, movement within ``PARALLEL_BF16_RTOL``, 4
+    all-reduces a layer a step; (d) ``graft_entry.dryrun_multichip(2)`` on the
     card. Each rank's step time, collective bytes and host seconds;
 34. parallel_ep_pp — expert and pipeline parallelism, 2 ranks on this
     card over gloo-host as phase parallel (``check_parallel_ep_pp``;
@@ -438,9 +441,10 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     exchange at cf 8.0 (``PARALLEL_MOE_A2A``: no shard overflows its
     quota, so it must equal one process); each rank's flash and identity
     launches exact, the collectives a step (``ep_expected``). (f) the
-    stacked 110M (``PARALLEL_STACK``: 12 blocks) under ``pipe=2`` over
+    stacked 110M (``PARALLEL_STACK``: ``PARALLEL_LAYERS`` blocks) under
+    ``pipe=2`` over
     ``PARALLEL_MICRO`` microbatches, GPipe and 1F1B: each stage's identity
-    launches (6 a block a microbatch of its 6 blocks, and the token
+    launches (6 a block a microbatch of its 2 blocks, and the token
     dense's, a train step), its chunk forwards (one a microbatch a step:
     1F1B folds the loss in), ``PARALLEL_MICRO`` hops and 2 all-reduces a
     step, and each stage's ``torch.cuda.max_memory_allocated`` under each
@@ -482,18 +486,37 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     1 identity bias-gradient launches a train step, every scan decoded
     natively, at ``JPEG_LR`` the train loss falling and the validation
     loss after one epoch below the untrained model's, the warm images/s;
-39. the ``kernels`` summary line (the bias gradient's launches summed
+39. capture_purity — the guard of the CUDA-graph capture to come: (a)
+    ``python -m veles_torch lint --select tracer-purity --format json
+    veles_torch`` in a subprocess exits 0 with ``[]``; a control
+    (``.item()`` of a card tensor) must raise one sync warning; (b)
+    MNIST (the sample's config, mb 100) and (c) the 110M widths at 2
+    layers (``CAPTURE_LM``: S 512, mb 8, bf16, momentum, the auto
+    attention policy) each take a warm train minibatch, then a train
+    minibatch off the stats cadence and an eval minibatch under
+    ``torch.cuda.set_sync_debug_mode("warn")``: a synchronizing call
+    whose innermost ``veles_torch`` frame lies in a function of
+    ``tracer-purity``'s scope (``rules_purity.traced_functions``) fails
+    the run, one elsewhere is printed (``capture_purity: ... sync
+    outside the scope``) with its stack in the row; launches exact (1
+    masked and 1 identity a MNIST step; the LM's as ``lm_expected_counts``
+    gives them, the flash kernels at S 512);
+40. the ``kernels`` summary line (the bias gradient's launches summed
     over the MNIST, CIFAR-10, AlexNet, autoencoder, LM-slice, resume,
     model-health, unsupervised, plots, serve_http, ensemble, optimize (in
     process and in the workers), shell_forge, profiling, image_stream,
-    continual, distributed, parallel, parallel_ep_pp, the four phases
+    continual, distributed, parallel, parallel_ep_pp, the five phases
     above (the slaves' and the ranks' counts from their result lines; a
     SIGKILLed slave's are lost), each
     path's beside it, the serving paths' among them), the card line, and
     last ``{"ok": true, "device": {...}}``.
 
-Every JSON line also goes to ``chip_smoke.jsonl`` in that directory, with
-``at_s``: the seconds since the script started.
+Phases resume, image_stream, continual, image_jpeg, distributed and the
+parallel ones run in three side processes (``SIDE_GROUPS``), started
+once the kernels are timed and running beside the others; each counts
+its own launches, and its lines are printed once it has ended, before
+the summary line. Every JSON line also goes to ``chip_smoke.jsonl`` in
+that directory, with ``at_s``: the seconds since the script started.
 """
 
 import contextlib
@@ -695,8 +718,9 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 LOG_PATH = os.path.join(OUT_DIR, "chip_smoke.jsonl")
 #: the workflows the training phases leave for the serving phases
 TRAINED = {}
-#: the script's start on the host's monotonic clock (the log's ``at_s``)
-STARTED = time.monotonic()
+#: the script's start on the host's monotonic clock (the log's ``at_s``;
+#: a side process takes the first process's, see SIDE_GROUPS)
+STARTED = float(os.environ.get("CHIP_SMOKE_STARTED") or time.monotonic())
 
 
 def emit(obj):
@@ -1018,7 +1042,7 @@ def profile_epoch(torch):
     busy time (union of kernel, copy and memset intervals) against the
     host wall time, and launches per step. The Chrome trace goes to
     chiprun_out/mnist_epoch_trace.json."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from veles_torch.znicz.models import mnist
     wf = mnist.create_workflow(name="MnistProfile")
     wf.decision.max_epochs = None
@@ -1028,8 +1052,8 @@ def profile_epoch(torch):
     steps0 = wf.step.train_steps
     torch.cuda.synchronize()
     reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with counted_window([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                        torch.cuda.synchronize) as prof:
         t0 = time.perf_counter()
         wf.step.run_epoch()
         torch.cuda.synchronize()
@@ -1720,7 +1744,7 @@ def profile_step(torch, wf, trace_name, where):
     the bias-gradient kernel's device launches and ms (one device launch
     per call, or this fails). -> (row, the batch, {device op: (count,
     ms)})."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from veles_torch.znicz.ops.bias_grad import bias_grad
     batch = first_train_batch(torch, wf)
     wf.step.train_minibatch(*batch)
@@ -1731,8 +1755,8 @@ def profile_step(torch, wf, trace_name, where):
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / 5
     reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with counted_window([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                        torch.cuda.synchronize) as prof:
         t0 = time.perf_counter()
         wf.step.train_minibatch(*batch)
         torch.cuda.synchronize()
@@ -2215,15 +2239,15 @@ def profile_decode_step(torch, engine, trace_name, reps=3):
     and device-busy ms per step, idle share, device operations per step,
     by kind and the largest (trace in the output directory)."""
     import numpy
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     n = engine.pool.n_slots
     tokens = numpy.arange(n, dtype=numpy.int32)
     pos = numpy.full(n, engine.max_len // 2, numpy.int32)
     temp = numpy.zeros(n, numpy.float32)
     engine.step(tokens, pos, temp)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with counted_window([ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                        torch.cuda.synchronize) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             engine.step(tokens, pos, temp)
@@ -2446,10 +2470,12 @@ SAMPLE_ADAM_RUN = ("root.lm.train.solver=adam",
                    "root.lm.train.gradient_moment=0.9",
                    "root.lm.train.lr_policy={'name': 'warmup_cosine', "
                    "'warmup': 16, 'total': 256}")
-#: the auto policy's table: (S, minibatch) of the 110M train step, the
-#: scan against the kernels by the host clock, POLICY_STEPS steps after a
-#: warm one, in turns (scan, kernels, kernels, scan)
+#: the auto policy's table: (S, minibatch) of the 110M widths' train step
+#: at POLICY_LAYERS of its 12 layers (cut from 12: see PARALLEL_LAYERS),
+#: the scan against the kernels by the host clock, POLICY_STEPS steps after
+#: a warm one, in turns (scan, kernels, kernels, scan)
 POLICY_SHAPES = ((512, 8), (1024, 8), (2048, 8), (8192, 4))
+POLICY_LAYERS = 4
 POLICY_STEPS = 3
 #: steps a host-clock step time averages over (lm_adam, lm_stack)
 STEPS_TIMED = 5
@@ -2649,6 +2675,7 @@ def check_attn_policy(torch):
     rows, steps = [], 0
     for s, b in POLICY_SHAPES:
         wf = build_lm(*LM_110M, "root.lm.loader.seq_len=%d" % s,
+                      "root.lm.model.layers=%d" % POLICY_LAYERS,
                       "root.lm.loader.minibatch_size=%d" % b,
                       "root.lm.loader.n_train=%d" % (2 * b),
                       "root.lm.loader.n_valid=%d" % b, name="Policy")
@@ -2966,6 +2993,12 @@ import json, sys, torch
 import chip_smoke as C
 from veles_torch.__main__ import main
 from veles_torch.snapshotter import FileSnapshotStore, write_checkpoint
+from veles_torch.znicz.standard_workflow import StandardWorkflow
+# the resumed run's own checkpoints go uncompressed: run B's writes are
+# the gzip the phase times, and this run's would add ~15 s
+_link = StandardWorkflow.link_snapshotter
+StandardWorkflow.link_snapshotter = lambda self, **cfg: _link(
+    self, **dict({"compression": ""}, **cfg))
 C.reset_counts()
 wf = main(sys.argv[3:])
 if wf.device.device.type == "cuda":
@@ -3353,8 +3386,11 @@ def recording_monitor():
             self.seen, self.verdicts = [], []
 
         def observe_stats(self, stats, step_index=None):
-            self.seen.append((step_index, list(stats), numpy.array(
-                [numpy.asarray(v, numpy.float64) for v in stats.values()])))
+            # a probe's sink: it records each observation it is handed,
+            # behind the step's own cadence gate
+            rows = [numpy.asarray(v, numpy.float64)  # zlint: disable=stats-cadence (a probe's sink that records each observation it is handed)
+                    for v in stats.values()]
+            self.seen.append((step_index, list(stats), numpy.array(rows)))  # zlint: disable=stats-cadence (a probe's sink that records each observation it is handed)
             super().observe_stats(stats, step_index)
             self.verdicts.append(self.verdict_state())
 
@@ -3554,7 +3590,9 @@ def health_blowup(torch, tmp):
 #: The profiler drops the device events it timestamps outside its window,
 #: and its device-to-host clock conversion has been seen to jump by a few
 #: milliseconds on an H100: without the margin, a plotted MNIST epoch once
-#: counted 12 operations fewer than the next one (phase plots)
+#: counted 12 operations fewer than the next one (phase plots), and with
+#: the side processes on the card a traced VideoAE step lost its one
+#: bias-gradient kernel. Every traced window takes it
 COUNT_PAD_S = 0.05
 
 
@@ -3595,11 +3633,17 @@ def set_stats(wf, stride):
     wf.step.stats_interval = stride or 8
 
 
+#: part (c)'s LM: the 110M row at 4 of its 12 layers (cut from 12: see
+#: PARALLEL_LAYERS)
+HEALTH_LM = LM_110M + ("root.lm.model.layers=4",)
+
+
 def health_110m(torch):
-    """Part (c): the 110M row (momentum, the flash kernels) through the
-    CLI with the stats off, at stride 8 and at stride 1: the launches each
-    run implies (the flash kernels and 73 identity bias sums a step,
-    whatever the stats), the vectors finite with update ratios below 1;
+    """Part (c): the 110M row at 4 layers (momentum, the flash kernels)
+    through the CLI with the stats off, at stride 8 and at stride 1: the
+    launches each run implies (the flash kernels and 25 identity bias
+    sums a step, whatever the stats), the vectors finite with update
+    ratios below 1;
     then on one workflow, in turns, the step's host ms, and its device
     operations from the profiler."""
     from torch.profiler import ProfilerActivity
@@ -3610,7 +3654,7 @@ def health_110m(torch):
         monitor = recording_monitor()
         wf, counts, summary = run_lm(
             torch, "110M stats %s" % (stride or "off"), HEALTH_DEVICE,
-            *LM_110M,
+            *HEALTH_LM,
             valid_must_fall=False, phase="model_health", cli_args=flags,
             monitor=monitor)
         steps = wf.step.train_steps
@@ -3832,14 +3876,15 @@ def profile_run_epoch(torch, wf, trace_name):
     under torch.profiler: host ms, device busy ms, idle share, device
     operations in all and per step, the top operations; the trace goes
     to the output directory."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from veles_torch import model_health
     activities = [ProfilerActivity.CPU]
     if UNSUPERVISED_DEVICE == "cuda":
         activities.append(ProfilerActivity.CUDA)
     steps0 = wf.step.train_steps + wf.step.eval_steps
     unsupervised_sync(torch)
-    with model_health.scoped(), profile(activities=activities) as prof:
+    with model_health.scoped(), counted_window(
+            activities, lambda: unsupervised_sync(torch)) as prof:
         t0 = time.perf_counter()
         wf.step.run_epoch(wf._after_decision)
         unsupervised_sync(torch)
@@ -4298,35 +4343,36 @@ def serve_subprocess(args, record):
         stderr=subprocess.STDOUT, text=True)
     first = {}
     ready = threading.Event()
-    log = open(os.path.join(OUT_DIR, "serve_http_server.log"), "w")
+    reader = None
+    with open(os.path.join(OUT_DIR, "serve_http_server.log"), "w") as log:
 
-    def pump():
-        for line in proc.stdout:
-            log.write(line)
-            log.flush()
-            if not first and line.startswith("{"):
-                first.update(json.loads(line))
-                ready.set()
-        ready.set()
+        def pump():
+            for line in proc.stdout:
+                log.write(line)
+                log.flush()
+                if not first and line.startswith("{"):
+                    first.update(json.loads(line))
+                    ready.set()
+            ready.set()
 
-    reader = threading.Thread(target=pump, daemon=True)
-    reader.start()
-    try:
-        if not ready.wait(HTTP_START_S) or not first:
-            fail("serve_http: the server printed no JSON line in %gs (exit "
-                 "code %s)" % (HTTP_START_S, proc.poll()))
-        yield first, int(first["serving"].rsplit(":", 1)[1])
-    finally:
-        record["alive_at_end"] = proc.poll() is None
-        proc.terminate()
         try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        reader.join(timeout=10)
-        log.close()
-        record["exit_code"] = proc.returncode
+            reader = threading.Thread(target=pump, daemon=True)
+            reader.start()
+            if not ready.wait(HTTP_START_S) or not first:
+                fail("serve_http: the server printed no JSON line in %gs "
+                     "(exit code %s)" % (HTTP_START_S, proc.poll()))
+            yield first, int(first["serving"].rsplit(":", 1)[1])
+        finally:
+            record["alive_at_end"] = proc.poll() is None
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            if reader is not None:
+                reader.join(timeout=10)
+            record["exit_code"] = proc.returncode
 
 
 def poll_until(fn, what, timeout=HTTP_WAIT_S):
@@ -5851,9 +5897,9 @@ def dist_inprocess(torch, workflow, codec, epochs, **server_kwargs):
                           **server_kwargs)
     meter = WireMeter(server)
     thread = server.start_background()
-    slave_wf = workflow()
-    reset_counts()
     try:
+        slave_wf = workflow()
+        reset_counts()
         with model_health.scoped():
             launcher = Launcher(
                 device=DIST_DEVICE, stats=False, grad_codec=codec,
@@ -5863,6 +5909,10 @@ def dist_inprocess(torch, workflow, codec, epochs, **server_kwargs):
         if DIST_DEVICE == "cuda":
             torch.cuda.synchronize()
         counts = read_counts()
+    except BaseException:
+        # a failed slave run must not leave the master serving
+        server.request_stop()
+        raise
     finally:
         server.done.set()
         thread.join(timeout=DIST_BOUND)
@@ -6154,12 +6204,16 @@ def check_distributed(torch):
 #: ranks on one card: NCCL refuses that, so gloo over host copies)
 PARALLEL_DEVICE = "cuda"
 PARALLEL_TRANSPORT = "gloo-host"
-#: (a) and (c): the 110M row, 2 train and 1 valid minibatch of 8, 1 epoch
-#: (4 train minibatches until PR 22, which cut them to make room for its
-#: four phases; phase parallel_ep_pp runs the same minibatches)
+#: (a) and (c): the 110M row at PARALLEL_LAYERS of its 12 layers, 2 train
+#: and 1 valid minibatch of 8, 1 epoch (cut from 4 train minibatches and
+#: 12 layers to keep the script inside its time limit: a 12-layer run took
+#: the script to 1178-1309 s of its 1200 on slower hosts; phase
+#: parallel_ep_pp runs the same minibatches and depth)
+PARALLEL_LAYERS = 4
 PARALLEL_110M = LM_110M + ("root.lm.loader.n_train=16",
                            "root.lm.loader.n_valid=8",
-                           "root.lm.decision.max_epochs=1")
+                           "root.lm.decision.max_epochs=1",
+                           "root.lm.model.layers=%d" % PARALLEL_LAYERS)
 #: (b): the 110M_s8k row (bench.py LM_ROWS: B 4, S 8192), its depth cut
 #: from 12 to 6 layers, 1 train and 1 valid minibatch: the ring's host
 #: copies cost ~10 s a 12-layer step over gloo-host (the first full call:
@@ -6365,7 +6419,8 @@ def parallel_held(torch, tmp, tag, axes, single, single_counts,
             fail("parallel %s rank %d: launches %s, expected %s"
                  % (tag, r, got, want))
     if collectives is None:
-        collectives = {"all-reduce": (4 * 12 if axes.get("model", 1) > 1
+        collectives = {"all-reduce": (4 * PARALLEL_LAYERS
+                                      if axes.get("model", 1) > 1
                                       else 0)
                        + (1 if axes.get("data", 1) > 1 else 0)}
     if par["collective_counts"] != collectives:
@@ -6580,8 +6635,8 @@ PARALLEL_MOE = ("root.lm.model.layers=4", "root.lm.model.moe_experts=8",
 #: quota and the exchange must equal one process (the reference's
 #: condition)
 PARALLEL_MOE_A2A = PARALLEL_MOE + ("root.lm.model.moe_capacity_factor=8.0",)
-#: (f): the stacked 110M (12 blocks, dense attention inside) on
-#: PARALLEL_110M's minibatches in f32, pipe 2 over PARALLEL_MICRO
+#: (f): the stacked 110M (PARALLEL_LAYERS blocks, dense attention inside)
+#: on PARALLEL_110M's minibatches in f32, pipe 2 over PARALLEL_MICRO
 #: microbatches of 2
 PARALLEL_STACK = ("root.lm.model.stacked=True",
                   "root.lm.model.attn_block=None") + PARALLEL_F32
@@ -7503,6 +7558,372 @@ def check_image_jpeg(torch):
     return counts
 
 
+# -- capture purity: the unit bodies a CUDA graph will capture ------------
+
+#: phase capture_purity's device (the CPU only to rehearse it)
+CAPTURE_DEVICE = "cuda"
+#: (b) MNIST at the sample's config (minibatch 100: a masked and an
+#: identity bias gradient a train step); (c) the 110M widths at 2 layers
+#: (S 512, minibatch 8, the card's bf16 policy, momentum, the auto
+#: attention policy: the flash forward and fused backward, the identity
+#: bias gradient)
+CAPTURE_LM = LM_110M + ("root.lm.model.layers=2",)
+#: the lint subprocess's time limit, seconds
+CAPTURE_LINT_S = 300
+
+
+def capture_lint():
+    """(a) Start ``python -m veles_torch lint --select tracer-purity
+    --format json veles_torch`` in a subprocess (it runs on the host
+    while (b) and (c) run the card); -> a function that waits for it,
+    checks exit 0 and ``[]`` and returns its seconds (``check=False``:
+    stops it instead)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veles_torch", "lint", "--select",
+         "tracer-purity", "--format", "json", "veles_torch"],
+        cwd=HERE, env=child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def finish(check=True):
+        try:
+            out, err = proc.communicate(
+                timeout=CAPTURE_LINT_S if check else 0.1)
+        except subprocess.TimeoutExpired:
+            if check:
+                raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if not check:
+            return None
+        if proc.returncode != 0 or json.loads(out or "null") != []:
+            fail("capture_purity: the lint exited %d with %r (stderr %r)"
+                 % (proc.returncode, out[-2000:], err[-2000:]))
+        return time.perf_counter() - t0
+
+    return finish
+
+
+def capture_scope():
+    """tracer-purity's scope over this checkout's ``veles_torch``:
+    {repo-relative path: [(first line, last line, name)]}."""
+    from veles_torch.analysis import core, rules_purity
+    project = core.build_project([os.path.join(HERE, "veles_torch")],
+                                 base=HERE)
+    scope = {}
+    for path, first, last, name in rules_purity.traced_functions(project):
+        scope.setdefault(path, []).append((first, last, name))
+    return scope
+
+
+def sync_sites(torch, fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``
+    (restored after); -> one (path, line, stack) per synchronizing call:
+    the innermost frame of the port (``veles_torch``) on the warning's
+    stack, its path relative to the checkout (the innermost frame of all
+    when no frame is the port's), and the stack's last frames."""
+    import traceback
+    import warnings
+    port = os.path.join(HERE, "veles_torch") + os.sep
+    sites = []
+    #: only while ``fn`` runs: switching the mode warns of itself
+    running = [False]
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if not running[0] or "synchroniz" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.startswith(os.path.dirname(
+                     warnings.__file__) + os.sep + "warnings")]
+        mine = [f for f in stack
+                if os.path.abspath(f.filename).startswith(port)]
+        where = (mine or stack)[-1]
+        path = os.path.abspath(where.filename)
+        if path.startswith(HERE + os.sep):
+            path = os.path.relpath(path, HERE)
+        sites.append((path, where.lineno, [
+            "%s:%d %s" % (os.path.relpath(f.filename, HERE)
+                          if os.path.abspath(f.filename).startswith(
+                              HERE + os.sep) else f.filename,
+                          f.lineno, f.name) for f in stack[-6:]]))
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        try:
+            torch.cuda.set_sync_debug_mode("warn")
+            running[0] = True
+            fn()
+        finally:
+            running[0] = False
+            torch.cuda.set_sync_debug_mode(prev)
+    return sites
+
+
+def in_scope(scope, site):
+    """The scoped function that holds ``site`` (path, line), or None."""
+    path, line = site
+    return next((name for first, last, name in scope.get(path, ())
+                 if first <= line <= last), None)
+
+
+def capture_batches(torch, wf):
+    """The first train and the first validation minibatch of ``wf`` as
+    the step's loop hands them over: (data, target, 0-d device valid)."""
+    from veles_torch.loader.base import CLASS_TRAIN, CLASS_VALID
+    dev = wf.device.device
+    full = wf.loader.device_full_arrays(dev)
+    out = []
+    for cls, train in ((CLASS_TRAIN, True), (CLASS_VALID, False)):
+        idx_mat, valids = wf.loader.class_schedule(cls)
+        idx = torch.as_tensor(idx_mat[0], dtype=torch.int64, device=dev)
+        out.append((*wf.step.gather(full, idx, train),
+                    torch.as_tensor(valids).to(dev)[0]))
+    return out
+
+
+def capture_run(torch, wf, scope):
+    """One warm train minibatch, then a train minibatch on a step that
+    takes no layer stats and an eval minibatch, each under the sync
+    warnings; -> (the row: sites in and out of scope by minibatch, the
+    launches of the three minibatches)."""
+    step = wf.step
+    (train, evaluate) = capture_batches(torch, wf)
+    sync_capture(torch)
+    reset_counts()
+    step.train_minibatch(*train)
+    while step.stats_due():
+        step.train_minibatch(*train)
+    sync_capture(torch)
+    warm = step.train_steps
+    sites = {"train": sync_sites(torch,
+                                 lambda: step.train_minibatch(*train)),
+             "eval": sync_sites(torch,
+                                lambda: step.eval_minibatch(*evaluate))}
+    sync_capture(torch)
+    counts = read_counts()
+    row = {"train_steps": step.train_steps, "warm_steps": warm,
+           "launches": counts, "inside": {}, "outside": {}}
+    row["stacks"] = {}
+    for kind, found in sites.items():
+        row["inside"][kind] = sorted({"%s:%d %s" % (p, n, in_scope(scope,
+                                                                  (p, n)))
+                                      for p, n, _ in found
+                                      if in_scope(scope, (p, n))})
+        row["outside"][kind] = sorted({"%s:%d" % (p, n)
+                                       for p, n, _ in found
+                                       if not in_scope(scope, (p, n))})
+        for p, n, stack in found:
+            row["stacks"].setdefault("%s:%d" % (p, n), stack)
+    return row, counts
+
+
+def sync_capture(torch):
+    if CAPTURE_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def capture_models(torch, scope):
+    """(b) and (c), after a control (one ``.item()`` must raise one sync
+    warning); -> (MNIST's row, launches and expected launches, the same
+    of the 110M, its attention mode)."""
+    from veles_torch import prng
+    from veles_torch.znicz.models import mnist
+    # the control: a sync the warnings must see
+    control = sync_sites(torch, lambda: torch.ones(
+        1, device=CAPTURE_DEVICE).item()) if CAPTURE_DEVICE == "cuda" \
+        else [None]
+    if len(control) != 1:
+        fail("capture_purity: one .item() gave %d sync warnings"
+             % len(control))
+    prng.seed_all(1337)
+    wf = mnist.create_workflow(name="MnistCapture")
+    wf.initialize(device=CAPTURE_DEVICE)
+    mnist_row, mnist_counts = capture_run(torch, wf, scope)
+    del wf
+    n = mnist_row["train_steps"]
+    want_mnist = dict(dict.fromkeys(mnist_counts, 0), **{
+        "bias_grad[identity]": n, "bias_grad[masked]": n})
+    wf = build_lm(*CAPTURE_LM, device=CAPTURE_DEVICE, name="LMCapture")
+    lm_row, lm_counts = capture_run(torch, wf, scope)
+    want_lm, mode = lm_expected_counts(wf, CAPTURE_DEVICE)
+    del wf
+    return (mnist_row, mnist_counts, want_mnist, lm_row, lm_counts,
+            want_lm, mode)
+
+
+def check_capture_purity(torch):
+    """Phase capture_purity: (a) the lint of tracer-purity on the card's
+    Python; (b) MNIST and (c) the 110M at 2 layers, a train minibatch off
+    the stats cadence and an eval minibatch under the sync warnings: no
+    synchronizing call inside tracer-purity's scope; -> the launches of
+    (b) and (c) together."""
+    t0 = time.perf_counter()
+    lint = capture_lint()
+    try:
+        scope = capture_scope()
+        mnist_row, mnist_counts, want_mnist, lm_row, lm_counts, want_lm, \
+            mode = capture_models(torch, scope)
+    except BaseException:
+        lint(check=False)
+        raise
+    lint_s = lint()
+    row = {"phase": "capture_purity", "card": card_line(),
+           "lint_seconds": lint_s,
+           "scope_functions": sum(len(v) for v in scope.values()),
+           "mnist": mnist_row, "lm_110m_2l": lm_row}
+    for name, sub in (("mnist", mnist_row), ("lm_110m_2l", lm_row)):
+        for kind, sites in sub["outside"].items():
+            for site in sites:
+                print("capture_purity: %s %s sync outside the scope: %s"
+                      % (name, kind, site), flush=True)
+    if CAPTURE_DEVICE == "cpu":
+        want_mnist = dict.fromkeys(want_mnist, 0)
+    row["attention_mode"] = mode
+    if mnist_counts != want_mnist or lm_counts != want_lm \
+            or mode != ("pallas" if CAPTURE_DEVICE == "cuda" else "scan"):
+        row["expected"] = {"mnist": want_mnist, "lm_110m_2l": want_lm}
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    inside = {name: sub["inside"] for name, sub in
+              (("mnist", mnist_row), ("lm_110m_2l", lm_row))
+              if any(sub["inside"].values())}
+    if inside:
+        fail("capture_purity: synchronizing calls inside tracer-purity's "
+             "scope: %s" % inside)
+    if "expected" in row:
+        fail("capture_purity: attention %s, launches %s, expected %s" % (
+            mode, {"mnist": mnist_counts, "lm_110m_2l": lm_counts},
+            row["expected"]))
+    return {k: mnist_counts[k] + lm_counts[k] for k in mnist_counts}
+
+
+#: the phases that run beside the first process's, each tuple in a process
+#: of its own (its phases in order), all started once the kernels are
+#: timed. They drive their paths through child processes and ranks that
+#: wait on the host more than they keep the card busy, and the card holds
+#: them all at once; one after another they took the script to 967-1309 s
+#: of its 1200 s limit on a fast host and past it on a slower one. Each
+#: side process counts its own launches; the numbers its phases print are
+#: taken with the other processes on the card
+SIDE_GROUPS = (("parallel", "parallel_ep_pp"),
+               ("distributed", "parallel_preempt", "parallel_cli"),
+               ("resume", "image_stream", "continual", "image_jpeg",
+                "parallel_unsupervised"))
+#: each side phase: torch -> {path: launches}
+SIDE_PHASES = {
+    "resume": lambda torch: {"resume": check_resume(torch)},
+    "image_stream": lambda torch: {"image_stream": check_image_stream(torch)},
+    "continual": lambda torch: {"continual": check_continual(torch)},
+    "image_jpeg": lambda torch: {"image_jpeg": check_image_jpeg(torch)},
+    "distributed": lambda torch: {"distributed": check_distributed(torch)},
+    "parallel": lambda torch: {"parallel": check_parallel(torch)},
+    "parallel_ep_pp": lambda torch: {
+        "parallel_ep_pp": check_parallel_ep_pp(torch)},
+    "parallel_unsupervised": lambda torch: {
+        "parallel_unsupervised": check_parallel_unsupervised(torch)},
+    "parallel_preempt": lambda torch: {
+        "parallel_preempt": check_parallel_preempt(torch)},
+    "parallel_cli": lambda torch: {"parallel_cli": check_parallel_cli(torch)},
+}
+#: a side process's command (``python -c``; its arguments name the phases)
+SIDE_MAIN = "import sys, chip_smoke as C; sys.exit(C.run_side(sys.argv[1:]))"
+#: the seconds since the script started by which every side process must
+#: have ended
+SIDE_DEADLINE = 1150
+#: each side process's OpenMP threads (8 a process on the 8 cores would
+#: spin against each other)
+SIDE_THREADS = 2
+
+
+def run_side(names):
+    """A side process: each phase of ``names`` in order, on the kernels the
+    first process built; its last line ``{"side_paths": {path:
+    launches}}``."""
+    import signal
+    import torch
+    from veles_torch import kernels
+    # a SIGTERM from the first process unwinds the phases, whose cleanup
+    # stops their children
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(128 + signal.SIGTERM))
+    kernels.build()
+    paths = {}
+    for name in names:
+        print("side phase %s starting at %.1f s"
+              % (name, time.monotonic() - STARTED), flush=True)
+        paths.update(SIDE_PHASES[name](torch))
+    print(json.dumps({"side_paths": paths}), flush=True)
+    return 0
+
+
+def start_sides():
+    """Starts a process for each of SIDE_GROUPS, its stdout to a file;
+    -> [(names, process, stdout file)]."""
+    env = dict(child_env(), CHIP_SMOKE_STARTED=repr(STARTED),
+               OMP_NUM_THREADS=str(SIDE_THREADS))
+    sides = []
+    try:
+        for i, names in enumerate(SIDE_GROUPS):
+            out = open(os.path.join(OUT_DIR, "side%d.out" % i), "w+")
+            try:
+                proc = subprocess.Popen(
+                    [sys.executable, "-c", SIDE_MAIN, *names], cwd=HERE,
+                    env=env, stdout=out)
+            except BaseException:
+                out.close()
+                raise
+            sides.append((names, proc, out))
+    except BaseException:
+        stop_sides(sides)
+        raise
+    return sides
+
+
+#: seconds a side process has to stop its children after a SIGTERM
+SIDE_STOP_S = 60
+
+
+def stop_sides(sides):
+    """Stops every side process still running: a SIGTERM (its phases stop
+    their children), then SIGKILL after SIDE_STOP_S."""
+    for _, proc, _ in sides:
+        if proc.poll() is None:
+            proc.terminate()
+    for _, proc, out in sides:
+        try:
+            proc.wait(timeout=SIDE_STOP_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        out.close()
+
+
+def finish_sides(sides):
+    """Waits for every side process, relays its stdout but the last line;
+    -> {path: launches} of all their phases. Fails if one exits non-zero,
+    prints no result or outlasts SIDE_DEADLINE."""
+    paths = {}
+    for names, proc, out in sides:
+        try:
+            rc = proc.wait(timeout=max(
+                1.0, SIDE_DEADLINE - (time.monotonic() - STARTED)))
+        except subprocess.TimeoutExpired:
+            fail("side phases %s still running %d s after the start"
+                 % (", ".join(names), SIDE_DEADLINE))
+        out.seek(0)
+        lines = out.read().splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        if rc or not lines or not lines[-1].startswith('{"side_paths"'):
+            fail("side phases %s exited %d: %s" % (
+                ", ".join(names), rc, "\n".join(lines[-5:])))
+        paths.update(json.loads(lines[-1])["side_paths"])
+    return paths
+
+
 def main(argv=None):
     import torch
     if (sys.argv[1:] if argv is None else argv):
@@ -7546,42 +7967,33 @@ def main(argv=None):
     forms = check_kernels(torch, timer)
     flash_err = check_flash(torch)
     flash_rows = time_flash(torch, timer)
-    launches = check_mnist_path(torch)
-    lm_launches = check_lm(torch)
-    cifar = check_cifar(torch)
-    check_alexnet_parity(torch)
-    alexnet = check_alexnet(torch)
-    ae = {phase: check_ae(torch, phase, sample, seed)
-          for phase, sample, seed in AE_RUNS}
-    check_ae_units(torch)
-    serving = {"serve_predict": check_serve_predict(torch),
-               "serve_decode": check_serve_decode(torch)}
-    lm_slice = check_lm_slice(torch)
-    resume = check_resume(torch)
-    health = check_model_health(torch)
-    unsupervised = check_unsupervised(torch)
-    plots = check_plots(torch)
-    serve_http = check_serve_http(torch)
-    search = check_search_slice(torch)
-    profiling = check_profiling(torch)
-    image_stream = check_image_stream(torch)
-    continual = check_continual(torch)
-    distributed = check_distributed(torch)
-    parallel = check_parallel(torch)
-    parallel_ep_pp = check_parallel_ep_pp(torch)
-    parallel_unsupervised = check_parallel_unsupervised(torch)
-    parallel_preempt = check_parallel_preempt(torch)
-    parallel_cli_counts = check_parallel_cli(torch)
-    image_jpeg = check_image_jpeg(torch)
-    paths = {**ae, **serving, **lm_slice, "resume": resume,
-             "model_health": health, "unsupervised": unsupervised,
-             "plots": plots, "serve_http": serve_http, **search,
-             "profiling": profiling, "image_stream": image_stream,
-             "continual": continual, "distributed": distributed,
-             "parallel": parallel, "parallel_ep_pp": parallel_ep_pp,
-             "parallel_unsupervised": parallel_unsupervised,
-             "parallel_preempt": parallel_preempt,
-             "parallel_cli": parallel_cli_counts, "image_jpeg": image_jpeg}
+    sides = start_sides()
+    try:
+        launches = check_mnist_path(torch)
+        lm_launches = check_lm(torch)
+        cifar = check_cifar(torch)
+        check_alexnet_parity(torch)
+        alexnet = check_alexnet(torch)
+        ae = {phase: check_ae(torch, phase, sample, seed)
+              for phase, sample, seed in AE_RUNS}
+        check_ae_units(torch)
+        serving = {"serve_predict": check_serve_predict(torch),
+                   "serve_decode": check_serve_decode(torch)}
+        lm_slice = check_lm_slice(torch)
+        health = check_model_health(torch)
+        unsupervised = check_unsupervised(torch)
+        plots = check_plots(torch)
+        serve_http = check_serve_http(torch)
+        search = check_search_slice(torch)
+        profiling = check_profiling(torch)
+        capture_purity = check_capture_purity(torch)
+        side_paths = finish_sides(sides)
+    finally:
+        stop_sides(sides)
+    paths = {**ae, **serving, **lm_slice, "model_health": health,
+             "unsupervised": unsupervised, "plots": plots,
+             "serve_http": serve_http, **search, "profiling": profiling,
+             "capture_purity": capture_purity, **side_paths}
     by_path = {form: {"mnist": launches[form],
                       "cifar": cifar["bias_grad[%s]" % form],
                       "alexnet": alexnet["bias_grad[%s]" % form],

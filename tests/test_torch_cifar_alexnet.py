@@ -41,6 +41,7 @@ from veles_torch.znicz.models import cifar10 as tcifar
 from veles_torch.znicz.models import imagenet as timagenet
 from veles_torch.znicz.standard_workflow import \
     StandardWorkflow as TorchStandardWorkflow
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = os.path.join(REPO, "veles_torch", "znicz", "models")

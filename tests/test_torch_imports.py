@@ -340,3 +340,34 @@ def test_image_stream_and_continual_runs_load_no_jax_or_veles(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "analysis/%s.py" % m for m in (
+        "__init__", "core", "engine", "cache", "cli", "rules_hygiene",
+        "rules_resources", "rules_loop", "rules_threads", "rules_reactor",
+        "rules_probes", "rules_profiler", "rules_wire", "rules_state",
+        "rules_telemetry", "rules_model_stats", "rules_taint",
+        "rules_purity")])
+def test_analysis_modules_are_scanned(module):
+    """zlint's modules (the linter's own copy, ``analysis/``) are among
+    the files both checks read."""
+    assert os.path.join(REPO, "veles_torch", module) in _port_files()
+
+
+def test_lint_run_loads_no_jax_or_veles():
+    """In a fresh interpreter: ``python -m veles_torch lint`` over one
+    module of the port, every rule; no jax or veles module is loaded."""
+    script = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "from veles_torch.__main__ import main\n"
+        "rc = main(['lint', '--format', 'json', %r])\n"
+        "new = set(sys.modules) - before\n"
+        "print(rc, sorted(m for m in new if m.split('.')[0] in %r))\n"
+        % (os.path.join(REPO, "veles_torch", "znicz", "ops", "gd.py"),
+           FORBIDDEN))
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "0 []", out.stdout

@@ -25,6 +25,7 @@ from veles_torch.launcher import EXIT_PREEMPTED, TRACE_NAME, Launcher
 from veles_torch.znicz.standard_workflow import StandardWorkflow
 
 from tests.torch_monitor import port_model_health_isolation  # noqa: F401
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TORCH_MNIST = os.path.join(REPO, "veles_torch", "znicz", "models",

@@ -40,6 +40,7 @@ from tests.torch_cluster import (
     max_diff, port_weights, port_wf, ref_weights, ref_wf, serving)
 from tests.torch_monitor import port_model_health_isolation  # noqa: F401
 from tests.torch_parallel_workers import RankGroup
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TORCH_LM = os.path.join(REPO, "veles_torch", "znicz", "models",

@@ -18,6 +18,7 @@ from veles_torch.__main__ import main as torch_main
 from veles_torch.config import root as troot
 from veles_torch.launcher import EXIT_PREEMPTED
 from veles_torch.znicz import parallel
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LM = os.path.join(REPO, "veles_torch", "znicz", "models",

@@ -49,6 +49,7 @@ from tests.test_torch_lm import lm_config
 from tests.test_torch_solvers import (
     ADAM, EPOCHS_RTOL, assert_close_rel, jax_tree)
 from tests.torch_monitor import port_model_health_isolation  # noqa: F401
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 #: MNIST at the size of tests/test_torch_mnist.py: 5 train and 2
 #: validation minibatches an epoch

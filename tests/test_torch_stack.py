@@ -31,6 +31,7 @@ from tests.test_conv_stack import build, xla_backward, xla_forward
 from tests.test_torch_lm import (
     EPOCHS_ATOL, STEP_ATOL, assert_trees_close, jax_lm, jax_tree, lm_config,
     one_step, torch_lm)
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 #: the block against the reference's numpy block, f32: a share of each
 #: output's largest element (order error of the products and sums)

@@ -22,6 +22,7 @@ from veles_torch.loader.fullbatch import FullBatchLoader
 from veles_torch.loader.stream import ArrayStreamLoader
 from veles_torch.znicz.models import datasets as tdatasets
 from veles_torch.znicz.standard_workflow import StandardWorkflow
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 #: the reference test's sizes: 400/100 MNIST rows, minibatch 32
 N_TRAIN, N_VALID, MB = 400, 100, 32

@@ -18,6 +18,7 @@ import veles_torch.prng as tprng
 from veles_torch.__main__ import main as torch_main
 from veles_torch.config import root as troot
 from veles_torch.znicz.models import transformer_lm as tlm
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_LM = os.path.join(REPO, "veles", "znicz_tpu", "models",

@@ -48,6 +48,7 @@ from tests.test_all2all import FeedUnit
 from tests.test_torch_model_health import (
     JaxRecording, TorchRecording, assert_docs_equal)
 from tests.torch_monitor import port_model_health_isolation  # noqa: F401
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODELS = os.path.join(REPO, "veles_torch", "znicz", "models")

@@ -28,6 +28,9 @@
     python -m veles_torch debug URL [--window SECS] [--trace-out PATH]
     python -m veles_torch top URL [URL...] [--interval S|--once|--json]
     python -m veles_torch profile URL [--seconds N] [--hz H] [--out PATH]
+    python -m veles_torch lint [--format text|json|sarif] [--select RULES]
+                               [--changed-only [REF]] [--cache DIR]
+                               [--stats] [--list-rules] [paths...]
 
 Counterpart of ``python -m veles`` for the samples ported so far: the
 workflow module is imported first (its ``root`` defaults land), then the
@@ -167,7 +170,10 @@ of a live dashboard or serving frontend (exit 2 when unreachable).
 exit 2 when none is reachable); ``profile URL`` captures a sampling
 profile off one (``/debug/profile``) and prints its per-thread summary,
 or saves the speedscope JSON (``--out``; exit 2 when unreachable or
-garbled).
+garbled). ``lint [paths...]`` is the reference's ``velescli lint`` on the
+port (``analysis/``): zlint's 20 rules over the ``veles_torch`` package
+when no path is given, ``tracer-purity`` held to the unit bodies a CUDA
+graph captures; exit 0 clean, 1 findings, 2 usage error.
 """
 
 import argparse
@@ -590,8 +596,8 @@ def main(argv=None):
     """Run the CLI; -> the trained workflow (the :class:`Ensemble` for
     ``--ensemble``, the :class:`GeneticOptimizer` for ``--optimize``, the
     unrun workflow for ``--workflow-graph``, the exit code for
-    ``checkpoints``, ``serve``, ``debug``, ``top``, ``profile`` and the
-    foreground process of ``--background``)."""
+    ``checkpoints``, ``serve``, ``lint``, ``debug``, ``top``, ``profile``
+    and the foreground process of ``--background``)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "checkpoints":
         return checkpoints_main(argv[1:])
@@ -599,6 +605,11 @@ def main(argv=None):
         from veles_torch.serving.frontend import serve_main
         _log_to_stdout()
         return serve_main(argv[1:])
+    if argv and argv[0] == "lint":
+        # zlint static analysis (analysis/): the tier-1 gate runs the
+        # same engine over the whole package
+        from veles_torch.analysis.cli import lint_main
+        return lint_main(argv[1:])
     if argv and argv[0] == "debug":
         return debug_main(argv[1:])
     if argv and argv[0] == "top":

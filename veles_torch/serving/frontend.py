@@ -818,18 +818,19 @@ def serve_main(argv=None):
         n = len(table.install_slos(health.get_monitor()))
         print("tenant table: %d tenant(s), %d p99 SLO(s)"
               % (len(table.names()), n), flush=True)
-    registry = ModelRegistry(
-        backend=args.backend, max_batch=args.max_batch,
-        max_queue=args.max_queue, max_wait_ms=args.max_wait_ms,
-        default_timeout_ms=args.timeout_ms,
-        decode_slots=args.decode_slots,
-        decode_max_len=args.decode_max_len,
-        quantize_weights=args.quantize_weights, device=args.device)
-    front = status = None
+    registry = front = status = None
     poll_stop = threading.Event()
     try:
-        # inside the guard from the first load on: a bad archive must
-        # not strand the registry's batcher threads
+        # inside the guard from its construction on: a bad archive (or
+        # any later failure) must not strand the registry's batcher
+        # threads
+        registry = ModelRegistry(
+            backend=args.backend, max_batch=args.max_batch,
+            max_queue=args.max_queue, max_wait_ms=args.max_wait_ms,
+            default_timeout_ms=args.timeout_ms,
+            decode_slots=args.decode_slots,
+            decode_max_len=args.decode_max_len,
+            quantize_weights=args.quantize_weights, device=args.device)
         for name, source in sorted(models.items()):
             registry.load(name, source, checkpoint=checkpoints.get(name),
                           warmup=not args.no_warmup,
@@ -874,5 +875,6 @@ def serve_main(argv=None):
             status.close()
         if front is not None:
             front.close()
-        registry.close()
+        if registry is not None:
+            registry.close()
     return 0

@@ -60,7 +60,7 @@ def _one_hot(idx, n):
 
 def capacity(capacity_factor, n_tokens, experts):
     """Per-expert token capacity for ``n_tokens`` tokens."""
-    return max(1, int(numpy.ceil(capacity_factor * n_tokens / experts)))
+    return max(1, int(numpy.ceil(capacity_factor * n_tokens / experts)))  # zlint: disable=tracer-purity (n_tokens is the host int global_positions returns; its tuple unpack reads as device data)
 
 
 def route_tokens(xt, router, experts, cap):
@@ -212,7 +212,7 @@ def moe_forward_sharded(unit, x, dot):
              "gate": gate, "dispatch": dispatch, "xe": xe, "h": h,
              "ye": ye, "totals": totals, "n_tokens": n_tokens}
     unit.dropped = n_tokens - torch.minimum(
-        totals, torch.full_like(totals, float(cap))).sum()
+        totals, torch.full_like(totals, float(cap))).sum()  # zlint: disable=tracer-purity (cap is capacity()'s host int)
     return y, cache
 
 
