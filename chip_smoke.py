@@ -476,16 +476,21 @@ Phases, each printing JSON lines; any failure ends the run non-zero:
     one-process slave: the masters' archives within ``PAR_SLAVE_ATOL``.
     The runs under ``data=2`` go in child processes side by side (their
     ranks wait on host copies), the one-process runs here;
-38. image_jpeg — every fixture of ``tests/data/jpeg`` decoded by the
-    native routines (``csrc/image_decode.cu``) and by their Python twins:
-    the JPEG coefficients equal, the pixels (RGB, L, their 256×256
-    resizes) hashing to Pillow's digests (``digests.json``); the decode
-    ms of a baseline 4:2:0, a progressive JPEG and a Paeth PNG, native
-    and twin; AlexNet at full width streamed 2 epochs from a tree of 16
-    classes of ``JPEG_COPIES`` copies of the tree fixtures: 7 masked and
-    1 identity bias-gradient launches a train step, every scan decoded
-    natively, at ``JPEG_LR`` the train loss falling and the validation
-    loss after one epoch below the untrained model's, the warm images/s;
+38. image_jpeg — every fixture of ``tests/data/jpeg`` (Huffman,
+    arithmetic-coded and lossless JPEG, a PNG) decoded by the native
+    routines (``csrc/image_decode.cu``), and all but the tree images and
+    one arithmetic-coded tree image by their Python twins: the JPEG
+    coefficients (a lossless frame's samples) equal, the pixels (RGB, L,
+    their 256×256 resizes) hashing to Pillow's digests
+    (``digests.json``); the decode ms of a baseline 4:2:0, a progressive
+    JPEG, their arithmetic-coded twins, a lossless JPEG and a Paeth PNG,
+    native and twin; AlexNet at full width streamed 2 epochs from a tree
+    of 16 classes of ``JPEG_COPIES`` copies of the tree fixtures, Huffman
+    and arithmetic-coded in turn: 7 masked and 1 identity bias-gradient
+    launches a train step, every scan decoded natively (the scans counted
+    by routine and coding, arithmetic-coded ones among them), at
+    ``JPEG_LR`` the train loss falling and the validation loss after one
+    epoch below the untrained model's, the warm images/s;
 39. capture_purity — the guard of the CUDA-graph capture to come: (a)
     ``python -m veles_torch lint --select tracer-purity --format json
     veles_torch`` in a subprocess exits 0 with ``[]``; a control
@@ -3611,9 +3616,10 @@ def counted_window(activities, sync):
         time.sleep(COUNT_PAD_S)
 
 
-def count_device_ops(prof):
-    """Device operations (kernels, copies, memsets) in a profile; the
-    trace is read from a temporary file, not kept."""
+def device_ops_by_name(prof):
+    """Device operations (kernels, copies, memsets) in a profile, counted
+    by name; the trace is read from a temporary file, not kept."""
+    import collections
     import tempfile
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
@@ -3623,8 +3629,14 @@ def count_device_ops(prof):
             events = json.load(f)["traceEvents"]
     finally:
         os.remove(path)
-    return sum(1 for e in events if e.get("ph") == "X" and e.get("cat")
-               in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return collections.Counter(
+        e.get("name", "")[:160] for e in events if e.get("ph") == "X"
+        and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+def count_device_ops(prof):
+    """Device operations (kernels, copies, memsets) in a profile."""
+    return sum(device_ops_by_name(prof).values())
 
 
 def set_stats(wf, stride):
@@ -4093,22 +4105,30 @@ def diversity_errors(wf):
 def plotted_epoch_ops(torch, wf):
     """Device operations of a MNIST epoch without and with the plotters,
     in turns (without, with, with, without), with the layer stats off: at
-    stride 8 the 60 train steps of an epoch hold 7 or 8 due steps."""
+    stride 8 the 60 train steps of an epoch hold 7 or 8 due steps. The
+    first epoch after the CLI run is counted apart, without the plotters:
+    on an H100 host it once read 33 operations more than the same epoch
+    at the end (7206, 7175, 7175, 7173 with it in the turns); -> (the
+    turns' counts, the first epoch's count, {name: how many more of it
+    the first epoch ran than the last}: what those operations are)."""
     from torch.profiler import ProfilerActivity
     from veles_torch import model_health
-    plotters, ops = wf.plotters, []
+    plotters, ops, names = wf.plotters, [], []
     wf.step.set_stats_enabled(False)
     sync = functools.partial(unsupervised_sync, torch)
-    for plotted in (False, True, True, False):
+    for plotted in (False, False, True, True, False):
         wf.plotters = plotters if plotted else []
         sync()
         with model_health.scoped(), counted_window(
                 [ProfilerActivity.CPU, ProfilerActivity.CUDA], sync) as prof:
             wf.step.run_epoch(wf._after_decision)
-        ops.append(count_device_ops(prof))
+        names.append(device_ops_by_name(prof))
+        ops.append(sum(names[-1].values()))
     wf.plotters = plotters
     wf.step.set_stats_enabled(True)
-    return ops
+    extra = dict(names[0] - names[-1])
+    extra.update({k: -v for k, v in (names[-1] - names[0]).items()})
+    return ops[1:], ops[0], extra
 
 
 def check_plots(torch):
@@ -4137,8 +4157,8 @@ def check_plots(torch):
                        "bias_grad[masked]": per_step})
         shapes = check_pngs(out, MNIST_PLOTS)
         stats, errors = diversity_errors(wf)
-        ops = plotted_epoch_ops(torch, wf) \
-            if UNSUPERVISED_DEVICE == "cuda" else None
+        ops, first, extra = plotted_epoch_ops(torch, wf) \
+            if UNSUPERVISED_DEVICE == "cuda" else (None, None, None)
         som_out = os.path.join(tmp, "kohonen")
         prng.seed_all(UNSUPERVISED_SEED)
         with model_health.scoped():
@@ -4159,6 +4179,7 @@ def check_plots(torch):
           "png_shapes": shapes, "diversity": stats,
           "diversity_errors": errors,
           "epoch_device_ops_without_with_with_without": ops,
+          "first_epoch_device_ops": first, "first_epoch_extra_ops": extra,
           "plot_device_reads": PLOT_DEVICE_READS})
     if counts != want:
         fail("plots: launches %s, expected %s" % (counts, want))
@@ -6884,10 +6905,12 @@ PAR_SLAVE_ATOL = 1e-5
 #: phase image_jpeg: the committed fixtures and their Pillow digests
 JPEG_FIXTURES = os.path.join(HERE, "tests", "data", "jpeg")
 #: the streamed tree: each of the 16 tree_NN.jpg fixtures (320x240, even
-#: ones baseline 4:2:0, odd ones progressive) copied JPEG_COPIES times
-#: into its class's directory: phase image_stream's geometry (the stride
-#: split holds 8 of 72 out a class: 1024 train and 128 validation images,
-#: 8 train steps an epoch), so the two trees' images/s compare
+#: ones baseline 4:2:0, odd ones progressive) and its arithmetic-coded
+#: twin arith_tree_NN.jpg (the same coefficients, so the same pixels)
+#: copied JPEG_COPIES times in turn into its class's directory: phase
+#: image_stream's geometry (the stride split holds 8 of 72 out a class:
+#: 1024 train and 128 validation images, 8 train steps an epoch), so the
+#: two trees' images/s compare
 JPEG_COPIES = 72
 #: 2 epochs at a learning rate of JPEG_LR. At the sample's 0.01 AlexNet's
 #: train loss on this tree spikes from 4.6 to 24 within the first epoch
@@ -6901,7 +6924,18 @@ JPEG_RUN = ("root.imagenet.decision.max_epochs=2",
 #: decodes timed per file kind, one thread, and the files timed
 JPEG_TIMED = 16
 JPEG_TIMED_FILES = {"baseline_420": "tree_00.jpg",
-                    "progressive": "tree_01.jpg", "paeth_png": "paeth.png"}
+                    "progressive": "tree_01.jpg",
+                    "arith_sequential": "arith_tree_00.jpg",
+                    "arith_progressive": "arith_tree_01.jpg",
+                    "lossless_420": "lossless_420.jpg",
+                    "paeth_png": "paeth.png"}
+#: the codings of the streamed tree's copies, in turn, and the prefix of
+#: each coding's tree fixtures
+JPEG_TREE_CODINGS = ("huffman", "arithmetic")
+JPEG_TREE_PREFIX = {"huffman": "", "arithmetic": "arith_"}
+#: the one tree image the twins decode in check_fixtures (the natives
+#: decode every fixture)
+JPEG_TWIN_TREE = "arith_tree_01.jpg"
 
 
 def par_device_args():
@@ -7434,25 +7468,30 @@ def fixture_digests():
 
 
 def check_fixtures():
-    """Every committed fixture decoded by the native routines and by their
-    twins: the JPEG coefficients and the PNG rows equal, the pixels (RGB
-    and L, and their 256x256 bilinear resizes) hashing to Pillow's
-    digests. -> (files checked, mismatches)."""
+    """Every committed fixture decoded by the native routines, and all
+    but the tree images (JPEG_TWIN_TREE aside) by their twins: the JPEG
+    coefficients (a lossless frame's samples) and the PNG rows equal, the
+    pixels (RGB and L, and their 256x256 bilinear resizes) hashing to
+    Pillow's digests. -> (files checked, mismatches, files the twins
+    decoded)."""
     import hashlib
     import numpy
     from veles_torch.loader import codecs, jpeg
     bad = []
+    twinned = 0
     digests = fixture_digests()
     for name, want in sorted(digests.items()):
         with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
             data = f.read()
-        if name.endswith(".jpg"):
+        twin = "tree_" not in name or name == JPEG_TWIN_TREE
+        twinned += twin
+        if name.endswith(".jpg") and twin:
             frame = jpeg.parse(data, name)
-            native = jpeg.coefficients(frame, True)[0]
-            twin = jpeg.coefficients(frame, False)[0]
-            if not numpy.array_equal(native, twin):
-                bad.append((name, "coefficients"))
-        for native in (True, False):
+            native = jpeg.entropy_decode(frame, True)[0]
+            if not numpy.array_equal(native,
+                                     jpeg.entropy_decode(frame, False)[0]):
+                bad.append((name, "entropy decode"))
+        for native in (True, False) if twin else (True,):
             pixels, mode = codecs.decode(data, name, native)
             for space, key in (("RGB", "RGB"), ("GRAY", "L")):
                 col = codecs.to_color(pixels, mode, space)
@@ -7462,7 +7501,7 @@ def check_fixtures():
                         arr).tobytes()).hexdigest()
                     if got != want[tag]:
                         bad.append((name, native, tag))
-    return len(digests), bad
+    return len(digests), bad, twinned
 
 
 def jpeg_decode_ms():
@@ -7483,30 +7522,34 @@ def jpeg_decode_ms():
     return out
 
 
-def write_jpeg_tree(base):
-    """16 class directories, each JPEG_COPIES copies of its fixture named
-    as an ImageNet staging names them (``<class>_<n>.JPEG``)."""
+def write_jpeg_tree(base, codings=JPEG_TREE_CODINGS):
+    """16 class directories, each JPEG_COPIES copies of its fixture, coded
+    as ``codings`` name in turn (by default the Huffman-coded and the
+    arithmetic-coded file), named as an ImageNet staging names them
+    (``<class>_<n>.JPEG``)."""
     for k in range(TREE_CLASSES):
         d = os.path.join(base, "n%08d" % k)
         os.makedirs(d)
-        src = os.path.join(JPEG_FIXTURES, "tree_%02d.jpg" % k)
         for j in range(JPEG_COPIES):
+            src = os.path.join(JPEG_FIXTURES, "%stree_%02d.jpg" % (
+                JPEG_TREE_PREFIX[codings[j % len(codings)]], k))
             shutil.copyfile(src, os.path.join(d, "n%08d_%d.JPEG" % (k, j)))
 
 
-def check_image_jpeg(torch):
+def check_image_jpeg(torch, codings=JPEG_TREE_CODINGS):
     """Phase image_jpeg: the fixtures, the decode rates, then AlexNet at
-    full width streamed 2 epochs from the JPEG tree; -> its launches."""
+    full width streamed 2 epochs from the JPEG tree written in
+    ``codings`` (:func:`write_jpeg_tree`); -> its launches."""
     import tempfile
     from veles_torch.config import root
     from veles_torch.loader import codecs, jpeg
     t0 = time.perf_counter()
-    files, bad = check_fixtures()
+    files, bad, twinned = check_fixtures()
     rates = jpeg_decode_ms()
     tmp = tempfile.mkdtemp(prefix="jpeg_tree_", dir=OUT_DIR)
     saved = root.imagenet.loader.to_dict()
     try:
-        write_jpeg_tree(os.path.join(tmp, "tree"))
+        write_jpeg_tree(os.path.join(tmp, "tree"), codings)
         before = dict(jpeg.scans), dict(codecs.unfilters)
         reset_counts()
         wf = cli_run([IMAGENET_SAMPLE, "root.imagenet.loader.base_dir=%s"
@@ -7528,14 +7571,16 @@ def check_image_jpeg(torch):
     warm = step.epoch_seconds[1]
     ok, want = conv_launches_ok(counts, train, 7)
     row = {"phase": "image_jpeg", "card": card_line(), "fixtures": files,
-           "fixture_mismatches": bad, "decode": rates,
+           "fixtures_twinned": twinned, "fixture_mismatches": bad,
+           "decode": rates,
            "class_lengths": loader.class_lengths,
            "n_classes": loader.n_classes, "train_steps": train,
            "launches": counts, "learning_rate": JPEG_LR,
            "train_loss": losses, "validation_loss": valid_losses,
            "validation_error": [h["validation"]["metric"]
                                 for h in wf.decision.history],
-           "native_decode": loader.native_decode, "scans": scans,
+           "native_decode": loader.native_decode,
+           "tree_codings": list(codings), "scans": scans,
            "epoch_seconds": step.epoch_seconds,
            "images_per_sec_warm_epoch": images / warm,
            "stream_wait_seconds": dict(step.stream_wait_seconds),
@@ -7544,7 +7589,8 @@ def check_image_jpeg(torch):
     if bad:
         fail("image_jpeg: fixtures differ from their twins or Pillow: %s"
              % bad[:10])
-    if not loader.native_decode or scans["python"] or not scans["native"]:
+    if not loader.native_decode or scans["python"] \
+            or not all(scans["native_" + c] for c in codings):
         fail("image_jpeg: the run's scans %s (native decode %s)"
              % (scans, loader.native_decode))
     if loader.n_classes != TREE_CLASSES or not ok:

@@ -3,13 +3,19 @@ against Pillow, the reference's decoder (veles/loader/image.py
 ``_decode_file``), bit for bit: PNG of every colour type, bit depth,
 filter and interlace; JPEG (4:4:4, 4:2:2, 4:2:0, h1v2, h4v1, grey,
 progressive, restart intervals, CMYK, YCCK, odd sizes) through the
-Python twin of the entropy decode; GIF (global and local palettes,
-interlaced, grey ramps); PNM (text, bitmap, any maxval); BMP (palettes,
-RLE4, RLE8, bitfields, OS/2); each also after ``to_color`` and
-``resize``; the JPEG processes not decoded yet raise naming ROADMAP
-Queue 1 #6c; ``load`` equals the reference loader's own decode; and the
-committed fixtures decode to the digests of Pillow's pixels that the
-card checks without Pillow."""
+Python twin of the entropy decode; arithmetic-coded sequential and
+progressive JPEG (DC and AC refinement, restart intervals, DAC
+conditioning, the bad-code latch on Huffman bytes under an arithmetic
+marker and on fixtures with changed scan bytes) and lossless JPEG
+(predictors 1-7, a point transform, 4:2:0, a scan per component,
+restarts) from the committed fixtures, twins and native routines; GIF
+(global and local palettes, interlaced, grey ramps); PNM (text, bitmap,
+any maxval); BMP (palettes, RLE4, RLE8, bitfields, OS/2); each also
+after ``to_color`` and ``resize``; what Pillow refuses (SOF11,
+precisions other than 8, a lossless frame in YCbCr, bad DAC entries)
+raises ValueError naming the file; ``load`` equals the reference
+loader's own decode; and the committed fixtures decode to the digests of
+Pillow's pixels that the card checks without Pillow."""
 
 import hashlib
 import io
@@ -28,6 +34,7 @@ from veles.workflow import Workflow
 from veles_torch.graphics_client import read_png as graphics_read_png
 from veles_torch.graphics_client import write_png
 from veles_torch.loader import codecs, jpeg
+from tests.torch_native import build_image_decode
 
 GEN_SEED = 20261018
 
@@ -228,7 +235,7 @@ def _pillow_array(img):
 
 def _sof(data):
     i = 2
-    while data[i + 1] not in (0xC0, 0xC1, 0xC2):
+    while data[i + 1] not in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
         i += 2 + struct.unpack(">H", data[i + 2:i + 4])[0]
     return i
 
@@ -307,26 +314,91 @@ def _sof_marker(data, marker, precision=None):
     return bytes(out)
 
 
-LATER_CASES = (("lossless", 0xC3, None, "lossless"),
-               ("arithmetic", 0xC9, None, "arithmetic"),
-               ("arithmetic_progressive", 0xCA, None, "arithmetic"),
-               ("12bit", 0xC1, 12, "12-bit"))
+def _fixture(name):
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        return f.read()
 
 
-@pytest.mark.parametrize("name,marker,precision,what", LATER_CASES,
-                         ids=[c[0] for c in LATER_CASES])
-def test_jpeg_processes_not_decoded_raise_naming_6c(tmp_path, name, marker,
-                                                    precision, what):
-    """Recognised by their frame marker (never by the name: a JPEG under
-    .png) and refused naming the file and ROADMAP Queue 1 #6c."""
+def _without(data, marker):
+    """``data`` without its ``marker`` segments."""
+    for m, i, n in reversed(_segments_of(data)):
+        if m == marker:
+            data = data[:i] + data[i + 2 + n:]
+    return data
+
+
+def _sof11():
+    """A lossless scan under SOF11 (arithmetic-coded lossless), with a DAC
+    in place of its Huffman tables: a frame libjpeg-turbo cannot decode
+    (its encoder refuses to write one)."""
+    data = _without(_fixture("lossless_rgb.jpg"), 0xC4)
+    out = bytearray(_sof_marker(data, 0xCB))
+    at = _nth(out, 0xDA)[1]
+    return bytes(out[:at]) + b"\xff\xcc\x00\x04\x00\x10" + bytes(out[at:])
+
+
+def _dac(edit):
+    data = _fixture("arith_dac.jpg")
+    return _with_body(data, 0xCC, edit(_body(data, 0xCC)))
+
+
+def _dac_at(index, value):
+    def edit(b):
+        for p in range(0, len(b), 2):
+            if b[p] == index:
+                b[p + 1] = value
+        return b
+    return edit
+
+
+#: frames Pillow 12.1.0 refuses: the arithmetic-coded lossless process, a
+#: precision other than 8 bits under each decoded process, a lossless
+#: frame whose colours libjpeg-turbo would have to convert, DAC entries
+#: libjpeg refuses, lossless scan headers and restart intervals libjpeg
+#: refuses
+REFUSED = {
+    "sof11": (_sof11, "SOF11"),
+    "12bit_sof1": (lambda: _sof_marker(_fixture("baseline_444.jpg"), 0xC1,
+                                       12), "12-bit"),
+    "12bit_sof3": (lambda: _sof_marker(_fixture("lossless_rgb.jpg"), 0xC3,
+                                       12), "12-bit"),
+    "16bit_sof10": (lambda: _sof_marker(_fixture("arith_refine.jpg"), 0xCA,
+                                        16), "16-bit"),
+    "lossless_ycbcr": (lambda: _adobe(_fixture("lossless_rgb.jpg"), 1),
+                       "YCbCr"),
+    "dac_l_above_u": (lambda: _dac(_dac_at(0x00, 0x17)), "L > U"),
+    "dac_index_32": (lambda: _dac(lambda b: _set(b, b0=0x20)), "index"),
+    "dac_odd_length": (lambda: _dac(lambda b: b + b"\x01"), "length"),
+    "lossless_predictor_0": (lambda: _sos(_fixture("lossless_rgb.jpg"),
+                                          _tail(ss=0)), "predictor 0"),
+    "lossless_predictor_8": (lambda: _sos(_fixture("lossless_rgb.jpg"),
+                                          _tail(ss=8)), "predictor 8"),
+    "lossless_pt_8": (lambda: _sos(_fixture("lossless_rgb.jpg"),
+                                   _tail(a=0x08)), "Pt 8"),
+    "lossless_restart_not_rows": (lambda: _with_body(
+        _fixture("lossless_restart.jpg"), 0xDD, b"\x00\x4b"), "restart"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_jpeg_processes_pillow_refuses_raise_naming_the_file(tmp_path,
+                                                             name):
+    """Recognised by their headers (never by the name: a JPEG under .png)
+    and refused with ValueError naming the file, before any scan is
+    decoded, as Pillow refuses each file."""
+    make, what = REFUSED[name]
+    data = make()
+    with pytest.raises((OSError, SyntaxError)):
+        with Image.open(io.BytesIO(data)) as img:
+            img.load()
     path = tmp_path / ("img_%s.png" % name)
-    path.write_bytes(_sof_marker(_encode(_image((8, 8, 3)), "JPEG"),
-                                 marker, precision))
-    with pytest.raises(NotImplementedError) as err:
+    path.write_bytes(data)
+    before = dict(jpeg.scans)
+    with pytest.raises(ValueError) as err:
         codecs.load(str(path))
     assert str(path) in str(err.value)
-    assert "ROADMAP Queue 1 #6c" in str(err.value)
     assert what in str(err.value)
+    assert jpeg.scans == before
 
 
 def test_jpeg_processes_pillow_refuses_raise_value_error():
@@ -864,8 +936,8 @@ def test_fixture_digests_are_pillows_and_the_port_decodes_to_them():
                 .hexdigest() == want[conv]
             assert hashlib.sha256(_pillow_array(small).tobytes()) \
                 .hexdigest() == want[conv + "_256"]
-        if name.startswith("tree_"):
-            continue            # the 16 tree images: the card decodes them
+        if "tree_" in name:
+            continue            # the 32 tree images: decoded natively
         pixels, mode = codecs.decode(data)
         for space, conv in (("RGB", "RGB"), ("GRAY", "L")):
             col = codecs.to_color(pixels, mode, space)
@@ -931,16 +1003,7 @@ def native(tmp_path_factory):
     as ``jpeg.native_library`` binds it; ``jpeg.native_library`` and
     ``codecs``' use of it answer with this library in the tests that
     take the fixture."""
-    import shutil
-    import subprocess
-    from veles_torch import kernels
-    if shutil.which("g++") is None:
-        pytest.skip("no g++ to build the native routine on the host")
-    out = str(tmp_path_factory.mktemp("image_decode") / "libimage_decode.so")
-    subprocess.run(["g++", "-x", "c++", "-O2", "-shared", "-fPIC", "-o", out,
-                    os.path.join(kernels.SOURCE_DIR, "image_decode.cu")],
-                   check=True)
-    return kernels.open_library(out, jpeg.SIGNATURES)
+    return build_image_decode(tmp_path_factory.mktemp("image_decode"))
 
 
 @pytest.fixture
@@ -950,13 +1013,17 @@ def with_native(native, monkeypatch):
 
 
 def _small_fixtures():
+    """The JPEG fixtures the twins decode: all but the trees, and one
+    tree image of each coding (the progressive ones)."""
     return sorted(n for n in _digests()["files"]
-                  if n.endswith(".jpg") and not n.startswith("tree_"))
+                  if n.endswith(".jpg") and "tree_" not in n) \
+        + ["arith_tree_01.jpg", "tree_01.jpg"]
 
 
 @pytest.mark.parametrize("name", sorted(JPEG_CASES) + _small_fixtures())
 def test_native_scan_decode_equals_the_twin(with_native, name):
-    """Every scan's coefficients, native against the Python twin."""
+    """Every scan's coefficients (a lossless frame's samples), native
+    against the Python twin."""
     if name in JPEG_CASES:
         data = JPEG_CASES[name]()
     else:
@@ -964,11 +1031,13 @@ def test_native_scan_decode_equals_the_twin(with_native, name):
             data = f.read()
     frame = jpeg.parse(data)
     before = dict(jpeg.scans)
-    got, layout = jpeg.coefficients(frame, True)
-    want, want_layout = jpeg.coefficients(frame, False)
+    got, layout = jpeg.entropy_decode(frame, True)
+    want, want_layout = jpeg.entropy_decode(frame, False)
     assert layout == want_layout
     numpy.testing.assert_array_equal(got, want)
     assert jpeg.scans["native"] - before["native"] == len(frame.scans)
+    assert jpeg.scans["native_" + frame.coding] \
+        - before["native_" + frame.coding] == len(frame.scans)
 
 
 def test_native_decodes_the_tree_fixtures_to_pillows_digests(with_native):
@@ -1047,3 +1116,291 @@ def test_native_unfilter_equals_the_twin(with_native):
     for native in (False, True):
         with pytest.raises(ValueError):
             codecs.unfilter(rows.copy(), bpp, native=native)
+
+
+# -- arithmetic-coded and lossless JPEG ---------------------------------------
+
+def _new_fixtures():
+    """The arithmetic-coded and lossless fixtures but the arithmetic tree."""
+    return sorted(n for n in _digests()["files"]
+                  if n.startswith(("arith_", "lossless_"))
+                  and not n.startswith("arith_tree_"))
+
+
+@pytest.mark.parametrize("name", _new_fixtures())
+def test_arithmetic_and_lossless_fixtures_bit_for_bit(with_native, name):
+    """Each small arithmetic-coded (SOF9, SOF10) and lossless (SOF3)
+    fixture decodes to Pillow's pixels, and to its convert and resize,
+    through the twins; the native routines give the same pixels."""
+    data = _fixture(name)
+    with Image.open(io.BytesIO(data)) as img:
+        mode = img.mode
+    _held(data, mode)
+    numpy.testing.assert_array_equal(codecs.decode(data, native=True)[0],
+                                     _pillow(data))
+
+
+def test_native_decodes_the_arithmetic_tree_to_its_huffman_twins(
+        with_native):
+    """Each arith_tree_NN.jpg holds tree_NN.jpg's coefficients,
+    arithmetic-coded (even sequential, odd progressive): its digests are
+    tree_NN.jpg's, and the native routine decodes it to them."""
+    digests = _digests()["files"]
+    for k in range(16):
+        name = "arith_tree_%02d.jpg" % k
+        assert digests[name] == digests["tree_%02d.jpg" % k], name
+        frame = jpeg.parse(_fixture(name))
+        assert (frame.coding, frame.progressive) == ("arithmetic",
+                                                     bool(k % 2))
+        pixels, mode = codecs.decode(_fixture(name), native=True)
+        col = codecs.to_color(pixels, mode, "RGB")
+        assert hashlib.sha256(col.tobytes()).hexdigest() \
+            == digests[name]["RGB"], name
+        assert hashlib.sha256(codecs.resize(col, (256, 256)).tobytes()) \
+            .hexdigest() == digests[name]["RGB_256"], name
+
+
+@pytest.mark.parametrize("space", ("RGB", "GRAY"))
+def test_new_fixtures_load_as_the_reference_loader_decodes(space):
+    """``codecs.load`` of every small arithmetic-coded and lossless
+    fixture equals the reference loader's ``_decode_file`` (Pillow
+    convert + resize), with and without a resize."""
+    jprng.seed_all(3)
+    paths = [os.path.join(FIXTURES, n) for n in _new_fixtures()]
+    for scale in (None, (24, 32)):
+        ref = JaxFileImageLoader(
+            Workflow(None, name="DecodeWF"), name="loader",
+            train_paths=paths, train_labels=[0] * len(paths), scale=scale,
+            color_space=space, minibatch_size=2)
+        for path in paths:
+            numpy.testing.assert_array_equal(
+                codecs.load(path, space, scale), ref._decode_file(path))
+
+
+def _patches(name, *edits):
+    """The fixture ``name`` with each ``(offset, bytes)`` of ``edits``
+    written over its scan (no 0xFF among them or the bytes they replace,
+    so no marker is made or broken)."""
+    out = bytearray(_fixture(name))
+    for at, values in edits:
+        assert 0xFF not in values and 0xFF not in out[at - 1:at + len(values)]
+        out[at:at + len(values)] = values
+    return bytes(out)
+
+
+#: Files whose arithmetic-coded scans hold bad codes, each with the twin's
+#: routine that meets one (None: no bad code), which latches the decoder
+#: until the next restart. Huffman-coded files under an arithmetic frame
+#: marker: Pillow decodes their bytes as arithmetic data, into
+#: coefficients far out of range for the IDCT; the progressive ones run
+#: into a band's run past Se. Arithmetic-coded fixtures with a few scan
+#: bytes changed: the sequential decoder's DC magnitude overflow
+#: (``_arith_dc``), its AC magnitude and spectral overflows
+#: (``_arith_ac``), interleaved (4:2:0), non-interleaved (grey) and in a
+#: restart segment before the last, whose next segments decode only if
+#: the latch ends at the restart
+LATCHED = {
+    "sof9_sequential": (lambda: _sof_marker(
+        _encode(_image((45, 67, 3), 30), "JPEG"), 0xC9), None),
+    "sof9_restart": (lambda: _sof_marker(
+        _encode(_image((45, 67, 3), 31), "JPEG", restart_marker_blocks=3),
+        0xC9), None),
+    "sof9_grey": (lambda: _sof_marker(
+        _encode(_image((45, 67), 32), "JPEG"), 0xC9), None),
+    "sof10_progressive": (lambda: _sof_marker(
+        _encode(_image((45, 67, 3), 31), "JPEG", progressive=True), 0xCA),
+        "_arith_ac"),
+    "sof10_restart": (lambda: _sof_marker(
+        _encode(_image((45, 67, 3), 34), "JPEG", progressive=True,
+                restart_marker_rows=1), 0xCA), "_arith_ac"),
+    "arith_420_dc_magnitude": (lambda: _patches(
+        "arith_420.jpg", (222, b"\x60"), (699, b"\x79")), "_arith_dc"),
+    "arith_420_ac_magnitude": (lambda: _patches(
+        "arith_420.jpg", (256, b"\xfe\xfe\xfe\xfe\x5a\xfe\x00\xfe\x8e"),
+        (266, b"\xfe\x9c\x9c\x81\xfe")), "_arith_ac"),
+    "arith_420_ac_spectral": (lambda: _patches(
+        "arith_420.jpg", (557, b"\xfe\x00\xfe")), "_arith_ac"),
+    "arith_grey_ac_spectral": (lambda: _patches(
+        "arith_grey.jpg", (521, b"\x38"), (913, b"\x06"), (934, b"\xba")),
+        "_arith_ac"),
+    "arith_restart_dc_magnitude": (lambda: _patches(
+        "arith_restart.jpg", (263, b"\x1f"), (496, b"\xc5")), "_arith_dc"),
+    "arith_restart_ac_magnitude": (lambda: _patches(
+        "arith_restart.jpg", (407, b"\xa5"), (483, b"\xd9"), (507, b"\x1d")),
+        "_arith_ac"),
+    "arith_restart_ac_spectral": (lambda: _patches(
+        "arith_restart.jpg", (508, b"\x53"), (651, b"\x00"), (704, b"\x9e")),
+        "_arith_ac"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LATCHED))
+def test_bad_arithmetic_codes_latch_as_pillow_does(with_native,
+                                                   monkeypatch, name):
+    """libjpeg's arithmetic decoder warns on a bad code and decodes
+    nothing more until the next restart; Pillow ignores the warning and
+    returns the pixels. The port gives the same pixels, twin and native,
+    and the twin's routine named for the case meets the bad code."""
+    make, latch = LATCHED[name]
+    data = make()
+    want = _pillow(data)
+    latched = set()
+
+    def counted(fn):
+        def run(*args):
+            ok = fn(*args)
+            if not ok:
+                latched.add(fn.__name__)
+            return ok
+        return run
+    for fn in ("_arith_dc", "_arith_ac", "_arith_ac_refine"):
+        monkeypatch.setattr(jpeg, fn, counted(getattr(jpeg, fn)))
+    for native in (False, True):
+        got, _ = codecs.decode(data, native=native)
+        numpy.testing.assert_array_equal(got.reshape(want.shape), want)
+    assert latched == ({latch} if latch else set()), name
+
+
+#: DAC values libjpeg takes (it checks L <= U only): AC thresholds K of
+#: 0, 64 and 255, and L == U
+DAC_TAKEN = {"k_0": (0x10, 0), "k_64": (0x10, 64), "k_255": (0x10, 255),
+             "l_equals_u": (0x00, 0x33)}
+
+
+@pytest.mark.parametrize("name", sorted(DAC_TAKEN))
+def test_dac_values_libjpeg_takes_decode_as_pillow(with_native, name):
+    data = _dac(_dac_at(*DAC_TAKEN[name]))
+    for native in (False, True):
+        numpy.testing.assert_array_equal(
+            codecs.decode(data, native=native)[0], _pillow(data))
+
+
+def test_arithmetic_state_table_is_libjpeg_turbos():
+    """The port's copy of ``jpeg_aritab`` equals the table that Pillow's
+    bundled libjpeg-turbo exports."""
+    import ctypes
+    import glob
+    import PIL
+    libs = glob.glob(os.path.join(os.path.dirname(os.path.dirname(
+        PIL.__file__)), "pillow.libs", "libjpeg*.so*"))
+    assert libs, "Pillow bundles libjpeg-turbo"
+    table = (ctypes.c_long * 114).in_dll(ctypes.CDLL(libs[0]),
+                                         "jpeg_aritab")
+    assert tuple(table) == jpeg.ARITAB
+
+
+def test_scans_are_counted_by_routine_and_coding(with_native):
+    """``jpeg.scans`` counts each scan under its routine and under its
+    routine and coding."""
+    for name, coding in (("baseline_420.jpg", "huffman"),
+                         ("arith_refine.jpg", "arithmetic"),
+                         ("lossless_scans.jpg", "lossless")):
+        n = len(jpeg.parse(_fixture(name)).scans)
+        for native, routine in ((True, "native"), (False, "python")):
+            before = dict(jpeg.scans)
+            codecs.decode(_fixture(name), native=native)
+            moved = {k: jpeg.scans[k] - before[k] for k in jpeg.scans}
+            assert moved == {k: n if k in (routine, "%s_%s" % (
+                routine, coding)) else 0 for k in jpeg.scans}, name
+
+
+def _lossless_args(ncomp=1, psv=1, pt=0, restart=0, symbol=0):
+    """One lossless scan's arguments over zero bytes: ``ncomp`` components
+    of 4x4 samples at 1x1, DC table 0 one 1-bit code for ``symbol``;
+    samples with a guard sample past the scan's planes."""
+    comps = numpy.array([[16 * c, 4, 1, 1, 0, 0, 4, 4]
+                         for c in range(ncomp)], numpy.int32)
+    tables = numpy.zeros((8, jpeg.TABLE_WORDS), numpy.int32)
+    tables[0] = jpeg.huffman_table([1] + [0] * 15, [symbol])
+    samples = numpy.full(16 * ncomp + 1, 7, numpy.uint16)
+    data = bytes(64)
+    offsets = numpy.array([0, len(data)], numpy.int64)
+    return (data, offsets, samples, comps, 4, 4, restart, psv, pt, tables)
+
+
+def _arith_args(cond_row=(0, 1, 5), **kw):
+    args = list(_scan_args(**kw))
+    cond = numpy.array([jpeg.ARITH_DEFAULT] * 16, numpy.int32)
+    cond[3] = cond_row
+    args[-1] = cond
+    return tuple(args)
+
+
+NEW_GUARDS = {
+    "arith_components_5": ("arith", 1, dict(ncomp=5)),
+    "arith_band_past_63": ("arith", 3, dict(progressive=1, ss=1, se=200,
+                                            ah=1)),
+    "arith_l_of_16": ("arith", 5, dict(cond_row=(16, 16, 5))),
+    "arith_k_of_256": ("arith", 5, dict(cond_row=(0, 1, 256))),
+    "lossless_components_5": ("lossless", 1, dict(ncomp=5)),
+    "lossless_predictor_0": ("lossless", 3, dict(psv=0)),
+    "lossless_pt_8": ("lossless", 3, dict(pt=8)),
+    "lossless_restart_not_rows": ("lossless", 6, dict(restart=3)),
+    "lossless_category_17": ("lossless", 4, dict(symbol=17)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_GUARDS))
+def test_native_arith_and_lossless_refuse_what_would_write_out_of_bounds(
+        with_native, name):
+    """Called directly with a scan ``jpeg.parse`` refuses, the arithmetic
+    and lossless routines return their code with the guard element past
+    the scan as it was, and the twins raise the same code."""
+    kind, code, kw = NEW_GUARDS[name]
+    make = _arith_args if kind == "arith" else _lossless_args
+    native = jpeg.decode_scan_arith_native if kind == "arith" \
+        else jpeg.decode_scan_lossless_native
+    twin = jpeg.decode_scan_arith_python if kind == "arith" \
+        else jpeg.decode_scan_lossless_python
+    args = make(**kw)
+    with pytest.raises(ValueError, match="code %d" % code):
+        native(*args)
+    assert args[2].reshape(-1)[-1] == 7
+    with pytest.raises(ValueError, match="code %d" % code):
+        twin(*make(**kw))
+
+
+def _shortened(args):
+    args[2] = args[2][:-2]          # the guard unit and one the scan writes
+
+
+def _offsets_past_data(args):
+    args[1] = numpy.array([0, len(args[0]) + 8], numpy.int64)
+
+
+def _four_tables(args):
+    args[-1] = args[-1][:4]
+
+
+def _int32_coef(args):
+    args[2] = args[2].astype(numpy.int32)
+
+
+#: arrays a native routine would read or write past: (routine, its
+#: arguments, the edit)
+BAD_ARRAYS = {
+    "huffman_block_past_coef": (jpeg.decode_scan_native, _scan_args,
+                                _shortened),
+    "arith_block_past_coef": (jpeg.decode_scan_arith_native, _arith_args,
+                              _shortened),
+    "lossless_sample_past_plane": (jpeg.decode_scan_lossless_native,
+                                   _lossless_args, _shortened),
+    "offsets_past_data": (jpeg.decode_scan_native, _scan_args,
+                          _offsets_past_data),
+    "cond_of_4_tables": (jpeg.decode_scan_arith_native, _arith_args,
+                         _four_tables),
+    "coef_not_int16": (jpeg.decode_scan_native, _scan_args, _int32_coef),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BAD_ARRAYS))
+def test_native_wrappers_check_their_arrays_before_the_call(with_native,
+                                                            name):
+    """A layout, offset, table or output array the native routine would
+    read or write past raises ValueError in Python, before any pointer is
+    passed."""
+    routine, make, edit = BAD_ARRAYS[name]
+    args = list(make())
+    edit(args)
+    with pytest.raises(ValueError, match="scan"):
+        routine(*args)

@@ -5,7 +5,9 @@ by Pillow): the split, the labels, the augmentation draws over two
 epochs and ``materialize_window`` for a train and an eval class, bit for
 bit; ``FileImageLoader`` with explicit labels; and the reference test's
 conv net (``test_label_colors_learnable``) trained 2 epochs through both
-packages' stream paths from the same weights, within ``CONV_RTOL``."""
+packages' stream paths from the same weights, within ``CONV_RTOL``; the
+windows of a tree of arithmetic-coded and lossless JPEG files; a file
+Pillow refuses raising with its path."""
 
 import os
 
@@ -190,9 +192,9 @@ def test_file_image_loader_explicit_labels(image_tree):
 
 
 def test_undecodable_file_raises_with_its_path(tmp_path):
-    """A JPEG of a process the port does not decode (arithmetic-coded)
-    raises naming the file and #6c when its window is built; nothing is
-    skipped."""
+    """A JPEG of a process Pillow refuses (arithmetic-coded lossless,
+    SOF11: libjpeg-turbo has no decoder for it) raises naming the file
+    when its window is built; nothing is skipped."""
     import io
     from PIL import Image
     d = tmp_path / "cls"
@@ -203,17 +205,65 @@ def test_undecodable_file_raises_with_its_path(tmp_path):
     buf = io.BytesIO()
     Image.fromarray(numpy.zeros((8, 8, 3), numpy.uint8)).save(buf, "JPEG")
     data = bytearray(buf.getvalue())
-    data[data.index(b"\xff\xc0") + 1] = 0xC9       # SOF9: arithmetic
+    data[data.index(b"\xff\xc0") + 1] = 0xCB     # SOF11
+    with pytest.raises(OSError):
+        with Image.open(io.BytesIO(bytes(data))) as img:
+            img.load()
     (d / "b.jpg").write_bytes(bytes(data))
     tprng.seed_all(1)
     port = AutoLabelFileImageLoader(base_dir=str(tmp_path), scale=(8, 8),
                                     minibatch_size=2, valid_ratio=0)
     port.initialize()
     try:
-        with pytest.raises(NotImplementedError, match="b.jpg.*#6c"):
+        with pytest.raises(ValueError, match="b.jpg.*SOF11"):
             port.materialize_window(CLASS_TRAIN, numpy.arange(4)[None])
     finally:
         port.stop()
+
+
+#: the committed fixtures of the arithmetic-coded and lossless processes
+FIXTURES = os.path.join(os.path.dirname(__file__), "data", "jpeg")
+
+
+@pytest.fixture(scope="module")
+def process_tree(tmp_path_factory):
+    """A staged tree of the small arithmetic-coded (SOF9, SOF10) and
+    lossless (SOF3) fixtures: 3 class dirs of ``*.JPEG`` files."""
+    import shutil
+    base = tmp_path_factory.mktemp("processes")
+    names = sorted(n for n in os.listdir(FIXTURES)
+                   if n.startswith(("arith_", "lossless_"))
+                   and "tree_" not in n)
+    for k, wnid in enumerate(("n01440764", "n01443537", "n01484850")):
+        (base / wnid).mkdir()
+        for i, name in enumerate(names[k::3]):
+            shutil.copyfile(os.path.join(FIXTURES, name),
+                            base / wnid / ("%s_%d.JPEG" % (wnid, i)))
+    return str(base)
+
+
+def test_arithmetic_and_lossless_windows_equal_the_reference(process_tree):
+    """A tree of arithmetic-coded and lossless JPEG files through
+    AutoLabelFileImageLoader (the Python twins, as on ``-d cpu``): the
+    same split, labels and uint8 windows (decode, resize, crop, mirror)
+    as the reference's Pillow loader, two epochs."""
+    ref, port = _pair(process_tree, minibatch_size=4)
+    try:
+        assert port._paths == ref._paths
+        assert not port.native_decode
+        rows = numpy.arange(0, 4).reshape(1, 4)
+        for epoch in (0, 1):
+            ref.epoch_number = port.epoch_number = epoch
+            for cls in (CLASS_TRAIN, CLASS_VALID):
+                n = port.class_lengths[cls]
+                idx = rows % max(n, 1)
+                want = ref.materialize_window(cls, idx)
+                got = port.materialize_window(cls, idx)
+                for key in want:
+                    numpy.testing.assert_array_equal(got[key], want[key])
+    finally:
+        port.stop()
+        ref.stop()
 
 
 @pytest.fixture(scope="module")

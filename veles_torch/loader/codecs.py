@@ -6,7 +6,8 @@ itself and gives the same pixels, in the mode Pillow opens them in:
 
 * the format comes from the file's magic bytes, never its extension (as
   Pillow's): JPEG (``jpeg.py``: baseline, extended and progressive
-  Huffman JPEG of 1, 3 or 4 components); PNG of every colour type, bit
+  Huffman JPEG, arithmetic-coded sequential and progressive JPEG and
+  lossless JPEG, of 1, 3 or 4 components); PNG of every colour type, bit
   depth (1, 2, 4, 8, 16) and filter, plain or Adam7-interlaced; GIF (the
   first frame: LZW, a global or local palette, interlaced rows); PNM
   (``P1``-``P6``, any maxval, scaled as Pillow scales it); BMP (1-, 4-
@@ -24,11 +25,12 @@ itself and gives the same pixels, in the mode Pillow opens them in:
 
 The serial inner loops have a native routine in ``csrc/image_decode.cu``
 (built with the toolkit at first use, bound with ctypes) and a Python
-twin that gives the same bytes: JPEG's entropy decode and PNG's row
-filters (Average and Paeth depend on the decoded left neighbour). The
-caller declares which runs (``native``): the streaming loaders ask for
-the native routine on the card and the twin on ``-d cpu``; a build
-failure raises, the twin never stands in for it.
+twin that gives the same bytes: JPEG's entropy decodes (Huffman,
+arithmetic, lossless) and PNG's row filters (Average and Paeth depend on
+the decoded left neighbour). The caller declares which runs
+(``native``): the streaming loaders ask for the native routine on the
+card and the twin on ``-d cpu``; a build failure raises, the twin never
+stands in for it.
 """
 
 import struct
